@@ -1,27 +1,65 @@
 // Fused filter + dense GROUP BY kernels for Hopper (sm_90a).
 //
 // Replaces the three Pallas TPU kernels of baikaldb_tpu/ops/pallas_kernels.py:
-//   KIND_HIST (K3) -> partition_histogram   (_hist_kernel): per-group row counts
-//   KIND_SUM  (K1) -> filtered_group_sum    (_sum_kernel):  counts + sums
-//   KIND_AGG  (K2) -> fused_group_aggregate (_agg_kernel):  counts + sums + min + max
+//   KIND_HIST (K3) -> partition_histogram   (:238, _hist_kernel): per-group row counts
+//   KIND_SUM  (K1) -> filtered_group_sum    (:184, _sum_kernel):  counts + sums
+//   K2             -> fused_group_aggregate (:210, _agg_kernel):  counts + sums + min + max
 // The contract is the TPU kernels': codes int32[N], values [N] contracted as
 // float32, mask bool[N]; a row drops when its mask is false or its code lies
 // outside [0, ng).  Outputs are float32[ng]; an empty group's min/max hold
-// +3.4e38 / -3.4e38 and its count of 0 marks it.
+// +3.4e38 / -3.4e38 and its count of 0 marks it.  A group holding a NaN (of
+// either sign) gives NaN for SUM, MIN and MAX, as the JAX package's SQL
+// answer and the plain versions do.
 //
-// What bounds it: one read of codes (4 B), values (4 or 8 B) and mask (1 B)
-// per row, so device-memory bandwidth.  What the design does about it: each
-// block walks the rows grid-stride (coalesced loads) and accumulates into a
-// private shared-memory table of ng <= 4096 slots with shared-memory
-// atomics, so device memory sees each row once and each block's table once.
-// The table keeps counts in uint32, sums in float64 (no Kahan pass needed at
-// these sizes) and min/max as order-preserving int32 images of the float32
-// value, so integer atomicMin/atomicMax order floats correctly.  One block
-// flushes its table to a global workspace with global atomics; a last small
-// kernel casts the workspace to the float32 output contract.  The TPU
-// kernel's bf16 three-way split and Kahan row work around its matrix unit
-// and do not carry over.  Warp-level pre-reduction and TMA loads are later
-// work.
+// What bounds all three: one read of codes (4 B), values (4 or 8 B) and mask
+// (1 B) per row, so device-memory bandwidth.  The TPU kernels' bf16
+// three-way split and Kahan row work around its matrix unit and do not carry
+// over: on Hopper the work is a data-dependent scatter into a private
+// shared-memory table of ng <= 4096 slots per block.  Tables keep counts in
+// uint32, sums in float64 (no compensation needed at these sizes) and
+// min/max as order-preserving int32 images of the float32 value, so integer
+// atomicMin/atomicMax order floats.
+//
+// K1 and K3 (group_agg_kernel): each thread loads one row a step,
+// grid-stride; one block flushes its table into a global workspace with
+// global atomics after init_workspace, and finalize casts the workspace to
+// the float32 outputs.
+//
+// K2 (agg_kernel + agg_merge), redesigned for this card:
+// - Wide, early loads.  A warp takes 64 quads (a quad is 4 consecutive
+//   rows) a step; lane l loads quads l and l+32, each as an int4 of codes, a
+//   float4 of values (two double2 for float64) and the 4 mask bytes as one
+//   uint32, so every load instruction of the warp reads one contiguous span.
+//   The next step's loads go out before this step's atomics, so a lane keeps
+//   up to 16 rows (~140 B) in flight, which the one-row-a-step loop of K1/K3
+//   cannot.  Rows before the codes' first 16-byte boundary (the head)
+//   and after the last whole quad (the tail) take a scalar loop.  If values
+//   or mask are not aligned at that same row (a view at another element
+//   offset), the whole call takes the scalar loop.
+// - NaN costs no extra state: a NaN enters the max atomic as INT_MAX, above
+//   the image of every float and the image of none, so a slot whose max is
+//   INT_MAX holds a NaN; the flag travels with the max through the merge and
+//   agg_merge writes NaN to both MIN and MAX.  SUM turns NaN by arithmetic.
+// - Cross-block merge without contended atomics: each block stores its table
+//   to its own row of a [blocks x ng] workspace with plain coalesced stores;
+//   agg_merge reduces the rows of each slot (in a fixed order) and writes
+//   the float32 outputs.  Two launches, no init pass.
+// - Shared-memory work per live row: a count atomic, the float64 add (a
+//   compare-and-swap loop in SASS: sm_90 has no native shared f64 add), and
+//   one 8-byte read of the (min, max) pair; the min/max atomics run only
+//   when the value lies outside it, which after a slot's first few rows is
+//   rare.
+// What bounds K2 as built (baikaldb_tpu_torch/bench/k2_variants.py, H100 SXM
+// at 700 W, 100M rows, 2049 groups): its loads alone take ~0.30 ms (~3 TB/s;
+// every 32-byte sector of values is read although only live rows' values
+// count), and the float64 compare-and-swap loop adds ~0.05 ms that the loads
+// do not hide.  A TMA ring was not tried: the loads already run near the
+// memory rate, and it would add shared-memory traffic to the pipe the
+// atomics use.
+//
+// Host side: the dynamic-shared-memory attribute, the SM count and the
+// occupancy answer are queried once per (kernel, device, table size) and
+// cached; every launch still returns cudaGetLastError().
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC  (baikaldb_tpu_torch/ops/group_kernels.py does it).
@@ -31,14 +69,24 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <map>
+#include <mutex>
+#include <tuple>
+
 namespace {
 
 constexpr int KIND_HIST = 0;
 constexpr int KIND_SUM = 1;
-constexpr int KIND_AGG = 2;
 constexpr int MAX_GROUPS = 4096;
 constexpr int THREADS = 512;
 constexpr float BIG = 3.4e38f;   // the TPU kernels' empty-group sentinel
+
+constexpr int AGG_THREADS = 512;
+constexpr int AGG_QUADS = 2;          // quads a lane loads a step
+constexpr int WARP_QUADS = 32 * AGG_QUADS;
+constexpr int NAN_KEY = 0x7FFFFFFF;   // max-slot image of a NaN
+constexpr int MERGE_SLOTS = 32;       // slots of one agg_merge block, one a lane
+constexpr int MERGE_WARPS = 16;       // warps of one agg_merge block, splitting the rows
 
 // float32 -> int32 whose signed order is the float order (NaN aside).
 __device__ __forceinline__ int ordered_int(float v) {
@@ -54,42 +102,34 @@ __device__ __forceinline__ float ordered_float(int i) {
 __host__ __device__ inline size_t table_bytes(int kind, int ng) {
     size_t b = sizeof(unsigned int) * ng;                        // counts
     if (kind != KIND_HIST) b += sizeof(double) * ng;             // sums
-    if (kind == KIND_AGG) b += 2 * sizeof(int) * ng;             // mins, maxs
     return b;
 }
 
-__global__ void init_workspace(int kind, int ng, unsigned long long* counts,
-                               double* sums, int* mins, int* maxs) {
+// K2's table: sums, (min, max) pairs, counts.
+__host__ __device__ inline size_t agg_table_bytes(int ng) {
+    return (sizeof(double) + sizeof(int2) + sizeof(unsigned int)) * ng;
+}
+
+__global__ void init_workspace(int kind, int ng, unsigned long long* counts, double* sums) {
     int g = blockIdx.x * blockDim.x + threadIdx.x;
     if (g >= ng) return;
     counts[g] = 0ULL;
     if (kind != KIND_HIST) sums[g] = 0.0;
-    if (kind == KIND_AGG) {
-        mins[g] = ordered_int(BIG);
-        maxs[g] = ordered_int(-BIG);
-    }
 }
 
 template <int KIND, typename V>
 __global__ void __launch_bounds__(THREADS)
 group_agg_kernel(const int* __restrict__ codes, const V* __restrict__ values,
                  const bool* __restrict__ mask, long long n, int ng,
-                 unsigned long long* g_counts, double* g_sums, int* g_mins,
-                 int* g_maxs) {
+                 unsigned long long* g_counts, double* g_sums) {
     extern __shared__ __align__(8) unsigned char smem[];
     double* s_sums = reinterpret_cast<double*>(smem);
     unsigned int* s_counts = reinterpret_cast<unsigned int*>(
         smem + (KIND != KIND_HIST ? sizeof(double) * ng : 0));
-    int* s_mins = reinterpret_cast<int*>(s_counts + ng);
-    int* s_maxs = s_mins + ng;
 
     for (int g = threadIdx.x; g < ng; g += blockDim.x) {
         s_counts[g] = 0u;
         if (KIND != KIND_HIST) s_sums[g] = 0.0;
-        if (KIND == KIND_AGG) {
-            s_mins[g] = ordered_int(BIG);
-            s_maxs[g] = ordered_int(-BIG);
-        }
     }
     __syncthreads();
 
@@ -102,11 +142,6 @@ group_agg_kernel(const int* __restrict__ codes, const V* __restrict__ values,
         if (KIND != KIND_HIST) {
             const float v = static_cast<float>(values[i]);
             atomicAdd(&s_sums[g], static_cast<double>(v));
-            if (KIND == KIND_AGG) {
-                const int k = ordered_int(v);
-                atomicMin(&s_mins[g], k);
-                atomicMax(&s_maxs[g], k);
-            }
         }
     }
     __syncthreads();
@@ -116,50 +151,277 @@ group_agg_kernel(const int* __restrict__ codes, const V* __restrict__ values,
         if (c == 0u) continue;
         atomicAdd(&g_counts[g], static_cast<unsigned long long>(c));
         if (KIND != KIND_HIST) atomicAdd(&g_sums[g], s_sums[g]);
-        if (KIND == KIND_AGG) {
-            atomicMin(&g_mins[g], s_mins[g]);
-            atomicMax(&g_maxs[g], s_maxs[g]);
-        }
     }
 }
 
 __global__ void finalize(int kind, int ng, const unsigned long long* counts,
-                         const double* sums, const int* mins, const int* maxs,
-                         float* o_counts, float* o_sums, float* o_mins,
-                         float* o_maxs) {
+                         const double* sums, float* o_counts, float* o_sums) {
     int g = blockIdx.x * blockDim.x + threadIdx.x;
     if (g >= ng) return;
     o_counts[g] = static_cast<float>(counts[g]);
     if (kind != KIND_HIST) o_sums[g] = static_cast<float>(sums[g]);
-    if (kind == KIND_AGG) {
-        o_mins[g] = ordered_float(mins[g]);
-        o_maxs[g] = ordered_float(maxs[g]);
+}
+
+// ---------------------------------------------------------------------------
+// K2
+
+struct AggTable {
+    double* sums;
+    int2* ext;                // (min, max) as ordered_int images
+    unsigned int* counts;
+};
+
+__device__ __forceinline__ AggTable agg_table(void* base, size_t slots) {
+    AggTable t;
+    t.sums = static_cast<double*>(base);
+    t.ext = reinterpret_cast<int2*>(t.sums + slots);
+    t.counts = reinterpret_cast<unsigned int*>(t.ext + slots);
+    return t;
+}
+
+__device__ __forceinline__ void agg_row(const AggTable& t, int ng, int g, bool keep, float v) {
+    if (!keep || static_cast<unsigned int>(g) >= static_cast<unsigned int>(ng)) return;
+    atomicAdd(&t.counts[g], 1u);
+    atomicAdd(&t.sums[g], static_cast<double>(v));
+    // min and max only move outward, so a pair read before another thread's
+    // update can only skip an atomic that would change nothing
+    const int k = v != v ? NAN_KEY : ordered_int(v);
+    const int2 e = t.ext[g];
+    if (k < e.x) atomicMin(&t.ext[g].x, k);
+    if (k > e.y) atomicMax(&t.ext[g].y, k);
+}
+
+__device__ __forceinline__ void load_quad(const float* p, float v[4]) {
+    const float4 q = __ldcs(reinterpret_cast<const float4*>(p));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+
+__device__ __forceinline__ void load_quad(const double* p, float v[4]) {
+    const double2 a = __ldcs(reinterpret_cast<const double2*>(p));
+    const double2 b = __ldcs(reinterpret_cast<const double2*>(p) + 1);
+    v[0] = static_cast<float>(a.x); v[1] = static_cast<float>(a.y);
+    v[2] = static_cast<float>(b.x); v[3] = static_cast<float>(b.y);
+}
+
+// The quads a lane takes in one step of the vector loop: base + lane + 32 j.
+struct Step {
+    int4 c[AGG_QUADS];
+    unsigned int m[AGG_QUADS];
+    float v[AGG_QUADS][4];
+
+    template <typename V>
+    __device__ __forceinline__ void load(const int4* c4, const unsigned int* m4, const V* vq,
+                                         long long base, long long quads, int lane) {
+#pragma unroll
+        for (int j = 0; j < AGG_QUADS; ++j) {
+            const long long q = base + j * 32 + lane;
+            if (q < quads) {
+                c[j] = __ldcs(c4 + q);
+                m[j] = __ldcs(m4 + q);
+                load_quad(vq + 4 * q, v[j]);
+            } else {
+                c[j] = make_int4(0, 0, 0, 0);
+                m[j] = 0u;
+                v[j][0] = v[j][1] = v[j][2] = v[j][3] = 0.f;
+            }
+        }
+    }
+
+    __device__ __forceinline__ void add(const AggTable& t, int ng) const {
+#pragma unroll
+        for (int j = 0; j < AGG_QUADS; ++j) {
+            agg_row(t, ng, c[j].x, (m[j] & 0xFFu) != 0u, v[j][0]);
+            agg_row(t, ng, c[j].y, (m[j] & 0xFF00u) != 0u, v[j][1]);
+            agg_row(t, ng, c[j].z, (m[j] & 0xFF0000u) != 0u, v[j][2]);
+            agg_row(t, ng, c[j].w, (m[j] & 0xFF000000u) != 0u, v[j][3]);
+        }
+    }
+};
+
+// Rows [head, head + 4 * quads) go through the vector loop, the rest through
+// the scalar one.  Each block leaves its table in row blockIdx.x of `ws`.
+template <typename V>
+__global__ void __launch_bounds__(AGG_THREADS, 2)
+agg_kernel(const int* __restrict__ codes, const V* __restrict__ values,
+           const bool* __restrict__ mask, long long n, long long head, long long quads,
+           int ng, void* __restrict__ ws) {
+    extern __shared__ __align__(8) unsigned char smem[];
+    const AggTable t = agg_table(smem, ng);
+    for (int g = threadIdx.x; g < ng; g += AGG_THREADS) {
+        t.sums[g] = 0.0;
+        t.ext[g] = make_int2(ordered_int(BIG), ordered_int(-BIG));
+        t.counts[g] = 0u;
+    }
+    __syncthreads();
+
+    const int lane = threadIdx.x & 31;
+    const long long warp = ((long long)blockIdx.x * AGG_THREADS + threadIdx.x) >> 5;
+    const long long step = (((long long)gridDim.x * AGG_THREADS) >> 5) * WARP_QUADS;
+    const int4* c4 = reinterpret_cast<const int4*>(codes + head);
+    const unsigned int* m4 = reinterpret_cast<const unsigned int*>(mask + head);
+    const V* vq = values + head;
+    Step cur, next;
+    cur.load(c4, m4, vq, warp * WARP_QUADS, quads, lane);
+    for (long long base = warp * WARP_QUADS; base < quads; base += step) {
+        // the next step's loads go out before this step's atomics
+        next.load(c4, m4, vq, base + step, quads, lane);
+        cur.add(t, ng);
+        cur = next;
+    }
+
+    // scalar rows: the head [0, head) and the tail [head + 4 * quads, n)
+    const long long tail = head + 4 * quads;
+    const long long scalar_rows = head + (n - tail);
+    const long long stride = (long long)gridDim.x * AGG_THREADS;
+    for (long long k = (long long)blockIdx.x * AGG_THREADS + threadIdx.x; k < scalar_rows;
+         k += stride) {
+        const long long i = k < head ? k : tail + (k - head);
+        agg_row(t, ng, codes[i], mask[i], static_cast<float>(values[i]));
+    }
+    __syncthreads();
+
+    const AggTable w = agg_table(ws, static_cast<size_t>(gridDim.x) * ng);
+    const size_t row = static_cast<size_t>(blockIdx.x) * ng;
+    for (int g = threadIdx.x; g < ng; g += AGG_THREADS) {
+        w.sums[row + g] = t.sums[g];
+        w.ext[row + g] = t.ext[g];
+        w.counts[row + g] = t.counts[g];
     }
 }
 
+// Reduces the `blocks` rows of the workspace per slot; -> float32 outputs
+// out[0:ng] counts, [ng:2ng] sums, [2ng:3ng] mins, [3ng:4ng] maxs.
+__global__ void __launch_bounds__(MERGE_SLOTS * MERGE_WARPS)
+agg_merge(int blocks, int ng, const void* __restrict__ ws, float* __restrict__ out) {
+    __shared__ double s_sums[MERGE_WARPS][MERGE_SLOTS];
+    __shared__ unsigned long long s_counts[MERGE_WARPS][MERGE_SLOTS];
+    __shared__ int s_mins[MERGE_WARPS][MERGE_SLOTS];
+    __shared__ int s_maxs[MERGE_WARPS][MERGE_SLOTS];
+    const int lane = threadIdx.x & 31;
+    const int wid = threadIdx.x >> 5;
+    const int g = blockIdx.x * MERGE_SLOTS + lane;
+    const AggTable w = agg_table(const_cast<void*>(ws), static_cast<size_t>(blocks) * ng);
+    double s = 0.0;
+    unsigned long long c = 0ULL;
+    int mn = ordered_int(BIG), mx = ordered_int(-BIG);
+    if (g < ng) {
+#pragma unroll 4
+        for (int b = wid; b < blocks; b += MERGE_WARPS) {
+            const size_t i = static_cast<size_t>(b) * ng + g;
+            const int2 e = w.ext[i];
+            s += w.sums[i];
+            c += w.counts[i];
+            mn = min(mn, e.x);
+            mx = max(mx, e.y);
+        }
+    }
+    s_sums[wid][lane] = s;
+    s_counts[wid][lane] = c;
+    s_mins[wid][lane] = mn;
+    s_maxs[wid][lane] = mx;
+    __syncthreads();
+    if (wid != 0 || g >= ng) return;
+    for (int k = 1; k < MERGE_WARPS; ++k) {
+        s += s_sums[k][lane];
+        c += s_counts[k][lane];
+        mn = min(mn, s_mins[k][lane]);
+        mx = max(mx, s_maxs[k][lane]);
+    }
+    out[g] = static_cast<float>(c);
+    out[ng + g] = static_cast<float>(s);
+    const float nan = __int_as_float(0x7FC00000);
+    out[2 * ng + g] = mx == NAN_KEY ? nan : ordered_float(mn);
+    out[3 * ng + g] = mx == NAN_KEY ? nan : ordered_float(mx);
+}
+
+// ---------------------------------------------------------------------------
+// host: launch geometry, cached
+
+std::mutex g_grid_mu;
+std::map<std::tuple<const void*, int, size_t>, int> g_grid_cap;  // (kernel, device, smem)
+std::map<int, int> g_sms;                                          // device -> SMs
+
+// Blocks that fit on `device` at once (SMs x resident blocks a SM) for
+// `kern` with `threads` threads and `smem` bytes of dynamic shared memory;
+// `smem_max` is the kernel's largest table, which it is allowed once.
+cudaError_t grid_cap(const void* kern, int device, int threads, size_t smem, size_t smem_max,
+                     int* cap) {
+    std::lock_guard<std::mutex> lock(g_grid_mu);
+    const auto key = std::make_tuple(kern, device, smem);
+    const auto hit = g_grid_cap.find(key);
+    if (hit != g_grid_cap.end()) {
+        *cap = hit->second;
+        return cudaSuccess;
+    }
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(smem_max));
+    if (err != cudaSuccess) return err;
+    if (g_sms.find(device) == g_sms.end()) {
+        int sms = 0;
+        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
+        if (err != cudaSuccess) return err;
+        g_sms[device] = sms;
+    }
+    int per_sm = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, threads, smem);
+    if (err != cudaSuccess) return err;
+    *cap = g_sms[device] * (per_sm > 0 ? per_sm : 1);
+    g_grid_cap.emplace(key, *cap);
+    return cudaSuccess;
+}
+
 template <int KIND, typename V>
-cudaError_t launch_main(const void* codes, const void* values, const void* mask,
-                        long long n, int ng, unsigned long long* counts,
-                        double* sums, int* mins, int* maxs, cudaStream_t stream) {
+cudaError_t launch_main(int device, const void* codes, const void* values, const void* mask,
+                        long long n, int ng, unsigned long long* counts, double* sums,
+                        cudaStream_t stream) {
     auto kern = group_agg_kernel<KIND, V>;
     const size_t smem = table_bytes(KIND, ng);
-    cudaError_t err = cudaFuncSetAttribute(
-        kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(table_bytes(KIND, MAX_GROUPS)));
+    int cap = 0;
+    cudaError_t err = grid_cap(reinterpret_cast<const void*>(kern), device, THREADS, smem,
+                               table_bytes(KIND, MAX_GROUPS), &cap);
     if (err != cudaSuccess) return err;
-    int dev = 0, sms = 0, per_sm = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess) return err;
-    if ((err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev)) != cudaSuccess)
-        return err;
-    if ((err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kern, THREADS, smem)) !=
-        cudaSuccess)
-        return err;
     long long want = (n + THREADS - 1) / THREADS;
-    long long cap = static_cast<long long>(sms) * (per_sm > 0 ? per_sm : 1);
     int blocks = static_cast<int>(want < cap ? (want > 0 ? want : 1) : cap);
     kern<<<blocks, THREADS, smem, stream>>>(
         static_cast<const int*>(codes), static_cast<const V*>(values),
-        static_cast<const bool*>(mask), n, ng, counts, sums, mins, maxs);
+        static_cast<const bool*>(mask), n, ng, counts, sums);
+    return cudaGetLastError();
+}
+
+template <typename V>
+cudaError_t agg_blocks(int device, long long n, int ng, int* blocks) {
+    int cap = 0;
+    cudaError_t err = grid_cap(reinterpret_cast<const void*>(&agg_kernel<V>), device, AGG_THREADS,
+                               agg_table_bytes(ng), agg_table_bytes(MAX_GROUPS), &cap);
+    if (err != cudaSuccess) return err;
+    const long long want = (n + 4LL * WARP_QUADS * (AGG_THREADS / 32) - 1) /
+                           (4LL * WARP_QUADS * (AGG_THREADS / 32));
+    *blocks = static_cast<int>(want < cap ? (want > 0 ? want : 1) : cap);
+    return cudaSuccess;
+}
+
+template <typename V>
+cudaError_t launch_agg(const void* codes, const void* values, const void* mask, long long n,
+                       int ng, int blocks, void* ws, float* out, cudaStream_t stream) {
+    // the vector loop starts at the codes' first 16-byte boundary; values and
+    // mask must be aligned at that row too, or every row goes scalar
+    const uintptr_t pc = reinterpret_cast<uintptr_t>(codes);
+    const uintptr_t pv = reinterpret_cast<uintptr_t>(values);
+    const uintptr_t pm = reinterpret_cast<uintptr_t>(mask);
+    long long head = static_cast<long long>(((16 - pc % 16) % 16) / sizeof(int));
+    if (head > n) head = n;
+    const bool aligned = pc % sizeof(int) == 0 && (pm + head) % 4 == 0 &&
+                         (pv + head * sizeof(V)) % 16 == 0;
+    long long quads = 0;
+    if (aligned) quads = (n - head) / 4;
+    else head = n;
+    agg_kernel<V><<<blocks, AGG_THREADS, agg_table_bytes(ng), stream>>>(
+        static_cast<const int*>(codes), static_cast<const V*>(values),
+        static_cast<const bool*>(mask), n, head, quads, ng, ws);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    agg_merge<<<(ng + MERGE_SLOTS - 1) / MERGE_SLOTS, MERGE_SLOTS * MERGE_WARPS, 0, stream>>>(
+        blocks, ng, ws, out);
     return cudaGetLastError();
 }
 
@@ -167,52 +429,77 @@ cudaError_t launch_main(const void* codes, const void* values, const void* mask,
 
 extern "C" {
 
-// kind: 0 histogram (K3), 1 count+sum (K1), 2 count+sum+min+max (K2).
+// K1/K3.  kind: 0 histogram (K3), 1 count+sum (K1).
 // value_f64: values are float64 (else float32); unused for kind 0.
-// ws_*: workspace of ng entries each (uint64 counts, float64 sums, int32
-// mins and maxs); out_*: float32[ng] outputs.  Unused pointers may be null.
+// ws_*: workspace of ng entries each (uint64 counts, float64 sums);
+// out_*: float32[ng] outputs.  Unused pointers may be null.
 // device: the CUDA device every pointer lies on.
 int bk_group_agg(int device, int kind, int value_f64, const void* codes, const void* values,
-                 const void* mask, long long n, int ng, void* ws_counts,
-                 void* ws_sums, void* ws_mins, void* ws_maxs, void* out_counts,
-                 void* out_sums, void* out_mins, void* out_maxs, void* stream_ptr) {
+                 const void* mask, long long n, int ng, void* ws_counts, void* ws_sums,
+                 void* out_counts, void* out_sums, void* stream_ptr) {
     if (ng < 1 || ng > MAX_GROUPS || n < 0) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     auto* counts = static_cast<unsigned long long*>(ws_counts);
     auto* sums = static_cast<double*>(ws_sums);
-    auto* mins = static_cast<int*>(ws_mins);
-    auto* maxs = static_cast<int*>(ws_maxs);
     const int small_blocks = (ng + 255) / 256;
-    init_workspace<<<small_blocks, 256, 0, stream>>>(kind, ng, counts, sums, mins, maxs);
+    init_workspace<<<small_blocks, 256, 0, stream>>>(kind, ng, counts, sums);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     if (n > 0) {
         if (kind == KIND_HIST)
-            err = launch_main<KIND_HIST, float>(codes, values, mask, n, ng, counts, sums, mins,
-                                                maxs, stream);
+            err = launch_main<KIND_HIST, float>(device, codes, values, mask, n, ng, counts, sums,
+                                                stream);
         else if (kind == KIND_SUM && value_f64)
-            err = launch_main<KIND_SUM, double>(codes, values, mask, n, ng, counts, sums, mins,
-                                                maxs, stream);
+            err = launch_main<KIND_SUM, double>(device, codes, values, mask, n, ng, counts, sums,
+                                                stream);
         else if (kind == KIND_SUM)
-            err = launch_main<KIND_SUM, float>(codes, values, mask, n, ng, counts, sums, mins,
-                                               maxs, stream);
-        else if (kind == KIND_AGG && value_f64)
-            err = launch_main<KIND_AGG, double>(codes, values, mask, n, ng, counts, sums, mins,
-                                                maxs, stream);
-        else if (kind == KIND_AGG)
-            err = launch_main<KIND_AGG, float>(codes, values, mask, n, ng, counts, sums, mins,
-                                               maxs, stream);
+            err = launch_main<KIND_SUM, float>(device, codes, values, mask, n, ng, counts, sums,
+                                               stream);
         else
             err = cudaErrorInvalidValue;
         if (err != cudaSuccess) return static_cast<int>(err);
     }
-    finalize<<<small_blocks, 256, 0, stream>>>(
-        kind, ng, counts, sums, mins, maxs, static_cast<float*>(out_counts),
-        static_cast<float*>(out_sums), static_cast<float*>(out_mins),
-        static_cast<float*>(out_maxs));
+    finalize<<<small_blocks, 256, 0, stream>>>(kind, ng, counts, sums,
+                                               static_cast<float*>(out_counts),
+                                               static_cast<float*>(out_sums));
     return static_cast<int>(cudaGetLastError());
+}
+
+// K2: the number of blocks bk_fused_agg launches for n rows and ng groups;
+// its workspace takes bk_fused_agg_ws_bytes(blocks, ng) bytes.  A value
+// <= 0 is minus a cudaError_t.
+int bk_fused_agg_blocks(int device, int value_f64, long long n, int ng) {
+    if (ng < 1 || ng > MAX_GROUPS || n < 0) return -static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    int blocks = 0;
+    err = value_f64 ? agg_blocks<double>(device, n, ng, &blocks)
+                    : agg_blocks<float>(device, n, ng, &blocks);
+    return err == cudaSuccess ? blocks : -static_cast<int>(err);
+}
+
+long long bk_fused_agg_ws_bytes(int blocks, int ng) {
+    return static_cast<long long>(agg_table_bytes(ng)) * blocks;
+}
+
+// K2: count + sum + min + max.  ws: 8-byte aligned workspace of
+// bk_fused_agg_ws_bytes(blocks, ng) bytes; out: float32[4 * ng] (counts,
+// sums, mins, maxs).
+int bk_fused_agg(int device, int value_f64, const void* codes, const void* values,
+                 const void* mask, long long n, int ng, int blocks, void* ws, void* out,
+                 void* stream_ptr) {
+    if (ng < 1 || ng > MAX_GROUPS || n < 0 || blocks < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    err = value_f64 ? launch_agg<double>(codes, values, mask, n, ng, blocks, ws,
+                                         static_cast<float*>(out), stream)
+                    : launch_agg<float>(codes, values, mask, n, ng, blocks, ws,
+                                        static_cast<float*>(out), stream);
+    return static_cast<int>(err);
 }
 
 }  // extern "C"

@@ -8,13 +8,15 @@ float32, mask bool[N]; rows with a false mask or a code outside
 
 - ``filtered_group_sum``    (K1) -> (counts, sums)
 - ``fused_group_aggregate`` (K2) -> (counts, sums, mins, maxs); an empty
-  group's min/max hold +3.4e38 / -3.4e38 and its count of 0 marks it
+  group's min/max hold +3.4e38 / -3.4e38 and its count of 0 marks it; a
+  group holding a NaN (either sign) gives NaN for its sum, min and max
 - ``partition_histogram``   (K3) -> counts
 
 On a CUDA tensor each entry point launches its kernel from
 ``csrc/group_agg.cu`` (built with ``nvcc`` for ``sm_90a`` into
 ``baikaldb_tpu_torch/_build/`` at first use, bound with ctypes) and counts
-the launch in ``LAUNCHES``; a build or launch failure raises.  On a CPU
+the launch in ``LAUNCHES``; a build or launch failure raises.  A call's
+outputs are views of one buffer that also held its workspace.  On a CPU
 tensor it runs the ``*_plain`` version beside it (``index_add_`` /
 ``scatter_reduce_``, the same drop rules and sentinels), which is also what
 the kernels are held against on the card.
@@ -35,7 +37,7 @@ from ..utils import metrics
 
 MAX_GROUPS = 4096
 _BIG = 3.4e38                     # empty-group min/max sentinel (float32)
-KIND_HIST, KIND_SUM, KIND_AGG = 0, 1, 2
+KIND_HIST, KIND_SUM = 0, 1
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCE = os.path.join(_HERE, "csrc", "group_agg.cu")
@@ -59,9 +61,10 @@ def _routed(codes, mask, num_groups: int) -> torch.Tensor:
     return torch.where(live, codes, num_groups).to(torch.int64)
 
 
-def _counts(gid, num_groups: int) -> torch.Tensor:
+def _counts(gid, num_groups: int, rows=None) -> torch.Tensor:
+    """Rows per group; only the rows where ``rows`` is true, if given."""
     c = torch.zeros(num_groups + 1, dtype=torch.int64, device=gid.device)
-    c.index_add_(0, gid, torch.ones_like(gid))
+    c.index_add_(0, gid, torch.ones_like(gid) if rows is None else rows.to(torch.int64))
     return c[:num_groups].to(torch.float32)
 
 
@@ -71,12 +74,13 @@ def _sums(gid, values, num_groups: int) -> torch.Tensor:
     return s[:num_groups].to(torch.float32)
 
 
-def _extremum(gid, values, num_groups: int, is_min: bool) -> torch.Tensor:
+def _extremum(gid, values, num_groups: int, is_min: bool, has_nan) -> torch.Tensor:
     out = torch.full((num_groups + 1,), _BIG if is_min else -_BIG,
                      dtype=torch.float32, device=gid.device)
-    out.scatter_reduce_(0, gid, values.to(torch.float32),
-                        reduce="amin" if is_min else "amax", include_self=True)
-    return out[:num_groups]
+    out.scatter_reduce_(0, gid, values, reduce="amin" if is_min else "amax",
+                        include_self=True)
+    # NaN wins, whatever scatter_reduce_ does with it on this device
+    return torch.where(has_nan, float("nan"), out[:num_groups])
 
 
 def filtered_group_sum_plain(codes, values, mask, num_groups: int):
@@ -86,9 +90,11 @@ def filtered_group_sum_plain(codes, values, mask, num_groups: int):
 
 def fused_group_aggregate_plain(codes, values, mask, num_groups: int):
     gid = _routed(codes, mask, num_groups)
+    v = values.to(torch.float32)
+    has_nan = _counts(gid, num_groups, torch.isnan(v)) > 0
     return (_counts(gid, num_groups), _sums(gid, values, num_groups),
-            _extremum(gid, values, num_groups, True),
-            _extremum(gid, values, num_groups, False))
+            _extremum(gid, v, num_groups, True, has_nan),
+            _extremum(gid, v, num_groups, False, has_nan))
 
 
 def partition_histogram_plain(dest, mask, num_partitions: int):
@@ -113,7 +119,7 @@ def fused_group_aggregate(codes, values, mask, num_groups: int):
     _check(codes, mask, num_groups, values)
     if codes.device.type == "cpu":
         return fused_group_aggregate_plain(codes, values, mask, num_groups)
-    return _launch("fused_group_aggregate", KIND_AGG, codes, values, mask, num_groups)
+    return _launch_agg(codes, values, mask, num_groups)
 
 
 def partition_histogram(dest, mask, num_partitions: int):
@@ -148,31 +154,51 @@ def _check(codes, mask, num_groups: int, values=None) -> None:
         raise ValueError("codes, mask and values must be contiguous")
 
 
+def _device_index(dev: torch.device) -> int:
+    return dev.index if dev.index is not None else torch.cuda.current_device()
+
+
 def _launch(name, kind, codes, values, mask, ng: int):
+    """K1/K3: one float32 [4 + outputs, ng] buffer; rows 0-3 are the
+    workspace (uint64 counts, float64 sums), the rest the outputs."""
     lib = _library()
     dev = codes.device
-
-    def buf(dtype, need=True):
-        return torch.empty(ng, dtype=dtype, device=dev) if need else None
-
-    ws = [buf(torch.int64), buf(torch.float64, kind != KIND_HIST),
-          buf(torch.int32, kind == KIND_AGG), buf(torch.int32, kind == KIND_AGG)]
-    outs = [buf(torch.float32), buf(torch.float32, kind != KIND_HIST),
-            buf(torch.float32, kind == KIND_AGG), buf(torch.float32, kind == KIND_AGG)]
-
-    def ptr(t):
-        return None if t is None else t.data_ptr()
-
+    outs = 1 if kind == KIND_HIST else 2
+    buf = torch.empty((4 + outs, ng), dtype=torch.float32, device=dev)
+    base = buf.data_ptr()
     err = lib.bk_group_agg(
-        dev.index if dev.index is not None else torch.cuda.current_device(), kind,
-        int(values is not None and values.dtype is torch.float64),
-        ptr(codes), ptr(values), ptr(mask), codes.shape[0], ng,
-        *[ptr(t) for t in ws], *[ptr(t) for t in outs],
+        _device_index(dev), kind, int(values is not None and values.dtype is torch.float64),
+        codes.data_ptr(), None if values is None else values.data_ptr(), mask.data_ptr(),
+        codes.shape[0], ng, base, base + 8 * ng, base + 16 * ng,
+        None if kind == KIND_HIST else base + 20 * ng,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with error {err}")
     LAUNCHES[name].add(1)
-    return [t for t in outs if t is not None]
+    return (buf[4],) if outs == 1 else (buf[4], buf[5])
+
+
+def _launch_agg(codes, values, mask, ng: int):
+    """K2: one float32 [4 + workspace rows, ng] buffer; rows 0-3 are the
+    outputs (counts, sums, mins, maxs), the rest the per-block workspace."""
+    lib = _library()
+    dev = codes.device
+    device = _device_index(dev)
+    f64 = int(values.dtype is torch.float64)
+    n = codes.shape[0]
+    blocks = lib.bk_fused_agg_blocks(device, f64, n, ng)
+    if blocks <= 0:
+        raise RuntimeError(f"fused_group_aggregate: launch geometry failed with error {-blocks}")
+    ws_rows = -(-lib.bk_fused_agg_ws_bytes(blocks, ng) // (4 * ng))
+    buf = torch.empty((4 + ws_rows, ng), dtype=torch.float32, device=dev)
+    base = buf.data_ptr()
+    err = lib.bk_fused_agg(device, f64, codes.data_ptr(), values.data_ptr(), mask.data_ptr(),
+                           n, ng, blocks, base + 16 * ng, base,
+                           torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_group_aggregate: CUDA kernel launch failed with error {err}")
+    LAUNCHES["fused_group_aggregate"].add(1)
+    return buf[0], buf[1], buf[2], buf[3]
 
 
 # ----------------------------------------------------------------------
@@ -219,10 +245,14 @@ def _library():
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(build())
-            fn = lib.bk_group_agg
-            fn.argtypes = ([ctypes.c_int] * 3 + [ctypes.c_void_p] * 3
-                           + [ctypes.c_longlong, ctypes.c_int]
-                           + [ctypes.c_void_p] * 9)
-            fn.restype = ctypes.c_int
+            vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+            lib.bk_group_agg.argtypes = [i32, i32, i32, vp, vp, vp, i64, i32] + [vp] * 5
+            lib.bk_group_agg.restype = i32
+            lib.bk_fused_agg_blocks.argtypes = [i32, i32, i64, i32]
+            lib.bk_fused_agg_blocks.restype = i32
+            lib.bk_fused_agg_ws_bytes.argtypes = [i32, i32]
+            lib.bk_fused_agg_ws_bytes.restype = i64
+            lib.bk_fused_agg.argtypes = [i32, i32, vp, vp, vp, i64, i32, i32, vp, vp, vp]
+            lib.bk_fused_agg.restype = i32
             _lib = lib
         return _lib

@@ -1,7 +1,7 @@
 """GPU smoke run of baikaldb_tpu_torch: build the kernels, hold each against
 its plain torch version, and drive single-table SQL at real size.
 
-    python3 chip_smoke.py [--rows N] [--seed S]
+    python3 chip_smoke.py [--rows N] [--seed S] [--compare-with DIR]
 
 Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
@@ -11,9 +11,16 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    and K3 ``partition_histogram`` against their plain versions on the card:
    at the SQL path's shape (``--rows`` rows, 2049 groups), at 2^24 and at a
    ragged row count with 513/2049/4096 groups, and on edge cases (all rows
-   masked, codes < 0 and >= ng, an empty group).  Counts and min/max match
-   exactly; each group's sum within 1e-5 * sum(|v|) over the group.  Times
-   are medians over CUDA-event-timed launches.
+   masked, codes < 0 and >= ng, an empty group, +NaN and -NaN in a group,
+   inputs that are views at element offsets 1-3).  Counts and min/max match
+   exactly (NaN equal to NaN, and a group holding a NaN must give NaN);
+   each group's sum within 1e-5 * sum(|v|) over the group.  Each kernel is
+   timed at the SQL path's shape two ways: ``ms``, the median over single
+   CUDA-event-timed calls (host work of the wrapper included), and
+   ``device_ms``, events around 20 back-to-back calls over 20.  With
+   ``--compare-with DIR`` (a checkout of another commit, e.g. from
+   ``git archive``), that commit's kernels are timed too, in turns with
+   this one's (theirs, ours, ours, theirs).
 3. SQL: ``Session(device="cuda")`` over ``--rows`` rows (default 100M, the
    BASELINE.json size) of ``t (g INT, v FLOAT, w DOUBLE, g16 INT)``:
    (a) the bench headline over 16 groups (segment path, no kernel),
@@ -32,7 +39,10 @@ The last two lines of standard output are the ``kernels`` JSON line and the
 from __future__ import annotations
 
 import argparse
+import importlib
+import importlib.util
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -77,7 +87,8 @@ def card() -> str:
 
 def cuda_ms(fn, reps: int) -> float:
     """Median milliseconds of ``fn()`` over ``reps`` CUDA-event-timed calls,
-    after one warm-up call."""
+    after one warm-up call.  Each call is timed alone, so its host work (the
+    wrapper's checks, allocation and launch) is in the number."""
     fn()
     times = []
     for _ in range(reps):
@@ -90,21 +101,67 @@ def cuda_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def device_ms(fn, launches: int = 20, runs: int = 3) -> float:
+    """Device milliseconds per call: CUDA events around ``launches``
+    back-to-back calls, over ``launches``, after a warm-up call; the median
+    of ``runs`` such windows."""
+    fn()
+    per_call = []
+    for _ in range(runs):
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        for _ in range(launches):
+            fn()
+        b.record()
+        b.synchronize()
+        per_call.append(a.elapsed_time(b) / launches)
+    return statistics.median(per_call)
+
+
 # ----------------------------------------------------------------------
 # phase 2: kernels against their plain versions
 
+PLUS_NAN = 0x7FC00000                  # numpy's and torch's NaN
+MINUS_NAN = -0x00400000                # int32 bits of 0xFFC00000, x86's default NaN
+NAN_GROUPS = {5: PLUS_NAN, 9: MINUS_NAN}
 
-def make_inputs(n, ng, gen, dev, *, live=0.6, spread=0, empty=None, masked=False):
-    codes = torch.randint(-spread, ng + spread, (n,), generator=gen, device=dev,
-                          dtype=torch.int32)
+
+def make_inputs(n, ng, gen, dev, *, live=0.6, spread=0, empty=None, masked=False,
+                offset=(0, 0, 0), nans=False):
+    """Seeded inputs on the card.  ``offset``: codes, values and mask are
+    contiguous views at these element offsets of larger tensors.  ``nans``:
+    live rows of group 5 get a +NaN and of group 9 a -NaN; a NaN also sits in
+    a masked-out row of group 11 and in a row whose code is out of range;
+    group 13 holds only +inf and group 17 only -inf."""
+    oc, ov, om = offset
+    codes = torch.randint(-spread, ng + spread, (n + oc,), generator=gen, device=dev,
+                          dtype=torch.int32)[oc:]
     if empty is not None:
         codes = torch.where(codes == empty, empty + 1, codes)
-    values = torch.randn(n, generator=gen, device=dev, dtype=torch.float32)
+    values = torch.randn(n + ov, generator=gen, device=dev, dtype=torch.float32)[ov:]
     if masked:
-        mask = torch.zeros(n, dtype=torch.bool, device=dev)
+        mask = torch.zeros(n + om, dtype=torch.bool, device=dev)[om:]
     else:
-        mask = torch.rand(n, generator=gen, device=dev) < live
+        mask = (torch.rand(n + om, generator=gen, device=dev) < live)[om:]
+    if nans:
+        bits = values.view(torch.int32)
+        for i, (g, nan) in enumerate(NAN_GROUPS.items()):
+            rows = slice(100 + 10 * i, 103 + 10 * i)
+            codes[rows], mask[rows], bits[rows] = g, True, nan
+        codes[200], mask[200], bits[200] = 11, False, PLUS_NAN
+        codes[201], mask[201], bits[201] = ng, True, PLUS_NAN
+        codes[120:123], mask[120:123] = 13, True
+        codes[130:133], mask[130:133] = 17, True
+        values[codes == 13] = float("inf")
+        values[codes == 17] = float("-inf")
     return codes, values, mask
+
+
+def same(got, want) -> bool:
+    """Exact equality, NaN equal to NaN."""
+    return (torch.equal(got.isnan(), want.isnan())
+            and torch.equal(got.nan_to_num(0.0), want.nan_to_num(0.0)))
 
 
 def check_case(gk, codes, values, mask, ng) -> float:
@@ -121,31 +178,60 @@ def check_case(gk, codes, values, mask, ng) -> float:
     p1 = gk.filtered_group_sum_plain(codes, values, mask, ng)
     p2 = gk.fused_group_aggregate_plain(codes, values, mask, ng)
     p3 = gk.partition_histogram_plain(codes, mask, ng)
-    err = 0.0
+    where = f"(ng={ng}, n={codes.shape[0]})"
     for name, got, want in (("partition_histogram counts", k3, p3),
                             ("filtered_group_sum counts", k1[0], p1[0]),
                             ("fused_group_aggregate counts", k2[0], p2[0]),
                             ("fused_group_aggregate mins", k2[2], p2[2]),
                             ("fused_group_aggregate maxs", k2[3], p2[3])):
-        if not torch.equal(got, want):
-            raise AssertionError(f"{name} differ from the plain version (ng={ng}, "
-                                 f"n={codes.shape[0]})")
+        if not same(got, want):
+            raise AssertionError(f"{name} differ from the plain version {where}")
+    # a group holding a NaN: MIN and MAX are NaN on the card, asserted
+    # directly and not only against the plain version
+    nan_rows = live & values.isnan()
+    has_nan = torch.zeros(ng + 1, dtype=torch.int64, device=codes.device)
+    has_nan.index_add_(0, gid, nan_rows.to(torch.int64))
+    has_nan = has_nan[:ng] > 0
+    for name, got in (("mins", k2[2]), ("maxs", k2[3]), ("sums", k2[1])):
+        if not torch.equal(got.isnan(), has_nan):
+            raise AssertionError(f"fused_group_aggregate {name}: NaN where the input has "
+                                 f"none, or a NaN lost {where}")
     # K1 also takes DOUBLE columns (contracted as float32)
     k1d = gk.filtered_group_sum(codes, values.to(torch.float64), mask, ng)
     if not torch.equal(k1d[0], p1[0]):
-        raise AssertionError(f"filtered_group_sum float64 counts differ (ng={ng})")
+        raise AssertionError(f"filtered_group_sum float64 counts differ {where}")
+    err = 0.0
     for name, got, want in (("filtered_group_sum", k1[1], p1[1]),
                             ("filtered_group_sum float64", k1d[1], p1[1]),
                             ("fused_group_aggregate", k2[1], p2[1])):
-        d = (got.to(torch.float64) - want.to(torch.float64)).abs()
-        if bool((d > tol).any()):
-            raise AssertionError(f"{name} sums beyond 1e-5*sum|v| (ng={ng}, "
-                                 f"n={codes.shape[0]}): max diff {float(d.max())}")
-        err = max(err, float(d.max()))
+        ok = torch.isfinite(want)
+        if not same(got[~ok], want[~ok]):
+            raise AssertionError(f"{name} sums: NaN or inf differs from the plain version "
+                                 f"{where}")
+        d = (got[ok].to(torch.float64) - want[ok].to(torch.float64)).abs()
+        if bool((d > tol[ok]).any()):
+            raise AssertionError(f"{name} sums beyond 1e-5*sum|v| {where}: "
+                                 f"max diff {float(d.max())}")
+        if d.numel():
+            err = max(err, float(d.max()))
     return err
 
 
-def kernel_phase(gk, rows: int, seed: int) -> dict:
+def load_port(root: str):
+    """``ops/group_kernels`` of the port checked out under ``root`` (another
+    commit), imported beside this one under its own package name; its
+    kernels build from its own sources into its own ``_build/``."""
+    pkg = os.path.join(os.path.abspath(root), "baikaldb_tpu_torch")
+    alias = "baikaldb_tpu_torch_compared"
+    spec = importlib.util.spec_from_file_location(
+        alias, os.path.join(pkg, "__init__.py"), submodule_search_locations=[pkg])
+    mod = importlib.util.module_from_spec(spec)
+    sys.modules[alias] = mod
+    spec.loader.exec_module(mod)
+    return importlib.import_module(f"{alias}.ops.group_kernels")
+
+
+def kernel_phase(gk, rows: int, seed: int, before=None) -> dict:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
     so = gk.build()
@@ -156,7 +242,14 @@ def kernel_phase(gk, rows: int, seed: int) -> dict:
     cases = [(rows, NG_SQL, {}), (1 << 24, 513, {}), (1 << 24, 2049, {}),
              (1 << 24, 4096, {}), (1_000_003, 513, {}), (1_000_003, 2049, {}),
              (1_000_003, 4096, {}), (777_777, 4096, {"spread": 5, "empty": 17}),
-             (123_457, 2049, {"masked": True}), (3, 4096, {}), (0, 600, {})]
+             (123_457, 2049, {"masked": True}), (3, 4096, {}), (0, 600, {}),
+             (1_000_003, 2049, {"nans": True}), (1 << 20, 700, {"nans": True}),
+             (1_000_003, 2049, {"offset": (0, 1, 0)}),
+             (1_000_002, 2049, {"offset": (0, 2, 0)}),
+             (1_000_001, 2049, {"offset": (0, 3, 0)}),
+             (1_000_001, 4096, {"offset": (1, 1, 1)}),
+             (999_999, 513, {"offset": (3, 3, 3), "nans": True}),
+             (1_000_003, 2049, {"offset": (2, 0, 1)})]
     for n, ng, kw in cases:
         max_err = max(max_err, check_case(gk, *make_inputs(n, ng, gen, dev, **kw), ng))
         log(f"[kernels] n={n} ng={ng} {kw or ''}: match")
@@ -170,38 +263,50 @@ def kernel_phase(gk, rows: int, seed: int) -> dict:
     acc32 = torch.zeros(NG_SQL + 1, dtype=torch.float32, device=dev)
     acc64 = torch.zeros(NG_SQL + 1, dtype=torch.float64, device=dev)
     specs = {
-        # name: (kernel call, plain call, library call or None,
+        # name: (kernel arguments, library call or None,
         #        bytes the function must move, operations per live row)
-        "filtered_group_sum": (
-            lambda: gk.filtered_group_sum(codes, w64, mask, NG_SQL),
-            lambda: gk.filtered_group_sum_plain(codes, w64, mask, NG_SQL),
-            lambda: acc64.index_add_(0, gid, w64),
-            rows * 5 + live * 8 + NG_SQL * 8, 2),
-        "fused_group_aggregate": (
-            lambda: gk.fused_group_aggregate(codes, values, mask, NG_SQL),
-            lambda: gk.fused_group_aggregate_plain(codes, values, mask, NG_SQL),
-            None,
-            rows * 5 + live * 4 + NG_SQL * 16, 4),
-        "partition_histogram": (
-            lambda: gk.partition_histogram(codes, mask, NG_SQL),
-            lambda: gk.partition_histogram_plain(codes, mask, NG_SQL),
-            lambda: acc32.index_add_(0, gid, ones),
-            rows * 5 + NG_SQL * 4, 1),
+        "filtered_group_sum": ((codes, w64, mask, NG_SQL),
+                               lambda: acc64.index_add_(0, gid, w64),
+                               rows * 5 + live * 8 + NG_SQL * 8, 2),
+        "fused_group_aggregate": ((codes, values, mask, NG_SQL), None,
+                                  rows * 5 + live * 4 + NG_SQL * 16, 4),
+        "partition_histogram": ((codes, mask, NG_SQL),
+                                lambda: acc32.index_add_(0, gid, ones),
+                                rows * 5 + NG_SQL * 4, 1),
     }
+
+    def timed(mod, name, args):
+        fn = getattr(mod, name)
+        return cuda_ms(lambda: fn(*args), 20), device_ms(lambda: fn(*args))
+
     out = {}
-    for name, (kern, plain, lib, nbytes, ops) in specs.items():
+    for name, (args, lib, nbytes, ops) in specs.items():
         bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
         ops_ms = live * ops / F32_OPS_PER_S * 1e3
+        if before is None:
+            ms, dev_ms = timed(gk, name, args)
+        else:
+            # in turns: the compared commit, this one, this one, the compared one
+            b1, t1, t2, b2 = (timed(m, name, args) for m in (before, gk, gk, before))
+            ms, dev_ms = (t1[0] + t2[0]) / 2, (t1[1] + t2[1]) / 2
+        plain = getattr(gk, f"{name}_plain")
         out[name] = {
-            "ms": cuda_ms(kern, 20),
-            "plain_ms": cuda_ms(plain, 5),
+            "ms": ms,
+            "device_ms": dev_ms,
+            "plain_ms": cuda_ms(lambda: plain(*args), 5),
             "library_ms": None if lib is None else cuda_ms(lib, 5),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "max_abs_err": max_err,
         }
-        log(f"[kernels] {name}: {out[name]['ms']:.4f} ms (plain {out[name]['plain_ms']:.4f} "
-            f"ms, bound {out[name]['bound_ms']:.4f} ms) at n={rows} ng={NG_SQL}")
+        if before is not None:
+            out[name]["before"] = {"ms": [b1[0], b2[0]], "device_ms": [b1[1], b2[1]],
+                                   "this_ms": [t1[0], t2[0]],
+                                   "this_device_ms": [t1[1], t2[1]]}
+        log(f"[kernels] {name}: {ms:.4f} ms a call, {dev_ms:.4f} ms on the device "
+            f"(plain {out[name]['plain_ms']:.4f} ms, bound {out[name]['bound_ms']:.4f} ms) "
+            f"at n={rows} ng={NG_SQL}" + ("" if before is None else
+                                          f"; compared commit {out[name]['before']}"))
     return out
 
 
@@ -335,6 +440,9 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=100_000_000)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--compare-with", metavar="DIR",
+                    help="a checkout of another commit: time its kernels too, in turns "
+                         "with this one's, on the same inputs")
     args = ap.parse_args()
 
     if not torch.cuda.is_available():
@@ -345,7 +453,8 @@ def main() -> int:
 
     from baikaldb_tpu_torch.ops import group_kernels as gk
 
-    times = kernel_phase(gk, args.rows, args.seed)
+    before = None if args.compare_with is None else load_port(args.compare_with)
+    times = kernel_phase(gk, args.rows, args.seed, before)
     launches, sql_stats = sql_phase(gk, args.rows, args.seed)
     missing = [k for k, n in launches.items() if n == 0]
     if missing:

@@ -82,6 +82,41 @@ def test_partition_histogram_matches_pallas(n, ng, live, seed):
     np.testing.assert_array_equal(got.numpy(), np.bincount(codes[ok], minlength=ng))
 
 
+NAN_CASES = [  # (n, num_groups, seed)
+    (5000, 700, 10), (3001, 4096, 11), (2000, 37, 12),
+]
+
+
+@pytest.mark.parametrize("n,ng,seed", NAN_CASES)
+def test_fused_group_aggregate_keeps_nan_as_the_xla_fallback(n, ng, seed):
+    """NaNs of both signs in live rows, a masked-out row and an
+    out-of-range row; groups of all +inf and all -inf.  The reference is ``_xla_agg_fallback``, not the
+    interpret-mode kernel: the TPU kernel's one-hot product turns NaN * 0
+    into NaN in every group's sum."""
+    codes, values, mask = _inputs(n, ng, 0.6, seed)
+    bits = values.view(np.uint32)
+    codes[10:13], mask[10:13], bits[10:13] = 5, True, 0x7FC00000    # +NaN
+    codes[20:23], mask[20:23], bits[20:23] = 9, True, 0xFFC00000    # -NaN
+    codes[30], mask[30], bits[30] = 11, False, 0x7FC00000           # masked out
+    codes[31], mask[31], bits[31] = ng, True, 0xFFC00000            # out of range
+    codes[40:43], mask[40:43] = 13, True
+    codes[50:53], mask[50:53] = 17, True
+    values[codes == 13] = np.inf        # all +inf: MIN keeps the 3.4e38 sentinel
+    values[codes == 17] = -np.inf       # all -inf: MAX keeps the -3.4e38 sentinel
+    got = [t.numpy() for t in gk.fused_group_aggregate(*_t(codes, values, mask), ng)]
+    c, s, mn, mx = (np.asarray(r) for r in pk._xla_agg_fallback(*_j(codes, values, mask), ng))
+    nan_groups = np.zeros(ng, bool)
+    nan_groups[[5, 9]] = True
+    for col in (got[1], got[2], got[3], s, mn, mx):
+        np.testing.assert_array_equal(np.isnan(col), nan_groups)
+    np.testing.assert_array_equal(got[0], c)
+    np.testing.assert_allclose(got[1], s, rtol=RTOL, atol=ATOL)   # NaN equals NaN
+    np.testing.assert_array_equal(got[2], mn)
+    np.testing.assert_array_equal(got[3], mx)
+    assert got[2][13] == np.float32(3.4e38) and got[3][13] == np.inf
+    assert got[2][17] == -np.inf and got[3][17] == np.float32(-3.4e38)
+
+
 def test_all_filtered_and_empty_groups():
     codes, values, mask = _t(np.zeros(100, np.int32), np.ones(100, np.float32),
                              np.zeros(100, bool))
@@ -127,3 +162,14 @@ def test_cpu_path_launches_no_kernel():
     gk.fused_group_aggregate(codes, values, mask, 600)
     gk.partition_histogram(codes, mask, 600)
     assert all(c.value == 0 for c in gk.LAUNCHES.values())
+
+
+def test_k2_variant_anchors_are_in_the_kernel_source():
+    """baikaldb_tpu_torch/bench/k2_variants.py edits group_agg.cu by text
+    substitution; every text it replaces must still be in the source."""
+    from baikaldb_tpu_torch.bench import k2_variants
+
+    src = open(gk.SOURCE).read()
+    for name, subs in k2_variants.VARIANTS.items():
+        for old, _ in subs:
+            assert src.count(old) == 1, name

@@ -94,6 +94,35 @@ def test_smoke_queries_match_jax(smoke_sessions, monkeypatch, name):
     assert all(c.value == 0 for c in gk.LAUNCHES.values())
 
 
+def test_nan_in_a_float_column_matches_jax(monkeypatch):
+    """700 groups (the port's K2 path): a group holding a +NaN or a -NaN
+    gives NaN for SUM, MIN and MAX in both packages; the others match."""
+    rng = np.random.default_rng(0)
+    g = rng.integers(0, 700, 5000).astype(np.int32)
+    v = rng.standard_normal(5000).astype(np.float32)
+    v.view(np.uint32)[np.nonzero(g == 5)[0][0]] = 0x7FC00000    # +NaN (numpy's)
+    v.view(np.uint32)[np.nonzero(g == 9)[0][1]] = 0xFFC00000    # -NaN (x86's default)
+    data = pa.table({"g": g, "v": v})
+    sql = "SELECT g, COUNT(*) c, SUM(v) s, MIN(v) mn, MAX(v) mx FROM t GROUP BY g ORDER BY g"
+    ran = []
+    plain = gk.fused_group_aggregate_plain
+    monkeypatch.setattr(gk, "fused_group_aggregate_plain", lambda *a: ran.append(1) or plain(*a))
+    rows = []
+    for s in (JSession(), TSession(device="cpu")):
+        s.execute("CREATE TABLE t (g INT, v FLOAT)")
+        s.load_arrow("t", data)
+        rows.append(s.query(sql))
+    want, got = rows
+    assert ran == [1]
+    assert [list(r.values())[:2] for r in got] == [list(r.values())[:2] for r in want]
+    for r_got, r_want in zip(got, want):
+        nan = r_want["g"] in (5, 9)
+        for key in ("s", "mn", "mx"):
+            assert math.isnan(r_want[key]) == nan and math.isnan(r_got[key]) == nan
+            if not nan:
+                assert math.isclose(r_got[key], r_want[key], rel_tol=1e-4, abs_tol=1e-9)
+
+
 def test_plans_match_jax(smoke_sessions):
     jsess, tsess = smoke_sessions
     for sql, _, _ in SMOKE.values():
