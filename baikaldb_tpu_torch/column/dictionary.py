@@ -23,16 +23,21 @@ codes through a host-computed translation table (`translate_codes`).
 
 from __future__ import annotations
 
+import threading
+from collections import OrderedDict
+
 import numpy as np
 
 NULL_CODE = np.int32(-1)
+MEMO_MAX = 16                # host tables kept per dictionary (least recent out)
+_MEMO_LOCK = threading.Lock()
 
 
 class Dictionary:
     """An immutable sorted dictionary for one string column."""
 
     __slots__ = ("values", "_id", "_ft_index", "_ft_state", "_hash_cache",
-                 "_fp")
+                 "_fp", "_memo")
 
     def __init__(self, values: np.ndarray):
         # values must be sorted unique unicode/objects
@@ -42,6 +47,26 @@ class Dictionary:
         self._ft_state = None   # per-dictionary BM25 state (fulltext)
         self._hash_cache = None
         self._fp = None         # lazy content fingerprint (see __eq__)
+        self._memo: OrderedDict = OrderedDict()   # key -> host table (memo)
+
+    def memo(self, key, build):
+        """``build()``, kept for this dictionary under ``key``.  A string
+        function or LIKE pattern is host work over every distinct value;
+        without a compiled-plan cache each query would redo it.  At most
+        ``MEMO_MAX`` tables stay, the least recently used going first, so
+        ad-hoc patterns do not grow it.  Two threads may both build; the
+        first to store wins and every caller gets it."""
+        with _MEMO_LOCK:
+            if key in self._memo:
+                self._memo.move_to_end(key)
+                return self._memo[key]
+        table = build()
+        with _MEMO_LOCK:
+            table = self._memo.setdefault(key, table)
+            self._memo.move_to_end(key)
+            while len(self._memo) > MEMO_MAX:
+                self._memo.popitem(last=False)
+        return table
 
     # -- value equality ---------------------------------------------------
     # Content equality via a cached digest: two rebuilds of one column's

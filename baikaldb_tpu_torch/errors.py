@@ -8,5 +8,5 @@ class NotPortedError(NotImplementedError):
 
     def __init__(self, what: str):
         super().__init__(f"{what} is not ported yet (baikaldb_tpu_torch "
-                         "runs single-table SELECT/WHERE/GROUP BY; see "
-                         "ROADMAP.md for the queue)")
+                         "runs SELECT with joins, subqueries and GROUP BY; "
+                         "see ROADMAP.md for the queue)")

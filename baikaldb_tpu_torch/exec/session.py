@@ -1,18 +1,21 @@
 """SQL session: parse -> plan -> stage tables on the device -> execute -> rows.
 
-The port of the single-table path of ``baikaldb_tpu/exec/session.py``:
-CREATE TABLE, INSERT ... VALUES, ``load_arrow`` bulk ingest, SET GLOBAL
-flags, EXPLAIN, and SELECT over one table with WHERE / GROUP BY / HAVING /
-ORDER BY / LIMIT / OFFSET.  Results are densified on the device and
-returned as Arrow.
+The port of the query path of ``baikaldb_tpu/exec/session.py``: CREATE
+TABLE, INSERT ... VALUES, ``load_arrow`` bulk ingest, SET GLOBAL flags,
+EXPLAIN, and SELECT with joins, IN / EXISTS / scalar subqueries, derived
+tables and WITH, UNION, WHERE / GROUP BY / HAVING / ORDER BY / LIMIT /
+OFFSET (all 22 TPC-H queries).  The copied planner plans it; the executor
+runs the plan eagerly, and a scalar subquery with more than one row raises
+"Subquery returns more than 1 row" as in the JAX session.  Results are
+densified on the device and returned as Arrow.
 
 A session runs on one device, named when it is made.  ``Session()`` with no
 device runs on CUDA and raises when CUDA is unavailable; only an explicit
 ``Session(device="cpu")`` runs on the CPU.
 
-Not ported yet: joins and subqueries, transactions, UPDATE/DELETE, the plan
-cache and auto-parameterization, the egress fast path, pushdown, matviews
-and rollups, point lookups and snapshot pinning.
+Not ported yet: transactions, UPDATE/DELETE, the plan cache and
+auto-parameterization, the host presort permutations, the egress fast path,
+pushdown, matviews and rollups, point lookups and snapshot pinning.
 """
 
 from __future__ import annotations

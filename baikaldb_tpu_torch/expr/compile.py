@@ -870,7 +870,8 @@ def _like_impl(e, batch, negate):
         hit = (a.data >= lo) & (a.data < hi)
     else:
         rx = re.compile(_like_to_regex(p), re.S)
-        mask = a.dictionary.match_mask(lambda v: rx.match(v) is not None)
+        mask = a.dictionary.memo(("like", p), lambda: a.dictionary.match_mask(
+            lambda v: rx.match(v) is not None))
         if len(mask) == 0:
             hit = torch.zeros(a.data.shape, dtype=torch.bool, device=a.data.device)
         else:
@@ -912,17 +913,24 @@ def _cast(e, batch):
 # string functions via dictionary transforms --------------------------------
 
 
-def _dict_transform(c: Column, fn) -> Column:
-    """Apply a host string->string fn over distinct values; re-sort + remap."""
+def _dict_transform(c: Column, fn, key: tuple) -> Column:
+    """Apply a host string->string fn over distinct values; re-sort + remap.
+    ``key`` names the function and its arguments: the table is built once
+    per dictionary (``Dictionary.memo``)."""
     if c.dictionary is None:
         raise ExprError("string function requires dictionary")
     if len(c.dictionary.values) == 0:
         # every row is NULL: nothing to transform
         return Column(torch.full_like(c.data, int(NULL_CODE)), c.validity,
                       LType.STRING, Dictionary(np.asarray([], dtype=str)))
-    new_vals = np.asarray([fn(v) for v in c.dictionary.values], dtype=str)
-    uniq, inv = np.unique(new_vals, return_inverse=True)
-    return Column(_remap_codes(c, inv), c.validity, LType.STRING, Dictionary(uniq))
+
+    def build():
+        new_vals = np.asarray([fn(v) for v in c.dictionary.values], dtype=str)
+        uniq, inv = np.unique(new_vals, return_inverse=True)
+        return inv, Dictionary(uniq)
+
+    inv, d = c.dictionary.memo(key, build)
+    return Column(_remap_codes(c, inv), c.validity, LType.STRING, d)
 
 
 def _dict_scalar(c: Column, fn, lt: LType) -> Column:
@@ -941,7 +949,7 @@ def _str_fn(name, fn):
         a = _eval(e.args[0], batch)
         if isinstance(a, HostStr):
             return HostStr(fn(str(a)))
-        return _dict_transform(a, fn)
+        return _dict_transform(a, fn, (name,))
     return h
 
 
@@ -987,7 +995,7 @@ def _substr(e, batch):
 
     if isinstance(a, HostStr):
         return HostStr(f(str(a)))
-    return _dict_transform(a, f)
+    return _dict_transform(a, f, ("substr", p, n))
 
 
 @_raw("concat")
@@ -1001,4 +1009,4 @@ def _concat(e, batch):
     i = col_idx[0]
     pre = "".join(str(p) for p in parts[:i])
     post = "".join(str(p) for p in parts[i + 1:])
-    return _dict_transform(parts[i], lambda s: pre + s + post)
+    return _dict_transform(parts[i], lambda s: pre + s + post, ("concat", pre, post))

@@ -10,9 +10,10 @@ instead; on a CPU batch those run their plain versions, so the same
 assembly code (float32 output contract, ``nonempty`` validity, casts) runs on
 either device.
 
-Keys without a dense domain take the sort-based group-by.  Not ported yet:
-DISTINCT aggregates, the HLL and percentile aggregates, and the partial-
-aggregate merge protocol.
+Keys without a dense domain take the sort-based group-by.  COUNT/SUM/AVG
+(DISTINCT ...) sort and count boundaries, scalar and per group.  Not ported
+yet: the HLL and percentile aggregates and the partial-aggregate merge
+protocol.
 """
 
 from __future__ import annotations
@@ -70,8 +71,6 @@ def _minmax_identity(c: Column, is_min: bool):
 
 
 def _not_ported(s: AggSpec):
-    if s.distinct:
-        return NotPortedError(f"{s.op.upper()}(DISTINCT ...)")
     return NotPortedError(f"aggregate {s.op!r}")
 
 
@@ -97,7 +96,9 @@ def _scalar_one(batch: ColumnBatch, s: AggSpec, sel) -> Column:
         return Column(_one(sel.sum().to(torch.int64)), None, LType.INT64)
     c = batch.column(s.input)
     live = sel & c.valid_mask()
-    if s.distinct or s.op in ROW_AGGS:
+    if s.distinct and s.op in ("count", "sum", "avg"):
+        return _scalar_distinct(c, live, s)
+    if s.op in ROW_AGGS:
         raise _not_ported(s)
     any_ = _one(live.any())
     if s.op == "count":
@@ -135,6 +136,25 @@ def _scalar_one(batch: ColumnBatch, s: AggSpec, sel) -> Column:
             v = torch.sqrt(v)
         return Column(_one(v), _one(n > 0), LType.FLOAT64)
     raise ValueError(f"unknown aggregate {s.op}")
+
+
+def _scalar_distinct(c: Column, live, s: AggSpec) -> Column:
+    """COUNT/SUM/AVG(DISTINCT x): sort + boundary count.  Dead/NULL lanes get
+    the +max sentinel so they sort past the live prefix."""
+    d = torch.where(live, c.data, torch.full_like(c.data, _minmax_identity(c, True)))
+    srt = torch.sort(d).values
+    idx = torch.arange(d.shape[0], device=d.device)
+    new = (idx == 0) | (srt != torch.roll(srt, 1))
+    uniq = new & (idx < live.sum())
+    if s.op == "count":
+        return Column(_one(uniq.sum().to(torch.int64)), None, LType.INT64)
+    dt = _sum_dtype(c)
+    sm = torch.where(uniq, srt.to(dt), torch.zeros((), dtype=dt, device=d.device)).sum()
+    any_ = _one(uniq.any())
+    if s.op == "sum":
+        return Column(_one(sm), any_, agg_result_type("sum", c.ltype))
+    ct = uniq.sum().clamp(min=1)
+    return Column(_one(sm.to(torch.float64) / ct), any_, LType.FLOAT64)
 
 
 # ----------------------------------------------------------------------
@@ -270,7 +290,9 @@ def _segment_one(batch: ColumnBatch, s: AggSpec, gid, ng: int, sel) -> Column:
     c = batch.column(s.input)
     live = c.valid_mask() & sel
     gid_v = torch.where(live, gid, ng)
-    if s.distinct or s.op in ROW_AGGS:
+    if s.distinct:
+        return _segment_distinct(c, gid_v, ng, s)
+    if s.op in ROW_AGGS:
         raise _not_ported(s)
 
     def live_count(dtype=torch.int32):
@@ -305,6 +327,29 @@ def _segment_one(batch: ColumnBatch, s: AggSpec, gid, ng: int, sel) -> Column:
         v = torch.sqrt(var) if s.op.startswith("stddev") else var
         return Column(v, n > 0, LType.FLOAT64)
     raise ValueError(f"unknown aggregate {s.op}")
+
+
+def _segment_distinct(c: Column, gid, ng: int, s: AggSpec) -> Column:
+    """Per-group DISTINCT via a (gid, value) sort + boundary dedup; gid==ng
+    marks dead and NULL lanes.  As in the JAX package, every op but COUNT
+    and SUM gives the average of the distinct values."""
+    order = torch.sort(c.data, stable=True).indices
+    order = order[torch.sort(gid[order], stable=True).indices]
+    g = gid[order]
+    v = c.data[order]
+    idx = torch.arange(g.shape[0], device=g.device)
+    new = (idx == 0) | (g != torch.roll(g, 1)) | (v != torch.roll(v, 1))
+    live = g < ng
+    w = new & live
+    gl = torch.where(live, g, ng)
+    if s.op == "count":
+        return Column(seg_sum(w.to(torch.int64), gl, ng), None, LType.INT64)
+    dt = _sum_dtype(c)
+    sm = seg_sum(torch.where(w, v.to(dt), torch.zeros((), dtype=dt, device=g.device)), gl, ng)
+    ct = seg_sum(w.to(torch.int32), gl, ng)
+    if s.op == "sum":
+        return Column(sm, ct > 0, agg_result_type("sum", c.ltype))
+    return Column(sm.to(torch.float64) / ct.clamp(min=1), ct > 0, LType.FLOAT64)
 
 
 def group_aggregate_sorted(batch: ColumnBatch, key_names: list[str],

@@ -81,6 +81,9 @@ class ProjectNode(PlanNode):
     # a separate name scope, so outer predicate pushdown must stop here even
     # when an inner scan shares a table label with an outer table
     derived: bool = False
+    # on a derived Project: the names the planner generated while planning
+    # its body (outside the plan signature; exec/executor.py derived_key)
+    generated: frozenset = frozenset()
 
     def _label(self):
         return f"Project({', '.join(f'{n}={e!r}' for n, e in zip(self.names, self.exprs))})"
@@ -367,7 +370,7 @@ _SIG_SKIP = frozenset({"children", "cap", "radix_width", "presort_input",
                        # derived partition metadata (canonical class tuples
                        # recomputed per plan); the reuse DECISIONS stay in
                        # the signature via reused/reuse fields
-                       "partitioned_on"})
+                       "partitioned_on", "generated"})
 
 
 def _sig_value(v):

@@ -110,10 +110,13 @@ class Planner:
         self.default_db = default_db
         self.stats_fn = stats_fn      # (table_key, col) -> dict | None
         self._ids = itertools.count()
+        self._generated: list[str] = []   # every _tmp name, in order
         self._ctes: dict[str, SelectStmt] = {}
 
     def _tmp(self, prefix: str) -> str:
-        return f"__{prefix}{next(self._ids)}"
+        name = f"__{prefix}{next(self._ids)}"
+        self._generated.append(name)
+        return name
 
     # ------------------------------------------------------------------
     def plan_select(self, stmt: SelectStmt) -> PlanNode:
@@ -657,7 +660,8 @@ class Planner:
             """Per-conjunct selectivity: histogram/MCV-estimated when the
             conjunct is ``col CMP literal`` and stats exist
             (index/stats), else the fixed defaults."""
-            raise NotPortedError("join ordering statistics (index/stats)")
+            from ..index.stats import (DEFAULT_EQ_SEL, DEFAULT_RANGE_SEL,
+                                       conjunct_selectivity)
 
             is_eq = isinstance(c, Call) and c.op == "eq"
             default = DEFAULT_EQ_SEL if is_eq else DEFAULT_RANGE_SEL
@@ -793,6 +797,7 @@ class Planner:
                     self.default_db = saved_db
                     self._ctes = saved_ctes
         if ref.subquery is not None:
+            first = len(self._generated)
             sub = self._plan_query(ref.subquery)
             label = ref.label
             scope.add(label, Schema(tuple(Field(f.name, f.ltype, f.nullable)
@@ -802,6 +807,7 @@ class Planner:
             names = [f"{label}.{f.name}" for f in sub.schema.fields]
             return ProjectNode(children=[sub], exprs=exprs, names=names,
                                derived=True,
+                               generated=frozenset(self._generated[first:]),
                                schema=Schema(tuple(Field(n, f.ltype, f.nullable)
                                                    for n, f in zip(names, sub.schema.fields))))
         db = ref.database or self.default_db

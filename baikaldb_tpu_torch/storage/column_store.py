@@ -1,25 +1,30 @@
 """Minimal column store: one table's Arrow data plus its device image.
 
 The port of the parts of ``baikaldb_tpu/storage/column_store.py`` that a
-single-table SELECT needs.  A :class:`TableStore` holds the table's rows as
-one Arrow table on the host, stages one device batch per table version on
-its device (table-wide string dictionaries), and serves the host column
-statistics (``min``/``max``/``dict_size``) that the planner's dense
-group-by choice reads.  Regions, WAL, MVCC, partitions, secondary indexes
-and the cold tier are not ported.
+SELECT needs.  A :class:`TableStore` holds the table's rows as one Arrow
+table on the host, stages one device batch per table version on its device
+(table-wide string dictionaries), and serves the host column statistics
+that the planner reads: ``min``/``max``/``dict_size`` for the dense
+group-by and dense-join choices, and the histogram/MCV/ndv payload of
+index/stats for selectivity and join ordering.  Regions, WAL, MVCC,
+partitions, secondary indexes and the cold tier are not ported.
 """
 
 from __future__ import annotations
 
+import datetime
 import threading
 
+import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
 import torch
 
 from ..column.batch import ColumnBatch
+from ..index.stats import collect
 from ..meta.catalog import TableInfo
 from ..types import LType, Schema
+from ..utils.flags import FLAGS
 
 
 def schema_to_arrow(schema: Schema) -> pa.Schema:
@@ -95,27 +100,63 @@ class TableStore:
             return self._device_batch[1]
 
     def column_stats(self, column: str) -> dict:
-        """Host-side statistics for planner decisions: ``dict_size`` for
-        strings, ``min``/``max`` for integer and DATE columns."""
-        v = self.version
-        if self._stats[0] != v:
-            self._stats = (v, {})
-        cache = self._stats[1]
-        if column in cache:
-            return cache[column]
+        """Host-side statistics for planner decisions, as the JAX package
+        computes them: ``dict_size`` for strings, ``min``/``max`` for
+        integer, BOOL and DATE columns, and the histogram/MCV/ndv payload of
+        index/stats for every column."""
+        with self._lock:
+            v = self._mutations
+            if self._stats[0] != v:
+                self._stats = (v, {})
+            cache = self._stats[1]
+            if column in cache:
+                return cache[column]
+            data = self._data
+        col = data.column(column)
         f = self.info.schema.field(column)
         st: dict = {}
         if f.ltype is LType.STRING:
             d = self.device_table_batch().column(column).dictionary
             st["dict_size"] = 0 if d is None else len(d)
-        elif self.num_rows and (f.ltype.is_integer or f.ltype is LType.DATE):
-            mm = pc.min_max(self._data.column(column)).as_py()
+        elif data.num_rows:
+            mm = pc.min_max(col).as_py()
             mn, mx = mm["min"], mm["max"]
-            if mn is not None and f.ltype is LType.DATE:
-                import datetime
+            if hasattr(mn, "toordinal") and not hasattr(mn, "hour"):
                 epoch = datetime.date(1970, 1, 1)
                 mn, mx = (mn - epoch).days, (mx - epoch).days
-            if mn is not None:
+            if isinstance(mn, int) or f.ltype.is_integer or f.ltype is LType.DATE:
                 st["min"], st["max"] = mn, mx
+        st.update(_histogram_stats(col, f) or {})
         cache[column] = st
         return st
+
+
+def _histogram_stats(col, f) -> dict | None:
+    """Equi-depth histogram + MCVs of one column (index/stats), or None when
+    the flag is off or the column is empty."""
+    if not FLAGS.histogram_stats:
+        return None
+    n_total = len(col)
+    if n_total == 0:
+        return None
+    vals = pc.drop_null(col).combine_chunks().to_numpy(zero_copy_only=False)
+    kind = None
+    if f.ltype is LType.STRING:
+        vals = np.asarray(vals, dtype=object)
+        numeric = False
+    else:
+        if vals.dtype.kind == "M":        # date/datetime
+            if f.ltype is LType.DATE:
+                vals = vals.astype("datetime64[D]")
+                kind = "date"
+            else:
+                vals = vals.astype("datetime64[us]")
+                kind = "datetime"
+            vals = vals.astype(np.int64)
+        elif vals.dtype.kind == "O":
+            return None                   # no numeric view of the column
+        numeric = True
+    st = collect(vals, n_total, col.null_count, numeric)
+    if kind:
+        st["kind"] = kind
+    return st

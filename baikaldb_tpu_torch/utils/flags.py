@@ -190,3 +190,6 @@ define("pallas_group_kernels", True,
        "dense group-by with 512 < groups <= 4096 goes through the hand-"
        "written CUDA kernels (ops/group_kernels.py); the name is kept so a "
        "SET GLOBAL works on both packages")
+define("slow_query_ms", 1000.0,
+       "a traced query slower than this is kept whatever the sampler says "
+       "(obs/trace.py)")

@@ -1,7 +1,9 @@
 """GPU smoke run of baikaldb_tpu_torch: build the kernels, hold each against
-its plain torch version, and drive single-table SQL at real size.
+its plain torch version, drive single-table SQL at real size, and run the 22
+TPC-H queries on the card.
 
-    python3 chip_smoke.py [--rows N] [--seed S] [--compare-with DIR]
+    python3 chip_smoke.py [--rows N] [--seed S] [--tpch-scale S]
+                          [--compare-with DIR]
 
 Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
@@ -31,8 +33,23 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    rows/s at the median) is printed beside its device time from one run
    under torch.profiler (kernels and copies) and the top kernels; load
    time and peak device memory beside them.
+4. TPC-H (``baikaldb_tpu_torch/models/tpch.py``): (i) the tables at SF 0.05
+   (seed 0) go into ``Session(device="cuda")`` and ``Session(device="cpu")``;
+   all 22 queries and ``VARIANTS`` (q20's shape with rows) run on both and
+   must agree by the parity contract of ``models/parity.py``.  (ii) At ``--tpch-scale`` (default 1.0, the smallest
+   official scale: 6M lineitem rows; seed ``--seed``) on the card: generation
+   time, load + stage time and peak device memory; per query the warm wall
+   time (median and 67th percentile of 10 runs after one warm-up run), the
+   device time, idle share and top 4 kernels of one torch.profiler run, the
+   session's spans of one traced run (host milliseconds of parse, plan,
+   execution and egress), and the launches of K1-K3 (the TPC-H dense domains
+   miss the kernels' gate, so 0 is expected and reported, not required).
+   q1 and q6 are checked against numpy in float64 (rtol 1e-9), and every
+   query must return finite values.
 
-The last two lines of standard output are the ``kernels`` JSON line and the
+Each phase's seconds are printed on a line of their own, and in the JSON line
+of measurements (redirect standard output to keep it).  The last two
+lines of standard output are the ``kernels`` JSON line and the
 ``{"ok": true, "device": ...}`` line.
 """
 
@@ -55,6 +72,8 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12            # H100 SXM, float32 outside the tensor cores
 NG_SQL = 2049                    # 2048 dense group slots + the NULL slot
 WARM_REPS = 30
+TPCH_REPS = 10
+TPCH_CHECK_SCALE = 0.05
 REPLACES = {
     "filtered_group_sum": "baikaldb_tpu/ops/pallas_kernels.py:184",
     "fused_group_aggregate": "baikaldb_tpu/ops/pallas_kernels.py:210",
@@ -436,10 +455,198 @@ def sql_phase(gk, rows: int, seed: int) -> tuple[dict, dict]:
     return launches, sql_stats
 
 
+# ----------------------------------------------------------------------
+# phase 4: TPC-H
+
+
+def load_tpch(session, tables: dict):
+    from baikaldb_tpu_torch.models import tpch
+
+    for name, ddl in tpch.DDL.items():
+        session.execute(ddl)
+        session.load_arrow(name, tables[name])
+    return session
+
+
+def launch_counts(gk) -> dict:
+    return {k: c.value for k, c in gk.LAUNCHES.items()}
+
+
+def tpch_card_vs_cpu(gk) -> None:
+    """(i): all 22 queries on the card and on the CPU, equal by the parity
+    contract (rtol 1e-4 where a group-by kernel ran on the card)."""
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.models import tpch
+    from baikaldb_tpu_torch.models.parity import mismatch
+
+    tables = tpch.generate(scale=TPCH_CHECK_SCALE, seed=0)
+    gpu = load_tpch(Session(device="cuda"), tables)
+    cpu = load_tpch(Session(device="cpu"), tables)
+    for q, sql in {**tpch.QUERIES, **tpch.VARIANTS}.items():
+        before = launch_counts(gk)
+        got = gpu.query(sql)
+        ran = launch_counts(gk) != before
+        diff = mismatch(got, cpu.query(sql), sql, 1e-4 if ran else 1e-9)
+        if diff is not None:
+            raise AssertionError(f"TPC-H {q} at SF {TPCH_CHECK_SCALE}: the card differs "
+                                 f"from the CPU: {diff}")
+        if q in tpch.VARIANTS and not got:
+            raise AssertionError(f"TPC-H {q} at SF {TPCH_CHECK_SCALE}: no rows")
+    log(f"[tpch] SF {TPCH_CHECK_SCALE}: all {len(tpch.QUERIES)} queries and "
+        f"{len(tpch.VARIANTS)} variant equal on the card and the CPU")
+
+
+def _arrow_np(table, col):
+    return table.column(col).combine_chunks().to_numpy(zero_copy_only=False)
+
+
+def check_q1_q6(rows_q1: list, rows_q6: list, lineitem) -> None:
+    """q1 and q6 against numpy in float64: keys and counts exact, sums and
+    averages to rtol 1e-9."""
+    import datetime
+
+    import pyarrow.compute as pc
+
+    def days(iso):
+        return (datetime.date.fromisoformat(iso) - datetime.date(1970, 1, 1)).days
+
+    ship = _arrow_np(lineitem, "l_shipdate").astype("datetime64[D]").astype(np.int64)
+    qty, price = _arrow_np(lineitem, "l_quantity"), _arrow_np(lineitem, "l_extendedprice")
+    disc, tax = _arrow_np(lineitem, "l_discount"), _arrow_np(lineitem, "l_tax")
+
+    def close(a, b):
+        return abs(a - b) <= 1e-9 * abs(b) + 1e-9
+
+    keep = ship <= days("1998-09-02")
+    rf = pc.dictionary_encode(lineitem.column("l_returnflag").combine_chunks())
+    ls = pc.dictionary_encode(lineitem.column("l_linestatus").combine_chunks())
+    rf_code, ls_code = rf.indices.to_numpy(), ls.indices.to_numpy()
+    n_ls = len(ls.dictionary)
+    gid = (rf_code * n_ls + ls_code)[keep]
+    ng = len(rf.dictionary) * n_ls
+
+    def gsum(x):
+        return np.bincount(gid, weights=x[keep], minlength=ng)
+
+    cnt = np.bincount(gid, minlength=ng)
+    sums = {"sum_qty": gsum(qty), "sum_base_price": gsum(price),
+            "sum_disc_price": gsum(price * (1 - disc)),
+            "sum_charge": gsum(price * (1 - disc) * (1 + tax))}
+    avgs = {"avg_qty": sums["sum_qty"] / np.maximum(cnt, 1),
+            "avg_price": sums["sum_base_price"] / np.maximum(cnt, 1),
+            "avg_disc": gsum(disc) / np.maximum(cnt, 1)}
+    want = []
+    for g in np.nonzero(cnt)[0]:
+        r, l_ = divmod(int(g), n_ls)
+        want.append((rf.dictionary[r].as_py(), ls.dictionary[l_].as_py(), int(g)))
+    want.sort()
+    if [(r["l_returnflag"], r["l_linestatus"]) for r in rows_q1] != [w[:2] for w in want]:
+        raise AssertionError("TPC-H q1: group keys differ from numpy")
+    for r, (_, _, g) in zip(rows_q1, want):
+        if r["count_order"] != cnt[g]:
+            raise AssertionError(f"TPC-H q1 {r['l_returnflag']}{r['l_linestatus']}: count "
+                                 f"{r['count_order']} != {cnt[g]}")
+        for k, v in list(sums.items()) + list(avgs.items()):
+            if not close(r[k], float(v[g])):
+                raise AssertionError(f"TPC-H q1 {r['l_returnflag']}{r['l_linestatus']}: "
+                                     f"{k} {r[k]} != numpy {float(v[g])}")
+    keep6 = ((ship >= days("1994-01-01")) & (ship < days("1995-01-01"))
+             & (disc >= 0.05) & (disc <= 0.07) & (qty < 24))
+    rev = float(np.sum(price[keep6] * disc[keep6]))
+    if len(rows_q6) != 1 or not close(rows_q6[0]["revenue"], rev):
+        raise AssertionError(f"TPC-H q6: {rows_q6} != numpy {rev}")
+
+
+def finite_rows(q: str, rows: list) -> None:
+    for r in rows:
+        for k, v in r.items():
+            if isinstance(v, float) and not np.isfinite(v):
+                raise AssertionError(f"TPC-H {q}: {k} = {v}")
+
+
+def span_ms(s, sql: str) -> dict:
+    """Milliseconds of each session span in one traced run: ``query`` is the
+    whole ``execute`` (the rest of the wall is the rows' conversion to
+    dicts); ``parse`` and ``plan.build`` are host work alone, while
+    ``exec.run`` and ``egress.arrow`` also wait for the card where they read
+    from it."""
+    from baikaldb_tpu_torch.obs import trace
+
+    s.execute("SET GLOBAL tracing = 1")
+    try:
+        s.query(sql)
+        torch.cuda.synchronize()
+    finally:
+        s.execute("SET GLOBAL tracing = 0")
+    rec = [t for t in trace.TRACER.list() if t["text"] == sql][-1]
+    out: dict = {}
+    for sp in rec["spans"]:
+        out[sp["name"]] = out.get(sp["name"], 0.0) + sp["dur_ms"]
+    return out
+
+
+def tpch_on_the_card(gk, scale: float, seed: int) -> dict:
+    """(ii): the 22 queries at ``scale`` on the card, timed."""
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.models import tpch
+
+    t0 = time.perf_counter()
+    tables = tpch.generate(scale=scale, seed=seed)
+    gen_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s = load_tpch(Session(device="cuda"), tables)
+    for store in s.db.stores.values():
+        store.device_table_batch()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    log(f"[tpch] SF {scale}: generated in {gen_s:.2f} s, loaded and staged on the card "
+        f"in {load_s:.2f} s ({tables['lineitem'].num_rows} lineitem rows)")
+
+    # the TPC-H path: counters at 0 just before, read just after
+    for c in gk.LAUNCHES.values():
+        c.reset()
+    per_query, first = {}, {}
+    for q, sql in tpch.QUERIES.items():
+        before = launch_counts(gk)
+        t = time.perf_counter()
+        first[q] = s.query(sql)         # the warm-up run (plans, collects statistics)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t) * 1e3
+        launched = {k: v - before[k] for k, v in launch_counts(gk).items()}
+        finite_rows(q, first[q])
+        walls = []
+        for _ in range(TPCH_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            s.query(sql)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        med = statistics.median(walls)
+        per_query[q] = {"rows": len(first[q]), "first_ms": first_ms, "warm_ms_p50": med,
+                        "warm_ms_p67": float(np.percentile(walls, 67)),
+                        "kernel_launches": launched,
+                        **device_breakdown(lambda: s.query(sql), med),
+                        "spans_ms": span_ms(s, sql)}
+        log(f"[tpch] {q}: {len(first[q])} rows, first run {first_ms:.1f} ms, warm p50 "
+            f"{med:.2f} ms p67 {per_query[q]['warm_ms_p67']:.2f} ms, device "
+            f"{per_query[q]['device_ms']:.2f} ms, idle {per_query[q]['idle_share']:.3f}, "
+            f"K1-K3 launches {launched}, spans "
+            + " ".join(f"{k} {v:.2f}" for k, v in per_query[q]["spans_ms"].items()))
+    check_q1_q6(first["q1"], first["q6"], tables["lineitem"])
+    log(f"[tpch] SF {scale}: q1 and q6 match numpy")
+    return {"scale": scale, "seed": seed, "gen_s": gen_s, "load_s": load_s,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "queries": per_query}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=100_000_000)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tpch-scale", type=float, default=1.0,
+                    help="TPC-H scale factor of the timed run on the card")
     ap.add_argument("--compare-with", metavar="DIR",
                     help="a checkout of another commit: time its kernels too, in turns "
                          "with this one's, on the same inputs")
@@ -454,18 +661,31 @@ def main() -> int:
     from baikaldb_tpu_torch.ops import group_kernels as gk
 
     before = None if args.compare_with is None else load_port(args.compare_with)
+    phase_s = {}
+    t0 = time.perf_counter()
     times = kernel_phase(gk, args.rows, args.seed, before)
+    phase_s["kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     launches, sql_stats = sql_phase(gk, args.rows, args.seed)
+    phase_s["sql"] = time.perf_counter() - t0
     missing = [k for k, n in launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    tpch_card_vs_cpu(gk)
+    phase_s["tpch_card_vs_cpu"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    tpch_stats = tpch_on_the_card(gk, args.tpch_scale, args.seed)
+    phase_s["tpch_timed"] = time.perf_counter() - t0
+    print("phase seconds: " + json.dumps(phase_s), flush=True)
 
     kernels = [{"name": k, "route": "cuda",
                 "source": "baikaldb_tpu_torch/ops/csrc/group_agg.cu",
                 "replaces": REPLACES[k], "launches": launches[k], **times[k]}
                for k in REPLACES]
-    print(json.dumps({"card": name_power, "rows": args.rows,
-                      "sql": sql_stats}), flush=True)
+    print(json.dumps({"card": name_power, "rows": args.rows, "phase_s": phase_s,
+                      "sql": sql_stats, "tpch": tpch_stats}), flush=True)
     print(name_power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

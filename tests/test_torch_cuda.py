@@ -7,7 +7,9 @@ so it runs where only torch is installed:
 
 Tolerances: counts and min/max exact (NaN equal to NaN: a group holding a
 NaN gives NaN); sums to rtol=atol=1e-5 (both sides accumulate in float64 in
-different orders, then round to float32).
+different orders, then round to float32).  The joins (ops/join.py) and
+TPC-H queries run on the card and on the CPU and must agree: join rows
+exactly, query rows by the parity contract of models/parity.py.
 """
 
 import numpy as np
@@ -134,3 +136,92 @@ def test_session_runs_on_the_card(cuda):
     # 700 distinct key values: the dense group-by takes the kernels
     assert gk.LAUNCHES["fused_group_aggregate"].value == 1
     assert s.db.stores["default.t"].device_table_batch().device.type == "cuda"
+
+
+def _join_sides(dev, seed=0, n_probe=5000, n_build=3000):
+    from baikaldb_tpu_torch.column.batch import ColumnBatch
+
+    rng = np.random.default_rng(seed)
+    probe = ColumnBatch.from_numpy(
+        ("pk", "pv"), [(rng.integers(0, 900, n_probe).astype(np.int32),
+                        rng.random(n_probe) > 0.1, "int32", None),
+                       (rng.normal(size=n_probe), None, "float64", None)],
+        sel=rng.random(n_probe) > 0.2, device=dev)
+    build = ColumnBatch.from_numpy(
+        ("bk", "bv"), [(rng.integers(100, 1000, n_build).astype(np.int32),
+                        rng.random(n_build) > 0.1, "int32", None),
+                       (rng.integers(-9, 9, n_build).astype(np.int64), None, "int64", None)],
+        sel=rng.random(n_build) > 0.2, device=dev)
+    return probe, build
+
+
+def _sorted_rows(batch):
+    rows = [tuple(r.values()) for r in batch.to_pylist()]
+    return sorted(rows, key=lambda r: tuple((v is not None, v if v is not None else 0)
+                                            for v in r))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["inner", "left", "semi", "anti"])
+def test_joins_on_the_card_match_the_cpu(cuda, how):
+    from baikaldb_tpu_torch.ops import join as tj
+
+    (pc, bc), (pg, bg) = _join_sides("cpu"), _join_sides(cuda)
+    got, n = tj.join(pg, ["pk"], bg, ["bk"], how=how)
+    want, m = tj.join(pc, ["pk"], bc, ["bk"], how=how)
+    assert got.device.type == torch.device(cuda).type and n == m
+    assert _sorted_rows(got) == _sorted_rows(want)
+    # unique build keys over [100, 1000): the dense PK-FK join
+    keys = np.random.default_rng(1).permutation(900)[:600].astype(np.int32) + 100
+    from baikaldb_tpu_torch.column.batch import ColumnBatch
+    dense = [ColumnBatch.from_numpy(("bk", "bv"), [(keys, None, "int32", None),
+                                                   (keys.astype(np.float64), None,
+                                                    "float64", None)], device=d)
+             for d in ("cpu", cuda)]
+    got, _ = tj.dense_join(pg, ["pk"], dense[1], ["bk"], [100], [900], how=how)
+    want, _ = tj.dense_join(pc, ["pk"], dense[0], ["bk"], [100], [900], how=how)
+    assert _sorted_rows(got) == _sorted_rows(want)
+    if how in ("semi", "anti"):
+        got, _ = tj.semi_join_neq(pg, ["pk"], bg, ["bk"], "pk", "bv", how=how)
+        want, _ = tj.semi_join_neq(pc, ["pk"], bc, ["bk"], "pk", "bv", how=how)
+        assert _sorted_rows(got) == _sorted_rows(want)
+    else:
+        got, _ = tj.cross_join(pg.gather(torch.arange(40, device=cuda)), bg)
+        want, _ = tj.cross_join(pc.gather(torch.arange(40)), bc)
+        assert _sorted_rows(got) == _sorted_rows(want)
+
+
+@pytest.fixture(scope="module")
+def tpch_pair():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the card's session needs one")
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.models import tpch
+
+    tables = tpch.generate(scale=0.01, seed=0)
+    out = []
+    for dev in ("cuda", "cpu"):
+        s = Session(device=dev)
+        for name, ddl in tpch.DDL.items():
+            s.execute(ddl)
+            s.load_arrow(name, tables[name])
+        out.append(s)
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["q3", "q5", "q9", "q13", "q15", "q16", "q18", "q21", "q22",
+                                  "q20_rows"])
+def test_tpch_on_the_card_matches_the_cpu(tpch_pair, name):
+    from baikaldb_tpu_torch.models import tpch
+    from baikaldb_tpu_torch.models.parity import mismatch
+
+    gpu, cpu = tpch_pair
+    sql = {**tpch.QUERIES, **tpch.VARIANTS}[name]
+    before = sum(c.value for c in gk.LAUNCHES.values())
+    got = gpu.query(sql)
+    ran = sum(c.value for c in gk.LAUNCHES.values()) != before
+    diff = mismatch(got, cpu.query(sql), sql, 1e-4 if ran else 1e-9)
+    assert diff is None, diff
+    if name in tpch.VARIANTS:
+        assert got, f"{name} returned no rows"   # the variant exists to have rows

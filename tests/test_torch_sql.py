@@ -195,3 +195,23 @@ def test_set_global_flag_moves_both_packages_off_the_kernel_path(smoke_sessions,
     finally:
         for s in (jsess, tsess):
             s.execute("SET GLOBAL pallas_group_kernels = 1")
+
+
+def test_traced_query_records_the_session_spans(smoke_sessions):
+    """With ``tracing`` on, a query returns the same rows and its trace holds
+    the session's spans (the chip run reads them for its host breakdown)."""
+    from baikaldb_tpu_torch.obs import trace
+
+    _, tsess = smoke_sessions
+    sql = SMOKE["fused"][0]
+    want = tsess.query(sql)
+    try:
+        tsess.execute("SET GLOBAL tracing = 1")
+        got = tsess.query(sql)
+    finally:
+        tsess.execute("SET GLOBAL tracing = 0")
+    assert got == want
+    rec = [t for t in trace.TRACER.list() if t["text"] == sql][-1]
+    names = {s["name"] for s in rec["spans"]}
+    assert {"query", "parse", "plan.build", "exec.batches", "exec.run",
+            "egress.arrow"} <= names
