@@ -8,5 +8,6 @@ class NotPortedError(NotImplementedError):
 
     def __init__(self, what: str):
         super().__init__(f"{what} is not ported yet (baikaldb_tpu_torch "
-                         "runs SELECT with joins, subqueries and GROUP BY; "
+                         "runs SELECT with joins, subqueries, GROUP BY and "
+                         "window functions; "
                          "see ROADMAP.md for the queue)")

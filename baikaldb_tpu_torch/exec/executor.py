@@ -21,8 +21,8 @@ its sums are deterministic.
 Ported nodes: Scan (with its pushed filter), Filter, Shrink, Project, Join
 (cross, EXISTS-with-<>, dense PK-FK, sort join), Union, Membership (SQL
 three-valued IN / NOT IN), ScalarSource, Agg (scalar, dense with
-``key_shift``, sorted), Distinct, Sort (with top-k), Limit and Values.
-Every other node (the mesh's Exchange and MultiJoin, Window, the streamed
+``key_shift``, sorted), Distinct, Window, Sort (with top-k), Limit and
+Values.  Every other node (the mesh's Exchange and MultiJoin, the streamed
 result) raises :class:`NotPortedError`.
 """
 
@@ -44,10 +44,11 @@ from ..ops.compact import compact, head
 from ..ops.hashagg import (group_aggregate_dense, group_aggregate_sorted,
                            scalar_aggregate)
 from ..ops.sort import SortKey, sort_batch, top_k
+from ..ops.window import window_compute
 from ..plan.nodes import (AggNode, DistinctNode, FilterNode, JoinNode,
                           LimitNode, MembershipNode, PlanNode, ProjectNode,
                           ScalarSourceNode, ScanNode, ShrinkNode, SortNode,
-                          UnionNode, ValuesNode, plan_signature)
+                          UnionNode, ValuesNode, WindowNode, plan_signature)
 from ..plan.planner import PlanError
 from ..types import LType
 
@@ -222,6 +223,11 @@ def _eval_node(node: PlanNode, batches: dict, device, memo: dict) -> ColumnBatch
     if isinstance(node, DistinctNode):
         child = _eval(node.child(), batches, device, memo)
         return group_aggregate_sorted(child, list(child.names), [], max(1, len(child)))
+
+    if isinstance(node, WindowNode):
+        child = _eval(node.child(), batches, device, memo)
+        keys = [SortKey(k, asc) for k, asc in node.order_keys]
+        return window_compute(child, node.partition_names, keys, node.specs)
 
     if isinstance(node, SortNode):
         child = _eval(node.child(), batches, device, memo)

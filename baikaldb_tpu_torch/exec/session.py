@@ -4,10 +4,12 @@ The port of the query path of ``baikaldb_tpu/exec/session.py``: CREATE
 TABLE, INSERT ... VALUES, ``load_arrow`` bulk ingest, SET GLOBAL flags,
 EXPLAIN, and SELECT with joins, IN / EXISTS / scalar subqueries, derived
 tables and WITH, UNION, WHERE / GROUP BY / HAVING / ORDER BY / LIMIT /
-OFFSET (all 22 TPC-H queries).  The copied planner plans it; the executor
-runs the plan eagerly, and a scalar subquery with more than one row raises
-"Subquery returns more than 1 row" as in the JAX session.  Results are
-densified on the device and returned as Arrow.
+OFFSET (all 22 TPC-H queries), window functions.  The copied planner plans
+it; the executor runs the plan eagerly, and a scalar subquery with more than
+one row raises "Subquery returns more than 1 row" as in the JAX session.
+Results are densified on the device and returned as Arrow.  CONNECTION_ID()
+and VERSION() in a SELECT become literals before planning, as in the JAX
+session (``_resolve_session_exprs``).
 
 A session runs on one device, named when it is made.  ``Session()`` with no
 device runs on CUDA and raises when CUDA is unavailable; only an explicit
@@ -21,7 +23,8 @@ pushdown, matviews and rollups, point lookups and snapshot pinning.
 from __future__ import annotations
 
 import datetime
-from dataclasses import dataclass, field
+import itertools
+from dataclasses import dataclass, field, replace
 from typing import Optional
 
 import pyarrow as pa
@@ -29,18 +32,25 @@ import torch
 
 from ..errors import NotPortedError
 from ..exec import executor
+from ..expr.ast import AggCall, Call, Lit, Subquery, WindowCall
 from ..meta.catalog import Catalog, IndexInfo, parse_type
 from ..obs import trace
 from ..plan.nodes import PlanNode, ScanNode
 from ..plan.planner import Planner
 from ..sql.lexer import SqlError
 from ..sql.parser import parse_sql
-from ..sql.stmt import (CreateTableStmt, ExplainStmt, InsertStmt, SelectStmt,
-                        SetStmt, TableRef)
+from ..sql.stmt import (CreateTableStmt, ExplainStmt, InsertStmt, OrderItem,
+                        SelectItem, SelectStmt, SetStmt, TableRef)
 from ..storage.column_store import TableStore
 from ..types import Field, LType, Schema
 from ..utils import metrics
 from ..utils.flags import FLAGS, FlagError
+
+# the JAX session's server version string (its _SERVER_VARS["version"])
+SERVER_VERSION = "8.0.0-baikaldb-tpu"
+
+# connection ids, one counter per process as in the JAX session
+_CONN_IDS = itertools.count(1)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -97,6 +107,11 @@ class Session:
         self.db = db
         self.device = db.device
         self.current_db = database
+        self._conn_id = next(_CONN_IDS)
+
+    def connection_id(self) -> int:
+        """This session's id, answered by CONNECTION_ID()."""
+        return self._conn_id
 
     # -- entry points ---------------------------------------------------
     def execute(self, sql: str) -> Result:
@@ -127,7 +142,7 @@ class Session:
     # -- statements -----------------------------------------------------
     def _execute_stmt(self, s) -> Result:
         if isinstance(s, SelectStmt):
-            return self._select(s)
+            return self._select(_resolve_session_exprs(s, self.connection_id()))
         if isinstance(s, CreateTableStmt):
             return self._create_table(s)
         if isinstance(s, InsertStmt):
@@ -230,6 +245,62 @@ class Session:
 
         walk(plan)
         return batches
+
+
+def _resolve_session_exprs(stmt: SelectStmt, conn_id: int) -> SelectStmt:
+    """CONNECTION_ID() and VERSION() -> literals before planning, and their
+    MySQL column captions where the item has no alias (the part of the JAX
+    session's ``_resolve_session_exprs`` the port serves).  A statement that
+    names neither comes back as it was."""
+    env = {"connection_id": conn_id, "version": SERVER_VERSION}
+    changed = [False]
+
+    def walk_e(e):
+        if isinstance(e, Call):
+            if e.op in env and not e.args:
+                changed[0] = True
+                return Lit(env[e.op])
+            return Call(e.op, tuple(walk_e(a) for a in e.args))
+        if isinstance(e, AggCall):
+            return AggCall(e.op, tuple(walk_e(a) for a in e.args), e.distinct)
+        if isinstance(e, WindowCall):
+            return WindowCall(e.op, tuple(walk_e(a) for a in e.args),
+                              tuple(walk_e(p) for p in e.partition_by),
+                              tuple((walk_e(oe), asc) for oe, asc in e.order_by),
+                              e.running, e.frame)
+        if isinstance(e, Subquery):
+            return Subquery(walk_s(e.stmt))
+        return e
+
+    def opt(e):
+        return None if e is None else walk_e(e)
+
+    def alias(e):
+        if isinstance(e, Call) and e.op in env and not e.args:
+            return f"{e.op.upper()}()"
+        return None
+
+    def walk_t(t):
+        if t is not None and t.subquery is not None:
+            return replace(t, subquery=walk_s(t.subquery))
+        return t
+
+    def walk_s(st: SelectStmt) -> SelectStmt:
+        return replace(
+            st,
+            items=[SelectItem(opt(it.expr), it.alias or alias(it.expr), it.star_table)
+                   for it in st.items],
+            table=walk_t(st.table),
+            where=opt(st.where),
+            group_by=[walk_e(g) for g in st.group_by],
+            having=opt(st.having),
+            order_by=[OrderItem(walk_e(o.expr), o.asc) for o in st.order_by],
+            joins=[replace(j, table=walk_t(j.table), on=opt(j.on)) for j in st.joins],
+            ctes=[(n, walk_s(c)) for n, c in st.ctes],
+            union=None if st.union is None else (st.union[0], walk_s(st.union[1])))
+
+    out = walk_s(stmt)
+    return out if changed[0] else stmt
 
 
 def _temporal_value(v: str, lt: LType):

@@ -13,10 +13,12 @@ the JAX compiler exactly:
   column is float32 arithmetic compared in float64, as in the JAX package.
 - String ops run on dictionary codes: comparisons against literals become
   integer range tests; per-value functions are host-side maps over the
-  distinct values, gathered by code on the device.
+  distinct values, gathered by code on the device, and each such table is
+  kept per dictionary (``Dictionary.memo``).
 
-The JAX package's extended builtin library (``builtins_ext*.py``) is not
-ported yet; calling one of its functions raises :class:`NotPortedError`.
+The extended builtin library (``builtins_ext.py``, ``builtins_ext2.py``)
+registers itself into the tables below.  ``MATCH ... AGAINST`` (full-text
+search) is not ported: it raises :class:`NotPortedError`.
 """
 
 from __future__ import annotations
@@ -519,6 +521,7 @@ def _default_type_rule(op, argts):
         "upper": LType.STRING, "lower": LType.STRING, "trim": LType.STRING,
         "ltrim": LType.STRING, "rtrim": LType.STRING, "reverse": LType.STRING,
         "substr": LType.STRING, "concat": LType.STRING,
+        "hash": LType.INT64,
     }
     if op in rules:
         return rules[op]
@@ -933,14 +936,20 @@ def _dict_transform(c: Column, fn, key: tuple) -> Column:
     return Column(_remap_codes(c, inv), c.validity, LType.STRING, d)
 
 
-def _dict_scalar(c: Column, fn, lt: LType) -> Column:
+def _dict_scalar(c: Column, fn, lt: LType, key: Optional[tuple] = None) -> Column:
+    """A host string->scalar fn over the distinct values, gathered by code;
+    with a ``key`` the table is built once per dictionary."""
     if c.dictionary is None:
         raise ExprError("string function requires dictionary")
     if len(c.dictionary.values) == 0:
         return Column(torch.zeros(c.data.shape, dtype=torch_dtype(lt),
                                   device=c.data.device), c.validity, lt)
-    return Column(_take(c.dictionary.map_values(fn, lt.np_dtype), c.data),
-                  c.validity, lt)
+
+    def build():
+        return c.dictionary.map_values(fn, lt.np_dtype)
+
+    table = build() if key is None else c.dictionary.memo(key, build)
+    return Column(_take(table, c.data), c.validity, lt)
 
 
 def _str_fn(name, fn):
@@ -1010,3 +1019,16 @@ def _concat(e, batch):
     pre = "".join(str(p) for p in parts[:i])
     post = "".join(str(p) for p in parts[i + 1:])
     return _dict_transform(parts[i], lambda s: pre + s + post, ("concat", pre, post))
+
+
+@_raw("hash")
+def _hash(e, batch):
+    """HASH(a, ...): the 32-bit key hash of utils/hashing.py, as INT64."""
+    from ..utils.hashing import hash_columns
+
+    cols = [eval_expr(a, batch) for a in e.args]
+    return Column(hash_columns([c.data for c in cols]), None, LType.INT64)
+
+
+# the extended builtin library registers itself into the tables above
+from . import builtins_ext  # noqa: E402,F401  (import for side effects)

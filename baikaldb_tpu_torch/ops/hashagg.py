@@ -11,9 +11,13 @@ assembly code (float32 output contract, ``nonempty`` validity, casts) runs on
 either device.
 
 Keys without a dense domain take the sort-based group-by.  COUNT/SUM/AVG
-(DISTINCT ...) sort and count boundaries, scalar and per group.  Not ported
-yet: the HLL and percentile aggregates and the partial-aggregate merge
-protocol.
+(DISTINCT ...) sort and count boundaries, scalar and per group.
+APPROX_COUNT_DISTINCT is one segment max over ``groups x 512`` HLL register
+slots; PERCENTILE (and MEDIAN, planned as percentile 0.5) sorts by (group,
+value) and interpolates.  Neither reaches the group-by kernels (the gate of
+``dense_kernel_cols`` admits COUNT/SUM/AVG/MIN/MAX only).  Not ported yet:
+the partial-aggregate merge protocol, which only the mesh and the streamed
+fold use.
 """
 
 from __future__ import annotations
@@ -24,9 +28,9 @@ from typing import Optional
 import torch
 
 from ..column.batch import Column, ColumnBatch, dtype_max, dtype_min
-from ..errors import NotPortedError
 from ..types import LType
 from ..utils.flags import FLAGS
+from ..utils.hashing import GOLDEN, hash_columns, mix32
 from .group_kernels import (MAX_GROUPS, filtered_group_sum,
                             fused_group_aggregate, partition_histogram)
 from .segments import max_segments, seg_max, seg_min, seg_sum
@@ -48,6 +52,11 @@ def agg_result_type(op: str, input_type: LType) -> LType:
 # aggregates whose state cannot merge as a single partial lane
 ROW_AGGS = {"approx_count_distinct", "percentile"}
 
+# the reference sizes its HLL sketches at 16384 registers
+# (src/common/hll_common.cpp); 512 keeps the dense [groups, m] register
+# table small, at a standard error of 1.04/sqrt(512) = 4.6%
+HLL_REGISTERS = 512
+
 _STDDEV = ("stddev", "stddev_samp", "variance", "var_samp")
 
 
@@ -68,10 +77,6 @@ def _sum_dtype(c: Column):
 
 def _minmax_identity(c: Column, is_min: bool):
     return dtype_max(c.data.dtype) if is_min else dtype_min(c.data.dtype)
-
-
-def _not_ported(s: AggSpec):
-    return NotPortedError(f"aggregate {s.op!r}")
 
 
 # ----------------------------------------------------------------------
@@ -98,8 +103,13 @@ def _scalar_one(batch: ColumnBatch, s: AggSpec, sel) -> Column:
     live = sel & c.valid_mask()
     if s.distinct and s.op in ("count", "sum", "avg"):
         return _scalar_distinct(c, live, s)
-    if s.op in ROW_AGGS:
-        raise _not_ported(s)
+    if s.op == "approx_count_distinct":
+        regs = _hll_registers(c, live, torch.zeros_like(c.data, dtype=torch.int64), 1)
+        return Column(_hll_estimate(regs)[:1], None, LType.INT64)
+    if s.op == "percentile":
+        gid = torch.where(live, 0, 1)
+        v, ok = _segment_percentile(c, gid, 1, s.param)
+        return Column(v, ok, LType.FLOAT64)
     any_ = _one(live.any())
     if s.op == "count":
         return Column(_one(live.sum().to(torch.int64)), None, LType.INT64)
@@ -136,6 +146,65 @@ def _scalar_one(batch: ColumnBatch, s: AggSpec, sel) -> Column:
             v = torch.sqrt(v)
         return Column(_one(v), _one(n > 0), LType.FLOAT64)
     raise ValueError(f"unknown aggregate {s.op}")
+
+
+# -- sketch aggregates --------------------------------------------------
+
+
+def _hll_registers(c: Column, live, gid, ng: int) -> torch.Tensor:
+    """Per-group HyperLogLog registers ``[ng, m]`` by ONE segment max over
+    ``ng * m`` slots (the reference's sketches as a segment reduction).
+
+    A row's register is its hash mod m; its rank is one plus the leading
+    zeros of a second hash stream, ``32 - ceil(log2(h2 + 1))`` in the JAX
+    package: that ceiling is the bit length of h2, taken here exactly from
+    the float64 exponent (h2 < 2**32 is exact in a float64)."""
+    m = HLL_REGISTERS
+    h1 = hash_columns([c.data])
+    h2 = mix32(h1 ^ GOLDEN)                   # an independent second stream
+    reg = torch.remainder(h1, m)
+    bit_length = torch.frexp(h2.to(torch.float64))[1].to(torch.int64)
+    rho = (32 - bit_length + 1).clamp(1, 33)
+    gid = gid.to(torch.int64)
+    slot = torch.where(live, gid * m + reg, ng * m)
+    regs = seg_max(torch.where(live, rho, 0), slot, ng * m)
+    return regs.clamp(min=0).reshape(ng, m)
+
+
+def _hll_estimate(regs: torch.Tensor) -> torch.Tensor:
+    """[ng, m] registers -> cardinality estimates with the small-range
+    correction.  The sum of 2**-reg over the registers is exact in float64
+    in any order (at most 512 dyadic terms no finer than 2**-33), so the
+    card, the CPU and the JAX package agree exactly."""
+    m = float(HLL_REGISTERS)
+    alpha = 0.7213 / (1.0 + 1.079 / m)
+    z = torch.pow(2.0, -regs.to(torch.float64)).sum(dim=1)
+    e = alpha * m * m / z
+    zeros = (regs == 0).sum(dim=1).to(torch.float64)
+    small = m * torch.log(m / zeros.clamp(min=1.0))
+    est = torch.where((e <= 2.5 * m) & (zeros > 0), small, e)
+    return torch.round(est).to(torch.int64)
+
+
+def _segment_percentile(c: Column, gid_v, ng: int, p: float):
+    """Exact percentile per group: sort by (group, value), index into each
+    group's run with linear interpolation (PERCENTILE_CONT semantics).
+    ``gid_v == ng`` marks dead and NULL lanes, which sort past every group."""
+    x = c.data.to(torch.float64)
+    order = torch.argsort(x, stable=True)
+    order = order[torch.argsort(gid_v[order], stable=True)]
+    v = x[order]
+    counts = seg_sum(torch.ones_like(gid_v, dtype=torch.int64), gid_v, ng)
+    starts = torch.cumsum(counts, 0) - counts
+    tpos = starts.to(torch.float64) + p * (counts - 1).clamp(min=0).to(torch.float64)
+    lo = torch.floor(tpos)
+    hi = torch.ceil(tpos)
+    n = v.shape[0]
+    if n == 0:
+        return torch.zeros(ng, dtype=torch.float64, device=x.device), counts > 0
+    vlo = v[lo.to(torch.int64).clamp(0, n - 1)]
+    vhi = v[hi.to(torch.int64).clamp(0, n - 1)]
+    return vlo + (vhi - vlo) * (tpos - lo), counts > 0
 
 
 def _scalar_distinct(c: Column, live, s: AggSpec) -> Column:
@@ -292,8 +361,11 @@ def _segment_one(batch: ColumnBatch, s: AggSpec, gid, ng: int, sel) -> Column:
     gid_v = torch.where(live, gid, ng)
     if s.distinct:
         return _segment_distinct(c, gid_v, ng, s)
-    if s.op in ROW_AGGS:
-        raise _not_ported(s)
+    if s.op == "approx_count_distinct":
+        return Column(_hll_estimate(_hll_registers(c, live, gid_v, ng)), None, LType.INT64)
+    if s.op == "percentile":
+        v, ok = _segment_percentile(c, gid_v, ng, s.param)
+        return Column(v, ok, LType.FLOAT64)
 
     def live_count(dtype=torch.int32):
         return seg_sum(live.to(dtype), gid_v, ng)

@@ -1897,7 +1897,7 @@ class Planner:
     def _plan_windows(self, plan, named_items, order_items):
         """Extract WindowCalls -> WindowNode(s), one per (partition, order)
         signature; window inputs become hidden projected columns."""
-        raise NotPortedError("window functions (ops/window)")
+        from ..ops.window import WinSpec
 
         sch = plan.schema
         wins: list[WindowCall] = []
@@ -1976,7 +1976,7 @@ class Planner:
         return plan, named_items, order_items
 
     def _win_spec(self, w: WindowCall, out: str, as_col):
-        raise NotPortedError("window functions (ops/window)")
+        from ..ops.window import WinSpec
 
         op = w.op
         if op in ("row_number", "rank", "dense_rank"):

@@ -3,7 +3,7 @@
 The port of ``baikaldb_tpu/utils/datetime_kernels.py``: DATE is int32 epoch
 days, DATETIME int64 epoch microseconds, and every datetime scalar function
 is integer arithmetic (Howard Hinnant's public-domain days_from_civil /
-civil_from_days).  Only the parts the ported builtins reach are here.
+civil_from_days), with MySQL's week modes and calendar month shifts.
 """
 
 from __future__ import annotations
@@ -96,3 +96,33 @@ def last_day(days):
     ny = torch.where(m == 12, y + 1, y)
     nm = torch.where(m == 12, torch.ones_like(m), m + 1)
     return days_from_civil(ny, nm, torch.ones_like(ny)) - 1
+
+
+def week_mode0(days):
+    """MySQL WEEK(d) in mode 0 (python strftime %U): weeks start on Sunday,
+    00-53; week 1 begins on the year's first Sunday, earlier days are week
+    0."""
+    days = days.to(torch.int32)
+    doy = day_of_year(days)                             # 1-based
+    jan1 = days - (doy - 1)
+    s = torch.remainder(weekday(jan1) + 1, 7)           # Sunday = 0
+    first_sunday = 1 + torch.remainder(7 - s, 7)        # its day of the year
+    return _fdiv(doy + 7 - first_sunday, 7).to(torch.int32)
+
+
+def iso_week(days):
+    """ISO-8601 week number (MySQL WEEKOFYEAR, which is WEEK(d, 3))."""
+    days = days.to(torch.int32)
+    thu = days - weekday(days) + 3                      # this ISO week's Thursday
+    return (_fdiv(day_of_year(thu) - 1, 7) + 1).to(torch.int32)
+
+
+def shift_months(days, n):
+    """Calendar month shift with MySQL's day clamping (2024-01-31 plus one
+    month is 2024-02-29)."""
+    y, m, d = civil_from_days(days)
+    total = y * 12 + (m - 1) + n.to(torch.int32)
+    ny = _fdiv(total, 12)
+    nm = torch.remainder(total, 12) + 1
+    maxd = civil_from_days(last_day(days_from_civil(ny, nm, torch.ones_like(ny))))[2]
+    return days_from_civil(ny, nm, torch.minimum(d, maxd))

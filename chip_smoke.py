@@ -1,6 +1,6 @@
 """GPU smoke run of baikaldb_tpu_torch: build the kernels, hold each against
 its plain torch version, drive single-table SQL at real size, and run the 22
-TPC-H queries on the card.
+TPC-H queries and the analytic queries on the card.
 
     python3 chip_smoke.py [--rows N] [--seed S] [--tpch-scale S]
                           [--compare-with DIR]
@@ -46,6 +46,15 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    miss the kernels' gate, so 0 is expected and reported, not required).
    q1 and q6 are checked against numpy in float64 (rtol 1e-9), and every
    query must return finite values.
+5. Analytics (``baikaldb_tpu_torch/models/analytics.py``: window functions,
+   APPROX_COUNT_DISTINCT / MEDIAN / PERCENTILE and the extended builtins
+   over the TPC-H tables): (i) on the SF 0.05 tables of phase 4 (i), card
+   against CPU by the parity contract; (ii) on the ``--tpch-scale`` tables of
+   phase 4 (ii), in the same session, timed as the TPC-H queries are, with
+   the launches of K1-K3 over the phase (0: these queries do not reach the
+   group-by kernels) and its peak device memory; W-rank and the A-sketch
+   queries are held to numpy (``analytics.check_against_numpy``).  The
+   phase's seconds are printed on a line of their own.
 
 Each phase's seconds are printed on a line of their own, and in the JSON line
 of measurements (redirect standard output to keep it).  The last two
@@ -472,9 +481,10 @@ def launch_counts(gk) -> dict:
     return {k: c.value for k, c in gk.LAUNCHES.items()}
 
 
-def tpch_card_vs_cpu(gk) -> None:
+def tpch_card_vs_cpu(gk) -> tuple:
     """(i): all 22 queries on the card and on the CPU, equal by the parity
-    contract (rtol 1e-4 where a group-by kernel ran on the card)."""
+    contract (rtol 1e-4 where a group-by kernel ran on the card); -> the two
+    sessions, for the analytic phase."""
     from baikaldb_tpu_torch.exec.session import Session
     from baikaldb_tpu_torch.models import tpch
     from baikaldb_tpu_torch.models.parity import mismatch
@@ -494,6 +504,7 @@ def tpch_card_vs_cpu(gk) -> None:
             raise AssertionError(f"TPC-H {q} at SF {TPCH_CHECK_SCALE}: no rows")
     log(f"[tpch] SF {TPCH_CHECK_SCALE}: all {len(tpch.QUERIES)} queries and "
         f"{len(tpch.VARIANTS)} variant equal on the card and the CPU")
+    return gpu, cpu
 
 
 def _arrow_np(table, col):
@@ -561,7 +572,7 @@ def finite_rows(q: str, rows: list) -> None:
     for r in rows:
         for k, v in r.items():
             if isinstance(v, float) and not np.isfinite(v):
-                raise AssertionError(f"TPC-H {q}: {k} = {v}")
+                raise AssertionError(f"{q}: {k} = {v}")
 
 
 def span_ms(s, sql: str) -> dict:
@@ -585,7 +596,7 @@ def span_ms(s, sql: str) -> dict:
     return out
 
 
-def tpch_on_the_card(gk, scale: float, seed: int) -> dict:
+def tpch_on_the_card(gk, scale: float, seed: int) -> tuple:
     """(ii): the 22 queries at ``scale`` on the card, timed."""
     from baikaldb_tpu_torch.exec.session import Session
     from baikaldb_tpu_torch.models import tpch
@@ -601,19 +612,37 @@ def tpch_on_the_card(gk, scale: float, seed: int) -> dict:
         store.device_table_batch()
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
+    load_peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[tpch] SF {scale}: generated in {gen_s:.2f} s, loaded and staged on the card "
         f"in {load_s:.2f} s ({tables['lineitem'].num_rows} lineitem rows)")
 
     # the TPC-H path: counters at 0 just before, read just after
     for c in gk.LAUNCHES.values():
         c.reset()
+    per_query, first = time_queries(gk, s, tpch.QUERIES, "tpch")
+    check_q1_q6(first["q1"], first["q6"], tables["lineitem"])
+    log(f"[tpch] SF {scale}: q1 and q6 match numpy")
+    return {"scale": scale, "seed": seed, "gen_s": gen_s, "load_s": load_s,
+            "peak_mem_gib": max([load_peak] + [v["peak_mem_gib"] for v in per_query.values()]),
+            "queries": per_query}, s, tables
+
+
+def time_queries(gk, s, queries: dict, tag: str) -> tuple[dict, dict]:
+    """Each query on the card: one warm-up run (its rows are kept and must
+    be finite), the wall time of ``TPCH_REPS`` warm runs (median and 67th
+    percentile), the device time, idle share and top kernels of one
+    profiled run, the session spans of one traced run, and the peak device
+    memory and K1-K3 launches of the warm-up run.  -> (stats per query, rows
+    per query)."""
     per_query, first = {}, {}
-    for q, sql in tpch.QUERIES.items():
+    for q, sql in queries.items():
         before = launch_counts(gk)
+        torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         first[q] = s.query(sql)         # the warm-up run (plans, collects statistics)
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t) * 1e3
+        peak_gib = torch.cuda.max_memory_allocated() / 2**30
         launched = {k: v - before[k] for k, v in launch_counts(gk).items()}
         finite_rows(q, first[q])
         walls = []
@@ -626,19 +655,54 @@ def tpch_on_the_card(gk, scale: float, seed: int) -> dict:
         med = statistics.median(walls)
         per_query[q] = {"rows": len(first[q]), "first_ms": first_ms, "warm_ms_p50": med,
                         "warm_ms_p67": float(np.percentile(walls, 67)),
-                        "kernel_launches": launched,
+                        "peak_mem_gib": peak_gib, "kernel_launches": launched,
                         **device_breakdown(lambda: s.query(sql), med),
                         "spans_ms": span_ms(s, sql)}
-        log(f"[tpch] {q}: {len(first[q])} rows, first run {first_ms:.1f} ms, warm p50 "
+        log(f"[{tag}] {q}: {len(first[q])} rows, first run {first_ms:.1f} ms, warm p50 "
             f"{med:.2f} ms p67 {per_query[q]['warm_ms_p67']:.2f} ms, device "
             f"{per_query[q]['device_ms']:.2f} ms, idle {per_query[q]['idle_share']:.3f}, "
-            f"K1-K3 launches {launched}, spans "
+            f"peak {peak_gib:.3f} GiB, K1-K3 launches {launched}, "
+            f"top {per_query[q]['top_kernels']}, spans "
             + " ".join(f"{k} {v:.2f}" for k, v in per_query[q]["spans_ms"].items()))
-    check_q1_q6(first["q1"], first["q6"], tables["lineitem"])
-    log(f"[tpch] SF {scale}: q1 and q6 match numpy")
-    return {"scale": scale, "seed": seed, "gen_s": gen_s, "load_s": load_s,
-            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-            "queries": per_query}
+    return per_query, first
+
+
+# ----------------------------------------------------------------------
+# phase 5: analytics (windows, sketches, builtins)
+
+
+def analytic_phase(gk, check: tuple, s, tables: dict, scale: float) -> dict:
+    """(i) the analytic set on the card against the CPU on phase 4 (i)'s
+    tables; (ii) timed in phase 4 (ii)'s session over its tables, with the
+    K1-K3 launches over the run (counters at 0 just before, read just
+    after), peak device memory, and the numpy checks."""
+    from baikaldb_tpu_torch.models import analytics
+    from baikaldb_tpu_torch.models.parity import mismatch
+
+    gpu, cpu = check
+    for q, sql in analytics.QUERIES.items():
+        got = gpu.query(sql)
+        diff = mismatch(got, cpu.query(sql), sql)
+        if diff is not None:
+            raise AssertionError(f"analytic {q} at SF {TPCH_CHECK_SCALE}: the card differs "
+                                 f"from the CPU: {diff}")
+        if not got:
+            raise AssertionError(f"analytic {q} at SF {TPCH_CHECK_SCALE}: no rows")
+    log(f"[analytics] SF {TPCH_CHECK_SCALE}: all {len(analytics.QUERIES)} queries equal on "
+        "the card and the CPU")
+
+    torch.cuda.empty_cache()
+    for c in gk.LAUNCHES.values():
+        c.reset()
+    per_query, first = time_queries(gk, s, analytics.QUERIES, "analytics")
+    launches = launch_counts(gk)
+    hll_err = analytics.check_against_numpy(first, tables["lineitem"])
+    log(f"[analytics] SF {scale}: w_rank and the sketches match numpy (APPROX_COUNT_DISTINCT "
+        f"relative errors {hll_err}); K1-K3 launches {launches}")
+    return {"scale": scale, "kernel_launches": launches, "hll_rel_err": hll_err,
+            "peak_mem_gib": max(v["peak_mem_gib"] for v in per_query.values()),
+            "queries": per_query,
+            "results": {q: first[q] for q in ("w_rank", "a_sketch_all")}}
 
 
 def main() -> int:
@@ -673,11 +737,15 @@ def main() -> int:
         raise AssertionError(f"kernels not launched on the main path: {missing}")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    tpch_card_vs_cpu(gk)
+    check = tpch_card_vs_cpu(gk)
     phase_s["tpch_card_vs_cpu"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    tpch_stats = tpch_on_the_card(gk, args.tpch_scale, args.seed)
+    tpch_stats, s, tables = tpch_on_the_card(gk, args.tpch_scale, args.seed)
     phase_s["tpch_timed"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    analytic_stats = analytic_phase(gk, check, s, tables, args.tpch_scale)
+    phase_s["analytics"] = time.perf_counter() - t0
+    print(f"analytic phase seconds: {phase_s['analytics']:.1f}", flush=True)
     print("phase seconds: " + json.dumps(phase_s), flush=True)
 
     kernels = [{"name": k, "route": "cuda",
@@ -685,7 +753,8 @@ def main() -> int:
                 "replaces": REPLACES[k], "launches": launches[k], **times[k]}
                for k in REPLACES]
     print(json.dumps({"card": name_power, "rows": args.rows, "phase_s": phase_s,
-                      "sql": sql_stats, "tpch": tpch_stats}), flush=True)
+                      "sql": sql_stats, "tpch": tpch_stats, "analytics": analytic_stats}),
+          flush=True)
     print(name_power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,285 @@
+"""The extended builtin library of the port against the JAX package.
+
+Every function of ``expr/builtins_ext.py`` and ``expr/builtins_ext2.py``
+(and HASH) runs at least once through both ``Session``s, each through the
+SQL spelling that plans to it, over one seeded table with NULLs in every
+column; the expected value is the JAX session's answer.  The parity
+contract:
+
+- integer, string and temporal builtins are exact, NULLs included;
+- floating builtins (trigonometry, LOG, ...) match to rtol 1e-12;
+- NOW / CURDATE / UTC_DATE / UTC_TIMESTAMP lie between wall-clock readings
+  taken before and after the query, in both packages;
+- CONNECTION_ID is each session's own id, in both packages.
+
+Constant expressions of ``tests/test_builtins_matrix.py`` (SELECT without
+FROM) and the window statements that must fail
+(``tests/test_sql.py:test_window_frame_parse_errors``,
+``test_window_arity_errors``) run here too.
+"""
+
+import datetime
+import math
+
+import numpy as np
+import pyarrow as pa
+import pytest
+
+from baikaldb_tpu.exec.session import Session as JSession
+from baikaldb_tpu_torch.exec.session import Session as TSession
+from baikaldb_tpu_torch.expr.ast import Call, Expr
+from baikaldb_tpu_torch.sql.parser import parse_sql
+
+N = 60
+
+# the functions of this slice, by the names they register under
+PORTED = set("""
+__collate_ci acos ascii asin atan atan2 bit_and bit_count bit_length bit_not bit_or
+bit_xor concat_ws connection_id convert_tz cosh cot crc32 curdate date_add_months
+date_add_us date_sub_months dayname degrees elt export_set field find_in_set
+from_base64 hash hex_str inet_aton insert instr json_extract json_type json_unquote
+json_valid left left_shift locate log lpad make_set makedate md5 microsecond
+monthname now ord period_add period_diff pi quote radians regexp_like
+regexp_replace repeat replace right right_shift rpad sha sha1 sha2 sinh soundex
+soundex_lite space split_part str_to_date strcmp substring_index tanh time_to_sec
+timestampdiff timestampdiff_seconds to_base64 to_seconds unhex utc_date
+utc_timestamp version week weekofyear yearweek
+""".split())
+
+
+def _table() -> pa.Table:
+    rng = np.random.default_rng(3)
+
+    def nulls(vals, p=0.2):
+        m = rng.random(len(vals)) < p
+        return [None if k else v for v, k in zip(vals, m)]
+
+    def pick(choices):
+        return [choices[i] for i in rng.integers(0, len(choices), N)]
+
+    words = ["alpha", "Beta", "gamma,delta", "a.b.c", "x", "", "Hello World", "robert",
+             "ab12", "ZZ top", "O'Brien\\x"]
+    day0, ts0 = datetime.date(2023, 12, 20), datetime.datetime(2024, 1, 1)
+    return pa.table({
+        "id": pa.array(np.arange(N), pa.int64()),
+        "s": pa.array(nulls(pick(words)), pa.string()),
+        "n": pa.array(nulls([int(v) for v in rng.integers(-50, 50, N)]), pa.int64()),
+        "x": pa.array(nulls([float(v) for v in rng.uniform(-0.99, 0.99, N)]), pa.float64()),
+        "d": pa.array(nulls([day0 + datetime.timedelta(days=int(v))
+                             for v in rng.integers(0, 800, N)]), pa.date32()),
+        "ts": pa.array(nulls([ts0 + datetime.timedelta(microseconds=int(v))
+                              for v in rng.integers(0, 86400 * 400 * 10**6, N)]),
+                       pa.timestamp("us")),
+        "j": pa.array(nulls(pick(['{"a": {"b": 7}}', '[1, 2, 3]', '"hi"', 'junk',
+                                  '{"a": [4, 5]}', 'null', '3.5', 'true'])), pa.string()),
+        "ip": pa.array(nulls(pick(["10.0.0.1", "192.168.1.255", "bad", "1.2.3",
+                                   "300.1.1.1"])), pa.string()),
+        "per": pa.array(nulls([int(v) for v in rng.choice([202401, 202311, 9912, 1801,
+                                                           202406, 7001], N)]), pa.int64()),
+        "b": pa.array(nulls([int(v) for v in rng.integers(0, 1 << 12, N)]), pa.int64()),
+        "hx": pa.array(nulls(pick(["4D7953514C", "abc", "", "6869", "zz", "C3A9"])),
+                       pa.string()),
+        "ds": pa.array(nulls(pick(["2024-03-05", "1999-12-31", "05/06/2023", "junk",
+                                   "2024-02-30", "2001-07-04 10:11:12"])), pa.string()),
+    })
+
+
+DDL = ("CREATE TABLE bt (id BIGINT, s VARCHAR(32), n BIGINT, x DOUBLE, d DATE, "
+       "ts DATETIME, j VARCHAR(32), ip VARCHAR(16), per BIGINT, b BIGINT, hx VARCHAR(16), "
+       "ds VARCHAR(24))")
+
+EXPRS = [
+    # math
+    "ASIN(x)", "ACOS(x)", "ATAN(x)", "ATAN2(x, n)", "COT(x)", "DEGREES(x)", "RADIANS(x)",
+    "SINH(x)", "COSH(x)", "TANH(x)", "PI() * n", "LOG(x)", "LOG(2, b)", "LOG(x, 8)",
+    "BIT_COUNT(n)", "BIT_COUNT(b)",
+    # bits
+    "BIT_AND(n, b)", "BIT_OR(n, b)", "BIT_XOR(n, b)", "BIT_NOT(n)", "LEFT_SHIFT(b, 3)",
+    "LEFT_SHIFT(b, 70)", "RIGHT_SHIFT(n, 2)", "RIGHT_SHIFT(n, 65)", "LEFT_SHIFT(n, -1)",
+    "HASH(n)", "HASH(s, x)", "HASH(d, ts, n)", "HASH(x)",
+    # string -> string
+    "SOUNDEX_LITE(s)", "MD5(s)", "SHA1(s)", "SHA(s)", "SHA2(s, 256)", "HEX(s)",
+    "TO_BASE64(s)", "FROM_BASE64(TO_BASE64(s))", "FROM_BASE64(s)", "UNHEX(hx)",
+    "QUOTE(s)", "SOUNDEX(s)", "LEFT(s, 3)", "LEFT(s, -1)", "RIGHT(s, 2)", "REPEAT(s, 2)",
+    "LPAD(s, 8, '*-')", "LPAD(s, 3, '')", "RPAD(s, 7, '.')", "REPLACE(s, 'a', 'AA')",
+    "SUBSTRING_INDEX(s, '.', 2)", "SUBSTRING_INDEX(s, '.', -1)",
+    "CONCAT_WS('-', 'p', s, 'q')", "CONCAT_WS(',', s)", "SPLIT_PART(s, ',', 2)",
+    "INSERT(s, 2, 3, 'XY')", "REGEXP_REPLACE(s, '[aeiou]', '_')", "CONCAT(s, SPACE(2))",
+    "UPPER(s) COLLATE utf8mb4_general_ci = 'beta'",
+    "CASE WHEN s COLLATE utf8mb4_general_ci < 'GAMMA' THEN 1 ELSE 0 END",
+    # string -> scalar
+    "ASCII(s)", "ORD(s)", "CRC32(s)", "INSTR(s, 'a')", "LOCATE('a', s)",
+    "LOCATE('a', s, 3)", "FIND_IN_SET(s, 'x,alpha,robert')", "FIELD(s, 'x', 'Beta', 'robert')",
+    "STRCMP(s, 'gamma')", "STRCMP('gamma', s)", "STRCMP(s, j)", "s REGEXP '^[a-z]+$'",
+    "REGEXP_LIKE(s, 'a.?b')", "INET_ATON(ip)", "BIT_LENGTH(s)",
+    "JSON_VALID(j)", "JSON_TYPE(j)", "JSON_EXTRACT(j, '$.a.b')", "JSON_EXTRACT(j, '$[1]')",
+    "JSON_UNQUOTE(j)",
+    # temporal
+    "DAYNAME(d)", "MONTHNAME(ts)", "WEEK(d)", "WEEK(ts)", "YEARWEEK(d)", "WEEKOFYEAR(ts)",
+    "WEEKOFYEAR(d)", "MAKEDATE(2024, b % 300 + 1)", "MAKEDATE(n + 2000, 60)",
+    "TIME_TO_SEC(ts)", "MICROSECOND(ts)", "TO_SECONDS(d)", "TO_SECONDS(ts)",
+    "DATE_ADD(d, INTERVAL n MONTH)", "DATE_SUB(ts, INTERVAL 5 MONTH)",
+    "DATE_ADD(d, INTERVAL 90 MINUTE)", "DATE_ADD(ts, INTERVAL 2 QUARTER)",
+    "DATE_ADD(d, INTERVAL 1 YEAR)", "DATE_SUB(d, INTERVAL 7 SECOND)",
+    "TIMESTAMPDIFF(SECOND, ts, d)", "TIMESTAMPDIFF_SECONDS(ts, d)",
+    "TIMESTAMPDIFF(MONTH, d, ts)", "TIMESTAMPDIFF(QUARTER, ts, d)",
+    "TIMESTAMPDIFF(YEAR, d, '2030-01-01')", "TIMESTAMPDIFF(DAY, ts, '2024-06-01 12:00:00')",
+    "TIMESTAMPDIFF(WEEK, d, ts)", "TIMESTAMPDIFF(HOUR, ts, d)",
+    "STR_TO_DATE(ds, '%Y-%m-%d')", "STR_TO_DATE(ds, '%m/%d/%Y')",
+    "STR_TO_DATE(ds, '%Y-%m-%d %H:%i:%s')", "PERIOD_ADD(per, n)", "PERIOD_DIFF(per, 202001)",
+    "CONVERT_TZ(ts, '+00:00', '+05:30')", "CONVERT_TZ(d, '-02:00', '+01:00')",
+    # sets and choices
+    "ELT(b % 4, 'one', 'two', 'three')", "MAKE_SET(b, 'a', 'b', 'c', 'd')",
+    "EXPORT_SET(b, 'Y', 'N', ',', 6)", "EXPORT_SET(n, '1', '0', '', 4)",
+    # session values
+    "VERSION()",
+]
+
+
+@pytest.fixture(scope="module")
+def sessions():
+    data = _table()
+    out = []
+    for s in (JSession(), TSession(device="cpu")):
+        s.execute(DDL)
+        s.load_arrow("bt", data)
+        out.append(s)
+    return out
+
+
+def _same(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        if isinstance(w, float) and isinstance(g, float):
+            assert (math.isnan(g) and math.isnan(w)) or \
+                math.isclose(g, w, rel_tol=1e-12, abs_tol=0.0), (g, w)
+        else:
+            assert g == w and type(g) is type(w), (g, w)
+
+
+@pytest.mark.parametrize("expr", EXPRS)
+def test_builtin_matches_jax(sessions, expr):
+    jsess, tsess = sessions
+    sql = f"SELECT id, {expr} AS v FROM bt ORDER BY id"
+    got, want = tsess.query(sql), jsess.query(sql)
+    assert [r["id"] for r in got] == [r["id"] for r in want]
+    _same([r["v"] for r in got], [r["v"] for r in want])
+
+
+@pytest.mark.parametrize("sql", [
+    "SELECT DAYNAME(d) AS dn, COUNT(*) AS c, SUM(WEEK(d)) AS w FROM bt "
+    "GROUP BY DAYNAME(d) ORDER BY dn",
+    "SELECT SUBSTRING_INDEX(s, '.', 1) AS k, COUNT(*) AS c, SUM(CRC32(s)) AS h FROM bt "
+    "GROUP BY SUBSTRING_INDEX(s, '.', 1) ORDER BY k",
+    "SELECT id FROM bt WHERE REGEXP_LIKE(s, '^[a-z]') AND BIT_AND(b, 1) = 1 ORDER BY id",
+    "SELECT MD5(s) AS m, COUNT(*) AS c FROM bt WHERE s IS NOT NULL GROUP BY MD5(s) "
+    "ORDER BY m",
+], ids=["group_by_dayname", "group_by_substring_index", "where_regexp_bits",
+        "group_by_md5"])
+def test_builtins_in_group_by_and_where(sessions, sql):
+    jsess, tsess = sessions
+    assert tsess.query(sql) == jsess.query(sql)
+
+
+CONSTANTS = [
+    "SUBSTRING_INDEX('www.mysql.com', '.', -2)", "UNHEX('4D7953514C')", "HEX('abc')",
+    "TIMESTAMPDIFF(MONTH, '2024-01-15', '2024-03-14')",
+    "TIMESTAMPDIFF(YEAR, '2020-06-01', '2024-05-31')",
+    "TIMESTAMPDIFF(WEEK, '2024-01-01', '2024-01-20')", "SPLIT_PART('a,b,c', ',', 9)",
+    "SOUNDEX('Rupert')", "SHA('abc')", "REGEXP_REPLACE('a b  c', ' +', '_')",
+    "PERIOD_ADD(202411, 3)", "PERIOD_DIFF(202401, 202311)", "MICROSECOND('2024-01-01')",
+    "MAKE_SET(5, 'a', 'b', 'c')", "JSON_TYPE('[1,2]')", "INSERT('Quadratic', 3, 4, 'What')",
+    "EXPORT_SET(5, 'Y', 'N', ',', 4)", "ELT(2, 'ein', 'zwei', 'drei')",
+    "DATE_SUB('2024-03-31', INTERVAL 1 MONTH)", "DATE_ADD('2024-01-31', INTERVAL 1 MONTH)",
+    "DATE_ADD('2024-02-29', INTERVAL 1 YEAR)", "BIT_COUNT(29)", "BIT_NOT(0)",
+    "LEFT_SHIFT(1, 10)", "BIT_LENGTH('abc')", "WEEK('2008-12-31')",
+    "WEEKOFYEAR('2023-01-01')", "YEARWEEK('2008-02-20')", "STR_TO_DATE('2024-02-29', '%Y-%m-%d')",
+    "CRC32('MySQL')", "STRCMP('a', 'b')", "LOG(2, 1024)", "PI()",
+]
+
+
+@pytest.mark.parametrize("expr", CONSTANTS)
+def test_constant_builtin_matches_jax(sessions, expr):
+    jsess, tsess = sessions
+    sql = f"SELECT {expr} AS v"
+    assert tsess.query(sql) == jsess.query(sql)
+
+
+WALL_CLOCK = {
+    "NOW()": lambda: datetime.datetime.now(),
+    "UTC_TIMESTAMP()": lambda: datetime.datetime.now(datetime.timezone.utc)
+    .replace(tzinfo=None),
+    "CURDATE()": lambda: datetime.date.today(),
+    "UTC_DATE()": lambda: datetime.datetime.now(datetime.timezone.utc).date(),
+}
+
+
+@pytest.mark.parametrize("package", ["jax", "port"])
+@pytest.mark.parametrize("expr", list(WALL_CLOCK))
+def test_wall_clock_builtins(sessions, expr, package):
+    sess = sessions[package == "port"]
+    clock = WALL_CLOCK[expr]
+    before = clock()
+    rows = sess.query(f"SELECT id, {expr} AS v, {expr} >= d AS later FROM bt ORDER BY id")
+    after = clock()
+    assert len(rows) == N
+    assert all(before <= r["v"] <= after for r in rows), (before, rows[0]["v"], after)
+
+
+def test_connection_id_is_the_sessions_own(sessions):
+    for sess in sessions:
+        rows = sess.query("SELECT id, CONNECTION_ID() AS c FROM bt ORDER BY id")
+        assert {r["c"] for r in rows} == {sess.connection_id()}
+    a, b = TSession(device="cpu"), TSession(device="cpu")
+    assert a.query("SELECT CONNECTION_ID() AS c") == [{"c": a.connection_id()}]
+    assert a.connection_id() != b.connection_id()
+
+
+def test_match_against_is_not_ported():
+    from baikaldb_tpu_torch.errors import NotPortedError
+
+    s = TSession(device="cpu")
+    s.execute("CREATE TABLE ft (id BIGINT, body VARCHAR(64))")
+    s.execute("INSERT INTO ft VALUES (1, 'quick brown fox')")
+    with pytest.raises(NotPortedError):
+        s.query("SELECT id FROM ft WHERE MATCH(body) AGAINST('fox')")
+
+
+def _ops(e) -> set:
+    out = set()
+    if isinstance(e, Call):
+        out.add(e.op)
+    if isinstance(e, Expr):
+        for c in e.children():
+            out |= _ops(c)
+    return out
+
+
+def test_every_ported_function_is_reached():
+    """The statements above plan to every function of the slice."""
+    seen = set()
+    for expr in EXPRS + CONSTANTS + list(WALL_CLOCK) + ["CONNECTION_ID()"]:
+        seen |= _ops(parse_sql(f"SELECT {expr} AS v FROM bt")[0].items[0].expr)
+    assert PORTED - seen == set()
+
+
+BAD_WINDOWS = [
+    "SELECT SUM(v) OVER (ORDER BY id ROWS BETWEEN CURRENT ROW AND 1 PRECEDING) FROM we",
+    "SELECT SUM(v) OVER (ORDER BY id ROWS BETWEEN 1.5 PRECEDING AND CURRENT ROW) FROM we",
+    "SELECT SUM(v) OVER (RANGE BETWEEN 1 PRECEDING AND CURRENT ROW) FROM we",
+    "SELECT FIRST_VALUE() OVER () FROM we",
+]
+
+
+@pytest.mark.parametrize("sql", BAD_WINDOWS,
+                         ids=["current_to_preceding", "fractional_rows", "range_unordered",
+                              "first_value_arity"])
+def test_bad_window_raises_in_both(sql):
+    errors = []
+    for s in (JSession(), TSession(device="cpu")):
+        s.execute("CREATE TABLE we (id BIGINT, v DOUBLE)")
+        s.execute("INSERT INTO we VALUES (1, 1)")
+        with pytest.raises(Exception) as info:
+            s.query(sql)
+        errors.append(type(info.value).__name__)
+    assert errors[0] == errors[1]

@@ -7,15 +7,17 @@ so it runs where only torch is installed:
 
 Tolerances: counts and min/max exact (NaN equal to NaN: a group holding a
 NaN gives NaN); sums to rtol=atol=1e-5 (both sides accumulate in float64 in
-different orders, then round to float32).  The joins (ops/join.py) and
-TPC-H queries run on the card and on the CPU and must agree: join rows
-exactly, query rows by the parity contract of models/parity.py.
+different orders, then round to float32).  The joins (ops/join.py), the
+TPC-H and analytic queries, window functions, sketches and builtins run on
+the card and on the CPU and must agree: join rows exactly, query rows by the
+parity contract of models/parity.py, the rest as stated where they start.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from baikaldb_tpu_torch.models import analytics
 from baikaldb_tpu_torch.ops import group_kernels as gk
 
 CASES = [  # (n, num_groups, live fraction, seed)
@@ -225,3 +227,189 @@ def test_tpch_on_the_card_matches_the_cpu(tpch_pair, name):
     assert diff is None, diff
     if name in tpch.VARIANTS:
         assert got, f"{name} returned no rows"   # the variant exists to have rows
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(analytics.QUERIES))
+def test_analytic_query_on_the_card_matches_the_cpu(tpch_pair, name):
+    from baikaldb_tpu_torch.models.parity import mismatch
+
+    gpu, cpu = tpch_pair
+    sql = analytics.QUERIES[name]
+    before = sum(c.value for c in gk.LAUNCHES.values())
+    got = gpu.query(sql)
+    assert sum(c.value for c in gk.LAUNCHES.values()) == before   # no group-by kernel
+    diff = mismatch(got, cpu.query(sql), sql)
+    assert diff is None, diff
+
+
+# -- windows, sketches and builtins on the card against the CPU ---------------
+# Window SUM/AVG: |card - CPU| <= 1e-9 * sum(|x|) over the input column (one
+# prefix sum over the whole column); percentiles and floating builtins to
+# rtol 1e-12; everything else exact, NaN equal to NaN.
+
+WIN_N = 300_000
+
+
+def _window_table():
+    """One partition of 200k rows (far more than one CUDA block's worth),
+    then 100k rows in small partitions; NaN in 1% of ``w``, NULLs in ``v``,
+    ``o`` and ``s``."""
+    import pyarrow as pa
+
+    rng = np.random.default_rng(31)
+    p = np.concatenate([np.zeros(200_000, np.int64),
+                        rng.integers(1, 5000, WIN_N - 200_000)])
+    w = rng.standard_normal(WIN_N) * 10
+    w[rng.random(WIN_N) < 0.01] = np.nan
+    v = rng.standard_normal(WIN_N) * 100
+    o = rng.integers(0, 50_000, WIN_N)
+    words = np.asarray([f"s{k:03d}" for k in range(500)])
+    return pa.table({
+        "k": np.arange(WIN_N, dtype=np.int64), "p": p,
+        "o": pa.array(o, mask=rng.random(WIN_N) < 0.05),
+        "v": pa.array(v, mask=rng.random(WIN_N) < 0.1), "w": w,
+        "s": pa.array(words[rng.integers(0, 500, WIN_N)], mask=rng.random(WIN_N) < 0.1),
+    })
+
+
+def _spec(op, inp=None, **kw):
+    from baikaldb_tpu_torch.ops.window import WinSpec
+
+    return WinSpec(op, inp, "", **kw)
+
+
+WINDOW_CASES = {
+    "ranking": ([("o", True), ("k", True)],
+                lambda: [_spec("row_number"), _spec("rank"), _spec("dense_rank"),
+                         _spec("ntile", n=7)]),
+    "running_nan": ([("k", True)],
+                    lambda: [_spec("min", "w", running=True), _spec("max", "w", running=True),
+                             _spec("sum", "v", running=True), _spec("avg", "v", running=True),
+                             _spec("count", "v", running=True)]),
+    "framed_min_max_nan": ([("k", True)],
+                           lambda: [_spec("min", "w", frame=("rows", ("p", 50), ("f", 7))),
+                                    _spec("max", "w", frame=("rows", ("p", 3), ("f", 900))),
+                                    _spec("max", "w", frame=("rows", ("c",), ("uf",))),
+                                    _spec("sum", "v", frame=("rows", ("p", 2), ("c",)))]),
+    "range_frames": ([("o", False)],
+                     lambda: [_spec("sum", "v", frame=("range", ("p", 30), ("f", 10))),
+                              _spec("min", "w", frame=("range", ("p", 5), ("c",))),
+                              _spec("count", None, frame=("range", ("c",), ("f", 100))),
+                              _spec("last_value", "s", frame=("range", ("up",), ("p", 2)))]),
+    "lead_lag_values": ([("o", True), ("k", True)],
+                        lambda: [_spec("lag", "s", offset=1, default="none"),
+                                 _spec("lead", "v", offset=3),
+                                 _spec("first_value", "w"), _spec("last_value", "s"),
+                                 _spec("max", "v"), _spec("min", "s")]),
+}
+
+
+def _close_rows(got, want, sum_abs):
+    assert len(got) == len(want)
+    for key in want[0]:
+        g = np.asarray([r[key] for r in got], dtype=object)
+        w = np.asarray([r[key] for r in want], dtype=object)
+        if key.startswith(("sum_", "avg_")):
+            gn = np.asarray([np.nan if x is None else x for x in g], float)
+            wn = np.asarray([np.nan if x is None else x for x in w], float)
+            assert np.array_equal(np.isnan(gn), np.isnan(wn)), key
+            ok = ~np.isnan(wn)
+            assert np.all(np.abs(gn[ok] - wn[ok]) <= 1e-9 * sum_abs), key
+        else:
+            same = [(a == b) or (isinstance(a, float) and isinstance(b, float)
+                                 and np.isnan(a) and np.isnan(b)) for a, b in zip(g, w)]
+            assert all(same), (key, [(a, b) for a, b, s in zip(g, w, same) if not s][:5])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(WINDOW_CASES))
+def test_window_on_the_card_matches_the_cpu(cuda, name):
+    from baikaldb_tpu_torch.column.batch import ColumnBatch
+    from baikaldb_tpu_torch.ops.sort import SortKey
+    from baikaldb_tpu_torch.ops.window import window_compute
+
+    from dataclasses import replace
+
+    table = _window_table()
+    order, make = WINDOW_CASES[name]
+    specs = [replace(s, out_name=f"{s.op}_{s.input}_{i}") for i, s in enumerate(make())]
+    keys = [SortKey(n, a) for n, a in order]
+    out = [window_compute(ColumnBatch.from_arrow(table, dev), ["p"], keys, specs)
+           for dev in (cuda, "cpu")]
+    assert out[0].column(out[0].names[-1]).data.device.type == torch.device(cuda).type
+    sum_abs = float(np.nansum(np.abs(table.column("v").to_numpy(zero_copy_only=False)
+                                     .astype(float))))
+    _close_rows(out[0].to_pylist(), out[1].to_pylist(), sum_abs)
+
+
+@pytest.mark.cuda
+def test_sketches_on_the_card_match_the_cpu(cuda):
+    from baikaldb_tpu_torch.column.batch import Column
+    from baikaldb_tpu_torch.ops import hashagg
+    from baikaldb_tpu_torch.types import LType
+    from baikaldb_tpu_torch.utils.hashing import hash_columns
+
+    rng = np.random.default_rng(41)
+    n, ng = 1_000_003, 37
+    cols = {"i64": (rng.integers(-2**62, 2**62, n), LType.INT64),
+            "f64": (np.where(rng.random(n) < 0.01, np.nan, rng.standard_normal(n)),
+                    LType.FLOAT64),
+            "f32": (rng.standard_normal(n).astype(np.float32), LType.FLOAT32)}
+    cols["f64"][0][:4] = [0.0, -0.0, np.inf, 5e-324]
+    gid = rng.integers(0, ng, n)
+    live = rng.random(n) < 0.9
+    for name, (x, lt) in cols.items():
+        res = []
+        for dev in (cuda, "cpu"):
+            c = Column(torch.from_numpy(x).to(dev), None, lt)
+            g = torch.from_numpy(gid).to(dev)
+            m = torch.from_numpy(live).to(dev)
+            regs = hashagg._hll_registers(c, m, g, ng)
+            pct = hashagg._segment_percentile(c, torch.where(m, g, ng), ng, 0.37)
+            res.append([t.cpu() for t in (hash_columns([c.data]), regs,
+                                          hashagg._hll_estimate(regs), pct[1], pct[0])])
+        for k in range(4):
+            assert torch.equal(res[0][k], res[1][k]), (name, k)
+        torch.testing.assert_close(res[0][4], res[1][4], rtol=1e-12, atol=0, equal_nan=True)
+
+
+@pytest.mark.cuda
+def test_builtins_on_the_card_match_the_cpu(cuda):
+    import datetime
+
+    import pyarrow as pa
+
+    from baikaldb_tpu_torch.exec.session import Session
+
+    rng = np.random.default_rng(43)
+    n = 50_000
+    words = np.asarray(["alpha", "Beta", "a.b.c", "", "Hello World", "x,y,z", "robert"])
+    data = pa.table({
+        "id": np.arange(n), "x": pa.array(rng.uniform(-1, 1, n), mask=rng.random(n) < 0.1),
+        "b": rng.integers(0, 1 << 20, n),
+        "s": pa.array(words[rng.integers(0, len(words), n)], mask=rng.random(n) < 0.1),
+        "d": pa.array([datetime.date(1990, 1, 1) + datetime.timedelta(days=int(v))
+                       for v in rng.integers(0, 15_000, n)], pa.date32()),
+    })
+    exprs = ["SIN(x) + ACOS(x) + ATAN2(x, 0.5) + COT(x + 2) + SINH(x) + LOG(2, b + 1)",
+             "HASH(b, x)", "HASH(s)", "BIT_COUNT(b) + BIT_XOR(b, 77) + RIGHT_SHIFT(b, 70)",
+             "CRC32(MD5(s))", "LPAD(SUBSTRING_INDEX(s, '.', 1), 9, '*')",
+             "LOCATE('o', s, 2)", "REGEXP_LIKE(s, '^[a-z]+$')",
+             "CONCAT_WS('-', 'a', s)", "DAYNAME(d)", "WEEK(d) + YEARWEEK(d) + WEEKOFYEAR(d)",
+             "TIMESTAMPDIFF(MONTH, d, DATE_ADD(d, INTERVAL b % 40 MONTH))",
+             "DATE_SUB(d, INTERVAL 7 MONTH)"]
+    sessions = []
+    for dev in (cuda, "cpu"):
+        s = Session(device=dev)
+        s.execute("CREATE TABLE bt (id BIGINT, x DOUBLE, b BIGINT, s VARCHAR(16), d DATE)")
+        s.load_arrow("bt", data)
+        sessions.append(s)
+    for e in exprs:
+        sql = f"SELECT id, {e} AS v FROM bt ORDER BY id"
+        got, want = (s.query(sql) for s in sessions)
+        for rg, rw in zip(got, want):
+            if isinstance(rw["v"], float):
+                assert rg["v"] == pytest.approx(rw["v"], rel=1e-12), e
+            else:
+                assert rg == rw, e

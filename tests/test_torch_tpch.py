@@ -25,7 +25,7 @@ import pytest
 from baikaldb_tpu.exec.session import Session as JSession
 from baikaldb_tpu.models import tpch as jtpch
 from baikaldb_tpu_torch.exec.session import Session as TSession
-from baikaldb_tpu_torch.models import tpch
+from baikaldb_tpu_torch.models import analytics, tpch
 from baikaldb_tpu_torch.models.parity import mismatch
 from baikaldb_tpu_torch.ops import group_kernels as gk
 from baikaldb_tpu_torch.sql.parser import parse_sql
@@ -94,6 +94,39 @@ def test_tpch_plan_matches_jax(tpch_sessions, name):
     jsess, tsess = tpch_sessions
     sql = ALL[name]
     assert _plan_text(tsess, sql) == _plan_text(jsess, sql)
+
+
+@pytest.mark.parametrize("name", list(analytics.QUERIES))
+def test_analytic_query_matches_jax(tpch_sessions, name):
+    """The analytic set (windows, sketches, builtins) over the same tables:
+    its outer sums of window SUM/AVG values compare to rtol 1e-9, the rest
+    exactly (``models/parity.py``)."""
+    jsess, tsess = tpch_sessions
+    sql = analytics.QUERIES[name]
+    got = tsess.query(sql)
+    assert got, f"{name} returned no rows"
+    assert_result_matches(got, jsess.query(sql), sql)
+
+
+@pytest.mark.parametrize("name", list(analytics.QUERIES))
+def test_analytic_plan_matches_jax(tpch_sessions, name):
+    jsess, tsess = tpch_sessions
+    sql = analytics.QUERIES[name]
+    assert _plan_text(tsess, sql) == _plan_text(jsess, sql)
+
+
+def test_analytic_checks_hold_the_port_to_numpy(tpch_sessions):
+    """The numpy checks the card run applies at SF1, here on the CPU session,
+    and they catch a wrong answer."""
+    _, tsess = tpch_sessions
+    lineitem = tpch.generate(scale=SCALE, seed=SEED)["lineitem"]
+    results = {q: tsess.query(analytics.QUERIES[q])
+               for q in ("w_rank", "a_sketch", "a_sketch_all")}
+    analytics.check_against_numpy(results, lineitem)
+    results["a_sketch_all"] = [{**results["a_sketch_all"][0],
+                                "med_qty": results["a_sketch_all"][0]["med_qty"] + 0.5}]
+    with pytest.raises(AssertionError):
+        analytics.check_against_numpy(results, lineitem)
 
 
 def test_generator_matches_jax():
