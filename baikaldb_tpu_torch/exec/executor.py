@@ -22,8 +22,9 @@ Ported nodes: Scan (with its pushed filter), Filter, Shrink, Project, Join
 (cross, EXISTS-with-<>, dense PK-FK, sort join), Union, Membership (SQL
 three-valued IN / NOT IN), ScalarSource, Agg (scalar, dense with
 ``key_shift``, sorted), Distinct, Window, Sort (with top-k), Limit and
-Values.  Every other node (the mesh's Exchange and MultiJoin, the streamed
-result) raises :class:`NotPortedError`.
+Values, and the StreamResult leaf through which the finalize step of a
+streamed scan (exec/streaming.py) reads its folded aggregate.  Every other
+node (the mesh's Exchange and MultiJoin) raises :class:`NotPortedError`.
 """
 
 from __future__ import annotations
@@ -48,7 +49,8 @@ from ..ops.window import window_compute
 from ..plan.nodes import (AggNode, DistinctNode, FilterNode, JoinNode,
                           LimitNode, MembershipNode, PlanNode, ProjectNode,
                           ScalarSourceNode, ScanNode, ShrinkNode, SortNode,
-                          UnionNode, ValuesNode, WindowNode, plan_signature)
+                          StreamResultNode, UnionNode, ValuesNode, WindowNode,
+                          plan_signature)
 from ..plan.planner import PlanError
 from ..types import LType
 
@@ -247,6 +249,10 @@ def _eval_node(node: PlanNode, batches: dict, device, memo: dict) -> ColumnBatch
         empty = ColumnBatch((), [], None, None, device=device)
         cols = [_broadcast(eval_output(e, empty), 1) for e in node.exprs[0]]
         return ColumnBatch(tuple(node.names), cols, device=device)
+
+    if isinstance(node, StreamResultNode):
+        # the chunk-folded aggregate's finalized batch (exec/streaming.py)
+        return batches[node.key]
 
     raise NotPortedError(f"plan node {type(node).__name__}")
 

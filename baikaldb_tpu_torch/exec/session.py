@@ -15,6 +15,13 @@ A session runs on one device, named when it is made.  ``Session()`` with no
 device runs on CUDA and raises when CUDA is unavailable; only an explicit
 ``Session(device="cpu")`` runs on the CPU.
 
+A single-scan scan -> filter -> aggregate over a table of at least
+``streaming_min_rows`` rows streams, as in the JAX session: the scan stages
+a ChunkSource (the chunks its zone maps keep) instead of the device image,
+and exec/streaming.py folds it chunk by chunk.  The chunks are Parquet
+segments in the cold tier (``Database(cold_dir=...)`` or the
+``cold_fs_dir`` flag) or in host memory.
+
 Not ported yet: transactions, UPDATE/DELETE, the plan cache and
 auto-parameterization, the host presort permutations, the egress fast path,
 pushdown, matviews and rollups, point lookups and snapshot pinning.
@@ -31,8 +38,9 @@ import pyarrow as pa
 import torch
 
 from ..errors import NotPortedError
-from ..exec import executor
+from ..exec import executor, streaming
 from ..expr.ast import AggCall, Call, Lit, Subquery, WindowCall
+from ..index.selector import analyze_conjuncts
 from ..meta.catalog import Catalog, IndexInfo, parse_type
 from ..obs import trace
 from ..plan.nodes import PlanNode, ScanNode
@@ -41,7 +49,9 @@ from ..sql.lexer import SqlError
 from ..sql.parser import parse_sql
 from ..sql.stmt import (CreateTableStmt, ExplainStmt, InsertStmt, OrderItem,
                         SelectItem, SelectStmt, SetStmt, TableRef)
+from ..storage.coldfs import ExternalFS
 from ..storage.column_store import TableStore
+from ..storage.streamchunks import ChunkSource, chunk_set
 from ..types import Field, LType, Schema
 from ..utils import metrics
 from ..utils.flags import FLAGS, FlagError
@@ -88,12 +98,24 @@ class Result:
 
 
 class Database:
-    """Catalog + table stores, all on one device."""
+    """Catalog + table stores, all on one device.  ``cold_dir`` (or the
+    ``cold_fs_dir`` flag) roots the cold tier the streamed scans keep their
+    chunk segments in."""
 
-    def __init__(self, device=None):
+    def __init__(self, device=None, cold_dir: Optional[str] = None):
         self.device = resolve_device(device)
         self.catalog = Catalog()
         self.stores: dict[str, TableStore] = {}
+        self.cold_dir = cold_dir
+        self._cold_fs = None
+
+    def cold_fs(self):
+        """The external cold-storage FS, or None when unconfigured."""
+        if self._cold_fs is None:
+            root = self.cold_dir or str(FLAGS.cold_fs_dir)
+            if root:
+                self._cold_fs = ExternalFS(root)
+        return self._cold_fs
 
 
 class Session:
@@ -228,7 +250,12 @@ class Session:
         with trace.span("exec.batches"):
             batches = self._collect_batches(plan)
         with trace.span("exec.run"):
-            out = executor.compile_plan(plan, self.device)(batches)
+            if streaming.stream_source(batches) is not None:
+                # out-of-core path: the scan staged a ChunkSource, so this
+                # execution is a chunk fold driven from the host
+                out = streaming.run_streamed(plan, batches, self.device)
+            else:
+                out = executor.compile_plan(plan, self.device)(batches)
         with trace.span("egress.arrow"):
             table = _egress_compact(out).to_arrow()
         return Result(columns=list(table.column_names), arrow=table)
@@ -239,12 +266,38 @@ class Session:
         def walk(n: PlanNode):
             if isinstance(n, ScanNode) and n.table_key not in batches:
                 db, name = n.table_key.split(".", 1)
-                batches[n.table_key] = self._store(TableRef(db, name)).device_table_batch()
+                store = self._store(TableRef(db, name))
+                # a streamed plan has this one scan (streaming.eligible)
+                b = self._maybe_stream_source(plan, n, store)
+                batches[n.table_key] = b if b is not None else store.device_table_batch()
             for c in n.children:
                 walk(c)
 
         walk(plan)
         return batches
+
+    def _maybe_stream_source(self, plan: PlanNode, n: ScanNode, store):
+        """A ChunkSource for this scan when the plan is chunk-foldable
+        (exec/streaming.py) and the table clears the size gate; None keeps
+        the resident path.  The chunk zone maps see this execution's
+        literals.  A failure of the host encode falls back to the resident
+        path, counted in ``swallowed.session.stream_stage``; nothing past
+        the encode is caught."""
+        if not bool(FLAGS.streaming_scan):
+            return None
+        if store.num_rows < int(FLAGS.streaming_min_rows):
+            return None
+        if streaming.eligible(plan, n) is None:
+            return None
+        try:
+            cs = chunk_set(store, n.table_key, self.db.cold_fs())
+        except Exception:       # noqa: BLE001 — staging is best-effort
+            metrics.count_swallowed("session.stream_stage")
+            return None
+        keep = cs.pruned(analyze_conjuncts(n.pushed_filter).ranges)
+        n.access_desc = (f"stream({len(keep)}/{cs.n_chunks} chunks, "
+                         f"{cs.capacity} rows each)")
+        return ChunkSource(cs, keep)
 
 
 def _resolve_session_exprs(stmt: SelectStmt, conn_id: int) -> SelectStmt:

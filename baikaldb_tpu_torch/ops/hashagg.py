@@ -15,9 +15,13 @@ Keys without a dense domain take the sort-based group-by.  COUNT/SUM/AVG
 APPROX_COUNT_DISTINCT is one segment max over ``groups x 512`` HLL register
 slots; PERCENTILE (and MEDIAN, planned as percentile 0.5) sorts by (group,
 value) and interpolates.  Neither reaches the group-by kernels (the gate of
-``dense_kernel_cols`` admits COUNT/SUM/AVG/MIN/MAX only).  Not ported yet:
-the partial-aggregate merge protocol, which only the mesh and the streamed
-fold use.
+``dense_kernel_cols`` admits COUNT/SUM/AVG/MIN/MAX only).
+
+The partial-aggregate protocol (``MERGE_OP``, ``partial_specs``,
+``finalize_partials``) rewrites aggregates into mergeable partials (AVG ->
+SUM + COUNT, STDDEV -> SUM + SUMSQ + COUNT) and finishes them after a merge;
+the streamed fold (exec/streaming.py) aggregates each chunk into partials,
+merges them into its accumulator and finalizes once.
 """
 
 from __future__ import annotations
@@ -425,13 +429,17 @@ def _segment_distinct(c: Column, gid, ng: int, s: AggSpec) -> Column:
 
 
 def group_aggregate_sorted(batch: ColumnBatch, key_names: list[str],
-                           specs: list[AggSpec], max_groups: int) -> ColumnBatch:
+                           specs: list[AggSpec], max_groups: int,
+                           with_overflow: bool = False):
     """General GROUP BY: lexicographic stable sort, boundary cumsum group
     ids, segment reductions into a ``max_groups``-slot table.
 
     ``max_groups`` must upper-bound the true group count (the planner
     supplies it from statistics or len(batch)); groups fill slots densely
-    and the output carries num_rows = group count."""
+    and the output carries num_rows = group count.  With ``with_overflow``
+    the result is ``(batch, overflow)``, ``overflow`` a 0-d bool tensor on
+    the batch's device that is true when there were more groups than
+    slots (read it on the host only where the caller needs it)."""
     n = len(batch)
     dev = batch.device
     key_cols = [batch.column(k) for k in key_names]
@@ -487,4 +495,80 @@ def group_aggregate_sorted(batch: ColumnBatch, key_names: list[str],
         out_names.append(s.out_name)
         out_cols.append(_segment_one(sorted_batch, s, gid, max_groups, sel_s))
     present = torch.arange(max_groups, device=dev) < ngroups
-    return ColumnBatch(tuple(out_names), out_cols, present, ngroups, device=dev)
+    out = ColumnBatch(tuple(out_names), out_cols, present, ngroups, device=dev)
+    if with_overflow:
+        return out, flags.sum() > max_groups
+    return out
+
+
+# ----------------------------------------------------------------------
+# partial-aggregate merge protocol (the streamed fold; the mesh later)
+
+MERGE_OP = {
+    "count": "sum", "count_star": "sum", "sum": "sum", "sumsq": "sum",
+    "min": "min", "max": "max",
+}
+
+
+def partial_specs(specs: list[AggSpec]) -> tuple[list[AggSpec], dict]:
+    """Rewrite aggregates into mergeable partials (AVG -> SUM+COUNT, STDDEV ->
+    SUM+SUMSQ+COUNT), the analog of the reference's AGG partial/MERGE_AGG
+    split.  Returns (partial specs, finalize plan).  Raises ValueError for
+    the aggregates that need each group's rows (``ROW_AGGS``)."""
+    parts: list[AggSpec] = []
+    finalize: dict[str, tuple] = {}
+    seen = {}
+
+    def add(op, inp, distinct=False):
+        key = (op, inp, distinct)
+        if key in seen:
+            return seen[key]
+        name = f"__p{len(parts)}_{op}"
+        parts.append(AggSpec(op, inp, name, distinct))
+        seen[key] = name
+        return name
+
+    for s in specs:
+        if s.op in ROW_AGGS:
+            raise ValueError(f"{s.op} has no scalar partial form")
+        if s.op == "avg":
+            finalize[s.out_name] = ("avg", add("sum", s.input, s.distinct),
+                                    add("count", s.input, s.distinct))
+        elif s.op in _STDDEV:
+            sq = add("sumsq", s.input)
+            finalize[s.out_name] = (s.op, add("sum", s.input), sq, add("count", s.input))
+        elif s.distinct:
+            # distinct cannot merge from partials
+            finalize[s.out_name] = ("passthrough", add(s.op, s.input, True))
+        else:
+            finalize[s.out_name] = ("passthrough", add(s.op, s.input))
+    return parts, finalize
+
+
+def finalize_partials(batch: ColumnBatch, finalize: dict,
+                      key_names: list[str]) -> ColumnBatch:
+    """Apply the finalize plan from ``partial_specs`` to a merged-partials
+    batch: the keys, then one column per user aggregate."""
+    names = list(key_names)
+    cols = [batch.column(k) for k in key_names]
+    for out_name, plan in finalize.items():
+        kind = plan[0]
+        if kind == "passthrough":
+            c = batch.column(plan[1])
+        elif kind == "avg":
+            sm, ct = batch.column(plan[1]), batch.column(plan[2])
+            ctv = ct.data.to(torch.float64)
+            c = Column(sm.data.to(torch.float64) / ctv.clamp(min=1), ctv > 0, LType.FLOAT64)
+        else:  # stddev family from (op, sum, sumsq, count)
+            op = plan[0]
+            sm, sq, ct = (batch.column(n) for n in plan[1:])
+            n = ct.data.to(torch.float64)
+            n1 = n.clamp(min=1.0)
+            var = sq.data / n1 - (sm.data.to(torch.float64) / n1) ** 2
+            denom = n1 if op in ("stddev", "variance") else (n - 1.0).clamp(min=1.0)
+            var = (var * (n1 / denom)).clamp(min=0.0)
+            v = torch.sqrt(var) if op.startswith("stddev") else var
+            c = Column(v, n > 0, LType.FLOAT64)
+        names.append(out_name)
+        cols.append(c)
+    return ColumnBatch(tuple(names), cols, batch.sel, batch.num_rows, device=batch.device)

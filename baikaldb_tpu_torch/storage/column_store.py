@@ -6,8 +6,10 @@ table on the host, stages one device batch per table version on its device
 (table-wide string dictionaries), and serves the host column statistics
 that the planner reads: ``min``/``max``/``dict_size`` for the dense
 group-by and dense-join choices, and the histogram/MCV/ndv payload of
-index/stats for selectivity and join ordering.  Regions, WAL, MVCC,
-partitions, secondary indexes and the cold tier are not ported.
+index/stats for selectivity and join ordering.  ``_zone_scalar`` canonicalizes
+zone-map bounds for the streamed scan's chunk pruning
+(storage/streamchunks.py).  Regions, WAL, MVCC, partitions, secondary
+indexes and the cold tier's segments are not ported.
 """
 
 from __future__ import annotations
@@ -51,6 +53,39 @@ def _coerce(table: pa.Table, schema: pa.Schema) -> pa.Table:
         else:
             cols.append(table.column(f.name).cast(f.type))
     return pa.table(cols, schema=schema)
+
+
+def _zone_scalar(x, ltype):
+    """Normalize a zone-map bound or predicate literal to one comparable
+    number in the COLUMN's unit (DATE: epoch days; DATETIME/TIMESTAMP: epoch
+    seconds; numerics: as-is).  None = unbounded/incomparable — pruning
+    treats it as 'keep the chunk'.  The JAX store's function of the same
+    name, copied."""
+    if x is None:
+        return None
+    if isinstance(x, str):
+        try:
+            if ltype is LType.DATE:
+                d = datetime.date.fromisoformat(x[:10])
+                return (d - datetime.date(1970, 1, 1)).days
+            if ltype.is_temporal:
+                dt = datetime.datetime.fromisoformat(x)
+                return dt.replace(tzinfo=datetime.timezone.utc).timestamp()
+        except ValueError:
+            return None
+        return None
+    if isinstance(x, datetime.datetime):
+        return x.replace(tzinfo=datetime.timezone.utc).timestamp()
+    if isinstance(x, datetime.date):
+        if ltype.is_temporal and ltype is not LType.DATE:
+            return datetime.datetime(x.year, x.month, x.day,
+                                     tzinfo=datetime.timezone.utc).timestamp()
+        return (x - datetime.date(1970, 1, 1)).days
+    if isinstance(x, bool) or isinstance(x, (int, float)):
+        if ltype is LType.DATE and isinstance(x, int):
+            return x                       # already epoch days
+        return x
+    return None
 
 
 class TableStore:

@@ -193,3 +193,24 @@ define("pallas_group_kernels", True,
 define("slow_query_ms", 1000.0,
        "a traced query slower than this is kept whatever the sampler says "
        "(obs/trace.py)")
+# out-of-core streaming scans (exec/streaming.py, storage/streamchunks.py),
+# with the JAX package's names and defaults
+define("streaming_scan", True,
+       "stream eligible scan->filter->aggregate plans over chunked "
+       "segments instead of materializing the whole table on device "
+       "(off-switch: the resident path)")
+define("streaming_min_rows", 1 << 18,
+       "tables below this row count always take the resident path — "
+       "chunking a table that fits comfortably only adds staging cost")
+define("streaming_chunk_rows", 1 << 16,
+       "row capacity of one streaming scan chunk: the unit of host->device "
+       "transfer and the per-chunk device budget")
+define("stream_retry_max", 3,
+       "coldfs chunk reads retry up to this many times on a missing/"
+       "failed segment (backoff doubling + full jitter)")
+define("stream_backoff_ms", 5.0,
+       "initial backoff for chunk-read retries; doubles per attempt, "
+       "sleeping uniform(0, backoff)")
+define("cold_fs_dir", "",
+       "external cold-storage root (posix AFS stand-in); empty = cold "
+       "tier disabled, streamed chunks stay in host memory")

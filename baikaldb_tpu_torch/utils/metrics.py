@@ -1,8 +1,8 @@
 """Metrics instruments — the bvar analog (SURVEY §5.5), the part the port uses.
 
 The port of ``baikaldb_tpu/utils/metrics.py``, cut to the monotonically
-growing ``Counter`` (with a per-second rate over a sliding window) and the
-``Registry`` that names every instrument.  The process-wide ``REGISTRY``
+growing ``Counter`` (with a per-second rate over a sliding window), the
+``LatencyRecorder`` and the ``Registry`` that names every instrument.  The process-wide ``REGISTRY``
 serves the engine; ``registry.dump()`` prints one ``name.field : value``
 line per field; the kernel launch counters of ops/group_kernels.py
 register here like every other counter.
@@ -79,9 +79,51 @@ class Counter:
                 "per_second": round(self.per_second(), 3)}
 
 
+class LatencyRecorder:
+    """A ring of the last ``capacity`` observations in milliseconds, with
+    count/total/max over the recorder's life (the JAX package's recorder,
+    cut to what the port reads)."""
+    kind = "latency"
+
+    def __init__(self, name: str, capacity: int = 4096,
+                 registry: Optional["Registry"] = None):
+        self.name = name
+        self.capacity = capacity
+        self._ring: list[float] = []
+        self._idx = 0
+        self._count = 0
+        self._total = 0.0
+        self._max = 0.0
+        self._lock = threading.Lock()
+        (registry or REGISTRY)._register(self)
+
+    def observe(self, ms: float) -> None:
+        with self._lock:
+            self._count += 1
+            self._total += ms
+            self._max = max(self._max, ms)
+            if len(self._ring) < self.capacity:
+                self._ring.append(ms)
+            else:
+                self._ring[self._idx] = ms
+                self._idx = (self._idx + 1) % self.capacity
+
+    def stats(self) -> dict:
+        with self._lock:
+            ring = sorted(self._ring)
+            count, total, mx = self._count, self._total, self._max
+
+        def pct(p: float) -> float:
+            return ring[min(len(ring) - 1, int(p * len(ring)))] if ring else 0.0
+        return {"count": count, "total_ms": round(total, 3),
+                "avg_ms": round(total / count, 3) if count else 0.0,
+                "p50_ms": round(pct(0.5), 3), "p99_ms": round(pct(0.99), 3),
+                "max_ms": round(mx, 3)}
+
+
 class Registry:
     def __init__(self):
-        self._by_name: dict[str, Counter] = {}
+        self._by_name: dict = {}
         self._lock = threading.Lock()
 
     def _register(self, inst) -> None:
@@ -137,6 +179,18 @@ multiway_joins_fused = Counter("multiway_joins_fused")
 eqclass_consts_pushed = Counter("eqclass_consts_pushed")
 agg_strategy_local = Counter("agg_strategy_local")
 agg_strategy_raw = Counter("agg_strategy_raw")
+failpoint_trips = Counter("failpoint_trips")
+# out-of-core streaming scans (exec/streaming.py): chunks folded, chunks
+# zone-map-skipped before any transfer, coldfs segment-read retries, fold
+# restarts after a group-capacity overflow, bytes moved host->device, and
+# how long the fold loop waited on the prefetcher (0-ish wait = the staging
+# of the next chunk fully overlapped the previous chunk's fold)
+stream_chunks = Counter("stream_chunks")
+stream_chunks_skipped = Counter("stream_chunks_skipped")
+stream_retries = Counter("stream_retries")
+stream_restarts = Counter("stream_restarts")
+stream_bytes_h2d = Counter("stream_bytes_h2d")
+stream_prefetch_wait_ms = LatencyRecorder("stream_prefetch_wait_ms")
 
 
 def count_swallowed(site: str) -> None:

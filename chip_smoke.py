@@ -1,6 +1,6 @@
 """GPU smoke run of baikaldb_tpu_torch: build the kernels, hold each against
-its plain torch version, drive single-table SQL at real size, and run the 22
-TPC-H queries and the analytic queries on the card.
+its plain torch version, drive single-table SQL at real size resident and
+streamed, and run the 22 TPC-H queries and the analytic queries on the card.
 
     python3 chip_smoke.py [--rows N] [--seed S] [--tpch-scale S]
                           [--compare-with DIR]
@@ -11,15 +11,18 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
 2. kernels: build ``baikaldb_tpu_torch/ops/csrc/group_agg.cu`` with nvcc for
    sm_90a, then hold K1 ``filtered_group_sum``, K2 ``fused_group_aggregate``
    and K3 ``partition_histogram`` against their plain versions on the card:
-   at the SQL path's shape (``--rows`` rows, 2049 groups), at 2^24 and at a
-   ragged row count with 513/2049/4096 groups, and on edge cases (all rows
+   at the SQL path's shape (``--rows`` rows, 2049 groups), at the streamed
+   path's (65,536 and 1,048,576 rows, and the ragged last chunk of
+   ``--rows``), at 2^24 and at a ragged row count with 513/2049/4096
+   groups, and on edge cases (all rows
    masked, codes < 0 and >= ng, an empty group, +NaN and -NaN in a group,
    inputs that are views at element offsets 1-3).  Counts and min/max match
    exactly (NaN equal to NaN, and a group holding a NaN must give NaN);
    each group's sum within 1e-5 * sum(|v|) over the group.  Each kernel is
    timed at the SQL path's shape two ways: ``ms``, the median over single
    CUDA-event-timed calls (host work of the wrapper included), and
-   ``device_ms``, events around 20 back-to-back calls over 20.  With
+   ``device_ms``, events around 20 back-to-back calls over 20; and both at
+   one 65,536-row chunk (``chunk`` in the JSON line).  With
    ``--compare-with DIR`` (a checkout of another commit, e.g. from
    ``git archive``), that commit's kernels are timed too, in turns with
    this one's (theirs, ours, ours, theirs).
@@ -33,28 +36,50 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    rows/s at the median) is printed beside its device time from one run
    under torch.profiler (kernels and copies) and the top kernels; load
    time and peak device memory beside them.
-4. TPC-H (``baikaldb_tpu_torch/models/tpch.py``): (i) the tables at SF 0.05
+4. Streamed scans (exec/streaming.py): on a fresh ``Database`` over the
+   same ``--rows`` rows, queries (b) and (c) fold chunk by chunk (65536-row
+   chunks, the default), checked against numpy as in phase 3; every kept
+   chunk must launch K3 + K2 once for (b) and K1 once for (c),
+   ``stream_chunks`` must equal the chunk count and
+   ``swallowed.session.stream_stage`` must stay 0 (no silent fall-back to
+   the resident path).  Per query: the first run (the chunk-set build
+   included for (b)), the warm wall time (median of 3 runs), device time
+   and idle share of one profiled run, the ``stream`` trace event
+   (``stage_ms``, ``prefetch_wait_ms``, ``bytes_h2d``) and the peak device
+   memory; then (b) again at ``streaming_chunk_rows = 1048576``.  Phase 3
+   sets ``streaming_scan = 0`` so its numbers stay those of the resident
+   path.
+5. TPC-H (``baikaldb_tpu_torch/models/tpch.py``): (i) the tables at SF 0.05
    (seed 0) go into ``Session(device="cuda")`` and ``Session(device="cpu")``;
    all 22 queries and ``VARIANTS`` (q20's shape with rows) run on both and
    must agree by the parity contract of ``models/parity.py``.  (ii) At ``--tpch-scale`` (default 1.0, the smallest
    official scale: 6M lineitem rows; seed ``--seed``) on the card: generation
    time, load + stage time and peak device memory; per query the warm wall
-   time (median and 67th percentile of 10 runs after one warm-up run), the
+   time (median and 67th percentile of 10 runs after one warm-up run, 3
+   when the query streamed), the
    device time, idle share and top 4 kernels of one torch.profiler run, the
    session's spans of one traced run (host milliseconds of parse, plan,
    execution and egress), and the launches of K1-K3 (the TPC-H dense domains
    miss the kernels' gate, so 0 is expected and reported, not required).
    q1 and q6 are checked against numpy in float64 (rtol 1e-9), and every
    query must return finite values.
-5. Analytics (``baikaldb_tpu_torch/models/analytics.py``: window functions,
+6. Analytics (``baikaldb_tpu_torch/models/analytics.py``: window functions,
    APPROX_COUNT_DISTINCT / MEDIAN / PERCENTILE and the extended builtins
-   over the TPC-H tables): (i) on the SF 0.05 tables of phase 4 (i), card
+   over the TPC-H tables): (i) on the SF 0.05 tables of phase 5 (i), card
    against CPU by the parity contract; (ii) on the ``--tpch-scale`` tables of
-   phase 4 (ii), in the same session, timed as the TPC-H queries are, with
+   phase 5 (ii), in the same session, timed as the TPC-H queries are, with
    the launches of K1-K3 over the phase (0: these queries do not reach the
    group-by kernels) and its peak device memory; W-rank and the A-sketch
    queries are held to numpy (``analytics.check_against_numpy``).  The
    phase's seconds are printed on a line of their own.
+7. TPC-H q1 and q6 at ``--tpch-scale`` streamed against resident, in turns
+   (5 runs each) in phase 5 (ii)'s session, the rows equal by the parity
+   contract.
+
+Phases 5 and 6 run with the default flags, so a query over a table of at
+least ``streaming_min_rows`` rows that the streamed path accepts streams
+there (q1, q6 and some analytic queries, over lineitem); which ones did is
+printed and recorded.
 
 Each phase's seconds are printed on a line of their own, and in the JSON line
 of measurements (redirect standard output to keep it).  The last two
@@ -67,6 +92,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import importlib.util
+import contextlib
 import json
 import os
 import statistics
@@ -82,6 +108,9 @@ F32_OPS_PER_S = 67e12            # H100 SXM, float32 outside the tensor cores
 NG_SQL = 2049                    # 2048 dense group slots + the NULL slot
 WARM_REPS = 30
 TPCH_REPS = 10
+STREAM_REPS = 3
+STREAM_TPCH_REPS = 5
+BIG_CHUNK_ROWS = 1 << 20
 TPCH_CHECK_SCALE = 0.05
 REPLACES = {
     "filtered_group_sum": "baikaldb_tpu/ops/pallas_kernels.py:184",
@@ -267,7 +296,13 @@ def kernel_phase(gk, rows: int, seed: int, before=None) -> dict:
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     max_err = 0.0
-    cases = [(rows, NG_SQL, {}), (1 << 24, 513, {}), (1 << 24, 2049, {}),
+    # the streamed path launches at its chunks' shapes: 65,536 rows (the
+    # default chunk), 1,048,576 (phase 4's large chunks) and ragged tails
+    chunk = 1 << 16
+    big = BIG_CHUNK_ROWS
+    cases = [(rows, NG_SQL, {}), (chunk, NG_SQL, {}), (rows % chunk or chunk, NG_SQL, {}),
+             (big, NG_SQL, {}), (rows % big or big, NG_SQL, {}),
+             (1 << 24, 513, {}), (1 << 24, 2049, {}),
              (1 << 24, 4096, {}), (1_000_003, 513, {}), (1_000_003, 2049, {}),
              (1_000_003, 4096, {}), (777_777, 4096, {"spread": 5, "empty": 17}),
              (123_457, 2049, {"masked": True}), (3, 4096, {}), (0, 600, {}),
@@ -303,6 +338,11 @@ def kernel_phase(gk, rows: int, seed: int, before=None) -> dict:
                                 rows * 5 + NG_SQL * 4, 1),
     }
 
+    c_codes, c_values, c_mask = make_inputs(chunk, NG_SQL, gen, dev)
+    chunk_args = {"filtered_group_sum": (c_codes, c_values.to(torch.float64), c_mask, NG_SQL),
+                  "fused_group_aggregate": (c_codes, c_values, c_mask, NG_SQL),
+                  "partition_histogram": (c_codes, c_mask, NG_SQL)}
+
     def timed(mod, name, args):
         fn = getattr(mod, name)
         return cuda_ms(lambda: fn(*args), 20), device_ms(lambda: fn(*args))
@@ -327,13 +367,18 @@ def kernel_phase(gk, rows: int, seed: int, before=None) -> dict:
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
             "max_abs_err": max_err,
         }
+        # one launch at the streamed path's chunk shape: what each kernel
+        # costs per chunk of a fold
+        c_ms, c_dev = timed(gk, name, chunk_args[name])
+        out[name]["chunk"] = {"rows": chunk, "ms": c_ms, "device_ms": c_dev}
         if before is not None:
             out[name]["before"] = {"ms": [b1[0], b2[0]], "device_ms": [b1[1], b2[1]],
                                    "this_ms": [t1[0], t2[0]],
                                    "this_device_ms": [t1[1], t2[1]]}
         log(f"[kernels] {name}: {ms:.4f} ms a call, {dev_ms:.4f} ms on the device "
             f"(plain {out[name]['plain_ms']:.4f} ms, bound {out[name]['bound_ms']:.4f} ms) "
-            f"at n={rows} ng={NG_SQL}" + ("" if before is None else
+            f"at n={rows} ng={NG_SQL}; {c_ms:.4f} / {c_dev:.4f} ms at a {chunk}-row chunk"
+            + ("" if before is None else
                                           f"; compared commit {out[name]['before']}"))
     return out
 
@@ -378,13 +423,16 @@ def check_rows(name, rows, ref, has_count=True, has_min=True):
             raise AssertionError(f"query ({name}) group {g}: min {vals[2]} != {mins[g]}")
 
 
-def device_breakdown(run, wall_ms: float) -> dict:
+def device_breakdown(run, wall_ms: float, host_ops: bool = True) -> dict:
     """One profiled run: device time summed over CUDA kernels and copies,
-    the idle share of the unprofiled wall time, and the top kernels."""
+    the idle share of the unprofiled wall time, and the top kernels.
+    ``host_ops=False`` traces the device alone (a streamed run launches too
+    many host operators to trace them all cheaply)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=acts) as prof:
         run()
         torch.cuda.synchronize()
     dev = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
@@ -395,32 +443,52 @@ def device_breakdown(run, wall_ms: float) -> dict:
             "top_kernels": [[k[:60], ms] for k, ms in top]}
 
 
-def sql_phase(gk, rows: int, seed: int) -> tuple[dict, dict]:
+def sql_table(rows: int, seed: int):
+    """The table of phases 3 and 5 (Arrow) and the numpy float64 references
+    of queries (a)-(c)."""
     import pyarrow as pa
-
-    from baikaldb_tpu_torch.exec.session import Session
 
     rng = np.random.default_rng(seed)
     g = rng.integers(0, 2048, rows, dtype=np.int32)
     v = rng.standard_normal(rows, dtype=np.float32)
     w = rng.standard_normal(rows)
     g16 = rng.integers(0, 16, rows, dtype=np.int32)
+    keep_v = (v * np.float32(2) + np.float32(1)).astype(np.float64) > 0.5
+    keep_w = w > -1
+    refs = {"a": reference(g16, v, keep_v, 16), "b": reference(g, v, keep_v, 2048),
+            "c": reference(g, w, keep_w, 2048)}
+    return pa.table({"g": g, "v": v, "w": w, "g16": g16}), refs
+
+
+def check_query(q: str, rows, refs) -> None:
+    if q == "c":
+        check_rows("c", rows, refs["c"], has_count=False, has_min=False)
+    else:
+        check_rows(q, rows, refs[q])
+
+
+def sql_phase(gk, table, refs) -> tuple[dict, dict]:
+    from baikaldb_tpu_torch.exec.session import Session
+
+    rows = table.num_rows
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     s = Session(device="cuda")
+    # the resident path, as in the runs before streamed scans existed
+    s.execute("SET GLOBAL streaming_scan = 0")
     s.execute("CREATE TABLE t (g INT, v FLOAT, w DOUBLE, g16 INT)")
-    s.load_arrow("t", pa.table({"g": g, "v": v, "w": w, "g16": g16}))
+    s.load_arrow("t", table)
     s.db.stores["default.t"].device_table_batch()
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
     log(f"[sql] {rows} rows loaded and staged on the card in {load_s:.2f} s")
+    try:
+        return _sql_runs(gk, s, rows, refs, load_s)
+    finally:
+        s.execute("SET GLOBAL streaming_scan = 1")
 
-    # numpy float64 references
-    keep_v = (v * np.float32(2) + np.float32(1)).astype(np.float64) > 0.5
-    ref_a = reference(g16, v, keep_v, 16)
-    ref_b = reference(g, v, keep_v, 2048)
-    keep_w = w > -1
-    ref_c = reference(g, w, keep_w, 2048)
+
+def _sql_runs(gk, s, rows: int, refs, load_s: float) -> tuple[dict, dict]:
 
     # the main path: counters at 0 just before, read just after
     for c in gk.LAUNCHES.values():
@@ -437,9 +505,8 @@ def sql_phase(gk, rows: int, seed: int) -> tuple[dict, dict]:
         if per_query[q] != want:
             raise AssertionError(f"query ({q}) launched {per_query[q]}, expected {want}")
 
-    check_rows("a", results["a"], ref_a)
-    check_rows("b", results["b"], ref_b)
-    check_rows("c", results["c"], ref_c, has_count=False, has_min=False)
+    for q in QUERIES:
+        check_query(q, results[q], refs)
     log(f"[sql] results match numpy; launches {per_query}")
 
     # warm wall times: median and the highest percentile with ten samples
@@ -465,7 +532,128 @@ def sql_phase(gk, rows: int, seed: int) -> tuple[dict, dict]:
 
 
 # ----------------------------------------------------------------------
-# phase 4: TPC-H
+# phase 4: streamed scans over the same table
+
+STREAM_EXPECTED = {"b": {"partition_histogram": 1, "fused_group_aggregate": 1},
+                   "c": {"filtered_group_sum": 1}}
+
+
+@contextlib.contextmanager
+def flag(s, name: str, value):
+    """``SET GLOBAL name = value`` for the block, then back."""
+    from baikaldb_tpu_torch.utils.flags import FLAGS
+
+    prev = getattr(FLAGS, name)
+    s.execute(f"SET GLOBAL {name} = {value}")
+    try:
+        yield
+    finally:
+        s.execute(f"SET GLOBAL {name} = {int(prev) if isinstance(prev, bool) else prev}")
+
+
+def traced_run(s, sql: str) -> tuple[list, dict, dict]:
+    """One traced run: -> (rows, span milliseconds by name, the ``stream``
+    event's attributes or {})."""
+    from baikaldb_tpu_torch.obs import trace
+
+    with flag(s, "tracing", 1):
+        rows = s.query(sql)
+        torch.cuda.synchronize()
+    rec = [t for t in trace.TRACER.list() if t["text"] == sql][-1]
+    spans: dict = {}
+    event: dict = {}
+    for sp in rec["spans"]:
+        spans[sp["name"]] = spans.get(sp["name"], 0.0) + sp["dur_ms"]
+        if sp["name"] == "stream":
+            event = dict(sp["attrs"])
+    return rows, spans, event
+
+
+def stream_counts(gk) -> dict:
+    from baikaldb_tpu_torch.utils import metrics
+
+    return {"launches": launch_counts(gk), "chunks": metrics.stream_chunks.value,
+            "skipped": metrics.stream_chunks_skipped.value,
+            "stage_swallowed": metrics.REGISTRY.counter(
+                "swallowed.session.stream_stage").value}
+
+
+def streamed_query(gk, s, q: str, refs, n_chunks: int, reps: int) -> dict:
+    """Query ``q`` streamed: the first run traced (its ``stream`` event),
+    the numpy check, the launches and chunks of that run against what one
+    pass over ``n_chunks`` chunks must give, ``reps`` warm runs, one
+    profiled run of the device, the peak device memory over them."""
+    sql = QUERIES[q]
+    torch.cuda.reset_peak_memory_stats()
+    before = stream_counts(gk)
+    t = time.perf_counter()
+    rows, spans, event = traced_run(s, sql)
+    first_ms = (time.perf_counter() - t) * 1e3
+    after = stream_counts(gk)
+    check_query(q, rows, refs)
+    launched = {k: v - before["launches"][k] for k, v in after["launches"].items()
+                if v != before["launches"][k]}
+    chunks = after["chunks"] - before["chunks"]
+    if chunks != n_chunks or after["skipped"] != before["skipped"]:
+        raise AssertionError(f"streamed ({q}) folded {chunks} chunks, expected {n_chunks}")
+    want = {k: n * n_chunks for k, n in STREAM_EXPECTED[q].items()}
+    if launched != want:
+        raise AssertionError(f"streamed ({q}) launched {launched}, expected {want}")
+    if after["stage_swallowed"] != 0:
+        raise AssertionError("a chunk-set build failed and the query ran resident")
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s.query(sql)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    med = statistics.median(walls)
+    out = {"chunks": n_chunks, "first_ms": first_ms, "warm_ms": walls, "warm_ms_p50": med,
+           "rows_per_s": s.db.stores["default.t"].num_rows / (med / 1e3),
+           "kernel_launches": launched, "stream_event": event, "spans_ms": spans,
+           **device_breakdown(lambda: s.query(sql), med, host_ops=False)}
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[stream] ({q}) {n_chunks} chunks: first run {first_ms:.1f} ms, warm p50 {med:.1f} ms "
+        f"over {reps} runs, device {out['device_ms']:.1f} ms, idle {out['idle_share']:.3f}, "
+        f"peak {out['peak_mem_gib']:.3f} GiB, launches {launched}, stream event {event}")
+    return out
+
+
+def streamed_phase(gk, table, refs) -> tuple[dict, dict]:
+    """Phase 4: (b) and (c) streamed over a fresh Database (so the resident
+    image of phase 3 is not counted), then (b) at 1M-row chunks.  -> (K1-K3
+    launches of the phase's runs, measurements)."""
+    from baikaldb_tpu_torch.exec.session import Database, Session
+    from baikaldb_tpu_torch.utils.flags import FLAGS
+
+    torch.cuda.empty_cache()
+    s = Session(Database(device="cuda"))
+    s.execute("CREATE TABLE t (g INT, v FLOAT, w DOUBLE, g16 INT)")
+    s.load_arrow("t", table)
+    rows = table.num_rows
+    if not FLAGS.streaming_scan or rows < FLAGS.streaming_min_rows:
+        raise AssertionError("the streamed phase needs streaming_scan on and "
+                             f"at least {FLAGS.streaming_min_rows} rows")
+    chunk = int(FLAGS.streaming_chunk_rows)
+    # the streamed path: counters at 0 just before, read just after
+    for c in gk.LAUNCHES.values():
+        c.reset()
+    out = {"chunk_rows": chunk}
+    for q in ("b", "c"):
+        out[q] = streamed_query(gk, s, q, refs, -(-rows // chunk), STREAM_REPS)
+    with flag(s, "streaming_chunk_rows", BIG_CHUNK_ROWS):
+        out["b_1m"] = streamed_query(gk, s, "b", refs, -(-rows // BIG_CHUNK_ROWS),
+                                     STREAM_REPS)
+    out["b_1m"]["chunk_rows"] = BIG_CHUNK_ROWS
+    # the launches of the checked (first) runs
+    launches = {k: sum(out[q]["kernel_launches"].get(k, 0) for q in ("b", "c", "b_1m"))
+                for k in gk.LAUNCHES}
+    return launches, out
+
+
+# ----------------------------------------------------------------------
+# phase 5: TPC-H
 
 
 def load_tpch(session, tables: dict):
@@ -489,12 +677,18 @@ def tpch_card_vs_cpu(gk) -> tuple:
     from baikaldb_tpu_torch.models import tpch
     from baikaldb_tpu_torch.models.parity import mismatch
 
+    from baikaldb_tpu_torch.utils import metrics
+
     tables = tpch.generate(scale=TPCH_CHECK_SCALE, seed=0)
     gpu = load_tpch(Session(device="cuda"), tables)
     cpu = load_tpch(Session(device="cpu"), tables)
+    streamed = []
     for q, sql in {**tpch.QUERIES, **tpch.VARIANTS}.items():
         before = launch_counts(gk)
+        c0 = metrics.stream_chunks.value
         got = gpu.query(sql)
+        if metrics.stream_chunks.value != c0:
+            streamed.append(q)
         ran = launch_counts(gk) != before
         diff = mismatch(got, cpu.query(sql), sql, 1e-4 if ran else 1e-9)
         if diff is not None:
@@ -503,8 +697,8 @@ def tpch_card_vs_cpu(gk) -> tuple:
         if q in tpch.VARIANTS and not got:
             raise AssertionError(f"TPC-H {q} at SF {TPCH_CHECK_SCALE}: no rows")
     log(f"[tpch] SF {TPCH_CHECK_SCALE}: all {len(tpch.QUERIES)} queries and "
-        f"{len(tpch.VARIANTS)} variant equal on the card and the CPU")
-    return gpu, cpu
+        f"{len(tpch.VARIANTS)} variant equal on the card and the CPU; streamed: {streamed}")
+    return gpu, cpu, streamed
 
 
 def _arrow_np(table, col):
@@ -629,24 +823,30 @@ def tpch_on_the_card(gk, scale: float, seed: int) -> tuple:
 
 def time_queries(gk, s, queries: dict, tag: str) -> tuple[dict, dict]:
     """Each query on the card: one warm-up run (its rows are kept and must
-    be finite), the wall time of ``TPCH_REPS`` warm runs (median and 67th
-    percentile), the device time, idle share and top kernels of one
-    profiled run, the session spans of one traced run, and the peak device
-    memory and K1-K3 launches of the warm-up run.  -> (stats per query, rows
-    per query)."""
+    be finite), the wall time of ``TPCH_REPS`` warm runs (``STREAM_REPS``
+    when the query streamed; median and 67th percentile), the device time,
+    idle share and top kernels of one profiled run, the session spans of
+    one traced run, and the peak device memory, K1-K3 launches and streamed
+    chunks of the warm-up run.  -> (stats per query, rows per query)."""
+    from baikaldb_tpu_torch.utils import metrics
+
     per_query, first = {}, {}
     for q, sql in queries.items():
         before = launch_counts(gk)
+        c0 = metrics.stream_chunks.value
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         first[q] = s.query(sql)         # the warm-up run (plans, collects statistics)
         torch.cuda.synchronize()
         first_ms = (time.perf_counter() - t) * 1e3
+        chunks = metrics.stream_chunks.value - c0
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
         launched = {k: v - before[k] for k, v in launch_counts(gk).items()}
         finite_rows(q, first[q])
         walls = []
-        for _ in range(TPCH_REPS):
+        # a streamed query takes seconds at SF1: fewer warm runs
+        reps = STREAM_REPS if chunks else TPCH_REPS
+        for _ in range(reps):
             torch.cuda.synchronize()
             t = time.perf_counter()
             s.query(sql)
@@ -656,9 +856,11 @@ def time_queries(gk, s, queries: dict, tag: str) -> tuple[dict, dict]:
         per_query[q] = {"rows": len(first[q]), "first_ms": first_ms, "warm_ms_p50": med,
                         "warm_ms_p67": float(np.percentile(walls, 67)),
                         "peak_mem_gib": peak_gib, "kernel_launches": launched,
-                        **device_breakdown(lambda: s.query(sql), med),
+                        "streamed_chunks": chunks, "warm_runs": reps,
+                        **device_breakdown(lambda: s.query(sql), med, host_ops=not chunks),
                         "spans_ms": span_ms(s, sql)}
-        log(f"[{tag}] {q}: {len(first[q])} rows, first run {first_ms:.1f} ms, warm p50 "
+        log(f"[{tag}] {q}: {len(first[q])} rows, {chunks} chunks streamed, first run "
+            f"{first_ms:.1f} ms, warm p50 "
             f"{med:.2f} ms p67 {per_query[q]['warm_ms_p67']:.2f} ms, device "
             f"{per_query[q]['device_ms']:.2f} ms, idle {per_query[q]['idle_share']:.3f}, "
             f"peak {peak_gib:.3f} GiB, K1-K3 launches {launched}, "
@@ -667,19 +869,54 @@ def time_queries(gk, s, queries: dict, tag: str) -> tuple[dict, dict]:
     return per_query, first
 
 
+def tpch_streamed_vs_resident(s, queries=("q1", "q6")) -> dict:
+    """Phase 7: each query streamed and resident in turns,
+    ``STREAM_TPCH_REPS`` runs each, in phase 5 (ii)'s session; the rows of
+    the two paths equal by the parity contract."""
+    from baikaldb_tpu_torch.models import tpch
+    from baikaldb_tpu_torch.models.parity import mismatch
+    from baikaldb_tpu_torch.utils import metrics
+
+    out = {}
+    for q in queries:
+        sql = tpch.QUERIES[q]
+        walls = {"streamed": [], "resident": []}
+        rows = {}
+        for _ in range(STREAM_TPCH_REPS):
+            for path, on in (("streamed", 1), ("resident", 0)):
+                with flag(s, "streaming_scan", on):
+                    c0 = metrics.stream_chunks.value
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    rows[path] = s.query(sql)
+                    torch.cuda.synchronize()
+                    walls[path].append((time.perf_counter() - t) * 1e3)
+                    if (metrics.stream_chunks.value > c0) != bool(on):
+                        raise AssertionError(f"TPC-H {q}: the {path} run took the other path")
+        diff = mismatch(rows["streamed"], rows["resident"], sql)
+        if diff is not None:
+            raise AssertionError(f"TPC-H {q}: streamed differs from resident: {diff}")
+        out[q] = {path: {"walls_ms": w, "p50_ms": statistics.median(w)}
+                  for path, w in walls.items()}
+        log(f"[stream] TPC-H {q}: streamed p50 {out[q]['streamed']['p50_ms']:.2f} ms, "
+            f"resident p50 {out[q]['resident']['p50_ms']:.2f} ms over {STREAM_TPCH_REPS} "
+            "runs each, rows equal")
+    return out
+
+
 # ----------------------------------------------------------------------
-# phase 5: analytics (windows, sketches, builtins)
+# phase 6: analytics (windows, sketches, builtins)
 
 
 def analytic_phase(gk, check: tuple, s, tables: dict, scale: float) -> dict:
-    """(i) the analytic set on the card against the CPU on phase 4 (i)'s
-    tables; (ii) timed in phase 4 (ii)'s session over its tables, with the
+    """(i) the analytic set on the card against the CPU on phase 5 (i)'s
+    tables; (ii) timed in phase 5 (ii)'s session over its tables, with the
     K1-K3 launches over the run (counters at 0 just before, read just
     after), peak device memory, and the numpy checks."""
     from baikaldb_tpu_torch.models import analytics
     from baikaldb_tpu_torch.models.parity import mismatch
 
-    gpu, cpu = check
+    gpu, cpu, _ = check
     for q, sql in analytics.QUERIES.items():
         got = gpu.query(sql)
         diff = mismatch(got, cpu.query(sql), sql)
@@ -730,30 +967,45 @@ def main() -> int:
     times = kernel_phase(gk, args.rows, args.seed, before)
     phase_s["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    launches, sql_stats = sql_phase(gk, args.rows, args.seed)
+    table, refs = sql_table(args.rows, args.seed)
+    launches, sql_stats = sql_phase(gk, table, refs)
     phase_s["sql"] = time.perf_counter() - t0
-    missing = [k for k, n in launches.items() if n == 0]
-    if missing:
-        raise AssertionError(f"kernels not launched on the main path: {missing}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    stream_launches, stream_stats = streamed_phase(gk, table, refs)
+    stream_stats["resident_peak_mem_gib"] = sql_stats["peak_mem_gib"]
+    phase_s["streamed"] = time.perf_counter() - t0
+    del table
+    for path, counts in (("resident", launches), ("streamed", stream_launches)):
+        missing = [k for k, n in counts.items() if n == 0]
+        if missing:
+            raise AssertionError(f"kernels not launched on the {path} path: {missing}")
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     check = tpch_card_vs_cpu(gk)
     phase_s["tpch_card_vs_cpu"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     tpch_stats, s, tables = tpch_on_the_card(gk, args.tpch_scale, args.seed)
+    tpch_stats["streamed_at_check_scale"] = check[2]
     phase_s["tpch_timed"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     analytic_stats = analytic_phase(gk, check, s, tables, args.tpch_scale)
     phase_s["analytics"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    stream_stats["tpch"] = tpch_streamed_vs_resident(s)
+    phase_s["tpch_streamed_vs_resident"] = time.perf_counter() - t0
     print(f"analytic phase seconds: {phase_s['analytics']:.1f}", flush=True)
     print("phase seconds: " + json.dumps(phase_s), flush=True)
 
     kernels = [{"name": k, "route": "cuda",
                 "source": "baikaldb_tpu_torch/ops/csrc/group_agg.cu",
-                "replaces": REPLACES[k], "launches": launches[k], **times[k]}
+                "replaces": REPLACES[k], "launches": launches[k] + stream_launches[k],
+                "launches_resident": launches[k], "launches_streamed": stream_launches[k],
+                **times[k]}
                for k in REPLACES]
     print(json.dumps({"card": name_power, "rows": args.rows, "phase_s": phase_s,
-                      "sql": sql_stats, "tpch": tpch_stats, "analytics": analytic_stats}),
+                      "sql": sql_stats, "streamed": stream_stats, "tpch": tpch_stats,
+                      "analytics": analytic_stats}),
           flush=True)
     print(name_power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

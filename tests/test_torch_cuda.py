@@ -13,6 +13,8 @@ the card and on the CPU and must agree: join rows exactly, query rows by the
 parity contract of models/parity.py, the rest as stated where they start.
 """
 
+import contextlib
+
 import numpy as np
 import pytest
 import torch
@@ -413,3 +415,126 @@ def test_builtins_on_the_card_match_the_cpu(cuda):
                 assert rg["v"] == pytest.approx(rw["v"], rel=1e-12), e
             else:
                 assert rg == rw, e
+
+
+# -- streamed scans on the card ------------------------------------------
+
+STREAM_ROWS = 1_000_003             # 16 chunks of 65536 rows, the last ragged
+STREAM_QUERIES = {
+    # (sql, kernels launched per kept chunk)
+    "b": ("SELECT g, COUNT(*), SUM(v), AVG(v), MIN(v) FROM t WHERE v*2+1 > 0.5 "
+          "GROUP BY g ORDER BY g", {"partition_histogram": 1, "fused_group_aggregate": 1}),
+    "c": ("SELECT g, SUM(w), AVG(w) FROM t WHERE w > -1 GROUP BY g ORDER BY g",
+          {"filtered_group_sum": 1}),
+    "scalar": ("SELECT COUNT(*), SUM(w), MIN(v), MAX(id) FROM t WHERE id >= 123456", {}),
+    "sorted": ("SELECT g16, id % 3 m, COUNT(*) n, SUM(w) s, STDDEV(v) sd FROM t "
+               "GROUP BY g16, m ORDER BY g16, m", {}),
+    "zone_skip": ("SELECT g, COUNT(*), SUM(v), AVG(v), MIN(v) FROM t WHERE id >= 600000 "
+                  "GROUP BY g ORDER BY g",
+                  {"partition_histogram": 1, "fused_group_aggregate": 1}),
+}
+
+
+@contextlib.contextmanager
+def _port_flags(**values):
+    from baikaldb_tpu_torch.utils.flags import FLAGS
+
+    prev = {k: getattr(FLAGS, k) for k in values}
+    try:
+        for k, v in values.items():
+            FLAGS.set_flag(k, v)
+        yield
+    finally:
+        for k, v in prev.items():
+            FLAGS.set_flag(k, v)
+
+
+@pytest.fixture(scope="module")
+def stream_session():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the card's session needs one")
+    import pyarrow as pa
+
+    from baikaldb_tpu_torch.exec.session import Session
+
+    rng = np.random.default_rng(4)
+    n = STREAM_ROWS
+    s = Session()
+    s.execute("CREATE TABLE t (id BIGINT, g INT, v FLOAT, w DOUBLE, g16 INT)")
+    s.load_arrow("t", pa.table({
+        "id": np.arange(n, dtype=np.int64), "g": rng.integers(0, 2048, n, dtype=np.int32),
+        "v": rng.standard_normal(n, dtype=np.float32), "w": rng.standard_normal(n),
+        "g16": rng.integers(0, 16, n, dtype=np.int32)}))
+    return s
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(STREAM_QUERIES))
+def test_streamed_scan_on_the_card_matches_resident(stream_session, name):
+    """Streamed (65536-row chunks, the default) against resident on the
+    card: it really streamed (``stream_chunks``), each kept chunk launched
+    its kernels once, and the rows agree by the parity contract."""
+    from baikaldb_tpu_torch.models.parity import mismatch
+    from baikaldb_tpu_torch.utils import metrics
+
+    s = stream_session
+    sql, per_chunk = STREAM_QUERIES[name]
+    with _port_flags(streaming_scan=True, streaming_min_rows=1 << 18,
+                     streaming_chunk_rows=1 << 16):
+        before = {k: c.value for k, c in gk.LAUNCHES.items()}
+        c0, k0 = metrics.stream_chunks.value, metrics.stream_chunks_skipped.value
+        got = s.query(sql)
+        torch.cuda.synchronize()
+        chunks = metrics.stream_chunks.value - c0
+        skipped = metrics.stream_chunks_skipped.value - k0
+        launched = {k: c.value - before[k] for k, c in gk.LAUNCHES.items()
+                    if c.value != before[k]}
+    assert chunks >= 1 and chunks + skipped == -(-STREAM_ROWS // (1 << 16))
+    assert (skipped > 0) == (name in ("zone_skip", "scalar"))
+    assert launched == {k: n * chunks for k, n in per_chunk.items()}
+    with _port_flags(streaming_scan=False):
+        c0 = metrics.stream_chunks.value
+        want = s.query(sql)
+        assert metrics.stream_chunks.value == c0
+    diff = mismatch(got, want, sql, 1e-4 if per_chunk else 1e-9)
+    assert diff is None, diff
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("chunk_rows", [1024, 4096])
+def test_streamed_copies_survive_a_slow_fold(cuda, monkeypatch, chunk_rows):
+    """The copy-stream race: tiny chunks, a fold slowed on the compute
+    stream (``torch.cuda._sleep``), and columns whose value is their chunk
+    id.  A pinned slot rewritten before its copy ran, or a device chunk
+    handed out again before the fold read it, gives a wrong exact sum."""
+    import pyarrow as pa
+
+    from baikaldb_tpu_torch.exec import streaming
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.utils import metrics
+
+    n = 257 * chunk_rows + 77
+    cid = np.arange(n, dtype=np.int64) // chunk_rows
+    s = Session()
+    s.execute("CREATE TABLE r (cid BIGINT, x DOUBLE, k INT)")
+    s.load_arrow("r", pa.table({"cid": cid, "x": cid.astype(np.float64),
+                                "k": (cid % 7).astype(np.int32)}))
+    partial = streaming.StreamRunner._partial
+
+    def slow_partial(self, chunk):
+        torch.cuda._sleep(2_000_000)            # ~1 ms on the compute stream
+        return partial(self, chunk)
+
+    monkeypatch.setattr(streaming.StreamRunner, "_partial", slow_partial)
+    sql = "SELECT k, COUNT(*) n, SUM(cid) s, SUM(x) sx, MAX(cid) mx FROM r GROUP BY k ORDER BY k"
+    with _port_flags(streaming_scan=True, streaming_min_rows=1,
+                     streaming_chunk_rows=chunk_rows):
+        c0 = metrics.stream_chunks.value
+        got = s.query(sql)
+        assert metrics.stream_chunks.value - c0 == -(-n // chunk_rows)
+    want = []
+    for k in range(7):
+        sel = cid % 7 == k
+        want.append({"k": k, "n": int(sel.sum()), "s": int(cid[sel].sum()),
+                     "sx": float(cid[sel].sum()), "mx": int(cid[sel].max())})
+    assert got == want
