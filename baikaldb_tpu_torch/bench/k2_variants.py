@@ -77,7 +77,7 @@ class Variant:
         lib.bk_fused_agg_blocks.argtypes = [i32, i32, i64, i32]
         lib.bk_fused_agg_ws_bytes.argtypes = [i32, i32]
         lib.bk_fused_agg_ws_bytes.restype = i64
-        lib.bk_fused_agg.argtypes = [i32, i32, vp, vp, vp, i64, i32, i32, vp, vp, vp]
+        lib.bk_fused_agg.argtypes = [i32, i32, vp, vp, vp, i64, i32, i32, vp, vp, vp, vp]
         self.lib = lib
 
     def __call__(self, codes, values, mask, ng: int):
@@ -85,14 +85,17 @@ class Variant:
         blocks = lib.bk_fused_agg_blocks(0, 0, n, ng)
         if blocks <= 0:
             raise RuntimeError(f"launch geometry failed with error {-blocks}")
-        ws_rows = -(-lib.bk_fused_agg_ws_bytes(blocks, ng) // (4 * ng))
-        buf = torch.empty((4 + ws_rows, ng), dtype=torch.float32, device=codes.device)
+        fwords = -(-3 * ng // 2)
+        ws_words = -(-lib.bk_fused_agg_ws_bytes(blocks, ng) // 8)
+        buf = torch.empty(ng + fwords + ws_words, dtype=torch.int64, device=codes.device)
+        base = buf.data_ptr()
         err = lib.bk_fused_agg(0, 0, codes.data_ptr(), values.data_ptr(), mask.data_ptr(), n,
-                               ng, blocks, buf.data_ptr() + 16 * ng, buf.data_ptr(),
+                               ng, blocks, base + 8 * (ng + fwords), base, base + 8 * ng,
                                torch.cuda.current_stream().cuda_stream)
         if err != 0:
             raise RuntimeError(f"launch failed with error {err}")
-        return buf[0], buf[1], buf[2], buf[3]
+        f = buf[ng:ng + fwords].view(torch.float32)
+        return buf[:ng], f[:ng], f[ng:2 * ng], f[2 * ng:3 * ng]
 
 
 def build(out_dir: str) -> dict[str, str]:

@@ -1,15 +1,24 @@
 """SQL session: parse -> plan -> stage tables on the device -> execute -> rows.
 
 The port of the query path of ``baikaldb_tpu/exec/session.py``: CREATE
-TABLE, INSERT ... VALUES, ``load_arrow`` bulk ingest, SET GLOBAL flags,
-EXPLAIN, and SELECT with joins, IN / EXISTS / scalar subqueries, derived
-tables and WITH, UNION, WHERE / GROUP BY / HAVING / ORDER BY / LIMIT /
-OFFSET (all 22 TPC-H queries), window functions.  The copied planner plans
-it; the executor runs the plan eagerly, and a scalar subquery with more than
-one row raises "Subquery returns more than 1 row" as in the JAX session.
-Results are densified on the device and returned as Arrow.  CONNECTION_ID()
-and VERSION() in a SELECT become literals before planning, as in the JAX
-session (``_resolve_session_exprs``).
+TABLE, INSERT ... VALUES, ``load_arrow`` bulk ingest, SET, EXPLAIN, and
+SELECT with joins, IN / EXISTS / scalar subqueries, derived tables and WITH,
+UNION, WHERE / GROUP BY / HAVING / ORDER BY / LIMIT / OFFSET (all 22 TPC-H
+queries), window functions.  The copied planner plans it; the executor runs
+the plan eagerly, and a scalar subquery with more than one row raises
+"Subquery returns more than 1 row" as in the JAX session.  Results are
+densified on the device and returned as Arrow.  CONNECTION_ID() and
+VERSION() in a SELECT become literals before planning, as in the JAX
+session (``_resolve_session_exprs``).  FORMAT, DATE_FORMAT, HEX, BIN and
+OCT of numbers are evaluated at egress (exec/egress.py), and SELECT ...
+INTO OUTFILE writes the rows to a file.
+
+The statements that need only the catalog are the JAX session's: CREATE /
+DROP DATABASE, USE, DROP TABLE (its store and device image go with it),
+TRUNCATE, CREATE / DROP VIEW, DESCRIBE, and SHOW DATABASES, [FULL] TABLES,
+CREATE TABLE, [FULL] COLUMNS, INDEX and VARIABLES.  The SHOW forms that read
+a plane the port lacks (regions, processlist, status, grants, profiles, ...)
+raise ``NotPortedError``.
 
 A session runs on one device, named when it is made.  ``Session()`` with no
 device runs on CUDA and raises when CUDA is unavailable; only an explicit
@@ -23,14 +32,19 @@ segments in the cold tier (``Database(cold_dir=...)`` or the
 ``cold_fs_dir`` flag) or in host memory.
 
 Not ported yet: transactions, UPDATE/DELETE, the plan cache and
-auto-parameterization, the host presort permutations, the egress fast path,
-pushdown, matviews and rollups, point lookups and snapshot pinning.
+auto-parameterization, the host presort permutations, pushdown, matviews
+and rollups, point lookups and snapshot pinning.
 """
 
 from __future__ import annotations
 
+import copy
 import datetime
+import functools
 import itertools
+import os
+import re
+import tempfile
 from dataclasses import dataclass, field, replace
 from typing import Optional
 
@@ -38,17 +52,20 @@ import pyarrow as pa
 import torch
 
 from ..errors import NotPortedError
-from ..exec import executor, streaming
+from ..exec import egress, executor, streaming
 from ..expr.ast import AggCall, Call, Lit, Subquery, WindowCall
 from ..index.selector import analyze_conjuncts
 from ..meta.catalog import Catalog, IndexInfo, parse_type
 from ..obs import trace
 from ..plan.nodes import PlanNode, ScanNode
-from ..plan.planner import Planner
+from ..plan.planner import PlanError, Planner
 from ..sql.lexer import SqlError
 from ..sql.parser import parse_sql
-from ..sql.stmt import (CreateTableStmt, ExplainStmt, InsertStmt, OrderItem,
-                        SelectItem, SelectStmt, SetStmt, TableRef)
+from ..sql.stmt import (CreateDatabaseStmt, CreateTableStmt, CreateViewStmt,
+                        DescribeStmt, DropDatabaseStmt, DropTableStmt,
+                        DropViewStmt, ExplainStmt, InsertStmt, OrderItem,
+                        SelectItem, SelectStmt, SetStmt, ShowStmt, TableRef,
+                        TruncateStmt, UseStmt)
 from ..storage.coldfs import ExternalFS
 from ..storage.column_store import TableStore
 from ..storage.streamchunks import ChunkSource, chunk_set
@@ -61,6 +78,40 @@ SERVER_VERSION = "8.0.0-baikaldb-tpu"
 
 # connection ids, one counter per process as in the JAX session
 _CONN_IDS = itertools.count(1)
+
+# what SHOW VARIABLES reports beside the flags (the JAX session's
+# _SERVER_VARS; only version_comment names this package)
+_SERVER_VARS = {
+    "version": SERVER_VERSION,
+    "version_comment": "baikaldb_tpu_torch (PyTorch/CUDA)",
+    "lower_case_table_names": "0",
+    "max_allowed_packet": str(1 << 24),
+    "character_set_server": "utf8mb4",
+    "character_set_client": "utf8mb4",
+    "character_set_results": "utf8mb4",
+    "collation_server": "utf8mb4_bin",
+    "collation_connection": "utf8mb4_bin",
+    "autocommit": "ON",
+    "sql_mode": "STRICT_TRANS_TABLES",
+    "tx_isolation": "REPEATABLE-READ",
+    "transaction_isolation": "REPEATABLE-READ",
+    "wait_timeout": "28800",
+    "interactive_timeout": "28800",
+    "net_write_timeout": "60",
+    "time_zone": "SYSTEM",
+    "system_time_zone": "UTC",
+    "init_connect": "",
+    "license": "Apache-2.0",
+    "performance_schema": "0",
+}
+
+
+@functools.lru_cache(maxsize=64)
+def _show_like_rx(pat: str):
+    """SHOW ... LIKE matcher: MySQL LIKE, case-insensitive."""
+    from ..expr.compile import _like_to_regex
+
+    return re.compile(_like_to_regex(pat), re.IGNORECASE)
 
 
 def resolve_device(device=None) -> torch.device:
@@ -129,6 +180,7 @@ class Session:
         self.db = db
         self.device = db.device
         self.current_db = database
+        self.session_vars: dict = {}     # SET name = value without GLOBAL
         self._conn_id = next(_CONN_IDS)
 
     def connection_id(self) -> int:
@@ -175,18 +227,189 @@ class Session:
             text = self._plan_select(s.stmt).tree_repr()
             return Result(columns=["plan"], plan_text=text,
                           arrow=pa.table({"plan": text.split("\n")}))
+        if isinstance(s, CreateViewStmt):
+            return self._create_view(s)
+        if isinstance(s, DropViewStmt):
+            try:
+                self.db.catalog.drop_view(s.table.database or self.current_db,
+                                          s.table.name, s.if_exists)
+            except ValueError as e:
+                raise PlanError(str(e)) from None
+            return Result()
+        if isinstance(s, DropTableStmt):
+            db = s.table.database or self.current_db
+            self.db.catalog.drop_table(db, s.table.name, s.if_exists)
+            st = self.db.stores.pop(f"{db}.{s.table.name}", None)
+            if st is not None:
+                st.release()
+            return Result()
+        if isinstance(s, TruncateStmt):
+            self._store(s.table).truncate()
+            return Result()
+        if isinstance(s, CreateDatabaseStmt):
+            self.db.catalog.create_database(s.name, if_not_exists=s.if_not_exists)
+            return Result()
+        if isinstance(s, DropDatabaseStmt):
+            self.db.catalog.drop_database(s.name, s.if_exists)
+            for k in [k for k in self.db.stores if k.startswith(s.name + ".")]:
+                self.db.stores.pop(k).release()
+            return Result()
+        if isinstance(s, UseStmt):
+            if s.database not in self.db.catalog.databases():
+                raise PlanError(f"unknown database {s.database!r}")
+            self.current_db = s.database
+            return Result()
+        if isinstance(s, DescribeStmt):
+            return self._describe(s)
+        if isinstance(s, ShowStmt):
+            return self._show(s)
         raise NotPortedError(f"statement {type(s).__name__}")
 
     def _set_stmt(self, s: SetStmt) -> Result:
-        """SET GLOBAL name = value updates the flag registry; session names
-        are accepted and ignored."""
+        """SET GLOBAL name = value updates the flag registry; other names
+        are kept per session (SHOW VARIABLES reports them), as MySQL
+        clients set them on connect and expect silent success."""
         for name, value in [(s.name, s.value)] + list(s.more):
             if s.scope == "global":
                 try:
                     FLAGS.set_flag(name, value)
                 except FlagError as e:
                     raise SqlError(str(e)) from None
+            else:
+                self.session_vars[name] = value
         return Result()
+
+    # -- catalog statements (the JAX session's, without the planes the
+    # port lacks: no durable catalog, binlog, rollups or global indexes) --
+    def _create_view(self, s: CreateViewStmt) -> Result:
+        db = s.table.database or self.current_db
+        cat = self.db.catalog
+        prior = cat.get_view(db, s.table.name)
+        try:
+            cat.create_view(db, s.table.name, s.select_sql, s.columns, s.or_replace)
+        except ValueError as e:
+            raise PlanError(str(e)) from None
+        # the body must plan against the current tables: its errors surface
+        # at CREATE, and a failed OR REPLACE keeps the previous definition
+        try:
+            self._plan_select(parse_sql(f"SELECT * FROM `{db}`.`{s.table.name}`")[0])
+        except Exception:
+            if prior is not None:
+                cat.create_view(db, s.table.name, prior["sql"], prior.get("columns"),
+                                or_replace=True)
+            else:
+                cat.drop_view(db, s.table.name, if_exists=True)
+            raise
+        return Result()
+
+    def _describe(self, s: DescribeStmt) -> Result:
+        db = s.table.database or self.current_db
+        if self.db.catalog.get_view(db, s.table.name) is not None:
+            # a view: plan its body (no execution) and read the root's schema
+            stmt = parse_sql(f"SELECT * FROM `{db}`.`{s.table.name}`")[0]
+            fields = self._plan_select(stmt).schema.fields
+            keys = [""] * len(fields)
+        else:
+            info = self.db.catalog.get_table(db, s.table.name)
+            pk = info.primary_key()
+            pkcols = set(pk.columns) if pk else set()
+            fields = info.schema.fields
+            keys = ["PRI" if f.name in pkcols else "" for f in fields]
+        return Result(columns=["Field", "Type", "Null", "Key"],
+                      arrow=pa.table({"Field": [f.name for f in fields],
+                                      "Type": [f.ltype.value for f in fields],
+                                      "Null": ["YES" if f.nullable else "NO" for f in fields],
+                                      "Key": keys}))
+
+    def _show(self, s: ShowStmt) -> Result:
+        """The SHOW forms that read only the catalog and the flags."""
+        cat = self.db.catalog
+
+        def like(name: str) -> bool:
+            return s.pattern is None or _show_like_rx(s.pattern).match(name) is not None
+
+        if s.what == "databases":
+            return Result(columns=["Database"],
+                          arrow=pa.table({"Database": cat.databases()}))
+        if s.what in ("tables", "full_tables"):
+            db = s.database or self.current_db
+            views = list(cat.views(db))
+            names = [n for n in sorted(cat.tables(db) + views) if like(n)]
+            cols = {f"Tables_in_{db}": names}
+            if s.what == "full_tables":
+                cols["Table_type"] = ["VIEW" if n in views else "BASE TABLE" for n in names]
+            return Result(columns=list(cols), arrow=pa.table(cols))
+        if s.what == "create_table":
+            return self._show_create(s)
+        if s.what in ("columns", "full_columns"):
+            base = self._describe(DescribeStmt(s.table)).arrow
+            if s.pattern is not None:
+                base = base.take([i for i, f in enumerate(base.column("Field").to_pylist())
+                                  if like(f)])
+            if s.what == "columns":
+                return Result(columns=list(base.column_names), arrow=base)
+            fields = base.column("Field").to_pylist()
+            types = base.column("Type").to_pylist()
+            db = s.table.database or self.current_db
+            auto_col = None
+            if cat.get_view(db, s.table.name) is None:
+                auto_col = (cat.get_table(db, s.table.name).options or {}).get("auto_increment")
+            n = len(fields)
+            return Result(
+                columns=["Field", "Type", "Collation", "Null", "Key", "Default", "Extra",
+                         "Privileges", "Comment"],
+                arrow=pa.table({
+                    "Field": fields, "Type": types,
+                    "Collation": pa.array(["utf8mb4_bin" if t == "string" else None
+                                           for t in types], pa.string()),
+                    "Null": base.column("Null"), "Key": base.column("Key"),
+                    "Default": pa.array([None] * n, pa.string()),
+                    "Extra": ["auto_increment" if f == auto_col else "" for f in fields],
+                    "Privileges": ["select,insert,update,references"] * n,
+                    "Comment": [""] * n}))
+        if s.what == "index":
+            info = cat.get_table(s.table.database or self.current_db, s.table.name)
+            rows = [(s.table.name, ix.name, ix.kind, seq, c)
+                    for ix in info.indexes for seq, c in enumerate(ix.columns, 1)]
+            return Result(
+                columns=["Table", "Key_name", "Index_type", "Seq_in_index", "Column_name"],
+                arrow=pa.table({"Table": [r[0] for r in rows],
+                                "Key_name": [r[1] for r in rows],
+                                "Index_type": [r[2] for r in rows],
+                                "Seq_in_index": pa.array([r[3] for r in rows], pa.int64()),
+                                "Column_name": [r[4] for r in rows]}))
+        if s.what == "variables":
+            vals = dict(_SERVER_VARS)
+            vals.update({k: str(v) for k, v in self.session_vars.items()
+                         if not k.startswith("@")})
+            vals.update({k: str(v).lower() if isinstance(v, bool) else str(v)
+                         for k, v in FLAGS.snapshot().items()})
+            items = [(k, v) for k, v in sorted(vals.items()) if like(k)]
+            return Result(columns=["Variable_name", "Value"],
+                          arrow=pa.table({"Variable_name": [k for k, _ in items],
+                                          "Value": [v for _, v in items]}))
+        raise NotPortedError(f"SHOW {s.what.upper()} (its plane is not ported)")
+
+    def _show_create(self, s: ShowStmt) -> Result:
+        db = s.table.database or self.current_db
+        cat = self.db.catalog
+        view = cat.get_view(db, s.table.name)
+        if view is not None:
+            cols = f" ({', '.join(view['columns'])})" if view["columns"] else ""
+            ddl = f"CREATE VIEW `{s.table.name}`{cols} AS {view['sql']}"
+            return Result(columns=["View", "Create View"],
+                          arrow=pa.table({"View": [s.table.name], "Create View": [ddl]}))
+        info = cat.get_table(db, s.table.name)
+        lines = []
+        pk = info.primary_key()
+        for f in info.schema.fields:
+            lines.append(f"  `{f.name}` {f.ltype.value.upper()}"
+                         + ("" if f.nullable else " NOT NULL"))
+        if pk:
+            lines.append("  PRIMARY KEY (" + ", ".join(f"`{c}`" for c in pk.columns) + ")")
+        ddl = f"CREATE TABLE `{s.table.name}` (\n" + ",\n".join(lines) + "\n)"
+        return Result(columns=["Table", "Create Table"],
+                      arrow=pa.table({"Table": [s.table.name], "Create Table": [ddl]}))
 
     def _store(self, tref) -> TableStore:
         db = tref.database or self.current_db
@@ -245,7 +468,13 @@ class Session:
 
     def _select(self, stmt: SelectStmt) -> Result:
         if stmt.into_outfile is not None:
-            raise NotPortedError("SELECT ... INTO OUTFILE")
+            return self._select_into_outfile(stmt)
+        eg = egress.extract(stmt, self)
+        if eg is not None:
+            # the rewritten statement runs on the device; the string
+            # skeletons evaluate on the host over its rows
+            inner = self._select(eg[0])
+            return _host_rows_result(*egress.finish(eg[1], inner))
         plan = self._plan_select(stmt)
         with trace.span("exec.batches"):
             batches = self._collect_batches(plan)
@@ -259,6 +488,46 @@ class Session:
         with trace.span("egress.arrow"):
             table = _egress_compact(out).to_arrow()
         return Result(columns=list(table.column_names), arrow=table)
+
+    def _select_into_outfile(self, stmt: SelectStmt) -> Result:
+        """SELECT ... INTO OUTFILE: the rows go to a file, the row count is
+        the result.  MySQL conventions, as in the JAX session: an existing
+        file is never overwritten (claimed with O_EXCL), \\N for NULL,
+        separators escaped with a backslash, booleans as 1/0."""
+        path, fsep, lsep = stmt.into_outfile
+        try:
+            final_fd = os.open(path, os.O_CREAT | os.O_EXCL | os.O_WRONLY)
+        except FileExistsError:
+            raise PlanError(f"OUTFILE {path!r} already exists") from None
+        inner = copy.copy(stmt)
+        inner.into_outfile = None
+        try:
+            res = self._select(inner)
+
+            def cell(v):
+                if v is None:
+                    return "\\N"
+                if isinstance(v, bool):
+                    return "1" if v else "0"
+                return (str(v).replace("\\", "\\\\").replace(fsep, "\\" + fsep)
+                        .replace(lsep, "\\" + lsep))
+
+            fd, tmp = tempfile.mkstemp(dir=os.path.dirname(os.path.abspath(path)) or ".",
+                                       suffix=".outfile")
+            try:
+                with os.fdopen(fd, "w", encoding="utf-8", newline="") as f:
+                    for r in res.rows:
+                        f.write(fsep.join(cell(v) for v in r) + lsep)
+                os.replace(tmp, path)
+            except BaseException:
+                os.unlink(tmp)
+                raise
+        except BaseException:
+            os.close(final_fd)
+            os.unlink(path)
+            raise
+        os.close(final_fd)
+        return Result(affected_rows=res.arrow.num_rows if res.arrow is not None else 0)
 
     def _collect_batches(self, plan: PlanNode) -> dict:
         batches: dict = {}
@@ -354,6 +623,19 @@ def _resolve_session_exprs(stmt: SelectStmt, conn_id: int) -> SelectStmt:
 
     out = walk_s(stmt)
     return out if changed[0] else stmt
+
+
+def _host_rows_result(names: list, rows: list) -> Result:
+    """Host-computed row tuples -> Result (the egress finish).  Duplicate
+    output names stay as the client asked for them."""
+    arrays = []
+    for i in range(len(names)):
+        vals = [r[i] for r in rows]
+        try:
+            arrays.append(pa.array(vals))
+        except (pa.ArrowInvalid, pa.ArrowTypeError):
+            arrays.append(pa.array([None if v is None else str(v) for v in vals]))
+    return Result(columns=list(names), arrow=pa.Table.from_arrays(arrays, names=list(names)))
 
 
 def _temporal_value(v: str, lt: LType):

@@ -170,6 +170,8 @@ def _eval(e: Expr, batch: ColumnBatch):
         if h is not None:
             return h(e, batch)
         h = _SIMPLE.get(e.op)
+        if h is None and e.op in _EGRESS_ONLY:
+            raise ExprError(f"no type rule for {e.op!r}")
         if h is None:
             raise NotPortedError(f"builtin function {e.op!r}")
         args = [_eval(a, batch) for a in e.args]
@@ -525,7 +527,15 @@ def _default_type_rule(op, argts):
     }
     if op in rules:
         return rules[op]
+    if op in _EGRESS_ONLY:
+        raise ExprError(f"no type rule for {op!r}")
     raise NotPortedError(f"builtin function {op!r}")
+
+
+# builtins that exec/egress.py evaluates on the host over a result: where one
+# reaches a device expression (a subquery, a derived table) the JAX package's
+# compiler has no type rule for it either
+_EGRESS_ONLY = frozenset({"date_format", "format", "bin", "oct"})
 
 
 # ----------------------------------------------------------------------

@@ -6,7 +6,8 @@
 //   K2             -> fused_group_aggregate (:210, _agg_kernel):  counts + sums + min + max
 // The contract is the TPU kernels': codes int32[N], values [N] contracted as
 // float32, mask bool[N]; a row drops when its mask is false or its code lies
-// outside [0, ng).  Outputs are float32[ng]; an empty group's min/max hold
+// outside [0, ng).  Counts are int64[ng], exact at any row count; sums, mins
+// and maxs are float32[ng]; an empty group's min/max hold
 // +3.4e38 / -3.4e38 and its count of 0 marks it.  A group holding a NaN (of
 // either sign) gives NaN for SUM, MIN and MAX, as the JAX package's SQL
 // answer and the plain versions do.
@@ -22,8 +23,9 @@
 //
 // K1 and K3 (group_agg_kernel): each thread loads one row a step,
 // grid-stride; one block flushes its table into a global workspace with
-// global atomics after init_workspace, and finalize casts the workspace to
-// the float32 outputs.
+// global atomics after init_workspace.  The uint64 workspace counts are the
+// int64 count output as they stand; for K1, finalize rounds the float64
+// workspace sums to the float32 outputs.
 //
 // K2 (agg_kernel + agg_merge), redesigned for this card:
 // - Wide, early loads.  A warp takes 64 quads (a quad is 4 consecutive
@@ -154,12 +156,10 @@ group_agg_kernel(const int* __restrict__ codes, const V* __restrict__ values,
     }
 }
 
-__global__ void finalize(int kind, int ng, const unsigned long long* counts,
-                         const double* sums, float* o_counts, float* o_sums) {
+__global__ void finalize(int ng, const double* sums, float* o_sums) {
     int g = blockIdx.x * blockDim.x + threadIdx.x;
     if (g >= ng) return;
-    o_counts[g] = static_cast<float>(counts[g]);
-    if (kind != KIND_HIST) o_sums[g] = static_cast<float>(sums[g]);
+    o_sums[g] = static_cast<float>(sums[g]);
 }
 
 // ---------------------------------------------------------------------------
@@ -289,10 +289,11 @@ agg_kernel(const int* __restrict__ codes, const V* __restrict__ values,
     }
 }
 
-// Reduces the `blocks` rows of the workspace per slot; -> float32 outputs
-// out[0:ng] counts, [ng:2ng] sums, [2ng:3ng] mins, [3ng:4ng] maxs.
+// Reduces the `blocks` rows of the workspace per slot; -> int64 counts and
+// float32 outputs out[0:ng] sums, [ng:2ng] mins, [2ng:3ng] maxs.
 __global__ void __launch_bounds__(MERGE_SLOTS * MERGE_WARPS)
-agg_merge(int blocks, int ng, const void* __restrict__ ws, float* __restrict__ out) {
+agg_merge(int blocks, int ng, const void* __restrict__ ws, long long* __restrict__ counts,
+          float* __restrict__ out) {
     __shared__ double s_sums[MERGE_WARPS][MERGE_SLOTS];
     __shared__ unsigned long long s_counts[MERGE_WARPS][MERGE_SLOTS];
     __shared__ int s_mins[MERGE_WARPS][MERGE_SLOTS];
@@ -327,11 +328,11 @@ agg_merge(int blocks, int ng, const void* __restrict__ ws, float* __restrict__ o
         mn = min(mn, s_mins[k][lane]);
         mx = max(mx, s_maxs[k][lane]);
     }
-    out[g] = static_cast<float>(c);
-    out[ng + g] = static_cast<float>(s);
+    counts[g] = static_cast<long long>(c);
+    out[g] = static_cast<float>(s);
     const float nan = __int_as_float(0x7FC00000);
-    out[2 * ng + g] = mx == NAN_KEY ? nan : ordered_float(mn);
-    out[3 * ng + g] = mx == NAN_KEY ? nan : ordered_float(mx);
+    out[ng + g] = mx == NAN_KEY ? nan : ordered_float(mn);
+    out[2 * ng + g] = mx == NAN_KEY ? nan : ordered_float(mx);
 }
 
 // ---------------------------------------------------------------------------
@@ -402,7 +403,8 @@ cudaError_t agg_blocks(int device, long long n, int ng, int* blocks) {
 
 template <typename V>
 cudaError_t launch_agg(const void* codes, const void* values, const void* mask, long long n,
-                       int ng, int blocks, void* ws, float* out, cudaStream_t stream) {
+                       int ng, int blocks, void* ws, long long* counts, float* out,
+                       cudaStream_t stream) {
     // the vector loop starts at the codes' first 16-byte boundary; values and
     // mask must be aligned at that row too, or every row goes scalar
     const uintptr_t pc = reinterpret_cast<uintptr_t>(codes);
@@ -421,7 +423,7 @@ cudaError_t launch_agg(const void* codes, const void* values, const void* mask, 
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
     agg_merge<<<(ng + MERGE_SLOTS - 1) / MERGE_SLOTS, MERGE_SLOTS * MERGE_WARPS, 0, stream>>>(
-        blocks, ng, ws, out);
+        blocks, ng, ws, counts, out);
     return cudaGetLastError();
 }
 
@@ -431,12 +433,13 @@ extern "C" {
 
 // K1/K3.  kind: 0 histogram (K3), 1 count+sum (K1).
 // value_f64: values are float64 (else float32); unused for kind 0.
-// ws_*: workspace of ng entries each (uint64 counts, float64 sums);
-// out_*: float32[ng] outputs.  Unused pointers may be null.
+// ws_counts: ng uint64 counts, which are the int64 count output when the
+// call returns; ws_sums: ng float64 sums; out_sums: float32[ng].  The sum
+// pointers are unused (may be null) for kind 0.
 // device: the CUDA device every pointer lies on.
 int bk_group_agg(int device, int kind, int value_f64, const void* codes, const void* values,
                  const void* mask, long long n, int ng, void* ws_counts, void* ws_sums,
-                 void* out_counts, void* out_sums, void* stream_ptr) {
+                 void* out_sums, void* stream_ptr) {
     if (ng < 1 || ng > MAX_GROUPS || n < 0) return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -461,9 +464,8 @@ int bk_group_agg(int device, int kind, int value_f64, const void* codes, const v
             err = cudaErrorInvalidValue;
         if (err != cudaSuccess) return static_cast<int>(err);
     }
-    finalize<<<small_blocks, 256, 0, stream>>>(kind, ng, counts, sums,
-                                               static_cast<float*>(out_counts),
-                                               static_cast<float*>(out_sums));
+    if (kind == KIND_HIST) return static_cast<int>(cudaSuccess);
+    finalize<<<small_blocks, 256, 0, stream>>>(ng, sums, static_cast<float*>(out_sums));
     return static_cast<int>(cudaGetLastError());
 }
 
@@ -485,20 +487,20 @@ long long bk_fused_agg_ws_bytes(int blocks, int ng) {
 }
 
 // K2: count + sum + min + max.  ws: 8-byte aligned workspace of
-// bk_fused_agg_ws_bytes(blocks, ng) bytes; out: float32[4 * ng] (counts,
-// sums, mins, maxs).
+// bk_fused_agg_ws_bytes(blocks, ng) bytes; counts: int64[ng]; out:
+// float32[3 * ng] (sums, mins, maxs).
 int bk_fused_agg(int device, int value_f64, const void* codes, const void* values,
-                 const void* mask, long long n, int ng, int blocks, void* ws, void* out,
-                 void* stream_ptr) {
+                 const void* mask, long long n, int ng, int blocks, void* ws, void* counts,
+                 void* out, void* stream_ptr) {
     if (ng < 1 || ng > MAX_GROUPS || n < 0 || blocks < 1)
         return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    err = value_f64 ? launch_agg<double>(codes, values, mask, n, ng, blocks, ws,
-                                         static_cast<float*>(out), stream)
-                    : launch_agg<float>(codes, values, mask, n, ng, blocks, ws,
-                                        static_cast<float*>(out), stream);
+    auto* c = static_cast<long long*>(counts);
+    auto* o = static_cast<float*>(out);
+    err = value_f64 ? launch_agg<double>(codes, values, mask, n, ng, blocks, ws, c, o, stream)
+                    : launch_agg<float>(codes, values, mask, n, ng, blocks, ws, c, o, stream);
     return static_cast<int>(err);
 }
 

@@ -1,0 +1,433 @@
+// Segment reductions over few segments for Hopper (sm_90a).
+//
+// Replaces the accelerator branch of baikaldb_tpu/ops/segments.py: seg_sum
+// (:50) and _seg_extremum (:69) when _use_onehot holds, where XLA fuses
+// where(gid == k, x, identity) into one reduction per segment.  That branch
+// is XLA, not Pallas, but it is the TPU's lowering of every dense GROUP BY
+// of at most onehot_max_segments slots and of the `present` count under it.
+// Contract (the reference's): for a 1-D x and ids gid (int32 or int64), and
+// each segment k in [0, S), reduce the rows with gid == k.  Ids outside
+// [0, S) drop before any shared or global update.
+//   SUM: bool and int32 in uint32, int64 in uint64 (two's complement wrap;
+//        a bool sum taken in int64 and cast to int32 gives the same bits),
+//        float32 and float64 in float64; out int32 / int64 / the float dtype.
+//   MIN/MAX: int32, int64 and bool (as int32) as integers; float32/float64 as
+//        order-preserving integer keys (K2's ordered_int), a NaN of either
+//        sign entering as the key that wins (INT_MIN for MIN, INT_MAX for
+//        MAX: the image of no other float), so a segment holding a NaN gives
+//        NaN.  Empty segments hold +inf/-inf or the dtype's max/min.
+//
+// What bounds it: one read of x and gid per row, n * (itemsize + 4 or 8)
+// bytes over the memory rate; the tables stay in shared memory.  The cost
+// that can exceed that is the shared-memory update per row, so the table
+// layout follows the segment count:
+//   PRIVATE (S * THREADS * acc bytes <= PRIVATE_BYTES, e.g. 17 float64
+//     slots): each thread owns a column of a slot-major table, t[g * THREADS
+//     + tid]; updates are plain read-modify-writes, no atomics and no bank
+//     conflicts (a warp's 32 lanes hit 32 consecutive words whatever their
+//     ids).  This is the per-thread select+reduce of the TPU's lowering,
+//     with the accumulators in shared memory instead of registers.
+//   WARP (replica-major, t[r * S + g], r = warp % R): R copies of the table
+//     so that the warps of a block do not meet on the same slot; shared
+//     atomics (a float64 add is a compare-and-swap loop on sm_90).
+//   BLOCK: one copy (R = 1), for large S.
+// Each block folds its copies per slot in a fixed order and stores one row
+// of a [blocks x S] workspace with plain stores; seg_merge reduces each
+// slot's rows in a fixed order and writes the output dtype.  Two launches,
+// no init pass, no global atomics.
+//
+// Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC  (baikaldb_tpu_torch/ops/group_kernels.py builds it).
+// Interface: plain C, loaded with ctypes; pointers are device pointers, the
+// stream is PyTorch's current stream; the return value is a cudaError_t.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include <climits>
+#include <cmath>
+#include <map>
+#include <mutex>
+#include <tuple>
+
+namespace {
+
+constexpr int OP_SUM = 0, OP_MIN = 1, OP_MAX = 2;
+constexpr int T_BOOL = 0, T_I32 = 1, T_I64 = 2, T_F32 = 3, T_F64 = 4;
+constexpr int MODE_AUTO = 0, MODE_PRIVATE = 1, MODE_WARP = 2, MODE_BLOCK = 3;
+
+constexpr int THREADS = 256;
+constexpr int WARPS = THREADS / 32;
+constexpr int UNROLL = 8;                 // rows a thread keeps in flight
+constexpr int MAX_SEGMENTS = 16384;       // a float64 table of 128 KB
+constexpr size_t PRIVATE_BYTES = 48 * 1024;
+constexpr size_t WARP_BYTES = 64 * 1024;
+constexpr size_t SMEM_MAX = 8 * MAX_SEGMENTS;
+constexpr int MERGE_SLOTS = 32;           // slots of one seg_merge block, one a lane
+constexpr int MERGE_WARPS = 16;           // warps of one seg_merge block, splitting the rows
+
+__device__ __forceinline__ int ordered_key(float v) {
+    const int i = __float_as_int(v);
+    return i >= 0 ? i : i ^ 0x7FFFFFFF;
+}
+__device__ __forceinline__ long long ordered_key(double v) {
+    const long long i = __double_as_longlong(v);
+    return i >= 0 ? i : i ^ 0x7FFFFFFFFFFFFFFFLL;
+}
+__device__ __forceinline__ float from_key(int k) {
+    return __int_as_float(k >= 0 ? k : k ^ 0x7FFFFFFF);
+}
+__device__ __forceinline__ double from_key(long long k) {
+    return __longlong_as_double(k >= 0 ? k : k ^ 0x7FFFFFFFFFFFFFFFLL);
+}
+
+__device__ __forceinline__ bool ld(const bool* p) {
+    return __ldcs(reinterpret_cast<const unsigned char*>(p)) != 0;
+}
+template <typename T>
+__device__ __forceinline__ T ld(const T* p) { return __ldcs(p); }
+
+// Per (op, input type): the accumulator A, its identity, the key of a row,
+// how two accumulators combine, and the output type and value.
+template <int OP, typename T> struct Red;
+
+template <typename T, typename A, typename O> struct SumInt {
+    using Acc = A;
+    using Out = O;
+    __device__ static A ident() { return A(0); }
+    __device__ static A key(T x) { return static_cast<A>(x); }
+    __device__ static A combine(A a, A b) { return a + b; }
+    __device__ static void shared_update(A* p, A k) { atomicAdd(p, k); }
+    __device__ static O out(A a) { return static_cast<O>(a); }
+};
+template <> struct Red<OP_SUM, bool> : SumInt<bool, unsigned int, int> {};
+template <> struct Red<OP_SUM, int> : SumInt<int, unsigned int, int> {};
+template <> struct Red<OP_SUM, long long> : SumInt<long long, unsigned long long, long long> {};
+
+template <typename T> struct SumFloat {
+    using Acc = double;
+    using Out = T;
+    __device__ static double ident() { return 0.0; }
+    __device__ static double key(T x) { return static_cast<double>(x); }
+    __device__ static double combine(double a, double b) { return a + b; }
+    __device__ static void shared_update(double* p, double k) { atomicAdd(p, k); }
+    __device__ static T out(double a) { return static_cast<T>(a); }
+};
+template <> struct Red<OP_SUM, float> : SumFloat<float> {};
+template <> struct Red<OP_SUM, double> : SumFloat<double> {};
+
+template <bool IS_MIN, typename T, typename A> struct ExtInt {
+    using Acc = A;
+    using Out = A;
+    __device__ static A ident() {
+        if constexpr (sizeof(A) == 4) return IS_MIN ? INT_MAX : INT_MIN;
+        else return IS_MIN ? LLONG_MAX : LLONG_MIN;
+    }
+    __device__ static A key(T x) { return static_cast<A>(x); }
+    __device__ static A combine(A a, A b) { return IS_MIN ? min(a, b) : max(a, b); }
+    __device__ static void shared_update(A* p, A k) {
+        if (IS_MIN) atomicMin(p, k); else atomicMax(p, k);
+    }
+    __device__ static A out(A a) { return a; }
+};
+template <> struct Red<OP_MIN, bool> : ExtInt<true, bool, int> {};
+template <> struct Red<OP_MAX, bool> : ExtInt<false, bool, int> {};
+template <> struct Red<OP_MIN, int> : ExtInt<true, int, int> {};
+template <> struct Red<OP_MAX, int> : ExtInt<false, int, int> {};
+template <> struct Red<OP_MIN, long long> : ExtInt<true, long long, long long> {};
+template <> struct Red<OP_MAX, long long> : ExtInt<false, long long, long long> {};
+
+// Floats as ordered integer keys; a NaN is the key that wins.
+template <bool IS_MIN, typename T, typename A> struct ExtFloat {
+    using Acc = A;
+    using Out = T;
+    __device__ static constexpr A nan_key() {
+        if constexpr (sizeof(A) == 4) return IS_MIN ? INT_MIN : INT_MAX;
+        else return IS_MIN ? LLONG_MIN : LLONG_MAX;
+    }
+    __device__ static A ident() {
+        const T inf = static_cast<T>(IS_MIN ? INFINITY : -INFINITY);
+        return ordered_key(inf);
+    }
+    __device__ static A key(T x) { return x != x ? nan_key() : ordered_key(x); }
+    __device__ static A combine(A a, A b) { return IS_MIN ? min(a, b) : max(a, b); }
+    __device__ static void shared_update(A* p, A k) {
+        if (IS_MIN) atomicMin(p, k); else atomicMax(p, k);
+    }
+    __device__ static T out(A a) {
+        return a == nan_key() ? static_cast<T>(NAN) : from_key(a);
+    }
+};
+template <> struct Red<OP_MIN, float> : ExtFloat<true, float, int> {};
+template <> struct Red<OP_MAX, float> : ExtFloat<false, float, int> {};
+template <> struct Red<OP_MIN, double> : ExtFloat<true, double, long long> {};
+template <> struct Red<OP_MAX, double> : ExtFloat<false, double, long long> {};
+
+// One pass over the rows; block b leaves its table in row b of `ws`.
+// PRIVATE: R == THREADS, slot-major table, no atomics; else replica-major.
+template <int OP, typename T, typename Id, bool PRIVATE>
+__global__ void __launch_bounds__(THREADS)
+seg_kernel(const T* __restrict__ x, const Id* __restrict__ gid, long long n, int S, int R,
+           typename Red<OP, T>::Acc* __restrict__ ws) {
+    using R_ = Red<OP, T>;
+    using A = typename R_::Acc;
+    extern __shared__ __align__(8) unsigned char smem[];
+    A* t = reinterpret_cast<A*>(smem);
+    for (int i = threadIdx.x; i < S * R; i += THREADS) t[i] = R_::ident();
+    __syncthreads();
+
+    // PRIVATE: this thread's column; else this warp's copy
+    A* mine = PRIVATE ? t + threadIdx.x : t + static_cast<size_t>((threadIdx.x >> 5) % R) * S;
+    const int pitch = PRIVATE ? THREADS : 1;
+    const long long span = (long long)THREADS * UNROLL;
+    const long long stride = (long long)gridDim.x * span;
+    for (long long base = (long long)blockIdx.x * span + threadIdx.x; base < n; base += stride) {
+        Id g[UNROLL];
+        T v[UNROLL];
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+            const long long i = base + (long long)u * THREADS;
+            if (i < n) {
+                g[u] = ld(gid + i);
+                v[u] = ld(x + i);
+            } else {
+                g[u] = -1;
+                v[u] = T(0);
+            }
+        }
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+            if (g[u] < 0 || g[u] >= S) continue;     // the drop rule
+            A* p = mine + static_cast<size_t>(g[u]) * pitch;
+            const A k = R_::key(v[u]);
+            if (PRIVATE) *p = R_::combine(*p, k);
+            else R_::shared_update(p, k);
+        }
+    }
+    __syncthreads();
+
+    A* row = ws + static_cast<size_t>(blockIdx.x) * S;
+    if (PRIVATE) {
+        // one warp a slot: lanes read consecutive columns, then a fixed tree
+        const int lane = threadIdx.x & 31;
+        for (int g = threadIdx.x >> 5; g < S; g += WARPS) {
+            A a = R_::ident();
+            for (int k = lane; k < THREADS; k += 32) a = R_::combine(a, t[g * THREADS + k]);
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1)
+                a = R_::combine(a, __shfl_down_sync(0xFFFFFFFFu, a, off));
+            if (lane == 0) row[g] = a;
+        }
+    } else {
+        for (int g = threadIdx.x; g < S; g += THREADS) {
+            A a = t[g];
+            for (int k = 1; k < R; ++k) a = R_::combine(a, t[static_cast<size_t>(k) * S + g]);
+            row[g] = a;
+        }
+    }
+}
+
+// Reduces the `blocks` rows of the workspace per slot in a fixed order and
+// writes out[g] in the output dtype.
+template <int OP, typename T>
+__global__ void __launch_bounds__(MERGE_SLOTS * MERGE_WARPS)
+seg_merge(int blocks, int S, const typename Red<OP, T>::Acc* __restrict__ ws,
+          typename Red<OP, T>::Out* __restrict__ out) {
+    using R_ = Red<OP, T>;
+    using A = typename R_::Acc;
+    __shared__ A part[MERGE_WARPS][MERGE_SLOTS];
+    const int lane = threadIdx.x & 31;
+    const int wid = threadIdx.x >> 5;
+    const int g = blockIdx.x * MERGE_SLOTS + lane;
+    A a = R_::ident();
+    if (g < S)
+        for (int b = wid; b < blocks; b += MERGE_WARPS)
+            a = R_::combine(a, ws[static_cast<size_t>(b) * S + g]);
+    part[wid][lane] = a;
+    __syncthreads();
+    if (wid != 0 || g >= S) return;
+    for (int k = 1; k < MERGE_WARPS; ++k) a = R_::combine(a, part[k][lane]);
+    out[g] = R_::out(a);
+}
+
+// ---------------------------------------------------------------------------
+// host: launch plan, cached
+
+struct Plan {
+    int blocks;
+    int replicas;
+    bool priv;
+    size_t smem;
+};
+
+std::mutex g_mu;
+std::map<std::tuple<const void*, int, size_t>, int> g_per_sm;   // (kernel, device, smem)
+std::map<int, int> g_sms;                                        // device -> SMs
+
+cudaError_t blocks_per_sm(const void* kern, int device, size_t smem, int* per_sm, int* sms) {
+    std::lock_guard<std::mutex> lock(g_mu);
+    auto key = std::make_tuple(kern, device, smem);
+    auto hit = g_per_sm.find(key);
+    if (g_sms.find(device) == g_sms.end()) {
+        int s = 0;
+        cudaError_t err = cudaDeviceGetAttribute(&s, cudaDevAttrMultiProcessorCount, device);
+        if (err != cudaSuccess) return err;
+        g_sms[device] = s;
+    }
+    *sms = g_sms[device];
+    if (hit != g_per_sm.end()) {
+        *per_sm = hit->second;
+        return cudaSuccess;
+    }
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(SMEM_MAX));
+    if (err != cudaSuccess) return err;
+    int b = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&b, kern, THREADS, smem);
+    if (err != cudaSuccess) return err;
+    *per_sm = b > 0 ? b : 1;
+    g_per_sm.emplace(key, *per_sm);
+    return cudaSuccess;
+}
+
+template <int OP, typename T, typename Id>
+cudaError_t plan_for(int device, long long n, int S, int mode, Plan* p) {
+    using A = typename Red<OP, T>::Acc;
+    const size_t slot = sizeof(A) * static_cast<size_t>(S);
+    if (mode == MODE_AUTO)
+        mode = slot * THREADS <= PRIVATE_BYTES ? MODE_PRIVATE
+             : slot * 2 <= WARP_BYTES        ? MODE_WARP
+                                             : MODE_BLOCK;
+    if (mode == MODE_PRIVATE) {
+        p->priv = true;
+        p->replicas = THREADS;
+    } else if (mode == MODE_WARP) {
+        p->priv = false;
+        const size_t fit = WARP_BYTES / slot;
+        p->replicas = fit >= WARPS ? WARPS : (fit > 0 ? static_cast<int>(fit) : 1);
+    } else if (mode == MODE_BLOCK) {
+        p->priv = false;
+        p->replicas = 1;
+    } else {
+        return cudaErrorInvalidValue;
+    }
+    p->smem = slot * p->replicas;
+    if (p->smem > SMEM_MAX) return cudaErrorInvalidValue;
+    const void* kern = p->priv ? reinterpret_cast<const void*>(&seg_kernel<OP, T, Id, true>)
+                               : reinterpret_cast<const void*>(&seg_kernel<OP, T, Id, false>);
+    int per_sm = 0, sms = 0;
+    cudaError_t err = blocks_per_sm(kern, device, p->smem, &per_sm, &sms);
+    if (err != cudaSuccess) return err;
+    const long long want = (n + (long long)THREADS * UNROLL - 1) / ((long long)THREADS * UNROLL);
+    const long long cap = (long long)sms * per_sm;
+    p->blocks = static_cast<int>(want < cap ? (want > 0 ? want : 1) : cap);
+    return cudaSuccess;
+}
+
+template <int OP, typename T, typename Id>
+cudaError_t run(const void* x, const void* gid, long long n, int S, const Plan& p, void* ws,
+                void* out, cudaStream_t stream) {
+    using R_ = Red<OP, T>;
+    using A = typename R_::Acc;
+    auto* w = static_cast<A*>(ws);
+    if (p.priv)
+        seg_kernel<OP, T, Id, true><<<p.blocks, THREADS, p.smem, stream>>>(
+            static_cast<const T*>(x), static_cast<const Id*>(gid), n, S, p.replicas, w);
+    else
+        seg_kernel<OP, T, Id, false><<<p.blocks, THREADS, p.smem, stream>>>(
+            static_cast<const T*>(x), static_cast<const Id*>(gid), n, S, p.replicas, w);
+    cudaError_t err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+    seg_merge<OP, T><<<(S + MERGE_SLOTS - 1) / MERGE_SLOTS, MERGE_SLOTS * MERGE_WARPS, 0,
+                       stream>>>(p.blocks, S, w, static_cast<typename R_::Out*>(out));
+    return cudaGetLastError();
+}
+
+// Calls F<OP, T, Id>::call(args...) for the runtime codes.
+template <template <int, typename, typename> class F, typename... Args>
+cudaError_t dispatch(int op, int tcode, int id64, Args... args) {
+#define BK_SEG_ID(OPV, TT)                                                    \
+    return id64 ? F<OPV, TT, long long>::call(args...) : F<OPV, TT, int>::call(args...)
+#define BK_SEG_T(OPV)                                                         \
+    switch (tcode) {                                                          \
+        case T_BOOL: BK_SEG_ID(OPV, bool);                                    \
+        case T_I32: BK_SEG_ID(OPV, int);                                      \
+        case T_I64: BK_SEG_ID(OPV, long long);                                \
+        case T_F32: BK_SEG_ID(OPV, float);                                    \
+        case T_F64: BK_SEG_ID(OPV, double);                                   \
+        default: return cudaErrorInvalidValue;                                \
+    }
+    switch (op) {
+        case OP_SUM: BK_SEG_T(OP_SUM);
+        case OP_MIN: BK_SEG_T(OP_MIN);
+        case OP_MAX: BK_SEG_T(OP_MAX);
+        default: return cudaErrorInvalidValue;
+    }
+#undef BK_SEG_T
+#undef BK_SEG_ID
+    return cudaErrorInvalidValue;
+}
+
+template <int OP, typename T, typename Id> struct PlanF {
+    static cudaError_t call(int device, long long n, int S, int mode, Plan* p) {
+        return plan_for<OP, T, Id>(device, n, S, mode, p);
+    }
+};
+template <int OP, typename T, typename Id> struct AccBytesF {
+    static cudaError_t call(size_t* bytes) {
+        *bytes = sizeof(typename Red<OP, T>::Acc);
+        return cudaSuccess;
+    }
+};
+template <int OP, typename T, typename Id> struct RunF {
+    static cudaError_t call(const void* x, const void* gid, long long n, int S, Plan p,
+                            void* ws, void* out, cudaStream_t stream) {
+        return run<OP, T, Id>(x, gid, n, S, p, ws, out, stream);
+    }
+};
+
+}  // namespace
+
+extern "C" {
+
+// The launch plan for n rows into S segments: the number of blocks (> 0), or
+// minus a cudaError_t.  op: 0 sum, 1 min, 2 max; tcode: 0 bool, 1 int32,
+// 2 int64, 3 float32, 4 float64; id64: ids are int64 (else int32); mode:
+// 0 chooses the table layout by S, 1 private, 2 per warp, 3 one per block.
+// The workspace takes bk_seg_ws_bytes(op, tcode, blocks, S) bytes.
+int bk_seg_blocks(int device, int op, int tcode, int id64, long long n, int S, int mode) {
+    if (S < 1 || S > MAX_SEGMENTS || n < 0) return -static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    Plan p{};
+    err = dispatch<PlanF>(op, tcode, id64, device, n, S, mode, &p);
+    return err == cudaSuccess ? p.blocks : -static_cast<int>(err);
+}
+
+long long bk_seg_ws_bytes(int op, int tcode, int blocks, int S) {
+    size_t acc = 0;
+    if (dispatch<AccBytesF>(op, tcode, 0, &acc) != cudaSuccess) return -1;
+    return static_cast<long long>(acc) * blocks * S;
+}
+
+int bk_seg_max_segments() { return MAX_SEGMENTS; }
+
+// One reduction: x [n] of tcode, gid [n] int32/int64, ws 8-byte aligned of
+// bk_seg_ws_bytes bytes, out [S] of the output dtype; `blocks` and `mode`
+// as bk_seg_blocks gave and took them.
+int bk_seg_reduce(int device, int op, int tcode, int id64, const void* x, const void* gid,
+                  long long n, int S, int mode, int blocks, void* ws, void* out,
+                  void* stream_ptr) {
+    if (S < 1 || S > MAX_SEGMENTS || n < 0 || blocks < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    Plan p{};
+    err = dispatch<PlanF>(op, tcode, id64, device, n, S, mode, &p);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (p.blocks != blocks) return static_cast<int>(cudaErrorInvalidValue);
+    return static_cast<int>(dispatch<RunF>(op, tcode, id64, x, gid, n, S, p, ws, out,
+                                           static_cast<cudaStream_t>(stream_ptr)));
+}
+
+}  // extern "C"

@@ -4,7 +4,9 @@ plain torch versions.
 The port of ``baikaldb_tpu/ops/pallas_kernels.py``.  Three entry points keep
 the Pallas kernels' contract (codes int32[N], values [N] contracted as
 float32, mask bool[N]; rows with a false mask or a code outside
-``[0, num_groups)`` drop; float32[num_groups] outputs):
+``[0, num_groups)`` drop), except that counts are int64[num_groups], exact
+at any row count (the Pallas kernels' float32 counts round above 2^24);
+sums, mins and maxs are float32[num_groups]:
 
 - ``filtered_group_sum``    (K1) -> (counts, sums)
 - ``fused_group_aggregate`` (K2) -> (counts, sums, mins, maxs); an empty
@@ -20,6 +22,10 @@ outputs are views of one buffer that also held its workspace.  On a CPU
 tensor it runs the ``*_plain`` version beside it (``index_add_`` /
 ``scatter_reduce_``, the same drop rules and sentinels), which is also what
 the kernels are held against on the card.
+
+The build machinery here (``build``, ``build_all``, ``library``) serves
+every CUDA source of the port (``SOURCES``): one ``nvcc`` per source, the
+library cached by the source's content.
 """
 
 from __future__ import annotations
@@ -40,7 +46,9 @@ _BIG = 3.4e38                     # empty-group min/max sentinel (float32)
 KIND_HIST, KIND_SUM = 0, 1
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCE = os.path.join(_HERE, "csrc", "group_agg.cu")
+SOURCES = {name: os.path.join(_HERE, "csrc", f"{name}.cu")
+           for name in ("group_agg", "segments")}
+SOURCE = SOURCES["group_agg"]
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 
 # one launch counter per kernel: added to only where the kernel launches
@@ -49,7 +57,7 @@ LAUNCHES = {name: metrics.Counter(f"kernel_launches.{name}")
                          "partition_histogram")}
 
 _lock = threading.Lock()
-_lib = None
+_libs: dict = {}           # source path -> bound ctypes library
 
 
 # ----------------------------------------------------------------------
@@ -62,10 +70,10 @@ def _routed(codes, mask, num_groups: int) -> torch.Tensor:
 
 
 def _counts(gid, num_groups: int, rows=None) -> torch.Tensor:
-    """Rows per group; only the rows where ``rows`` is true, if given."""
+    """Rows per group (int64); only the rows where ``rows`` is true, if given."""
     c = torch.zeros(num_groups + 1, dtype=torch.int64, device=gid.device)
     c.index_add_(0, gid, torch.ones_like(gid) if rows is None else rows.to(torch.int64))
-    return c[:num_groups].to(torch.float32)
+    return c[:num_groups]
 
 
 def _sums(gid, values, num_groups: int) -> torch.Tensor:
@@ -106,7 +114,8 @@ def partition_histogram_plain(dest, mask, num_partitions: int):
 
 
 def filtered_group_sum(codes, values, mask, num_groups: int):
-    """Fused filter + dense group-by COUNT/SUM -> (counts, sums) float32."""
+    """Fused filter + dense group-by COUNT/SUM -> (counts int64, sums
+    float32)."""
     _check(codes, mask, num_groups, values)
     if codes.device.type == "cpu":
         return filtered_group_sum_plain(codes, values, mask, num_groups)
@@ -115,7 +124,7 @@ def filtered_group_sum(codes, values, mask, num_groups: int):
 
 def fused_group_aggregate(codes, values, mask, num_groups: int):
     """Fused filter + dense group-by COUNT/SUM/MIN/MAX in one pass ->
-    (counts, sums, mins, maxs) float32."""
+    (counts int64, sums, mins, maxs float32)."""
     _check(codes, mask, num_groups, values)
     if codes.device.type == "cpu":
         return fused_group_aggregate_plain(codes, values, mask, num_groups)
@@ -123,7 +132,7 @@ def fused_group_aggregate(codes, values, mask, num_groups: int):
 
 
 def partition_histogram(dest, mask, num_partitions: int):
-    """Row count per destination code under a mask -> counts float32."""
+    """Row count per destination code under a mask -> counts int64."""
     _check(dest, mask, num_partitions)
     if dest.device.type == "cpu":
         return partition_histogram_plain(dest, mask, num_partitions)
@@ -159,28 +168,31 @@ def _device_index(dev: torch.device) -> int:
 
 
 def _launch(name, kind, codes, values, mask, ng: int):
-    """K1/K3: one float32 [4 + outputs, ng] buffer; rows 0-3 are the
-    workspace (uint64 counts, float64 sums), the rest the outputs."""
+    """K1/K3: one int64 [1 or 3, ng] buffer; row 0 holds the uint64 workspace
+    counts, which are the int64 count output; for K1, row 1 the float64
+    workspace sums and row 2 the float32 sums."""
     lib = _library()
     dev = codes.device
-    outs = 1 if kind == KIND_HIST else 2
-    buf = torch.empty((4 + outs, ng), dtype=torch.float32, device=dev)
+    buf = torch.empty((1 if kind == KIND_HIST else 3, ng), dtype=torch.int64, device=dev)
     base = buf.data_ptr()
     err = lib.bk_group_agg(
         _device_index(dev), kind, int(values is not None and values.dtype is torch.float64),
         codes.data_ptr(), None if values is None else values.data_ptr(), mask.data_ptr(),
-        codes.shape[0], ng, base, base + 8 * ng, base + 16 * ng,
-        None if kind == KIND_HIST else base + 20 * ng,
+        codes.shape[0], ng, base, None if kind == KIND_HIST else base + 8 * ng,
+        None if kind == KIND_HIST else base + 16 * ng,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with error {err}")
     LAUNCHES[name].add(1)
-    return (buf[4],) if outs == 1 else (buf[4], buf[5])
+    if kind == KIND_HIST:
+        return (buf[0],)
+    return buf[0], buf[2].view(torch.float32)[:ng]
 
 
 def _launch_agg(codes, values, mask, ng: int):
-    """K2: one float32 [4 + workspace rows, ng] buffer; rows 0-3 are the
-    outputs (counts, sums, mins, maxs), the rest the per-block workspace."""
+    """K2: one int64 buffer: the int64 counts, then the float32 sums, mins
+    and maxs (3 * ng floats, rounded up to whole words), then the per-block
+    workspace."""
     lib = _library()
     dev = codes.device
     device = _device_index(dev)
@@ -189,16 +201,18 @@ def _launch_agg(codes, values, mask, ng: int):
     blocks = lib.bk_fused_agg_blocks(device, f64, n, ng)
     if blocks <= 0:
         raise RuntimeError(f"fused_group_aggregate: launch geometry failed with error {-blocks}")
-    ws_rows = -(-lib.bk_fused_agg_ws_bytes(blocks, ng) // (4 * ng))
-    buf = torch.empty((4 + ws_rows, ng), dtype=torch.float32, device=dev)
+    fwords = -(-3 * ng // 2)
+    ws_words = -(-lib.bk_fused_agg_ws_bytes(blocks, ng) // 8)
+    buf = torch.empty(ng + fwords + ws_words, dtype=torch.int64, device=dev)
     base = buf.data_ptr()
     err = lib.bk_fused_agg(device, f64, codes.data_ptr(), values.data_ptr(), mask.data_ptr(),
-                           n, ng, blocks, base + 16 * ng, base,
+                           n, ng, blocks, base + 8 * (ng + fwords), base, base + 8 * ng,
                            torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"fused_group_aggregate: CUDA kernel launch failed with error {err}")
     LAUNCHES["fused_group_aggregate"].add(1)
-    return buf[0], buf[1], buf[2], buf[3]
+    f = buf[ng:ng + fwords].view(torch.float32)
+    return buf[:ng], f[:ng], f[ng:2 * ng], f[2 * ng:3 * ng]
 
 
 # ----------------------------------------------------------------------
@@ -216,43 +230,83 @@ def _nvcc() -> str:
     return found
 
 
-def build() -> str:
-    """Compile ``csrc/group_agg.cu`` for sm_90a into ``BUILD_DIR`` (once per
-    source content) and return the shared library's path.  The compiler's
-    register and shared-memory report lands beside it in a ``.log``."""
-    with open(SOURCE, "rb") as f:
+def _target(source: str) -> tuple[str, str]:
+    """(shared library, compiler log) paths of ``source``'s build, keyed by
+    its content."""
+    with open(source, "rb") as f:
         tag = hashlib.sha1(f.read()).hexdigest()[:12]
-    so = os.path.join(BUILD_DIR, f"libgroup_agg_{tag}.so")
+    stem = os.path.splitext(os.path.basename(source))[0]
+    return (os.path.join(BUILD_DIR, f"lib{stem}_{tag}.so"),
+            os.path.join(BUILD_DIR, f"{stem}_{tag}.log"))
+
+
+def _start(source: str):
+    """Start ``nvcc`` on ``source`` for sm_90a unless its library exists;
+    -> (library path, process or None)."""
+    so, _ = _target(source)
     if os.path.exists(so):
-        return so
+        return so, None
     os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{so}.{os.getpid()}.tmp"
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", tmp, SOURCE]
-    r = subprocess.run(cmd, capture_output=True, text=True)
-    with open(os.path.join(BUILD_DIR, f"group_agg_{tag}.log"), "w") as f:
-        f.write(" ".join(cmd) + "\n" + r.stdout + r.stderr)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}) building {SOURCE}:\n"
-                           f"{r.stderr[-4000:]}")
-    os.replace(tmp, so)
+           "-o", f"{so}.{os.getpid()}.tmp", source]
+    return so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                text=True)
+
+
+def _finish(source: str, so: str, proc) -> str:
+    """Wait for ``proc``, keep its register and shared-memory report in the
+    ``.log`` beside the library, and move the library into place."""
+    if proc is None:
+        return so
+    out, err = proc.communicate()
+    with open(_target(source)[1], "w") as f:
+        f.write(" ".join(proc.args) + "\n" + out + err)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed ({proc.returncode}) building {source}:\n"
+                           f"{err[-4000:]}")
+    os.replace(f"{so}.{os.getpid()}.tmp", so)
     return so
 
 
-def _library():
-    global _lib
+def build(source: str = SOURCE) -> str:
+    """Compile ``source`` (by default ``csrc/group_agg.cu``) for sm_90a into
+    ``BUILD_DIR`` (once per source content) and return the shared library's
+    path.  The compiler's register and shared-memory report lands beside it
+    in a ``.log``."""
+    return _finish(source, *_start(source))
+
+
+def build_all() -> dict:
+    """Every source of ``SOURCES``, one ``nvcc`` each, all started together
+    -> {name: library path}."""
+    started = {name: (src, *_start(src)) for name, src in SOURCES.items()}
+    return {name: _finish(src, so, proc) for name, (src, so, proc) in started.items()}
+
+
+def library(source: str, bind):
+    """The library built from ``source``, loaded once and bound by
+    ``bind(lib)`` (argument and result types)."""
     with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(build())
-            vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.bk_group_agg.argtypes = [i32, i32, i32, vp, vp, vp, i64, i32] + [vp] * 5
-            lib.bk_group_agg.restype = i32
-            lib.bk_fused_agg_blocks.argtypes = [i32, i32, i64, i32]
-            lib.bk_fused_agg_blocks.restype = i32
-            lib.bk_fused_agg_ws_bytes.argtypes = [i32, i32]
-            lib.bk_fused_agg_ws_bytes.restype = i64
-            lib.bk_fused_agg.argtypes = [i32, i32, vp, vp, vp, i64, i32, i32, vp, vp, vp]
-            lib.bk_fused_agg.restype = i32
-            _lib = lib
-        return _lib
+        lib = _libs.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(build(source))
+            bind(lib)
+            _libs[source] = lib
+        return lib
+
+
+def _bind(lib) -> None:
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.bk_group_agg.argtypes = [i32, i32, i32, vp, vp, vp, i64, i32] + [vp] * 4
+    lib.bk_group_agg.restype = i32
+    lib.bk_fused_agg_blocks.argtypes = [i32, i32, i64, i32]
+    lib.bk_fused_agg_blocks.restype = i32
+    lib.bk_fused_agg_ws_bytes.argtypes = [i32, i32]
+    lib.bk_fused_agg_ws_bytes.restype = i64
+    lib.bk_fused_agg.argtypes = [i32, i32, vp, vp, vp, i64, i32, i32, vp, vp, vp, vp]
+    lib.bk_fused_agg.restype = i32
+
+
+def _library():
+    return library(SOURCE, _bind)

@@ -3,12 +3,16 @@
 The port of ``baikaldb_tpu/ops/hashagg.py``.  When every group key has a
 known dense domain (dictionary codes, small-range integers found by the
 planner), the combined group id is a mixed-radix fold and each aggregate is
-one segment reduction (ops/segments.py).  Mid-cardinality group-bys
-(512 < groups <= 4096, the JAX package's gate) of COUNT/SUM/AVG/MIN/MAX over
-float columns go through the hand-written kernels of ops/group_kernels.py
-instead; on a CPU batch those run their plain versions, so the same
-assembly code (float32 output contract, ``nonempty`` validity, casts) runs on
-either device.
+one segment reduction (ops/segments.py: on the card the segment kernel up
+to ``onehot_max_segments`` segments).  Mid-cardinality group-bys
+(``max_segments`` < groups <= 4096: above 2048 on the card, as measured on
+the H100, and above the JAX package's 512 on the CPU) of
+COUNT/SUM/AVG/MIN/MAX over float columns go through the hand-written kernels
+of ops/group_kernels.py instead; on a CPU batch those run their plain
+versions, so the same assembly code (float32 sums, int64 counts, ``nonempty``
+validity, casts) runs on either device.  The ``present`` mask of a dense
+group-by comes, on the card, from the segment kernel under the gate and
+from K3 above it (``_present_histogram``).
 
 Keys without a dense domain take the sort-based group-by.  COUNT/SUM/AVG
 (DISTINCT ...) sort and count boundaries, scalar and per group.
@@ -267,7 +271,11 @@ def group_aggregate_dense(batch: ColumnBatch, key_names: list[str],
     gid = combined_dense_id(key_cols, domains)
     sel = batch.sel_mask()
     gid_live = torch.where(sel, gid, ng)  # dead rows -> dropped slot
-    present = seg_sum(torch.ones_like(gid_live), gid_live, ng) > 0
+    hist = _present_histogram(gid, sel, ng)
+    if hist is not None:
+        present = hist > 0
+    else:
+        present = seg_sum(torch.ones_like(gid_live), gid_live, ng) > 0
     # reconstruct key columns from the slot index
     out_names, out_cols = [], []
     slot = torch.arange(ng, dtype=torch.int32, device=dev)
@@ -279,7 +287,7 @@ def group_aggregate_dense(batch: ColumnBatch, key_names: list[str],
         code = torch.where(code >= dom, 0, code)
         out_names.append(name)
         out_cols.append(Column(code.to(c.data.dtype), validity, c.ltype, c.dictionary))
-    kernel_cols = dense_kernel_cols(batch, specs, gid, ng, sel)
+    kernel_cols = dense_kernel_cols(batch, specs, gid, ng, sel, hist)
     if kernel_cols is not None:
         out_names.extend(s.out_name for s in specs)
         out_cols.extend(kernel_cols)
@@ -290,22 +298,38 @@ def group_aggregate_dense(batch: ColumnBatch, key_names: list[str],
     return ColumnBatch(tuple(out_names), out_cols, present, None, device=dev)
 
 
-def dense_kernel_cols(batch, specs, gid, ng: int, sel):
+def _present_histogram(gid, sel, ng: int):
+    """The live rows per slot from K3 over ``(gid, sel)``, where that is the
+    card's route to ``present``: on CUDA, above the segment kernel's gate
+    and within the group-by kernels' range (the same counts as the
+    reference's segment count over ``gid_live``, without a scatter of every
+    dead row into one drop slot).  None elsewhere: at or under the gate
+    ``seg_sum`` takes the segment kernel, above ``MAX_GROUPS`` (or with
+    ``pallas_group_kernels`` off) the scatter, and the CPU keeps the
+    reference's segment count."""
+    if not (gid.device.type == "cuda" and bool(FLAGS.pallas_group_kernels)
+            and max_segments(gid.device) < ng <= MAX_GROUPS):
+        return None
+    return partition_histogram(gid.contiguous(), sel.contiguous(), ng)
+
+
+def dense_kernel_cols(batch, specs, gid, ng: int, sel, hist=None):
     """Mid-cardinality dense group-by through the hand-written kernels
-    (ops/group_kernels.py), under the JAX package's gate (its
-    ``_pallas_dense_cols``):
+    (ops/group_kernels.py), under the gate of the JAX package's
+    ``_pallas_dense_cols`` with the port's crossover (``max_segments``):
 
     - only COUNT/COUNT(*)/SUM/AVG/MIN/MAX, no DISTINCT;
-    - value columns must be floats (counts are exact; float sums carry the
-      float32 output contract's rounding); MIN/MAX need FLOAT32 columns;
+    - value columns must be floats (counts are exact int64; float sums carry
+      the float32 output contract's rounding); MIN/MAX need FLOAT32 columns;
     - group count in (onehot_max_segments, MAX_GROUPS];
     - FLAGS.pallas_group_kernels.
 
-    The gate does not look at the device: on CUDA the kernels launch, on the
-    CPU their plain versions run.  Returns the aggregate Columns (spec
-    order), or None to use segment reductions."""
+    On CUDA the kernels launch, on the CPU their plain versions run (the
+    crossover is the device's).  ``hist``, K3's counts over ``(gid, sel)``
+    if the caller has them, serves COUNT(*).  Returns the aggregate Columns
+    (spec order), or None to use segment reductions."""
     if not (bool(FLAGS.pallas_group_kernels)
-            and max_segments() < ng + 1 <= MAX_GROUPS):
+            and max_segments(gid.device) < ng + 1 <= MAX_GROUPS):
         return None
     for s in specs:
         if s.distinct or s.op not in ("count_star", "count", "sum", "avg",
@@ -320,13 +344,13 @@ def dense_kernel_cols(batch, specs, gid, ng: int, sel):
     gid = gid.contiguous()
     sel = sel.contiguous()
     fused: dict = {}          # input name -> (cnt, sm, mn, mx)
-    star_counts = None
+    star_counts = hist
     cols = []
     for s in specs:
         if s.op == "count_star":
             if star_counts is None:
                 star_counts = partition_histogram(gid, sel, ng)
-            cols.append(Column(star_counts.to(torch.int64), None, LType.INT64))
+            cols.append(Column(star_counts, None, LType.INT64))
             continue
         c = batch.column(s.input)
         if s.input not in fused:
@@ -341,7 +365,7 @@ def dense_kernel_cols(batch, specs, gid, ng: int, sel):
         cnt, sm, mn, mx = fused[s.input]
         nonempty = cnt > 0
         if s.op == "count":
-            cols.append(Column(cnt.to(torch.int64), None, LType.INT64))
+            cols.append(Column(cnt, None, LType.INT64))
         elif s.op == "sum":
             cols.append(Column(sm.to(torch.float64), nonempty,
                                agg_result_type("sum", c.ltype)))

@@ -1,25 +1,70 @@
-"""Segment reductions: the group-by primitive, in plain torch.
+"""Segment reductions: the group-by primitive.
 
 The port of ``baikaldb_tpu/ops/segments.py``.  ``seg_sum``/``seg_min``/
 ``seg_max`` are drop-in ``jax.ops.segment_*``: ids outside
-``[0, num_segments)`` drop, sums accumulate in the input's dtype (callers
-cast integer sums to int64 and float sums to float64 first, as in the JAX
-package), and empty segments of ``seg_min``/``seg_max`` hold the dtype's
-max/min (+inf/-inf for floats).  ``index_add_`` and ``scatter_reduce_``
-lower to one scatter pass on either device.
+``[0, num_segments)`` drop, and empty segments of ``seg_min``/``seg_max``
+hold the dtype's max/min (+inf/-inf for floats).  As in the JAX package the
+lowering forks by backend:
+
+- **CUDA, 1-D x, num_segments <= onehot_max_segments** (2048 by default,
+  measured on the H100 by ``bench/seg_gate.py``): the hand-written
+  segment kernel of ``csrc/segments.cu`` (``segment_reduce``), the
+  counterpart of the reference's fused select+reduce.  It keeps that
+  branch's accumulation widths: int sums in the int dtype (wrapping), bool
+  sums as int32, float sums in float64 returned in the input dtype.
+- **CPU, multi-dimensional x, or more segments**: one ``index_add_`` /
+  ``scatter_reduce_`` pass, sums accumulating in the input's dtype
+  (callers cast integer sums to int64 and float sums to float64 first, as in
+  the JAX package).
+
+``segment_reduce`` launches the kernel on a CUDA tensor (counted in
+``LAUNCHES``; a build or launch failure raises) and runs
+``segment_reduce_plain`` on a CPU tensor: a literal
+``where(gid[:, None] == arange(S), x, identity)`` reduced block by block of
+rows, never building ``[n, S]`` at once, which is also what the kernel is
+held against on the card.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
 
+from ..utils import metrics
 from ..utils.flags import FLAGS
+from . import group_kernels as gk
+
+SOURCE = gk.SOURCES["segments"]
+MAX_SEGMENTS = 16384              # csrc/segments.cu: MAX_SEGMENTS
+MODES = {"auto": 0, "private": 1, "warp": 2, "block": 3}   # table layouts
+_OPS = {"sum": 0, "min": 1, "max": 2}
+_TCODE = {torch.bool: 0, torch.int32: 1, torch.int64: 2, torch.float32: 3,
+          torch.float64: 4}
+_PLAIN_ELEMS = 1 << 24            # [rows, S] elements per block of the plain version
+
+LAUNCHES = {"segment_reduce": metrics.Counter("kernel_launches.segment_reduce")}
 
 
-def max_segments() -> int:
-    """Flag-tunable gate below which the group-by kernels do not engage
-    (utils/flags.py: onehot_max_segments)."""
-    return int(FLAGS.onehot_max_segments)
+# the JAX package's ONEHOT_MAX_SEGMENTS: the gate of the CPU routes, which
+# the tier-1 parity tests hold against the reference's
+CPU_MAX_SEGMENTS = 512
+
+
+def max_segments(device) -> int:
+    """The crossover on ``device``: at most this many segments take the
+    segment kernel, and the dense group-by kernels engage above it.  On
+    CUDA the flag (utils/flags.py: onehot_max_segments); on the CPU the JAX
+    package's 512, so the CPU takes the reference's routes."""
+    if torch.device(device).type == "cuda":
+        return int(FLAGS.onehot_max_segments)
+    return CPU_MAX_SEGMENTS
+
+
+def _kernel_route(x: torch.Tensor, gid: torch.Tensor, num_segments: int) -> bool:
+    return (x.device.type == "cuda" and x.ndim == 1 and x.dtype in _TCODE
+            and gid.dtype in (torch.int32, torch.int64)
+            and 1 <= num_segments <= min(max_segments(x.device), MAX_SEGMENTS))
 
 
 def _routed(gid: torch.Tensor, num_segments: int) -> torch.Tensor:
@@ -29,6 +74,8 @@ def _routed(gid: torch.Tensor, num_segments: int) -> torch.Tensor:
 
 
 def seg_sum(x: torch.Tensor, gid: torch.Tensor, num_segments: int) -> torch.Tensor:
+    if _kernel_route(x, gid, num_segments):
+        return segment_reduce(x.contiguous(), gid.contiguous(), num_segments, "sum")
     if x.dtype is torch.bool:
         x = x.to(torch.int32)
     out = torch.zeros((num_segments + 1,) + tuple(x.shape[1:]), dtype=x.dtype,
@@ -37,16 +84,22 @@ def seg_sum(x: torch.Tensor, gid: torch.Tensor, num_segments: int) -> torch.Tens
     return out[:num_segments]
 
 
+def _identity(dtype: torch.dtype, is_min: bool):
+    if dtype.is_floating_point:
+        return float("inf") if is_min else float("-inf")
+    info = torch.iinfo(dtype)
+    return info.max if is_min else info.min
+
+
 def _seg_extremum(x: torch.Tensor, gid: torch.Tensor, num_segments: int,
                   is_min: bool) -> torch.Tensor:
+    if _kernel_route(x, gid, num_segments):
+        return segment_reduce(x.contiguous(), gid.contiguous(), num_segments,
+                              "min" if is_min else "max")
     if x.dtype is torch.bool:
         x = x.to(torch.int32)
-    if x.dtype.is_floating_point:
-        ident = float("inf") if is_min else float("-inf")
-    else:
-        info = torch.iinfo(x.dtype)
-        ident = info.max if is_min else info.min
-    out = torch.full((num_segments + 1,), ident, dtype=x.dtype, device=x.device)
+    out = torch.full((num_segments + 1,), _identity(x.dtype, is_min), dtype=x.dtype,
+                     device=x.device)
     out.scatter_reduce_(0, _routed(gid, num_segments), x,
                         reduce="amin" if is_min else "amax", include_self=True)
     return out[:num_segments]
@@ -60,3 +113,108 @@ def seg_min(x, gid, num_segments: int):
 def seg_max(x, gid, num_segments: int):
     """Drop-in ``jax.ops.segment_max`` (empty segments get dtype min/-inf)."""
     return _seg_extremum(x, gid, num_segments, False)
+
+
+# ----------------------------------------------------------------------
+# the segment kernel and its plain version
+
+
+def _widths(op: str, dtype: torch.dtype) -> tuple[torch.dtype, torch.dtype]:
+    """(accumulator, output) dtypes of the reference's select+reduce."""
+    if op == "sum":
+        if dtype is torch.bool:
+            return torch.int64, torch.int32
+        return (torch.float64 if dtype.is_floating_point else dtype), dtype
+    dt = torch.int32 if dtype is torch.bool else dtype
+    return dt, dt
+
+
+def segment_reduce_plain(x: torch.Tensor, gid: torch.Tensor, num_segments: int,
+                         op: str) -> torch.Tensor:
+    """``where(gid[:, None] == arange(S), x, identity)`` reduced over the
+    rows, a block of rows at a time; a NaN in a segment makes its MIN/MAX
+    NaN (``amin``/``amax`` and ``minimum``/``maximum`` propagate it)."""
+    acc, out_dt = _widths(op, x.dtype)
+    dev = x.device
+    ident = torch.tensor(0 if op == "sum" else _identity(acc, op == "min"), dtype=acc,
+                         device=dev)
+    k = torch.arange(num_segments, dtype=gid.dtype, device=dev)
+    out = ident.expand(num_segments).clone()
+    rows = max(1, _PLAIN_ELEMS // max(num_segments, 1))
+    for a in range(0, x.shape[0], rows):
+        masked = torch.where(gid[a:a + rows, None] == k, x[a:a + rows, None].to(acc), ident)
+        if op == "sum":
+            out = out + masked.sum(0, dtype=acc)
+        elif op == "min":
+            out = torch.minimum(out, masked.amin(0))
+        else:
+            out = torch.maximum(out, masked.amax(0))
+    return out.to(out_dt)
+
+
+def segment_reduce(x: torch.Tensor, gid: torch.Tensor, num_segments: int, op: str,
+                   mode: str = "auto") -> torch.Tensor:
+    """SUM/MIN/MAX of a 1-D ``x`` per segment of ``gid`` (int32/int64) ->
+    [num_segments] in the reference's output dtype.  On a CUDA tensor the
+    kernel of ``csrc/segments.cu`` with the table layout ``mode`` (the
+    gate sweep of ``bench/seg_gate.py`` forces one; ``auto`` picks by
+    segment count); on a CPU tensor the plain version."""
+    _check(x, gid, num_segments, op, mode)
+    if x.device.type == "cpu":
+        return segment_reduce_plain(x, gid, num_segments, op)
+    return _launch(x, gid, num_segments, op, MODES[mode])
+
+
+def _check(x, gid, num_segments: int, op: str, mode: str) -> None:
+    """Raise on what the kernel does not take."""
+    if op not in _OPS or mode not in MODES:
+        raise ValueError(f"unknown op {op!r} or mode {mode!r}")
+    if not 1 <= int(num_segments) <= MAX_SEGMENTS:
+        raise ValueError(f"num_segments {num_segments} outside [1, {MAX_SEGMENTS}]")
+    if x.ndim != 1 or x.dtype not in _TCODE:
+        raise TypeError(f"x must be 1-D bool/int32/int64/float32/float64, got "
+                        f"{x.dtype}{tuple(x.shape)}")
+    if gid.dtype not in (torch.int32, torch.int64) or gid.shape != x.shape:
+        raise TypeError(f"gid must be int32/int64{tuple(x.shape)}, got "
+                        f"{gid.dtype}{tuple(gid.shape)}")
+    if gid.device != x.device or x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"x and gid must lie on one CPU or CUDA device, got "
+                         f"{x.device} and {gid.device}")
+    if not (x.is_contiguous() and gid.is_contiguous()):
+        raise ValueError("x and gid must be contiguous")
+
+
+def _bind(lib) -> None:
+    vp, i32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.bk_seg_blocks.argtypes = [i32, i32, i32, i32, i64, i32, i32]
+    lib.bk_seg_blocks.restype = i32
+    lib.bk_seg_ws_bytes.argtypes = [i32, i32, i32, i32]
+    lib.bk_seg_ws_bytes.restype = i64
+    lib.bk_seg_max_segments.restype = i32
+    lib.bk_seg_reduce.argtypes = [i32, i32, i32, i32, vp, vp, i64, i32, i32, i32, vp, vp, vp]
+    lib.bk_seg_reduce.restype = i32
+    if lib.bk_seg_max_segments() != MAX_SEGMENTS:
+        raise RuntimeError("csrc/segments.cu and ops/segments.py disagree on MAX_SEGMENTS")
+
+
+def _launch(x, gid, S: int, op: str, mode: int) -> torch.Tensor:
+    lib = gk.library(SOURCE, _bind)
+    dev = x.device
+    device = gk._device_index(dev)
+    opc, tcode, id64 = _OPS[op], _TCODE[x.dtype], int(gid.dtype is torch.int64)
+    n = x.shape[0]
+    blocks = lib.bk_seg_blocks(device, opc, tcode, id64, n, S, mode)
+    if blocks <= 0:
+        raise RuntimeError(f"segment_reduce: launch plan failed with error {-blocks}")
+    # the workspace goes back to the caching allocator on return; it hands
+    # the block out again only in this stream's order, after these kernels
+    ws = torch.empty(-(-lib.bk_seg_ws_bytes(opc, tcode, blocks, S) // 8), dtype=torch.int64,
+                     device=dev)
+    out = torch.empty(S, dtype=_widths(op, x.dtype)[1], device=dev)
+    err = lib.bk_seg_reduce(device, opc, tcode, id64, x.data_ptr(), gid.data_ptr(), n, S, mode,
+                            blocks, ws.data_ptr(), out.data_ptr(),
+                            torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"segment_reduce: CUDA kernel launch failed with error {err}")
+    LAUNCHES["segment_reduce"].add(1)
+    return out

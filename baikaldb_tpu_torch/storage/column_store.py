@@ -125,6 +125,20 @@ class TableStore:
         cols = {f.name: [r.get(f.name) for r in rows] for f in self.arrow_schema}
         self.insert_arrow(pa.table(cols, schema=self.arrow_schema))
 
+    def truncate(self) -> None:
+        """TRUNCATE: every row goes.  The version moves on, so the device
+        image, the statistics and the streamed chunk set rebuild."""
+        with self._lock:
+            self._data = self.arrow_schema.empty_table()
+            self._mutations += 1
+            self._device_batch = None
+
+    def release(self) -> None:
+        """Drop the device image and the chunk set (DROP TABLE / DATABASE)."""
+        with self._lock:
+            self._device_batch = None
+            self._stream_chunks = None
+
     def device_table_batch(self) -> ColumnBatch:
         """Whole-table batch on the store's device, cached per version."""
         with self._lock:

@@ -183,9 +183,11 @@ set_flag = FLAGS.set_flag
 
 
 # -- core engine flags (module-level so they exist before first use) -------
-define("onehot_max_segments", 512,
-       "dense group-by: the hand-written group-by kernels engage above this "
-       "many segments (kept equal to the JAX package's gate)")
+define("onehot_max_segments", 2048,
+       "on the card, segment reductions of at most this many segments take "
+       "the segment kernel (ops/csrc/segments.cu) and the dense group-by "
+       "kernels engage above it; chosen on the H100 by bench/seg_gate.py. "
+       "The CPU keeps the JAX package's 512 (ops/segments.py)")
 define("pallas_group_kernels", True,
        "dense group-by with 512 < groups <= 4096 goes through the hand-"
        "written CUDA kernels (ops/group_kernels.py); the name is kept so a "

@@ -1,6 +1,7 @@
 """GPU smoke run of baikaldb_tpu_torch: build the kernels, hold each against
 its plain torch version, drive single-table SQL at real size resident and
-streamed, and run the 22 TPC-H queries and the analytic queries on the card.
+streamed, run the 22 TPC-H queries and the analytic queries on the card, and
+the egress functions and catalog statements on the card against the CPU.
 
     python3 chip_smoke.py [--rows N] [--seed S] [--tpch-scale S]
                           [--compare-with DIR]
@@ -8,17 +9,25 @@ streamed, and run the 22 TPC-H queries and the analytic queries on the card.
 Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
 1. the card: ``nvidia-smi`` name and power limit; CUDA is required.
-2. kernels: build ``baikaldb_tpu_torch/ops/csrc/group_agg.cu`` with nvcc for
-   sm_90a, then hold K1 ``filtered_group_sum``, K2 ``fused_group_aggregate``
+2. kernels: build ``baikaldb_tpu_torch/ops/csrc/group_agg.cu`` and
+   ``segments.cu`` with nvcc for sm_90a (one nvcc each, started together),
+   then hold K1 ``filtered_group_sum``, K2 ``fused_group_aggregate``
    and K3 ``partition_histogram`` against their plain versions on the card:
    at the SQL path's shape (``--rows`` rows, 2049 groups), at the streamed
    path's (65,536 and 1,048,576 rows, and the ragged last chunk of
    ``--rows``), at 2^24 and at a ragged row count with 513/2049/4096
    groups, and on edge cases (all rows
    masked, codes < 0 and >= ng, an empty group, +NaN and -NaN in a group,
-   inputs that are views at element offsets 1-3).  Counts and min/max match
-   exactly (NaN equal to NaN, and a group holding a NaN must give NaN);
-   each group's sum within 1e-5 * sum(|v|) over the group.  Each kernel is
+   inputs that are views at element offsets 1-3), and one group of 2^24 + 1
+   rows.  Counts (int64) and min/max match exactly (NaN equal to NaN, and a
+   group holding a NaN must give NaN); each group's sum within 1e-5 *
+   sum(|v|) over the group.  Then the segment kernel (``ops/segments.py``
+   ``segment_reduce``) against its plain version: SUM, MIN and MAX of bool,
+   int32, int64, float32 and float64 at 1, 16, 17, 64 and the card's gate
+   (``onehot_max_segments``) segments, at ``--rows`` and at 65,536 rows, with
+   ids outside the range, an empty segment, NaN of either sign and wrapping
+   integer sums; integers, MIN and MAX exact, float sums within 1e-9 *
+   sum(|x|) over the segment (float32 also one float32 ulp).  Each kernel is
    timed at the SQL path's shape two ways: ``ms``, the median over single
    CUDA-event-timed calls (host work of the wrapper included), and
    ``device_ms``, events around 20 back-to-back calls over 20; and both at
@@ -28,10 +37,12 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    this one's (theirs, ours, ours, theirs).
 3. SQL: ``Session(device="cuda")`` over ``--rows`` rows (default 100M, the
    BASELINE.json size) of ``t (g INT, v FLOAT, w DOUBLE, g16 INT)``:
-   (a) the bench headline over 16 groups (segment path, no kernel),
+   (a) the bench headline over 16 groups (eight segment-kernel launches and
+   no ``index_add_``, by the counters and the profiler's kernel names),
    (b) the same over 2048 groups (K3 + K2), (c) SUM/AVG of a DOUBLE over
-   2048 groups (K1).  Each result is checked against numpy in float64, and
-   the kernels' launch counters must show that (b) and (c) went through them.
+   2048 groups (K1, and K3 for the groups present).  Each result is checked
+   against numpy in float64, and the kernels' launch counters must show that
+   each query went through its kernels.
    Each query's warm wall time (median and 67th percentile of 30 runs,
    rows/s at the median) is printed beside its device time from one run
    under torch.profiler (kernels and copies) and the top kernels; load
@@ -59,8 +70,8 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    when the query streamed), the
    device time, idle share and top 4 kernels of one torch.profiler run, the
    session's spans of one traced run (host milliseconds of parse, plan,
-   execution and egress), and the launches of K1-K3 (the TPC-H dense domains
-   miss the kernels' gate, so 0 is expected and reported, not required).
+   execution and egress), and the launches of K1-K3 and of the segment
+   kernel per query (reported, not required).
    q1 and q6 are checked against numpy in float64 (rtol 1e-9), and every
    query must return finite values.
 6. Analytics (``baikaldb_tpu_torch/models/analytics.py``: window functions,
@@ -75,6 +86,11 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
 7. TPC-H q1 and q6 at ``--tpch-scale`` streamed against resident, in turns
    (5 runs each) in phase 5 (ii)'s session, the rows equal by the parity
    contract.
+8. Egress and the catalog: FORMAT, DATE_FORMAT, HEX, BIN and OCT of numbers
+   over phase 5 (i)'s tables, then CREATE / DROP DATABASE, USE, CREATE / DROP
+   VIEW, DESCRIBE, the catalog SHOW forms, TRUNCATE, DROP TABLE and SELECT
+   ... INTO OUTFILE, each on the card and on the CPU; rows (and the files)
+   equal.
 
 Phases 5 and 6 run with the default flags, so a query over a table of at
 least ``streaming_min_rows`` rows that the streamed path accepts streams
@@ -105,6 +121,7 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM data sheet
 F32_OPS_PER_S = 67e12            # H100 SXM, float32 outside the tensor cores
+F64_OPS_PER_S = 34e12            # H100 SXM, float64 outside the tensor cores
 NG_SQL = 2049                    # 2048 dense group slots + the NULL slot
 WARM_REPS = 30
 TPCH_REPS = 10
@@ -116,7 +133,11 @@ REPLACES = {
     "filtered_group_sum": "baikaldb_tpu/ops/pallas_kernels.py:184",
     "fused_group_aggregate": "baikaldb_tpu/ops/pallas_kernels.py:210",
     "partition_histogram": "baikaldb_tpu/ops/pallas_kernels.py:238",
+    "segment_reduce": "baikaldb_tpu/ops/segments.py:50",
 }
+SOURCES = {"segment_reduce": "baikaldb_tpu_torch/ops/csrc/segments.cu"}
+SEG_DTYPES = (torch.bool, torch.int32, torch.int64, torch.float32, torch.float64)
+NG_A = 17                        # query (a): 16 groups + the NULL slot
 QUERIES = {
     "a": "SELECT g16, COUNT(*), SUM(v), AVG(v), MIN(v) FROM t "
          "WHERE v*2+1 > 0.5 GROUP BY g16 ORDER BY g16",
@@ -125,14 +146,30 @@ QUERIES = {
     "c": "SELECT g, SUM(w), AVG(w) FROM t WHERE w > -1 GROUP BY g ORDER BY g",
 }
 EXPECTED_LAUNCHES = {
-    "a": {},
+    # present, COUNT(*), and SUM / AVG / MIN each with its live count
+    "a": {"segment_reduce": 8},
     "b": {"partition_histogram": 1, "fused_group_aggregate": 1},
-    "c": {"filtered_group_sum": 1},
+    "c": {"filtered_group_sum": 1, "partition_histogram": 1},
 }
 
 
 def log(msg: str) -> None:
     print(msg, file=sys.stderr, flush=True)
+
+
+def all_launches(gk) -> dict:
+    """Launch counts of K1-K3 and of the segment kernel."""
+    from baikaldb_tpu_torch.ops import segments as seg
+
+    return {**{k: c.value for k, c in gk.LAUNCHES.items()},
+            **{k: c.value for k, c in seg.LAUNCHES.items()}}
+
+
+def reset_launches(gk) -> None:
+    from baikaldb_tpu_torch.ops import segments as seg
+
+    for c in list(gk.LAUNCHES.values()) + list(seg.LAUNCHES.values()):
+        c.reset()
 
 
 def card() -> str:
@@ -236,6 +273,10 @@ def check_case(gk, codes, values, mask, ng) -> float:
     p2 = gk.fused_group_aggregate_plain(codes, values, mask, ng)
     p3 = gk.partition_histogram_plain(codes, mask, ng)
     where = f"(ng={ng}, n={codes.shape[0]})"
+    for name, counts in (("partition_histogram", k3), ("filtered_group_sum", k1[0]),
+                         ("fused_group_aggregate", k2[0])):
+        if counts.dtype is not torch.int64:
+            raise AssertionError(f"{name} counts are {counts.dtype}, not int64 {where}")
     for name, got, want in (("partition_histogram counts", k3, p3),
                             ("filtered_group_sum counts", k1[0], p1[0]),
                             ("fused_group_aggregate counts", k2[0], p2[0]),
@@ -291,8 +332,8 @@ def load_port(root: str):
 def kernel_phase(gk, rows: int, seed: int, before=None) -> dict:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
-    so = gk.build()
-    log(f"[kernels] built {so} in {time.perf_counter() - t0:.1f} s")
+    libs = gk.build_all()
+    log(f"[kernels] built {libs} in {time.perf_counter() - t0:.1f} s")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
     max_err = 0.0
@@ -316,6 +357,21 @@ def kernel_phase(gk, rows: int, seed: int, before=None) -> dict:
     for n, ng, kw in cases:
         max_err = max(max_err, check_case(gk, *make_inputs(n, ng, gen, dev, **kw), ng))
         log(f"[kernels] n={n} ng={ng} {kw or ''}: match")
+    # one group of 2^24 + 1 rows: a float32 count would give 2^24
+    big_group = (1 << 24) + 1
+    codes = torch.zeros(big_group + 3, dtype=torch.int32, device=dev)
+    codes[big_group:] = torch.tensor([1, 2, 7], dtype=torch.int32, device=dev)
+    values = torch.ones(big_group + 3, dtype=torch.float32, device=dev)
+    mask = torch.ones(big_group + 3, dtype=torch.bool, device=dev)
+    want = [big_group, 1, 1, 0, 0, 0, 0, 1]
+    for name, counts in (("K1", gk.filtered_group_sum(codes, values, mask, 8)[0]),
+                         ("K2", gk.fused_group_aggregate(codes, values, mask, 8)[0]),
+                         ("K3", gk.partition_histogram(codes, mask, 8))):
+        if counts.dtype is not torch.int64 or counts.tolist() != want:
+            raise AssertionError(f"{name} counts {counts.tolist()} != {want}")
+    max_err = max(max_err, check_case(gk, codes, values, mask, 8))
+    log(f"[kernels] one group of {big_group} rows: exact int64 counts")
+    del codes, values, mask
 
     # times at the SQL path's shape
     codes, values, mask = make_inputs(rows, NG_SQL, gen, dev)
@@ -383,6 +439,132 @@ def kernel_phase(gk, rows: int, seed: int, before=None) -> dict:
     return out
 
 
+def seg_inputs(n: int, S: int, dtype, gen, dev):
+    """Seeded inputs of the segment kernel on the card: ids in [-2, S + 2)
+    (outside [0, S) they drop), segment 3 emptied when S > 4; floats carry
+    +NaN in segment 1 and -NaN in segment 2 (and a NaN in a dropped row)
+    when S > 2; integers span half their range, so sums wrap."""
+    gid = torch.randint(-2, S + 2, (n,), generator=gen, device=dev, dtype=torch.int32)
+    if S > 4:
+        gid = torch.where(gid == 3, 4, gid)
+    if dtype is torch.bool:
+        x = torch.rand(n, generator=gen, device=dev) < 0.5
+    elif dtype.is_floating_point:
+        x = (torch.randn(n, generator=gen, device=dev, dtype=torch.float64) * 1e3).to(dtype)
+        if S > 2 and n > 40:
+            bits = x.view(torch.int32 if dtype is torch.float32 else torch.int64)
+            pos, neg = ((PLUS_NAN, MINUS_NAN) if dtype is torch.float32
+                        else (0x7FF8000000000000, -0x0008000000000000))
+            gid[10:13], bits[10:13] = 1, pos
+            gid[20:23], bits[20:23] = 2, neg
+            gid[30], bits[30] = S, pos
+    else:
+        info = torch.iinfo(dtype)
+        x = torch.randint(info.min // 2, info.max // 2, (n,), generator=gen, device=dev,
+                          dtype=dtype)
+    return x, gid
+
+
+def seg_check(seg, x, gid, S: int, op: str) -> float:
+    """The segment kernel against its plain version on one input: integers,
+    MIN and MAX exact (NaN equal to NaN); float sums within 1e-9 * sum(|x|)
+    over the segment (float32 also one float32 ulp); -> max |err|."""
+    got = seg.segment_reduce(x, gid, S, op)
+    torch.cuda.synchronize()
+    want = seg.segment_reduce_plain(x, gid, S, op)
+    where = f"({op} {x.dtype} S={S} n={x.shape[0]})"
+    if got.dtype != want.dtype or got.shape != (S,):
+        raise AssertionError(f"segment kernel output {got.dtype}{tuple(got.shape)} {where}")
+    if op != "sum" or not x.dtype.is_floating_point:
+        if not same(got, want):
+            raise AssertionError(f"segment kernel differs from its plain version {where}")
+        return 0.0
+    live = (gid >= 0) & (gid < S)
+    sabs = torch.zeros(S + 1, dtype=torch.float64, device=x.device)
+    sabs.index_add_(0, torch.where(live, gid, S).long(), x.abs().double().nan_to_num(0.0))
+    tol = 1e-9 * sabs[:S]
+    if x.dtype is torch.float32:
+        tol = tol + want.double().abs() * 2.0 ** -23
+    if not torch.equal(got.isnan(), want.isnan()):
+        raise AssertionError(f"segment kernel NaN differs from its plain version {where}")
+    ok = ~want.isnan()
+    d = (got[ok].double() - want[ok].double()).abs()
+    if bool((d > tol[ok]).any()):
+        raise AssertionError(f"segment kernel sums beyond 1e-9*sum|x| {where}: "
+                             f"max diff {float(d.max())}")
+    return float(d.max()) if d.numel() else 0.0
+
+
+def segment_phase(rows: int, seed: int) -> dict:
+    """The segment kernel against its plain version (every dtype and op, at
+    1, 16, 17, 64 and the gate's segments, at ``rows`` and 65,536 rows),
+    then timed at query (a)'s shape: SUM of a float64 column over 17 slots,
+    dead rows routed past the last (two of (a)'s eight launches), beside
+    the other (a) cases, the plain version and ``index_add_``."""
+    from baikaldb_tpu_torch.ops import segments as seg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 1)
+    gate = seg.max_segments(dev)
+    max_err, checked = 0.0, 0
+    t0 = time.perf_counter()
+    for n in (1 << 16, rows):
+        for S in sorted({1, 16, NG_A, 64, gate}):
+            for dtype in SEG_DTYPES:
+                x, gid = seg_inputs(n, S, dtype, gen, dev)
+                for op in ("sum", "min", "max"):
+                    max_err = max(max_err, seg_check(seg, x, gid, S, op))
+                    checked += 1
+                del x, gid
+        log(f"[segments] n={n}: every dtype and op at S in {sorted({1, 16, NG_A, 64, gate})} "
+            f"match the plain version ({time.perf_counter() - t0:.1f} s)")
+    # the wrap of int64 sums, exactly
+    x = torch.tensor([2**62, 2**62, 2**62, -5], dtype=torch.int64, device=dev)
+    got = seg.segment_reduce(x, torch.tensor([0, 0, 0, 1], dtype=torch.int32, device=dev),
+                             3, "sum").tolist()
+    if got != [-(2**62), -5, 0]:
+        raise AssertionError(f"int64 sums do not wrap: {got}")
+
+    # times at query (a)'s shape
+    codes = torch.randint(0, NG_A - 1, (rows,), generator=gen, device=dev, dtype=torch.int32)
+    mask = torch.rand(rows, generator=gen, device=dev) < 0.6
+    v = torch.randn(rows, generator=gen, device=dev)
+    w = v.double()
+    gid = torch.where(mask, codes, NG_A)
+    live = int(mask.sum())
+    ids = gid.long()
+    acc = torch.zeros(NG_A + 1, dtype=torch.float64, device=dev)
+    nbytes = rows * (4 + 8) + NG_A * 8
+    ops = live                                  # one float64 add a live row
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = ops / F64_OPS_PER_S * 1e3
+    out = {
+        "ms": cuda_ms(lambda: seg.segment_reduce(w, gid, NG_A, "sum"), 20),
+        "device_ms": device_ms(lambda: seg.segment_reduce(w, gid, NG_A, "sum")),
+        "plain_ms": cuda_ms(lambda: seg.segment_reduce_plain(w, gid, NG_A, "sum"), 3),
+        "library_ms": cuda_ms(lambda: acc.index_add_(0, ids, w), 3),
+        "bound_ms": max(bytes_ms, ops_ms),
+        "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+        "max_abs_err": max_err, "checked_cases": checked, "segments": NG_A,
+        "gate": gate, "by_case": {}}
+    for name, x, op in (("count_i32", mask.to(torch.int32), "sum"),
+                        ("count_i64", mask.to(torch.int64), "sum"),
+                        ("min_f32", v, "min")):
+        b = (rows * (4 + x.element_size()) + NG_A * 8) / HBM_BYTES_PER_S * 1e3
+        out["by_case"][name] = {
+            "device_ms": device_ms(lambda: seg.segment_reduce(x, gid, NG_A, op)),
+            "bound_ms": b}
+    c_gid, c_w = gid[:1 << 16].clone(), w[:1 << 16].clone()
+    out["chunk"] = {"rows": 1 << 16,
+                    "ms": cuda_ms(lambda: seg.segment_reduce(c_w, c_gid, NG_A, "sum"), 20),
+                    "device_ms": device_ms(lambda: seg.segment_reduce(c_w, c_gid, NG_A, "sum"))}
+    log(f"[segments] segment_reduce: {out['ms']:.4f} ms a call, {out['device_ms']:.4f} ms on "
+        f"the device (plain {out['plain_ms']:.3f} ms, index_add_ {out['library_ms']:.3f} ms, "
+        f"bound {out['bound_ms']:.4f} ms) at n={rows} S={NG_A}; {out['by_case']}")
+    return out
+
+
 # ----------------------------------------------------------------------
 # phase 3: SQL at real size
 
@@ -440,7 +622,8 @@ def device_breakdown(run, wall_ms: float, host_ops: bool = True) -> dict:
     busy = sum(ms for _, ms in dev)
     top = sorted(dev, key=lambda kv: -kv[1])[:4]
     return {"device_ms": busy, "idle_share": max(0.0, 1.0 - busy / wall_ms),
-            "top_kernels": [[k[:60], ms] for k, ms in top]}
+            "top_kernels": [[k[:60], ms] for k, ms in top],
+            "kernel_names": sorted(k for k, _ in dev)}
 
 
 def sql_table(rows: int, seed: int):
@@ -491,16 +674,15 @@ def sql_phase(gk, table, refs) -> tuple[dict, dict]:
 def _sql_runs(gk, s, rows: int, refs, load_s: float) -> tuple[dict, dict]:
 
     # the main path: counters at 0 just before, read just after
-    for c in gk.LAUNCHES.values():
-        c.reset()
+    reset_launches(gk)
     results, per_query = {}, {}
     for q, sql in QUERIES.items():
-        before = {k: c.value for k, c in gk.LAUNCHES.items()}
+        before = all_launches(gk)
         results[q] = s.query(sql)
         torch.cuda.synchronize()
-        per_query[q] = {k: c.value - before[k] for k, c in gk.LAUNCHES.items()
-                        if c.value != before[k]}
-    launches = {k: c.value for k, c in gk.LAUNCHES.items()}
+        per_query[q] = {k: v - before[k] for k, v in all_launches(gk).items()
+                        if v != before[k]}
+    launches = all_launches(gk)
     for q, want in EXPECTED_LAUNCHES.items():
         if per_query[q] != want:
             raise AssertionError(f"query ({q}) launched {per_query[q]}, expected {want}")
@@ -523,8 +705,12 @@ def _sql_runs(gk, s, rows: int, refs, load_s: float) -> tuple[dict, dict]:
         walls.sort()
         med = statistics.median(walls)
         sql_stats[q] = {"warm_ms_p50": med, "warm_ms_p67": walls[WARM_REPS - 11],
-                        "rows_per_s": rows / (med / 1e3),
+                        "rows_per_s": rows / (med / 1e3), "launches": per_query[q],
                         **device_breakdown(lambda: s.query(sql), med)}
+        scatters = [k for k in sql_stats[q].pop("kernel_names") if "indexFunc" in k]
+        sql_stats[q]["index_add_kernels"] = len(scatters)
+        if q == "a" and scatters:
+            raise AssertionError(f"query (a) ran index_add_ on the card: {scatters}")
         log(f"[sql] ({q}) warm wall p50 {med:.2f} ms p67 {walls[WARM_REPS - 11]:.2f} ms "
             f"over {WARM_REPS} runs, device busy {sql_stats[q]['device_ms']:.2f} ms: {sql}")
     sql_stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
@@ -535,7 +721,7 @@ def _sql_runs(gk, s, rows: int, refs, load_s: float) -> tuple[dict, dict]:
 # phase 4: streamed scans over the same table
 
 STREAM_EXPECTED = {"b": {"partition_histogram": 1, "fused_group_aggregate": 1},
-                   "c": {"filtered_group_sum": 1}}
+                   "c": {"filtered_group_sum": 1, "partition_histogram": 1}}
 
 
 @contextlib.contextmanager
@@ -613,6 +799,7 @@ def streamed_query(gk, s, q: str, refs, n_chunks: int, reps: int) -> dict:
            "rows_per_s": s.db.stores["default.t"].num_rows / (med / 1e3),
            "kernel_launches": launched, "stream_event": event, "spans_ms": spans,
            **device_breakdown(lambda: s.query(sql), med, host_ops=False)}
+    out.pop("kernel_names")
     out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     log(f"[stream] ({q}) {n_chunks} chunks: first run {first_ms:.1f} ms, warm p50 {med:.1f} ms "
         f"over {reps} runs, device {out['device_ms']:.1f} ms, idle {out['idle_share']:.3f}, "
@@ -811,8 +998,7 @@ def tpch_on_the_card(gk, scale: float, seed: int) -> tuple:
         f"in {load_s:.2f} s ({tables['lineitem'].num_rows} lineitem rows)")
 
     # the TPC-H path: counters at 0 just before, read just after
-    for c in gk.LAUNCHES.values():
-        c.reset()
+    reset_launches(gk)
     per_query, first = time_queries(gk, s, tpch.QUERIES, "tpch")
     check_q1_q6(first["q1"], first["q6"], tables["lineitem"])
     log(f"[tpch] SF {scale}: q1 and q6 match numpy")
@@ -832,7 +1018,7 @@ def time_queries(gk, s, queries: dict, tag: str) -> tuple[dict, dict]:
 
     per_query, first = {}, {}
     for q, sql in queries.items():
-        before = launch_counts(gk)
+        before = all_launches(gk)
         c0 = metrics.stream_chunks.value
         torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
@@ -841,7 +1027,7 @@ def time_queries(gk, s, queries: dict, tag: str) -> tuple[dict, dict]:
         first_ms = (time.perf_counter() - t) * 1e3
         chunks = metrics.stream_chunks.value - c0
         peak_gib = torch.cuda.max_memory_allocated() / 2**30
-        launched = {k: v - before[k] for k, v in launch_counts(gk).items()}
+        launched = {k: v - before[k] for k, v in all_launches(gk).items()}
         finite_rows(q, first[q])
         walls = []
         # a streamed query takes seconds at SF1: fewer warm runs
@@ -859,11 +1045,13 @@ def time_queries(gk, s, queries: dict, tag: str) -> tuple[dict, dict]:
                         "streamed_chunks": chunks, "warm_runs": reps,
                         **device_breakdown(lambda: s.query(sql), med, host_ops=not chunks),
                         "spans_ms": span_ms(s, sql)}
+        per_query[q]["index_add_kernels"] = sum(
+            "indexFunc" in k for k in per_query[q].pop("kernel_names"))
         log(f"[{tag}] {q}: {len(first[q])} rows, {chunks} chunks streamed, first run "
             f"{first_ms:.1f} ms, warm p50 "
             f"{med:.2f} ms p67 {per_query[q]['warm_ms_p67']:.2f} ms, device "
             f"{per_query[q]['device_ms']:.2f} ms, idle {per_query[q]['idle_share']:.3f}, "
-            f"peak {peak_gib:.3f} GiB, K1-K3 launches {launched}, "
+            f"peak {peak_gib:.3f} GiB, kernel launches {launched}, "
             f"top {per_query[q]['top_kernels']}, spans "
             + " ".join(f"{k} {v:.2f}" for k, v in per_query[q]["spans_ms"].items()))
     return per_query, first
@@ -929,17 +1117,83 @@ def analytic_phase(gk, check: tuple, s, tables: dict, scale: float) -> dict:
         "the card and the CPU")
 
     torch.cuda.empty_cache()
-    for c in gk.LAUNCHES.values():
-        c.reset()
+    reset_launches(gk)
     per_query, first = time_queries(gk, s, analytics.QUERIES, "analytics")
-    launches = launch_counts(gk)
+    launches = all_launches(gk)
     hll_err = analytics.check_against_numpy(first, tables["lineitem"])
     log(f"[analytics] SF {scale}: w_rank and the sketches match numpy (APPROX_COUNT_DISTINCT "
-        f"relative errors {hll_err}); K1-K3 launches {launches}")
+        f"relative errors {hll_err}); kernel launches {launches}")
     return {"scale": scale, "kernel_launches": launches, "hll_rel_err": hll_err,
             "peak_mem_gib": max(v["peak_mem_gib"] for v in per_query.values()),
             "queries": per_query,
             "results": {q: first[q] for q in ("w_rank", "a_sketch_all")}}
+
+
+# ----------------------------------------------------------------------
+# phase 8: egress functions and catalog statements, card against CPU
+
+EGRESS_QUERIES = (
+    "SELECT DATE_FORMAT(l_shipdate, '%Y-%m') m, COUNT(*) c, SUM(l_quantity) q FROM lineitem "
+    "GROUP BY DATE_FORMAT(l_shipdate, '%Y-%m') ORDER BY m",
+    "SELECT o_orderkey, FORMAT(o_totalprice, 2) p, HEX(o_orderkey) h, BIN(o_custkey) b, "
+    "OCT(o_orderkey) o, DATE_FORMAT(o_orderdate, '%W %M %e %Y') d FROM orders "
+    "WHERE DATE_FORMAT(o_orderdate, '%Y') = '1995' ORDER BY o_orderkey LIMIT 50",
+    "SELECT c_custkey, HEX(c_nationkey) h, OCT(c_custkey) o FROM customer "
+    "WHERE HEX(c_nationkey) = 'A' ORDER BY c_custkey DESC LIMIT 20",
+)
+CATALOG_STATEMENTS = (
+    "CREATE DATABASE smoke_db", "USE smoke_db",
+    "CREATE TABLE e (a INT, d DATE, x DOUBLE, PRIMARY KEY (a))",
+    "INSERT INTO e VALUES (1, '2024-02-29', 1.5), (2, NULL, -2.25), (3, '1999-12-31', NULL)",
+    "CREATE VIEW ev AS SELECT a, x * 2 y FROM e WHERE a > 1",
+    "?SELECT * FROM ev ORDER BY a", "?SHOW TABLES", "?SHOW FULL TABLES", "?DESCRIBE ev",
+    "?DESCRIBE e", "?SHOW CREATE TABLE e", "?SHOW CREATE TABLE ev", "?SHOW COLUMNS FROM e",
+    "?SHOW FULL COLUMNS FROM e", "?SHOW INDEX FROM e", "?SHOW VARIABLES LIKE 'onehot%'",
+    "?SHOW DATABASES", "TRUNCATE TABLE e", "?SELECT COUNT(*) n FROM e", "DROP VIEW ev",
+    "DROP TABLE e", "?SHOW TABLES", "USE default", "DROP DATABASE smoke_db", "?SHOW DATABASES",
+)
+
+
+def egress_phase(check: tuple) -> dict:
+    """The egress functions over phase 5 (i)'s tables and the catalog
+    statements, each on the card and on the CPU session; the rows (``?``
+    statements) and the INTO OUTFILE files must be equal."""
+    import tempfile
+
+    from baikaldb_tpu_torch.models.parity import mismatch
+
+    gpu, cpu, _ = check
+    rows = 0
+    for sql in EGRESS_QUERIES:
+        got = gpu.query(sql)
+        diff = mismatch(got, cpu.query(sql), sql)
+        if diff is not None or not got:
+            raise AssertionError(f"egress: the card differs from the CPU ({diff}) or no rows: "
+                                 f"{sql}")
+        rows += len(got)
+    for stmt in CATALOG_STATEMENTS:
+        if stmt.startswith("?"):
+            got, want = gpu.query(stmt[1:]), cpu.query(stmt[1:])
+            if got != want:
+                raise AssertionError(f"catalog: {stmt[1:]}: card {got} != CPU {want}")
+            rows += len(got)
+        else:
+            gpu.execute(stmt)
+            cpu.execute(stmt)
+    with tempfile.TemporaryDirectory() as tmp:
+        texts = []
+        for name, sess in (("card", gpu), ("cpu", cpu)):
+            path = os.path.join(tmp, f"{name}.tsv")
+            n = sess.execute(f"SELECT o_orderkey, o_totalprice, o_comment, HEX(o_custkey) h "
+                             f"FROM orders WHERE o_orderkey < 2000 ORDER BY o_orderkey "
+                             f"INTO OUTFILE '{path}'").affected_rows
+            texts.append((n, open(path).read()))
+        if texts[0] != texts[1] or not texts[0][0]:
+            raise AssertionError("INTO OUTFILE: the card's file differs from the CPU's")
+    log(f"[egress] {len(EGRESS_QUERIES)} egress queries, {len(CATALOG_STATEMENTS)} catalog "
+        f"statements and INTO OUTFILE ({texts[0][0]} rows) equal on the card and the CPU")
+    return {"egress_queries": len(EGRESS_QUERIES), "statements": len(CATALOG_STATEMENTS),
+            "rows_checked": rows, "outfile_rows": texts[0][0]}
 
 
 def main() -> int:
@@ -965,6 +1219,7 @@ def main() -> int:
     phase_s = {}
     t0 = time.perf_counter()
     times = kernel_phase(gk, args.rows, args.seed, before)
+    times["segment_reduce"] = segment_phase(args.rows, args.seed)
     phase_s["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     table, refs = sql_table(args.rows, args.seed)
@@ -994,18 +1249,24 @@ def main() -> int:
     t0 = time.perf_counter()
     stream_stats["tpch"] = tpch_streamed_vs_resident(s)
     phase_s["tpch_streamed_vs_resident"] = time.perf_counter() - t0
+    del s, tables
+    t0 = time.perf_counter()
+    egress_stats = egress_phase(check)
+    phase_s["egress"] = time.perf_counter() - t0
     print(f"analytic phase seconds: {phase_s['analytics']:.1f}", flush=True)
     print("phase seconds: " + json.dumps(phase_s), flush=True)
 
     kernels = [{"name": k, "route": "cuda",
-                "source": "baikaldb_tpu_torch/ops/csrc/group_agg.cu",
-                "replaces": REPLACES[k], "launches": launches[k] + stream_launches[k],
-                "launches_resident": launches[k], "launches_streamed": stream_launches[k],
+                "source": SOURCES.get(k, "baikaldb_tpu_torch/ops/csrc/group_agg.cu"),
+                "replaces": REPLACES[k],
+                "launches": launches[k] + stream_launches.get(k, 0),
+                "launches_resident": launches[k],
+                "launches_streamed": stream_launches.get(k, 0),
                 **times[k]}
                for k in REPLACES]
     print(json.dumps({"card": name_power, "rows": args.rows, "phase_s": phase_s,
                       "sql": sql_stats, "streamed": stream_stats, "tpch": tpch_stats,
-                      "analytics": analytic_stats}),
+                      "analytics": analytic_stats, "egress": egress_stats}),
           flush=True)
     print(name_power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -125,19 +125,157 @@ def test_fused_group_aggregate_takes_views_at_any_offset(cuda, offsets, n):
 
 
 @pytest.mark.cuda
+def test_kernel_counts_are_exact_above_2_pow_24(cuda):
+    """One group of 2^24 + 1 live rows: K1-K3 give the int64 count exactly
+    (a float32 count would round it to 2^24)."""
+    n = (1 << 24) + 1
+    codes = torch.zeros(n + 3, dtype=torch.int32, device=cuda)
+    codes[n:] = torch.tensor([1, 2, 7], dtype=torch.int32, device=cuda)
+    values = torch.ones(n + 3, dtype=torch.float32, device=cuda)
+    mask = torch.ones(n + 3, dtype=torch.bool, device=cuda)
+    want = torch.tensor([n, 1, 1, 0, 0, 0, 0, 1], dtype=torch.int64)
+    for counts in (gk.filtered_group_sum(codes, values, mask, 8)[0],
+                   gk.filtered_group_sum(codes, values.double(), mask, 8)[0],
+                   gk.fused_group_aggregate(codes, values, mask, 8)[0],
+                   gk.partition_histogram(codes, mask, 8)):
+        assert counts.dtype == torch.int64 and torch.equal(counts.cpu(), want)
+
+
+# -- the segment kernel (ops/segments.py, csrc/segments.cu) against its plain
+# version: integers, counts, MIN and MAX exact (NaN equal to NaN); float64
+# sums within 1e-9 * sum(|x|) over the segment; float32 sums (accumulated in
+# float64 on both sides, rounded once) within one float32 ulp of that.
+
+SEG_DTYPES = [torch.bool, torch.int32, torch.int64, torch.float32, torch.float64]
+
+
+def _seg_inputs(n, S, dtype, seed, dev, id_dtype=torch.int32):
+    """Ids in [-2, S + 2) (outside [0, S) they drop), segment 3 left empty
+    when S > 4; floats carry +NaN in segment 1 and -NaN in segment 2 when S >
+    2 and n > 40 (also one in a dropped row); ints span half their range, so
+    int32 sums wrap."""
+    rng = np.random.default_rng(seed)
+    gid = rng.integers(-2, S + 2, n)
+    if S > 4:
+        gid[gid == 3] = 4
+    if dtype is torch.bool:
+        x = rng.random(n) < 0.5
+    elif dtype.is_floating_point:
+        x = (rng.normal(size=n) * 1e3).astype(np.float32 if dtype is torch.float32
+                                                else np.float64)
+        if S > 2 and n > 40:
+            bits = x.view(np.uint32 if dtype is torch.float32 else np.uint64)
+            pos, neg = (0x7FC00000, 0xFFC00000) if dtype is torch.float32 else \
+                (0x7FF8000000000000, 0xFFF8000000000000)
+            gid[10:13], bits[10:13] = 1, pos
+            gid[20:23], bits[20:23] = 2, neg
+            gid[30], bits[30] = S, pos                       # dropped
+    else:
+        info = torch.iinfo(dtype)
+        x = rng.integers(info.min // 2, info.max // 2, n, dtype=np.int64)
+    return (torch.from_numpy(np.ascontiguousarray(x)).to(dtype).to(dev),
+            torch.from_numpy(gid).to(id_dtype).to(dev))
+
+
+def _seg_close(op, x, gid, S, got, want):
+    got, want = got.cpu(), want.cpu()
+    assert got.dtype == want.dtype and got.shape == (S,)
+    if op != "sum" or not x.dtype.is_floating_point:
+        assert _same(got.double(), want.double()) if got.dtype.is_floating_point \
+            else torch.equal(got, want)
+        return
+    live = (gid >= 0) & (gid < S)
+    sabs = torch.zeros(S + 1, dtype=torch.float64, device=x.device)
+    sabs.index_add_(0, torch.where(live, gid, S).long(), x.abs().double().nan_to_num(0.0))
+    tol = 1e-9 * sabs[:S].cpu()
+    if x.dtype is torch.float32:
+        tol = tol + want.double().abs() * 2.0 ** -23
+    assert torch.equal(got.isnan(), want.isnan())
+    ok = ~want.isnan()
+    assert bool(((got[ok].double() - want[ok].double()).abs() <= tol[ok]).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+@pytest.mark.parametrize("dtype", SEG_DTYPES)
+@pytest.mark.parametrize("n,S", [(65_536, 17), (100_003, 1), (100_003, 16), (200_001, 64),
+                                 (50_000, 512), (3, 16), (0, 5)])
+def test_segment_kernel_matches_plain(cuda, op, dtype, n, S):
+    from baikaldb_tpu_torch.ops import segments as seg
+
+    x, gid = _seg_inputs(n, S, dtype, n + S, cuda)
+    before = seg.LAUNCHES["segment_reduce"].value
+    got = seg.segment_reduce(x, gid, S, op)
+    torch.cuda.synchronize()
+    assert seg.LAUNCHES["segment_reduce"].value == before + 1
+    _seg_close(op, x, gid, S, got, seg.segment_reduce_plain(x, gid, S, op))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["private", "warp", "block"])
+@pytest.mark.parametrize("op,dtype", [("sum", torch.float64), ("sum", torch.int64),
+                                      ("sum", torch.bool), ("min", torch.float32),
+                                      ("max", torch.float64), ("max", torch.int32)])
+@pytest.mark.parametrize("S", [17, 48])
+def test_segment_kernel_table_layouts_agree(cuda, mode, op, dtype, S):
+    from baikaldb_tpu_torch.ops import segments as seg
+
+    x, gid = _seg_inputs(300_007, S, dtype, S, cuda, id_dtype=torch.int64)
+    _seg_close(op, x, gid, S, seg.segment_reduce(x, gid, S, op, mode=mode),
+               seg.segment_reduce_plain(x, gid, S, op))
+
+
+@pytest.mark.cuda
+def test_segment_kernel_wraps_int64_and_keeps_identities(cuda):
+    from baikaldb_tpu_torch.ops import segments as seg
+
+    x = torch.tensor([2**62, 2**62, 2**62, -5, 7], dtype=torch.int64, device=cuda)
+    gid = torch.tensor([0, 0, 0, 1, 9], dtype=torch.int32, device=cuda)
+    want = np.zeros(3, np.int64)
+    np.add.at(want, [0, 0, 0, 1], x.cpu().numpy()[:4])     # numpy wraps like the card
+    assert seg.segment_reduce(x, gid, 3, "sum").cpu().tolist() == want.tolist()
+    assert seg.segment_reduce(x, gid, 3, "min").cpu().tolist() == \
+        [2**62, -5, torch.iinfo(torch.int64).max]
+    f = torch.tensor([1.0, float("nan"), -2.0, 3.0, -float("nan"), 5.0], device=cuda)
+    g = torch.tensor([0, 0, 1, 1, 2, 3], dtype=torch.int32, device=cuda)
+    mn = seg.seg_min(f, g, 5).cpu()
+    assert mn.isnan().tolist() == [True, False, True, False, False]
+    assert mn[1] == -2.0 and mn[3] == 5.0 and mn[4] == float("inf")
+    assert seg.seg_max(f, g, 5).cpu()[4] == float("-inf")
+
+
+@pytest.mark.cuda
+def test_segment_reductions_take_the_kernel_under_the_gate(cuda):
+    from baikaldb_tpu_torch.ops import segments as seg
+
+    x = torch.arange(1000, dtype=torch.float64, device=cuda)
+    gid = (torch.arange(1000, device=cuda) % 7).to(torch.int32)
+    c = seg.LAUNCHES["segment_reduce"]
+    before = c.value
+    seg.seg_sum(x, gid, 7), seg.seg_min(x, gid, 7), seg.seg_max(x, gid, 7)
+    assert c.value == before + 3
+    big = seg.max_segments(cuda) + 1
+    seg.seg_sum(x, gid, big)                     # above the gate: the scatter
+    seg.seg_sum(x.reshape(-1, 1), gid, 7)        # 2-D x: the scatter
+    seg.seg_sum(x.cpu(), gid.cpu(), 7)           # the CPU: the scatter
+    assert c.value == before + 3
+
+
+@pytest.mark.cuda
 def test_session_runs_on_the_card(cuda):
     from baikaldb_tpu_torch.exec.session import Session
 
     s = Session()
     assert s.device.type == "cuda"
     s.execute("CREATE TABLE t (g INT, v FLOAT)")
-    s.execute("INSERT INTO t VALUES (1, 2.0), (1, 3.0), (2, 4.0), (700, 1.0)")
+    s.execute("INSERT INTO t VALUES (1, 2.0), (1, 3.0), (2, 4.0), (2500, 1.0)")
     for c in gk.LAUNCHES.values():
         c.reset()
     assert s.query("SELECT g, SUM(v) s, MIN(v) m FROM t GROUP BY g HAVING s > 1 "
                    "ORDER BY g") == \
         [{"g": 1, "s": 5.0, "m": 2.0}, {"g": 2, "s": 4.0, "m": 4.0}]
-    # 700 distinct key values: the dense group-by takes the kernels
+    # a key domain of 2500 values: above the card's gate, the dense group-by
+    # takes the kernels
     assert gk.LAUNCHES["fused_group_aggregate"].value == 1
     assert s.db.stores["default.t"].device_table_batch().device.type == "cuda"
 
@@ -425,7 +563,7 @@ STREAM_QUERIES = {
     "b": ("SELECT g, COUNT(*), SUM(v), AVG(v), MIN(v) FROM t WHERE v*2+1 > 0.5 "
           "GROUP BY g ORDER BY g", {"partition_histogram": 1, "fused_group_aggregate": 1}),
     "c": ("SELECT g, SUM(w), AVG(w) FROM t WHERE w > -1 GROUP BY g ORDER BY g",
-          {"filtered_group_sum": 1}),
+          {"filtered_group_sum": 1, "partition_histogram": 1}),
     "scalar": ("SELECT COUNT(*), SUM(w), MIN(v), MAX(id) FROM t WHERE id >= 123456", {}),
     "sorted": ("SELECT g16, id % 3 m, COUNT(*) n, SUM(w) s, STDDEV(v) sd FROM t "
                "GROUP BY g16, m ORDER BY g16, m", {}),

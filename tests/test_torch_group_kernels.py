@@ -3,9 +3,10 @@ against the JAX package's Pallas kernels (interpret mode, as
 tests/test_pallas.py runs them) and their XLA fallbacks.
 
 Inputs come from numpy with fixed seeds and go through both packages.
-Tolerances: counts and min/max match exactly (counts are integers below
-2^24, min/max select an input value); sums use rtol=atol=1e-4 as
-tests/test_pallas.py does (float32 outputs, sums taken in another order).
+Tolerances: counts and min/max match exactly (the port's counts are int64,
+the Pallas kernels' float32 counts are exact below 2^24; min/max select an
+input value); sums use rtol=atol=1e-4 as tests/test_pallas.py does (float32
+outputs, sums taken in another order).
 
 On the CPU the entry points run their plain torch versions; the CUDA kernels
 are held against those plain versions on the card by tests/test_torch_cuda.py.
@@ -53,7 +54,7 @@ def test_filtered_group_sum_matches_pallas(n, ng, live, seed):
     c_t, s_t = gk.filtered_group_sum(*_t(codes, values, mask), ng)
     c_p, s_p = pk.filtered_group_sum(*_j(codes, values, mask), ng, interpret=True)
     c_x, s_x = pk._xla_fallback(*_j(codes, values, mask), ng)
-    assert c_t.dtype == torch.float32 and s_t.dtype == torch.float32
+    assert c_t.dtype == torch.int64 and s_t.dtype == torch.float32
     for c_ref, s_ref in ((c_p, s_p), (c_x, s_x)):
         np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_ref))
         np.testing.assert_allclose(s_t.numpy(), np.asarray(s_ref), rtol=RTOL, atol=ATOL)
@@ -173,3 +174,20 @@ def test_k2_variant_anchors_are_in_the_kernel_source():
     for name, subs in k2_variants.VARIANTS.items():
         for old, _ in subs:
             assert src.count(old) == 1, name
+
+
+def test_counts_are_exact_int64_above_2_pow_24():
+    """One group of 2^24 + 1 live rows (a float32 count rounds it to 2^24)
+    and a few rows elsewhere: K1-K3 count it exactly, in int64."""
+    n = (1 << 24) + 1
+    codes = torch.zeros(n + 3, dtype=torch.int32)
+    codes[n:] = torch.tensor([1, 2, 7], dtype=torch.int32)
+    values = torch.ones(n + 3, dtype=torch.float32)
+    mask = torch.ones(n + 3, dtype=torch.bool)
+    want = torch.tensor([n, 1, 1, 0, 0, 0, 0, 1], dtype=torch.int64)
+    k1 = gk.filtered_group_sum(codes, values, mask, 8)
+    k2 = gk.fused_group_aggregate(codes, values, mask, 8)
+    k3 = gk.partition_histogram(codes, mask, 8)
+    for counts in (k1[0], k2[0], k3):
+        assert counts.dtype == torch.int64
+        assert torch.equal(counts, want)

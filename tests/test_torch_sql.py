@@ -215,3 +215,42 @@ def test_traced_query_records_the_session_spans(smoke_sessions):
     names = {s["name"] for s in rec["spans"]}
     assert {"query", "parse", "plan.build", "exec.batches", "exec.run",
             "egress.arrow"} <= names
+
+
+def test_counts_above_2_pow_24_in_one_group_match_jax(monkeypatch):
+    """600 dense groups and one group of 2^24 + 1 rows, resident
+    (``streaming_scan = 0``): the port's CPU route is the group-by kernels'
+    (K3 + K1, through their plain versions), whose counts are int64, so
+    COUNT(*) and COUNT(v) equal the JAX package's 16,777,217 exactly."""
+    from baikaldb_tpu.utils.flags import FLAGS as JFLAGS
+    from baikaldb_tpu_torch.utils.flags import FLAGS as TFLAGS
+
+    big = (1 << 24) + 1
+    small = np.repeat(np.arange(1, 600, dtype=np.int32), 3)
+    g = np.concatenate([np.zeros(big, np.int32), small])
+    v = np.full(g.shape[0], 0.5, np.float32)
+    v_null = np.zeros(g.shape[0], bool)
+    v_null[big::5] = True                      # some NULLs among the small groups
+    data = pa.table({"g": g, "v": pa.array(v, mask=v_null)})
+    sql = "SELECT g, COUNT(*) c, COUNT(v) cv, SUM(v) s FROM t GROUP BY g ORDER BY g"
+    ran = set()
+    for k in ("partition_histogram", "filtered_group_sum"):
+        plain = getattr(gk, f"{k}_plain")
+        monkeypatch.setattr(gk, f"{k}_plain",
+                            lambda *a, _k=k, _p=plain: ran.add(_k) or _p(*a))
+    prev = (JFLAGS.streaming_scan, TFLAGS.streaming_scan)
+    try:
+        JFLAGS.set_flag("streaming_scan", False)
+        TFLAGS.set_flag("streaming_scan", False)
+        rows = []
+        for s in (JSession(), TSession(device="cpu")):
+            s.execute("CREATE TABLE t (g INT, v FLOAT)")
+            s.load_arrow("t", data)
+            rows.append(s.query(sql))
+    finally:
+        JFLAGS.set_flag("streaming_scan", prev[0])
+        TFLAGS.set_flag("streaming_scan", prev[1])
+    want, got = rows
+    assert ran == {"partition_histogram", "filtered_group_sum"}
+    assert got[0]["c"] == got[0]["cv"] == want[0]["c"] == want[0]["cv"] == big
+    assert_rows(got, want, 1e-4)
