@@ -24,6 +24,16 @@ A session runs on one device, named when it is made.  ``Session()`` with no
 device runs on CUDA and raises when CUDA is unavailable; only an explicit
 ``Session(device="cpu")`` runs on the CPU.
 
+VECTOR(d) columns are the JAX session's: d hidden FLOAT components
+``__{col}_{i}`` (1 <= d <= 4096), filled by INSERT vector literals or by a
+list / fixed-size list column in ``load_arrow`` (read in bulk from Arrow's
+values and offsets); DESCRIBE shows ``vector(d)`` and SELECT * hides the
+components.  L2_DISTANCE, COSINE_DISTANCE and INNER_PRODUCT expand over the
+components in the planner.  An ``ANN INDEX`` (in CREATE TABLE, or ALTER
+TABLE ... ADD ANN INDEX / DROP INDEX) makes ``ORDER BY <distance> LIMIT k``
+scan only the IVF candidates of index/annindex.py, re-ranked exactly by the
+unchanged plan; EXPLAIN shows ``ann(<index> nprobe=N)``.
+
 A single-scan scan -> filter -> aggregate over a table of at least
 ``streaming_min_rows`` rows streams, as in the JAX session: the scan stages
 a ChunkSource (the chunks its zone maps keep) instead of the device image,
@@ -31,7 +41,8 @@ and exec/streaming.py folds it chunk by chunk.  The chunks are Parquet
 segments in the cold tier (``Database(cold_dir=...)`` or the
 ``cold_fs_dir`` flag) or in host memory.
 
-Not ported yet: transactions, UPDATE/DELETE, the plan cache and
+Not ported yet: transactions, UPDATE/DELETE, the other ALTER TABLE forms
+and index kinds, the plan cache and
 auto-parameterization, the host presort permutations, pushdown, matviews
 and rollups, point lookups and snapshot pinning.
 """
@@ -48,21 +59,24 @@ import tempfile
 from dataclasses import dataclass, field, replace
 from typing import Optional
 
+import numpy as np
 import pyarrow as pa
 import torch
 
+from ..column.batch import ColumnBatch
 from ..errors import NotPortedError
 from ..exec import egress, executor, streaming
 from ..expr.ast import AggCall, Call, Lit, Subquery, WindowCall
+from ..index import annindex
 from ..index.selector import analyze_conjuncts
 from ..meta.catalog import Catalog, IndexInfo, parse_type
 from ..obs import trace
 from ..plan.nodes import PlanNode, ScanNode
-from ..plan.planner import PlanError, Planner
+from ..plan.planner import PlanError, Planner, parse_vector
 from ..sql.lexer import SqlError
 from ..sql.parser import parse_sql
-from ..sql.stmt import (CreateDatabaseStmt, CreateTableStmt, CreateViewStmt,
-                        DescribeStmt, DropDatabaseStmt, DropTableStmt,
+from ..sql.stmt import (AlterTableStmt, CreateDatabaseStmt, CreateTableStmt,
+                        CreateViewStmt, DescribeStmt, DropDatabaseStmt, DropTableStmt,
                         DropViewStmt, ExplainStmt, InsertStmt, OrderItem,
                         SelectItem, SelectStmt, SetStmt, ShowStmt, TableRef,
                         TruncateStmt, UseStmt)
@@ -71,6 +85,7 @@ from ..storage.column_store import TableStore
 from ..storage.streamchunks import ChunkSource, chunk_set
 from ..types import Field, LType, Schema
 from ..utils import metrics
+from ..utils.device import resolve_device
 from ..utils.flags import FLAGS, FlagError
 
 # the JAX session's server version string (its _SERVER_VARS["version"])
@@ -114,15 +129,71 @@ def _show_like_rx(pat: str):
     return re.compile(_like_to_regex(pat), re.IGNORECASE)
 
 
-def resolve_device(device=None) -> torch.device:
-    """The device a session runs on: ``None`` means CUDA, and raises when no
-    CUDA device is available (the port never falls back to the CPU)."""
-    if device is None:
-        if not torch.cuda.is_available():
-            raise RuntimeError("baikaldb_tpu_torch runs on a CUDA device and none "
-                               "is available; pass device='cpu' to run on the CPU")
-        return torch.device("cuda", torch.cuda.current_device())
-    return torch.device(device)
+def _component_owner(name: str, vcols: dict):
+    for v in vcols:
+        if name.startswith(f"__{v}_") and name[len(v) + 3:].isdigit():
+            return v
+    return None
+
+
+def _vector_matrix(col, name: str, dim: int) -> tuple[np.ndarray, np.ndarray]:
+    """A list or fixed-size list column -> ([n, dim] float32 matrix, [n]
+    NULL mask), read from Arrow's values and offsets; a NULL vector's row
+    is zeros and a NULL component reads NaN, as in the JAX session.  A
+    vector of another length raises the JAX session's PlanError."""
+    arr = col.combine_chunks() if isinstance(col, pa.ChunkedArray) else col
+    n = len(arr)
+    isnull = arr.is_null().to_numpy(zero_copy_only=False)
+    if pa.types.is_fixed_size_list(arr.type):
+        size = arr.type.list_size
+        lengths = np.full(n, size, np.int64)
+        starts = (arr.offset + np.arange(n, dtype=np.int64)) * size
+    elif pa.types.is_list(arr.type) or pa.types.is_large_list(arr.type):
+        offs = arr.offsets.to_numpy().astype(np.int64)
+        lengths, starts = np.diff(offs), offs[:-1]
+    else:
+        raise PlanError(f"vector column {name!r} expects a list column, got {arr.type}")
+    if (lengths[~isnull] != dim).any():
+        raise PlanError(f"vector column {name!r} expects dim {dim}")
+    mat = np.zeros((n, dim), np.float32)
+    live = ~isnull
+    if not live.any():
+        return mat, isnull
+    values = arr.values
+    flat = np.asarray(values.to_numpy(zero_copy_only=False), np.float32)
+    if live.all() and (np.diff(starts) == dim).all():
+        first = int(starts[0])
+        mat[:] = flat[first:first + n * dim].reshape(n, dim)
+    else:
+        mat[live] = flat[starts[live][:, None] + np.arange(dim)]
+    return mat, isnull
+
+
+def _expand_vector_arrow(t: pa.Table, vcols: dict) -> pa.Table:
+    """Split list-typed vector columns into float32 component columns
+    (NULL vectors allowed, like the row path), in bulk: one matrix from the
+    column's flattened values, no Python object per element."""
+    for name, dim in vcols.items():
+        if name not in t.column_names:
+            continue
+        mat, isnull = _vector_matrix(t.column(name), name, dim)
+        comps = torch.from_numpy(mat).T.contiguous().numpy()   # a blocked transpose
+        mask = isnull if isnull.any() else None
+        t = t.drop_columns([name])
+        for i in range(dim):
+            t = t.append_column(f"__{name}_{i}",
+                                pa.array(comps[i], pa.float32(), mask=mask))
+    return t
+
+
+def _expand_vector_row(r: dict, vcols: dict) -> dict:
+    out = dict(r)
+    for name, dim in vcols.items():
+        if name in out:
+            vals = parse_vector(out.pop(name), dim)
+            for i, x in enumerate(vals):
+                out[f"__{name}_{i}"] = x
+    return out
 
 
 @dataclass
@@ -209,8 +280,13 @@ class Session:
 
     def load_arrow(self, table_name: str, table: pa.Table,
                    database: str | None = None) -> int:
-        """Bulk ingest: append an Arrow table straight into the store."""
-        self._store(TableRef(database, table_name)).insert_arrow(table)
+        """Bulk ingest: append an Arrow table straight into the store; a
+        vector column arrives as a list or fixed-size list column."""
+        store = self._store(TableRef(database, table_name))
+        vcols = (store.info.options or {}).get("vector_cols") or {}
+        if vcols:
+            table = _expand_vector_arrow(table, vcols)
+        store.insert_arrow(table)
         return table.num_rows
 
     # -- statements -----------------------------------------------------
@@ -224,9 +300,11 @@ class Session:
         if isinstance(s, SetStmt):
             return self._set_stmt(s)
         if isinstance(s, ExplainStmt) and s.fmt != "analyze":
-            text = self._plan_select(s.stmt).tree_repr()
+            text = _annotate_access(self._plan_select(s.stmt)).tree_repr()
             return Result(columns=["plan"], plan_text=text,
                           arrow=pa.table({"plan": text.split("\n")}))
+        if isinstance(s, AlterTableStmt):
+            return self._alter_table(s)
         if isinstance(s, CreateViewStmt):
             return self._create_view(s)
         if isinstance(s, DropViewStmt):
@@ -242,6 +320,7 @@ class Session:
             st = self.db.stores.pop(f"{db}.{s.table.name}", None)
             if st is not None:
                 st.release()
+            annindex.manager(self.db).forget(f"{db}.{s.table.name}")
             return Result()
         if isinstance(s, TruncateStmt):
             self._store(s.table).truncate()
@@ -253,6 +332,7 @@ class Session:
             self.db.catalog.drop_database(s.name, s.if_exists)
             for k in [k for k in self.db.stores if k.startswith(s.name + ".")]:
                 self.db.stores.pop(k).release()
+                annindex.manager(self.db).forget(k)
             return Result()
         if isinstance(s, UseStmt):
             if s.database not in self.db.catalog.databases():
@@ -308,17 +388,33 @@ class Session:
             # a view: plan its body (no execution) and read the root's schema
             stmt = parse_sql(f"SELECT * FROM `{db}`.`{s.table.name}`")[0]
             fields = self._plan_select(stmt).schema.fields
-            keys = [""] * len(fields)
-        else:
-            info = self.db.catalog.get_table(db, s.table.name)
-            pk = info.primary_key()
-            pkcols = set(pk.columns) if pk else set()
-            fields = info.schema.fields
-            keys = ["PRI" if f.name in pkcols else "" for f in fields]
+            return Result(columns=["Field", "Type", "Null", "Key"],
+                          arrow=pa.table({"Field": [f.name for f in fields],
+                                          "Type": [f.ltype.value for f in fields],
+                                          "Null": ["YES" if f.nullable else "NO"
+                                                   for f in fields],
+                                          "Key": [""] * len(fields)}))
+        info = self.db.catalog.get_table(db, s.table.name)
+        pk = info.primary_key()
+        pkcols = set(pk.columns) if pk else set()
+        vcols = (info.options or {}).get("vector_cols") or {}
+        names, types, nulls, keys = [], [], [], []
+        for f in info.schema.fields:
+            owner = _component_owner(f.name, vcols)
+            if owner is not None:
+                # a vector column shows once, as vector(d)
+                if not names or names[-1] != owner:
+                    names.append(owner)
+                    types.append(f"vector({vcols[owner]})")
+                    nulls.append("YES")
+                    keys.append("")
+                continue
+            names.append(f.name)
+            types.append(f.ltype.value)
+            nulls.append("YES" if f.nullable else "NO")
+            keys.append("PRI" if f.name in pkcols else "")
         return Result(columns=["Field", "Type", "Null", "Key"],
-                      arrow=pa.table({"Field": [f.name for f in fields],
-                                      "Type": [f.ltype.value for f in fields],
-                                      "Null": ["YES" if f.nullable else "NO" for f in fields],
+                      arrow=pa.table({"Field": names, "Type": types, "Null": nulls,
                                       "Key": keys}))
 
     def _show(self, s: ShowStmt) -> Result:
@@ -407,6 +503,11 @@ class Session:
                          + ("" if f.nullable else " NOT NULL"))
         if pk:
             lines.append("  PRIMARY KEY (" + ", ".join(f"`{c}`" for c in pk.columns) + ")")
+        for ix in info.indexes:
+            if ix.kind != "primary":
+                # the JAX session's keyword for an ANN index
+                lines.append(f"  KEY `{ix.name}` (" + ", ".join(f"`{c}`" for c in ix.columns)
+                             + ")")
         ddl = f"CREATE TABLE `{s.table.name}` (\n" + ",\n".join(lines) + "\n)"
         return Result(columns=["Table", "Create Table"],
                       arrow=pa.table({"Table": [s.table.name], "Create Table": [ddl]}))
@@ -422,18 +523,38 @@ class Session:
     def _create_table(self, s: CreateTableStmt) -> Result:
         db = s.table.database or self.current_db
         if s.options or any(c.auto_increment for c in s.columns) \
-                or any(kind != "primary" for kind, _, _ in s.indexes):
+                or any(kind != "ann" for kind, _, _ in s.indexes):
             raise NotPortedError("table options, AUTO_INCREMENT and secondary indexes")
         fields = []
+        vector_cols: dict[str, int] = {}
         for c in s.columns:
-            if c.type_name.strip().lower().startswith("vector"):
-                raise NotPortedError("VECTOR columns")
+            tl = c.type_name.strip().lower()
+            if tl.startswith("vector"):
+                # VECTOR(d): stored as d hidden FLOAT components, so a
+                # distance is an expression over columns, as in the JAX
+                # session
+                try:
+                    dim = int(tl.split("(")[1].rstrip(") "))
+                except (IndexError, ValueError):
+                    raise PlanError("VECTOR needs a dimension: VECTOR(d)")
+                if not 1 <= dim <= 4096:
+                    raise PlanError("VECTOR dimension out of range")
+                vector_cols[c.name] = dim
+                for i in range(dim):
+                    fields.append(Field(f"__{c.name}_{i}", LType.FLOAT32, True))
+                continue
             fields.append(Field(c.name, parse_type(c.type_name),
                                 c.nullable and c.name not in s.primary_key))
         indexes = [IndexInfo("PRIMARY", "primary", list(s.primary_key))] \
             if s.primary_key else []
-        info = self.db.catalog.create_table(db, s.table.name, Schema(tuple(fields)),
-                                            indexes, if_not_exists=s.if_not_exists)
+        for kind, name, cols in s.indexes:
+            if len(cols) != 1 or cols[0] not in vector_cols:
+                raise PlanError("ANN INDEX needs exactly one VECTOR column")
+            indexes.append(IndexInfo(name or f"ann_{cols[0]}", kind, cols))
+        info = self.db.catalog.create_table(
+            db, s.table.name, Schema(tuple(fields)), indexes,
+            options={"vector_cols": vector_cols} if vector_cols else None,
+            if_not_exists=s.if_not_exists)
         key = f"{db}.{s.table.name}"
         if key not in self.db.stores:
             self.db.stores[key] = TableStore(info, self.device)
@@ -444,10 +565,15 @@ class Session:
             raise NotPortedError("INSERT ... SELECT, REPLACE and ON DUPLICATE KEY")
         store = self._store(s.table)
         schema = store.info.schema
-        cols = s.columns or schema.names()
+        vcols = (store.info.options or {}).get("vector_cols") or {}
+        # positional VALUES address user-visible columns (vector columns by
+        # their own names, components hidden)
+        cols = s.columns or self._user_columns(store)
         if any(len(r) != len(cols) for r in s.rows):
             raise SqlError("VALUES row length does not match column list")
         rows = [dict(zip(cols, r)) for r in s.rows]
+        if vcols:
+            rows = [_expand_vector_row(r, vcols) for r in rows]
         for r in rows:
             for f in schema.fields:
                 v = r.get(f.name)
@@ -456,6 +582,47 @@ class Session:
         store.insert_rows(rows)
         return Result(affected_rows=len(rows))
 
+    def _user_columns(self, store: TableStore) -> list[str]:
+        """Declared column order with vector components collapsed back to
+        their user-visible vector column name."""
+        vcols = (store.info.options or {}).get("vector_cols") or {}
+        out: list[str] = []
+        for n in store.info.schema.names():
+            owner = _component_owner(n, vcols)
+            if owner is None:
+                out.append(n)
+            elif not out or out[-1] != owner:
+                out.append(owner)
+        return out
+
+    def _alter_table(self, s: AlterTableStmt) -> Result:
+        """ALTER TABLE ... ADD ANN INDEX and DROP INDEX of an ANN index, as
+        the JAX session's ``_alter_index`` does them: the index is trained
+        lazily on its first ANN query (index/annindex), so there is no
+        backfill.  Every other form raises ``NotPortedError``."""
+        db = s.table.database or self.current_db
+        info = self.db.catalog.get_table(db, s.table.name)
+        if s.action == "drop_index":
+            kept = [ix for ix in info.indexes
+                    if not (ix.name == s.index_name and ix.kind == "ann")]
+            if len(kept) == len(info.indexes):
+                raise PlanError(f"unknown index {s.index_name!r}")
+            info.indexes = kept
+            info.version += 1
+            return Result()
+        if s.action != "add_index" or s.index_kind != "ann":
+            raise NotPortedError(f"ALTER TABLE {s.action} (only ADD ANN INDEX and DROP "
+                                 "INDEX of an ANN index are ported)")
+        vcols = (info.options or {}).get("vector_cols") or {}
+        if len(s.index_cols) != 1 or s.index_cols[0] not in vcols:
+            raise PlanError("ANN INDEX needs exactly one VECTOR column")
+        name = s.index_name or f"ann_{s.index_cols[0]}"
+        if any(ix.name == name for ix in info.indexes):
+            raise PlanError(f"index {name!r} exists")
+        info.indexes.append(IndexInfo(name, "ann", list(s.index_cols)))
+        info.version += 1
+        return Result()
+
     # -- SELECT -----------------------------------------------------------
     def _stats_fn(self, table_key: str, col: str):
         st = self.db.stores.get(table_key)
@@ -463,8 +630,43 @@ class Session:
 
     def _plan_select(self, stmt: SelectStmt) -> PlanNode:
         with trace.span("plan.build"):
-            return Planner(self.db.catalog, self.db.stores, self.current_db,
+            plan = Planner(self.db.catalog, self.db.stores, self.current_db,
                            self._stats_fn).plan_select(stmt)
+            self._annotate_ann(stmt, plan)
+            return plan
+
+    def _annotate_ann(self, stmt: SelectStmt, plan: PlanNode) -> None:
+        """When the statement is the ANN shape over a table with an ANN
+        index, mark its ScanNode: the batch builder reduces the scan to
+        the IVF candidate set (index/annindex) and the unchanged plan
+        re-ranks exactly."""
+        t = stmt.table
+        if t is None or t.subquery is not None:
+            return
+        dbname = t.database or self.current_db
+        try:
+            info = self.db.catalog.get_table(dbname, t.name)
+        except Exception:       # noqa: BLE001 — planner already validated
+            return
+        m = annindex.match_ann_query(stmt, info, t.label)
+        if m is None:
+            return
+        ix, col, metric, qvec, k = m
+        key = f"{dbname}.{t.name}"
+        scans = []
+
+        def walk(n):
+            if isinstance(n, ScanNode) and n.table_key == key:
+                scans.append(n)
+            for c in n.children:
+                walk(c)
+        walk(plan)
+        if len(scans) == 1:
+            # the WHERE flag rides along: filters re-apply AFTER candidate
+            # reduction, so the batch builder must widen the pre-filter pool
+            # (or fall back to brute force) to still fill LIMIT k
+            scans[0].ann = (ix.name, col, metric, qvec, int(k),
+                            stmt.where is not None)
 
     def _select(self, stmt: SelectStmt) -> Result:
         if stmt.into_outfile is not None:
@@ -536,14 +738,42 @@ class Session:
             if isinstance(n, ScanNode) and n.table_key not in batches:
                 db, name = n.table_key.split(".", 1)
                 store = self._store(TableRef(db, name))
-                # a streamed plan has this one scan (streaming.eligible)
-                b = self._maybe_stream_source(plan, n, store)
+                # an ANN-marked scan reads its IVF candidates; a streamed
+                # plan has this one scan (streaming.eligible)
+                b = self._ann_batch(n, store) if n.ann is not None else None
+                if b is None:
+                    b = self._maybe_stream_source(plan, n, store)
                 batches[n.table_key] = b if b is not None else store.device_table_batch()
             for c in n.children:
                 walk(c)
 
         walk(plan)
         return batches
+
+    def _ann_batch(self, n: ScanNode, store) -> Optional[ColumnBatch]:
+        """IVF candidate batch for an ANN-annotated scan: positions from
+        the trained index, sliced out of the store snapshot (same row
+        source the full scan would read); None runs the exact scan.  Every
+        query reduces anew: the JAX session's batch cache never keeps an
+        entry (ROADMAP.md §3), so neither does this one."""
+        ix_name, col, metric, qvec, k, has_where = n.ann
+        filtered = has_where or n.pushed_filter is not None
+        dim = (store.info.options or {}).get("vector_cols", {}).get(col)
+        if dim is None:
+            return None
+        res = annindex.manager(self.db).candidates(
+            n.table_key, store, col, int(dim), qvec, metric, k,
+            filtered=filtered)
+        if res is None:
+            n.access_desc = "full"
+            return None
+        positions, nprobe = res
+        b = ColumnBatch.from_arrow(store.snapshot().take(pa.array(positions)),
+                                   self.device)
+        n.access_desc = (f"ann({ix_name} nprobe={nprobe}, "
+                         f"cand={len(positions)})")
+        metrics.index_scans.add(1)
+        return b
 
     def _maybe_stream_source(self, plan: PlanNode, n: ScanNode, store):
         """A ChunkSource for this scan when the plan is chunk-foldable
@@ -567,6 +797,16 @@ class Session:
         n.access_desc = (f"stream({len(keep)}/{cs.n_chunks} chunks, "
                          f"{cs.capacity} rows each)")
         return ChunkSource(cs, keep)
+
+
+def _annotate_access(plan: PlanNode) -> PlanNode:
+    """EXPLAIN display of an ANN-marked scan's access path, without
+    building batches (the JAX session's ``_annotate_access`` line)."""
+    if isinstance(plan, ScanNode) and plan.ann is not None:
+        plan.access_desc = f"ann({plan.ann[0]} nprobe={int(FLAGS.ann_nprobe)})"
+    for c in plan.children:
+        _annotate_access(c)
+    return plan
 
 
 def _resolve_session_exprs(stmt: SelectStmt, conn_id: int) -> SelectStmt:

@@ -11,13 +11,17 @@ the JAX package) agree when:
 - result sets without ORDER BY compare as multisets;
 - rows that tie on every ORDER BY key compare as a multiset within the run;
 - where LIMIT cuts through a tied run, only that run's ORDER BY values
-  compare.
+  compare;
+- where ORDER BY sorts by an expression that is not an output column (the
+  ANN shape ``ORDER BY L2_DISTANCE(v, '[...]') LIMIT k``), ties cannot be
+  seen in the rows, so the rows compare in order.
 """
 
 from __future__ import annotations
 
 import math
 
+from ..expr.ast import ColRef
 from ..sql.parser import parse_sql
 
 ATOL = 1e-6
@@ -46,10 +50,12 @@ def _multiset_equal(got: list, want: list, rtol: float) -> bool:
                                          for a, b in zip(got, want))
 
 
-def order_keys(sql: str) -> tuple[list[str], bool]:
-    """The output columns the statement's ORDER BY names, and whether it has
-    a LIMIT."""
+def order_keys(sql: str) -> tuple[list[str] | None, bool]:
+    """The output columns the statement's ORDER BY names (None when it
+    sorts by an expression), and whether it has a LIMIT."""
     stmt = parse_sql(sql)[0]
+    if not all(isinstance(o.expr, ColRef) for o in stmt.order_by):
+        return None, stmt.limit is not None
     return [o.expr.name.split(".")[-1] for o in stmt.order_by], stmt.limit is not None
 
 
@@ -67,6 +73,9 @@ def mismatch(got: list[dict], want: list[dict], sql: str,
     keys, has_limit = order_keys(sql)
     g = [tuple(r.values()) for r in got]
     w = [tuple(r.values()) for r in want]
+    if keys is None:
+        bad = [i for i, (a, b) in enumerate(zip(g, w)) if not _rows_close(a, b, rtol)]
+        return f"row {bad[0]}: {g[bad[0]]}, expected {w[bad[0]]}" if bad else None
     if not keys:
         return None if _multiset_equal(g, w, rtol) else "rows differ (as multisets)"
     ki = [cols.index(k) for k in keys]

@@ -24,7 +24,6 @@ from typing import Optional
 import numpy as np
 
 from ..expr.ast import AggCall, Call, ColRef, Expr, Lit, Subquery, WindowCall, walk
-from ..errors import NotPortedError
 from ..expr.compile import infer_type
 from ..meta.catalog import Catalog
 from ..ops.hashagg import AggSpec, agg_result_type
@@ -55,6 +54,23 @@ define("dense_group_domain_max", 1 << 23,
 
 class PlanError(SqlError):
     pass
+
+
+def parse_vector(v, dim: int) -> list:
+    """A VECTOR(d) value: '[1, 2, 3]' or '1 2 3' text, or a sequence of
+    numbers; None is a NULL vector.  The INSERT path, the distance
+    functions and the ANN matcher all read literals through here."""
+    if v is None:
+        return [None] * dim
+    if isinstance(v, str):
+        body = v.strip().lstrip("[").rstrip("]").replace(",", " ")
+        vals = [float(x) for x in body.split()]
+    else:
+        vals = [float(x) for x in v]
+    if len(vals) != dim:
+        raise PlanError(f"vector literal has {len(vals)} components, "
+                        f"expected {dim}")
+    return vals
 
 
 class Scope:
@@ -2442,8 +2458,7 @@ class _Resolver:
                 raise PlanError(f"ambiguous vector column {ref.name!r}")
             key = hits[0]
         dim, comps = self.scope.vector_cols[key]
-        raise NotPortedError("vector distance expressions")
-        q = _parse_vector(lit.value, dim)
+        q = parse_vector(lit.value, dim)
 
         def add_all(terms):
             out = terms[0]

@@ -180,6 +180,8 @@ eqclass_consts_pushed = Counter("eqclass_consts_pushed")
 agg_strategy_local = Counter("agg_strategy_local")
 agg_strategy_raw = Counter("agg_strategy_raw")
 failpoint_trips = Counter("failpoint_trips")
+# scans reduced to an access path's rows (the ANN candidate set)
+index_scans = Counter("index_scans")
 # out-of-core streaming scans (exec/streaming.py): chunks folded, chunks
 # zone-map-skipped before any transfer, coldfs segment-read retries, fold
 # restarts after a group-capacity overflow, bytes moved host->device, and

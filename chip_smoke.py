@@ -1,7 +1,8 @@
 """GPU smoke run of baikaldb_tpu_torch: build the kernels, hold each against
 its plain torch version, drive single-table SQL at real size resident and
-streamed, run the 22 TPC-H queries and the analytic queries on the card, and
-the egress functions and catalog statements on the card against the CPU.
+streamed, run the 22 TPC-H queries and the analytic queries on the card,
+the egress functions and catalog statements on the card against the CPU,
+and vector search (VECTOR columns, the ANN index) at 1M x 128.
 
     python3 chip_smoke.py [--rows N] [--seed S] [--tpch-scale S]
                           [--compare-with DIR]
@@ -91,6 +92,29 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    VIEW, DESCRIBE, the catalog SHOW forms, TRUNCATE, DROP TABLE and SELECT
    ... INTO OUTFILE, each on the card and on the CPU; rows (and the files)
    equal.
+9. Vectors (VECTOR columns, the distance functions, ``index/annindex.py``,
+   ``ops/vector.py``): (i) the docs table (a NULL vector) and 8,000
+   clustered VECTOR(16) rows with an ANN INDEX (``ann_min_rows`` = 512),
+   inserted through INSERT into a card and a CPU session: L2 / COSINE /
+   INNER_PRODUCT top-k with and without WHERE and the ANN path, rows equal
+   by the parity contract, EXPLAIN equal and showing ``ann(a nprobe=8)``,
+   the ANN recall@10 against numpy at least 0.95.  (ii) BASELINE config #4:
+   ``vt (id BIGINT, tag INT, emb VECTOR(128))``, 1,000,000 rows from
+   ``bench/ann.py``'s generator (``--seed``), ``tag`` in [0, 10), loaded as a
+   fixed-size list column (load time, peak memory); V-l2, V-where (``tag =
+   3``), V-cos, V-ip (DESC) for 32 query vectors, LIMIT 10, each equal to
+   numpy's top-10 in order (numpy's distances in the planner's component
+   order and dtypes), then V-ann after ``ALTER TABLE vt ADD ANN INDEX``
+   (recall@10 at least 0.95): per shape the first query (V-ann's trains
+   k-means; its spans), the other vectors' p50, the warm wall p50 / p67 of
+   10 runs, device ms, idle share, device ops and top kernels of one
+   profiled run, the spans and the launches; the segment kernel must launch
+   (k-means' counts).  (iii) ``brute_force_topk`` (bf16, f32), ``kmeans``
+   (1000 clusters, 10 iterations) and ``ivf_topk`` (nprobe 8) on the card:
+   device ms against the byte bound, top-10 against numpy within each
+   precision's score error, k-means seconds, ivf recall@10 at least 0.95.
+   (iv) ``COUNT(*) ... WHERE L2_DISTANCE(emb, q) < r`` with the default
+   flags (it streams), against numpy.
 
 Phases 5 and 6 run with the default flags, so a query over a table of at
 least ``streaming_min_rows`` rows that the streamed path accepts streams
@@ -623,6 +647,8 @@ def device_breakdown(run, wall_ms: float, host_ops: bool = True) -> dict:
     top = sorted(dev, key=lambda kv: -kv[1])[:4]
     return {"device_ms": busy, "idle_share": max(0.0, 1.0 - busy / wall_ms),
             "top_kernels": [[k[:60], ms] for k, ms in top],
+            "device_ops": sum(e.count for e in prof.key_averages()
+                              if e.device_type == DeviceType.CUDA),
             "kernel_names": sorted(k for k, _ in dev)}
 
 
@@ -1196,6 +1222,387 @@ def egress_phase(check: tuple) -> dict:
             "rows_checked": rows, "outfile_rows": texts[0][0]}
 
 
+# ----------------------------------------------------------------------
+# phase 9: vectors (VECTOR columns, the distance functions, the ANN index,
+# ops/vector) at BASELINE config #4's size
+
+VEC_ROWS = 1_000_000
+VEC_DIM = 128
+VEC_QUERIES = 32
+VEC_K = 10
+VEC_REPS = 10
+VEC_SHORTLIST = 256              # numpy's candidates before the exact ranking
+KMEANS_CLUSTERS = 1000
+KMEANS_ITERS = 10
+BF16_OPS_PER_S = 989e12          # H100 SXM, dense bf16 on the tensor cores
+DOCS_QUERIES = (
+    "SELECT id, L2_DISTANCE(emb, '[1,0,0,0]') d FROM docs ORDER BY d LIMIT 3",
+    "SELECT id, L2_DISTANCE(emb, '[1,0,0,0]') d FROM docs "
+    "WHERE L2_DISTANCE(emb, '[1,0,0,0]') IS NOT NULL ORDER BY d LIMIT 2",
+    "SELECT id FROM docs WHERE tag = 'b' ORDER BY L2_DISTANCE(emb, '[1,0,0,0]') LIMIT 1",
+    "SELECT id, COSINE_DISTANCE(emb, '[1,0.5,0,0]') c, INNER_PRODUCT(emb, '[1,0.5,0,0]') p, "
+    "L2_DISTANCE(emb, '[1,0.5,0,0]') l FROM docs ORDER BY id",
+    "SELECT id FROM docs ORDER BY INNER_PRODUCT(emb, '[1,0,0,0]') DESC LIMIT 1",
+    "SELECT * FROM docs WHERE id = 1",
+)
+# phase 9 (ii): (name, ORDER BY, WHERE) over vt's emb; {q} is the vector
+VEC_SHAPES = {
+    "V-l2": ("L2_DISTANCE(emb, '{q}')", ""),
+    "V-where": ("L2_DISTANCE(emb, '{q}')", "WHERE tag = 3 "),
+    "V-cos": ("COSINE_DISTANCE(emb, '{q}')", ""),
+    "V-ip": ("INNER_PRODUCT(emb, '{q}') DESC", ""),
+    "V-ann": ("L2_DISTANCE(emb, '{q}')", ""),
+}
+
+
+def vec_lit(v) -> str:
+    """A vector literal whose components parse back to ``v``'s float32
+    values exactly."""
+    return "[" + ",".join(repr(float(x)) for x in v) + "]"
+
+
+def vec_sql(shape: str, q) -> str:
+    order, where = VEC_SHAPES[shape]
+    return f"SELECT id FROM vt {where}ORDER BY {order.format(q=vec_lit(q))} LIMIT {VEC_K}"
+
+
+def exact_scores(rows: np.ndarray, q: np.ndarray, shape: str) -> np.ndarray:
+    """The SQL distance of ``rows`` [m, d] (float32) to ``q`` computed as
+    the planner's expansion computes it: component by component, left to
+    right, differences and products in float64 (a FLOAT column against a
+    DOUBLE literal), and COSINE_DISTANCE's row norm a FLOAT sum of FLOAT
+    squares whose square root is DOUBLE.  Larger is nearer."""
+    q64 = q.astype(np.float64)
+    r64 = rows.astype(np.float64)
+    if shape in ("V-l2", "V-where", "V-ann"):
+        t = r64[:, 0] - q64[0]
+        acc = t * t
+        for i in range(1, len(q)):
+            t = r64[:, i] - q64[i]
+            acc = acc + t * t
+        return -np.sqrt(acc)
+    dot = r64[:, 0] * q64[0]
+    for i in range(1, len(q)):
+        dot = dot + r64[:, i] * q64[i]
+    if shape == "V-ip":
+        return dot
+    sq = rows[:, 0] * rows[:, 0]
+    for i in range(1, len(q)):
+        sq = sq + rows[:, i] * rows[:, i]
+    qn = float(sum(x * x for x in q64.tolist()) ** 0.5) or 1.0
+    return -(1.0 - dot / (np.sqrt(sq.astype(np.float64)) * qn))
+
+
+def numpy_topk(base: np.ndarray, tag: np.ndarray, queries: np.ndarray, shape: str,
+               k: int = VEC_K) -> list:
+    """numpy's top-k ids per query: a float32 product picks a shortlist,
+    ``exact_scores`` ranks it, ties by id (the SQL sort is stable over the
+    scan order)."""
+    dots = queries @ base.T                                   # [q, n] float32
+    if shape in ("V-l2", "V-where", "V-ann"):
+        score = 2 * dots - (base * base).sum(1)[None, :]
+    elif shape == "V-cos":
+        score = dots / np.linalg.norm(base, axis=1)[None, :]
+    else:
+        score = dots
+    if shape == "V-where":
+        score[:, tag != 3] = -np.inf
+    out = []
+    for i, q in enumerate(queries):
+        short = np.argpartition(score[i], -VEC_SHORTLIST)[-VEC_SHORTLIST:]
+        if shape == "V-where":
+            short = short[tag[short] == 3]
+        ex = exact_scores(base[short], q, shape)
+        order = np.lexsort((short, -ex))
+        out.append([int(x) for x in short[order[:k]]])
+    return out
+
+
+def vector_card_vs_cpu() -> dict:
+    """(i) the docs table (a NULL vector) and 8,000 clustered VECTOR(16)
+    rows with an ANN INDEX (tests/test_ann_sql.py's data), inserted through
+    INSERT into a card and a CPU session: every query's rows equal by the
+    parity contract, the EXPLAIN lines equal and showing the ANN access,
+    the ANN rows' recall@10 against numpy at least 0.95."""
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.models.parity import mismatch
+
+    rng = np.random.RandomState(11)
+    centers = rng.randn(32, 16) * 4
+    vecs = (centers[rng.randint(0, 32, 8000)] + rng.randn(8000, 16) * 0.5).astype(np.float32)
+    qs = [vecs[i] + rng.randn(16).astype(np.float32) * 0.05 for i in rng.randint(0, 8000, 12)]
+    sqls = list(DOCS_QUERIES)
+    for q in qs:
+        lit = vec_lit(q)
+        sqls += [f"SELECT id FROM vt ORDER BY L2_DISTANCE(v, '{lit}') LIMIT 10",
+                 f"SELECT id, tag FROM vt WHERE tag = 3 ORDER BY L2_DISTANCE(v, '{lit}') LIMIT 10",
+                 f"SELECT id FROM vt ORDER BY COSINE_DISTANCE(v, '{lit}') LIMIT 10",
+                 f"SELECT id FROM vt ORDER BY INNER_PRODUCT(v, '{lit}') DESC LIMIT 10",
+                 f"SELECT id, L2_DISTANCE(v, '{lit}') d FROM vt ORDER BY d LIMIT 10"]
+    explain = f"EXPLAIN SELECT id FROM vt ORDER BY L2_DISTANCE(v, '{vec_lit(qs[0])}') LIMIT 10"
+    sessions = [Session(device="cuda"), Session(device="cpu")]
+    # the flag registry is process-wide: one SET GLOBAL serves both sessions
+    with flag(sessions[0], "ann_min_rows", 512):
+        out = []
+        for s in sessions:
+            s.execute("CREATE TABLE docs (id BIGINT, tag VARCHAR, emb VECTOR(4))")
+            s.execute("INSERT INTO docs VALUES (1, 'a', '[1,0,0,0]'), (2, 'b', '[0,1,0,0]'), "
+                      "(3, 'a', '[0.9,0.1,0,0]'), (4, 'b', '[0,0,1,0]'), (5, 'a', NULL)")
+            s.execute("CREATE TABLE vt (id BIGINT, tag INT, v VECTOR(16), ANN INDEX a (v))")
+            for i in range(0, 8000, 400):
+                s.execute("INSERT INTO vt VALUES " + ", ".join(
+                    f"({j}, {j % 10}, '{vec_lit(vecs[j])}')" for j in range(i, i + 400)))
+            out.append(([s.query(sql) for sql in sqls], s.execute(explain).plan_text))
+    (got, gplan), (want, cplan) = out
+    for sql, g, w in zip(sqls, got, want):
+        diff = mismatch(g, w, sql)
+        if diff is not None or not g:
+            raise AssertionError(f"vectors: the card differs from the CPU ({diff}) or no rows: "
+                                 f"{sql[:120]}")
+    if gplan != cplan or "ann(a nprobe=8)" not in gplan:
+        raise AssertionError(f"vectors: EXPLAIN on the card {gplan!r} vs the CPU {cplan!r}")
+    hits = 0
+    for qi, q in enumerate(qs):
+        exact = set(np.argsort(((vecs - q) ** 2).sum(1))[:10].tolist())
+        hits += len({r["id"] for r in got[len(DOCS_QUERIES) + 5 * qi]} & exact)
+    recall = hits / (10 * len(qs))
+    if recall < 0.95:
+        raise AssertionError(f"vectors: ANN recall@10 {recall} < 0.95 on the clustered rows")
+    log(f"[vectors] (i) {len(sqls)} queries equal on the card and the CPU, EXPLAIN "
+        f"{[ln.strip() for ln in gplan.splitlines() if 'ann(' in ln][0][-40:]}, ANN recall@10 "
+        f"{recall}")
+    return {"queries": len(sqls), "ann_recall_at_10": recall}
+
+
+def vector_sql(gk, seed: int) -> tuple[dict, dict, tuple]:
+    """(ii) BASELINE config #4: ``vt (id BIGINT, tag INT, emb VECTOR(128))``
+    at 1M rows from bench/ann.py's generator, each query shape for
+    ``VEC_QUERIES`` vectors against numpy, then timed.  -> (launches of the
+    path, measurements, (session, base, tag, queries))."""
+    import pyarrow as pa
+
+    from baikaldb_tpu_torch.bench.ann import make_data
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.utils import metrics
+
+    t0 = time.perf_counter()
+    base, queries, _ = make_data(VEC_ROWS, VEC_DIM, VEC_QUERIES, seed)
+    tag = np.random.default_rng(seed).integers(0, 10, VEC_ROWS).astype(np.int32)
+    table = pa.table({"id": np.arange(VEC_ROWS, dtype=np.int64), "tag": tag,
+                      "emb": pa.FixedSizeListArray.from_arrays(pa.array(base.reshape(-1)),
+                                                               VEC_DIM)})
+    gen_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    s = Session(device="cuda")
+    s.execute(f"CREATE TABLE vt (id BIGINT, tag INT, emb VECTOR({VEC_DIM}))")
+    s.load_arrow("vt", table)
+    ingest_s = time.perf_counter() - t0
+    s.db.stores["default.vt"].device_table_batch()
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    out = {"rows": VEC_ROWS, "dim": VEC_DIM, "queries": VEC_QUERIES, "gen_s": gen_s,
+           "ingest_s": ingest_s, "load_s": load_s,
+           "load_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    log(f"[vectors] (ii) {VEC_ROWS} x VECTOR({VEC_DIM}) generated in {gen_s:.2f} s, ingested "
+        f"in {ingest_s:.2f} s, loaded and staged in {load_s:.2f} s")
+    t0 = time.perf_counter()
+    want = {shape: numpy_topk(base, tag, queries, shape) for shape in VEC_SHAPES
+            if shape != "V-ann"}
+    out["numpy_s"] = time.perf_counter() - t0
+
+    # the vector path: counters at 0 just before, read just after
+    reset_launches(gk)
+    for shape in VEC_SHAPES:
+        if shape == "V-ann":
+            s.execute("ALTER TABLE vt ADD ANN INDEX a (emb)")
+        before = all_launches(gk)
+        scans0 = metrics.index_scans.value
+        torch.cuda.reset_peak_memory_stats()
+        firsts, got = [], []
+        for i, q in enumerate(queries):
+            sql = vec_sql(shape, q)
+            t = time.perf_counter()
+            if i == 0:
+                rows, first_spans, _ = traced_run(s, sql)
+            else:
+                rows = s.query(sql)
+                torch.cuda.synchronize()
+            firsts.append((time.perf_counter() - t) * 1e3)
+            got.append([r["id"] for r in rows])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        launched = {k: v - before[k] for k, v in all_launches(gk).items() if v != before[k]}
+        sql = vec_sql(shape, queries[0])
+        if shape == "V-ann":
+            exact = want["V-l2"]
+            recall = float(np.mean([len(set(g) & set(e)) / VEC_K for g, e in zip(got, exact)]))
+            if recall < 0.95:
+                raise AssertionError(f"V-ann recall@10 {recall} < 0.95")
+            plan = s.execute("EXPLAIN " + sql).plan_text
+            if "ann(a nprobe=8)" not in plan or metrics.index_scans.value - scans0 != VEC_QUERIES:
+                raise AssertionError(f"V-ann did not take the ANN path: {plan[-200:]}")
+        else:
+            bad = [i for i, (g, w) in enumerate(zip(got, want[shape])) if g != w]
+            if bad:
+                raise AssertionError(f"{shape} query {bad[0]}: {got[bad[0]]} != numpy "
+                                     f"{want[shape][bad[0]]}")
+        walls = []
+        for _ in range(VEC_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            s.query(sql)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        walls.sort()
+        med = statistics.median(walls)
+        st = {"first_query_ms": firsts[0], "first_query_spans_ms": first_spans,
+              "other_vectors_ms_p50": statistics.median(firsts[1:]),
+              "warm_ms_p50": med, "warm_ms_p67": float(np.percentile(walls, 67)),
+              "peak_mem_gib": peak, "kernel_launches": launched,
+              **device_breakdown(lambda: s.query(sql), med), "spans_ms": span_ms(s, sql)}
+        st.pop("kernel_names")
+        if shape == "V-ann":
+            st["recall_at_10"] = recall
+        out[shape] = st
+        log(f"[vectors] {shape}: {VEC_QUERIES} vectors match numpy; first query "
+            f"{firsts[0]:.1f} ms (spans {first_spans}), other vectors p50 "
+            f"{st['other_vectors_ms_p50']:.2f} ms, warm p50 {med:.2f} ms p67 "
+            f"{st['warm_ms_p67']:.2f} ms, device {st['device_ms']:.2f} ms, idle "
+            f"{st['idle_share']:.3f}, peak {peak:.3f} GiB, launches {launched}, top "
+            f"{st['top_kernels']}, spans {st['spans_ms']}")
+    launches = all_launches(gk)
+    # V-ann's training is the path's one k-means: one segment launch an
+    # iteration (its counts); nothing on the path reaches K1-K3
+    want_launches = {k: 0 for k in launches} | {"segment_reduce": KMEANS_ITERS}
+    if launches != want_launches:
+        raise AssertionError(f"vector path launches {launches} != {want_launches}")
+    return launches, out, (s, base, tag, queries)
+
+
+def vector_api(base: np.ndarray, queries: np.ndarray) -> dict:
+    """(iii) ``brute_force_topk`` (bf16, f32), ``kmeans`` and ``ivf_topk``
+    on the card at the same size: device ms against the bound, the top-10
+    against numpy, k-means seconds."""
+    from baikaldb_tpu_torch.ops import segments as seg
+    from baikaldb_tpu_torch.ops import vector as tv
+
+    dev = torch.device("cuda")
+    bd, qd = torch.from_numpy(base).to(dev), torch.from_numpy(queries).to(dev)
+    n, d = base.shape
+    q = len(queries)
+    bytes_ms = (base.nbytes + queries.nbytes) / HBM_BYTES_PER_S * 1e3
+    flops = 2.0 * q * n * d
+    exact = numpy_topk(base, None, queries, "V-l2")
+    b2 = (base.astype(np.float64) ** 2).sum(1)
+    out = {}
+    for prec, peak in (("bf16", BF16_OPS_PER_S), ("f32", F32_OPS_PER_S)):
+        def fn(prec=prec):
+            return tv.brute_force_topk(qd, bd, None, VEC_K, "l2", prec)
+        dms = device_ms(fn)
+        prof = device_breakdown(fn, dms)
+        scores, idx = (t.cpu().numpy() for t in fn())
+        if scores.dtype != np.float32:
+            raise AssertionError(f"brute_force_topk {prec}: scores are {scores.dtype}")
+        for i in range(q):
+            # the i-th row returned is as near as numpy's i-th, within the
+            # score's error: f32, 1e-5 of the squared norms the L2 expansion
+            # cancels; bf16, each product of rounded inputs is off by at
+            # most ~2^-8 of |q_j b_j|, so 2 q.b by 2^-7 |q| |b|
+            tol = (2.0 ** -7 * np.linalg.norm(queries[i]) * np.sqrt(b2.max()) if prec == "bf16"
+                   else 1e-5 * (float(queries[i] @ queries[i]) + b2.max()))
+            got_d2 = exact_scores(base[idx[i]], queries[i], "V-l2") ** 2
+            want_d2 = exact_scores(base[exact[i]], queries[i], "V-l2") ** 2
+            if idx[i][0] != exact[i][0] or (np.abs(got_d2 - want_d2) > tol).any():
+                raise AssertionError(f"brute_force_topk {prec} query {i}: {idx[i]} vs numpy "
+                                     f"{exact[i]}")
+        out[f"brute_force_topk_{prec}"] = {
+            "device_ms": dms, "top_kernels": prof["top_kernels"],
+            "device_ops": prof["device_ops"], "bound_ms": max(bytes_ms, flops / peak * 1e3),
+            "bound_by": "bytes" if bytes_ms >= flops / peak * 1e3 else "operations"}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    before = seg.LAUNCHES["segment_reduce"].value
+    t0 = time.perf_counter()
+    cent, assign = tv.kmeans(base, KMEANS_CLUSTERS, iters=KMEANS_ITERS, device=dev)
+    torch.cuda.synchronize()
+    km_s = time.perf_counter() - t0
+    km_launches = seg.LAUNCHES["segment_reduce"].value - before
+    if km_launches != KMEANS_ITERS or not np.isfinite(cent).all():
+        raise AssertionError(f"kmeans: {km_launches} segment launches, finite "
+                             f"{np.isfinite(cent).all()}")
+    out["kmeans"] = {"clusters": KMEANS_CLUSTERS, "iters": KMEANS_ITERS, "seconds": km_s,
+                     "segment_launches": km_launches,
+                     "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+                     "empty_clusters": int(KMEANS_CLUSTERS - len(np.unique(assign)))}
+    ct, at = torch.from_numpy(cent).to(dev), torch.from_numpy(assign).to(dev)
+    # the segment kernel at k-means' shape (float64 ones, int64 ids from
+    # argmax, 1000 segments) against its plain version, exactly; the
+    # counts of the last iteration's assignment
+    ones = torch.ones(n, dtype=torch.float64, device=dev)
+    cnt = seg.segment_reduce(ones, at, KMEANS_CLUSTERS, "sum")
+    plain = seg.segment_reduce_plain(ones, at, KMEANS_CLUSTERS, "sum")
+    if not torch.equal(cnt, plain) or not np.array_equal(
+            cnt.cpu().numpy(), np.bincount(assign, minlength=KMEANS_CLUSTERS)):
+        raise AssertionError(f"segment kernel at k-means' shape: max error "
+                             f"{(cnt - plain).abs().max().item()} against the plain version")
+
+    def ivf():
+        return tv.ivf_topk(qd, bd, None, ct, at, VEC_K, 8, "l2", "f32")
+    dms = device_ms(ivf)
+    idx = ivf()[1].cpu().numpy()
+    recall = float(np.mean([len(set(idx[i].tolist()) & set(exact[i])) / VEC_K
+                            for i in range(q)]))
+    if recall < 0.95:
+        raise AssertionError(f"ivf_topk recall@10 {recall} < 0.95")
+    out["ivf_topk_f32"] = {"device_ms": dms, "nprobe": 8, "recall_at_10": recall,
+                           "bound_ms": max(bytes_ms, flops / F32_OPS_PER_S * 1e3)}
+    log(f"[vectors] (iii) brute_force_topk bf16 "
+        f"{out['brute_force_topk_bf16']['device_ms']:.3f} / f32 "
+        f"{out['brute_force_topk_f32']['device_ms']:.3f} device-ms (bound {bytes_ms:.3f}), "
+        f"kmeans {KMEANS_CLUSTERS} x {KMEANS_ITERS} in {km_s:.2f} s (its counts equal the "
+        f"plain version's), ivf_topk {dms:.3f} "
+        f"device-ms, recall@10 {recall}")
+    return out
+
+
+def vector_radius(s, base: np.ndarray, queries: np.ndarray) -> dict:
+    """(iv) ``COUNT(*) ... WHERE L2_DISTANCE(emb, q) < r`` with the default
+    flags, once: whether it streamed, its time, the count against numpy."""
+    from baikaldb_tpu_torch.utils import metrics
+
+    d = -exact_scores(base, queries[0], "V-l2")
+    ds = np.sort(d)
+    r = float((ds[999] + ds[1000]) / 2)
+    want = int((d < r).sum())
+    sql = (f"SELECT COUNT(*) n FROM vt WHERE L2_DISTANCE(emb, '{vec_lit(queries[0])}') "
+           f"< {r!r}")
+    c0 = metrics.stream_chunks.value
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rows, spans, event = traced_run(s, sql)
+    ms = (time.perf_counter() - t) * 1e3
+    chunks = metrics.stream_chunks.value - c0
+    if rows != [{"n": want}]:
+        raise AssertionError(f"radius count {rows} != numpy {want}")
+    log(f"[vectors] (iv) radius count {want} in {ms:.1f} ms, streamed {chunks} chunks, "
+        f"stream event {event}")
+    return {"count": want, "ms": ms, "streamed_chunks": chunks, "stream_event": event,
+            "spans_ms": spans}
+
+
+def vector_phase(gk, seed: int) -> tuple[dict, dict]:
+    """Phase 9: (i) card against CPU, (ii) BASELINE config #4 through SQL,
+    (iii) the ops/vector API, (iv) a radius count.  -> (launches of (ii),
+    measurements)."""
+    out = {"card_vs_cpu": vector_card_vs_cpu()}
+    torch.cuda.empty_cache()
+    launches, out["sql"], (s, base, tag, queries) = vector_sql(gk, seed)
+    out["api"] = vector_api(base, queries)
+    out["radius"] = vector_radius(s, base, queries)
+    return launches, out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=100_000_000)
@@ -1253,20 +1660,28 @@ def main() -> int:
     t0 = time.perf_counter()
     egress_stats = egress_phase(check)
     phase_s["egress"] = time.perf_counter() - t0
+    del check
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    vector_launches, vector_stats = vector_phase(gk, args.seed)
+    phase_s["vectors"] = time.perf_counter() - t0
     print(f"analytic phase seconds: {phase_s['analytics']:.1f}", flush=True)
+    print(f"vector phase seconds: {phase_s['vectors']:.1f}", flush=True)
     print("phase seconds: " + json.dumps(phase_s), flush=True)
 
     kernels = [{"name": k, "route": "cuda",
                 "source": SOURCES.get(k, "baikaldb_tpu_torch/ops/csrc/group_agg.cu"),
                 "replaces": REPLACES[k],
-                "launches": launches[k] + stream_launches.get(k, 0),
+                "launches": launches[k] + stream_launches.get(k, 0) + vector_launches[k],
                 "launches_resident": launches[k],
                 "launches_streamed": stream_launches.get(k, 0),
+                "launches_vectors": vector_launches[k],
                 **times[k]}
                for k in REPLACES]
     print(json.dumps({"card": name_power, "rows": args.rows, "phase_s": phase_s,
                       "sql": sql_stats, "streamed": stream_stats, "tpch": tpch_stats,
-                      "analytics": analytic_stats, "egress": egress_stats}),
+                      "analytics": analytic_stats, "egress": egress_stats,
+                      "vectors": vector_stats}),
           flush=True)
     print(name_power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -676,3 +676,169 @@ def test_streamed_copies_survive_a_slow_fold(cuda, monkeypatch, chunk_rows):
         want.append({"k": k, "n": int(sel.sum()), "s": int(cid[sel].sum()),
                      "sx": float(cid[sel].sum()), "mx": int(cid[sel].max())})
     assert got == want
+
+
+# ----------------------------------------------------------------------
+# vectors (ops/vector.py, index/annindex.py, VECTOR columns): the card
+# against the CPU.  GEMM scores within rtol 1e-5 (L2: 1e-5 of the squared
+# norms it cancels); ranks exact away from near-ties; SQL rows by the parity
+# contract; k-means on separated clusters: assignments equal, centroids
+# within atol 1e-4.
+
+
+def _vec_inputs(seed, n=20_000, d=64, q=9):
+    rng = np.random.default_rng(seed)
+    base = (rng.normal(size=(40, d))[rng.integers(0, 40, n)] * 3
+            + rng.normal(size=(n, d))).astype(np.float32)
+    return base, (base[rng.integers(0, n, q)] + 0.05).astype(np.float32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("metric", ["l2", "ip", "cosine"])
+@pytest.mark.parametrize("precision", ["bf16", "f32"])
+def test_vector_gemm_scores_are_float32_and_match_the_cpu(cuda, metric, precision):
+    from baikaldb_tpu_torch.ops import vector as tv
+
+    base, q = _vec_inputs(1)
+    got = tv._scores(torch.from_numpy(q).to(cuda), torch.from_numpy(base).to(cuda), metric,
+                     precision)
+    want = tv._scores(torch.from_numpy(q), torch.from_numpy(base), metric, precision)
+    assert got.dtype is torch.float32 and got.device.type == "cuda"
+    atol = 1e-5 * float((q * q).sum(1).max() + (base * base).sum(1).max()) \
+        if metric == "l2" else 1e-5
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=atol)
+    if precision == "bf16":
+        # products of bf16-rounded inputs in float32: not bf16-rounded scores
+        assert (got.to(torch.bfloat16).float() != got).float().mean() > 0.5
+
+
+@pytest.mark.cuda
+def test_vector_topk_ties_take_the_lower_index_first_on_the_card(cuda):
+    from baikaldb_tpu_torch.ops import vector as tv
+
+    n = 300_000
+    base = torch.zeros((n, 8), device=cuda)
+    dup = torch.tensor([n - 1, 7, 123_456, 40, 299_000], device=cuda)
+    base[dup, 0] = 1.0                               # five equal nearest rows
+    q = torch.zeros((3, 8), device=cuda)
+    q[:, 0] = 1.0
+    s, idx = tv.brute_force_topk(q, base, None, 8, "l2", "f32")
+    assert idx[:, :5].tolist() == [[7, 40, 123_456, 299_000, n - 1]] * 3
+    assert idx[:, 5:].tolist() == [[0, 1, 2]] * 3    # then the zero rows, in order
+    valid = torch.zeros(n, dtype=torch.bool, device=cuda)
+    valid[[11, 5]] = True                            # fewer live rows than k
+    s, idx = tv.brute_force_topk(q, base, valid, 4, "ip", "bf16")
+    assert idx[0].tolist() == [5, 11, 0, 1] and torch.isneginf(s[:, 2:]).all()
+
+
+@pytest.mark.cuda
+def test_vector_probe_mask_on_the_card_equals_the_broadcast(cuda):
+    from baikaldb_tpu_torch.ops import vector as tv
+
+    base, q = _vec_inputs(2)
+    cent, assign = tv.kmeans(base, 40, iters=3, device="cpu")
+    b, qq = torch.from_numpy(base).to(cuda), torch.from_numpy(q).to(cuda)
+    c, a = torch.from_numpy(cent).to(cuda), torch.from_numpy(assign).to(cuda)
+    valid = torch.rand(len(base), device=cuda) > 0.1
+    got = tv.ivf_topk(qq, b, valid, c, a, 10, 6, "l2", "f32")
+    # the JAX package's [q, n, nprobe] broadcast, on the card
+    _, probe = tv._topk(tv._scores(qq, c, "l2", "f32"), 6)
+    in_probe = (a[None, :, None] == probe[:, None, :]).any(-1) & valid[None, :]
+    s = tv._scores(qq, b, "l2", "f32").masked_fill_(~in_probe, float("-inf"))
+    want = tv._topk(s, 10)
+    assert torch.equal(got[1], want[1]) and torch.equal(got[0], want[0])
+    cpu = tv.ivf_topk(qq.cpu(), b.cpu(), valid.cpu(), c.cpu(), a.cpu(), 10, 6, "l2", "f32")
+    torch.testing.assert_close(got[0].cpu(), cpu[0], rtol=1e-5,
+                               atol=1e-5 * float((base * base).sum(1).max() * 2))
+
+
+@pytest.mark.cuda
+def test_vector_kmeans_on_the_card_matches_the_cpu(cuda):
+    from baikaldb_tpu_torch.ops import segments as seg
+    from baikaldb_tpu_torch.ops import vector as tv
+
+    rng = np.random.default_rng(4)
+    centers = rng.normal(size=(4, 16)) * 20
+    true = np.repeat(np.arange(4), 1500)
+    x = (centers[true] + rng.normal(size=(6000, 16))).astype(np.float32)
+    # seed 8 draws one initial centroid in each cluster, so no cluster is
+    # split where a last-bit difference of the card's float32 sums could move
+    # a row across the split
+    seed = 8
+    assert len(set(true[np.random.default_rng(seed).choice(6000, 4, replace=False)])) == 4
+    before = seg.LAUNCHES["segment_reduce"].value
+    gc, ga = tv.kmeans(x, 4, iters=6, seed=seed, device=cuda)
+    # one per iteration: the counts (1-D float64 ones over 4 clusters)
+    assert seg.LAUNCHES["segment_reduce"].value == before + 6
+    cc, ca = tv.kmeans(x, 4, iters=6, seed=seed, device="cpu")
+    assert np.array_equal(ga, ca)
+    assert len(set(zip(ca.tolist(), true.tolist()))) == 4       # the true clusters
+    np.testing.assert_allclose(gc, cc, rtol=0, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_vector_index_on_the_card_matches_the_cpu(cuda):
+    from baikaldb_tpu_torch.ops import vector as tv
+
+    base, q = _vec_inputs(3, n=5000)
+    out = []
+    for dev in (cuda, "cpu"):
+        ix = tv.VectorIndex(64, metric="l2", device=dev)
+        ix.add(np.arange(5000) * 10, base)
+        ix.delete([30, 40])
+        out.append(ix.search(q, 5))
+    assert np.array_equal(out[0][0], out[1][0])
+    assert tv.VectorIndex(4).device.type == "cuda"
+
+
+def _vector_sessions(cuda):
+    import pyarrow as pa
+
+    from baikaldb_tpu_torch.exec.session import Session
+
+    rng = np.random.RandomState(11)
+    centers = rng.randn(32, 16) * 4
+    vecs = (centers[rng.randint(0, 32, 8000)] + rng.randn(8000, 16) * 0.5).astype(np.float32)
+    out = []
+    for dev in (cuda, "cpu"):
+        s = Session(device=dev)
+        s.execute("CREATE TABLE docs (id BIGINT, tag VARCHAR, emb VECTOR(4))")
+        s.execute("INSERT INTO docs VALUES (1, 'a', '[1,0,0,0]'), (2, 'b', '[0,1,0,0]'), "
+                  "(3, 'a', '[0.9,0.1,0,0]'), (4, 'b', '[0,0,1,0]'), (5, 'a', NULL)")
+        s.execute("CREATE TABLE vt (id BIGINT, tag INT, v VECTOR(16), ANN INDEX a (v))")
+        s.load_arrow("vt", pa.table({"id": np.arange(8000), "tag": np.arange(8000) % 10,
+                                     "v": pa.FixedSizeListArray.from_arrays(
+                                         pa.array(vecs.ravel()), 16)}))
+        out.append(s)
+    return out, vecs
+
+
+@pytest.mark.cuda
+def test_vector_sql_and_ann_on_the_card_match_the_cpu(cuda):
+    from baikaldb_tpu_torch.index import annindex  # noqa: F401 — defines the ann flags
+    from baikaldb_tpu_torch.models.parity import mismatch
+    from baikaldb_tpu_torch.utils.flags import FLAGS
+
+    prev = int(FLAGS.ann_min_rows)
+    FLAGS.set_flag("ann_min_rows", 512)
+    try:
+        (gpu, cpu), vecs = _vector_sessions(cuda)
+        lit = "[" + ",".join(str(float(x)) for x in vecs[17] + 0.01) + "]"
+        sqls = [
+            "SELECT id, L2_DISTANCE(emb, '[1,0,0,0]') d FROM docs ORDER BY d LIMIT 3",
+            "SELECT id, COSINE_DISTANCE(emb, '[1,0.5,0,0]') c, "
+            "INNER_PRODUCT(emb, '[1,0.5,0,0]') p FROM docs ORDER BY id",
+            f"SELECT id, L2_DISTANCE(v, '{lit}') d FROM vt ORDER BY d LIMIT 10",
+            f"SELECT id FROM vt WHERE tag = 3 ORDER BY COSINE_DISTANCE(v, '{lit}') LIMIT 10",
+            f"SELECT id FROM vt ORDER BY INNER_PRODUCT(v, '{lit}') DESC LIMIT 10",
+            f"SELECT COUNT(*) n FROM vt WHERE L2_DISTANCE(v, '{lit}') < 3",
+        ]
+        for sql in sqls:
+            got = gpu.query(sql)
+            assert mismatch(got, cpu.query(sql), sql) is None, sql
+            assert got
+        ex = f"EXPLAIN SELECT id FROM vt ORDER BY L2_DISTANCE(v, '{lit}') LIMIT 10"
+        assert "ann(a nprobe=8)" in gpu.execute(ex).plan_text
+        assert gpu.execute(ex).plan_text == cpu.execute(ex).plan_text
+    finally:
+        FLAGS.set_flag("ann_min_rows", prev)
