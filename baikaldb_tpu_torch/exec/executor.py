@@ -1,14 +1,15 @@
-"""Plan executor: run the plan IR as eager torch operators on one device.
+"""Plan executor: run the plan IR as eager torch operators, on one device or
+over a mesh of shards.
 
-The port of the single-device part of ``baikaldb_tpu/exec/executor.py``.
-PyTorch runs eagerly, so there is no program to trace: ``compile_plan``
-returns a function that walks the plan over the table batches.  Torch needs
-no static shapes either: a join emits exactly its matched rows (one host
-read of the match total per expanding join, ops/join.py), so there are no
-join capacities and no overflow-retry loop, and ``ShrinkNode`` (a capacity
-cut that exists for XLA) passes its child through.  A scalar subquery reads
-its live row count to the host and raises "Subquery returns more than 1
-row" at once, where the JAX session checks the count after the program ran.
+The port of ``baikaldb_tpu/exec/executor.py``.  PyTorch runs eagerly, so
+there is no program to trace: ``compile_plan`` returns a function that walks
+the plan over the table batches.  Torch needs no static shapes either: a
+join emits exactly its matched rows (one host read of the match total per
+expanding join, ops/join.py), so there are no join capacities and no
+overflow-retry loop, and ``ShrinkNode`` (a capacity cut that exists for XLA)
+passes its child through.  A scalar subquery reads its live row count to the
+host and raises "Subquery returns more than 1 row" at once, where the JAX
+session checks the count after the program ran.
 
 One run evaluates each derived table or CTE body once: copies of one body
 (TPC-H q15 reads its ``revenue`` view twice) share the first copy's batch.
@@ -18,27 +19,48 @@ so two evaluations of one view could differ in the last bit, and q15's
 row.  The JAX package evaluates both copies, with the same result, because
 its sums are deterministic.
 
-Ported nodes: Scan (with its pushed filter), Filter, Shrink, Project, Join
-(cross, EXISTS-with-<>, dense PK-FK, sort join), Union, Membership (SQL
-three-valued IN / NOT IN), ScalarSource, Agg (scalar, dense with
-``key_shift``, sorted), Distinct, Window, Sort (with top-k), Limit and
-Values, and the StreamResult leaf through which the finalize step of a
-streamed scan (exec/streaming.py) reads its folded aggregate.  Every other
-node (the mesh's Exchange and MultiJoin) raises :class:`NotPortedError`.
+On a mesh (``compile_plan(plan, device, mesh)``, the plan distributed by
+plan/distribute.py) the JAX package runs the whole plan inside one
+``shard_map``.  Here the single controller evaluates it node by node: a
+table scan yields a :class:`~..parallel.mesh.ShardedBatch`, a node without a
+collective runs its single-device code on every shard (a replicated input
+is what every shard holds of it), and the nodes the distribution pass marks
+run their collective (parallel/collectives.py):
+
+- ``Exchange(gather)``: all_gather, the replicated value;
+- ``Exchange(repartition)``: hash repartition (parallel/shuffle.py), or the
+  child as it is where the keyed exchange scheduler proved it partitioned;
+- ``MultiJoin``: every input that needs it repartitions once, then one fused
+  multiway join per shard;
+- ``Agg`` with ``merge``: per-shard partials (dense or scalar), merged by
+  psum / pmin / pmax; the adaptive ``agg_dist = local`` arm of a sorted
+  GROUP BY pre-reduces per shard and repartitions only the partials;
+- ``Sort`` with ``dist_topk``: per-shard top-k, all_gather, final top-k.
+
+Every executed repartition is recorded in the run's ``exchanges`` (what the
+session's mesh telemetry reads).
+
+Ported nodes: all of them.  Scan (with its pushed filter), Filter, Shrink,
+Project, Join (cross, EXISTS-with-<>, dense PK-FK, sort join), MultiJoin,
+Exchange, Union, Membership (SQL three-valued IN / NOT IN), ScalarSource,
+Agg (scalar, dense with ``key_shift``, sorted, the mesh merges), Distinct,
+Window, Sort (with top-k), Limit and Values, and the StreamResult leaf
+through which the finalize step of a streamed scan (exec/streaming.py) reads
+its folded aggregate.
 """
 
 from __future__ import annotations
 
 import re
+from dataclasses import dataclass, field
 from dataclasses import replace as dreplace
-from typing import Callable
+from typing import Callable, Optional
 
 import numpy as np
 import torch
 
 from ..column.batch import Column, ColumnBatch, concat_batches
 from ..column.dictionary import Dictionary
-from ..errors import NotPortedError
 from ..expr.compile import cast_column, eval_output, eval_predicate
 from ..ops import join as join_ops
 from ..ops.compact import compact, head
@@ -46,11 +68,17 @@ from ..ops.hashagg import (group_aggregate_dense, group_aggregate_sorted,
                            scalar_aggregate)
 from ..ops.sort import SortKey, sort_batch, top_k
 from ..ops.window import window_compute
-from ..plan.nodes import (AggNode, DistinctNode, FilterNode, JoinNode,
-                          LimitNode, MembershipNode, PlanNode, ProjectNode,
-                          ScalarSourceNode, ScanNode, ShrinkNode, SortNode,
-                          StreamResultNode, UnionNode, ValuesNode, WindowNode,
-                          plan_signature)
+from ..parallel.agg import (dist_group_aggregate_dense,
+                            dist_group_aggregate_partial_shuffled,
+                            dist_scalar_aggregate)
+from ..parallel.collectives import all_gather
+from ..parallel.mesh import Mesh, ShardedBatch, shard_of
+from ..parallel.shuffle import dist_hash_repartition
+from ..plan.nodes import (AggNode, DistinctNode, ExchangeNode, FilterNode,
+                          JoinNode, LimitNode, MembershipNode, MultiJoinNode,
+                          PlanNode, ProjectNode, ScalarSourceNode, ScanNode,
+                          ShrinkNode, SortNode, StreamResultNode, UnionNode,
+                          ValuesNode, WindowNode, plan_signature)
 from ..plan.planner import PlanError
 from ..types import LType
 
@@ -59,13 +87,34 @@ class ExecError(RuntimeError):
     pass
 
 
-def compile_plan(plan: PlanNode, device) -> Callable:
-    """-> fn(table_batches: dict) -> ColumnBatch, run on ``device``."""
+@dataclass
+class Ctx:
+    """One run's state: its device (and mesh), the derived-table batches
+    evaluated so far (``derived_key`` -> batch) and the executed exchanges
+    ((ExchangeNode | JoinNode | MultiJoinNode | site name, rows) pairs)."""
+
+    device: torch.device
+    mesh: Optional[Mesh] = None
+    memo: dict = field(default_factory=dict)
+    exchanges: list = field(default_factory=list)
+
+
+def compile_plan(plan: PlanNode, device, mesh: Optional[Mesh] = None) -> Callable:
+    """-> fn(table_batches: dict) -> ColumnBatch, run on ``device``, or over
+    ``mesh`` (the table batches then are ShardedBatches and the result is
+    replicated on ``mesh.home``).  ``fn.exchanges`` holds the last run's
+    executed exchanges."""
     device = torch.device(device)
 
     def run(batches: dict) -> ColumnBatch:
-        return _eval(plan, batches, device, {})
+        ctx = Ctx(device, mesh)
+        run.exchanges = ctx.exchanges
+        out = _eval(plan, batches, ctx)
+        if isinstance(out, ShardedBatch):      # distribute gathers the root
+            raise ExecError("a distributed plan must end replicated")
+        return out
 
+    run.exchanges = []
     return run
 
 
@@ -104,89 +153,127 @@ def _shift_keys(b: ColumnBatch, shift: dict, sign: int) -> ColumnBatch:
     return ColumnBatch(b.names, cols, b.sel, b.num_rows, device=b.device)
 
 
-def _eval(node: PlanNode, batches: dict, device, memo: dict) -> ColumnBatch:
-    """``memo``: derived_key -> batch of the derived-table bodies evaluated
-    so far in this run."""
+def _rename(b: ColumnBatch, names) -> ColumnBatch:
+    return ColumnBatch(tuple(names), b.columns, b.sel, b.num_rows, device=b.device)
+
+
+def _each(value, fn):
+    """``fn`` over every shard of a sharded value, or over the value."""
+    if isinstance(value, ShardedBatch):
+        return ShardedBatch([fn(b) for b in value.shards])
+    return fn(value)
+
+
+def _eval(node: PlanNode, batches: dict, ctx: Ctx):
     if isinstance(node, ProjectNode) and node.derived:
         key = derived_key(node)
-        if key not in memo:
-            memo[key] = _eval_node(node, batches, device, memo)
-        b = memo[key]
+        if key not in ctx.memo:
+            ctx.memo[key] = _eval_node(node, batches, ctx)
         # this copy's own output names (generated names may differ)
-        return ColumnBatch(tuple(node.names), b.columns, b.sel, b.num_rows,
-                           device=b.device)
-    return _eval_node(node, batches, device, memo)
+        return _each(ctx.memo[key], lambda b: _rename(b, node.names))
+    return _eval_node(node, batches, ctx)
 
 
-def _eval_node(node: PlanNode, batches: dict, device, memo: dict) -> ColumnBatch:
+def _eval_node(node: PlanNode, batches: dict, ctx: Ctx):
     if isinstance(node, ScanNode):
-        b = batches[node.table_key]
-        names = tuple(f"{node.label}.{c}" for c in node.columns)
-        cols = [b.column(c) for c in node.columns]
-        out = ColumnBatch(names, cols, b.sel, b.num_rows,
-                          live_prefix=b.live_prefix, device=b.device)
-        if node.pushed_filter is not None:
-            out = out.and_sel(eval_predicate(node.pushed_filter, out))
-        return out
+        return _each(batches[node.table_key], lambda b: _scan(node, b))
+    if isinstance(node, StreamResultNode):
+        # the chunk-folded aggregate's finalized batch (exec/streaming.py)
+        return batches[node.key]
+    if isinstance(node, ValuesNode):
+        empty = ColumnBatch((), [], None, None, device=ctx.device)
+        cols = [_broadcast(eval_output(e, empty), 1) for e in node.exprs[0]]
+        return ColumnBatch(tuple(node.names), cols, device=ctx.device)
+    kids = [_eval(c, batches, ctx) for c in node.children]
+    mesh = ctx.mesh
+    if mesh is not None and any(isinstance(k, ShardedBatch) for k in kids):
+        out = _mesh_node(node, kids, ctx)
+        if out is not None:
+            return out
+        return ShardedBatch([_apply(node, [shard_of(k, i, mesh) for k in kids], ctx)
+                             for i in range(mesh.size)])
+    return _apply(node, kids, ctx)
 
+
+def _scan(node: ScanNode, b: ColumnBatch) -> ColumnBatch:
+    names = tuple(f"{node.label}.{c}" for c in node.columns)
+    cols = [b.column(c) for c in node.columns]
+    out = ColumnBatch(names, cols, b.sel, b.num_rows,
+                      live_prefix=b.live_prefix, device=b.device)
+    if node.pushed_filter is not None:
+        out = out.and_sel(eval_predicate(node.pushed_filter, out))
+    return out
+
+
+def _apply(node: PlanNode, kids: list, ctx: Ctx) -> ColumnBatch:
+    """``node`` over its evaluated children, on one device (one shard)."""
     if isinstance(node, FilterNode):
-        child = _eval(node.child(), batches, device, memo)
-        return child.and_sel(eval_predicate(node.pred, child))
+        return kids[0].and_sel(eval_predicate(node.pred, kids[0]))
 
     if isinstance(node, ShrinkNode):
-        return _eval(node.child(), batches, device, memo)
+        return kids[0]
 
     if isinstance(node, ProjectNode):
-        child = _eval(node.child(), batches, device, memo)
+        child = kids[0]
         n = len(child)
         cols = [_broadcast(eval_output(e, child), n) for e in node.exprs]
         return ColumnBatch(tuple(node.names), cols, child.sel, child.num_rows,
                            device=child.device)
 
     if isinstance(node, JoinNode):
-        left = _eval(node.children[0], batches, device, memo)
-        right = _eval(node.children[1], batches, device, memo)
+        left, right = kids
         if node.how == "cross":
-            out, _ = join_ops.cross_join(left, right)
+            out, rows = join_ops.cross_join(left, right)
         elif node.neq is not None and node.how in ("semi", "anti"):
             # EXISTS + one <> residual: range counts, no expansion
-            out, _ = join_ops.semi_join_neq(left, node.left_keys, right,
-                                            node.right_keys, node.neq[0],
-                                            node.neq[1], how=node.how)
+            out, rows = join_ops.semi_join_neq(left, node.left_keys, right,
+                                               node.right_keys, node.neq[0],
+                                               node.neq[1], how=node.how)
         elif node.strategy == "dense":
             # unique-build PK-FK join: scatter/gather over the dense key
             # domain(s); the output keeps the probe's rows
-            out, _ = join_ops.dense_join(left, node.left_keys, right,
-                                         node.right_keys, list(node.dense_lo),
-                                         list(node.dense_span), how=node.how)
+            out, rows = join_ops.dense_join(left, node.left_keys, right,
+                                            node.right_keys, list(node.dense_lo),
+                                            list(node.dense_span), how=node.how)
         else:
-            out, _ = join_ops.join(
+            out, rows = join_ops.join(
                 left, node.left_keys, right, node.right_keys, how=node.how,
                 wide_keys_ok=getattr(node, "pack32_verified", False),
                 build_sorted=getattr(node, "build_sorted", False))
+        if ctx.mesh is not None and any(isinstance(c, ExchangeNode)
+                                        and c.kind == "repartition"
+                                        for c in node.children):
+            ctx.exchanges.append((node, rows))      # a shuffle join's output
         # label-qualified names are globally unique, no suffixing occurs
+        return out
+
+    if isinstance(node, MultiJoinNode):
+        out, rows = join_ops.multiway_join(
+            kids[0], node.probe_keys, list(zip(kids[1:], node.build_keys)),
+            list(node.hows), level_keys=node.level_keys, packs=node.packs)
+        if ctx.mesh is not None:
+            ctx.exchanges.append((node, rows))
         return out
 
     if isinstance(node, UnionNode):
         names = tuple(f.name for f in node.schema.fields)
         parts = []
-        for c in node.children:
-            p = compact(_eval(c, batches, device, memo))
+        for k in kids:
+            p = compact(k)
             parts.append(_harmonize(ColumnBatch(names, p.columns, p.sel, p.num_rows,
                                                 device=p.device), node.schema))
         return concat_batches(_align_string_dicts(parts))
 
     if isinstance(node, MembershipNode):
-        child = _eval(node.children[0], batches, device, memo)
-        sub = _eval(node.children[1], batches, device, memo)
+        child, sub = kids
         col = join_ops.membership(child.column(node.key_col), sub, node.negate)
         return ColumnBatch(tuple(child.names) + (node.out_name,),
                            list(child.columns) + [col], child.sel, child.num_rows,
                            device=child.device)
 
     if isinstance(node, ScalarSourceNode):
-        child = _eval(node.children[0], batches, device, memo)
-        sub = compact(_eval(node.children[1], batches, device, memo))
+        child = kids[0]
+        sub = compact(kids[1])
         live = int(sub.live_count())
         if live > 1:
             # MySQL ER_SUBQUERY_NO_1_ROW (1242)
@@ -209,9 +296,7 @@ def _eval_node(node: PlanNode, batches: dict, device, memo: dict) -> ColumnBatch
                            device=child.device)
 
     if isinstance(node, AggNode):
-        child = _eval(node.child(), batches, device, memo)
-        if node.merge:
-            raise NotPortedError("mesh partial-aggregate merge")
+        child = kids[0]
         if not node.key_names:
             return scalar_aggregate(child, node.specs)
         if node.strategy == "dense":
@@ -223,16 +308,15 @@ def _eval_node(node: PlanNode, batches: dict, device, memo: dict) -> ColumnBatch
         return group_aggregate_sorted(child, node.key_names, node.specs, mg)
 
     if isinstance(node, DistinctNode):
-        child = _eval(node.child(), batches, device, memo)
+        child = kids[0]
         return group_aggregate_sorted(child, list(child.names), [], max(1, len(child)))
 
     if isinstance(node, WindowNode):
-        child = _eval(node.child(), batches, device, memo)
         keys = [SortKey(k, asc) for k, asc in node.order_keys]
-        return window_compute(child, node.partition_names, keys, node.specs)
+        return window_compute(kids[0], node.partition_names, keys, node.specs)
 
     if isinstance(node, SortNode):
-        child = _eval(node.child(), batches, device, memo)
+        child = kids[0]
         keys = [SortKey(k, asc) for k, asc in node.keys]
         if node.limit is not None:
             out = top_k(child, keys, node.limit + node.offset)
@@ -242,19 +326,161 @@ def _eval_node(node: PlanNode, batches: dict, device, memo: dict) -> ColumnBatch
         return sort_batch(child, keys)
 
     if isinstance(node, LimitNode):
-        child = _eval(node.child(), batches, device, memo)
-        return head(child, node.limit, node.offset)
+        return head(kids[0], node.limit, node.offset)
 
-    if isinstance(node, ValuesNode):
-        empty = ColumnBatch((), [], None, None, device=device)
-        cols = [_broadcast(eval_output(e, empty), 1) for e in node.exprs[0]]
-        return ColumnBatch(tuple(node.names), cols, device=device)
+    if isinstance(node, ExchangeNode):
+        raise ExecError("an Exchange runs only on a mesh: compile the plan with its mesh")
 
-    if isinstance(node, StreamResultNode):
-        # the chunk-folded aggregate's finalized batch (exec/streaming.py)
-        return batches[node.key]
+    raise ExecError(f"unknown plan node {type(node).__name__}")
 
-    raise NotPortedError(f"plan node {type(node).__name__}")
+
+# -- mesh collectives (plan/distribute.py marks the nodes) -------------------
+
+def _mesh_node(node: PlanNode, kids: list, ctx: Ctx):
+    """The nodes that run a collective, over at least one sharded input;
+    None for every other node (it runs shard by shard)."""
+    mesh = ctx.mesh
+    if isinstance(node, ExchangeNode):
+        child = kids[0]
+        if node.kind == "gather":
+            return all_gather(child.shards, mesh.home)
+        if node.reused:
+            # keyed exchange scheduler: the child is already hash-partitioned
+            # on this key class; rows flow through, no collective
+            return child
+        keys = node.keys if node.keys is not None else list(child.names)
+        out, needed = dist_hash_repartition(child, keys, mesh)
+        ctx.exchanges.append((node, needed))
+        return out
+
+    if isinstance(node, MultiJoinNode):
+        # the fused exchange: every input repartitions ONCE on the segment's
+        # key class; inputs already partitioned on it (reuse) and replicated
+        # rider builds (exch None) flow through without a collective
+        reuse = node.reuse or [False] * len(node.children)
+        exch = node.exch_keys or ([list(node.probe_keys)]
+                                  + [list(bk) for bk in node.build_keys])
+        inputs = []
+        for i, (b, keys) in enumerate(zip(kids, exch)):
+            if reuse[i] or keys is None:
+                inputs.append(b)
+                continue
+            out, needed = dist_hash_repartition(b, list(keys), mesh)
+            ctx.exchanges.append((f"multiway[{i}]", needed))
+            inputs.append(out)
+        return ShardedBatch([_apply(node, [shard_of(x, i, mesh) for x in inputs], ctx)
+                             for i in range(mesh.size)])
+
+    if isinstance(node, AggNode):
+        return _mesh_agg(node, kids[0], ctx)
+
+    if isinstance(node, SortNode) and node.limit is not None and node.dist_topk:
+        # per-shard top-k, all_gather the candidates, final top-k: the
+        # TopNSorter merge of per-region streams (src/runtime/topn_sorter.cpp)
+        keys = [SortKey(k, asc) for k, asc in node.keys]
+        k = node.limit + node.offset
+        out = top_k(all_gather([top_k(b, keys, k) for b in kids[0].shards], mesh.home),
+                    keys, k)
+        return head(out, node.limit, node.offset) if node.offset else out
+    return None
+
+
+def _mesh_agg(node: AggNode, child: ShardedBatch, ctx: Ctx):
+    mesh = ctx.mesh
+    if node.merge:
+        # per-shard partial tables merged in shard order (parallel/agg.py)
+        if not node.key_names:
+            return dist_scalar_aggregate(child, node.specs, mesh)
+        shift = getattr(node, "key_shift", {}) or {}
+        if shift:
+            child = _each(child, lambda b: _shift_keys(b, shift, -1))
+        out = dist_group_aggregate_dense(child, node.key_names, node.domains,
+                                         node.specs, mesh)
+        return _shift_keys(out, shift, 1) if shift else out
+    if node.key_names and getattr(node, "agg_dist", "") == "local" \
+            and node.strategy != "dense":
+        # cardinality-adaptive "local" arm (sorted strategy): pre-reduce each
+        # shard's rows, repartition only the partials, merge them once; the
+        # planner's group bound (or, with none, the shard's rows) caps each
+        # shard's partial table
+        out, needed = dist_group_aggregate_partial_shuffled(
+            child, node.key_names, node.specs, mesh, node.max_groups or (1 << 62))
+        ctx.exchanges.append(("agg", needed))
+        return out
+    return None
+
+
+def exchange_summary(plan: PlanNode) -> dict:
+    """Exchange accounting for a distributed plan: the numbers the keyed
+    exchange scheduler exists to move.  One round = one EXECUTED
+    synchronized repartition step: a binary shuffle join's two input
+    exchanges are ONE round, a fused MultiJoin's N+1 input exchanges are
+    ONE round, a lone repartition (group-by / distinct co-location) or a
+    "local" adaptive agg's internal partial shuffle is one each.  Reused
+    partitions (scheduler-proved, collective skipped at runtime) count in
+    ``reused``, never in ``rounds`` or ``collectives``.  ``collectives``
+    counts individual executed repartitions (a fused segment's probe + each
+    shuffled build; replicated rider builds cost none); ``keys`` lists the
+    chosen partition key (short names) per counted round, outermost-last."""
+    rounds = 0
+    reused = 0
+    collectives = 0
+    keys: list = []
+    skip: set = set()
+    seen: set = set()
+
+    def short(cols) -> str:
+        return "+".join(c.split(".")[-1] for c in (cols or ()))
+
+    def walk(n: PlanNode) -> None:
+        nonlocal rounds, reused, collectives
+        if id(n) in seen:           # DAG-shared subtrees count once
+            return
+        seen.add(id(n))
+        if isinstance(n, MultiJoinNode):
+            r = n.reuse or [False] * len(n.children)
+            exch = n.exch_keys or ([n.probe_keys] + list(n.build_keys))
+            execd = sum(1 for i in range(len(n.children))
+                        if exch[i] is not None and not r[i])
+            reused += sum(1 for i in range(len(n.children))
+                          if exch[i] is not None and r[i])
+            collectives += execd
+            if execd:
+                rounds += 1
+                keys.append(short(n.probe_keys))
+        elif isinstance(n, JoinNode):
+            reps = [c for c in n.children
+                    if isinstance(c, ExchangeNode) and c.kind == "repartition"]
+            if reps:
+                reused += sum(c.reused for c in reps)
+                execd = sum(1 for c in reps if not c.reused)
+                collectives += execd
+                if execd:
+                    rounds += 1
+                    keys.append(short(n.left_keys))
+                skip.update(id(c) for c in reps)
+        elif isinstance(n, ExchangeNode) and n.kind == "repartition" \
+                and id(n) not in skip:
+            if n.reused:
+                reused += 1
+            else:
+                rounds += 1
+                collectives += 1
+                keys.append(short(n.keys) or "*")
+        elif isinstance(n, AggNode) and \
+                getattr(n, "agg_dist", "") == "local" \
+                and n.strategy != "dense":
+            rounds += 1
+            collectives += 1
+            keys.append(short(n.key_names))
+        for c in n.children:
+            walk(c)
+
+    walk(plan)
+    # outermost-last reads as execution order (keys collected top-down)
+    keys.reverse()
+    return {"rounds": rounds, "reused": reused, "collectives": collectives,
+            "keys": keys}
 
 
 def _broadcast(c: Column, n: int) -> Column:

@@ -24,6 +24,16 @@ A session runs on one device, named when it is made.  ``Session()`` with no
 device runs on CUDA and raises when CUDA is unavailable; only an explicit
 ``Session(device="cpu")`` runs on the CPU.
 
+``Session(mesh=make_mesh(n))`` (parallel/mesh.py) is the MPP mode of the JAX
+session: every SELECT plans through plan/distribute.py and runs over the
+mesh's shards, each table row-sharded (cached per table version), the
+exchanges and partial-aggregate merges as the collectives of
+parallel/collectives.py.  EXPLAIN shows the distributed plan.  Under a mesh
+no scan streams and no scan takes the ANN path, as in the JAX session; each
+query adds its executed repartition rounds to ``shuffle_rounds`` (and the
+scheduler's skipped ones to ``shuffle_rounds_saved``), and with tracing on
+records ``mpp.repartition`` / ``mpp.join`` / ``mpp.agg`` spans.
+
 VECTOR(d) columns are the JAX session's: d hidden FLOAT components
 ``__{col}_{i}`` (1 <= d <= 4096), filled by INSERT vector literals or by a
 list / fixed-size list column in ``load_arrow`` (read in bulk from Arrow's
@@ -43,8 +53,8 @@ segments in the cold tier (``Database(cold_dir=...)`` or the
 
 Not ported yet: transactions, UPDATE/DELETE, the other ALTER TABLE forms
 and index kinds, the plan cache and
-auto-parameterization, the host presort permutations, pushdown, matviews
-and rollups, point lookups and snapshot pinning.
+auto-parameterization, EXPLAIN ANALYZE, the host presort permutations,
+pushdown, matviews and rollups, point lookups and snapshot pinning.
 """
 
 from __future__ import annotations
@@ -71,7 +81,10 @@ from ..index import annindex
 from ..index.selector import analyze_conjuncts
 from ..meta.catalog import Catalog, IndexInfo, parse_type
 from ..obs import trace
-from ..plan.nodes import PlanNode, ScanNode
+from ..parallel.mesh import Mesh
+from ..plan.distribute import distribute
+from ..plan.nodes import (AggNode, ExchangeNode, JoinNode, MultiJoinNode,
+                          PlanNode, ScanNode)
 from ..plan.planner import PlanError, Planner, parse_vector
 from ..sql.lexer import SqlError
 from ..sql.parser import parse_sql
@@ -242,14 +255,18 @@ class Database:
 
 class Session:
     def __init__(self, db: Optional[Database] = None, database: str = "default",
-                 device=None):
+                 device=None, mesh: Optional[Mesh] = None):
+        """``mesh``: when set, every SELECT is distributed over its shards
+        (the MPP mode); the database, unless given, lives on the mesh's
+        first device."""
         if db is None:
-            db = Database(device)
+            db = Database(mesh.home if device is None and mesh is not None else device)
         elif device is not None and resolve_device(device) != db.device:
             raise ValueError(f"session device {device} differs from the "
                              f"database's {db.device}")
         self.db = db
         self.device = db.device
+        self.mesh = mesh
         self.current_db = database
         self.session_vars: dict = {}     # SET name = value without GLOBAL
         self._conn_id = next(_CONN_IDS)
@@ -629,11 +646,89 @@ class Session:
         return None if st is None else st.column_stats(col)
 
     def _plan_select(self, stmt: SelectStmt) -> PlanNode:
+        """Logical + physical planning, plus the distribution pass (the
+        Separate / MppAnalyzer analog) when the session has a mesh."""
         with trace.span("plan.build"):
             plan = Planner(self.db.catalog, self.db.stores, self.current_db,
                            self._stats_fn).plan_select(stmt)
             self._annotate_ann(stmt, plan)
+            if self.mesh is not None:
+                plan = self._distribute(stmt, plan)
             return plan
+
+    def _distribute(self, stmt: SelectStmt, plan: PlanNode) -> PlanNode:
+        def rows_fn(table_key: str) -> int:
+            st = self.db.stores.get(table_key)
+            return st.num_rows if st is not None else 0
+
+        def ndv_fn(table_key: str, col: str):
+            # index/stats distinct-count estimate feeding the
+            # cardinality-adaptive aggregation choice
+            return (self._stats_fn(table_key, col) or {}).get("ndv")
+
+        return distribute(plan, self.mesh.size, rows_fn, ndv_fn=ndv_fn,
+                          stats_fn=self._stats_fn,
+                          where_selectivity=self._where_selectivity(stmt))
+
+    def _where_selectivity(self, stmt: SelectStmt):
+        """Combined selectivity estimate of the WHERE conjuncts that have a
+        stats basis (index/stats histograms + MCVs over this statement's
+        literal values); None when no conjunct resolves.  Feeds the
+        adaptive-agg local-vs-raw decision."""
+        if stmt.where is None:
+            return None
+        from ..expr.ast import ColRef, Lit
+        from ..index.stats import conjunct_selectivity
+        from ..plan.eqclasses import conjuncts
+
+        flip = {"lt": "gt", "le": "ge", "gt": "lt", "ge": "le"}
+        resolve = self._column_resolver(stmt)
+        total, basis = 1.0, False
+        for cj in conjuncts(stmt.where):
+            if not (isinstance(cj, Call)
+                    and cj.op in ("eq", "ne", "lt", "le", "gt", "ge")
+                    and len(cj.args) == 2):
+                continue
+            a, b = cj.args
+            op = cj.op
+            if isinstance(b, ColRef) and isinstance(a, Lit):
+                a, b = b, a
+                op = flip.get(op, op)
+            if not (isinstance(a, ColRef) and isinstance(b, Lit)):
+                continue
+            table_key = resolve(a.table, a.name)
+            if table_key is None:
+                continue
+            st = self._stats_fn(table_key, a.name.split(".")[-1])
+            sel = conjunct_selectivity(st, op, b.value)
+            if sel is not None:
+                total *= sel
+                basis = True
+        return total if basis else None
+
+    def _column_resolver(self, stmt: SelectStmt):
+        """(table_label, column) -> the table key of its base table (the JAX
+        session's ``_param_resolver``).  Only plain base tables resolve;
+        derived tables, views and ambiguous names give None."""
+        tables: dict = {}
+        for r in [stmt.table] + [j.table for j in stmt.joins]:
+            if r is None or r.subquery is not None:
+                continue
+            db = r.database or self.current_db
+            try:
+                info = self.db.catalog.get_table(db, r.name)
+            except (ValueError, KeyError):      # a view or an unknown name
+                continue
+            tables[r.label] = (f"{db}.{r.name}", info.schema)
+
+        def resolve(tlabel, col):
+            cname = col.split(".")[-1]
+            if tlabel is not None:
+                ent = tables.get(tlabel)
+                return ent[0] if ent is not None and cname in ent[1] else None
+            hits = [tk for tk, sch in tables.values() if cname in sch]
+            return hits[0] if len(hits) == 1 else None
+        return resolve
 
     def _annotate_ann(self, stmt: SelectStmt, plan: PlanNode) -> None:
         """When the statement is the ANN shape over a table with an ANN
@@ -641,7 +736,7 @@ class Session:
         the IVF candidate set (index/annindex) and the unchanged plan
         re-ranks exactly."""
         t = stmt.table
-        if t is None or t.subquery is not None:
+        if t is None or t.subquery is not None or self.mesh is not None:
             return
         dbname = t.database or self.current_db
         try:
@@ -686,7 +781,10 @@ class Session:
                 # execution is a chunk fold driven from the host
                 out = streaming.run_streamed(plan, batches, self.device)
             else:
-                out = executor.compile_plan(plan, self.device)(batches)
+                run = executor.compile_plan(plan, self.device, self.mesh)
+                out = run(batches)
+                if self.mesh is not None:
+                    self._mpp_telemetry(plan, run.exchanges)
         with trace.span("egress.arrow"):
             table = _egress_compact(out).to_arrow()
         return Result(columns=list(table.column_names), arrow=table)
@@ -738,17 +836,69 @@ class Session:
             if isinstance(n, ScanNode) and n.table_key not in batches:
                 db, name = n.table_key.split(".", 1)
                 store = self._store(TableRef(db, name))
-                # an ANN-marked scan reads its IVF candidates; a streamed
-                # plan has this one scan (streaming.eligible)
-                b = self._ann_batch(n, store) if n.ann is not None else None
-                if b is None:
-                    b = self._maybe_stream_source(plan, n, store)
-                batches[n.table_key] = b if b is not None else store.device_table_batch()
+                if self.mesh is not None:
+                    # the mesh reads whole sharded tables: no streamed or
+                    # ANN batches, as in the JAX session
+                    batches[n.table_key] = store.sharded_batch(self.mesh)
+                else:
+                    # an ANN-marked scan reads its IVF candidates; a
+                    # streamed plan has this one scan (streaming.eligible)
+                    b = self._ann_batch(n, store) if n.ann is not None else None
+                    if b is None:
+                        b = self._maybe_stream_source(plan, n, store)
+                    batches[n.table_key] = b if b is not None \
+                        else store.device_table_batch()
             for c in n.children:
                 walk(c)
 
         walk(plan)
         return batches
+
+    def _mpp_telemetry(self, plan: PlanNode, exchanges: list) -> None:
+        """Exchange observability of one mesh execution: the
+        ``shuffle_rounds`` / ``shuffle_rounds_saved`` counters, and with
+        tracing on one ``mpp.repartition`` span per executed repartition
+        (its keys or site, the most rows one shard sent one destination),
+        one ``mpp.join`` span per shuffle join (its output rows over all
+        shards) and one ``mpp.agg`` span per distributed aggregate."""
+        summary = executor.exchange_summary(plan)
+        metrics.shuffle_rounds.add(summary["rounds"])
+        if summary["reused"]:
+            metrics.shuffle_rounds_saved.add(summary["reused"])
+        if not trace.active():
+            return
+        joins: dict = {}
+        for what, rows in exchanges:
+            if isinstance(what, ExchangeNode):
+                with trace.span("mpp.repartition", keys=",".join(what.keys or ()),
+                                occupancy=int(rows)):
+                    pass
+            elif isinstance(what, str):
+                with trace.span("mpp.repartition", site=what, occupancy=int(rows)):
+                    pass
+            else:
+                joins[id(what)] = (what, joins.get(id(what), (what, 0))[1] + int(rows))
+        for node, rows in joins.values():
+            if isinstance(node, MultiJoinNode):
+                with trace.span("mpp.join", strategy="multiway",
+                                builds=len(node.children) - 1, rows=rows):
+                    pass
+            elif isinstance(node, JoinNode):
+                with trace.span("mpp.join", strategy="chained", rows=rows):
+                    pass
+        seen: set = set()
+
+        def walk(n: PlanNode):
+            if id(n) in seen:
+                return
+            seen.add(id(n))
+            if isinstance(n, AggNode) and getattr(n, "agg_dist", ""):
+                with trace.span("mpp.agg", strategy=n.agg_dist, agg_kind=n.strategy):
+                    pass
+            for c in n.children:
+                walk(c)
+
+        walk(plan)
 
     def _ann_batch(self, n: ScanNode, store) -> Optional[ColumnBatch]:
         """IVF candidate batch for an ANN-annotated scan: positions from

@@ -158,7 +158,7 @@ class StreamRunner:
 
     # -- the fold step ----------------------------------------------------
     def _partial(self, chunk):
-        child = executor._eval(self.below, {self.table_key: chunk}, self.device, {})
+        child = executor._eval(self.below, {self.table_key: chunk}, executor.Ctx(self.device))
         if not self.keys:
             return rewrap_partial(scalar_aggregate(child, self.parts))
         if self.agg.strategy == "dense":
@@ -248,7 +248,7 @@ class StreamRunner:
         with trace.span("stream.finalize"):
             out = executor._eval(self.remainder,
                                  {STREAM_KEY: self._finalize_batch(acc)},
-                                 self.device, {})
+                                 executor.Ctx(self.device))
         trace.event("stream", **{k: (round(v, 3) if isinstance(v, float) else v)
                                  for k, v in stats.items()})
         return out

@@ -21,10 +21,9 @@ gather probes it.
 - Indices are clamped explicitly wherever the JAX code relies on
   ``mode="clip"``: an out-of-range index on CUDA is a device-side assert.
 
-Not ported yet: ``radix_join`` (off by default in the JAX package),
-``multiway_join`` (planned only on a mesh), and the host presort
-permutations (``order=``): this module always sorts the build side on the
-device, which is the ``order=None`` path of the JAX functions.
+Not ported yet: ``radix_join`` (off by default in the JAX package) and the
+host presort permutations (``order=``): this module always sorts the build
+side on the device, which is the ``order=None`` path of the JAX functions.
 """
 
 from __future__ import annotations
@@ -292,6 +291,115 @@ def _expand_matches(probe: ColumnBatch, build: ColumnBatch, how: str,
             c = replace(c, validity=v)
         names.append(n if n not in names else n + suffix)
         cols.append(c)
+    return ColumnBatch(tuple(names), cols, None, None, device=dev), total
+
+
+def _align_multiway_strings(probe: ColumnBatch, level_keys: list[list[str]],
+                            builds: list):
+    """Align string key columns of the probe and EVERY build side onto one
+    shared code space.  ``level_keys[i]`` holds side i's probe key columns.
+    Two passes: the first grows the probe's dictionary to the union of all
+    sides; the second re-aligns each build against that union (a second
+    merge with a subset is value-stable), so a probe column compared against
+    N independently-dictionaried builds never keeps a build's stale codes."""
+    for _ in range(2):
+        for i, (bb, bk) in enumerate(builds):
+            probe, bb = _align_string_keys(probe, level_keys[i], bb, bk)
+            builds[i] = (bb, bk)
+    return probe, builds
+
+
+def multiway_join(probe: ColumnBatch, probe_keys: list[str],
+                  builds: list, hows: list[str], suffix: str = "_r",
+                  wide_keys_ok: bool = False,
+                  level_keys: list[list[str]] | None = None,
+                  packs: list[bool] | None = None):
+    """Fused multiway equi-join: ONE probe stream joined against N build
+    sides in a single pass (the Efficient Multiway Hash Join shape).  Every
+    level's key columns live on the probe stream: by default all levels
+    share ``probe_keys``; ``level_keys[i]`` gives level i its own probe
+    columns (the keyed exchange scheduler's mixed-key segments).
+
+    ``builds``: list of (build_batch, build_key_names); ``hows[i]``: inner |
+    left per level.  The same rows, in the same order, as the left-deep
+    chain ``((probe JOIN build_1) JOIN build_2) ...``: each build side sorts
+    by (deadness, key) once, the probe binary-searches every side, and the
+    output enumerates the cross product of the per-side match ranges by one
+    mixed-radix decode (last build fastest).  The probe rows are gathered
+    once; no intermediate join result exists.  The planner builds this only
+    on a mesh.
+
+    Returns (out_batch, output rows), the rows read to the host once to size
+    the output, as ``join`` does."""
+    builds = list(builds)
+    if level_keys is None:
+        level_keys = [list(probe_keys)] * len(builds)
+    if packs is None:
+        packs = [wide_keys_ok] * len(builds)
+    probe, builds = _align_multiway_strings(probe, level_keys, builds)
+    dev = probe.device
+    psel_dead = ~probe.sel if probe.sel is not None \
+        else torch.zeros(len(probe), dtype=torch.bool, device=dev)
+
+    per_side = []       # (out counts, match counts, lo, order) per build
+    pk_cache: dict = {}  # shared-key levels pack the probe columns once
+    for (bb, bkeys), how, pkeys, wide in zip(builds, hows, level_keys, packs):
+        ck = (tuple(pkeys), bool(wide))
+        if ck not in pk_cache:
+            pk_cache[ck] = _key_array(probe, pkeys, wide)
+        pk, pvalid = pk_cache[ck]
+        pdead = psel_dead if pvalid is None else (psel_dead | ~pvalid)
+        bk, bvalid = _key_array(bb, bkeys, wide)
+        order, bk_sorted, n_live = _live_sorted(bk, _build_dead(bb, bvalid))
+        lo = _search(bk_sorted, pk, "left")
+        hi = _search(bk_sorted, pk, "right")
+        counts = torch.where(pdead, 0, hi - lo)
+        counts = torch.where(lo >= n_live, 0, torch.minimum(counts, n_live - lo))
+        if how == "left":
+            # NULL-key probe rows still survive (NULL build side); only
+            # sel-dead probe rows are dropped, as in the binary join
+            oc = torch.maximum(counts, (~psel_dead).to(counts.dtype))
+        elif how == "inner":
+            oc = counts
+        else:
+            raise ValueError(f"multiway_join: unsupported how {how!r}")
+        per_side.append((oc, counts, lo, order))
+
+    out_counts = torch.ones(len(probe), dtype=torch.int64, device=dev)
+    for oc, _, _, _ in per_side:
+        out_counts = out_counts * oc.to(torch.int64)
+    total = int(out_counts.sum()) if len(probe) else 0   # the one host read
+    starts = torch.cumsum(out_counts, 0) - out_counts
+    pi = torch.repeat_interleave(torch.arange(len(probe), device=dev), out_counts,
+                                 output_size=total)
+    k = torch.arange(total, device=dev) - starts[pi]
+
+    # mixed-radix decode of the per-probe-row match ordinal: last build
+    # varies fastest (the chained left-deep expansion order)
+    ordinals = [None] * len(per_side)
+    rem = k
+    for i in reversed(range(len(per_side))):
+        d = per_side[i][0][pi].to(torch.int64).clamp(min=1)
+        ordinals[i] = rem % d
+        rem = rem // d
+
+    out_p = probe.gather(pi)
+    names = list(out_p.names)
+    cols = list(out_p.columns)
+    for (oc, counts, lo, order), how, ki, (bb, _bk) in zip(per_side, hows, ordinals,
+                                                         builds):
+        matched = ki < counts[pi]
+        if len(bb):
+            bidx = order[(lo[pi] + ki).clamp(0, len(bb) - 1)]
+        else:
+            bidx = torch.zeros(total, dtype=torch.int64, device=dev)
+        out_b = bb.gather(bidx)
+        for n, c in zip(out_b.names, out_b.columns):
+            if how == "left":
+                v = c.validity & matched if c.validity is not None else matched
+                c = replace(c, validity=v)
+            names.append(n if n not in names else n + suffix)
+            cols.append(c)
     return ColumnBatch(tuple(names), cols, None, None, device=dev), total
 
 

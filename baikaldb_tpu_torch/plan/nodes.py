@@ -256,7 +256,7 @@ class ExchangeNode(PlanNode):
     # keyed exchange scheduler (plan/distribute._mark_partition_reuse): the
     # child is ALREADY hash-partitioned on this key class — the executor
     # passes rows through without a collective, and the round does not
-    # count as executed in count_shuffle_rounds / the bench JSON
+    # count as executed in exec/executor.exchange_summary
     reused: bool = False
 
     def _label(self):

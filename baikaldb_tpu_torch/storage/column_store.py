@@ -99,6 +99,7 @@ class TableStore:
         self._mutations = 0
         self._lock = threading.Lock()
         self._device_batch = None        # (version, ColumnBatch)
+        self._sharded = None             # (version, Mesh, ShardedBatch)
         self._stats: tuple = (-1, {})    # (version, {column: stats})
 
     @property
@@ -132,21 +133,43 @@ class TableStore:
             self._data = self.arrow_schema.empty_table()
             self._mutations += 1
             self._device_batch = None
+            self._sharded = None
 
     def release(self) -> None:
-        """Drop the device image and the chunk set (DROP TABLE / DATABASE)."""
+        """Drop the device image, its sharded copy and the chunk set (DROP
+        TABLE / DATABASE)."""
         with self._lock:
             self._device_batch = None
+            self._sharded = None
             self._stream_chunks = None
 
     def device_table_batch(self) -> ColumnBatch:
         """Whole-table batch on the store's device, cached per version."""
         with self._lock:
+            return self._image()
+
+    def _image(self) -> ColumnBatch:
+        """``device_table_batch`` with the lock held."""
+        v = self._mutations
+        if self._device_batch is None or self._device_batch[0] != v:
+            self._device_batch = None     # free the old image first
+            self._device_batch = (v, ColumnBatch.from_arrow(self._data, self.device))
+        return self._device_batch[1]
+
+    def sharded_batch(self, mesh):
+        """The table row-sharded across ``mesh`` (parallel/mesh.shard_batch):
+        the region-to-store placement analog, each shard one horizontal slice
+        padded to an equal length.  Cached per version and mesh beside the
+        device image, and freed with it."""
+        from ..parallel.mesh import shard_batch
+
+        with self._lock:
             v = self._mutations
-            if self._device_batch is None or self._device_batch[0] != v:
-                self._device_batch = None     # free the old image first
-                self._device_batch = (v, ColumnBatch.from_arrow(self._data, self.device))
-            return self._device_batch[1]
+            hit = self._sharded
+            if hit is None or hit[0] != v or hit[1] != mesh:
+                self._sharded = None          # free the old shards first
+                self._sharded = (v, mesh, shard_batch(self._image(), mesh))
+            return self._sharded[2]
 
     def column_stats(self, column: str) -> dict:
         """Host-side statistics for planner decisions, as the JAX package

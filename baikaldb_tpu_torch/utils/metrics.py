@@ -180,6 +180,11 @@ eqclass_consts_pushed = Counter("eqclass_consts_pushed")
 agg_strategy_local = Counter("agg_strategy_local")
 agg_strategy_raw = Counter("agg_strategy_raw")
 failpoint_trips = Counter("failpoint_trips")
+# mesh exchanges (exec/executor.exchange_summary): executed hash-repartition
+# rounds per mesh query, and the repartitions skipped because an input was
+# already partitioned on the key class
+shuffle_rounds = Counter("shuffle_rounds")
+shuffle_rounds_saved = Counter("shuffle_rounds_saved")
 # scans reduced to an access path's rows (the ANN candidate set)
 index_scans = Counter("index_scans")
 # out-of-core streaming scans (exec/streaming.py): chunks folded, chunks

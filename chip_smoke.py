@@ -2,7 +2,8 @@
 its plain torch version, drive single-table SQL at real size resident and
 streamed, run the 22 TPC-H queries and the analytic queries on the card,
 the egress functions and catalog statements on the card against the CPU,
-and vector search (VECTOR columns, the ANN index) at 1M x 128.
+vector search (VECTOR columns, the ANN index) at 1M x 128, and the MPP
+mesh (8 shards on the card: the 100M rows and TPC-H).
 
     python3 chip_smoke.py [--rows N] [--seed S] [--tpch-scale S]
                           [--compare-with DIR]
@@ -20,12 +21,14 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    groups, and on edge cases (all rows
    masked, codes < 0 and >= ng, an empty group, +NaN and -NaN in a group,
    inputs that are views at element offsets 1-3), and one group of 2^24 + 1
-   rows.  Counts (int64) and min/max match exactly (NaN equal to NaN, and a
+   rows; K1-K3 also at 8 slots and 2^20 and 2^24 rows, the destinations of
+   a mesh exchange at a shard's length.  Counts (int64) and min/max match exactly (NaN equal to NaN, and a
    group holding a NaN must give NaN); each group's sum within 1e-5 *
    sum(|v|) over the group.  Then the segment kernel (``ops/segments.py``
    ``segment_reduce``) against its plain version: SUM, MIN and MAX of bool,
    int32, int64, float32 and float64 at 1, 16, 17, 64 and the card's gate
-   (``onehot_max_segments``) segments, at ``--rows`` and at 65,536 rows, with
+   (``onehot_max_segments``) segments, at ``--rows``, at 65,536 rows and at
+   the mesh's shard lengths (1,048,576 and 16,777,216 rows), with
    ids outside the range, an empty segment, NaN of either sign and wrapping
    integer sums; integers, MIN and MAX exact, float sums within 1e-9 *
    sum(|x|) over the segment (float32 also one float32 ulp).  Each kernel is
@@ -116,6 +119,26 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    (iv) ``COUNT(*) ... WHERE L2_DISTANCE(emb, q) < r`` with the default
    flags (it streams), against numpy.
 
+10. The mesh (``parallel/``, ``plan/distribute.py``): ``Session(mesh=
+   make_mesh(8))`` over the database of another session, every table
+   sharded 8 ways (on a one-card machine all on ``cuda:0``) before any query
+   is timed.  (i) Right after phase 3, over its 100M-row table (shards of
+   16,777,216 rows, the JAX package's rule: BASELINE.json config #2's 8
+   regions): (a)-(c) checked against numpy as in phase 3; (b) must launch
+   K3 + K2 and (c) K1 + K3 once a shard, (a) the segment kernel 7 times a
+   shard and no ``index_add_``, each shard's launches read around its own
+   partial and none outside the partials; per query the warm
+   wall p50 / p67 of 10 runs, the device time, idle share and top kernels
+   of one profiled run (device activity only).  (ii) After phase 7, over
+   phase 5 (ii)'s tables: the 22 TPC-H queries and ``q20_rows`` equal to the
+   single-device session's rows by the parity contract (rtol 1e-4 where a
+   float group-by kernel ran on either side), then q3 with
+   ``mpp_force_shuffle = 1``, whose plan must execute at least one
+   repartition round, equal too; each timed (5 warm runs, one profiled run)
+   with its executed rounds and launches (K3 counts every repartition's
+   destinations, once a shard).  Peak device memory of each part and the
+   phase's seconds (``mesh phase seconds: ...``).
+
 Phases 5 and 6 run with the default flags, so a query over a table of at
 least ``streaming_min_rows`` rows that the streamed path accepts streams
 there (q1, q6 and some analytic queries, over lineitem); which ones did is
@@ -175,6 +198,9 @@ EXPECTED_LAUNCHES = {
     "b": {"partition_histogram": 1, "fused_group_aggregate": 1},
     "c": {"filtered_group_sum": 1, "partition_histogram": 1},
 }
+MESH_SHARDS = 8
+# launches of each shard's partial on the mesh: (a)'s AVG shares SUM's partial
+MESH_EXPECTED_LAUNCHES = EXPECTED_LAUNCHES | {"a": {"segment_reduce": 7}}
 
 
 def log(msg: str) -> None:
@@ -377,7 +403,10 @@ def kernel_phase(gk, rows: int, seed: int, before=None) -> dict:
              (1_000_001, 2049, {"offset": (0, 3, 0)}),
              (1_000_001, 4096, {"offset": (1, 1, 1)}),
              (999_999, 513, {"offset": (3, 3, 3), "nans": True}),
-             (1_000_003, 2049, {"offset": (2, 0, 1)})]
+             (1_000_003, 2049, {"offset": (2, 0, 1)}),
+             # the mesh's exchanges count 8 destinations at a shard's length:
+             # 16,777,216 rows (phase 10's (a)-(c)), 1,048,576 (TPC-H lineitem)
+             (1 << 24, MESH_SHARDS, {}), (1 << 20, MESH_SHARDS, {})]
     for n, ng, kw in cases:
         max_err = max(max_err, check_case(gk, *make_inputs(n, ng, gen, dev, **kw), ng))
         log(f"[kernels] n={n} ng={ng} {kw or ''}: match")
@@ -521,7 +550,8 @@ def seg_check(seg, x, gid, S: int, op: str) -> float:
 
 def segment_phase(rows: int, seed: int) -> dict:
     """The segment kernel against its plain version (every dtype and op, at
-    1, 16, 17, 64 and the gate's segments, at ``rows`` and 65,536 rows),
+    1, 16, 17, 64 and the gate's segments, at ``rows``, 65,536, 1,048,576
+    and 16,777,216 rows),
     then timed at query (a)'s shape: SUM of a float64 column over 17 slots,
     dead rows routed past the last (two of (a)'s eight launches), beside
     the other (a) cases, the plain version and ``index_add_``."""
@@ -533,7 +563,9 @@ def segment_phase(rows: int, seed: int) -> dict:
     gate = seg.max_segments(dev)
     max_err, checked = 0.0, 0
     t0 = time.perf_counter()
-    for n in (1 << 16, rows):
+    # 65,536 rows (a streamed chunk), a mesh shard's 1,048,576 (TPC-H
+    # lineitem) and 16,777,216 (phase 10's (a)), and the whole table
+    for n in (1 << 16, 1 << 20, 1 << 24, rows):
         for S in sorted({1, 16, NG_A, 64, gate}):
             for dtype in SEG_DTYPES:
                 x, gid = seg_inputs(n, S, dtype, gen, dev)
@@ -676,7 +708,9 @@ def check_query(q: str, rows, refs) -> None:
         check_rows(q, rows, refs[q])
 
 
-def sql_phase(gk, table, refs) -> tuple[dict, dict]:
+def sql_phase(gk, table, refs) -> tuple[dict, dict, object]:
+    """-> (launches, measurements, the session: phase 10 (i) shards its
+    table)."""
     from baikaldb_tpu_torch.exec.session import Session
 
     rows = table.num_rows
@@ -692,7 +726,7 @@ def sql_phase(gk, table, refs) -> tuple[dict, dict]:
     load_s = time.perf_counter() - t0
     log(f"[sql] {rows} rows loaded and staged on the card in {load_s:.2f} s")
     try:
-        return _sql_runs(gk, s, rows, refs, load_s)
+        return (*_sql_runs(gk, s, rows, refs, load_s), s)
     finally:
         s.execute("SET GLOBAL streaming_scan = 1")
 
@@ -1603,6 +1637,179 @@ def vector_phase(gk, seed: int) -> tuple[dict, dict]:
     return launches, out
 
 
+# ----------------------------------------------------------------------
+# phase 10: the mesh
+
+MESH_REPS = 10
+MESH_TPCH_REPS = 5
+FLOAT_KERNELS = ("filtered_group_sum", "fused_group_aggregate")
+
+
+def mesh_session(single):
+    """A mesh session of ``MESH_SHARDS`` shards over ``single``'s database
+    (its tables, staged once on the card), every table sharded before the
+    clock of any query starts.  -> (session, seconds to shard)."""
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    s = Session(db=single.db, mesh=make_mesh(MESH_SHARDS))
+    for store in s.db.stores.values():
+        store.sharded_batch(s.mesh)
+    torch.cuda.synchronize()
+    return s, time.perf_counter() - t0
+
+
+def mesh_sql_phase(gk, single, refs) -> tuple[dict, dict]:
+    """Phase 10 (i): (a)-(c) over phase 3's table sharded 8 ways, checked
+    against numpy; every shard's partial must launch (b)'s and (c)'s kernels
+    once and (a)'s segment kernel 7 times, nothing else may launch one, and
+    (a) may run no ``index_add_``.  -> (launches of the checked runs,
+    measurements)."""
+    from baikaldb_tpu_torch.parallel import agg as pagg
+
+    torch.cuda.reset_peak_memory_stats()
+    s, shard_s = mesh_session(single)
+    # each shard's partial is one group_aggregate_dense call: its launches
+    # are read around every call, so each shard's count is its own
+    dense, shard_launches = pagg.group_aggregate_dense, []
+
+    def counted(*args, **kw):
+        before = all_launches(gk)
+        out = dense(*args, **kw)
+        shard_launches.append({k: v - before[k] for k, v in all_launches(gk).items()
+                               if v != before[k]})
+        return out
+
+    # the mesh path: counters at 0 just before, read just after
+    reset_launches(gk)
+    results, per_query, per_shard = {}, {}, {}
+    pagg.group_aggregate_dense = counted
+    try:
+        for q, sql in QUERIES.items():
+            before = all_launches(gk)
+            shard_launches.clear()
+            results[q] = s.query(sql)
+            torch.cuda.synchronize()
+            per_query[q] = {k: v - before[k] for k, v in all_launches(gk).items()
+                            if v != before[k]}
+            per_shard[q] = list(shard_launches)
+    finally:
+        pagg.group_aggregate_dense = dense
+    launches = all_launches(gk)
+    for q, got in per_query.items():
+        want = MESH_EXPECTED_LAUNCHES[q]
+        total = {k: v * MESH_SHARDS for k, v in want.items()}
+        if per_shard[q] != [want] * MESH_SHARDS or got != total:
+            raise AssertionError(f"mesh query ({q}) launched {per_shard[q]} in its "
+                                 f"{MESH_SHARDS} shards' partials and {got} in all, "
+                                 f"expected {want} a shard and nothing else")
+        check_query(q, results[q], refs)
+    log(f"[mesh] (a)-(c) over {MESH_SHARDS} shards match numpy (sharded in {shard_s:.2f} s); "
+        f"launches {per_query}")
+    stats = {"shards": MESH_SHARDS, "shard_s": shard_s}
+    for q, sql in QUERIES.items():
+        walls = []
+        for _ in range(MESH_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            s.query(sql)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        med = statistics.median(walls)
+        stats[q] = {"warm_ms_p50": med, "warm_ms_p67": float(np.percentile(walls, 67)),
+                    "rows_per_s": single.db.stores["default.t"].num_rows / (med / 1e3),
+                    "launches": per_query[q],
+                    **device_breakdown(lambda: s.query(sql), med, host_ops=False)}
+        scatters = [k for k in stats[q].pop("kernel_names") if "indexFunc" in k]
+        stats[q]["index_add_kernels"] = len(scatters)
+        if q == "a" and scatters:
+            raise AssertionError(f"mesh query (a) ran index_add_ on the card: {scatters}")
+        log(f"[mesh] ({q}) warm wall p50 {med:.2f} ms p67 {stats[q]['warm_ms_p67']:.2f} ms "
+            f"over {MESH_REPS} runs, device {stats[q]['device_ms']:.2f} ms, idle "
+            f"{stats[q]['idle_share']:.3f}, device ops {stats[q]['device_ops']}, "
+            f"top {stats[q]['top_kernels']}")
+    stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return launches, stats
+
+
+def mesh_tpch_phase(gk, single) -> tuple[dict, dict]:
+    """Phase 10 (ii): the 22 TPC-H queries and ``q20_rows`` over phase 5
+    (ii)'s tables sharded 8 ways, each equal to the single-device session's
+    rows by the parity contract (rtol 1e-4 where a float group-by kernel ran
+    on either side); q3 again with ``mpp_force_shuffle = 1``, which must
+    execute at least one repartition round.  -> (launches of the checked
+    runs, measurements)."""
+    from baikaldb_tpu_torch.exec.executor import exchange_summary
+    from baikaldb_tpu_torch.models import tpch
+    from baikaldb_tpu_torch.models.parity import mismatch
+    from baikaldb_tpu_torch.sql.parser import parse_sql
+    from baikaldb_tpu_torch.utils import metrics
+
+    queries = {**tpch.QUERIES, **tpch.VARIANTS}
+    want, single_floats = {}, {}
+    for q, sql in queries.items():
+        before = all_launches(gk)
+        want[q] = single.query(sql)
+        single_floats[q] = any(all_launches(gk)[k] != before[k] for k in FLOAT_KERNELS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    s, shard_s = mesh_session(single)
+
+    def checked(q, sql, tag):
+        before = all_launches(gk)
+        r0 = metrics.shuffle_rounds.value
+        rows = s.query(sql)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in all_launches(gk).items() if v != before[k]}
+        floats = single_floats[q] or any(k in launched for k in FLOAT_KERNELS)
+        diff = mismatch(rows, want[q], sql, 1e-4 if floats else 1e-9)
+        if diff is not None:
+            raise AssertionError(f"TPC-H {tag} on the mesh differs from one device: {diff}")
+        finite_rows(q, rows)
+        return launched, metrics.shuffle_rounds.value - r0
+
+    # the mesh path: counters at 0 just before, read just after
+    reset_launches(gk)
+    checked_runs = {q: checked(q, sql, q) for q, sql in queries.items()}
+    with flag(s, "mpp_force_shuffle", 1):
+        summary = exchange_summary(s._plan_select(parse_sql(tpch.QUERIES["q3"])[0]))
+        if summary["rounds"] < 1:
+            raise AssertionError(f"q3 under mpp_force_shuffle planned no round: {summary}")
+        checked_runs["q3_shuffle"] = checked("q3", tpch.QUERIES["q3"], "q3 (forced shuffle)")
+    launches = all_launches(gk)
+    log(f"[mesh] TPC-H: all {len(queries)} queries and q3 under forced shuffle "
+        f"({summary}) equal on {MESH_SHARDS} shards and on one device (sharded in "
+        f"{shard_s:.2f} s)")
+
+    per_query = {}
+    timed = {**queries, "q3_shuffle": tpch.QUERIES["q3"]}
+    for q, sql in timed.items():
+        with flag(s, "mpp_force_shuffle", int(q == "q3_shuffle")):
+            walls = []
+            for _ in range(MESH_TPCH_REPS):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                s.query(sql)
+                torch.cuda.synchronize()
+                walls.append((time.perf_counter() - t) * 1e3)
+            med = statistics.median(walls)
+            launched, rounds = checked_runs[q]
+            per_query[q] = {"rows": len(want["q3" if q == "q3_shuffle" else q]),
+                            "warm_ms_p50": med,
+                            "warm_ms_p67": float(np.percentile(walls, 67)),
+                            "kernel_launches": launched, "shuffle_rounds": rounds,
+                            **device_breakdown(lambda: s.query(sql), med, host_ops=False)}
+        per_query[q].pop("kernel_names")
+        log(f"[mesh] {q}: warm p50 {med:.2f} ms p67 {per_query[q]['warm_ms_p67']:.2f} ms, "
+            f"device {per_query[q]['device_ms']:.2f} ms, idle "
+            f"{per_query[q]['idle_share']:.3f}, rounds {rounds}, launches {launched}, "
+            f"top {per_query[q]['top_kernels']}")
+    return launches, {"shards": MESH_SHARDS, "shard_s": shard_s, "queries": per_query,
+                      "q3_shuffle_summary": summary,
+                      "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=100_000_000)
@@ -1630,15 +1837,20 @@ def main() -> int:
     phase_s["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     table, refs = sql_table(args.rows, args.seed)
-    launches, sql_stats = sql_phase(gk, table, refs)
+    launches, sql_stats, single = sql_phase(gk, table, refs)
     phase_s["sql"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh_launches, mesh_stats = mesh_sql_phase(gk, single, refs)
+    mesh_s = time.perf_counter() - t0
+    del single
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     stream_launches, stream_stats = streamed_phase(gk, table, refs)
     stream_stats["resident_peak_mem_gib"] = sql_stats["peak_mem_gib"]
     phase_s["streamed"] = time.perf_counter() - t0
     del table
-    for path, counts in (("resident", launches), ("streamed", stream_launches)):
+    for path, counts in (("resident", launches), ("streamed", stream_launches),
+                         ("mesh", mesh_launches)):
         missing = [k for k, n in counts.items() if n == 0]
         if missing:
             raise AssertionError(f"kernels not launched on the {path} path: {missing}")
@@ -1656,6 +1868,10 @@ def main() -> int:
     t0 = time.perf_counter()
     stream_stats["tpch"] = tpch_streamed_vs_resident(s)
     phase_s["tpch_streamed_vs_resident"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mesh_tpch_launches, mesh_stats["tpch"] = mesh_tpch_phase(gk, s)
+    phase_s["mesh"] = mesh_s + time.perf_counter() - t0
+    mesh_launches = {k: n + mesh_tpch_launches[k] for k, n in mesh_launches.items()}
     del s, tables
     t0 = time.perf_counter()
     egress_stats = egress_phase(check)
@@ -1667,21 +1883,24 @@ def main() -> int:
     phase_s["vectors"] = time.perf_counter() - t0
     print(f"analytic phase seconds: {phase_s['analytics']:.1f}", flush=True)
     print(f"vector phase seconds: {phase_s['vectors']:.1f}", flush=True)
+    print(f"mesh phase seconds: {phase_s['mesh']:.1f}", flush=True)
     print("phase seconds: " + json.dumps(phase_s), flush=True)
 
     kernels = [{"name": k, "route": "cuda",
                 "source": SOURCES.get(k, "baikaldb_tpu_torch/ops/csrc/group_agg.cu"),
                 "replaces": REPLACES[k],
-                "launches": launches[k] + stream_launches.get(k, 0) + vector_launches[k],
+                "launches": (launches[k] + stream_launches.get(k, 0) + vector_launches[k]
+                             + mesh_launches[k]),
                 "launches_resident": launches[k],
                 "launches_streamed": stream_launches.get(k, 0),
                 "launches_vectors": vector_launches[k],
+                "launches_mesh": mesh_launches[k],
                 **times[k]}
                for k in REPLACES]
     print(json.dumps({"card": name_power, "rows": args.rows, "phase_s": phase_s,
                       "sql": sql_stats, "streamed": stream_stats, "tpch": tpch_stats,
                       "analytics": analytic_stats, "egress": egress_stats,
-                      "vectors": vector_stats}),
+                      "vectors": vector_stats, "mesh": mesh_stats}),
           flush=True)
     print(name_power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

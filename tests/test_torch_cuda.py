@@ -1,7 +1,8 @@
 """The port on the card: the hand-written kernels against their plain torch
-versions, and a SQL session on CUDA.  Every test here needs a CUDA device
-and skips without one.  This file imports neither JAX nor the JAX package,
-so it runs where only torch is installed:
+versions, and a SQL session on CUDA.  Every test here but
+``test_make_mesh_needs_cuda`` needs a CUDA device and skips without one.
+This file imports neither JAX nor the JAX package, so it runs where only
+torch is installed:
 
     python -m pytest -q --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
@@ -842,3 +843,166 @@ def test_vector_sql_and_ann_on_the_card_match_the_cpu(cuda):
         assert gpu.execute(ex).plan_text == cpu.execute(ex).plan_text
     finally:
         FLAGS.set_flag("ann_min_rows", prev)
+
+
+# -- the mesh ------------------------------------------------------------------
+
+def test_make_mesh_needs_cuda():
+    """``make_mesh(n)`` spreads its shards over the CUDA devices and raises
+    where there is none; only ``device="cpu"`` makes a CPU mesh."""
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.parallel.mesh import make_mesh
+
+    if torch.cuda.is_available():
+        count = torch.cuda.device_count()
+        assert make_mesh(8).devices == tuple(torch.device("cuda", i % count)
+                                             for i in range(8))
+        assert Session(mesh=make_mesh(8)).device.type == "cuda"
+    else:
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_mesh(8)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            Session(mesh=make_mesh(8))
+    assert make_mesh(8, device="cpu").devices == (torch.device("cpu"),) * 8
+
+
+def _mesh_sessions(card_mesh):
+    """TPC-H SF 0.01 in a card mesh session and an 8-shard CPU mesh session."""
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.models import tpch
+    from baikaldb_tpu_torch.parallel.mesh import make_mesh
+
+    tables = tpch.generate(scale=0.01, seed=0)
+    out = []
+    for mesh in (card_mesh, make_mesh(card_mesh.size, device="cpu")):
+        s = Session(mesh=mesh)
+        for name, ddl in tpch.DDL.items():
+            s.execute(ddl)
+            s.load_arrow(name, tables[name])
+        out.append(s)
+    return out
+
+
+@pytest.fixture(scope="module")
+def mesh_pair():
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA device: the card's mesh needs one")
+    from baikaldb_tpu_torch.parallel.mesh import make_mesh
+
+    return _mesh_sessions(make_mesh(8, device="cuda:0"))
+
+
+MESH_QUERIES = ["q1", "q3", "q5", "q7", "q8", "q9", "q13", "q15", "q18", "q21", "q22",
+                "q20_rows"]
+
+
+def _mesh_query_matches(gpu, cpu, name):
+    from baikaldb_tpu_torch.models import tpch
+    from baikaldb_tpu_torch.models.parity import mismatch
+
+    sql = {**tpch.QUERIES, **tpch.VARIANTS}[name]
+    before = {k: c.value for k, c in gk.LAUNCHES.items()}
+    got = gpu.query(sql)
+    ran = any(gk.LAUNCHES[k].value != before[k]
+              for k in ("filtered_group_sum", "fused_group_aggregate"))
+    diff = mismatch(got, cpu.query(sql), sql, 1e-4 if ran else 1e-9)
+    assert diff is None, diff
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", MESH_QUERIES)
+def test_mesh_on_the_card_matches_the_cpu_mesh(mesh_pair, name):
+    """8 shards on cuda:0 against the 8-shard CPU mesh, same seeded tables."""
+    _mesh_query_matches(*mesh_pair, name)
+
+
+@pytest.mark.cuda
+def test_mesh_forced_shuffle_on_the_card_matches_the_cpu_mesh(mesh_pair):
+    from baikaldb_tpu_torch.utils.flags import FLAGS
+
+    FLAGS.set_flag("mpp_force_shuffle", True)
+    try:
+        for name in ("q3", "q5", "q9"):
+            _mesh_query_matches(*mesh_pair, name)
+    finally:
+        FLAGS.set_flag("mpp_force_shuffle", False)
+
+
+@pytest.mark.cuda
+def test_mesh_group_by_launches_the_kernels_on_every_shard(cuda):
+    """A dense GROUP BY over 2048 groups on an 8-shard card mesh: K3 and K2
+    once a shard (FLOAT SUM/MIN), K1 and K3 once a shard (DOUBLE SUM); the
+    rows equal the CPU mesh's."""
+    import pyarrow as pa
+
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.models.parity import mismatch
+    from baikaldb_tpu_torch.parallel.mesh import make_mesh
+
+    rng = np.random.default_rng(11)
+    n = 200_000
+    t = pa.table({"g": rng.integers(0, 2048, n, dtype=np.int32),
+                  "v": rng.standard_normal(n, dtype=np.float32),
+                  "w": rng.standard_normal(n)})
+    out = []
+    for mesh in (make_mesh(8, device="cuda:0"), make_mesh(8, device="cpu")):
+        s = Session(mesh=mesh)
+        s.execute("CREATE TABLE t (g INT, v FLOAT, w DOUBLE)")
+        s.load_arrow("t", t)
+        out.append(s)
+    queries = {"SELECT g, COUNT(*) c, SUM(v) s, MIN(v) m FROM t GROUP BY g ORDER BY g":
+               {"partition_histogram": 8, "fused_group_aggregate": 8},
+               "SELECT g, SUM(w) s, AVG(w) a FROM t GROUP BY g ORDER BY g":
+               {"partition_histogram": 8, "filtered_group_sum": 8}}
+    for sql, want in queries.items():
+        before = {k: c.value for k, c in gk.LAUNCHES.items()}
+        got = out[0].query(sql)
+        launched = {k: c.value - before[k] for k, c in gk.LAUNCHES.items()
+                    if c.value != before[k]}
+        assert launched == want, sql
+        assert mismatch(got, out[1].query(sql), sql, 1e-4) is None, sql
+
+
+@pytest.mark.cuda
+def test_exchange_counts_from_k3_equal_searchsorted(cuda):
+    """The exchange sizes its send buffers from K3's per-destination counts;
+    they equal the JAX package's searchsorted counts exactly."""
+    import pyarrow as pa
+
+    from baikaldb_tpu_torch.column.batch import ColumnBatch
+    from baikaldb_tpu_torch.parallel.shuffle import (_local_repartition,
+                                                     partition_key_arrays)
+    from baikaldb_tpu_torch.utils.hashing import partition_ids
+
+    rng = np.random.default_rng(12)
+    for n, parts in ((1, 8), (100_000, 8), (1_000_003, 8), (65_536, 64)):
+        b = ColumnBatch.from_arrow(pa.table({"k": rng.integers(-50, 50_000, n)}), cuda)
+        b = b.and_sel(torch.from_numpy(rng.random(n) < 0.7).to(cuda))
+        order, counts = _local_repartition(b, ["k"], parts)
+        dest = partition_ids(partition_key_arrays(b, ["k"]), parts)
+        dest = torch.where(b.sel, dest, parts)
+        srt = torch.sort(dest).values
+        start = torch.searchsorted(srt, torch.arange(parts + 1, dtype=srt.dtype,
+                                                     device=cuda))
+        assert counts.tolist() == (start[1:] - start[:-1]).tolist()
+        assert torch.equal(dest[order][:int(counts.sum())],
+                           srt[:int(counts.sum())])
+
+
+@pytest.mark.cuda
+def test_mesh_across_cards_matches_the_cpu_mesh(cuda):
+    """Shards spread over every card (cross-device exchanges and merges)."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("one CUDA device: the cross-card mesh needs two or more")
+    from baikaldb_tpu_torch.parallel.mesh import make_mesh
+    from baikaldb_tpu_torch.utils.flags import FLAGS
+
+    gpu, cpu = _mesh_sessions(make_mesh(8))
+    for name in ("q1", "q3", "q9", "q18"):
+        _mesh_query_matches(gpu, cpu, name)
+    FLAGS.set_flag("mpp_force_shuffle", True)
+    try:
+        for name in ("q3", "q5"):
+            _mesh_query_matches(gpu, cpu, name)
+    finally:
+        FLAGS.set_flag("mpp_force_shuffle", False)

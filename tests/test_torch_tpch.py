@@ -18,31 +18,46 @@ both and the rows are compared under the parity contract:
 The contract is ``baikaldb_tpu_torch/models/parity.py``, which the card run
 (chip_smoke.py) holds the card to as well.  The planner is a copy, so the
 ``EXPLAIN`` plans must be equal too.
+
+The same 22 queries also run on the mesh: the port's ``Session(mesh=
+make_mesh(8, device="cpu"))`` against the JAX ``Session(mesh=make_mesh(8))``
+over 8 virtual CPU devices (tests/conftest.py), rows and distributed plans
+equal under the same contract.
 """
 
 import pytest
 
 from baikaldb_tpu.exec.session import Session as JSession
 from baikaldb_tpu.models import tpch as jtpch
+from baikaldb_tpu.parallel.mesh import make_mesh as jmake_mesh
 from baikaldb_tpu_torch.exec.session import Session as TSession
 from baikaldb_tpu_torch.models import analytics, tpch
 from baikaldb_tpu_torch.models.parity import mismatch
 from baikaldb_tpu_torch.ops import group_kernels as gk
+from baikaldb_tpu_torch.parallel.mesh import make_mesh
 from baikaldb_tpu_torch.sql.parser import parse_sql
 
 SCALE, SEED = 0.002, 7
 
 
-@pytest.fixture(scope="module")
-def tpch_sessions():
+def _load(sessions):
     tables = tpch.generate(scale=SCALE, seed=SEED)
-    out = []
-    for s in (JSession(), TSession(device="cpu")):
+    for s in sessions:
         for name, ddl in tpch.DDL.items():
             s.execute(ddl)
             s.load_arrow(name, tables[name])
-        out.append(s)
-    return out
+    return sessions
+
+
+@pytest.fixture(scope="module")
+def tpch_sessions():
+    return _load([JSession(), TSession(device="cpu")])
+
+
+@pytest.fixture(scope="module")
+def tpch_mesh_sessions():
+    return _load([JSession(mesh=jmake_mesh(8)),
+                  TSession(mesh=make_mesh(8, device="cpu"))])
 
 
 def assert_result_matches(got: list[dict], want: list[dict], sql: str,
@@ -94,6 +109,52 @@ def test_tpch_plan_matches_jax(tpch_sessions, name):
     jsess, tsess = tpch_sessions
     sql = ALL[name]
     assert _plan_text(tsess, sql) == _plan_text(jsess, sql)
+
+
+@pytest.mark.parametrize("name", list(ALL))
+def test_tpch_query_matches_jax_on_the_mesh(tpch_mesh_sessions, monkeypatch, name):
+    """The port's 8-shard mesh against the JAX package's 8-device mesh.  Where
+    a float group-by kernel (K1, K2) ran on some shard, its float32 output
+    contract gives rtol 1e-4; K3 also counts each exchange's destinations
+    (exact)."""
+    jsess, tsess = tpch_mesh_sessions
+    ran = set()
+    for k in gk.LAUNCHES:
+        plain = getattr(gk, f"{k}_plain")
+        monkeypatch.setattr(gk, f"{k}_plain",
+                            lambda *a, _k=k, _p=plain: ran.add(_k) or _p(*a))
+    sql = ALL[name]
+    got = tsess.query(sql)
+    float_kernels = ran & {"filtered_group_sum", "fused_group_aggregate"}
+    assert_result_matches(got, jsess.query(sql), sql, 1e-4 if float_kernels else 1e-9)
+
+
+@pytest.mark.parametrize("name", list(ALL))
+def test_tpch_plan_matches_jax_on_the_mesh(tpch_mesh_sessions, name):
+    jsess, tsess = tpch_mesh_sessions
+    sql = ALL[name]
+    assert _plan_text(tsess, sql) == _plan_text(jsess, sql)
+
+
+def test_mesh_q3_forced_shuffle_matches_jax(tpch_mesh_sessions):
+    """Q3 (BASELINE config #3) with every join input repartitioned: at
+    least one executed round, and the JAX mesh's rows."""
+    from baikaldb_tpu.utils.flags import set_flag as jset_flag
+    from baikaldb_tpu_torch.exec.executor import exchange_summary
+    from baikaldb_tpu_torch.utils.flags import FLAGS
+
+    jsess, tsess = tpch_mesh_sessions
+    sql = tpch.QUERIES["q3"]
+    FLAGS.set_flag("mpp_force_shuffle", True)
+    jset_flag("mpp_force_shuffle", True)
+    jsess._plan_cache.clear()
+    try:
+        assert exchange_summary(tsess._plan_select(parse_sql(sql)[0]))["rounds"] >= 1
+        assert_result_matches(tsess.query(sql), jsess.query(sql), sql)
+    finally:
+        FLAGS.set_flag("mpp_force_shuffle", False)
+        jset_flag("mpp_force_shuffle", False)
+        jsess._plan_cache.clear()
 
 
 @pytest.mark.parametrize("name", list(analytics.QUERIES))
