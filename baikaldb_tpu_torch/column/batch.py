@@ -190,9 +190,13 @@ class ColumnBatch:
         names, cols = [], []
         for fld in table.schema:
             arr = table.column(fld.name)
+            names.append(fld.name)
+            if not _is_string(fld.type):
+                cols.append(_column_of_chunks(getattr(arr, "chunks", [arr]), fld.type, device))
+                continue
+            # a string column needs one dictionary across its chunks
             if hasattr(arr, "combine_chunks"):
                 arr = arr.combine_chunks()
-            names.append(fld.name)
             data, validity, ltype, d = _arrow_to_numpy(arr, fld.type)
             cols.append(Column.from_numpy(data, ltype, validity, d, device))
         return ColumnBatch(tuple(names), cols, device=device)
@@ -274,7 +278,7 @@ def _arrow_to_numpy(arr, typ):
     import pyarrow as pa
     import pyarrow.compute as pc
 
-    if pa.types.is_string(typ) or pa.types.is_large_string(typ) or pa.types.is_dictionary(typ):
+    if _is_string(typ):
         d, codes = Dictionary.from_arrow(arr)
         validity = codes != NULL_CODE if arr.null_count else None
         return codes, validity, LType.STRING, d
@@ -305,6 +309,32 @@ def _arrow_to_numpy(arr, typ):
         return np_data.astype(ltype.np_dtype, copy=False), validity, ltype, None
     np_data = work.to_numpy(zero_copy_only=False)
     return np_data.astype(ltype.np_dtype, copy=False), None, ltype, None
+
+
+def _is_string(typ) -> bool:
+    import pyarrow as pa
+
+    return pa.types.is_string(typ) or pa.types.is_large_string(typ) or \
+        pa.types.is_dictionary(typ)
+
+
+def _column_of_chunks(chunks, typ, device) -> Column:
+    """A numeric column of Arrow chunks (a table of many regions): each
+    chunk goes to ``device`` as it is and the pieces join there, so the host
+    never concatenates the column."""
+    import pyarrow as pa
+
+    parts = [_arrow_to_numpy(c, typ) for c in (chunks or [pa.array([], type=typ)])]
+    data = _join([to_tensor(p[0], device) for p in parts])
+    validity = None
+    if any(p[1] is not None for p in parts):
+        validity = _join([to_tensor(np.ones(len(p[0]), bool) if p[1] is None else p[1], device)
+                          for p in parts])
+    return Column(data, validity, parts[0][2], None)
+
+
+def _join(pieces: list) -> torch.Tensor:
+    return pieces[0] if len(pieces) == 1 else torch.cat(pieces)
 
 
 def _column_to_arrow(c: Column, data: np.ndarray, valid: np.ndarray | None):

@@ -119,7 +119,9 @@ class Dictionary:
         d = pc.dictionary_encode(arr.combine_chunks() if hasattr(arr, "combine_chunks") else arr)
         if hasattr(d, "chunks"):
             d = d.combine_chunks()
-        values = np.asarray(d.dictionary.to_pylist(), dtype=str)
+        # through one object array: a list of a million strings first costs
+        # three times as much
+        values = d.dictionary.to_numpy(zero_copy_only=False).astype(str)
         null_mask = np.asarray(d.indices.is_null())
         if len(values) == 0:
             # all-NULL column: empty dictionary, every code NULL

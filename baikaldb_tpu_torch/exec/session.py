@@ -51,10 +51,32 @@ and exec/streaming.py folds it chunk by chunk.  The chunks are Parquet
 segments in the cold tier (``Database(cold_dir=...)`` or the
 ``cold_fs_dir`` flag) or in host memory.
 
-Not ported yet: transactions, UPDATE/DELETE, the other ALTER TABLE forms
-and index kinds, the plan cache and
-auto-parameterization, EXPLAIN ANALYZE, the host presort permutations,
-pushdown, matviews and rollups, point lookups and snapshot pinning.
+The write half is the JAX session's, without its binlog / CDC, global
+index, matview and replicated-tier hooks: INSERT ... VALUES / SELECT (small
+ones row by row through the row tier, large ones bulk), AUTO_INCREMENT,
+REPLACE and INSERT ... ON DUPLICATE KEY UPDATE, UPDATE and DELETE (WHERE
+evaluated region by region with the session's own expression compiler on the
+session's device; a full-primary-key equality takes a host mask), BEGIN /
+COMMIT / ROLLBACK (one writer lease per table, rollback restores the region
+pre-images; DDL commits an open transaction), ALTER TABLE ADD / DROP COLUMN,
+and ``Database(data_dir=...)``: the catalog in ``catalog.json``, each table's
+WAL and Parquet checkpoint, recovered by the next Database over the
+directory (the JAX package's layout: either package reads the other's).
+
+Reads follow MVCC (storage/mvcc.py): ``SET SNAPSHOT = 'now' | <ts> | 0``
+pins the session; outside a transaction and off the mesh, an analytical
+SELECT (GROUP BY or an aggregate) pins a fresh timestamp for its own run.
+A pinned read of a table written past the pin stages the versioned batch
+(the live image plus the history alive at the pin, ``visibility_mask`` in
+its ``sel``), which the executor and its kernels read like any batch; a
+quiet table keeps its fast paths.  A WHERE that fixes the primary key
+answers from the host (a point read); a selective equality on a KEY column
+stages only its rows; region zone maps drop regions before staging or
+streaming; EXPLAIN shows the choice as ``access=...``.
+
+Not ported yet: the plan cache and auto-parameterization, EXPLAIN ANALYZE,
+the host presort permutations, pushdown, matviews and rollups, the binlog,
+partitions, global indexes, online ADD INDEX, and the replicated tier.
 """
 
 from __future__ import annotations
@@ -63,22 +85,27 @@ import copy
 import datetime
 import functools
 import itertools
+import json
 import os
 import re
+import shutil
 import tempfile
+from contextlib import contextmanager
 from dataclasses import dataclass, field, replace
 from typing import Optional
 
 import numpy as np
 import pyarrow as pa
+import pyarrow.compute as pc
 import torch
 
 from ..column.batch import ColumnBatch
 from ..errors import NotPortedError
 from ..exec import egress, executor, streaming
-from ..expr.ast import AggCall, Call, Lit, Subquery, WindowCall
+from ..expr.ast import AggCall, Call, ColRef, Lit, Subquery, WindowCall
+from ..expr.compile import eval_output, eval_predicate
 from ..index import annindex
-from ..index.selector import analyze_conjuncts
+from ..index.selector import analyze_conjuncts, choose_access, is_point_statement, point_key
 from ..meta.catalog import Catalog, IndexInfo, parse_type
 from ..obs import trace
 from ..parallel.mesh import Mesh
@@ -89,12 +116,13 @@ from ..plan.planner import PlanError, Planner, parse_vector
 from ..sql.lexer import SqlError
 from ..sql.parser import parse_sql
 from ..sql.stmt import (AlterTableStmt, CreateDatabaseStmt, CreateTableStmt,
-                        CreateViewStmt, DescribeStmt, DropDatabaseStmt, DropTableStmt,
-                        DropViewStmt, ExplainStmt, InsertStmt, OrderItem,
+                        CreateViewStmt, DeleteStmt, DescribeStmt, DropDatabaseStmt,
+                        DropTableStmt, DropViewStmt, ExplainStmt, InsertStmt, OrderItem,
                         SelectItem, SelectStmt, SetStmt, ShowStmt, TableRef,
-                        TruncateStmt, UseStmt)
+                        TruncateStmt, TxnStmt, UpdateStmt, UseStmt)
 from ..storage.coldfs import ExternalFS
-from ..storage.column_store import TableStore
+from ..storage.column_store import TableStore, commit_group, schema_to_arrow
+from ..storage.mvcc import MvccRuntime, SnapshotRefused
 from ..storage.streamchunks import ChunkSource, chunk_set
 from ..types import Field, LType, Schema
 from ..utils import metrics
@@ -106,6 +134,15 @@ SERVER_VERSION = "8.0.0-baikaldb-tpu"
 
 # connection ids, one counter per process as in the JAX session
 _CONN_IDS = itertools.count(1)
+
+# an INSERT ... SELECT of at most this many rows goes row by row through the
+# row tier (primary-key checked, WAL-durable); a larger one is a bulk append
+# (the JAX session's HOT_INSERT_ROWS)
+HOT_INSERT_ROWS = 100_000
+
+# DDL commits an open transaction first (MySQL)
+_DDL = (CreateTableStmt, DropTableStmt, CreateDatabaseStmt, DropDatabaseStmt,
+        TruncateStmt, AlterTableStmt, CreateViewStmt, DropViewStmt)
 
 # what SHOW VARIABLES reports beside the flags (the JAX session's
 # _SERVER_VARS; only version_comment names this package)
@@ -233,16 +270,104 @@ class Result:
 
 
 class Database:
-    """Catalog + table stores, all on one device.  ``cold_dir`` (or the
+    """Catalog + table stores, all on one device, and the MVCC plane (one
+    TSO client and one snapshot pin registry).  ``cold_dir`` (or the
     ``cold_fs_dir`` flag) roots the cold tier the streamed scans keep their
-    chunk segments in."""
+    chunk segments in.  With ``data_dir`` the database is durable: each
+    table gets a WAL for its committed DML, DDL persists the catalog as
+    ``catalog.json``, ``checkpoint()`` flushes Parquet and resets the WALs,
+    and a new Database over the directory recovers the committed state."""
 
-    def __init__(self, device=None, cold_dir: Optional[str] = None):
+    def __init__(self, device=None, cold_dir: Optional[str] = None,
+                 data_dir: Optional[str] = None):
         self.device = resolve_device(device)
         self.catalog = Catalog()
         self.stores: dict[str, TableStore] = {}
         self.cold_dir = cold_dir
         self._cold_fs = None
+        self.mvcc = MvccRuntime()
+        self.data_dir = data_dir
+        if data_dir:
+            os.makedirs(data_dir, exist_ok=True)
+            self._recover()
+
+    def close(self) -> None:
+        """Stop the MVCC GC thread, if one was started."""
+        self.mvcc.stop_gc()
+
+    def make_store(self, info) -> TableStore:
+        """A table's store on this database's device, joined to its MVCC
+        plane; under ``data_dir`` it loads its checkpoint and replays its
+        WAL."""
+        st = TableStore(info, self.device)
+        st.attach_mvcc(self.mvcc)
+        if self.data_dir:
+            key = f"{info.database}.{info.name}"
+            pq_dir = os.path.join(self.data_dir, key)
+            if os.path.isdir(pq_dir):
+                st.load_parquet(pq_dir)
+            st.durable_dir = pq_dir
+            st.attach_wal(os.path.join(self.data_dir, key + ".wal"))
+        return st
+
+    def save_catalog(self) -> None:
+        """``catalog.json`` in the JAX package's layout (written to a
+        temporary name, then moved into place); the subscription and
+        matview lists, which the port does not keep, are written empty."""
+        if not self.data_dir:
+            return
+        dbs = [d for d in self.catalog.databases() if d != "information_schema"]
+        out = {"databases": dbs, "tables": []}
+        for db in dbs:
+            for t in self.catalog.tables(db):
+                info = self.catalog.get_table(db, t)
+                out["tables"].append({
+                    "database": db, "name": t,
+                    "fields": [[f.name, f.ltype.value, f.nullable]
+                               for f in info.schema.fields],
+                    "indexes": [[ix.name, ix.kind, list(ix.columns),
+                                 {k: v for k, v in ix.params.items() if k != "fresh_at"}]
+                                for ix in info.indexes],
+                    "options": dict(info.options or {}),
+                })
+        out["views"] = [{"database": k.split(".", 1)[0], "name": k.split(".", 1)[1], **v}
+                        for k, v in sorted(self.catalog._views.items())
+                        if k.split(".", 1)[0] in dbs]
+        out["subscriptions"] = []
+        out["matviews"] = []
+        tmp = os.path.join(self.data_dir, "catalog.json.tmp")
+        with open(tmp, "w") as f:
+            json.dump(out, f)
+        os.replace(tmp, os.path.join(self.data_dir, "catalog.json"))
+
+    def _recover(self) -> None:
+        path = os.path.join(self.data_dir, "catalog.json")
+        if not os.path.exists(path):
+            return
+        with open(path) as f:
+            saved = json.load(f)
+        for db in saved["databases"]:
+            if db not in self.catalog.databases():
+                self.catalog.create_database(db, if_not_exists=True)
+        for t in saved["tables"]:
+            fields = tuple(Field(n, LType(v), nullable) for n, v, nullable in t["fields"])
+            indexes = [IndexInfo(ix[0], ix[1], ix[2], ix[3] if len(ix) > 3 else {})
+                       for ix in t["indexes"]]
+            info = self.catalog.create_table(t["database"], t["name"], Schema(fields),
+                                             indexes, options=t["options"],
+                                             if_not_exists=True)
+            self.stores[f"{t['database']}.{t['name']}"] = self.make_store(info)
+        for v in saved.get("views", []):
+            self.catalog.create_view(v["database"], v["name"], v["sql"],
+                                     v.get("columns"), or_replace=True)
+
+    def checkpoint(self) -> None:
+        """Flush every table's live state to Parquet and reset the WALs."""
+        if not self.data_dir:
+            raise RuntimeError("checkpoint requires a data_dir")
+        for key, st in self.stores.items():
+            st.checkpoint(os.path.join(self.data_dir, key))
+        self.save_catalog()
 
     def cold_fs(self):
         """The external cold-storage FS, or None when unconfigured."""
@@ -270,6 +395,16 @@ class Session:
         self.current_db = database
         self.session_vars: dict = {}     # SET name = value without GLOBAL
         self._conn_id = next(_CONN_IDS)
+        self.user = "root"
+        # the open SQL transaction: table key -> TxnContext, or None
+        self._sql_txn: Optional[dict] = None
+        # SET SNAPSHOT: (pin id, snapshot ts) in the database's registry
+        self._snapshot: Optional[tuple[int, int]] = None
+        # the snapshot ts the current SELECT reads at (0 = unpinned)
+        self._snap_ts = 0
+        # access-path batches (secondary gathers, zone-map subsets), keyed
+        # by table, version and path; bounded
+        self._access_batches: dict = {}
 
     def connection_id(self) -> int:
         """This session's id, answered by CONNECTION_ID()."""
@@ -303,21 +438,29 @@ class Session:
         vcols = (store.info.options or {}).get("vector_cols") or {}
         if vcols:
             table = _expand_vector_arrow(table, vcols)
-        store.insert_arrow(table)
+        store.insert_arrow(table, self._tctx(store))
         return table.num_rows
 
     # -- statements -----------------------------------------------------
     def _execute_stmt(self, s) -> Result:
+        if isinstance(s, _DDL):
+            self._commit_txn()
         if isinstance(s, SelectStmt):
             return self._select(_resolve_session_exprs(s, self.connection_id()))
         if isinstance(s, CreateTableStmt):
             return self._create_table(s)
         if isinstance(s, InsertStmt):
             return self._insert(s)
+        if isinstance(s, UpdateStmt):
+            return self._update(s)
+        if isinstance(s, DeleteStmt):
+            return self._delete(s)
+        if isinstance(s, TxnStmt):
+            return self._txn_stmt(s)
         if isinstance(s, SetStmt):
             return self._set_stmt(s)
         if isinstance(s, ExplainStmt) and s.fmt != "analyze":
-            text = _annotate_access(self._plan_select(s.stmt)).tree_repr()
+            text = self._annotate_access(self._plan_select(s.stmt)).tree_repr()
             return Result(columns=["plan"], plan_text=text,
                           arrow=pa.table({"plan": text.split("\n")}))
         if isinstance(s, AlterTableStmt):
@@ -330,26 +473,29 @@ class Session:
                                           s.table.name, s.if_exists)
             except ValueError as e:
                 raise PlanError(str(e)) from None
+            self.db.save_catalog()
             return Result()
         if isinstance(s, DropTableStmt):
             db = s.table.database or self.current_db
             self.db.catalog.drop_table(db, s.table.name, s.if_exists)
-            st = self.db.stores.pop(f"{db}.{s.table.name}", None)
-            if st is not None:
-                st.release()
-            annindex.manager(self.db).forget(f"{db}.{s.table.name}")
+            key = f"{db}.{s.table.name}"
+            self._drop_durable(key, self.db.stores.pop(key, None))
+            annindex.manager(self.db).forget(key)
+            self.db.save_catalog()
             return Result()
         if isinstance(s, TruncateStmt):
             self._store(s.table).truncate()
             return Result()
         if isinstance(s, CreateDatabaseStmt):
             self.db.catalog.create_database(s.name, if_not_exists=s.if_not_exists)
+            self.db.save_catalog()
             return Result()
         if isinstance(s, DropDatabaseStmt):
             self.db.catalog.drop_database(s.name, s.if_exists)
             for k in [k for k in self.db.stores if k.startswith(s.name + ".")]:
-                self.db.stores.pop(k).release()
+                self._drop_durable(k, self.db.stores.pop(k))
                 annindex.manager(self.db).forget(k)
+            self.db.save_catalog()
             return Result()
         if isinstance(s, UseStmt):
             if s.database not in self.db.catalog.databases():
@@ -363,11 +509,14 @@ class Session:
         raise NotPortedError(f"statement {type(s).__name__}")
 
     def _set_stmt(self, s: SetStmt) -> Result:
-        """SET GLOBAL name = value updates the flag registry; other names
-        are kept per session (SHOW VARIABLES reports them), as MySQL
-        clients set them on connect and expect silent success."""
+        """SET GLOBAL name = value updates the flag registry; SET SNAPSHOT
+        pins or releases this session's read timestamp; other names are
+        kept per session (SHOW VARIABLES reports them), as MySQL clients set
+        them on connect and expect silent success."""
         for name, value in [(s.name, s.value)] + list(s.more):
-            if s.scope == "global":
+            if name.lower() == "snapshot":
+                self._set_snapshot(value)
+            elif s.scope == "global":
                 try:
                     FLAGS.set_flag(name, value)
                 except FlagError as e:
@@ -397,6 +546,7 @@ class Session:
             else:
                 cat.drop_view(db, s.table.name, if_exists=True)
             raise
+        self.db.save_catalog()
         return Result()
 
     def _describe(self, s: DescribeStmt) -> Result:
@@ -531,17 +681,36 @@ class Session:
 
     def _store(self, tref) -> TableStore:
         db = tref.database or self.current_db
+        if db == "information_schema":
+            raise PlanError("information_schema tables are read-only")
         key = f"{db}.{tref.name}"
         if key not in self.db.stores:
             info = self.db.catalog.get_table(db, tref.name)
-            self.db.stores[key] = TableStore(info, self.device)
+            self.db.stores[key] = self.db.make_store(info)
         return self.db.stores[key]
+
+    def _drop_durable(self, key: str, store) -> None:
+        """A dropped table's images go, and under ``data_dir`` its WAL and
+        Parquet checkpoint."""
+        if store is not None:
+            store.release()
+        if not self.db.data_dir:
+            return
+        if store is not None:
+            store.row_table = None      # closes the WAL file
+        wal = os.path.join(self.db.data_dir, key + ".wal")
+        if os.path.exists(wal):
+            os.remove(wal)
+        pq_dir = os.path.join(self.db.data_dir, key)
+        if os.path.isdir(pq_dir):
+            shutil.rmtree(pq_dir)
 
     def _create_table(self, s: CreateTableStmt) -> Result:
         db = s.table.database or self.current_db
-        if s.options or any(c.auto_increment for c in s.columns) \
-                or any(kind != "ann" for kind, _, _ in s.indexes):
-            raise NotPortedError("table options, AUTO_INCREMENT and secondary indexes")
+        if s.options:
+            raise NotPortedError("table options (partitions, binlog, TTL, ...)")
+        if any(kind not in ("ann", "key", "unique") for kind, _, _ in s.indexes):
+            raise NotPortedError("global indexes and rollups")
         fields = []
         vector_cols: dict[str, int] = {}
         for c in s.columns:
@@ -562,26 +731,47 @@ class Session:
                 continue
             fields.append(Field(c.name, parse_type(c.type_name),
                                 c.nullable and c.name not in s.primary_key))
+        options: dict = {}
+        if vector_cols:
+            options["vector_cols"] = vector_cols
+        auto_cols = [c for c in s.columns if c.auto_increment]
+        if auto_cols:
+            if len(auto_cols) > 1:
+                raise PlanError("only one AUTO_INCREMENT column allowed")
+            if not parse_type(auto_cols[0].type_name).is_integer:
+                raise PlanError("AUTO_INCREMENT requires an integer column")
+            options["auto_increment"] = auto_cols[0].name
         indexes = [IndexInfo("PRIMARY", "primary", list(s.primary_key))] \
             if s.primary_key else []
         for kind, name, cols in s.indexes:
-            if len(cols) != 1 or cols[0] not in vector_cols:
-                raise PlanError("ANN INDEX needs exactly one VECTOR column")
-            indexes.append(IndexInfo(name or f"ann_{cols[0]}", kind, cols))
+            if kind == "ann":
+                if len(cols) != 1 or cols[0] not in vector_cols:
+                    raise PlanError("ANN INDEX needs exactly one VECTOR column")
+                indexes.append(IndexInfo(name or f"ann_{cols[0]}", kind, cols))
+            else:
+                indexes.append(IndexInfo(name or f"idx_{'_'.join(cols)}", kind, cols))
         info = self.db.catalog.create_table(
-            db, s.table.name, Schema(tuple(fields)), indexes,
-            options={"vector_cols": vector_cols} if vector_cols else None,
+            db, s.table.name, Schema(tuple(fields)), indexes, options=options or None,
             if_not_exists=s.if_not_exists)
         key = f"{db}.{s.table.name}"
         if key not in self.db.stores:
-            self.db.stores[key] = TableStore(info, self.device)
+            self.db.stores[key] = self.db.make_store(info)
+        self.db.save_catalog()
         return Result()
 
     def _insert(self, s: InsertStmt) -> Result:
-        if s.select is not None or s.replace or s.on_dup:
-            raise NotPortedError("INSERT ... SELECT, REPLACE and ON DUPLICATE KEY")
         store = self._store(s.table)
         schema = store.info.schema
+        if s.select is not None:
+            t = self._select(s.select).arrow
+            t = t.rename_columns(s.columns or schema.names()[:t.num_columns])
+            if s.replace or s.on_dup:
+                return self._insert_upsert(store, s, t.to_pylist())
+            if t.num_rows <= HOT_INSERT_ROWS:
+                store.insert_rows(t.to_pylist(), self._tctx(store))
+            else:
+                store.insert_arrow(t, self._tctx(store), check_dups=True)
+            return Result(affected_rows=t.num_rows)
         vcols = (store.info.options or {}).get("vector_cols") or {}
         # positional VALUES address user-visible columns (vector columns by
         # their own names, components hidden)
@@ -591,12 +781,20 @@ class Session:
         rows = [dict(zip(cols, r)) for r in s.rows]
         if vcols:
             rows = [_expand_vector_row(r, vcols) for r in rows]
+        auto_col = (store.info.options or {}).get("auto_increment")
+        if auto_col:
+            missing = [i for i, r in enumerate(rows) if r.get(auto_col) is None]
+            if missing:
+                for i, v in zip(missing, store.next_auto_incr(auto_col, len(missing))):
+                    rows[i][auto_col] = v
         for r in rows:
             for f in schema.fields:
                 v = r.get(f.name)
                 if f.ltype.is_temporal and isinstance(v, str):
                     r[f.name] = _temporal_value(v, f.ltype)
-        store.insert_rows(rows)
+        if s.replace or s.on_dup:
+            return self._insert_upsert(store, s, rows)
+        store.insert_rows(rows, self._tctx(store))
         return Result(affected_rows=len(rows))
 
     def _user_columns(self, store: TableStore) -> list[str]:
@@ -613,23 +811,28 @@ class Session:
         return out
 
     def _alter_table(self, s: AlterTableStmt) -> Result:
-        """ALTER TABLE ... ADD ANN INDEX and DROP INDEX of an ANN index, as
-        the JAX session's ``_alter_index`` does them: the index is trained
-        lazily on its first ANN query (index/annindex), so there is no
-        backfill.  Every other form raises ``NotPortedError``."""
+        """ALTER TABLE ADD / DROP COLUMN (the store rewrites its regions; a
+        checkpoint boundary under ``data_dir``), ADD ANN INDEX and DROP
+        INDEX, as the JAX session does them: an ANN index is trained lazily
+        on its first ANN query (index/annindex), so there is no backfill.
+        Online ADD INDEX of other kinds, rollups and partitions raise
+        ``NotPortedError``."""
         db = s.table.database or self.current_db
         info = self.db.catalog.get_table(db, s.table.name)
+        if s.action in ("add_column", "drop_column"):
+            return self._alter_columns(s, info)
         if s.action == "drop_index":
             kept = [ix for ix in info.indexes
-                    if not (ix.name == s.index_name and ix.kind == "ann")]
+                    if not (ix.name == s.index_name and ix.kind in ("ann", "key", "unique"))]
             if len(kept) == len(info.indexes):
                 raise PlanError(f"unknown index {s.index_name!r}")
             info.indexes = kept
             info.version += 1
+            self.db.save_catalog()
             return Result()
         if s.action != "add_index" or s.index_kind != "ann":
-            raise NotPortedError(f"ALTER TABLE {s.action} (only ADD ANN INDEX and DROP "
-                                 "INDEX of an ANN index are ported)")
+            raise NotPortedError(f"ALTER TABLE {s.action} (online ADD INDEX, rollups and "
+                                 "partitions)")
         vcols = (info.options or {}).get("vector_cols") or {}
         if len(s.index_cols) != 1 or s.index_cols[0] not in vcols:
             raise PlanError("ANN INDEX needs exactly one VECTOR column")
@@ -638,12 +841,416 @@ class Session:
             raise PlanError(f"index {name!r} exists")
         info.indexes.append(IndexInfo(name, "ann", list(s.index_cols)))
         info.version += 1
+        self.db.save_catalog()
         return Result()
+
+    def _alter_columns(self, s: AlterTableStmt, info) -> Result:
+        fields = list(info.schema.fields)
+        store = self._store(s.table)
+        if s.action == "add_column":
+            if s.column.name in info.schema:
+                raise PlanError(f"column {s.column.name!r} exists")
+            if not s.column.nullable and store.num_rows:
+                raise PlanError("cannot ADD COLUMN ... NOT NULL to a non-empty "
+                                "table (existing rows would hold NULL)")
+            fields.append(Field(s.column.name, parse_type(s.column.type_name),
+                                s.column.nullable))
+        else:
+            if s.column_name not in info.schema:
+                raise PlanError(f"unknown column {s.column_name!r}")
+            if len(fields) == 1:
+                raise PlanError("cannot drop the last column")
+            fields = [f for f in fields if f.name != s.column_name]
+            info.indexes = [ix for ix in info.indexes if s.column_name not in ix.columns]
+        store.alter_schema(Schema(tuple(fields)))
+        self.db.save_catalog()
+        return Result()
+
+    # -- transactions ------------------------------------------------------
+    def _txn_stmt(self, s: TxnStmt) -> Result:
+        """BEGIN / COMMIT / ROLLBACK: each table the transaction touches gets
+        a storage TxnContext (writer lease, row locks, buffered row-tier
+        writes, region pre-images); COMMIT is one commit timestamp and one
+        WAL batch per table."""
+        if s.kind == "begin":
+            self._commit_txn()          # BEGIN commits an open transaction
+            self._sql_txn = {}
+            return Result()
+        if self._sql_txn is None:
+            return Result()             # COMMIT / ROLLBACK outside: no-op
+        if s.kind == "commit":
+            self._commit_txn()
+            return Result()
+        txn, self._sql_txn = self._sql_txn, None
+        for tctx in txn.values():
+            tctx.rollback()
+        return Result()
+
+    def _commit_txn(self) -> None:
+        if self._sql_txn is not None:
+            txn, self._sql_txn = self._sql_txn, None
+            commit_group(list(txn.values()))
+
+    def _tctx(self, store: TableStore):
+        """The open transaction's context for ``store`` (made at its first
+        touch), or None in autocommit."""
+        if self._sql_txn is None:
+            return None
+        key = f"{store.info.database}.{store.info.name}"
+        if key not in self._sql_txn:
+            self._sql_txn[key] = store.begin_txn()
+        return self._sql_txn[key]
+
+    # -- DML ---------------------------------------------------------------
+    def _insert_upsert(self, store: TableStore, s, rows: list[dict]) -> Result:
+        """REPLACE INTO (delete the conflicting keys, insert every row; MySQL
+        counts 2 per replaced row) and INSERT ... ON DUPLICATE KEY UPDATE
+        (insert the new keys, assign literals and VALUES(col) to the
+        conflicting rows; 2 per updated row).  Rows are taken in order: a key
+        may conflict with the table or with an earlier row of the
+        statement."""
+        if store._pk_cols is None:
+            raise PlanError("REPLACE / ON DUPLICATE KEY needs a PRIMARY KEY")
+        incoming = pa.table({f.name: [r.get(f.name) for r in rows]
+                             for f in store.arrow_schema}, schema=store.arrow_schema)
+        tctx = self._tctx(store)
+        with store._lock:
+            keys = store._encode_pk_table(incoming)
+            idx = store._ensure_pk_index()
+            dupset: set = set()
+            new_rows: list[dict] = []
+            dup_rows: list[tuple] = []
+            seen: set = set()
+            for k, r in zip(keys, rows):
+                if k in idx or k in seen:
+                    dup_rows.append((k, r))
+                    if k in idx:
+                        dupset.add(k)
+                else:
+                    new_rows.append(r)
+                seen.add(k)
+            batch_extras = len(rows) - len(seen)
+
+            def mask_over(keyset):
+                def pk_mask(t: pa.Table):
+                    return np.asarray([k in keyset for k in store._encode_pk_table(t)], bool)
+                return pk_mask
+
+            affected = 0
+            if s.replace:
+                if dupset:
+                    affected += store.delete_where(mask_over(dupset), tctx)
+                effective: dict = {}
+                for k, r in zip(keys, rows):
+                    effective[k] = r            # the last row of a key wins
+                store.insert_rows(list(effective.values()), tctx)
+                affected += len(rows) + batch_extras
+                return Result(affected_rows=affected)
+            if new_rows:
+                store.insert_rows(new_rows, tctx)
+                affected += len(new_rows)
+            if dup_rows:
+                mapping: dict = {}
+                for k, r in dup_rows:
+                    vals = {}
+                    for col, (kind, v) in s.on_dup:
+                        if col not in store.info.schema:
+                            raise PlanError(f"unknown column {col!r}")
+                        vals[col] = r.get(v) if kind == "values" else v
+                    mapping[k] = vals
+                assigned = sorted({c for c, _ in s.on_dup})
+
+                def assign_fn(t: pa.Table, mask):
+                    ks = store._encode_pk_table(t)
+                    out = t
+                    for col in assigned:
+                        f = store.arrow_schema.field(col)
+                        old = t.column(col).to_pylist()
+                        newv = [mapping.get(k, {}).get(col, old[i]) if m else old[i]
+                                for i, (k, m) in enumerate(zip(ks, np.asarray(mask)))]
+                        out = out.set_column(out.column_names.index(col), f,
+                                             pa.array(newv, f.type))
+                    return out
+
+                n = store.update_where(mask_over({k for k, _ in dup_rows}), assign_fn,
+                                       tctx, changed_cols=assigned)
+                affected += 2 * n
+        return Result(affected_rows=affected)
+
+    def _host_mask(self, store: TableStore, where):
+        """The WHERE of an UPDATE / DELETE as a host mask function, evaluated
+        by the session's own expression compiler over each region on the
+        session's device: one semantics for reads and writes.  Only the
+        columns WHERE reads are staged.  Each region's batch has its own
+        string dictionaries, and comparisons stay within it."""
+        pred = None if where is None else _qualify_free(where)
+
+        def fn(region_table: pa.Table):
+            if pred is None:
+                return np.ones(region_table.num_rows, dtype=bool)
+            b = _region_batch(region_table, [pred], self.device)
+            return eval_predicate(pred, b).cpu().numpy()
+        return fn
+
+    def _pk_mask_fn(self, store: TableStore, key: dict):
+        """Host mask of a full primary-key equality: pyarrow compute only, no
+        device work.  A literal that does not cast exactly to the key's type
+        (``id = 2.5``) raises here and the compiled predicate takes over."""
+        sch = store.arrow_schema
+        scalars = {col: pa.scalar(v).cast(sch.field(col).type) for col, v in key.items()}
+        for col, v in key.items():
+            if scalars[col].as_py() != v:
+                raise ValueError("lossy literal cast")
+
+        def fn(region_table: pa.Table):
+            m = None
+            for col, sc in scalars.items():
+                c = pc.equal(region_table.column(col), sc)
+                m = c if m is None else pc.and_(m, c)
+            return np.asarray(pc.fill_null(m, False))
+        return fn
+
+    def _point_write_mask(self, store: TableStore, where):
+        """The host primary-key mask when WHERE fixes the whole key by
+        equality; None otherwise (the compiled predicate)."""
+        if store._pk_cols is None or where is None:
+            return None
+        try:
+            key = point_key(SelectStmt(items=[], where=where), store._pk_cols)
+            return None if key is None else self._pk_mask_fn(store, key)
+        except Exception:       # noqa: BLE001 — an odd literal: compiled path
+            return None
+
+    def _update(self, s: UpdateStmt) -> Result:
+        store = self._store(s.table)
+        schema = store.info.schema
+        arrow_schema = store.arrow_schema
+        assigns = s.assignments
+        for name, _ in assigns:
+            if name not in schema:
+                raise PlanError(f"unknown column {name!r}")
+
+        def assign_fn(region_table: pa.Table, mask: np.ndarray) -> pa.Table:
+            # a columnar merge over the WHERE mask: each assignment evaluates
+            # over the region on the device, then if_else into the column
+            b = _region_batch(region_table, [_qualify_free(e) for _, e in assigns],
+                              self.device)
+            out = region_table
+            n = region_table.num_rows
+            cond = pa.array(np.asarray(mask, bool))
+            for name, e in assigns:
+                c = eval_output(_qualify_free(e), b)
+                data, valid = c.to_numpy()
+                f = arrow_schema.field(name)
+                if np.ndim(data) == 0:
+                    data = np.broadcast_to(data, (n,))
+                if c.ltype is LType.STRING and c.dictionary is not None:
+                    vals = c.dictionary.decode(np.asarray(data, np.int32))
+                else:
+                    vals = np.asarray(data)
+                if valid is None:
+                    nulls = None
+                else:
+                    v = np.asarray(valid, bool)
+                    nulls = ~(np.broadcast_to(v, (n,)) if v.ndim == 0 else v)
+                new_arr = pa.array(vals, mask=nulls)
+                if new_arr.type != f.type:
+                    new_arr = new_arr.cast(f.type)
+                merged = pc.if_else(cond, new_arr, out.column(name))
+                out = out.set_column(out.column_names.index(name), f, merged)
+            return out
+
+        mask_fn = self._point_write_mask(store, s.where)
+        if mask_fn is not None:
+            # a point update evaluates the assignments over its one row and
+            # the columns they read, then merges the values into the region
+            needed = {store._pk_cols[0]}
+            for name, e in assigns:
+                needed.add(name)
+                stack = [_qualify_free(e)]
+                while stack:
+                    x = stack.pop()
+                    if isinstance(x, ColRef):
+                        needed.add(x.name.split(".")[-1])
+                    stack.extend(getattr(x, "args", ()) or ())
+            full_assign = assign_fn
+
+            def assign_fn(region_table, mask, _full=full_assign):
+                cond = pa.array(np.asarray(mask, bool))
+                rows = region_table.filter(cond)
+                if rows.num_rows != 1:
+                    return _full(region_table, np.asarray(mask, bool))
+                rows = rows.select([c for c in region_table.column_names if c in needed])
+                try:
+                    small = _full(rows, np.ones(1, dtype=bool))
+                except Exception:   # noqa: BLE001 — a 1-row slice's odd shape
+                    return _full(region_table, np.asarray(mask, bool))
+                out = region_table
+                for name, _ in assigns:
+                    merged = pc.if_else(cond, small.column(name)[0], out.column(name))
+                    out = out.set_column(out.column_names.index(name),
+                                         arrow_schema.field(name), merged)
+                return out
+        else:
+            mask_fn = self._host_mask(store, s.where)
+        n = store.update_where(mask_fn, assign_fn, self._tctx(store),
+                               changed_cols=[name for name, _ in assigns])
+        return Result(affected_rows=n)
+
+    def _delete(self, s: DeleteStmt) -> Result:
+        store = self._store(s.table)
+        mask_fn = self._point_write_mask(store, s.where) or self._host_mask(store, s.where)
+        return Result(affected_rows=store.delete_where(mask_fn, self._tctx(store)))
+
+    # -- snapshots ---------------------------------------------------------
+    def _set_snapshot(self, value) -> None:
+        """SET SNAPSHOT = 'now' | <ts> | 0 / '' / OFF: pin (or release) this
+        session's read timestamp.  Every later SELECT sees the state
+        committed at the pin; the pin holds the GC watermark until released
+        or older than ``snapshot_max_age_s``.  A refused pin raises."""
+        raw = "" if value is None else str(value).strip()
+        if raw.lower() in ("", "0", "off", "none"):
+            if self._snapshot is not None:
+                self.db.mvcc.snapshots.unpin(self._snapshot[0])
+                self._snapshot = None
+            return
+        if not bool(FLAGS.mvcc):
+            raise SqlError("SET SNAPSHOT requires mvcc=1")
+        if raw.lower() == "now":
+            ts = self.db.mvcc.now_ts()
+        else:
+            try:
+                ts = int(raw)
+            except ValueError:
+                raise SqlError(f"SET SNAPSHOT expects 'now', a timestamp, or 0/OFF "
+                               f"(got {raw!r})") from None
+        try:
+            with trace.span("snapshot.pin", ts=ts, explicit=True):
+                pid = self.db.mvcc.snapshots.pin(ts, query="SET SNAPSHOT", holder=self.user)
+        except SnapshotRefused as e:
+            raise SqlError(str(e)) from None
+        if self._snapshot is not None:
+            self.db.mvcc.snapshots.unpin(self._snapshot[0])
+        self._snapshot = (pid, ts)
+
+    @contextmanager
+    def _snapshot_pinned(self, stmt: SelectStmt):
+        """This SELECT's snapshot scope: ``_snap_ts`` holds its read
+        timestamp while it runs, and an automatic pin is released after."""
+        pin = self._snapshot_scope(stmt)
+        if pin is None:
+            yield
+            return
+        pid, ts = pin
+        prev = self._snap_ts
+        self._snap_ts = ts
+        try:
+            yield
+        finally:
+            self._snap_ts = prev
+            if pid is not None:
+                self.db.mvcc.snapshots.unpin(pid)
+
+    def _snapshot_scope(self, stmt: SelectStmt):
+        """(pin id | None, ts) for this SELECT, or None to read unpinned.  An
+        explicit SET SNAPSHOT applies (and stays pinned); otherwise an
+        analytical statement (GROUP BY or an aggregate) pins a fresh ts for
+        its own run, outside transactions and off the mesh, as in the JAX
+        session.  A refused automatic pin degrades to an unpinned read."""
+        if not bool(FLAGS.mvcc) or self._snap_ts:
+            return None         # off, or a nested SELECT inheriting its scope
+        if self._snapshot is not None:
+            return (None, self._snapshot[1])
+        if self._sql_txn is not None or self.mesh is not None:
+            return None
+        if not (stmt.group_by or any(isinstance(it.expr, AggCall) for it in stmt.items)):
+            return None
+        ts = self.db.mvcc.now_ts()
+        try:
+            with trace.span("snapshot.pin", ts=ts, explicit=False):
+                pid = self.db.mvcc.snapshots.pin(ts, query="auto", holder=self.user)
+        except SnapshotRefused:
+            metrics.count_swallowed("snapshot.autopin")
+            return None
+        return (pid, ts)
+
+    def _snap_dirty(self, stmt) -> bool:
+        """Does the pinned snapshot differ from the live image of this
+        statement's table?  A quiet table keeps its fast paths (egress, the
+        point read): its live image is the snapshot's state."""
+        if not self._snap_ts:
+            return False
+        t = stmt.table
+        if t is None or stmt.joins:
+            return True
+        store = self.db.stores.get(f"{t.database or self.current_db}.{t.name}")
+        return store is not None and store.mvcc_needs_versioned(self._snap_ts)
+
+    def _snapshot_batch(self, table_key: str, store) -> Optional[ColumnBatch]:
+        """The versioned batch of ``table_key`` at the pinned ``_snap_ts``
+        (TableStore.versioned_batch), or None when the live image equals the
+        snapshot.  Records a ``snapshot`` trace event with the history
+        versions it scanned and the GC watermark."""
+        snap = self._snap_ts
+        with trace.span("mvcc.visibility", table=table_key, ts=snap):
+            got = store.versioned_batch(snap)
+            wm = self.db.mvcc.snapshots.watermark(self.db.mvcc.tso.last_ts())
+            trace.event("snapshot", ts=snap, table=table_key,
+                        versions_scanned=0 if got is None else got[1], gc_watermark=wm)
+            return None if got is None else got[0]
+
+    def _try_point_lookup(self, stmt: SelectStmt) -> Optional[Result]:
+        """WHERE fixes the whole primary key by equality and the statement
+        is a plain row fetch: answer from the host's primary-key index, no
+        device work (the OLTP read)."""
+        if not is_point_statement(stmt) or stmt.offset or stmt.limit == 0:
+            return None
+        t = stmt.table
+        if t.subquery is not None:
+            return None
+        store = self.db.stores.get(f"{t.database or self.current_db}.{t.name}")
+        if store is None or store._pk_cols is None or \
+                (store.info.options or {}).get("vector_cols"):
+            return None
+        pk = point_key(stmt, store._pk_cols)
+        if pk is None:
+            return None
+        names, cols_of = [], []
+        for it in stmt.items:
+            if it.expr is None:
+                names.extend(f.name for f in store.info.schema.fields)
+                cols_of.extend(f.name for f in store.info.schema.fields)
+            elif isinstance(it.expr, ColRef):
+                cname = it.expr.name.split(".")[-1]
+                if cname not in store.info.schema:
+                    return None
+                names.append(it.alias or cname)
+                cols_of.append(cname)
+            else:
+                return None
+        if len(set(names)) != len(names):
+            return None     # duplicate names keep the device path's renames
+        try:
+            row = store.point_lookup(pk)
+        except Exception:   # noqa: BLE001 — any host-index hiccup: full path
+            return None
+        metrics.point_lookups.add(1)
+        sch = schema_to_arrow(store.info.schema)
+        arrays = [pa.array([] if row is None else [row.get(c)], sch.field(c).type)
+                  for c in cols_of]
+        return Result(columns=names, arrow=pa.Table.from_arrays(arrays, names=names))
 
     # -- SELECT -----------------------------------------------------------
     def _stats_fn(self, table_key: str, col: str):
         st = self.db.stores.get(table_key)
-        return None if st is None else st.column_stats(col)
+        if st is None:
+            return None
+        if self._snap_ts and self.mesh is None:
+            # under a pin the planner sizes its dense domains from the
+            # versioned batch, which this stages on first use
+            with trace.span("mvcc.visibility", table=table_key, ts=self._snap_ts):
+                return st.snapshot_stats(col, self._snap_ts)
+        return st.column_stats(col)
 
     def _plan_select(self, stmt: SelectStmt) -> PlanNode:
         """Logical + physical planning, plus the distribution pass (the
@@ -764,9 +1371,22 @@ class Session:
                             stmt.where is not None)
 
     def _select(self, stmt: SelectStmt) -> Result:
+        """The SELECT inside its snapshot scope (``_snapshot_pinned``): every
+        batch staged underneath reads ``_snap_ts``."""
+        with self._snapshot_pinned(stmt):
+            return self._select_impl(stmt)
+
+    def _select_impl(self, stmt: SelectStmt) -> Result:
         if stmt.into_outfile is not None:
             return self._select_into_outfile(stmt)
-        eg = egress.extract(stmt, self)
+        # a pinned read of a table written past the pin takes the versioned
+        # batch: egress and the point read read the live image
+        dirty = self._snap_dirty(stmt)
+        eg = None if dirty else egress.extract(stmt, self)
+        if eg is None and not dirty:
+            point = self._try_point_lookup(stmt)
+            if point is not None:
+                return point
         if eg is not None:
             # the rewritten statement runs on the device; the string
             # skeletons evaluate on the host over its rows
@@ -831,19 +1451,36 @@ class Session:
 
     def _collect_batches(self, plan: PlanNode) -> dict:
         batches: dict = {}
+        scans: dict = {}
+
+        def count(n: PlanNode):
+            if isinstance(n, ScanNode):
+                scans[n.table_key] = scans.get(n.table_key, 0) + 1
+            for c in n.children:
+                count(c)
+        count(plan)
 
         def walk(n: PlanNode):
             if isinstance(n, ScanNode) and n.table_key not in batches:
                 db, name = n.table_key.split(".", 1)
                 store = self._store(TableRef(db, name))
                 if self.mesh is not None:
-                    # the mesh reads whole sharded tables: no streamed or
-                    # ANN batches, as in the JAX session
+                    # the mesh reads whole sharded tables: no pinned, access-
+                    # path, streamed or ANN batches, as in the JAX session
                     batches[n.table_key] = store.sharded_batch(self.mesh)
                 else:
-                    # an ANN-marked scan reads its IVF candidates; a
-                    # streamed plan has this one scan (streaming.eligible)
-                    b = self._ann_batch(n, store) if n.ann is not None else None
+                    # a pinned read of a table written past the pin stages
+                    # its versioned batch (never a chunk set or an index
+                    # gather of the live image); a quiet table declines and
+                    # keeps every path below.  A table scanned once may take
+                    # its ANN candidates or an access path; a streamed plan
+                    # has this one scan (streaming.eligible)
+                    b = self._snapshot_batch(n.table_key, store) if self._snap_ts else None
+                    if b is None and scans[n.table_key] == 1:
+                        if n.ann is not None:
+                            b = self._ann_batch(n, store)
+                        if b is None:
+                            b = self._access_path_batch(n, store)
                     if b is None:
                         b = self._maybe_stream_source(plan, n, store)
                     batches[n.table_key] = b if b is not None \
@@ -853,6 +1490,77 @@ class Session:
 
         walk(plan)
         return batches
+
+    _ACCESS_CACHE_MAX = 16
+
+    def _access_path_batch(self, n: ScanNode, store) -> Optional[ColumnBatch]:
+        """The scan's input by its access path (index/selector.choose_access):
+        a selective KEY equality gathers its rows on the host, zone maps drop
+        whole regions; None is the full scan.  The device filter still runs,
+        so each is a conservative superset of the rows."""
+        if n.pushed_filter is None:
+            return None
+        try:
+            access = choose_access(store.info, store, analyze_conjuncts(n.pushed_filter))
+        except Exception:       # noqa: BLE001 — an odd predicate: full scan
+            return None
+        if access[0] == "secondary":
+            _, ix_name, col, value = access
+            n.access_desc = f"index({ix_name}:{col})"
+            ck = (n.table_key, store.version, "sec", col, value)
+            build = lambda: store.secondary_scan(col, value)     # noqa: E731
+        elif access[0] == "zonemap":
+            keep, total = store.prune_regions(access[1])
+            if len(keep) == total:
+                n.access_desc = "full"
+                return None
+            n.access_desc = f"zonemap({total - len(keep)}/{total} regions pruned)"
+            metrics.regions_pruned.add(total - len(keep))
+            ck = (n.table_key, store.version, "zone", tuple(keep))
+            build = lambda: store.regions_table(keep)            # noqa: E731
+        else:
+            n.access_desc = "full"
+            return None
+        b = self._access_batches.get(ck)
+        if b is None:
+            b = ColumnBatch.from_arrow(build(), self.device)
+            # older versions of this table go, and the cache stays bounded
+            self._access_batches = {k: v for k, v in self._access_batches.items()
+                                    if not (k[0] == n.table_key and k[1] != store.version)}
+            while len(self._access_batches) >= self._ACCESS_CACHE_MAX:
+                self._access_batches.pop(next(iter(self._access_batches)))
+            self._access_batches[ck] = b
+        metrics.index_scans.add(1)
+        return b
+
+    def _annotate_access(self, plan: PlanNode) -> PlanNode:
+        """EXPLAIN display of each scan's access path, chosen as the batch
+        builders choose it but without building batches."""
+        def walk(n):
+            if isinstance(n, ScanNode) and n.ann is not None:
+                n.access_desc = f"ann({n.ann[0]} nprobe={int(FLAGS.ann_nprobe)})"
+                return
+            if isinstance(n, ScanNode) and "." in n.table_key:
+                store = self.db.stores.get(n.table_key)
+                if store is not None and not n.table_key.startswith("information_schema."):
+                    try:
+                        access = choose_access(store.info, store,
+                                               analyze_conjuncts(n.pushed_filter))
+                        if access[0] == "secondary":
+                            n.access_desc = f"index({access[1]}:{access[2]})"
+                        elif access[0] == "zonemap":
+                            keep, total = store.prune_regions(access[1])
+                            n.access_desc = ("full" if len(keep) == total else
+                                             f"zonemap({total - len(keep)}/{total} "
+                                             "regions pruned)")
+                        else:
+                            n.access_desc = "full"
+                    except Exception:   # noqa: BLE001 — the display is best-effort
+                        metrics.count_swallowed("session.annotate_access")
+            for c in n.children:
+                walk(c)
+        walk(plan)
+        return plan
 
     def _mpp_telemetry(self, plan: PlanNode, exchanges: list) -> None:
         """Exchange observability of one mesh execution: the
@@ -932,7 +1640,7 @@ class Session:
         literals.  A failure of the host encode falls back to the resident
         path, counted in ``swallowed.session.stream_stage``; nothing past
         the encode is caught."""
-        if not bool(FLAGS.streaming_scan):
+        if not bool(FLAGS.streaming_scan) or self._sql_txn is not None:
             return None
         if store.num_rows < int(FLAGS.streaming_min_rows):
             return None
@@ -949,14 +1657,29 @@ class Session:
         return ChunkSource(cs, keep)
 
 
-def _annotate_access(plan: PlanNode) -> PlanNode:
-    """EXPLAIN display of an ANN-marked scan's access path, without
-    building batches (the JAX session's ``_annotate_access`` line)."""
-    if isinstance(plan, ScanNode) and plan.ann is not None:
-        plan.access_desc = f"ann({plan.ann[0]} nprobe={int(FLAGS.ann_nprobe)})"
-    for c in plan.children:
-        _annotate_access(c)
-    return plan
+def _region_batch(region_table: pa.Table, exprs: list, device) -> ColumnBatch:
+    """A region's rows on ``device``, with only the columns ``exprs`` read
+    (one at least, so the batch keeps the region's length)."""
+    names = set()
+    stack = list(exprs)
+    while stack:
+        x = stack.pop()
+        if isinstance(x, ColRef):
+            names.add(x.name.split(".")[-1])
+        stack.extend(getattr(x, "args", ()) or ())
+    cols = [c for c in region_table.column_names if c in names] or region_table.column_names[:1]
+    return ColumnBatch.from_arrow(region_table.select(cols), device)
+
+
+def _qualify_free(e):
+    """Strip table qualifiers: region batches carry plain column names."""
+    if isinstance(e, ColRef):
+        return ColRef(e.name)
+    if isinstance(e, AggCall):
+        raise PlanError("aggregates not allowed in UPDATE/DELETE")
+    if isinstance(e, Call):
+        return Call(e.op, tuple(_qualify_free(a) for a in e.args))
+    return e
 
 
 def _resolve_session_exprs(stmt: SelectStmt, conn_id: int) -> SelectStmt:

@@ -1,13 +1,25 @@
-"""Scan predicates for access-path choices: the part of
-``baikaldb_tpu/index/selector.py`` the streamed scan needs.
+"""IndexSelector: each scan's access path from its predicates.
 
-``analyze_conjuncts`` walks a scan's pushed filter and collects, per
-column, the closed ``[lo, hi]`` interval its col-vs-literal comparisons
-allow.  The streamed scan (exec/session.py ``_maybe_stream_source``) holds
-each chunk's zone maps against those intervals and skips the chunks no row
-of which can pass.  The device filter still runs, so the intervals only
-need to be conservative supersets.  The rest of the selector (point,
-secondary and zone-map region access paths) is not ported.
+The port of ``baikaldb_tpu/index/selector.py`` without global indexes and
+partitions.  A full device scan is the baseline, so the choice is about what
+not to stage on the device:
+
+- **point**: WHERE fixes every primary-key column by equality and the
+  statement is a plain row fetch -> the host answers from the primary-key
+  index, no device work (``is_point_statement`` + ``point_key``).
+- **secondary**: an equality on a declared KEY column -> the host gathers
+  the matching rows and only they are staged; chosen when the estimated
+  match fraction is small.
+- **zonemap**: range / equality predicates on numeric and temporal columns
+  drop whole regions by their min/max before staging.
+- **full**: everything else.
+
+``analyze_conjuncts`` collects, per column, the closed ``[lo, hi]`` interval
+a scan's col-vs-literal comparisons allow (``BETWEEN`` is not read, as in the
+JAX package); region zone maps and the streamed scan's chunk zone maps are
+held against it.  The device filter still runs, so every path only needs a
+conservative superset of the rows.  EXPLAIN shows the choice
+(``access=...``), as in the JAX package.
 """
 
 from __future__ import annotations
@@ -15,7 +27,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Optional
 
-from ..expr.ast import Call, ColRef, Expr, Lit
+from ..expr.ast import AggCall, Call, ColRef, Expr, Lit, Subquery
 
 # predicates usable for zone-map pruning (each bounds a closed [lo, hi])
 _RANGE_OPS = {"eq", "lt", "le", "gt", "ge"}
@@ -79,3 +91,74 @@ def analyze_conjuncts(e: Optional[Expr]) -> ScanPredicates:
 
     visit(e)
     return sp
+
+
+def is_point_statement(stmt) -> bool:
+    """A statement shape the host row tier can answer directly."""
+    if (stmt.joins or stmt.ctes or stmt.union or stmt.distinct
+            or stmt.group_by or stmt.having or stmt.table is None):
+        return False
+    for it in stmt.items:
+        if it.expr is not None and _has_special(it.expr):
+            return False
+    return stmt.where is not None and not _has_special(stmt.where)
+
+
+def _has_special(e) -> bool:
+    """Aggregates, window calls and subqueries block the host fast path."""
+    if isinstance(e, (AggCall, Subquery)) or type(e).__name__ == "WindowCall":
+        return True
+    return any(_has_special(a) for a in getattr(e, "args", ()))
+
+
+def point_key(stmt, pk_cols: list[str]) -> Optional[dict]:
+    """The key values when WHERE is exactly a primary-key equality
+    conjunction (every conjunct ``pk_col = literal``, every key column
+    fixed, duplicates consistent); None for any residual term."""
+    terms: list = []
+    if not _collect_eq_terms(stmt.where, terms):
+        return None
+    key: dict = {}
+    for col, v in terms:
+        if col not in pk_cols:
+            return None
+        if col in key and key[col] != v:
+            return None          # id = 7 AND id = 8: a contradiction
+        key[col] = v
+    return key if set(key) == set(pk_cols) else None
+
+
+def _collect_eq_terms(e, out: list) -> bool:
+    """Flatten an AND-tree of col = literal terms; False on any other shape."""
+    if isinstance(e, Call) and e.op == "and":
+        return all(_collect_eq_terms(a, out) for a in e.args)
+    if isinstance(e, Call) and e.op == "eq" and len(e.args) == 2:
+        a, b = e.args
+        if isinstance(b, ColRef) and isinstance(a, Lit):
+            a, b = b, a
+        if isinstance(a, ColRef) and isinstance(b, Lit):
+            out.append((_strip(a.name), b.value))
+            return True
+    return False
+
+
+def choose_access(info, store, pred: ScanPredicates,
+                  secondary_max_fraction: float = 0.2):
+    """-> ("secondary", index_name, col, value) | ("zonemap", ranges) |
+    ("full",).  Point reads are decided per statement, not here."""
+    for ix in info.indexes:
+        if ix.kind not in ("key", "unique"):
+            continue
+        if ix.params.get("state", "public") != "public":
+            continue
+        col = ix.columns[0]
+        if col in pred.eq:
+            n = max(store.num_rows, 1)
+            matches = store.secondary_count(col, pred.eq[col])
+            if matches is not None and matches / n <= secondary_max_fraction:
+                return ("secondary", ix.name, col, pred.eq[col])
+    prunable = {c: r for c, r in pred.ranges.items()
+                if store.zone_map_column(c) is not None}
+    if prunable:
+        return ("zonemap", prunable)
+    return ("full",)

@@ -1,32 +1,68 @@
-"""Minimal column store: one table's Arrow data plus its device image.
+"""Columnar table storage: regions of Arrow rows, their device image, and the
+MVCC row tier behind them for durability and transactions.
 
-The port of the parts of ``baikaldb_tpu/storage/column_store.py`` that a
-SELECT needs.  A :class:`TableStore` holds the table's rows as one Arrow
-table on the host, stages one device batch per table version on its device
-(table-wide string dictionaries), and serves the host column statistics
-that the planner reads: ``min``/``max``/``dict_size`` for the dense
-group-by and dense-join choices, and the histogram/MCV/ndv payload of
-index/stats for selectivity and join ordering.  ``_zone_scalar`` canonicalizes
-zone-map bounds for the streamed scan's chunk pruning
-(storage/streamchunks.py).  Regions, WAL, MVCC, partitions, secondary
-indexes and the cold tier's segments are not ported.
+The port of ``baikaldb_tpu/storage/column_store.py`` without the replicated
+and remote tiers, partitions, global indexes, the binlog and the cold tier's
+segments (ROADMAP.md lists them).
+
+- **Regions**: the table's rows, cut by row count into regions of at most
+  ``region_rows`` rows (``DEFAULT_REGION_ROWS`` = 2^20).  Each region holds
+  an Arrow table, the rows' hidden ``__rowid``s and their MVCC commit stamps
+  (storage/mvcc.py).  Every query reads the device image of the current
+  version: one batch with table-wide string dictionaries, staged on the
+  store's device and cached per version (a write re-stages it at the next
+  read), its row-sharded copy for the mesh, and the host column statistics
+  the planner reads.
+- **Row tier**: every SQL write also goes to the native MVCC row engine
+  (storage/rowstore.py) keyed by ``__rowid``; with a WAL attached
+  (``Database(data_dir=...)``) committed DML is durable, and on restart the
+  WAL replays over the last Parquet checkpoint.  ``insert_arrow`` (bulk
+  load) lands in the regions only and is durable at the next checkpoint.
+- **Transactions**: a ``TxnContext`` holds the table's writer lease, row
+  locks and buffered row-tier writes, and region pre-image references
+  (Arrow tables and the stamp arrays are never mutated in place, so capture
+  copies nothing); rollback restores them.  ``commit_group`` commits several
+  tables under one commit timestamp.
+- **Access paths**: per-region zone maps (``prune_regions``), the primary
+  key index (``point_lookup``, ``lookup_by_pks``) and sorted secondary orders
+  (``secondary_scan``), which index/selector.py chooses among.
+- **Snapshots**: ``versioned_batch`` is the device batch of a pinned read:
+  the live image and the history versions alive at the snapshot, with
+  ``visibility_mask`` ANDed into ``sel`` on the device.
+
+``_zone_scalar`` canonicalizes zone-map bounds for region pruning and the
+streamed scan's chunk pruning (storage/streamchunks.py).
+
+Lock order (the JAX package's ranks): a table's lock (rank 10) comes first;
+under it a commit takes the snapshot registry's (12) and the TSO client's
+(15).
 """
 
 from __future__ import annotations
 
 import datetime
+import os
 import threading
+from dataclasses import replace
+from typing import Optional
 
 import numpy as np
 import pyarrow as pa
 import pyarrow.compute as pc
+import pyarrow.parquet as pq
 import torch
 
-from ..column.batch import ColumnBatch
+from ..column.batch import ColumnBatch, concat_batches
+from ..column.dictionary import NULL_CODE, Dictionary
 from ..index.stats import collect
 from ..meta.catalog import TableInfo
-from ..types import LType, Schema
+from ..types import Field, LType, Schema
 from ..utils.flags import FLAGS
+from . import mvcc as mv
+from .rowstore import ConflictError, KeyCodec, RowTable, Txn
+
+DEFAULT_REGION_ROWS = 1 << 20  # split threshold on the row axis
+ROWID = "__rowid"              # hidden parquet column carrying row identity
 
 
 def schema_to_arrow(schema: Schema) -> pa.Schema:
@@ -59,7 +95,7 @@ def _zone_scalar(x, ltype):
     """Normalize a zone-map bound or predicate literal to one comparable
     number in the COLUMN's unit (DATE: epoch days; DATETIME/TIMESTAMP: epoch
     seconds; numerics: as-is).  None = unbounded/incomparable — pruning
-    treats it as 'keep the chunk'.  The JAX store's function of the same
+    treats it as 'keep the region'.  The JAX store's function of the same
     name, copied."""
     if x is None:
         return None
@@ -88,63 +124,419 @@ def _zone_scalar(x, ltype):
     return None
 
 
-class TableStore:
-    """Host rows + the device batch of the current version."""
+class Region:
+    """One row-range shard of a table: its rows, their rowids and their
+    MVCC commit stamps (int64, aligned with the rows; 0 = visible to every
+    snapshot).  The arrays are replaced, never written in place, so a
+    transaction's pre-image is a set of references."""
 
-    def __init__(self, info: TableInfo, device: torch.device):
-        self.info = info
-        self.device = device
-        self.arrow_schema = schema_to_arrow(info.schema)
-        self._data = self.arrow_schema.empty_table()
-        self._mutations = 0
-        self._lock = threading.Lock()
-        self._device_batch = None        # (version, ColumnBatch)
-        self._sharded = None             # (version, Mesh, ShardedBatch)
-        self._stats: tuple = (-1, {})    # (version, {column: stats})
+    __slots__ = ("region_id", "data", "rowids", "_cts", "_cts_max", "version")
+
+    def __init__(self, region_id: int, data: pa.Table, rowids=None, cts=None):
+        n = data.num_rows
+        self.region_id = region_id
+        self.data = data
+        self.rowids = np.zeros(n, np.int64) if rowids is None else rowids
+        self.cts = np.zeros(n, np.int64) if cts is None else cts
+        self.version = 1
 
     @property
     def num_rows(self) -> int:
-        return self._data.num_rows
+        return self.data.num_rows
 
     @property
+    def cts(self) -> np.ndarray:
+        return self._cts
+
+    @cts.setter
+    def cts(self, v: np.ndarray) -> None:
+        self._cts = v
+        self._cts_max = None
+
+    def cts_max(self) -> int:
+        """The newest stamp in the region (PENDING while a transaction's rows
+        are in it), cached until the stamps are replaced."""
+        if self._cts_max is None:
+            self._cts_max = int(self._cts.max()) if len(self._cts) else 0
+        return self._cts_max
+
+
+class TxnContext:
+    """One table's open-transaction state: the writer lease, buffered
+    row-tier writes with row locks (rowstore.Txn), and the region pre-image
+    references plus the MVCC history length for rollback."""
+
+    def __init__(self, store: "TableStore"):
+        self.store = store
+        self.row_txn: Txn = store.row_table.begin()
+        self._snap = None
+        self._mvcc_pre = None
+
+    def _capture(self):
+        """Called by the store (under its lock) before the first mutation."""
+        if self._snap is None:
+            st = self.store
+            self._snap = (list(st.regions),
+                          [(r, r.data, r.rowids, r.cts, r.version) for r in st.regions])
+            self._mvcc_pre = st._mvcc.capture()
+
+    def commit(self, commit_ts: int | None = None):
+        """``commit_ts``: the decide-time MVCC stamp (commit_group passes one
+        for the whole transaction); None allocates one for this table."""
+        try:
+            if self.store.wal_path is not None:
+                self.row_txn.commit()   # one atomic WAL batch + flush
+            else:
+                # non-durable store: nothing reads the buffered rows; the
+                # row locks are released
+                self.row_txn.rollback()
+            self._stamp_commit(commit_ts)
+        finally:
+            # the lease goes even on a failed WAL write, or every later
+            # statement on this table would conflict
+            self.store._end_txn(self)
+
+    def _stamp_commit(self, commit_ts: int | None = None):
+        """Replace this transaction's PENDING stamps with the decide-time
+        commit_ts, after the write is durable and before the lease goes."""
+        if not FLAGS.mvcc:
+            return
+        st = self.store
+        with st._lock:
+            if commit_ts is None:
+                commit_ts = st._mvcc_ts()
+            st._mvcc.restamp_pending(st.regions, int(commit_ts))
+            st._mvcc_maybe_gc(int(commit_ts))
+
+    def _restore_preimage(self):
+        st = self.store
+        with st._lock:
+            if self._snap is not None:
+                regions, states = self._snap
+                st.regions = list(regions)
+                for r, data, rowids, cts, version in states:
+                    r.data = data
+                    r.rowids = rowids
+                    r.cts = cts
+                    # versions stay monotonic: a stale cache never aliases
+                    # a rolled-back state
+                    r.version = max(r.version, version) + 1
+                st._bump()
+                st._pk_stale = True
+                st._distinct = {}
+            if self._mvcc_pre is not None:
+                st._mvcc.restore(self._mvcc_pre)
+
+    def rollback(self):
+        self.row_txn.rollback()
+        self._restore_preimage()
+        self.store._end_txn(self)
+
+
+def commit_group(tctxs: list[TxnContext]) -> None:
+    """Commit several tables' buffered writes as one transaction: one
+    decide-time commit timestamp for all of them, so a snapshot sees all of
+    the transaction or none of it."""
+    commit_ts = None
+    if FLAGS.mvcc and tctxs:
+        commit_ts = tctxs[0].store._mvcc_ts()
+    for t in tctxs:
+        t.commit(commit_ts=commit_ts)
+
+
+class TableStore:
+    """All regions of one table, their device image, and DML on the host
+    tier mirrored into the row tier."""
+
+    RANK = 10   # the table lock is taken first on the write path
+
+    def __init__(self, info: TableInfo, device: torch.device,
+                 region_rows: int = DEFAULT_REGION_ROWS, wal_path: str | None = None):
+        self.info = info
+        self.device = device
+        self.region_rows = region_rows
+        self.arrow_schema = schema_to_arrow(info.schema)
+        self._lock = threading.RLock()
+        self._mutations = 0
+        self._next_region = 1
+        self._next_rowid = 1
+        self.regions: list[Region] = [Region(self._alloc_region_id(),
+                                             self.arrow_schema.empty_table())]
+        self.wal_path = None
+        self.durable_dir: Optional[str] = None   # Parquet checkpoint home
+        self._writer: Optional[TxnContext] = None
+        self._auto_incr: Optional[int] = None
+        # MVCC (storage/mvcc.py): the history beside the regions; the TSO
+        # client and pin registry are the Database's (attach_mvcc), or a
+        # process-local oracle made at first stamp
+        self._mvcc = mv.MvccState()
+        self._tso = None
+        self._snap_reg = None
+        self._build_row_tier(None)
+        pk = info.primary_key()
+        self._pk_cols = list(pk.columns) if pk else None
+        self._pk_codec = KeyCodec(info.schema, self._pk_cols) if pk else None
+        self._pk_index: Optional[dict] = None
+        self._pk_stale = True
+        # caches, each keyed on the version (or freed when it moves)
+        self._device_batch = None        # (version, ColumnBatch)
+        self._sharded = None             # (version, Mesh, ShardedBatch)
+        self._versioned = None           # ((version, epoch, snap), (batch, n))
+        self._stream_chunks = None
+        self._stats: tuple = (-1, {})    # (version, {column: stats})
+        self._distinct: dict = {}        # string column -> {value: count}
+        self._zones: tuple = (-1, {})
+        self._sec: tuple = (-1, {})
+        if wal_path:
+            self.attach_wal(wal_path)
+
+    # -- version ----------------------------------------------------------
+    @property
     def version(self) -> int:
-        """Monotonic mutation counter: device image and stats key on it."""
+        """Monotonic mutation counter: device images, statistics, zone maps
+        and chunk sets key on it.  Not derived from region versions: a
+        rollback rebuilds regions, and a derived version could revisit an
+        old value."""
         return self._mutations
 
+    def _bump(self) -> None:
+        """A mutation (caller holds the lock): the version moves on and the
+        images and the chunk set of the old version are freed now, not at
+        the next read."""
+        self._mutations += 1
+        self._device_batch = None
+        self._sharded = None
+        self._versioned = None
+        self._stream_chunks = None
+
+    @property
+    def num_rows(self) -> int:
+        with self._lock:
+            return sum(r.num_rows for r in self.regions)
+
     def snapshot(self) -> pa.Table:
-        return self._data
-
-    def insert_arrow(self, table: pa.Table) -> None:
-        """Bulk append (``Session.load_arrow``)."""
-        table = _coerce(table, self.arrow_schema)
         with self._lock:
-            self._data = pa.concat_tables([self._data, table]).combine_chunks()
-            self._mutations += 1
+            tabs = [r.data for r in self.regions if r.num_rows]
+            return pa.concat_tables(tabs) if tabs else self.arrow_schema.empty_table()
 
-    def insert_rows(self, rows: list[dict]) -> None:
-        """Append ``INSERT ... VALUES`` rows (dicts keyed by column)."""
-        cols = {f.name: [r.get(f.name) for r in rows] for f in self.arrow_schema}
-        self.insert_arrow(pa.table(cols, schema=self.arrow_schema))
+    # -- row tier ---------------------------------------------------------
+    def _row_schema(self) -> Schema:
+        return Schema((Field(ROWID, LType.INT64, False), Field("__del", LType.BOOL, True))
+                      + self.info.schema.fields)
 
-    def truncate(self) -> None:
-        """TRUNCATE: every row goes.  The version moves on, so the device
-        image, the statistics and the streamed chunk set rebuild."""
+    def _build_row_tier(self, wal_path: str | None):
+        self.row_table = RowTable(self._row_schema(), [ROWID], wal_path=wal_path)
+        self.wal_path = wal_path
+
+    def attach_wal(self, path: str):
+        """Open (and replay) the WAL: the committed deltas since the last
+        checkpoint apply over the current regions."""
+        self._build_row_tier(path)
+        self._replay_hot(self.row_table.scan_rows())
+
+    def _replay_hot(self, rows: list[dict]):
+        if rows:
+            self._apply_deltas(rows)
         with self._lock:
-            self._data = self.arrow_schema.empty_table()
-            self._mutations += 1
-            self._device_batch = None
-            self._sharded = None
+            for r in rows:
+                self._next_rowid = max(self._next_rowid, int(r[ROWID]) + 1)
 
-    def release(self) -> None:
-        """Drop the device image, its sharded copy and the chunk set (DROP
-        TABLE / DATABASE)."""
+    def _apply_deltas(self, rows: list[dict]):
+        """Replay WAL rows (inserts, updates, ``__del`` markers) over the
+        regions: a row whose rowid is present replaces it in place (or
+        removes it), the rest append in WAL order."""
+        names = [f.name for f in self.arrow_schema]
         with self._lock:
-            self._device_batch = None
-            self._sharded = None
-            self._stream_chunks = None
+            rids = np.fromiter((int(r[ROWID]) for r in rows), np.int64, len(rows))
+            order = np.argsort(rids, kind="stable")
+            srids = rids[order]
+            seen = np.zeros(len(rows), bool)
+            for reg in self.regions:
+                if not reg.num_rows:
+                    continue
+                pos = np.searchsorted(srids, reg.rowids)
+                pos = np.minimum(pos, len(srids) - 1)
+                hit = srids[pos] == reg.rowids
+                if not hit.any():
+                    continue
+                hit_at = np.nonzero(hit)[0]
+                deltas = [rows[int(order[p])] for p in pos[hit_at]]
+                seen[order[pos[hit_at]]] = True
+                keep = np.ones(reg.num_rows, bool)
+                patch_at, patch = [], []
+                for off, row in zip(hit_at, deltas):
+                    if row.get("__del"):
+                        keep[off] = False
+                    else:
+                        patch_at.append(off)
+                        patch.append(row)
+                data = reg.data
+                if patch:
+                    repl = pa.table({n: [r.get(n) for r in patch] for n in names},
+                                    schema=self.arrow_schema)
+                    idx = np.arange(reg.num_rows, dtype=np.int64)
+                    idx[np.asarray(patch_at)] = reg.num_rows + np.arange(len(patch))
+                    data = pa.concat_tables([data, repl]).take(pa.array(idx))
+                reg.data = data.filter(pa.array(keep)).combine_chunks()
+                reg.rowids = reg.rowids[keep]
+                reg.cts = reg.cts[keep]
+                reg.version += 1
+            appends = [r for r, s in zip(rows, seen) if not s and not r.get("__del")]
+            if appends:
+                rowids = np.asarray([int(r[ROWID]) for r in appends], np.int64)
+                self._append_table(pa.table({n: [r.get(n) for r in appends] for n in names},
+                                            schema=self.arrow_schema),
+                                   rowids, np.zeros(len(appends), np.int64))
+            self._bump()
+            self._pk_stale = True
+            self._distinct = {}
+
+    def checkpoint(self, directory: str):
+        """Flush the live state to Parquet and reset the WAL."""
+        with self._lock:
+            self.save_parquet(directory)
+            self._reset_wal()
+
+    def _reset_wal(self):
+        path = self.wal_path
+        if path and os.path.exists(path):
+            self.row_table = None
+            os.remove(path)
+        self._build_row_tier(path)
+
+    def _write_hot(self, recs: list[dict], tctx: Optional[TxnContext]):
+        if not recs:
+            return
+        if tctx is not None:
+            # in-transaction rows always buffer: that is where the row locks
+            # live; a non-durable store drops the buffer at commit
+            tctx.row_txn.put_rows(recs)
+            return
+        if self.wal_path is None:
+            return      # non-durable autocommit: nothing would read it
+        kc, rc = self.row_table.key_codec, self.row_table.row_codec
+        keys = kc.encode_rows([np.fromiter((r[ROWID] for r in recs), np.int64, len(recs))],
+                              [None])
+        self.row_table.write_batch([(0, k, rc.encode(rec)) for k, rec in zip(keys, recs)])
+
+    # -- transactions -----------------------------------------------------
+    def begin_txn(self) -> TxnContext:
+        with self._lock:
+            if self._writer is not None:
+                raise ConflictError(f"table {self.info.name} locked by an open transaction")
+            tctx = TxnContext(self)
+            self._writer = tctx
+            return tctx
+
+    def _end_txn(self, tctx: TxnContext):
+        with self._lock:
+            if self._writer is tctx:
+                self._writer = None
+
+    def _writer_check(self, tctx: Optional[TxnContext]):
+        """Statement-level write admission: an open transaction holds the
+        table's writer lease, and another writer conflicts."""
+        if self._writer is not None and self._writer is not tctx:
+            raise ConflictError(f"table {self.info.name} locked by an open transaction")
+        if tctx is not None:
+            tctx._capture()
+
+    # -- MVCC (storage/mvcc.py) ------------------------------------------
+    def attach_mvcc(self, runtime) -> None:
+        """Share the Database's MVCC plane: one TSO client and one pin
+        registry across every table, so commit order is one total order."""
+        self._tso = runtime.tso
+        self._snap_reg = runtime.snapshots
+
+    def _mvcc_ts(self) -> int:
+        if self._tso is None:
+            self._tso = mv.TsoClient()
+        return self._tso.next_ts()
+
+    def _new_stamp(self, tctx) -> int:
+        """The commit stamp of rows appended now: PENDING inside a
+        transaction (restamped at commit), a fresh ts in autocommit, 0 with
+        MVCC off."""
+        if not FLAGS.mvcc:
+            return 0
+        return mv.PENDING if tctx is not None else self._mvcc_ts()
+
+    def _dead_stamp(self, tctx) -> int:
+        return mv.PENDING if tctx is not None else self._mvcc_ts()
+
+    def _mvcc_maybe_gc(self, now_ts: int, threshold: int = 512) -> None:
+        """Commit-seam sweep once the history holds ``threshold`` versions
+        (caller holds the table lock; the registry lock nests inside it)."""
+        if self._mvcc.history_rows() < threshold:
+            return
+        wm = self._snap_reg.watermark(now_ts) if self._snap_reg is not None else now_ts
+        self._mvcc.gc(self.regions, wm)
+
+    def mvcc_gc(self, watermark: int) -> int:
+        with self._lock:
+            return self._mvcc.gc(self.regions, int(watermark))
+
+    def mvcc_needs_versioned(self, snap_ts: int) -> bool:
+        """True when a read pinned at ``snap_ts`` cannot be served by the
+        current image: a commit (or a pending write) landed after it, or a
+        version alive at it has since died."""
+        snap_ts = int(snap_ts)
+        with self._lock:
+            return self._mvcc.any_alive(snap_ts) or \
+                any(r.cts_max() > snap_ts for r in self.regions)
+
+    def versioned_batch(self, snap_ts: int):
+        """The device batch of a read pinned at ``snap_ts``: the live image
+        and the history versions alive at it, with ``visibility_mask`` ANDed
+        into ``sel`` on the device -> ``(batch, versions_scanned)``; None
+        when the current image already equals the snapshot (its fast paths
+        stay).  The live part is the cached device image; the history and
+        the stamps are staged beside it.  Cached per (version, MVCC epoch,
+        snapshot), one entry."""
+        snap_ts = int(snap_ts)
+        with self._lock:
+            if not self.mvcc_needs_versioned(snap_ts):
+                return None
+            key = (self._mutations, self._mvcc.epoch, snap_ts)
+            if self._versioned is not None and self._versioned[0] == key:
+                return self._versioned[1]
+            self._versioned = None            # free the old one first
+            live = self._image()
+            # the stamps of this instant (a commit replaces the arrays)
+            stamps = [(r.cts, r.cts_max()) for r in self.regions if r.num_rows]
+            hist = self._mvcc.versions_at(snap_ts)
+        dev = self.device
+        cts = [torch.zeros(len(c), dtype=torch.int64, device=dev) if mx == 0
+               else torch.from_numpy(c).to(dev) for c, mx in stamps]
+        dts = [torch.full((len(live),), mv.MAX_TS, dtype=torch.int64, device=dev)]
+        parts = [live]
+        for rows, hc, hd in hist:
+            parts.append(ColumnBatch.from_arrow(rows, dev))
+            cts.append(torch.from_numpy(hc).to(dev))
+            dts.append(torch.full((len(hc),), hd, dtype=torch.int64, device=dev))
+        b = _concat_versions(parts) if len(parts) > 1 else live
+        cts_t = torch.cat(cts) if cts else torch.zeros(0, dtype=torch.int64, device=dev)
+        mask = mv.visibility_mask(cts_t, torch.cat(dts), snap_ts)
+        out = (b.and_sel(mask), sum(len(hc) for _, hc, _ in hist))
+        with self._lock:
+            if (self._mutations, self._mvcc.epoch, snap_ts) == key:
+                self._versioned = (key, out)
+        return out
+
+    # -- reads ------------------------------------------------------------
+    def _alloc_region_id(self) -> int:
+        rid = self._next_region
+        self._next_region += 1
+        return rid
+
+    def _alloc_rowids(self, n: int) -> np.ndarray:
+        start = self._next_rowid
+        self._next_rowid += n
+        return np.arange(start, start + n, dtype=np.int64)
 
     def device_table_batch(self) -> ColumnBatch:
-        """Whole-table batch on the store's device, cached per version."""
+        """Whole-table batch on the store's device with table-wide string
+        dictionaries, cached per version."""
         with self._lock:
             return self._image()
 
@@ -153,14 +545,12 @@ class TableStore:
         v = self._mutations
         if self._device_batch is None or self._device_batch[0] != v:
             self._device_batch = None     # free the old image first
-            self._device_batch = (v, ColumnBatch.from_arrow(self._data, self.device))
+            self._device_batch = (v, ColumnBatch.from_arrow(self.snapshot(), self.device))
         return self._device_batch[1]
 
     def sharded_batch(self, mesh):
-        """The table row-sharded across ``mesh`` (parallel/mesh.shard_batch):
-        the region-to-store placement analog, each shard one horizontal slice
-        padded to an equal length.  Cached per version and mesh beside the
-        device image, and freed with it."""
+        """The table row-sharded across ``mesh`` (parallel/mesh.shard_batch),
+        cached per version and mesh beside the device image."""
         from ..parallel.mesh import shard_batch
 
         with self._lock:
@@ -171,36 +561,671 @@ class TableStore:
                 self._sharded = (v, mesh, shard_batch(self._image(), mesh))
             return self._sharded[2]
 
-    def column_stats(self, column: str) -> dict:
-        """Host-side statistics for planner decisions, as the JAX package
-        computes them: ``dict_size`` for strings, ``min``/``max`` for
-        integer, BOOL and DATE columns, and the histogram/MCV/ndv payload of
-        index/stats for every column."""
+    def release(self) -> None:
+        """Drop the device image, its sharded and versioned copies and the
+        chunk set (DROP TABLE / DATABASE)."""
         with self._lock:
-            v = self._mutations
-            if self._stats[0] != v:
-                self._stats = (v, {})
-            cache = self._stats[1]
+            self._device_batch = None
+            self._sharded = None
+            self._versioned = None
+            self._stream_chunks = None
+
+    def _cache(self, name: str) -> dict:
+        """A per-version cache dict (``_stats``, ``_zones``, ``_sec``)."""
+        v, d = getattr(self, name)
+        if v != self._mutations:
+            d = {}
+            setattr(self, name, (self._mutations, d))
+        return d
+
+    def column_stats(self, column: str) -> "ColumnStats":
+        """Host-side statistics for planner decisions, with the JAX
+        package's values: ``dict_size`` for strings (the number of distinct
+        values, which is the size of the image's dictionary), ``min``/``max``
+        for integer, BOOL and DATE columns, and the histogram/MCV/ndv payload
+        of index/stats.  Cached per version.  The bounds are computed at
+        once and cheaply (the distinct count is kept up to date across
+        writes); the histogram payload when a planner first reads it."""
+        with self._lock:
+            cache = self._cache("_stats")
             if column in cache:
                 return cache[column]
-            data = self._data
+            data = self.snapshot()
+            f = self.info.schema.field(column)
+            bounds: dict = {}
+            if f.ltype is LType.STRING:
+                bounds["dict_size"] = self._distinct_count(column)
         col = data.column(column)
-        f = self.info.schema.field(column)
-        st: dict = {}
-        if f.ltype is LType.STRING:
-            d = self.device_table_batch().column(column).dictionary
-            st["dict_size"] = 0 if d is None else len(d)
-        elif data.num_rows:
+        if f.ltype is not LType.STRING and data.num_rows:
             mm = pc.min_max(col).as_py()
             mn, mx = mm["min"], mm["max"]
             if hasattr(mn, "toordinal") and not hasattr(mn, "hour"):
                 epoch = datetime.date(1970, 1, 1)
                 mn, mx = (mn - epoch).days, (mx - epoch).days
             if isinstance(mn, int) or f.ltype.is_integer or f.ltype is LType.DATE:
-                st["min"], st["max"] = mn, mx
-        st.update(_histogram_stats(col, f) or {})
-        cache[column] = st
+                bounds["min"], bounds["max"] = mn, mx
+        st = ColumnStats(bounds, lambda: _histogram_stats(col, f))
+        with self._lock:
+            self._cache("_stats")[column] = st
         return st
+
+    # -- distinct values of string columns, kept across writes ---------------
+    def _distinct_count(self, column: str) -> int:
+        """How many distinct non-NULL values ``column`` holds (caller holds
+        the lock).  Counted once from the snapshot, then kept by every write
+        (``_distinct_move``), so a write costs its own rows, not the table."""
+        tr = self._distinct.get(column)
+        if tr is None:
+            vc = pc.value_counts(self.snapshot().column(column))
+            tr = dict(zip(vc.field("values").to_pylist(), vc.field("counts").to_pylist()))
+            tr.pop(None, None)
+            self._distinct[column] = tr
+        return len(tr)
+
+    def _distinct_move(self, removed: Optional[pa.Table], added: Optional[pa.Table]) -> None:
+        for column, tr in self._distinct.items():
+            if removed is not None:
+                for v in removed.column(column).to_pylist():
+                    if v is not None:
+                        n = tr[v] - 1
+                        if n:
+                            tr[v] = n
+                        else:
+                            del tr[v]
+            if added is not None:
+                for v in added.column(column).to_pylist():
+                    if v is not None:
+                        tr[v] = tr.get(v, 0) + 1
+
+    def snapshot_stats(self, column: str, snap_ts: int) -> dict:
+        """``column_stats`` for a read pinned at ``snap_ts``.  When that read
+        takes the versioned batch, the value bounds the planner's dense
+        GROUP BY relies on widen to that batch: a string column's dictionary
+        size is the merged dictionary's (the history may hold strings the
+        live rows no longer do), an integer column's min / max cover the
+        history rows."""
+        st = self.column_stats(column)
+        got = self.versioned_batch(snap_ts)
+        if got is None:
+            return st
+        bounds = {k: dict.__getitem__(st, k) for k in ColumnStats.BOUNDS
+                  if dict.__contains__(st, k)}
+        c = got[0].column(column)
+        if c.ltype is LType.STRING:
+            bounds["dict_size"] = 0 if c.dictionary is None else len(c.dictionary)
+        elif bounds.get("min") is not None and len(c):
+            d = c.data if c.validity is None else c.data[c.validity]
+            if len(d):
+                bounds["min"] = min(bounds["min"], int(d.min()))
+                bounds["max"] = max(bounds["max"], int(d.max()))
+        return ColumnStats(bounds, st.payload)
+
+    def next_auto_incr(self, col: str, n: int) -> list[int]:
+        """n consecutive AUTO_INCREMENT ids (monotonic; a rolled-back range
+        is never reused)."""
+        with self._lock:
+            if self._auto_incr is None:
+                mx = 0
+                for r in self.regions:
+                    if r.num_rows:
+                        m = pc.max(r.data.column(col)).as_py()
+                        if m is not None:
+                            mx = max(mx, int(m))
+                self._auto_incr = mx
+            start = self._auto_incr + 1
+            self._auto_incr += n
+            return list(range(start, start + n))
+
+    # -- access paths (index/selector.py chooses) -------------------------
+    def zone_map_column(self, column: str):
+        """Per-region (min, max, has_null) of a numeric or temporal column,
+        None for a region without rows; None for a type that cannot range-
+        prune.  Cached per version."""
+        f = self.info.schema.field(column)
+        if not (f.ltype.is_integer or f.ltype.is_float
+                or f.ltype is LType.DATE or f.ltype.is_temporal):
+            return None
+        with self._lock:
+            cache = self._cache("_zones")
+            if column in cache:
+                return cache[column]
+            zones = []
+            for r in self.regions:
+                if not r.num_rows:
+                    zones.append(None)
+                    continue
+                col = r.data.column(column)
+                if col.null_count == len(col):
+                    zones.append((None, None, True))
+                    continue
+                mm = pc.min_max(col).as_py()
+                zones.append((_zone_scalar(mm["min"], f.ltype),
+                              _zone_scalar(mm["max"], f.ltype), col.null_count > 0))
+            cache[column] = zones
+            return zones
+
+    def prune_regions(self, ranges: dict):
+        """Regions whose zone maps can satisfy every closed [lo, hi]
+        constraint -> (kept region indexes, regions with rows).  Any
+        uncertainty keeps the region."""
+        with self._lock:
+            keep = []
+            for i, r in enumerate(self.regions):
+                if not r.num_rows:
+                    continue
+                alive = True
+                for col, (lo, hi) in ranges.items():
+                    zones = self.zone_map_column(col)
+                    if zones is None or zones[i] is None:
+                        continue
+                    zmin, zmax, _ = zones[i]
+                    if zmin is None:              # all-NULL region: no row
+                        alive = False             # passes a comparison
+                        break
+                    lt = self.info.schema.field(col).ltype
+                    lo_c, hi_c = _zone_scalar(lo, lt), _zone_scalar(hi, lt)
+                    try:
+                        if (lo_c is not None and zmax < lo_c) or \
+                                (hi_c is not None and zmin > hi_c):
+                            alive = False
+                            break
+                    except TypeError:
+                        continue                  # incomparable literal: keep
+                if alive:
+                    keep.append(i)
+            return keep, sum(1 for r in self.regions if r.num_rows)
+
+    def regions_table(self, keep: list[int]) -> pa.Table:
+        with self._lock:
+            tabs = [self.regions[i].data for i in keep]
+            return pa.concat_tables(tabs) if tabs else self.arrow_schema.empty_table()
+
+    def _secondary_order(self, column: str):
+        """(sorted values, row positions) over the snapshot, NULLs excluded;
+        cached per version."""
+        with self._lock:
+            cache = self._cache("_sec")
+            if column in cache:
+                return cache[column]
+            col = self.snapshot().column(column)
+            if self.info.schema.field(column).ltype is LType.STRING:
+                vals = np.asarray(col.to_pylist(), dtype=object)
+            else:
+                vals = col.to_numpy(zero_copy_only=False)
+            if col.null_count:
+                mask = ~np.asarray(col.is_null())
+                pos = np.nonzero(mask)[0]
+                vals = vals[mask]
+            else:
+                pos = np.arange(len(vals))
+            order = np.argsort(vals, kind="stable")
+            cache[column] = (vals[order], pos[order])
+            return cache[column]
+
+    def secondary_count(self, column: str, value):
+        """How many rows have column = value (None if unindexable)."""
+        try:
+            svals, _ = self._secondary_order(column)
+            return int(np.searchsorted(svals, value, "right")
+                       - np.searchsorted(svals, value, "left"))
+        except Exception:       # noqa: BLE001 — an odd literal: no index path
+            return None
+
+    def secondary_positions(self, column: str, value) -> np.ndarray:
+        svals, spos = self._secondary_order(column)
+        lo = np.searchsorted(svals, value, "left")
+        hi = np.searchsorted(svals, value, "right")
+        return np.sort(spos[lo:hi])
+
+    def secondary_scan(self, column: str, value) -> pa.Table:
+        """Rows with column = value, positions and snapshot taken under one
+        lock (a write between them would gather from another table)."""
+        with self._lock:
+            return self.snapshot().take(self.secondary_positions(column, value))
+
+    def point_lookup(self, values: dict):
+        """Primary-key point read from the host tier -> row dict or None."""
+        if self._pk_codec is None:
+            return None
+        one = {n: pa.array([values[n]]).cast(self.arrow_schema.field(n).type)
+               for n in self._pk_cols}
+        key = self._encode_pk_table(pa.table(one))[0]
+        with self._lock:
+            rid = self._ensure_pk_index().get(key)
+            if rid is None:
+                return None
+            for r in self.regions:
+                hit = np.nonzero(r.rowids == rid)[0]
+                if hit.size:
+                    return r.data.slice(int(hit[0]), 1).to_pylist()[0]
+        return None
+
+    def lookup_by_pks(self, pk_table: pa.Table) -> pa.Table:
+        """Full rows matching the given primary-key values, in table order
+        (a missing key is absent): the main-table half of a global index's
+        lookup join, which arrives with global indexes."""
+        with self._lock:
+            if self._pk_codec is None or not pk_table.num_rows:
+                return self.snapshot().slice(0, 0)
+            idx = self._ensure_pk_index()
+            rids = {idx[k] for k in self._encode_pk_table(pk_table) if k in idx}
+            wanted = np.fromiter(rids, dtype=np.int64, count=len(rids))
+            parts = [r.data.filter(pa.array(np.isin(r.rowids, wanted)))
+                     for r in self.regions if r.num_rows]
+            parts = [p for p in parts if p.num_rows]
+            if not parts:
+                return self.snapshot().slice(0, 0)
+            return pa.concat_tables(parts).combine_chunks()
+
+    # -- primary-key index -------------------------------------------------
+    def _ensure_pk_index(self):
+        if self._pk_codec is None:
+            return None
+        with self._lock:
+            if self._pk_index is None or self._pk_stale:
+                idx: dict = {}
+                for reg in self.regions:
+                    if reg.num_rows:
+                        idx.update(zip(self._encode_pk_table(reg.data), reg.rowids.tolist()))
+                self._pk_index = idx
+                self._pk_stale = False
+            return self._pk_index
+
+    def _encode_pk_table(self, table: pa.Table) -> list[bytes]:
+        cols, valids = [], []
+        for name in self._pk_cols:
+            arr = table.column(name)
+            f = self.info.schema.field(name)
+            if f.ltype is LType.STRING:
+                cols.append(np.asarray(arr.to_pylist(), dtype=object))
+            elif f.ltype is LType.DATE:
+                cols.append(np.asarray(arr.cast(pa.int32()).to_numpy(zero_copy_only=False),
+                                       np.int64))
+            elif f.ltype.is_temporal:
+                cols.append(np.asarray(arr.cast(pa.timestamp("us")).cast(pa.int64())
+                                       .to_numpy(zero_copy_only=False), np.int64))
+            elif f.ltype.is_float:
+                cols.append(arr.to_numpy(zero_copy_only=False))
+            else:
+                work = arr.fill_null(0) if arr.null_count else arr
+                cols.append(np.asarray(work.to_numpy(zero_copy_only=False), np.int64))
+            valids.append(~np.asarray(arr.is_null()) if arr.null_count else None)
+        return self._pk_codec.encode_rows(cols, valids) if table.num_rows else []
+
+    def _check_duplicates(self, table: pa.Table):
+        """INSERT-time primary-key uniqueness -> the new rows' keys."""
+        if self._pk_codec is None or not table.num_rows:
+            return None
+        idx = self._ensure_pk_index()
+        keys = self._encode_pk_table(table)
+        seen = set()
+        for k in keys:
+            if k in idx or k in seen:
+                raise ConflictError(f"Duplicate entry for key 'PRIMARY' in table "
+                                    f"{self.info.name!r}")
+            seen.add(k)
+        return keys
+
+    # -- writes -----------------------------------------------------------
+    def _append_table(self, table: pa.Table, rowids: np.ndarray, cts: np.ndarray,
+                      split: bool = True):
+        # every ingest path moves the AUTO_INCREMENT watermark past explicit
+        # ids, so later automatic ids never collide with loaded ones
+        self._distinct_move(None, table)
+        auto_col = (self.info.options or {}).get("auto_increment")
+        if auto_col and auto_col in table.column_names and table.num_rows:
+            mx = pc.max(table.column(auto_col)).as_py()
+            if mx is not None:
+                self._auto_incr = int(mx) if self._auto_incr is None \
+                    else max(self._auto_incr, int(mx))
+        last = self.regions[-1]
+        if last.num_rows:
+            last.data = pa.concat_tables([last.data, table]).combine_chunks()
+            last.rowids = np.concatenate([last.rowids, rowids])
+            last.cts = np.concatenate([last.cts, cts])
+        else:
+            last.data, last.rowids, last.cts = table, rowids, cts
+        last.version += 1
+        if split:
+            self._maybe_split(last)
+        elif last.data.column(0).num_chunks > 1:
+            last.data = last.data.combine_chunks()
+
+    def _maybe_split(self, region: Region):
+        """Row-count split into regions of ``region_rows`` rows (zero-copy
+        slices of the appended table)."""
+        data, rowids, cts = region.data, region.rowids, region.cts
+        rr = self.region_rows
+        if data.num_rows <= rr:
+            if data.num_rows and data.column(0).num_chunks > 1:
+                region.data = data.combine_chunks()
+            return
+        region.data = data.slice(0, rr).combine_chunks()
+        region.rowids, region.cts = rowids[:rr], cts[:rr]
+        region.version += 1
+        for lo in range(rr, data.num_rows, rr):
+            self.regions.append(Region(self._alloc_region_id(),
+                                       data.slice(lo, rr).combine_chunks(),
+                                       rowids[lo:lo + rr], cts[lo:lo + rr]))
+
+    def insert_arrow(self, table: pa.Table, tctx: Optional[TxnContext] = None,
+                     check_dups: bool = False):
+        """Bulk append (``Session.load_arrow``, a large INSERT ... SELECT):
+        the rows land in the regions only, durable at the next checkpoint;
+        ``check_dups`` checks the primary key.  One commit stamp for the
+        whole load."""
+        table = _coerce(table, self.arrow_schema)
+        with self._lock:
+            self._writer_check(tctx)
+            if check_dups:
+                self._check_duplicates(table)
+            rowids = self._alloc_rowids(table.num_rows)
+            self._bump()
+            self._pk_stale = True
+            stamp = self._new_stamp(tctx)
+            self._append_table(table, rowids, np.full(table.num_rows, stamp, np.int64))
+            if stamp and tctx is None:
+                self._mvcc_maybe_gc(stamp)
+
+    def insert_rows(self, rows: list[dict], tctx: Optional[TxnContext] = None):
+        """``INSERT ... VALUES``: primary-key checked, written to the row tier
+        (WAL-durable, or buffered with row locks in a transaction) and to the
+        regions."""
+        table = pa.table({f.name: [r.get(f.name) for r in rows] for f in self.arrow_schema},
+                         schema=self.arrow_schema)
+        with self._lock:
+            self._writer_check(tctx)
+            new_keys = self._check_duplicates(table)
+            self._bump()
+            rowids = self._alloc_rowids(len(rows))
+            self._write_hot([dict(r, **{ROWID: int(rid)}) for r, rid in zip(rows, rowids)],
+                            tctx)
+            stamp = self._new_stamp(tctx)
+            self._append_table(table, rowids, np.full(len(rows), stamp, np.int64))
+            if stamp and tctx is None:
+                self._mvcc_maybe_gc(stamp)
+            if new_keys and self._pk_index is not None and not self._pk_stale:
+                self._pk_index.update(zip(new_keys, rowids.tolist()))
+
+    def delete_where(self, host_mask_fn, tctx: Optional[TxnContext] = None) -> int:
+        """Delete the rows where ``host_mask_fn(region table) -> bool array``:
+        the regions filter, the row tier records ``__del`` markers, and with
+        MVCC on the outgoing versions enter the history."""
+        with self._lock:
+            self._writer_check(tctx)
+            # phase 1: masks only, so a failed row-tier write leaves the
+            # regions as they were
+            masks: list[tuple[Region, np.ndarray]] = []
+            for r in self.regions:
+                if r.num_rows:
+                    mask = np.asarray(host_mask_fn(r.data), dtype=bool)
+                    if mask.any():
+                        masks.append((r, mask))
+            if not masks:
+                return 0
+            fresh = self._pk_codec is not None and self._pk_index is not None \
+                and not self._pk_stale
+            markers = [{ROWID: rid, "__del": True}
+                       for r, m in masks for rid in r.rowids[m].tolist()]
+            self._write_hot(markers, tctx)
+            # phase 2: the delete is durable; apply it to the regions
+            self._bump()
+            dts = self._dead_stamp(tctx) if FLAGS.mvcc else 0
+            for r, mask in masks:
+                dead = r.data.filter(pa.array(mask))
+                self._distinct_move(dead, None)
+                if fresh:
+                    for k in self._encode_pk_table(dead):
+                        self._pk_index.pop(k, None)
+                if FLAGS.mvcc:
+                    self._mvcc.record_dead(dead, r.cts[mask], dts)
+                r.data = r.data.filter(pa.array(~mask))
+                r.rowids = r.rowids[~mask]
+                r.cts = r.cts[~mask]
+                r.version += 1
+            if not fresh:
+                self._pk_stale = True
+            return len(markers)
+
+    def update_where(self, host_mask_fn, assign_fn, tctx: Optional[TxnContext] = None,
+                     changed_cols: Optional[list[str]] = None) -> int:
+        """Update rows in place: ``assign_fn(region table, mask) -> table``.
+        The row tier records the new row versions under the same rowids; with
+        MVCC on, the old versions close and the new ones open at one stamp.
+        ``changed_cols`` (the assignment targets) keeps the primary-key index
+        when no key column changes."""
+        with self._lock:
+            self._writer_check(tctx)
+            staged: list[tuple[Region, np.ndarray, pa.Table]] = []
+            hot: list[dict] = []
+            for r in self.regions:
+                if not r.num_rows:
+                    continue
+                mask = np.asarray(host_mask_fn(r.data), dtype=bool)
+                if mask.any():
+                    new_data = _coerce(assign_fn(r.data, mask), self.arrow_schema)
+                    staged.append((r, mask, new_data))
+                    new_rows = new_data.filter(pa.array(mask)).to_pylist()
+                    hot.extend(dict(row, **{ROWID: rid})
+                               for row, rid in zip(new_rows, r.rowids[mask].tolist()))
+            if not staged:
+                return 0
+            self._write_hot(hot, tctx)
+            self._bump()
+            if FLAGS.mvcc:
+                dts = self._dead_stamp(tctx)
+                for r, mask, _ in staged:
+                    # the dying versions close where the new ones open
+                    self._mvcc.record_dead(r.data.filter(pa.array(mask)), r.cts[mask], dts)
+                    r.cts = np.where(mask, np.int64(dts), r.cts)
+            if self._pk_cols is not None and (
+                    changed_cols is None or any(c in self._pk_cols for c in changed_cols)):
+                self._pk_stale = True
+            for r, mask, new_data in staged:
+                if self._distinct:
+                    m = pa.array(mask)
+                    self._distinct_move(r.data.filter(m), new_data.filter(m))
+                r.data = new_data
+                r.version += 1
+            return len(hot)
+
+    def truncate(self):
+        """Every row goes, with the row tier and the WAL (TRUNCATE is never
+        part of a transaction); a durable store rewrites its checkpoint, or
+        the rows would come back at restart."""
+        with self._lock:
+            if self._writer is not None:
+                raise ConflictError("TRUNCATE while a transaction is open")
+            self._bump()
+            self._pk_stale = True
+            self._distinct = {}
+            self.regions = [Region(self._alloc_region_id(), self.arrow_schema.empty_table())]
+            self._stream_chunks = None
+            self._mvcc.reset()
+            self._reset_wal()
+            if self.durable_dir:
+                self.save_parquet(self.durable_dir)
+
+    def alter_schema(self, new_schema: Schema):
+        """ADD / DROP COLUMN: the regions rewrite to the new schema (added
+        columns NULL).  The row tier's encoding is schema-bound, so ALTER is
+        a checkpoint boundary; snapshots pinned before it read the new
+        image, as in the JAX package."""
+        with self._lock:
+            if self._writer is not None:
+                raise ConflictError("ALTER while a transaction is open")
+            self._bump()
+            self._pk_stale = True
+            self._distinct = {}
+            self._mvcc.reset()
+            self.info.schema = new_schema
+            self.info.version += 1
+            self.arrow_schema = schema_to_arrow(new_schema)
+            for r in self.regions:
+                r.data = _coerce(r.data, self.arrow_schema)
+                r.version += 1
+            if self.durable_dir:
+                self.save_parquet(self.durable_dir)
+            self._reset_wal()
+            if self._pk_cols:
+                if any(c not in new_schema for c in self._pk_cols):
+                    self._pk_cols = self._pk_codec = None
+                else:
+                    self._pk_codec = KeyCodec(new_schema, self._pk_cols)
+                self._pk_index = None
+
+    # -- persistence ------------------------------------------------------
+    def save_parquet(self, directory: str):
+        """One Parquet file per region, rowids in ``__rowid`` (the JAX
+        package's checkpoint layout)."""
+        os.makedirs(directory, exist_ok=True)
+        with self._lock:
+            for f in os.listdir(directory):
+                if f.endswith(".parquet"):
+                    os.remove(os.path.join(directory, f))
+            for r in self.regions:
+                t = r.data.append_column(ROWID, pa.array(r.rowids, pa.int64()))
+                pq.write_table(t, os.path.join(directory, f"region_{r.region_id}.parquet"))
+
+    def load_parquet(self, directory: str):
+        files = sorted(f for f in os.listdir(directory) if f.endswith(".parquet"))
+        with self._lock:
+            self._bump()
+            self._pk_stale = True
+            self._distinct = {}
+            self._mvcc.reset()
+            self.regions = []
+            for f in files:
+                t = pq.read_table(os.path.join(directory, f))
+                if ROWID in t.column_names:
+                    rowids = np.asarray(t.column(ROWID).to_numpy(zero_copy_only=False),
+                                        np.int64)
+                    t = t.drop_columns([ROWID])
+                else:
+                    rowids = self._alloc_rowids(t.num_rows)
+                if len(rowids):
+                    self._next_rowid = max(self._next_rowid, int(rowids.max()) + 1)
+                self.regions.append(Region(self._alloc_region_id(),
+                                           _coerce(t, self.arrow_schema).combine_chunks(),
+                                           rowids))
+            if not self.regions:
+                self.regions = [Region(self._alloc_region_id(),
+                                       self.arrow_schema.empty_table())]
+
+
+class ColumnStats(dict):
+    """One column's planner statistics: the value bounds (``min``, ``max``,
+    ``dict_size``) at once, the histogram / MCV / ndv payload of index/stats
+    computed on the first read of any other key (or of the whole dict).  A
+    planner that only sizes a dense GROUP BY never pays for the histogram;
+    one that reads it gets the JAX package's values."""
+
+    BOUNDS = frozenset(("min", "max", "dict_size"))
+
+    def __init__(self, bounds: dict, payload):
+        super().__init__(bounds)
+        self.payload = payload           # () -> dict, or None once merged
+        self._merged = False
+
+    def _full(self) -> "ColumnStats":
+        if not self._merged:
+            self._merged = True
+            super().update(self.payload() or {})
+        return self
+
+    def __getitem__(self, k):
+        if k not in self.BOUNDS:
+            self._full()
+        return super().__getitem__(k)
+
+    def get(self, k, default=None):
+        if k not in self.BOUNDS:
+            self._full()
+        return super().get(k, default)
+
+    def __contains__(self, k):
+        if k not in self.BOUNDS:
+            self._full()
+        return super().__contains__(k)
+
+    def __bool__(self):
+        return True
+
+    def __iter__(self):
+        return super().__iter__() if self._full() else iter(())
+
+    def __len__(self):
+        return super().__len__() if self._full() else 0
+
+    def keys(self):
+        return self._full() and super().keys()
+
+    def items(self):
+        return self._full() and super().items()
+
+    def values(self):
+        return self._full() and super().values()
+
+    def copy(self) -> dict:
+        return dict(self._full().items())
+
+    def __eq__(self, other):
+        return dict(self.items()) == (dict(other.items()) if isinstance(other, dict) else other)
+
+    __hash__ = None
+
+    def __repr__(self):
+        return repr(dict(self.items()))
+
+
+def _union_sorted(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """The sorted union of two sorted unique string arrays; ``a`` itself
+    when ``b`` adds nothing (the live image's dictionary then stays)."""
+    if not len(b):
+        return a
+    pos = np.searchsorted(a, b)
+    new = np.ones(len(b), bool)
+    inside = pos < len(a)
+    new[inside] = a[pos[inside]] != b[inside]
+    if not new.any():
+        return a
+    wide = a.astype(np.promote_types(a.dtype, b.dtype), copy=False)   # no truncation
+    return np.insert(wide, pos[new], b[new])
+
+
+def _concat_versions(parts: list[ColumnBatch]) -> ColumnBatch:
+    """The live image and the history batches concatenated on the device.
+    A string column's dictionaries merge into their sorted union, which is
+    the dictionary one encode of the concatenated rows would build, and each
+    part's codes translate into it.  The parts are left as they were (the
+    first is the cached live image)."""
+    cols: list[list] = [list(p.columns) for p in parts]
+    for i, c in enumerate(parts[0].columns):
+        if c.ltype is not LType.STRING:
+            continue
+        dicts = [p.columns[i].dictionary for p in parts]
+        vals = None
+        for d in dicts:
+            if d is not None and len(d):
+                vals = d.values if vals is None else _union_sorted(vals, d.values)
+        if vals is None:
+            continue
+        owner = next((d for d in dicts if d is not None and d.values is vals), None)
+        merged = owner if owner is not None else Dictionary(vals)
+        for j, (p, d) in enumerate(zip(parts, dicts)):
+            if d is merged:
+                continue
+            pcol = p.columns[i]
+            old = d.values if d is not None and len(d) else np.empty(0, str)
+            remap = np.searchsorted(vals, old).astype(np.int32) if len(old) \
+                else np.zeros(1, np.int32)
+            remap = torch.from_numpy(remap).to(pcol.data.device)
+            codes = torch.where(pcol.data >= 0,
+                                remap[pcol.data.clamp(0, len(remap) - 1).long()],
+                                torch.full_like(pcol.data, NULL_CODE)).to(pcol.data.dtype)
+            cols[j][i] = replace(pcol, data=codes, dictionary=merged)
+    return concat_batches([ColumnBatch(p.names, cs, p.sel, None, device=p.device)
+                           for p, cs in zip(parts, cols)])
 
 
 def _histogram_stats(col, f) -> dict | None:

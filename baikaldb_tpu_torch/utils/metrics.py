@@ -2,7 +2,7 @@
 
 The port of ``baikaldb_tpu/utils/metrics.py``, cut to the monotonically
 growing ``Counter`` (with a per-second rate over a sliding window), the
-``LatencyRecorder`` and the ``Registry`` that names every instrument.  The process-wide ``REGISTRY``
+``LatencyRecorder``, the sampled ``Gauge`` and the ``Registry`` that names every instrument.  The process-wide ``REGISTRY``
 serves the engine; ``registry.dump()`` prints one ``name.field : value``
 line per field; the kernel launch counters of ops/group_kernels.py
 register here like every other counter.
@@ -121,6 +121,25 @@ class LatencyRecorder:
                 "max_ms": round(mx, 3)}
 
 
+class Gauge:
+    """Sampled at dump time from a callable (the MVCC plane's
+    ``mvcc.live_versions`` / ``mvcc.oldest_pin``)."""
+
+    kind = "gauge"
+
+    def __init__(self, name: str, fn, registry: Optional["Registry"] = None):
+        self.name = name
+        self.fn = fn
+        (registry or REGISTRY)._register(self)
+
+    @property
+    def value(self) -> float:
+        return float(self.fn())
+
+    def stats(self) -> dict:
+        return {"value": self.value}
+
+
 class Registry:
     def __init__(self):
         self._by_name: dict = {}
@@ -185,8 +204,12 @@ failpoint_trips = Counter("failpoint_trips")
 # already partitioned on the key class
 shuffle_rounds = Counter("shuffle_rounds")
 shuffle_rounds_saved = Counter("shuffle_rounds_saved")
-# scans reduced to an access path's rows (the ANN candidate set)
+# scans reduced to an access path's rows (the ANN candidate set, a
+# secondary-index gather, zone-map region pruning), host point reads, and
+# the regions zone maps dropped
 index_scans = Counter("index_scans")
+point_lookups = Counter("point_lookups")
+regions_pruned = Counter("regions_pruned")
 # out-of-core streaming scans (exec/streaming.py): chunks folded, chunks
 # zone-map-skipped before any transfer, coldfs segment-read retries, fold
 # restarts after a group-capacity overflow, bytes moved host->device, and

@@ -2,8 +2,9 @@
 its plain torch version, drive single-table SQL at real size resident and
 streamed, run the 22 TPC-H queries and the analytic queries on the card,
 the egress functions and catalog statements on the card against the CPU,
-vector search (VECTOR columns, the ANN index) at 1M x 128, and the MPP
-mesh (8 shards on the card: the 100M rows and TPC-H).
+vector search (VECTOR columns, the ANN index) at 1M x 128, the MPP mesh (8
+shards on the card: the 100M rows and TPC-H), and the HTAP write path
+(snapshot reads over the 100M rows under writes, sysbench, recovery).
 
     python3 chip_smoke.py [--rows N] [--seed S] [--tpch-scale S]
                           [--compare-with DIR]
@@ -58,7 +59,7 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    ``stream_chunks`` must equal the chunk count and
    ``swallowed.session.stream_stage`` must stay 0 (no silent fall-back to
    the resident path).  Per query: the first run (the chunk-set build
-   included for (b)), the warm wall time (median of 3 runs), device time
+   included for (b)), the warm wall time (median of 2 runs), device time
    and idle share of one profiled run, the ``stream`` trace event
    (``stage_ms``, ``prefetch_wait_ms``, ``bytes_h2d``) and the peak device
    memory; then (b) again at ``streaming_chunk_rows = 1048576``.  Phase 3
@@ -70,7 +71,7 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    must agree by the parity contract of ``models/parity.py``.  (ii) At ``--tpch-scale`` (default 1.0, the smallest
    official scale: 6M lineitem rows; seed ``--seed``) on the card: generation
    time, load + stage time and peak device memory; per query the warm wall
-   time (median and 67th percentile of 10 runs after one warm-up run, 3
+   time (median and 67th percentile of 6 runs after one warm-up run, 2
    when the query streamed), the
    device time, idle share and top 4 kernels of one torch.profiler run, the
    session's spans of one traced run (host milliseconds of parse, plan,
@@ -138,6 +139,32 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    with its executed rounds and launches (K3 counts every repartition's
    destinations, once a shard).  Peak device memory of each part and the
    phase's seconds (``mesh phase seconds: ...``).
+11. The HTAP write path (regions, the native row engine and its WAL, MVCC,
+   transactions; it prints ``row engine: native (...)`` and fails on any
+   other engine).  (ii) Right after phase 10 (i), in phase 3's session over
+   its 100M rows (``streaming_scan = 0``): session A pins
+   (``SET SNAPSHOT = 'now'``); session B deletes ``g = 5``, updates ``v`` and
+   ``w`` where ``g = 7`` and inserts 10,000 rows in one transaction, and
+   commits.  A's (a)-(c) must equal phase 3's numpy references over a
+   versioned batch (``versions_scanned`` > 0), B's the numpy of the rows
+   after the writes; each query launches exactly phase 3's kernels and (a)
+   no ``index_add_``.  Timed: each statement of B, the re-stage after the
+   commit, per query the first run (its ``mvcc.visibility`` span), the warm
+   p50 / p67 of 10 runs, device ms and idle share; peak memory.  (i) After
+   phase 9: sysbench ``oltp_read_write`` (``models/sysbench.py``) over
+   BASELINE.json config #1's 1M-row ``sbtest1`` (regions of 4,096 rows),
+   200 transactions of 18 statements in BEGIN ... COMMIT, every SELECT equal
+   to a numpy replay, then COUNT(*), SUM(k) and 1,000 sampled rows equal to
+   it; transactions/s, p50 / p99 per statement kind, device ms and idle
+   share of 5 profiled transactions; then ``SELECT COUNT(*) ... WHERE k
+   BETWEEN`` under an automatic pin while a second session commits a
+   transaction right after the pin: the answer at the pin, over a
+   versioned batch.  (iii) ``Database(data_dir=...)`` on the card: 100,000
+   sysbench rows through the WAL (INSERT ... SELECT), 20 transactions and a
+   rolled-back one, no checkpoint; a new Database over the directory gives
+   the same rows and GROUP BY; then a checkpoint, 20 more transactions, and
+   recovery again, equal to the replay.  Its seconds: ``htap phase
+   seconds: ...``.
 
 Phases 5 and 6 run with the default flags, so a query over a table of at
 least ``streaming_min_rows`` rows that the streamed path accepts streams
@@ -171,8 +198,8 @@ F32_OPS_PER_S = 67e12            # H100 SXM, float32 outside the tensor cores
 F64_OPS_PER_S = 34e12            # H100 SXM, float64 outside the tensor cores
 NG_SQL = 2049                    # 2048 dense group slots + the NULL slot
 WARM_REPS = 30
-TPCH_REPS = 10
-STREAM_REPS = 3
+TPCH_REPS = 6                    # 10 until PR 8; cut to keep the run near half its limit
+STREAM_REPS = 2                  # 3 until PR 8
 STREAM_TPCH_REPS = 5
 BIG_CHUNK_ROWS = 1 << 20
 TPCH_CHECK_SCALE = 0.05
@@ -548,11 +575,28 @@ def seg_check(seg, x, gid, S: int, op: str) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
+def segment_cases(seg, n: int, gen) -> tuple[float, int]:
+    """Every dtype and op at 1, 16, 17, 64 and the gate's segments on ``n``
+    random rows against the plain version; -> (max |err|, cases)."""
+    dev = torch.device("cuda")
+    segments = sorted({1, 16, NG_A, 64, seg.max_segments(dev)})
+    max_err, checked = 0.0, 0
+    t0 = time.perf_counter()
+    for S in segments:
+        for dtype in SEG_DTYPES:
+            x, gid = seg_inputs(n, S, dtype, gen, dev)
+            for op in ("sum", "min", "max"):
+                max_err = max(max_err, seg_check(seg, x, gid, S, op))
+                checked += 1
+            del x, gid
+    log(f"[segments] n={n}: every dtype and op at S in {segments} match the plain version "
+        f"({time.perf_counter() - t0:.1f} s)")
+    return max_err, checked
+
+
 def segment_phase(rows: int, seed: int) -> dict:
-    """The segment kernel against its plain version (every dtype and op, at
-    1, 16, 17, 64 and the gate's segments, at ``rows``, 65,536, 1,048,576
-    and 16,777,216 rows),
-    then timed at query (a)'s shape: SUM of a float64 column over 17 slots,
+    """The segment kernel against its plain version (``segment_cases`` at
+    ``rows``, 65,536, 1,048,576 and 16,777,216 rows), then timed at query (a)'s shape: SUM of a float64 column over 17 slots,
     dead rows routed past the last (two of (a)'s eight launches), beside
     the other (a) cases, the plain version and ``index_add_``."""
     from baikaldb_tpu_torch.ops import segments as seg
@@ -560,21 +604,14 @@ def segment_phase(rows: int, seed: int) -> dict:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed + 1)
-    gate = seg.max_segments(dev)
     max_err, checked = 0.0, 0
-    t0 = time.perf_counter()
     # 65,536 rows (a streamed chunk), a mesh shard's 1,048,576 (TPC-H
-    # lineitem) and 16,777,216 (phase 10's (a)), and the whole table
+    # lineitem) and 16,777,216 (phase 10's (a)), and the whole table; phase
+    # 11 adds the versioned batch's length (versioned_kernel_checks)
     for n in (1 << 16, 1 << 20, 1 << 24, rows):
-        for S in sorted({1, 16, NG_A, 64, gate}):
-            for dtype in SEG_DTYPES:
-                x, gid = seg_inputs(n, S, dtype, gen, dev)
-                for op in ("sum", "min", "max"):
-                    max_err = max(max_err, seg_check(seg, x, gid, S, op))
-                    checked += 1
-                del x, gid
-        log(f"[segments] n={n}: every dtype and op at S in {sorted({1, 16, NG_A, 64, gate})} "
-            f"match the plain version ({time.perf_counter() - t0:.1f} s)")
+        err, k = segment_cases(seg, n, gen)
+        max_err, checked = max(max_err, err), checked + k
+    gate = seg.max_segments(dev)
     # the wrap of int64 sums, exactly
     x = torch.tensor([2**62, 2**62, 2**62, -5], dtype=torch.int64, device=dev)
     got = seg.segment_reduce(x, torch.tensor([0, 0, 0, 1], dtype=torch.int32, device=dev),
@@ -1810,6 +1847,424 @@ def mesh_tpch_phase(gk, single) -> tuple[dict, dict]:
                       "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
 
 
+# ----------------------------------------------------------------------
+# phase 11: the HTAP write path
+
+SB_ROWS = 1_000_000              # BASELINE.json config #1
+SB_TXNS = 200
+SB_PROFILED_TXNS = 5             # the last ones, under torch.profiler
+SB_REGION_ROWS = 4096            # a cut: the default region holds all 1M rows
+SB_LITERAL_TXNS = 3              # sysbench's own BETWEEN at the default region size
+HTAP_INSERT_ROWS = 10_000
+HTAP_REPS = 10
+DURABLE_ROWS = 100_000
+
+
+def row_engine() -> str:
+    """The native row engine must have built; -> its name, printed."""
+    from baikaldb_tpu_torch import native
+    from baikaldb_tpu_torch.storage import rowstore
+
+    native.require()
+    name = rowstore.engine_name()
+    if name != "native":
+        raise AssertionError(f"the row tier runs the {name} engine, not the native one")
+    print(f"row engine: {name} ({native._so_path()})", flush=True)
+    return name
+
+
+def percentiles(ms: list) -> dict:
+    return {"n": len(ms), "p50_ms": float(np.percentile(ms, 50)),
+            "p99_ms": float(np.percentile(ms, 99))}
+
+
+def events_of(s, sql: str) -> tuple[list, dict, dict]:
+    """One traced run: -> (rows, span milliseconds by name, event attributes
+    by event name)."""
+    from baikaldb_tpu_torch.obs import trace
+
+    with flag(s, "tracing", 1):
+        rows = s.query(sql)
+        torch.cuda.synchronize()
+    rec = [t for t in trace.TRACER.list() if t["text"] == sql][-1]
+    spans, events = {}, {}
+    for sp in rec["spans"]:
+        spans[sp["name"]] = spans.get(sp["name"], 0.0) + sp["dur_ms"]
+        if sp.get("attrs"):
+            events[sp["name"]] = dict(sp["attrs"])
+    return rows, spans, events
+
+
+def sysbench_phase(gk, seed: int) -> tuple[dict, dict]:
+    """Phase 11 (i): sysbench oltp_read_write (models/sysbench.py) over the
+    1M-row sbtest1, every SELECT against the replay reference; the final
+    COUNT(*), SUM(k) and 1,000 sampled rows against it too; then config
+    #1's analytical COUNT(*) under an automatic pin while a second session
+    commits a write transaction, equal to the reference at the pin.
+    -> (launches, measurements)."""
+    from collections import defaultdict
+
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.models import sysbench as sb
+
+    torch.cuda.reset_peak_memory_stats()
+    s = Session(device="cuda")
+    s.execute(sb.DDL)
+    s.db.stores["default.sbtest1"].region_rows = SB_REGION_ROWS
+    t0 = time.perf_counter()
+    table = sb.table(SB_ROWS, seed)
+    gen_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    s.load_arrow("sbtest1", table)
+    load_s = time.perf_counter() - t0
+    del table
+    # ranges as two comparisons, so that the region zone maps prune them
+    drv = sb.Driver(s, SB_ROWS, seed, range_form="comparisons")
+    times = defaultdict(list)
+
+    def timer(kind, fn):
+        t = time.perf_counter()
+        out = fn()
+        times[kind].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    # the sysbench path: counters at 0 just before, read just after
+    reset_launches(gk)
+    t0 = time.perf_counter()
+    drv.run(SB_TXNS - SB_PROFILED_TXNS, timer)
+    wall = time.perf_counter() - t0
+    dev = device_breakdown(lambda: drv.run(SB_PROFILED_TXNS),
+                           wall / (SB_TXNS - SB_PROFILED_TXNS) * SB_PROFILED_TXNS * 1e3)
+    launches = all_launches(gk)
+    ref = drv.reference
+    stats = {"rows": SB_ROWS, "transactions": SB_TXNS, "region_rows": SB_REGION_ROWS,
+             "range_form": "comparisons",
+             "gen_s": gen_s, "load_s": load_s, "wall_s": wall,
+             "tx_per_s": (SB_TXNS - SB_PROFILED_TXNS) / wall,
+             "statements": drv.statements,
+             "per_kind": {k: percentiles(v) for k, v in times.items()},
+             "profiled_transactions": SB_PROFILED_TXNS, "device_ms": dev["device_ms"],
+             "idle_share": dev["idle_share"], "device_ops": dev["device_ops"],
+             "top_kernels": dev["top_kernels"], "launches": launches}
+    log(f"[sysbench] {SB_TXNS} transactions ({drv.statements} statements) match the replay; "
+        f"{stats['tx_per_s']:.1f} tx/s, load {load_s:.2f} s, per kind "
+        f"{ {k: round(v['p50_ms'], 2) for k, v in stats['per_kind'].items()} }")
+
+    # config #1's analytical query under an automatic pin; a second session
+    # commits right after the pin is taken, before the scan is staged
+    lo, hi = SB_ROWS // 4, SB_ROWS // 2
+    sql = f"SELECT COUNT(*) n FROM sbtest1 WHERE k BETWEEN {lo} AND {hi}"
+    at_pin = int(((ref.k[1:] >= lo) & (ref.k[1:] <= hi)).sum())
+    inside = np.nonzero((ref.k >= lo) & (ref.k <= hi))[0]
+    outside = np.nonzero((ref.k < lo) | (ref.k > hi))[0]
+    outside = outside[outside > 0]
+    a, b, c = int(inside[0]), int(outside[0]), int(outside[1])
+    writer = Session(s.db)
+    reg = s.db.mvcc.snapshots
+    pin = reg.pin
+    pinned = []
+
+    def pin_then_commit(ts, query="", holder=""):
+        pid = pin(ts, query=query, holder=holder)
+        pinned.append(ts)
+        for q in ("BEGIN", f"UPDATE sbtest1 SET k = 1 WHERE id = {a}",
+                  f"DELETE FROM sbtest1 WHERE id = {b}",
+                  f"INSERT INTO sbtest1 VALUES ({b}, {lo}, 'x', 'y')",
+                  f"UPDATE sbtest1 SET k = {hi} WHERE id = {c}", "COMMIT"):
+            writer.execute(q)
+        return pid
+
+    reg.pin = pin_then_commit
+    try:
+        rows, spans, events = events_of(s, sql)
+    finally:
+        reg.pin = pin
+    ref.k[a], ref.k[b], ref.k[c] = 1, lo, hi
+    ref.c[b], ref.pad[b] = "x", "y"
+    after = int(((ref.k[1:] >= lo) & (ref.k[1:] <= hi)).sum())
+    snap = events.get("snapshot", {})
+    if len(pinned) != 1 or rows != [{"n": at_pin}] or snap.get("versions_scanned", 0) <= 0:
+        raise AssertionError(f"the pinned COUNT(*) read {rows} ({snap}), expected {at_pin} at "
+                             "the pin over a versioned batch")
+    if s.query(sql) != [{"n": after}] or after == at_pin:
+        raise AssertionError(f"the unpinned COUNT(*) differs from the reference's {after}")
+    total = s.query("SELECT COUNT(*) n, SUM(k) sk FROM sbtest1")
+    if total != [{"n": SB_ROWS, "sk": int(ref.k.sum())}]:
+        raise AssertionError(f"sysbench final COUNT(*), SUM(k) {total} differ from the replay")
+    ids = np.sort(np.random.default_rng(seed).choice(np.arange(1, SB_ROWS + 1), 1000,
+                                                     replace=False))
+    got = s.query("SELECT id, k, c, pad FROM sbtest1 WHERE id IN ("
+                  + ",".join(map(str, ids)) + ") ORDER BY id")
+    want = [{"id": int(i), "k": int(ref.k[i]), "c": ref.c[i], "pad": ref.pad[i]} for i in ids]
+    if got != want:
+        raise AssertionError("sysbench sampled rows differ from the replay")
+    stats["pinned_count"] = {"at_pin": at_pin, "after": after,
+                             "versions_scanned": snap["versions_scanned"], "spans_ms": spans}
+    stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[sysbench] pinned COUNT(*) {at_pin} at the pin over {snap['versions_scanned']} "
+        f"history versions, {after} after the commit; final COUNT/SUM and 1,000 sampled rows "
+        "match the replay")
+    s.execute("DROP TABLE sbtest1")
+    del s, writer, drv
+    stats["literal"] = sysbench_literal(sb, seed)
+    return launches, stats
+
+
+def sysbench_literal(sb, seed: int) -> dict:
+    """A few transactions of sysbench's own statements (``BETWEEN``
+    ranges) at the default region size, where every range scans the whole
+    table and the first after a commit re-stages it; checked against the
+    replay.  -> per-kind times."""
+    from collections import defaultdict
+
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.storage.column_store import DEFAULT_REGION_ROWS
+
+    s = Session(device="cuda")
+    s.execute(sb.DDL)
+    store = s.db.stores["default.sbtest1"]
+    if store.region_rows != DEFAULT_REGION_ROWS:
+        raise AssertionError(f"sbtest1 regions of {store.region_rows} rows")
+    s.load_arrow("sbtest1", sb.table(SB_ROWS, seed))
+    drv = sb.Driver(s, SB_ROWS, seed)
+    times = defaultdict(list)
+
+    def timer(kind, fn):
+        t = time.perf_counter()
+        out = fn()
+        times[kind].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    t0 = time.perf_counter()
+    drv.run(SB_LITERAL_TXNS, timer)
+    wall = time.perf_counter() - t0
+    out = {"transactions": SB_LITERAL_TXNS, "region_rows": store.region_rows,
+           "regions": len(store.regions), "range_form": "between", "wall_s": wall,
+           "tx_per_s": SB_LITERAL_TXNS / wall,
+           "per_kind_ms": {k: v for k, v in times.items()}}
+    s.execute("DROP TABLE sbtest1")
+    log(f"[sysbench] sysbench's BETWEEN at {store.region_rows}-row regions: "
+        f"{SB_LITERAL_TXNS} transactions match the replay, {out['tx_per_s']:.2f} tx/s; "
+        f"ranges (ms) { {k: [round(x, 1) for x in v] for k, v in times.items() if 'range' in k} }")
+    return out
+
+
+def htap_post_refs(table, seed: int):
+    """Phase 11 (ii)'s writes as numpy: the inserted rows (Arrow) and the
+    references of (a)-(c) over the rows after the transaction."""
+    import pyarrow as pa
+
+    rng = np.random.default_rng(seed + 11)
+    ins = pa.table({"g": rng.integers(0, 2048, HTAP_INSERT_ROWS, dtype=np.int32),
+                    "v": rng.standard_normal(HTAP_INSERT_ROWS, dtype=np.float32),
+                    "w": rng.standard_normal(HTAP_INSERT_ROWS),
+                    "g16": rng.integers(0, 16, HTAP_INSERT_ROWS, dtype=np.int32)})
+    g = table.column("g").to_numpy()
+    keep = g != 5
+    cols = {c: table.column(c).to_numpy()[keep] for c in ("g", "v", "w", "g16")}
+    upd = cols["g"] == 7
+    cols["v"] = np.where(upd, cols["v"] + np.float32(1), cols["v"]).astype(np.float32)
+    cols["w"] = np.where(upd, cols["w"] + 1.0, cols["w"])
+    cols = {c: np.concatenate([cols[c], ins.column(c).to_numpy()]) for c in cols}
+    keep_v = (cols["v"] * np.float32(2) + np.float32(1)).astype(np.float64) > 0.5
+    keep_w = cols["w"] > -1
+    refs = {"a": reference(cols["g16"], cols["v"], keep_v, 16),
+            "b": reference(cols["g"], cols["v"], keep_v, 2048),
+            "c": reference(cols["g"], cols["w"], keep_w, 2048)}
+    return ins, refs, int((~keep).sum()), int(upd.sum())
+
+
+def timed_query(s, sql: str, reps: int) -> dict:
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s.query(sql)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    med = statistics.median(walls)
+    out = {"warm_ms_p50": med, "warm_ms_p67": float(np.percentile(walls, 67)),
+           **device_breakdown(lambda: s.query(sql), med, host_ops=False)}
+    out["index_add_kernels"] = len([k for k in out.pop("kernel_names") if "indexFunc" in k])
+    return out
+
+
+def versioned_kernel_checks(gk, store, snap_ts: int, seed: int) -> dict:
+    """K1-K3 and the segment kernel against their plain versions on the
+    pinned versioned batch itself: its length (the live rows plus the
+    history, odd here), its columns and its ``sel`` (the visibility mask)
+    ANDed with each query's WHERE, at the slots (a)-(c) give them; then
+    every segment case of ``segment_cases`` at that length."""
+    from baikaldb_tpu_torch.ops import segments as seg
+
+    got = store.versioned_batch(snap_ts)
+    if got is None:
+        raise AssertionError("the pinned read has no versioned batch to check")
+    vb, versions = got
+    col = dict(zip(vb.names, vb.columns))
+    g, g16, v, w = (col[c].data for c in ("g", "g16", "v", "w"))
+    n = int(g.shape[0])
+    where_v = vb.sel & ((v * 2 + 1).double() > 0.5)       # (a), (b)
+    where_w = vb.sel & (w > -1)                            # (c)
+    t0 = time.perf_counter()
+    k_err = max(check_case(gk, g, v, where_v, NG_SQL),
+                check_case(gk, g, w.float(), where_w, NG_SQL))
+    gid = torch.where(where_v, g16, NG_A)
+    s_err = 0.0
+    for x, op in ((where_v.to(torch.int64), "sum"), (where_v.to(torch.int32), "sum"),
+                  (v.double(), "sum"), (v, "sum"), (v, "min"), (v, "max")):
+        s_err = max(s_err, seg_check(seg, x, gid, NG_A, op))
+    del gid, where_v, where_w
+    gen = torch.Generator(device=g.device)
+    gen.manual_seed(seed + 13)
+    err, cases = segment_cases(seg, n, gen)
+    out = {"rows": n, "history_versions": versions, "k_max_abs_err": k_err,
+           "seg_max_abs_err": max(s_err, err), "seg_cases": cases + 6,
+           "seconds": time.perf_counter() - t0}
+    log(f"[htap] K1-K3 at {NG_SQL} slots and the segment kernel at {NG_A} on the versioned "
+        f"batch ({n} rows, {versions} history versions) under (a)-(c)'s masks, and "
+        f"{cases} segment cases at its length, match the plain versions")
+    return out
+
+
+def htap_snapshot_phase(gk, single, table, refs, seed: int) -> tuple[dict, dict]:
+    """Phase 11 (ii), in phase 3's session over its 100M rows: session A pins
+    (``SET SNAPSHOT = 'now'``); session B deletes ``g = 5``, updates ``v`` and
+    ``w`` where ``g = 7`` and inserts 10,000 rows in one transaction and
+    commits.  A's (a)-(c) equal phase 3's references over a versioned batch,
+    B's the post-write numpy; each query launches exactly its kernels.
+    -> (launches, measurements)."""
+    from baikaldb_tpu_torch.exec.session import Session
+
+    torch.cuda.reset_peak_memory_stats()
+    a = single
+    store = a.db.stores["default.t"]
+    b = Session(a.db)
+    ins, post, deleted, updated = htap_post_refs(table, seed)
+    stats = {"deleted": deleted, "updated": updated, "inserted": HTAP_INSERT_ROWS}
+    with flag(a, "streaming_scan", 0):
+        a.execute("SET SNAPSHOT = 'now'")
+        t0 = time.perf_counter()
+        b.execute("BEGIN")
+        n_del = b.execute("DELETE FROM t WHERE g = 5").affected_rows
+        t1 = time.perf_counter()
+        n_upd = b.execute("UPDATE t SET v = v + 1, w = w + 1 WHERE g = 7").affected_rows
+        t2 = time.perf_counter()
+        step = 1000
+        for i in range(0, HTAP_INSERT_ROWS, step):
+            part = ins.slice(i, step).to_pylist()
+            b.execute("INSERT INTO t VALUES " + ",".join(
+                f"({r['g']}, {r['v']!r}, {r['w']!r}, {r['g16']})" for r in part))
+        t3 = time.perf_counter()
+        b.execute("COMMIT")
+        t4 = time.perf_counter()
+        if (n_del, n_upd) != (deleted, updated):
+            raise AssertionError(f"B deleted {n_del} and updated {n_upd} rows, expected "
+                                 f"{deleted} and {updated}")
+        stats.update(delete_s=t1 - t0, update_s=t2 - t1, insert_s=t3 - t2, commit_s=t4 - t3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        store.device_table_batch()
+        torch.cuda.synchronize()
+        stats["restage_s"] = time.perf_counter() - t0
+        log(f"[htap] B: DELETE {n_del} rows {stats['delete_s']:.2f} s, UPDATE {n_upd} rows "
+            f"{stats['update_s']:.2f} s, INSERT {HTAP_INSERT_ROWS} rows "
+            f"{stats['insert_s']:.2f} s, COMMIT {stats['commit_s']:.2f} s; re-stage of the "
+            f"image {stats['restage_s']:.2f} s")
+        # the versioned path: counters at 0 just before, read just after
+        reset_launches(gk)
+        per_query = {}
+        for who, sess, want_refs in (("pinned", a, refs), ("unpinned", b, post)):
+            for q, sql in QUERIES.items():
+                before = all_launches(gk)
+                t0 = time.perf_counter()
+                rows, spans, events = events_of(sess, sql)
+                first_ms = (time.perf_counter() - t0) * 1e3
+                got = {k: v - before[k] for k, v in all_launches(gk).items() if v != before[k]}
+                if got != EXPECTED_LAUNCHES[q]:
+                    raise AssertionError(f"{who} ({q}) launched {got}, expected "
+                                         f"{EXPECTED_LAUNCHES[q]}")
+                check_query(q, rows, want_refs)
+                snap = events.get("snapshot", {})
+                if who == "pinned" and snap.get("versions_scanned", 0) <= 0:
+                    raise AssertionError(f"pinned ({q}) did not read a versioned batch: {snap}")
+                if who == "unpinned" and snap.get("versions_scanned", 0):
+                    raise AssertionError(f"unpinned ({q}) read a versioned batch: {snap}")
+                per_query[f"{who}_{q}"] = got
+                stats[f"{who}_{q}"] = {"first_ms": first_ms, "launches": got,
+                                       "versions_scanned": snap.get("versions_scanned", 0),
+                                       "mvcc_visibility_ms": spans.get("mvcc.visibility", 0.0),
+                                       **timed_query(sess, sql, HTAP_REPS)}
+                if q == "a" and stats[f"{who}_{q}"]["index_add_kernels"]:
+                    raise AssertionError(f"{who} (a) ran index_add_ on the card")
+                st = stats[f"{who}_{q}"]
+                log(f"[htap] {who} ({q}): first {first_ms:.1f} ms (mvcc.visibility "
+                    f"{st['mvcc_visibility_ms']:.1f} ms, {st['versions_scanned']} history "
+                    f"versions), warm p50 {st['warm_ms_p50']:.2f} ms p67 "
+                    f"{st['warm_ms_p67']:.2f} ms, device {st['device_ms']:.2f} ms, idle "
+                    f"{st['idle_share']:.3f}, launches {got}")
+        launches = {k: sum(p.get(k, 0) for p in per_query.values()) for k in gk.LAUNCHES}
+        launches["segment_reduce"] = sum(p.get("segment_reduce", 0) for p in per_query.values())
+        stats["kernel_checks"] = versioned_kernel_checks(gk, store, a._snapshot[1], seed)
+        a.execute("SET SNAPSHOT = 0")
+    stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    log(f"[htap] pinned (a)-(c) equal phase 3's numpy, unpinned the post-write numpy; "
+        f"peak {stats['peak_mem_gib']:.2f} GiB")
+    return launches, stats
+
+
+def durability_phase(gk, seed: int) -> tuple[dict, dict]:
+    """Phase 11 (iii): ``Database(data_dir=...)`` on the card: a sysbench-
+    shaped table of 100,000 rows written through the row tier (INSERT ...
+    SELECT), sysbench transactions and a rolled-back one, no checkpoint; a
+    new Database over the directory recovers the same rows and GROUP BY;
+    then a checkpoint, more transactions, and recovery again."""
+    import tempfile
+
+    from baikaldb_tpu_torch.exec.session import Database, Session
+    from baikaldb_tpu_torch.models import sysbench as sb
+
+    reset_launches(gk)
+    probe = ("SELECT k % 16 m, COUNT(*) n, SUM(k) sk, MAX(id) mx FROM sbtest1 "
+             "GROUP BY m ORDER BY m", "SELECT id, k, c, pad FROM sbtest1 ORDER BY id")
+    stats = {"rows": DURABLE_ROWS}
+    with tempfile.TemporaryDirectory() as d:
+        s = Session(Database("cuda", data_dir=d))
+        s.execute(sb.DDL)
+        s.execute(sb.DDL.replace("sbtest1", "sbsrc").replace("k_1", "k_2"))
+        s.load_arrow("sbsrc", sb.table(DURABLE_ROWS, seed + 3))
+        t0 = time.perf_counter()
+        s.execute("INSERT INTO sbtest1 SELECT * FROM sbsrc")
+        stats["insert_select_s"] = time.perf_counter() - t0
+        s.execute("DROP TABLE sbsrc")
+        drv = sb.Driver(s, DURABLE_ROWS, seed + 3)
+        drv.run(20)
+        s.execute("BEGIN")
+        s.execute("DELETE FROM sbtest1 WHERE k < 50000")
+        s.execute("UPDATE sbtest1 SET c = 'gone' WHERE id < 100")
+        s.execute("ROLLBACK")
+        want = [s.query(q) for q in probe]
+        for step in ("recover", "checkpoint"):
+            t0 = time.perf_counter()
+            s = Session(Database("cuda", data_dir=d))
+            got = [s.query(q) for q in probe]
+            stats[f"{step}_s"] = time.perf_counter() - t0
+            if got != want:
+                raise AssertionError(f"recovery after {step} differs from the rows written")
+            if step == "recover":
+                s.db.checkpoint()
+                drv.session = s
+                drv.run(20)
+                want = [s.query(q) for q in probe]
+        if want[1] != [{"id": i, "k": int(drv.reference.k[i]), "c": drv.reference.c[i],
+                        "pad": drv.reference.pad[i]} for i in range(1, DURABLE_ROWS + 1)]:
+            raise AssertionError("the recovered rows differ from the sysbench replay")
+    launches = all_launches(gk)
+    log(f"[durable] {DURABLE_ROWS} rows: recovered from the WAL in {stats['recover_s']:.2f} s "
+        f"and from checkpoint + WAL in {stats['checkpoint_s']:.2f} s, same rows and GROUP BY")
+    return launches, stats
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=100_000_000)
@@ -1842,6 +2297,13 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_launches, mesh_stats = mesh_sql_phase(gk, single, refs)
     mesh_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    htap_launches, htap_stats = htap_snapshot_phase(gk, single, table, refs, args.seed)
+    htap_s = time.perf_counter() - t0
+    checks = htap_stats["kernel_checks"]
+    for k in REPLACES:
+        err = checks["seg_max_abs_err" if k == "segment_reduce" else "k_max_abs_err"]
+        times[k]["max_abs_err"] = max(times[k]["max_abs_err"], err)
     del single
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -1850,7 +2312,7 @@ def main() -> int:
     phase_s["streamed"] = time.perf_counter() - t0
     del table
     for path, counts in (("resident", launches), ("streamed", stream_launches),
-                         ("mesh", mesh_launches)):
+                         ("mesh", mesh_launches), ("versioned", htap_launches)):
         missing = [k for k, n in counts.items() if n == 0]
         if missing:
             raise AssertionError(f"kernels not launched on the {path} path: {missing}")
@@ -1881,6 +2343,15 @@ def main() -> int:
     t0 = time.perf_counter()
     vector_launches, vector_stats = vector_phase(gk, args.seed)
     phase_s["vectors"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    htap_stats["row_engine"] = row_engine()
+    sb_launches, htap_stats["sysbench"] = sysbench_phase(gk, args.seed)
+    durable_launches, htap_stats["durable"] = durability_phase(gk, args.seed)
+    phase_s["htap"] = htap_s + time.perf_counter() - t0
+    htap_launches = {k: n + sb_launches[k] + durable_launches[k]
+                     for k, n in htap_launches.items()}
+    print(f"htap phase seconds: {phase_s['htap']:.1f}", flush=True)
     print(f"analytic phase seconds: {phase_s['analytics']:.1f}", flush=True)
     print(f"vector phase seconds: {phase_s['vectors']:.1f}", flush=True)
     print(f"mesh phase seconds: {phase_s['mesh']:.1f}", flush=True)
@@ -1890,17 +2361,18 @@ def main() -> int:
                 "source": SOURCES.get(k, "baikaldb_tpu_torch/ops/csrc/group_agg.cu"),
                 "replaces": REPLACES[k],
                 "launches": (launches[k] + stream_launches.get(k, 0) + vector_launches[k]
-                             + mesh_launches[k]),
+                             + mesh_launches[k] + htap_launches[k]),
                 "launches_resident": launches[k],
                 "launches_streamed": stream_launches.get(k, 0),
                 "launches_vectors": vector_launches[k],
                 "launches_mesh": mesh_launches[k],
+                "launches_htap": htap_launches[k],
                 **times[k]}
                for k in REPLACES]
     print(json.dumps({"card": name_power, "rows": args.rows, "phase_s": phase_s,
                       "sql": sql_stats, "streamed": stream_stats, "tpch": tpch_stats,
                       "analytics": analytic_stats, "egress": egress_stats,
-                      "vectors": vector_stats, "mesh": mesh_stats}),
+                      "vectors": vector_stats, "mesh": mesh_stats, "htap": htap_stats}),
           flush=True)
     print(name_power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

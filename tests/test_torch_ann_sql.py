@@ -1,7 +1,6 @@
 """The port's ANN access path (index/annindex.py through Session.query)
-against the JAX package's: every case of tests/test_ann_sql.py except the
-DELETE half of test_ann_sees_deletes_and_new_rows (the port has no DELETE
-yet), on the same seeded data through both sessions.
+against the JAX package's: every case of tests/test_ann_sql.py, on the same
+seeded data through both sessions.
 
 The IVF candidates come from numpy in both packages (``ivf_search_host``);
 k-means trains on the store's device (the CPU here).  Rows are compared
@@ -96,12 +95,15 @@ def test_ann_ddl_and_explain_match_jax():
 
 
 def test_other_index_and_alter_forms_still_raise():
+    """Online ADD INDEX (a backfill worker), global indexes, rollups and
+    partitions are not ported; ADD / DROP COLUMN, KEY indexes in CREATE
+    TABLE and AUTO_INCREMENT are (tests/test_torch_dml.py)."""
     s = TSession(device="cpu")
     s.execute("CREATE TABLE vt (id BIGINT, v VECTOR(4), ANN INDEX av (v))")
-    for sql in ("ALTER TABLE vt ADD INDEX k (id)", "ALTER TABLE vt ADD COLUMN x INT",
-                "ALTER TABLE vt DROP COLUMN id",
-                "CREATE TABLE t2 (id BIGINT, v VECTOR(2), KEY k (id))",
-                "CREATE TABLE t3 (id BIGINT AUTO_INCREMENT, v VECTOR(2))"):
+    for sql in ("ALTER TABLE vt ADD INDEX k (id)",
+                "CREATE TABLE t2 (id BIGINT, v VECTOR(2), GLOBAL INDEX g (id))",
+                "CREATE TABLE t3 (id BIGINT, v VECTOR(2)) PARTITION BY HASH (id) "
+                "PARTITIONS 2"):
         with pytest.raises(NotPortedError):
             s.execute(sql)
 
@@ -169,6 +171,21 @@ def test_ann_sees_new_rows_and_null_vectors():
     assert _ids(ts, sql2) == _ids(js, sql2)
     assert _ids(ts, sql2)[0] == 11
     assert st.built_rows == 2000 and not np.array_equal(st.centroids, built)
+
+
+def test_ann_sees_deletes():
+    """The DELETE half of the JAX package's test_ann_sees_deletes_and_new_rows:
+    a deleted row leaves the ANN answer at once, in both packages."""
+    rng = np.random.RandomState(5)
+    vecs = rng.randn(1500, 4).astype(np.float32)
+    js, ts = _sessions("CREATE TABLE vt (id BIGINT, v VECTOR(4), ANN INDEX a (v))", vecs)
+    sql = f"SELECT id FROM vt ORDER BY l2_distance(v, '{_vec_lit(vecs[7])}') LIMIT 3"
+    assert _ids(ts, sql)[0] == 7
+    for s in (js, ts):
+        assert s.execute("DELETE FROM vt WHERE id = 7").affected_rows == 1
+    got = _ids(ts, sql)
+    assert 7 not in got and got == _ids(js, sql)
+    assert "ann(a" in _plan(ts, sql)
 
 
 def test_ann_where_filter_composes():

@@ -1006,3 +1006,99 @@ def test_mesh_across_cards_matches_the_cpu_mesh(cuda):
             _mesh_query_matches(gpu, cpu, name)
     finally:
         FLAGS.set_flag("mpp_force_shuffle", False)
+
+
+# -- MVCC: versioned batches on the card --------------------------------------
+
+
+@pytest.mark.cuda
+def test_mvcc_visibility_mask_feeds_every_kernel(cuda):
+    """A versioned batch's sel on the card: visibility_mask over int64
+    commit / delete stamps ANDed into a WHERE mask, then K1, K2, K3 and the
+    segment kernel held against their plain versions under that mask."""
+    from baikaldb_tpu_torch.ops import segments as seg
+    from baikaldb_tpu_torch.storage import mvcc
+
+    rng = np.random.default_rng(19)
+    n, ng, snap = 1_000_003, 2049, 5_000
+    cts = rng.integers(0, 10_000, n).astype(np.int64)
+    cts[rng.random(n) < 0.3] = 0
+    cts[rng.random(n) < 0.01] = mvcc.PENDING
+    dts = np.full(n, mvcc.MAX_TS, np.int64)
+    dead = rng.random(n) < 0.2
+    dts[dead] = cts[dead] + rng.integers(1, 8_000, int(dead.sum()))
+    vis = mvcc.visibility_mask(torch.from_numpy(cts).to(cuda), torch.from_numpy(dts).to(cuda),
+                               snap)
+    want_vis = (cts <= snap) & (dts > snap)
+    assert vis.device.type == "cuda" and torch.equal(vis.cpu(), torch.from_numpy(want_vis))
+    codes, values, where = _inputs(n, ng, 0.6, 19, cuda)
+    mask = where & vis
+    p1 = gk.filtered_group_sum_plain(codes, values, mask, ng)
+    p2 = gk.fused_group_aggregate_plain(codes, values, mask, ng)
+    k1 = gk.filtered_group_sum(codes, values, mask, ng)
+    k2 = gk.fused_group_aggregate(codes, values, mask, ng)
+    assert torch.equal(gk.partition_histogram(codes, mask, ng),
+                       gk.partition_histogram_plain(codes, mask, ng))
+    assert torch.equal(k1[0], p1[0]) and torch.equal(k2[0], p2[0])
+    torch.testing.assert_close(k1[1], p1[1], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(k2[1], p2[1], rtol=1e-5, atol=1e-5)
+    assert torch.equal(k2[2], p2[2]) and torch.equal(k2[3], p2[3])
+    gid = torch.where(mask, codes.clamp(0, 16), torch.full_like(codes, 17)).long() % 17
+    x = torch.where(mask, values, torch.zeros_like(values))
+    before = seg.LAUNCHES["segment_reduce"].value
+    got = seg.segment_reduce(x, gid, 17, "sum")
+    assert seg.LAUNCHES["segment_reduce"].value == before + 1
+    torch.testing.assert_close(got, seg.segment_reduce_plain(x, gid, 17, "sum"),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.cuda
+def test_mvcc_dml_then_pinned_reads_on_the_card_match_the_cpu(cuda):
+    """UPDATE / DELETE / INSERT in a transaction under a pinned reader, on
+    a CUDA session and a CPU session: the pinned and the unpinned GROUP BYs
+    agree by the parity contract, and the pinned 2049-slot read launches K3
+    and K2 over the versioned batch."""
+    import pyarrow as pa
+
+    from baikaldb_tpu_torch.exec.session import Database, Session
+    from baikaldb_tpu_torch.models.parity import mismatch
+
+    rng = np.random.default_rng(23)
+    n = 300_000
+    data = pa.table({"id": np.arange(n, dtype=np.int64),
+                     "g": rng.integers(0, 2048, n).astype(np.int32),
+                     "g16": rng.integers(0, 16, n).astype(np.int32),
+                     "v": rng.standard_normal(n).astype(np.float32),
+                     "w": rng.standard_normal(n)})
+    pairs = []
+    for dev in ("cuda", "cpu"):
+        db = Database(dev)
+        reader, writer = Session(db), Session(db)
+        writer.execute("CREATE TABLE t (id BIGINT, g INT, g16 INT, v FLOAT, w DOUBLE, "
+                       "PRIMARY KEY (id))")
+        writer.load_arrow("t", data)
+        reader.execute("SET SNAPSHOT = 'now'")
+        for q in ("BEGIN", "DELETE FROM t WHERE g = 5", "UPDATE t SET v = v + 1, w = w + 1 "
+                  "WHERE g = 7", "INSERT INTO t VALUES (900001, 7, 3, 0.5, 0.25)", "COMMIT"):
+            writer.execute(q)
+        pairs.append((reader, writer))
+    queries = {"SELECT g16, COUNT(*), SUM(v), AVG(v), MIN(v) FROM t WHERE v*2+1 > 0.5 "
+               "GROUP BY g16 ORDER BY g16": 1e-9,
+               "SELECT g, COUNT(*), SUM(v), AVG(v), MIN(v) FROM t WHERE v*2+1 > 0.5 "
+               "GROUP BY g ORDER BY g": 1e-4,
+               "SELECT g, SUM(w), AVG(w) FROM t WHERE w > -1 GROUP BY g ORDER BY g": 1e-4}
+    (gpu_r, gpu_w), (cpu_r, cpu_w) = pairs
+    for sql, rtol in queries.items():
+        for a, b in ((gpu_r, cpu_r), (gpu_w, cpu_w)):
+            diff = mismatch(a.query(sql), b.query(sql), sql, rtol)
+            assert diff is None, diff
+    fused = list(queries)[1]
+    before = {k: c.value for k, c in gk.LAUNCHES.items()}
+    pinned = gpu_r.query(fused)
+    torch.cuda.synchronize()
+    ran = {k: c.value - before[k] for k, c in gk.LAUNCHES.items() if c.value != before[k]}
+    assert ran == {"partition_histogram": 1, "fused_group_aggregate": 1}
+    assert pinned != gpu_w.query(fused)
+    store = gpu_r.db.stores["default.t"]
+    batch, versions = store.versioned_batch(gpu_r._snapshot[1])
+    assert batch.sel.device.type == "cuda" and versions > 0

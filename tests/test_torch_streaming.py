@@ -194,10 +194,13 @@ MATRIX = {
     # zone maps: id is monotone, so chunks carry disjoint id ranges
     "zone_skip": ("SELECT g, COUNT(*) n, SUM(v) s FROM t WHERE id >= 768 GROUP BY g "
                   "ORDER BY g", {}),
+    # beyond the table: the region zone maps drop its one region before any
+    # chunk set is looked at (0 chunks folded, 0 skipped), in both packages
+    "zone_prune_all": ("SELECT COUNT(*) n, SUM(v) s FROM t WHERE id > 100000", {}),
     # every chunk fails one of the two ranges, while the table as a whole
-    # passes both (so the JAX package's region zone maps keep the table)
-    "zone_prune_all": ("SELECT COUNT(*) n, SUM(v) s FROM t WHERE id < 64 AND d >= '2024-03-01'",
-                       {}),
+    # passes both: the region stays, its chunk zone maps skip every chunk
+    "zone_prune_chunks": ("SELECT COUNT(*) n, SUM(v) s FROM t "
+                          "WHERE id < 64 AND d >= '2024-03-01'", {}),
     "zone_range": ("SELECT COUNT(*) n, SUM(w) s FROM t WHERE id >= 100 AND id < 200", {}),
     "zone_eq": ("SELECT g, SUM(w) s FROM t WHERE id = 500 GROUP BY g", {}),
     "zone_date": ("SELECT COUNT(*) n, MAX(v) mx FROM t WHERE d < '2024-01-20'", {}),
@@ -212,9 +215,11 @@ def test_streamed_query_matches_jax_and_resident(sessions, streamed, monkeypatch
     got, chunks, skipped = run_counted(ts, metrics, sql)
     ran = kc.ran()
     want, jchunks, jskipped = run_counted(js, jmetrics, sql)
-    assert chunks >= 1 or name == "zone_prune_all"
+    assert chunks >= 1 or name in ("zone_prune_all", "zone_prune_chunks")
     assert (chunks, skipped) == (jchunks, jskipped)
-    assert chunks + skipped == N_CHUNKS
+    assert chunks + skipped == (0 if name == "zone_prune_all" else N_CHUNKS)
+    if name == "zone_prune_chunks":
+        assert (chunks, skipped) == (0, N_CHUNKS)
     assert ran == {k: n * chunks for k, n in per_chunk.items()}
     rtol = 1e-4 if ran else 1e-9
     assert_parity(got, want, sql, rtol)
@@ -241,7 +246,10 @@ def test_prune_everything_still_renders_count_zero(sessions, streamed):
     got, chunks, skipped = run_counted(ts, metrics, sql)
     want, jchunks, jskipped = run_counted(js, jmetrics, sql)
     assert got == want == [{"n": 0, "s": None}]
-    assert (chunks, skipped) == (jchunks, jskipped) == (0, N_CHUNKS)
+    assert (chunks, skipped) == (jchunks, jskipped) == (0, 0)
+    plan = ts.execute("EXPLAIN " + sql).plan_text
+    assert "access=zonemap(1/1 regions pruned)" in plan
+    assert plan == js.execute("EXPLAIN " + sql).plan_text
 
 
 @pytest.mark.parametrize("sql", [
