@@ -2,7 +2,8 @@
 
 A copy of ``baikaldb_tpu/chaos/failpoint.py`` (host-only Python).  The port
 wires the cold tier's two seams, ``coldfs.put`` and ``coldfs.get``
-(storage/coldfs.py); a streamed scan reads its chunks through the second.
+(storage/coldfs.py; a streamed scan reads its chunks through the second),
+and the batched dispatcher's tick, ``dispatch.combine`` (exec/dispatch.py).
 Each site follows one discipline:
 
     if failpoint.ENABLED:
@@ -70,6 +71,8 @@ class FailpointPanic(BaseException):
 CATALOG: dict[str, str] = {
     "coldfs.put": "cold-tier segment write (drop: the bytes never land)",
     "coldfs.get": "cold-tier segment read (drop: FileNotFoundError)",
+    "dispatch.combine": "batched-dispatch tick (drop, return and panic abandon the "
+                        "tick: every member re-runs inline; delay stalls it)",
 }
 
 _SPEC_RE = re.compile(

@@ -62,6 +62,7 @@ import torch
 from ..column.batch import Column, ColumnBatch, concat_batches
 from ..column.dictionary import Dictionary
 from ..expr.compile import cast_column, eval_output, eval_predicate
+from ..expr.params import PARAMS_KEY, bind_params
 from ..ops import join as join_ops
 from ..ops.compact import compact, head
 from ..ops.hashagg import (group_aggregate_dense, group_aggregate_sorted,
@@ -90,31 +91,54 @@ class ExecError(RuntimeError):
 @dataclass
 class Ctx:
     """One run's state: its device (and mesh), the derived-table batches
-    evaluated so far (``derived_key`` -> batch) and the executed exchanges
-    ((ExchangeNode | JoinNode | MultiJoinNode | site name, rows) pairs)."""
+    evaluated so far (``derived_key`` -> batch), the executed exchanges
+    ((ExchangeNode | JoinNode | MultiJoinNode | site name, rows) pairs) and,
+    when EXPLAIN ANALYZE counts, each node's live output rows (``id(node)``
+    -> 0-d tensor, summed over the shards of a sharded value)."""
 
     device: torch.device
     mesh: Optional[Mesh] = None
     memo: dict = field(default_factory=dict)
     exchanges: list = field(default_factory=list)
+    counts: Optional[dict] = None
 
 
-def compile_plan(plan: PlanNode, device, mesh: Optional[Mesh] = None) -> Callable:
+def device_params(values, device) -> tuple:
+    """The bound params (plan/paramize.py ``bind``: numpy scalars, or
+    ``[2]`` code bounds of a strcmp slot) as tensors on ``device``, one
+    transfer a slot."""
+    return tuple(torch.as_tensor(v, device=device) for v in values)
+
+
+def compile_plan(plan: PlanNode, device, mesh: Optional[Mesh] = None,
+                 count_rows: bool = False) -> Callable:
     """-> fn(table_batches: dict) -> ColumnBatch, run on ``device``, or over
     ``mesh`` (the table batches then are ShardedBatches and the result is
     replicated on ``mesh.home``).  ``fn.exchanges`` holds the last run's
-    executed exchanges."""
+    executed exchanges.  A parameterized plan's bound values ride the
+    batches under ``PARAMS_KEY`` (expr/params.py); every ``Param`` reads
+    its slot.  With ``count_rows`` the run also keeps each node's live
+    output rows in ``fn.counts`` (``id(node)`` -> int, one host read after
+    the run): the EXPLAIN ANALYZE feed."""
     device = torch.device(device)
 
     def run(batches: dict) -> ColumnBatch:
-        ctx = Ctx(device, mesh)
+        ctx = Ctx(device, mesh, counts={} if count_rows else None)
         run.exchanges = ctx.exchanges
-        out = _eval(plan, batches, ctx)
+        params = batches.get(PARAMS_KEY)
+        with bind_params(device_params(params, device) if params is not None else ()):
+            out = _eval(plan, batches, ctx)
         if isinstance(out, ShardedBatch):      # distribute gathers the root
             raise ExecError("a distributed plan must end replicated")
+        if count_rows:
+            ids = list(ctx.counts)
+            vals = torch.stack([ctx.counts[i].reshape(()).to(torch.int64)
+                                for i in ids]).tolist() if ids else []
+            run.counts = dict(zip(ids, vals))
         return out
 
     run.exchanges = []
+    run.counts = {}
     return run
 
 
@@ -150,7 +174,7 @@ def _shift_keys(b: ColumnBatch, shift: dict, sign: int) -> ColumnBatch:
         c = cols[i]
         cols[i] = dreplace(c, data=c.data + torch.tensor(sign * mn, dtype=c.data.dtype,
                                                          device=c.data.device))
-    return ColumnBatch(b.names, cols, b.sel, b.num_rows, device=b.device)
+    return dreplace(b, columns=cols)
 
 
 def _rename(b: ColumnBatch, names) -> ColumnBatch:
@@ -170,8 +194,16 @@ def _eval(node: PlanNode, batches: dict, ctx: Ctx):
         if key not in ctx.memo:
             ctx.memo[key] = _eval_node(node, batches, ctx)
         # this copy's own output names (generated names may differ)
-        return _each(ctx.memo[key], lambda b: _rename(b, node.names))
-    return _eval_node(node, batches, ctx)
+        out = _each(ctx.memo[key], lambda b: _rename(b, node.names))
+    else:
+        out = _eval_node(node, batches, ctx)
+    if ctx.counts is not None:
+        if isinstance(out, ShardedBatch):
+            ctx.counts[id(node)] = sum(b.live_count().to(torch.int64).to(ctx.device)
+                                       for b in out.shards)
+        else:
+            ctx.counts[id(node)] = out.live_count()
+    return out
 
 
 def _eval_node(node: PlanNode, batches: dict, ctx: Ctx):

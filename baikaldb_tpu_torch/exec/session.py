@@ -74,9 +74,29 @@ answers from the host (a point read); a selective equality on a KEY column
 stages only its rows; region zone maps drop regions before staging or
 streaming; EXPLAIN shows the choice as ``access=...``.
 
-Not ported yet: the plan cache and auto-parameterization, EXPLAIN ANALYZE,
-the host presort permutations, pushdown, matviews and rollups, the binlog,
-partitions, global indexes, online ADD INDEX, and the replicated tier.
+A single-statement SELECT goes through the plan cache, as in the JAX
+session: plan/paramize.py hoists its WHERE literals into a params vector
+and keys an LRU of plans (``plan_cache_size`` per session) on the
+statement's shape, so every literal variant reuses one plan; a table
+version bump replans (keeping the entry when the plan signature holds), a
+view change or DDL drops it, and a pinned read of a table written past the
+pin, or a flag change, plans afresh.  Each SELECT counts one of ``plan_cache_hits`` /
+``plan_cache_param_hits`` / ``plan_cache_misses`` and leaves a row in
+``information_schema.query_log``.  The access paths (point read, KEY
+equality, zone maps, chunk pruning) see each execution's literals.
+PREPARE / EXECUTE [USING ...] / DEALLOCATE PREPARE bind ``?`` positions
+(user variables too) and ride the same path.  EXPLAIN ANALYZE runs the
+query once, always traced, and renders its lines (per-operator live rows,
+``-- run``, ``-- batch``, ``-- snapshot``, ``-- params``, ``-- dispatch``,
+``-- exchange``, ``-- stream``, ``-- trace``) from the trace's span
+records.  ``Database.qos`` (utils/qos.py) gates admission per statement
+sign, user and table.  Concurrent parameterized statements of one shape
+over full table images run through the batched dispatcher
+(exec/dispatch.py): one lane-batched execution (exec/lanes.py) per tick.
+
+Not ported yet: the host presort permutations, pushdown, matviews and
+rollups, the binlog, partitions, global indexes, online ADD INDEX, SHOW
+PROCESSLIST / PROFILE, KILL, and the replicated tier.
 """
 
 from __future__ import annotations
@@ -90,6 +110,9 @@ import os
 import re
 import shutil
 import tempfile
+import time
+import weakref
+from collections import OrderedDict, deque
 from contextlib import contextmanager
 from dataclasses import dataclass, field, replace
 from typing import Optional
@@ -101,25 +124,28 @@ import torch
 
 from ..column.batch import ColumnBatch
 from ..errors import NotPortedError
-from ..exec import egress, executor, streaming
+from ..exec import dispatch, egress, executor, streaming
 from ..expr.ast import AggCall, Call, ColRef, Lit, Subquery, WindowCall
-from ..expr.compile import eval_output, eval_predicate
+from ..expr.compile import ExprError, eval_output, eval_predicate
+from ..expr.params import PARAMS_KEY, ParamError
 from ..index import annindex
 from ..index.selector import analyze_conjuncts, choose_access, is_point_statement, point_key
 from ..meta.catalog import Catalog, IndexInfo, parse_type
-from ..obs import trace
+from ..obs import progress, trace
 from ..parallel.mesh import Mesh
+from ..plan import paramize
 from ..plan.distribute import distribute
 from ..plan.nodes import (AggNode, ExchangeNode, JoinNode, MultiJoinNode,
-                          PlanNode, ScanNode)
+                          PlanNode, ScanNode, plan_signature)
 from ..plan.planner import PlanError, Planner, parse_vector
 from ..sql.lexer import SqlError
 from ..sql.parser import parse_sql
 from ..sql.stmt import (AlterTableStmt, CreateDatabaseStmt, CreateTableStmt,
-                        CreateViewStmt, DeleteStmt, DescribeStmt, DropDatabaseStmt,
-                        DropTableStmt, DropViewStmt, ExplainStmt, InsertStmt, OrderItem,
-                        SelectItem, SelectStmt, SetStmt, ShowStmt, TableRef,
-                        TruncateStmt, TxnStmt, UpdateStmt, UseStmt)
+                        CreateViewStmt, DeallocateStmt, DeleteStmt, DescribeStmt,
+                        DropDatabaseStmt, DropTableStmt, DropViewStmt, ExecuteStmt,
+                        ExplainStmt, InsertStmt, OrderItem, PrepareStmt, SelectItem,
+                        SelectStmt, SetStmt, ShowStmt, TableRef, TruncateStmt, TxnStmt,
+                        UpdateStmt, UseStmt)
 from ..storage.coldfs import ExternalFS
 from ..storage.column_store import TableStore, commit_group, schema_to_arrow
 from ..storage.mvcc import MvccRuntime, SnapshotRefused
@@ -127,7 +153,12 @@ from ..storage.streamchunks import ChunkSource, chunk_set
 from ..types import Field, LType, Schema
 from ..utils import metrics
 from ..utils.device import resolve_device
-from ..utils.flags import FLAGS, FlagError
+from ..utils.flags import FLAGS, FlagError, define
+
+define("param_queries", True,
+       "auto-parameterize WHERE literals (plan/paramize.py): one plan-cache "
+       "entry serves every literal variant of a query shape; 0 restores "
+       "SQL-text-keyed caching with baked literals")
 
 # the JAX session's server version string (its _SERVER_VARS["version"])
 SERVER_VERSION = "8.0.0-baikaldb-tpu"
@@ -287,6 +318,12 @@ class Database:
         self._cold_fs = None
         self.mvcc = MvccRuntime()
         self.data_dir = data_dir
+        # admission control (utils/qos.QosManager), off unless set; the
+        # engine-wide batched dispatcher; the query log
+        # (information_schema.query_log)
+        self.qos = None
+        self.dispatcher = dispatch.BatchDispatcher()
+        self.query_log: deque = deque(maxlen=1000)
         if data_dir:
             os.makedirs(data_dir, exist_ok=True)
             self._recover()
@@ -405,6 +442,16 @@ class Session:
         # access-path batches (secondary gathers, zone-map subsets), keyed
         # by table, version and path; bounded
         self._access_batches: dict = {}
+        # the plan cache (lookup key -> entry, LRU) and PREPAREd statements
+        self._plan_cache: OrderedDict = OrderedDict()
+        self._prepared: dict = {}
+        # per-SELECT state of the parameterized path: the slots the access
+        # paths substitute, whether this SELECT already counted its cache
+        # outcome, the query_log outcome override, the mesh's selectivity
+        self._param_subst: Optional[dict] = None
+        self._param_counted = False
+        self._qlog_outcome: Optional[str] = None
+        self._where_sel_hint = None
 
     def connection_id(self) -> int:
         """This session's id, answered by CONNECTION_ID()."""
@@ -414,18 +461,49 @@ class Session:
     def execute(self, sql: str) -> Result:
         metrics.queries_total.add(1)
         try:
-            with trace.root("query", sql):
-                with trace.span("parse"):
-                    stmts = parse_sql(sql)
-                res = Result()
-                for s in stmts:
-                    res = self._execute_stmt(s)
+            with progress.track():
+                with trace.root("query", sql):
+                    res = self._execute(sql)
         except Exception:
             metrics.queries_failed.add(1)
             raise
         if res.arrow is not None:
             metrics.rows_returned.add(res.arrow.num_rows)
         return res
+
+    def _execute(self, sql: str) -> Result:
+        progress.current().beat(phase="parse")
+        with trace.span("parse"):
+            stmts = parse_sql(sql)
+        if self.db.qos is not None:
+            # COMMIT / ROLLBACK are exempt: shedding load must never pin a
+            # transaction open; a batch is charged per statement
+            billable = sum(1 for s in stmts if not isinstance(s, TxnStmt))
+            if billable:
+                self.db.qos.admit(sql, cost=float(billable), user=self.user,
+                                  tables=self._qos_tables(stmts))
+        if len(stmts) == 1 and isinstance(stmts[0], SelectStmt):
+            stmt = _resolve_session_exprs(stmts[0], self.connection_id())
+            # session-substituted literals are session state: never cached
+            return self._select(stmt, cache_key=(sql, self.current_db)
+                                if stmt is stmts[0] else None)
+        res = Result()
+        for s in stmts:
+            res = self._execute_stmt(s)
+        return res
+
+    def _qos_tables(self, stmts) -> tuple:
+        """Base tables a statement batch touches directly (FROM, joins, DML
+        target): the per-table admission dimension.  Shallow on purpose, as
+        in the JAX session: subquery tables ride free."""
+        out: list[str] = []
+        for s in stmts:
+            for t in [getattr(s, "table", None)] + \
+                    [j.table for j in getattr(s, "joins", ()) or ()]:
+                if t is not None and getattr(t, "subquery", None) is None \
+                        and getattr(t, "name", None):
+                    out.append(f"{t.database or self.current_db}.{t.name}")
+        return tuple(dict.fromkeys(out))
 
     def query(self, sql: str) -> list[dict]:
         return self.execute(sql).to_pylist()
@@ -445,8 +523,23 @@ class Session:
     def _execute_stmt(self, s) -> Result:
         if isinstance(s, _DDL):
             self._commit_txn()
+            # this session's plans may name what the DDL changes; other
+            # sessions' entries go stale through store identity, versions
+            # and the catalog's view generation
+            self._plan_cache.clear()
+        if isinstance(s, PrepareStmt):
+            return self._prepare_stmt(s)
+        if isinstance(s, ExecuteStmt):
+            return self._execute_prepared(s)
+        if isinstance(s, DeallocateStmt):
+            if s.name not in self._prepared:
+                raise PlanError(f"unknown prepared statement {s.name!r}")
+            del self._prepared[s.name]
+            return Result()
         if isinstance(s, SelectStmt):
             return self._select(_resolve_session_exprs(s, self.connection_id()))
+        if isinstance(s, ExplainStmt) and s.fmt == "analyze":
+            return self._explain_analyze(_resolve_session_exprs(s.stmt, self.connection_id()))
         if isinstance(s, CreateTableStmt):
             return self._create_table(s)
         if isinstance(s, InsertStmt):
@@ -1273,9 +1366,13 @@ class Session:
             # cardinality-adaptive aggregation choice
             return (self._stats_fn(table_key, col) or {}).get("ndv")
 
+        # the parameterized path stashes the bound values' selectivity
+        # before planning (this statement carries Params, not values)
+        wsel = self._where_sel_hint
+        if wsel is None:
+            wsel = self._where_selectivity(stmt)
         return distribute(plan, self.mesh.size, rows_fn, ndv_fn=ndv_fn,
-                          stats_fn=self._stats_fn,
-                          where_selectivity=self._where_selectivity(stmt))
+                          stats_fn=self._stats_fn, where_selectivity=wsel)
 
     def _where_selectivity(self, stmt: SelectStmt):
         """Combined selectivity estimate of the WHERE conjuncts that have a
@@ -1370,13 +1467,15 @@ class Session:
             scans[0].ann = (ix.name, col, metric, qvec, int(k),
                             stmt.where is not None)
 
-    def _select(self, stmt: SelectStmt) -> Result:
+    def _select(self, stmt: SelectStmt, cache_key=None) -> Result:
         """The SELECT inside its snapshot scope (``_snapshot_pinned``): every
-        batch staged underneath reads ``_snap_ts``."""
+        batch staged underneath reads ``_snap_ts``.  ``cache_key`` (the SQL
+        text and database of a single-statement SELECT) opts it into the
+        plan cache."""
         with self._snapshot_pinned(stmt):
-            return self._select_impl(stmt)
+            return self._select_impl(stmt, cache_key)
 
-    def _select_impl(self, stmt: SelectStmt) -> Result:
+    def _select_impl(self, stmt: SelectStmt, cache_key=None) -> Result:
         if stmt.into_outfile is not None:
             return self._select_into_outfile(stmt)
         # a pinned read of a table written past the pin takes the versioned
@@ -1392,22 +1491,404 @@ class Session:
             # skeletons evaluate on the host over its rows
             inner = self._select(eg[0])
             return _host_rows_result(*egress.finish(eg[1], inner))
-        plan = self._plan_select(stmt)
-        with trace.span("exec.batches"):
-            batches = self._collect_batches(plan)
+        # auto-parameterization (plan/paramize.py): hoist WHERE literals
+        # into a params vector and key the plan cache on the statement's
+        # shape, so WHERE id = 42 and WHERE id = 43 share one entry
+        norm = None
+        lookup_key = cache_key
+        stmt_run = stmt
+        if cache_key is not None and bool(FLAGS.param_queries):
+            try:
+                with trace.span("plan.paramize"):
+                    n = paramize.normalize(stmt, self._param_resolver(stmt))
+            except Exception:   # noqa: BLE001 — an optimization: never fail the query
+                metrics.count_swallowed("session.paramize")
+                n = None
+            if n is not None and n.slots:
+                norm = n
+                lookup_key = ("//params", self.current_db, n.key)
+                stmt_run = n.stmt
+                metrics.params_hoisted.add(len(n.slots))
+                if self.mesh is not None and stmt.group_by:
+                    # the bound values' WHERE selectivity as a coarse class
+                    # joins the key (the adaptive-agg local/raw decision),
+                    # and the planner reads it from the hint
+                    from ..index.stats import selectivity_class
+
+                    wsel = self._where_selectivity(stmt)
+                    self._where_sel_hint = wsel
+                    cls = selectivity_class(wsel)
+                    if cls > 0:
+                        lookup_key = lookup_key + (f"selcls{cls}",)
+        try:
+            if norm is None:
+                return self._select_cached(stmt, cache_key, cache_key, None)
+            self._param_counted = False
+            try:
+                return self._select_cached(stmt_run, cache_key, lookup_key, norm)
+            except (paramize.BindError, ExprError, ParamError, PlanError) as e:
+                # the valve: what the parameterized path cannot express
+                # replans with baked literals (a user error re-raises from
+                # the baked run); one cache outcome per SELECT either way.
+                # An error of a batched tick is not the valve's: only
+                # CombineFallback sends a member inline
+                if dispatch.from_tick(e):
+                    raise
+                self._plan_cache.pop(lookup_key, None)
+                self._qlog_outcome = "fallback"
+                try:
+                    res = self._select_cached(stmt, cache_key, cache_key, None,
+                                              count=not self._param_counted)
+                finally:
+                    self._qlog_outcome = None
+                metrics.plan_cache_param_fallbacks.add(1)
+                return res
+        finally:
+            self._where_sel_hint = None
+
+    def _select_cached(self, stmt: SelectStmt, text_key, lookup_key, norm,
+                       count: bool = True) -> Result:
+        """Plan (or reuse the cached plan), stage, run, egress.  A cached
+        entry goes stale when a table it read changed (another store, a new
+        version, a catalog version: replan, and keep the entry when the new
+        plan's signature is the old one's), when a view changed, or when
+        any flag moved; under a pin that a table's writes outran, the
+        plan is sized from the versioned batch and is neither reused nor
+        kept."""
+        qp = progress.current()
+        qp.beat(phase="plan")
+        cache = self._plan_cache
+        entry = cache.get(lookup_key) if lookup_key else None
+        replanned = False
+        ctx = self._plan_context()
+        if entry is not None:
+            cache.move_to_end(lookup_key)
+            if entry["view_gen"] != self.db.catalog.view_gen or entry["ctx"] != ctx \
+                    or self._pinned_dirty(entry["versions"]):
+                entry = None
+            elif entry["versions"] != self._table_versions(entry["versions"]):
+                plan = self._plan_select(stmt)
+                sig = plan_signature(plan)
+                if sig != entry["plan_sig"]:
+                    entry["plan"], entry["plan_sig"] = plan, sig
+                    replanned = True
+                entry["versions"] = self._table_versions(_scan_tables(plan))
+        hit = entry is not None and not replanned
+        hit_text = entry.get("text") if entry is not None else None
+        if entry is None:
+            plan = self._plan_select(stmt)
+            versions = self._table_versions(_scan_tables(plan))
+            entry = {"plan": plan, "plan_sig": plan_signature(plan), "versions": versions,
+                     "view_gen": self.db.catalog.view_gen, "ctx": ctx,
+                     "text": text_key[0] if text_key else None}
+            cap = int(FLAGS.plan_cache_size)
+            if lookup_key and cap > 0 and not self._pinned_dirty(versions):
+                cache[lookup_key] = entry
+                while len(cache) > cap:
+                    cache.popitem(last=False)
+        # each SELECT counts exactly one of {hit, param_hit, miss}, after
+        # the fallible planning, so a param-path fallback re-counts only
+        # when this attempt never did
+        if hit and norm is not None and text_key is not None and hit_text != text_key[0]:
+            outcome = "param_hit"
+        elif hit:
+            outcome = "hit"
+        else:
+            outcome = "miss"
+        if count:
+            {"param_hit": metrics.plan_cache_param_hits, "hit": metrics.plan_cache_hits,
+             "miss": metrics.plan_cache_misses}[outcome].add(1)
+            self._param_counted = True
+        qlog_outcome = self._qlog_outcome or outcome
+        trace.event("plan.cache", outcome=qlog_outcome)
+        plan = entry["plan"]
+        qp.beat(phase="exec.batches")
+        # the access paths see this execution's literal values
+        self._param_subst = {sl.index: sl for sl in norm.slots} if norm is not None else None
+        try:
+            with trace.span("exec.batches"):
+                batches, shape_key, full_scan = self._collect_batches(plan)
+        finally:
+            self._param_subst = None
+        if norm is not None:
+            with trace.span("plan.bind"):
+                batches[PARAMS_KEY] = paramize.bind(norm.slots, batches)
+        t0 = time.perf_counter()
+        qp.beat(phase="exec.run")
         with trace.span("exec.run"):
-            if streaming.stream_source(batches) is not None:
-                # out-of-core path: the scan staged a ChunkSource, so this
-                # execution is a chunk fold driven from the host
-                out = streaming.run_streamed(plan, batches, self.device)
-            else:
-                run = executor.compile_plan(plan, self.device, self.mesh)
-                out = run(batches)
-                if self.mesh is not None:
-                    self._mpp_telemetry(plan, run.exchanges)
+            out = self._maybe_batched_run(entry, batches, shape_key, norm, lookup_key,
+                                          full_scan)
+        qp.beat(phase="egress.arrow")
         with trace.span("egress.arrow"):
-            table = _egress_compact(out).to_arrow()
+            table = out.to_arrow()
+        dur_ms = (time.perf_counter() - t0) * 1e3
+        qp.beat(phase="finish")
+        if text_key is not None:
+            buckets = ";".join(f"{p[0]}={p[2]}" for p in shape_key)
+            self.db.query_log.append((text_key[0], dur_ms, table.num_rows, qlog_outcome,
+                                      buckets, qp.phase_ms(), self._snap_ts))
         return Result(columns=list(table.column_names), arrow=table)
+
+    def _plan_context(self) -> tuple:
+        """What a plan depends on beyond the statement, the tables and the
+        views: every flag, and the distribution pass's broadcast bound."""
+        from ..plan import distribute as dist
+
+        return (tuple(sorted(FLAGS.snapshot().items())), dist.BROADCAST_ROWS)
+
+    def _table_versions(self, tables) -> dict:
+        """table key -> (the store, weakly; store version; catalog version)
+        of each table as they stand now: a dropped and re-created table is
+        another store.  A table without a store (information_schema, rendered
+        fresh at every run) maps to None."""
+        out = {}
+        for tk in tables:
+            st = self.db.stores.get(tk)
+            out[tk] = None if st is None else (weakref.ref(st), st.version, st.info.version)
+        return out
+
+    def _pinned_dirty(self, tables) -> bool:
+        """Is this read pinned at a snapshot that some table's writes
+        outran?  Its plan is sized from the versioned batch."""
+        if not self._snap_ts:
+            return False
+        for tk in tables:
+            st = self.db.stores.get(tk)
+            if st is not None and self.mesh is None and st.mvcc_needs_versioned(self._snap_ts):
+                return True
+        return False
+
+    def _run_plan(self, plan: PlanNode, batches: dict) -> ColumnBatch:
+        """One inline execution: the streamed fold or the resident run, then
+        the egress compact."""
+        if streaming.stream_source(batches) is not None:
+            # out-of-core path: the scan staged a ChunkSource, so this
+            # execution is a chunk fold driven from the host
+            out = streaming.run_streamed(plan, batches, self.device)
+        else:
+            run = executor.compile_plan(plan, self.device, self.mesh)
+            out = run(batches)
+            if self.mesh is not None:
+                self._mpp_telemetry(plan, run.exchanges)
+        with trace.span("egress.compact"):
+            return _egress_compact(out)
+
+    def _maybe_batched_run(self, entry: dict, batches: dict, shape_key, norm,
+                           lookup_key, full_scan) -> ColumnBatch:
+        """Through the batched dispatcher when this query is groupable: it
+        is parameterized, off the mesh, outside a transaction, and every
+        scan reads its table's full device image at a real version (no
+        access-path, ANN, streamed or versioned batch), as in the JAX
+        session; otherwise (and for every bypass) the inline run."""
+        plan = entry["plan"]
+
+        def inline():
+            return self._run_plan(plan, batches)
+
+        if norm is None or self.mesh is not None or self._sql_txn is not None \
+                or not dispatch.enabled():
+            return inline()
+        for tk, v, *_rest in shape_key:
+            if v < 0 or tk not in full_scan:
+                return inline()
+        # members coalesce on (statement shape + pinned values, scan shapes
+        # at exact versions, plan signature): they differ only in params
+        group_key = (lookup_key, shape_key, entry["plan_sig"])
+        return self.db.dispatcher.run(inline, group_key, plan, batches, self.device)
+
+    def _param_resolver(self, stmt: SelectStmt):
+        """(table_label, column) -> (table_key, LType) against the live
+        catalog, for paramize's string-literal binder analysis; only plain
+        base tables resolve (as ``_column_resolver``)."""
+        keys = self._column_resolver(stmt)
+
+        def resolve(tlabel, col):
+            tk = keys(tlabel, col)
+            if tk is None:
+                return None
+            db, name = tk.split(".", 1)
+            return tk, self.db.catalog.get_table(db, name).schema.field(
+                col.split(".")[-1]).ltype
+        return resolve
+
+    # -- prepared statements (PREPARE name FROM '...'; EXECUTE name [USING
+    # ...]; DEALLOCATE PREPARE name), as the JAX session's --------------------
+    def _prepare_stmt(self, s: PrepareStmt) -> Result:
+        stmts = parse_sql(s.sql)
+        if len(stmts) != 1:
+            raise PlanError("PREPARE body must be a single statement")
+        if not isinstance(stmts[0], (SelectStmt, InsertStmt, UpdateStmt, DeleteStmt)):
+            raise PlanError("PREPARE supports SELECT/INSERT/UPDATE/DELETE")
+        self._prepared[s.name] = s.sql
+        return Result()
+
+    def _execute_prepared(self, s: ExecuteStmt) -> Result:
+        sql = self._prepared.get(s.name)
+        if sql is None:
+            raise PlanError(f"unknown prepared statement {s.name!r}")
+        vals = [self.session_vars.get("@" + v) if kind == "var" else v
+                for kind, v in s.params]
+        stmt = parse_sql(sql)[0]
+        need = paramize.count_placeholders(stmt)
+        if need != len(vals):
+            raise PlanError(f"prepared statement {s.name!r} needs {need} "
+                            f"parameters, got {len(vals)}")
+        bound = paramize.substitute_placeholders(stmt, vals)
+        metrics.prepared_executes.add(1)
+        if isinstance(bound, SelectStmt):
+            resolved = _resolve_session_exprs(bound, self.connection_id())
+            # the text key carries the bound values: distinct values in
+            # pinned positions (IN lists, LIMIT) must not collide; hoisted
+            # ones share the normalized entry anyway
+            key = None if resolved is not bound else \
+                (f"{sql} /*execute:{vals!r}*/", self.current_db)
+            return self._select(resolved, cache_key=key)
+        return self._execute_stmt(bound)
+
+    # -- EXPLAIN ANALYZE ---------------------------------------------------
+    def _explain_analyze(self, stmt: SelectStmt) -> Result:
+        """Run the query once, always traced (a forced root: the span store
+        is the timing source), and render every line from the trace's span
+        records (``_render_analyze``), as the JAX session does; there is no
+        second timing path."""
+        with trace.root("explain_analyze", force=True):
+            m = trace.mark()
+            with self._snapshot_pinned(stmt):
+                self._explain_analyze_measure(stmt)
+            spans = trace.since(m)
+        lines = _render_analyze(spans)
+        return Result(columns=["plan"], plan_text="\n".join(lines),
+                      arrow=pa.table({"plan": lines}))
+
+    def _explain_analyze_measure(self, stmt: SelectStmt) -> None:
+        """Plan, stage, run (counting each operator's live output rows) and
+        record the telemetry events the renderer reads."""
+        plan = self._plan_select(stmt)
+        batches, shape_key, full_scan = self._collect_batches(plan)
+        by_node: dict = {}
+        if streaming.stream_source(batches) is not None:
+            # a chunk fold has no single run to count: the operators render
+            # uncounted, the fold's telemetry lands in its `stream` event
+            self._run_plan(plan, batches)
+        else:
+            run = executor.compile_plan(plan, self.device, self.mesh if batches else None,
+                                        count_rows=True)
+            # the first run builds whatever kernels it launches; the counts'
+            # host read ends each span after the device work
+            with trace.span("exec.first"):
+                run(batches)
+            with trace.span("exec.steady"):
+                run(batches)
+            by_node = run.counts
+
+        def render(node: PlanNode, indent: int):
+            rows = by_node.get(id(node))
+            attrs = {} if rows is None else {"rows": rows}
+            trace.event("op", label="  " * indent + node._label(), **attrs)
+            for c in node.children:
+                render(c, indent + 1)
+
+        render(plan, 0)
+        scans = [(p[0], batches[p[0]]) for p in shape_key
+                 if isinstance(batches.get(p[0]), ColumnBatch)]
+        lives = torch.stack([b.live_count().to(torch.int64).cpu() for _, b in scans]).tolist() \
+            if scans else []
+        for (tk, b), live in zip(scans, lives):
+            # only a full scan reads the table's whole image; an access-path
+            # batch holds the rows its path gathered
+            trace.event("batch", table=tk, kind="capacity" if tk in full_scan else "gathered",
+                        capacity=len(b), live=int(live))
+        try:
+            nz = paramize.normalize(stmt, self._param_resolver(stmt)) \
+                if bool(FLAGS.param_queries) else None
+        except Exception:   # noqa: BLE001 — the display is best-effort
+            metrics.count_swallowed("session.explain_paramize")
+            nz = None
+        trace.event("params", hoisted=nz.hoisted if nz is not None else 0,
+                    pinned=nz.pinned if nz is not None else paramize._count_lits(stmt),
+                    param_hits_total=metrics.plan_cache_param_hits.value)
+        # whether the dispatcher serves this shape under concurrency, and its
+        # engine-wide tick telemetry (EXPLAIN ANALYZE itself runs inline)
+        trace.event("dispatch", enabled=dispatch.enabled(),
+                    groups_total=metrics.batched_groups.value,
+                    avg_occupancy=metrics.group_occupancy.stats()["avg_ms"],
+                    queue_p50_ms=metrics.queue_wait_ms.stats()["p50_ms"])
+        mj = [0]
+        aggs: list[str] = []
+        seen: set = set()
+
+        def walk(n):
+            if id(n) in seen:
+                return
+            seen.add(id(n))
+            if isinstance(n, MultiJoinNode):
+                mj[0] += 1
+            if isinstance(n, AggNode) and getattr(n, "agg_dist", ""):
+                aggs.append(n.agg_dist)
+            for c in n.children:
+                walk(c)
+
+        walk(plan)
+        xsum = executor.exchange_summary(plan) if self.mesh is not None else \
+            {"rounds": 0, "reused": 0, "collectives": 0, "keys": []}
+        # exchanges are sized from K3's counts: no overflow retry exists
+        trace.event("exchange", rounds=xsum["rounds"], reused=xsum["reused"],
+                    collectives=xsum["collectives"], keys="[" + ",".join(xsum["keys"]) + "]",
+                    multiway=mj[0], agg=",".join(aggs) or "-", retries_total=0,
+                    saved_total=metrics.shuffle_rounds_saved.value)
+
+    # -- information_schema (the tables the port renders) ------------------
+    def _info_schema_table(self, name: str) -> pa.Table:
+        from ..meta.catalog import Catalog
+
+        def empty():
+            return schema_to_arrow(Catalog.INFORMATION_SCHEMA[name]).empty_table()
+
+        if name == "query_log":
+            log = list(self.db.query_log)
+
+            def ph(e, k):
+                return round(float(e[5].get(k, 0.0)), 3)
+            return pa.table({
+                "query": [e[0] for e in log],
+                "duration_ms": pa.array([e[1] for e in log], pa.float64()),
+                "result_rows": pa.array([e[2] for e in log], pa.int64()),
+                "cache": [e[3] for e in log],
+                "capacity_bucket": [e[4] for e in log],
+                "parse_ms": pa.array([ph(e, "parse") for e in log], pa.float64()),
+                "plan_ms": pa.array([ph(e, "plan") for e in log], pa.float64()),
+                "exec_ms": pa.array([ph(e, "exec") for e in log], pa.float64()),
+                "egress_ms": pa.array([ph(e, "egress") for e in log], pa.float64()),
+                "snapshot_ts": pa.array([int(e[6]) for e in log], pa.int64()),
+            }) if log else empty()
+        if name == "dispatcher":
+            # the batched dispatcher's live state: queue depth, in-flight
+            # runs, tick latency, the group-occupancy histogram, the qos
+            # buckets' token levels
+            snap = self.db.dispatcher.snapshot()
+            rows = [("queue", "depth", float(snap["queue_depth"]), ""),
+                    ("queue", "live_groups", float(snap["live_groups"]), ""),
+                    ("queue", "inflight", float(snap["inflight"]), ""),
+                    ("executables", "cached", float(snap["compiled"]), "")]
+            for size in sorted(snap["occupancy"]):
+                rows.append(("occupancy", str(size), float(snap["occupancy"][size]),
+                             "groups combined at this size"))
+            tick = metrics.dispatch_tick_ms.stats()
+            wait = metrics.queue_wait_ms.stats()
+            rows += [("tick", k, float(tick[k]), "")
+                     for k in ("count", "avg_ms", "p50_ms", "p99_ms", "max_ms")]
+            rows += [("queue_wait", k, float(wait[k]), "")
+                     for k in ("count", "avg_ms", "p50_ms", "p99_ms")]
+            for c in ("batched_groups", "dispatch_inline", "dispatch_fallbacks",
+                      "qos_rejections"):
+                rows.append(("counter", c, float(metrics.REGISTRY.get(c).value), ""))
+            if self.db.qos is not None:
+                rows += [(kind, key, float(tokens), detail)
+                         for kind, key, tokens, detail in self.db.qos.state()]
+            return pa.table({"kind": [r[0] for r in rows], "name": [r[1] for r in rows],
+                             "value": pa.array([r[2] for r in rows], pa.float64()),
+                             "detail": [r[3] for r in rows]})
+        raise NotPortedError(f"information_schema.{name} (its plane is not ported)")
 
     def _select_into_outfile(self, stmt: SelectStmt) -> Result:
         """SELECT ... INTO OUTFILE: the rows go to a file, the row count is
@@ -1449,9 +1930,15 @@ class Session:
         os.close(final_fd)
         return Result(affected_rows=res.arrow.num_rows if res.arrow is not None else 0)
 
-    def _collect_batches(self, plan: PlanNode) -> dict:
+    def _collect_batches(self, plan: PlanNode):
+        """Stage every scanned table -> (batches, shape key, full scans).
+        The shape key holds (table, store version, batch length[, "snap"])
+        per table (version -1 for information_schema, rendered fresh);
+        ``full_scan`` names the tables read as their whole device image."""
         batches: dict = {}
         scans: dict = {}
+        key_parts: list = []
+        full_scan: set = set()
 
         def count(n: PlanNode):
             if isinstance(n, ScanNode):
@@ -1463,11 +1950,24 @@ class Session:
         def walk(n: PlanNode):
             if isinstance(n, ScanNode) and n.table_key not in batches:
                 db, name = n.table_key.split(".", 1)
+                if db == "information_schema":
+                    b = ColumnBatch.from_arrow(self._info_schema_table(name), self.device)
+                    if self.mesh is not None:
+                        from ..parallel.mesh import shard_batch
+
+                        b = shard_batch(b, self.mesh)
+                    batches[n.table_key] = b
+                    key_parts.append((n.table_key, -1, len(b)))
+                    for c in n.children:
+                        walk(c)
+                    return
                 store = self._store(TableRef(db, name))
+                snapped = False
                 if self.mesh is not None:
                     # the mesh reads whole sharded tables: no pinned, access-
                     # path, streamed or ANN batches, as in the JAX session
-                    batches[n.table_key] = store.sharded_batch(self.mesh)
+                    b = store.sharded_batch(self.mesh)
+                    full_scan.add(n.table_key)
                 else:
                     # a pinned read of a table written past the pin stages
                     # its versioned batch (never a chunk set or an index
@@ -1476,6 +1976,7 @@ class Session:
                     # its ANN candidates or an access path; a streamed plan
                     # has this one scan (streaming.eligible)
                     b = self._snapshot_batch(n.table_key, store) if self._snap_ts else None
+                    snapped = b is not None
                     if b is None and scans[n.table_key] == 1:
                         if n.ann is not None:
                             b = self._ann_batch(n, store)
@@ -1483,13 +1984,25 @@ class Session:
                             b = self._access_path_batch(n, store)
                     if b is None:
                         b = self._maybe_stream_source(plan, n, store)
-                    batches[n.table_key] = b if b is not None \
-                        else store.device_table_batch()
+                    if b is None:
+                        b = store.device_table_batch()
+                        full_scan.add(n.table_key)
+                batches[n.table_key] = b
+                part = (n.table_key, store.version,
+                        len(b) if isinstance(b, ColumnBatch) else -1)
+                key_parts.append(part + ("snap",) if snapped else part)
             for c in n.children:
                 walk(c)
 
         walk(plan)
-        return batches
+        return batches, tuple(sorted(key_parts)), full_scan
+
+    def _pushed_filter(self, n: ScanNode):
+        """The scan's pushed filter with this execution's literal values in
+        place of its params: what the access paths and zone maps read."""
+        if self._param_subst is None:
+            return n.pushed_filter
+        return paramize.substitute_params(n.pushed_filter, self._param_subst)
 
     _ACCESS_CACHE_MAX = 16
 
@@ -1501,7 +2014,7 @@ class Session:
         if n.pushed_filter is None:
             return None
         try:
-            access = choose_access(store.info, store, analyze_conjuncts(n.pushed_filter))
+            access = choose_access(store.info, store, analyze_conjuncts(self._pushed_filter(n)))
         except Exception:       # noqa: BLE001 — an odd predicate: full scan
             return None
         if access[0] == "secondary":
@@ -1651,10 +2164,74 @@ class Session:
         except Exception:       # noqa: BLE001 — staging is best-effort
             metrics.count_swallowed("session.stream_stage")
             return None
-        keep = cs.pruned(analyze_conjuncts(n.pushed_filter).ranges)
+        keep = cs.pruned(analyze_conjuncts(self._pushed_filter(n)).ranges)
         n.access_desc = (f"stream({len(keep)}/{cs.n_chunks} chunks, "
                          f"{cs.capacity} rows each)")
         return ChunkSource(cs, keep)
+
+
+def _scan_tables(plan: PlanNode) -> set:
+    """The table keys the plan's scans read."""
+    out: set = set()
+    stack = [plan]
+    while stack:
+        n = stack.pop()
+        if isinstance(n, ScanNode):
+            out.add(n.table_key)
+        stack.extend(n.children)
+    return out
+
+
+def _render_analyze(spans: list[dict]) -> list[str]:
+    """EXPLAIN ANALYZE display, rendered only from the span records: the
+    JAX session's lines, without its XLA-specific ones (``-- xla``, ``--
+    aot``, ``-- device``, ``-- guards``) and those of planes the port lacks
+    (``-- view``, ``-- fragments``)."""
+    def find(name):
+        return [s for s in spans if s["name"] == name]
+
+    lines: list[str] = []
+    for s in find("op"):
+        a = s["attrs"]
+        lines.append(a["label"] + (f"  rows={a['rows']}" if "rows" in a else ""))
+    first, steady = find("exec.first"), find("exec.steady")
+    if first and steady:
+        lines.append(f"-- run: {steady[-1]['dur_ms']:.2f} ms "
+                     f"(first incl. compile: {first[-1]['dur_ms']:.2f} ms)")
+    for s in find("batch"):
+        a = s["attrs"]
+        lines.append(f"-- batch: {a['table']} {a['kind']}={a['capacity']} live={a['live']}")
+    snaps = find("snapshot")
+    if snaps:
+        # one line a query: the pinned ts is shared; versions sum
+        a0 = snaps[0]["attrs"]
+        vs = sum(s["attrs"].get("versions_scanned", 0) for s in snaps)
+        lines.append(f"-- snapshot: ts={a0['ts']} versions_scanned={vs} "
+                     f"gc_watermark={a0['gc_watermark']}")
+    for s in find("params"):
+        a = s["attrs"]
+        lines.append(f"-- params: hoisted={a['hoisted']} pinned={a['pinned']} "
+                     f"param_hits_total={a['param_hits_total']}")
+    for s in find("dispatch"):
+        a = s["attrs"]
+        lines.append(f"-- dispatch: enabled={int(a['enabled'])} "
+                     f"groups_total={a['groups_total']} avg_occupancy={a['avg_occupancy']} "
+                     f"queue_p50_ms={a['queue_p50_ms']}")
+    for s in find("exchange"):
+        a = s["attrs"]
+        lines.append(f"-- exchange: rounds={a['rounds']} reused={a['reused']} "
+                     f"collectives={a['collectives']} keys={a['keys']} "
+                     f"multiway={a['multiway']} agg={a['agg']} "
+                     f"shuffle_retries_total={a['retries_total']}")
+    for s in find("stream"):
+        a = s["attrs"]
+        lines.append(f"-- stream: chunks={a['chunks']}/{a['chunks_total']} "
+                     f"skipped={a['skipped']} bytes_h2d={a['bytes_h2d']} "
+                     f"prefetch_wait_ms={a['prefetch_wait_ms']} stage_ms={a['stage_ms']} "
+                     f"restarts={a['restarts']}")
+    lines.append(f"-- trace: spans={len(spans)} (every line above renders from these "
+                 "span records)")
+    return lines
 
 
 def _region_batch(region_table: pa.Table, exprs: list, device) -> ColumnBatch:

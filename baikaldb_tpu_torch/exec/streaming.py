@@ -51,6 +51,7 @@ import torch
 
 from ..column.batch import (Column, ColumnBatch, bucket_capacity, concat_batches,
                             dtype_max, dtype_min)
+from ..expr.params import PARAMS_KEY, bind_params
 from ..obs import trace
 from ..ops.hashagg import (finalize_partials, group_aggregate_dense,
                            group_aggregate_sorted, partial_specs, scalar_aggregate)
@@ -303,10 +304,12 @@ class StreamRunner:
 
 def run_streamed(plan: PlanNode, batches: dict, device):
     """Entry point from the session's ``_select``: fold the ChunkSource in
-    ``batches`` on ``device`` and return the (padded) result batch for
-    egress."""
+    ``batches`` on ``device`` (a parameterized plan's bound values bound
+    for the whole fold) and return the (padded) result batch for egress."""
     src = stream_source(batches)
     if src is None:
         raise executor.ExecError("no chunk source in batches")
     table_key, source = src
-    return StreamRunner(plan, table_key, device).run(source)
+    params = batches.get(PARAMS_KEY)
+    with bind_params(executor.device_params(params, device) if params is not None else ()):
+        return StreamRunner(plan, table_key, device).run(source)

@@ -161,7 +161,10 @@ def _eval(e: Expr, batch: ColumnBatch):
     if isinstance(e, Param):
         v = current_param(e.index)
         if e.kind == "strcmp":
-            return ParamStrBounds(v[0], v[1])
+            # [2] for one query, [G, 2] for a lane-batched tick
+            if v.ndim == 1:
+                return ParamStrBounds(v[0], v[1])
+            return ParamStrBounds(v[:, 0:1], v[:, 1:2])
         return Column(v, None, e.ltype)
     if isinstance(e, AggCall):
         raise ExprError(f"aggregate {e!r} must be hoisted by the planner")

@@ -1,13 +1,16 @@
-"""Trace-time parameter feed for auto-parameterized plans.
+"""Run-time parameter feed of auto-parameterized plans.
 
-The executor's traced body binds the params pytree (riding the batches dict
-under ``PARAMS_KEY``) here before lowering the plan; expr/compile.py's
-``Param`` handler reads slots back out.  The values are jax tracers during
-tracing and device scalars during eager debugging — never host python
-scalars, so the compiled executable stays literal-independent.
+The executor binds the bound values (plan/paramize.py ``bind``, riding the
+batches dict under ``PARAMS_KEY``) here for the length of one run, as
+tensors on the run's device; expr/compile.py's ``Param`` handler reads
+its slot back out, so one cached plan serves every literal variant.  A
+slot is a 0-d tensor (a strcmp slot: ``[2]`` dictionary-code bounds) for
+one query, and a ``[G, 1]`` tensor (``[G, 2]``) for a lane-batched tick of
+``G`` queries (exec/lanes.py), so a comparison against an ``[n]`` column
+gives a ``[G, n]`` mask.
 
-Thread-local: sessions are thread-per-connection and two threads may trace
-concurrently.
+Thread-local: sessions are thread-per-connection and two threads may run
+plans concurrently.
 """
 
 from __future__ import annotations
@@ -15,8 +18,8 @@ from __future__ import annotations
 import threading
 from contextlib import contextmanager
 
-# reserved key in the batches dict fed to the jitted plan; ScanNodes look up
-# real table keys ("db.table") so a dunder name can never collide
+# reserved key in the batches dict fed to the plan; ScanNodes look up real
+# table keys ("db.table") so a dunder name can never collide
 PARAMS_KEY = "__params__"
 
 _tls = threading.local()
@@ -30,9 +33,9 @@ class ParamError(Exception):
 
 
 class ParamStrBounds:
-    """A strcmp param travelling through the expr compiler: traced (lo, hi)
-    dictionary-code bounds, consumed by comparison handlers the way a host
-    string literal's searched bounds are."""
+    """A strcmp param travelling through the expr compiler: (lo, hi)
+    dictionary-code bounds on the device, consumed by comparison handlers
+    the way a host string literal's searched bounds are."""
 
     __slots__ = ("lo", "hi")
 
@@ -43,8 +46,8 @@ class ParamStrBounds:
 
 @contextmanager
 def bind_params(values):
-    """Make ``values`` (tuple of jnp scalars / (2,) code-bound arrays)
-    visible to Param evaluation for the duration of a trace."""
+    """Make ``values`` (a tuple of device tensors, one a slot) visible to
+    Param evaluation for the duration of a run."""
     prev = getattr(_tls, "values", None)
     _tls.values = values
     try:
@@ -57,7 +60,7 @@ def current_param(index: int):
     values = getattr(_tls, "values", None)
     if values is None or index >= len(values):
         raise ParamError(
-            f"param slot {index} unbound: the plan was compiled from a "
-            "parameterized statement but no params pytree was fed "
+            f"param slot {index} unbound: the plan came from a "
+            "parameterized statement but no params were bound "
             f"({0 if values is None else len(values)} slots bound)")
     return values[index]

@@ -59,6 +59,16 @@
 // memory rate, and it would add shared-memory traffic to the pipe the
 // atomics use.
 //
+// Lanes (bk_group_agg_lanes, bk_fused_agg_lanes): one launch serves the G
+// lanes of a batched-dispatch tick.  codes and values are shared, mask is
+// [G, n] (row L is lane L's filter), the outputs are [G, ng].  blockIdx.y is
+// the lane: a lane's blocks take the rows exactly as a one-lane call's
+// blocks do (the same grid-x geometry), so each lane's counts, mins and maxs
+// equal the one-lane call's on its mask, and its sums are the same float64
+// partials up to the order of the atomics.  The one-lane entry points are
+// these kernels at gridDim.y = 1, where the lane offsets are zero.  Each lane
+// reads codes and values again: G * n * (4 + value bytes) + G * n mask bytes.
+//
 // Host side: the dynamic-shared-memory attribute, the SM count and the
 // occupancy answer are queried once per (kernel, device, table size) and
 // cached; every launch still returns cudaGetLastError().
@@ -128,6 +138,10 @@ group_agg_kernel(const int* __restrict__ codes, const V* __restrict__ values,
     double* s_sums = reinterpret_cast<double*>(smem);
     unsigned int* s_counts = reinterpret_cast<unsigned int*>(
         smem + (KIND != KIND_HIST ? sizeof(double) * ng : 0));
+    // lane blockIdx.y: its mask row and its output row (0 for one lane)
+    mask += static_cast<size_t>(blockIdx.y) * n;
+    g_counts += static_cast<size_t>(blockIdx.y) * ng;
+    if (KIND != KIND_HIST) g_sums += static_cast<size_t>(blockIdx.y) * ng;
 
     for (int g = threadIdx.x; g < ng; g += blockDim.x) {
         s_counts[g] = 0u;
@@ -254,6 +268,7 @@ agg_kernel(const int* __restrict__ codes, const V* __restrict__ values,
     }
     __syncthreads();
 
+    mask += static_cast<size_t>(blockIdx.y) * n;     // this lane's mask row
     const int lane = threadIdx.x & 31;
     const long long warp = ((long long)blockIdx.x * AGG_THREADS + threadIdx.x) >> 5;
     const long long step = (((long long)gridDim.x * AGG_THREADS) >> 5) * WARP_QUADS;
@@ -280,8 +295,9 @@ agg_kernel(const int* __restrict__ codes, const V* __restrict__ values,
     }
     __syncthreads();
 
-    const AggTable w = agg_table(ws, static_cast<size_t>(gridDim.x) * ng);
-    const size_t row = static_cast<size_t>(blockIdx.x) * ng;
+    // lane L's blocks own rows [L * blocks, (L + 1) * blocks) of the workspace
+    const AggTable w = agg_table(ws, static_cast<size_t>(gridDim.y) * gridDim.x * ng);
+    const size_t row = (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * ng;
     for (int g = threadIdx.x; g < ng; g += AGG_THREADS) {
         w.sums[row + g] = t.sums[g];
         w.ext[row + g] = t.ext[g];
@@ -290,7 +306,9 @@ agg_kernel(const int* __restrict__ codes, const V* __restrict__ values,
 }
 
 // Reduces the `blocks` rows of the workspace per slot; -> int64 counts and
-// float32 outputs out[0:ng] sums, [ng:2ng] mins, [2ng:3ng] maxs.
+// float32 outputs out[0:ng] sums, [ng:2ng] mins, [2ng:3ng] maxs.  Lane
+// blockIdx.y reads its own `blocks` rows and writes counts[L * ng ...] and
+// out[L * 3 * ng ...].
 __global__ void __launch_bounds__(MERGE_SLOTS * MERGE_WARPS)
 agg_merge(int blocks, int ng, const void* __restrict__ ws, long long* __restrict__ counts,
           float* __restrict__ out) {
@@ -301,14 +319,18 @@ agg_merge(int blocks, int ng, const void* __restrict__ ws, long long* __restrict
     const int lane = threadIdx.x & 31;
     const int wid = threadIdx.x >> 5;
     const int g = blockIdx.x * MERGE_SLOTS + lane;
-    const AggTable w = agg_table(const_cast<void*>(ws), static_cast<size_t>(blocks) * ng);
+    const size_t first = static_cast<size_t>(blockIdx.y) * blocks;
+    const AggTable w = agg_table(const_cast<void*>(ws),
+                                 static_cast<size_t>(gridDim.y) * blocks * ng);
+    counts += static_cast<size_t>(blockIdx.y) * ng;
+    out += static_cast<size_t>(blockIdx.y) * 3 * ng;
     double s = 0.0;
     unsigned long long c = 0ULL;
     int mn = ordered_int(BIG), mx = ordered_int(-BIG);
     if (g < ng) {
 #pragma unroll 4
         for (int b = wid; b < blocks; b += MERGE_WARPS) {
-            const size_t i = static_cast<size_t>(b) * ng + g;
+            const size_t i = (first + b) * ng + g;
             const int2 e = w.ext[i];
             s += w.sums[i];
             c += w.counts[i];
@@ -373,8 +395,8 @@ cudaError_t grid_cap(const void* kern, int device, int threads, size_t smem, siz
 
 template <int KIND, typename V>
 cudaError_t launch_main(int device, const void* codes, const void* values, const void* mask,
-                        long long n, int ng, unsigned long long* counts, double* sums,
-                        cudaStream_t stream) {
+                        long long n, int ng, int lanes, unsigned long long* counts,
+                        double* sums, cudaStream_t stream) {
     auto kern = group_agg_kernel<KIND, V>;
     const size_t smem = table_bytes(KIND, ng);
     int cap = 0;
@@ -383,7 +405,7 @@ cudaError_t launch_main(int device, const void* codes, const void* values, const
     if (err != cudaSuccess) return err;
     long long want = (n + THREADS - 1) / THREADS;
     int blocks = static_cast<int>(want < cap ? (want > 0 ? want : 1) : cap);
-    kern<<<blocks, THREADS, smem, stream>>>(
+    kern<<<dim3(blocks, lanes), THREADS, smem, stream>>>(
         static_cast<const int*>(codes), static_cast<const V*>(values),
         static_cast<const bool*>(mask), n, ng, counts, sums);
     return cudaGetLastError();
@@ -403,7 +425,7 @@ cudaError_t agg_blocks(int device, long long n, int ng, int* blocks) {
 
 template <typename V>
 cudaError_t launch_agg(const void* codes, const void* values, const void* mask, long long n,
-                       int ng, int blocks, void* ws, long long* counts, float* out,
+                       int ng, int blocks, int lanes, void* ws, long long* counts, float* out,
                        cudaStream_t stream) {
     // the vector loop starts at the codes' first 16-byte boundary; values and
     // mask must be aligned at that row too, or every row goes scalar
@@ -412,19 +434,55 @@ cudaError_t launch_agg(const void* codes, const void* values, const void* mask, 
     const uintptr_t pm = reinterpret_cast<uintptr_t>(mask);
     long long head = static_cast<long long>(((16 - pc % 16) % 16) / sizeof(int));
     if (head > n) head = n;
+    // every lane's mask row must be aligned at that row as well
     const bool aligned = pc % sizeof(int) == 0 && (pm + head) % 4 == 0 &&
-                         (pv + head * sizeof(V)) % 16 == 0;
+                         (pv + head * sizeof(V)) % 16 == 0 && (lanes == 1 || n % 4 == 0);
     long long quads = 0;
     if (aligned) quads = (n - head) / 4;
     else head = n;
-    agg_kernel<V><<<blocks, AGG_THREADS, agg_table_bytes(ng), stream>>>(
+    agg_kernel<V><<<dim3(blocks, lanes), AGG_THREADS, agg_table_bytes(ng), stream>>>(
         static_cast<const int*>(codes), static_cast<const V*>(values),
         static_cast<const bool*>(mask), n, head, quads, ng, ws);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    agg_merge<<<(ng + MERGE_SLOTS - 1) / MERGE_SLOTS, MERGE_SLOTS * MERGE_WARPS, 0, stream>>>(
-        blocks, ng, ws, counts, out);
+    agg_merge<<<dim3((ng + MERGE_SLOTS - 1) / MERGE_SLOTS, lanes), MERGE_SLOTS * MERGE_WARPS, 0,
+                stream>>>(blocks, ng, ws, counts, out);
     return cudaGetLastError();
+}
+
+// K1/K3 over `lanes` mask rows (lanes = 1: the one-lane call).
+int group_agg(int device, int kind, int value_f64, const void* codes, const void* values,
+              const void* mask, long long n, int ng, int lanes, void* ws_counts, void* ws_sums,
+              void* out_sums, void* stream_ptr) {
+    if (ng < 1 || ng > MAX_GROUPS || n < 0 || lanes < 1 || lanes > 65535)
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    auto* counts = static_cast<unsigned long long*>(ws_counts);
+    auto* sums = static_cast<double*>(ws_sums);
+    const int slots = ng * lanes;
+    const int small_blocks = (slots + 255) / 256;
+    init_workspace<<<small_blocks, 256, 0, stream>>>(kind, slots, counts, sums);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (n > 0) {
+        if (kind == KIND_HIST)
+            err = launch_main<KIND_HIST, float>(device, codes, values, mask, n, ng, lanes, counts,
+                                                sums, stream);
+        else if (kind == KIND_SUM && value_f64)
+            err = launch_main<KIND_SUM, double>(device, codes, values, mask, n, ng, lanes, counts,
+                                                sums, stream);
+        else if (kind == KIND_SUM)
+            err = launch_main<KIND_SUM, float>(device, codes, values, mask, n, ng, lanes, counts,
+                                               sums, stream);
+        else
+            err = cudaErrorInvalidValue;
+        if (err != cudaSuccess) return static_cast<int>(err);
+    }
+    if (kind == KIND_HIST) return static_cast<int>(cudaSuccess);
+    finalize<<<small_blocks, 256, 0, stream>>>(slots, sums, static_cast<float*>(out_sums));
+    return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -440,33 +498,18 @@ extern "C" {
 int bk_group_agg(int device, int kind, int value_f64, const void* codes, const void* values,
                  const void* mask, long long n, int ng, void* ws_counts, void* ws_sums,
                  void* out_sums, void* stream_ptr) {
-    if (ng < 1 || ng > MAX_GROUPS || n < 0) return static_cast<int>(cudaErrorInvalidValue);
-    cudaError_t err = cudaSetDevice(device);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
-    auto* counts = static_cast<unsigned long long*>(ws_counts);
-    auto* sums = static_cast<double*>(ws_sums);
-    const int small_blocks = (ng + 255) / 256;
-    init_workspace<<<small_blocks, 256, 0, stream>>>(kind, ng, counts, sums);
-    err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    if (n > 0) {
-        if (kind == KIND_HIST)
-            err = launch_main<KIND_HIST, float>(device, codes, values, mask, n, ng, counts, sums,
-                                                stream);
-        else if (kind == KIND_SUM && value_f64)
-            err = launch_main<KIND_SUM, double>(device, codes, values, mask, n, ng, counts, sums,
-                                                stream);
-        else if (kind == KIND_SUM)
-            err = launch_main<KIND_SUM, float>(device, codes, values, mask, n, ng, counts, sums,
-                                               stream);
-        else
-            err = cudaErrorInvalidValue;
-        if (err != cudaSuccess) return static_cast<int>(err);
-    }
-    if (kind == KIND_HIST) return static_cast<int>(cudaSuccess);
-    finalize<<<small_blocks, 256, 0, stream>>>(ng, sums, static_cast<float*>(out_sums));
-    return static_cast<int>(cudaGetLastError());
+    return group_agg(device, kind, value_f64, codes, values, mask, n, ng, 1, ws_counts,
+                     ws_sums, out_sums, stream_ptr);
+}
+
+// K1/K3 over `lanes` lanes: mask is [lanes, n], ws_counts [lanes, ng]
+// uint64, ws_sums [lanes, ng] float64, out_sums [lanes, ng] float32; codes
+// and values are shared by the lanes.
+int bk_group_agg_lanes(int device, int kind, int value_f64, const void* codes,
+                       const void* values, const void* mask, long long n, int ng, int lanes,
+                       void* ws_counts, void* ws_sums, void* out_sums, void* stream_ptr) {
+    return group_agg(device, kind, value_f64, codes, values, mask, n, ng, lanes, ws_counts,
+                     ws_sums, out_sums, stream_ptr);
 }
 
 // K2: the number of blocks bk_fused_agg launches for n rows and ng groups;
@@ -489,18 +532,34 @@ long long bk_fused_agg_ws_bytes(int blocks, int ng) {
 // K2: count + sum + min + max.  ws: 8-byte aligned workspace of
 // bk_fused_agg_ws_bytes(blocks, ng) bytes; counts: int64[ng]; out:
 // float32[3 * ng] (sums, mins, maxs).
+int bk_fused_agg_lanes(int device, int value_f64, const void* codes, const void* values,
+                       const void* mask, long long n, int ng, int lanes, int blocks, void* ws,
+                       void* counts, void* out, void* stream_ptr);
+
 int bk_fused_agg(int device, int value_f64, const void* codes, const void* values,
                  const void* mask, long long n, int ng, int blocks, void* ws, void* counts,
                  void* out, void* stream_ptr) {
-    if (ng < 1 || ng > MAX_GROUPS || n < 0 || blocks < 1)
+    return bk_fused_agg_lanes(device, value_f64, codes, values, mask, n, ng, 1, blocks, ws,
+                              counts, out, stream_ptr);
+}
+
+// K2 over `lanes` lanes: mask [lanes, n]; `blocks` is bk_fused_agg_blocks'
+// answer for one lane and every lane launches that many; ws takes lanes *
+// bk_fused_agg_ws_bytes(blocks, ng) bytes; counts int64 [lanes, ng]; out
+// float32 [lanes, 3, ng] (each lane's sums, mins, maxs).
+int bk_fused_agg_lanes(int device, int value_f64, const void* codes, const void* values,
+                       const void* mask, long long n, int ng, int lanes, int blocks, void* ws,
+                       void* counts, void* out, void* stream_ptr) {
+    if (ng < 1 || ng > MAX_GROUPS || n < 0 || blocks < 1 || lanes < 1 || lanes > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     auto* c = static_cast<long long*>(counts);
     auto* o = static_cast<float*>(out);
-    err = value_f64 ? launch_agg<double>(codes, values, mask, n, ng, blocks, ws, c, o, stream)
-                    : launch_agg<float>(codes, values, mask, n, ng, blocks, ws, c, o, stream);
+    err = value_f64
+        ? launch_agg<double>(codes, values, mask, n, ng, blocks, lanes, ws, c, o, stream)
+        : launch_agg<float>(codes, values, mask, n, ng, blocks, lanes, ws, c, o, stream);
     return static_cast<int>(err);
 }
 

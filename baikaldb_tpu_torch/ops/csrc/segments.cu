@@ -36,6 +36,15 @@
 // slot's rows in a fixed order and writes the output dtype.  Two launches,
 // no init pass, no global atomics.
 //
+// Lanes (bk_seg_reduce_lanes): one launch serves the G lanes of a
+// batched-dispatch tick.  x and gid are shared, mask is [G, n] (a row drops
+// in lane L where mask[L, i] is false, as an id outside [0, S) does), the
+// output is [G, S]; blockIdx.y is the lane.  Every lane launches the blocks
+// and the table layout of the one-lane plan for (n, S), so a lane's rows
+// reach the same threads in the same order and its result equals, bit for
+// bit, the one-lane reduction of (x, where(mask[L], gid, S)).  Each lane
+// reads x and gid again: G * n * (x bytes + id bytes + 1) bytes.
+//
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC  (baikaldb_tpu_torch/ops/group_kernels.py builds it).
 // Interface: plain C, loaded with ctypes; pointers are device pointers, the
@@ -165,12 +174,18 @@ template <> struct Red<OP_MAX, double> : ExtFloat<false, double, long long> {};
 
 // One pass over the rows; block b leaves its table in row b of `ws`.
 // PRIVATE: R == THREADS, slot-major table, no atomics; else replica-major.
-template <int OP, typename T, typename Id, bool PRIVATE>
+// LANES: lane blockIdx.y reads mask row blockIdx.y and leaves its tables in
+// rows [blockIdx.y * gridDim.x, (blockIdx.y + 1) * gridDim.x) of `ws`.
+template <int OP, typename T, typename Id, bool PRIVATE, bool LANES>
 __global__ void __launch_bounds__(THREADS)
-seg_kernel(const T* __restrict__ x, const Id* __restrict__ gid, long long n, int S, int R,
-           typename Red<OP, T>::Acc* __restrict__ ws) {
+seg_kernel(const T* __restrict__ x, const Id* __restrict__ gid, const bool* __restrict__ mask,
+           long long n, int S, int R, typename Red<OP, T>::Acc* __restrict__ ws) {
     using R_ = Red<OP, T>;
     using A = typename R_::Acc;
+    if (LANES) {
+        mask += static_cast<size_t>(blockIdx.y) * n;
+        ws += static_cast<size_t>(blockIdx.y) * gridDim.x * S;
+    }
     extern __shared__ __align__(8) unsigned char smem[];
     A* t = reinterpret_cast<A*>(smem);
     for (int i = threadIdx.x; i < S * R; i += THREADS) t[i] = R_::ident();
@@ -190,6 +205,7 @@ seg_kernel(const T* __restrict__ x, const Id* __restrict__ gid, long long n, int
             if (i < n) {
                 g[u] = ld(gid + i);
                 v[u] = ld(x + i);
+                if (LANES && !ld(mask + i)) g[u] = -1;     // dropped in this lane
             } else {
                 g[u] = -1;
                 v[u] = T(0);
@@ -228,13 +244,16 @@ seg_kernel(const T* __restrict__ x, const Id* __restrict__ gid, long long n, int
 }
 
 // Reduces the `blocks` rows of the workspace per slot in a fixed order and
-// writes out[g] in the output dtype.
+// writes out[g] in the output dtype; lane blockIdx.y reduces its own
+// `blocks` rows into out[blockIdx.y * S ...].
 template <int OP, typename T>
 __global__ void __launch_bounds__(MERGE_SLOTS * MERGE_WARPS)
 seg_merge(int blocks, int S, const typename Red<OP, T>::Acc* __restrict__ ws,
           typename Red<OP, T>::Out* __restrict__ out) {
     using R_ = Red<OP, T>;
     using A = typename R_::Acc;
+    ws += static_cast<size_t>(blockIdx.y) * blocks * S;
+    out += static_cast<size_t>(blockIdx.y) * S;
     __shared__ A part[MERGE_WARPS][MERGE_SLOTS];
     const int lane = threadIdx.x & 31;
     const int wid = threadIdx.x >> 5;
@@ -313,8 +332,9 @@ cudaError_t plan_for(int device, long long n, int S, int mode, Plan* p) {
     }
     p->smem = slot * p->replicas;
     if (p->smem > SMEM_MAX) return cudaErrorInvalidValue;
-    const void* kern = p->priv ? reinterpret_cast<const void*>(&seg_kernel<OP, T, Id, true>)
-                               : reinterpret_cast<const void*>(&seg_kernel<OP, T, Id, false>);
+    const void* kern = p->priv
+        ? reinterpret_cast<const void*>(&seg_kernel<OP, T, Id, true, false>)
+        : reinterpret_cast<const void*>(&seg_kernel<OP, T, Id, false, false>);
     int per_sm = 0, sms = 0;
     cudaError_t err = blocks_per_sm(kern, device, p->smem, &per_sm, &sms);
     if (err != cudaSuccess) return err;
@@ -324,22 +344,49 @@ cudaError_t plan_for(int device, long long n, int S, int mode, Plan* p) {
     return cudaSuccess;
 }
 
+// The lane kernels' dynamic-shared-memory attribute, set once a kernel.
+std::mutex g_lane_mu;
+std::map<const void*, bool> g_lane_attr;
+
+cudaError_t lane_attr(const void* kern) {
+    std::lock_guard<std::mutex> lock(g_lane_mu);
+    if (g_lane_attr.count(kern)) return cudaSuccess;
+    cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           static_cast<int>(SMEM_MAX));
+    if (err == cudaSuccess) g_lane_attr[kern] = true;
+    return err;
+}
+
+// One reduction over `lanes` lanes; mask is null for the one-lane call.
 template <int OP, typename T, typename Id>
-cudaError_t run(const void* x, const void* gid, long long n, int S, const Plan& p, void* ws,
-                void* out, cudaStream_t stream) {
+cudaError_t run(const void* x, const void* gid, const void* mask, int lanes, long long n, int S,
+                const Plan& p, void* ws, void* out, cudaStream_t stream) {
     using R_ = Red<OP, T>;
     using A = typename R_::Acc;
     auto* w = static_cast<A*>(ws);
-    if (p.priv)
-        seg_kernel<OP, T, Id, true><<<p.blocks, THREADS, p.smem, stream>>>(
-            static_cast<const T*>(x), static_cast<const Id*>(gid), n, S, p.replicas, w);
-    else
-        seg_kernel<OP, T, Id, false><<<p.blocks, THREADS, p.smem, stream>>>(
-            static_cast<const T*>(x), static_cast<const Id*>(gid), n, S, p.replicas, w);
-    cudaError_t err = cudaGetLastError();
+    const T* xs = static_cast<const T*>(x);
+    const Id* ids = static_cast<const Id*>(gid);
+    const bool* m = static_cast<const bool*>(mask);
+    cudaError_t err;
+    if (mask == nullptr) {
+        if (p.priv)
+            seg_kernel<OP, T, Id, true, false><<<p.blocks, THREADS, p.smem, stream>>>(
+                xs, ids, m, n, S, p.replicas, w);
+        else
+            seg_kernel<OP, T, Id, false, false><<<p.blocks, THREADS, p.smem, stream>>>(
+                xs, ids, m, n, S, p.replicas, w);
+    } else {
+        auto kern = p.priv ? seg_kernel<OP, T, Id, true, true> : seg_kernel<OP, T, Id, false, true>;
+        err = lane_attr(reinterpret_cast<const void*>(kern));
+        if (err != cudaSuccess) return err;
+        kern<<<dim3(p.blocks, lanes), THREADS, p.smem, stream>>>(xs, ids, m, n, S, p.replicas,
+                                                                 w);
+    }
+    err = cudaGetLastError();
     if (err != cudaSuccess) return err;
-    seg_merge<OP, T><<<(S + MERGE_SLOTS - 1) / MERGE_SLOTS, MERGE_SLOTS * MERGE_WARPS, 0,
-                       stream>>>(p.blocks, S, w, static_cast<typename R_::Out*>(out));
+    seg_merge<OP, T><<<dim3((S + MERGE_SLOTS - 1) / MERGE_SLOTS, lanes),
+                       MERGE_SLOTS * MERGE_WARPS, 0, stream>>>(
+        p.blocks, S, w, static_cast<typename R_::Out*>(out));
     return cudaGetLastError();
 }
 
@@ -380,9 +427,10 @@ template <int OP, typename T, typename Id> struct AccBytesF {
     }
 };
 template <int OP, typename T, typename Id> struct RunF {
-    static cudaError_t call(const void* x, const void* gid, long long n, int S, Plan p,
-                            void* ws, void* out, cudaStream_t stream) {
-        return run<OP, T, Id>(x, gid, n, S, p, ws, out, stream);
+    static cudaError_t call(const void* x, const void* gid, const void* mask, int lanes,
+                            long long n, int S, Plan p, void* ws, void* out,
+                            cudaStream_t stream) {
+        return run<OP, T, Id>(x, gid, mask, lanes, n, S, p, ws, out, stream);
     }
 };
 
@@ -415,10 +463,25 @@ int bk_seg_max_segments() { return MAX_SEGMENTS; }
 // One reduction: x [n] of tcode, gid [n] int32/int64, ws 8-byte aligned of
 // bk_seg_ws_bytes bytes, out [S] of the output dtype; `blocks` and `mode`
 // as bk_seg_blocks gave and took them.
+int bk_seg_reduce_lanes(int device, int op, int tcode, int id64, const void* x,
+                        const void* gid, const void* mask, int lanes, long long n, int S,
+                        int mode, int blocks, void* ws, void* out, void* stream_ptr);
+
 int bk_seg_reduce(int device, int op, int tcode, int id64, const void* x, const void* gid,
                   long long n, int S, int mode, int blocks, void* ws, void* out,
                   void* stream_ptr) {
-    if (S < 1 || S > MAX_SEGMENTS || n < 0 || blocks < 1)
+    return bk_seg_reduce_lanes(device, op, tcode, id64, x, gid, nullptr, 1, n, S, mode, blocks,
+                               ws, out, stream_ptr);
+}
+
+// The reduction over `lanes` lanes: x [n] and gid [n] shared, mask bool
+// [lanes, n], ws of lanes * bk_seg_ws_bytes bytes, out [lanes, S]; `blocks`
+// and `mode` as bk_seg_blocks gave and took them for ONE lane.
+int bk_seg_reduce_lanes(int device, int op, int tcode, int id64, const void* x,
+                        const void* gid, const void* mask, int lanes, long long n, int S,
+                        int mode, int blocks, void* ws, void* out, void* stream_ptr) {
+    if (S < 1 || S > MAX_SEGMENTS || n < 0 || blocks < 1 || lanes < 1 || lanes > 65535 ||
+        (mask == nullptr && lanes != 1))
         return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -426,8 +489,8 @@ int bk_seg_reduce(int device, int op, int tcode, int id64, const void* x, const 
     err = dispatch<PlanF>(op, tcode, id64, device, n, S, mode, &p);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (p.blocks != blocks) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(dispatch<RunF>(op, tcode, id64, x, gid, n, S, p, ws, out,
-                                           static_cast<cudaStream_t>(stream_ptr)));
+    return static_cast<int>(dispatch<RunF>(op, tcode, id64, x, gid, mask, lanes, n, S, p, ws,
+                                           out, static_cast<cudaStream_t>(stream_ptr)));
 }
 
 }  // extern "C"

@@ -23,6 +23,14 @@ tensor it runs the ``*_plain`` version beside it (``index_add_`` /
 ``scatter_reduce_``, the same drop rules and sentinels), which is also what
 the kernels are held against on the card.
 
+Each has a lane-batched entry beside it (``*_lanes``), for the batched
+dispatcher's tick (exec/lanes.py): ``codes`` and ``values`` are ``[N]``,
+shared by the lanes, ``mask`` is ``[G, N]`` (one row a lane) and every
+output is ``[G, num_groups]``; lane ``g``'s result equals the one-lane call
+on ``mask[g]``.  On a CUDA tensor it is ONE launch over all lanes (the lane
+is the grid's y axis; ``LANE_LAUNCHES[f"{name}_lanes"]``); on a CPU tensor its
+plain version, the per-lane loop over the one-lane plain function.
+
 The build machinery here (``build``, ``build_all``, ``library``) serves
 every CUDA source of the port (``SOURCES``): one ``nvcc`` per source, the
 library cached by the source's content.
@@ -55,6 +63,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 LAUNCHES = {name: metrics.Counter(f"kernel_launches.{name}")
             for name in ("filtered_group_sum", "fused_group_aggregate",
                          "partition_histogram")}
+# the lane-batched entries count apart: one a launch over all lanes
+LANE_LAUNCHES = {f"{name}_lanes": metrics.Counter(f"kernel_launches.{name}_lanes")
+                 for name in LAUNCHES}
 
 _lock = threading.Lock()
 _libs: dict = {}           # source path -> bound ctypes library
@@ -216,6 +227,115 @@ def _launch_agg(codes, values, mask, ng: int):
 
 
 # ----------------------------------------------------------------------
+# lane-batched entry points (one launch a tick) and their plain versions
+
+
+def filtered_group_sum_lanes_plain(codes, values, mask, num_groups: int):
+    outs = [filtered_group_sum_plain(codes, values, m, num_groups) for m in mask]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def fused_group_aggregate_lanes_plain(codes, values, mask, num_groups: int):
+    outs = [fused_group_aggregate_plain(codes, values, m, num_groups) for m in mask]
+    return tuple(torch.stack(o) for o in zip(*outs))
+
+
+def partition_histogram_lanes_plain(dest, mask, num_partitions: int):
+    return torch.stack([partition_histogram_plain(dest, m, num_partitions) for m in mask])
+
+
+def filtered_group_sum_lanes(codes, values, mask, num_groups: int):
+    """K1 over the lanes of ``mask`` [G, N] -> (counts int64 [G, ng], sums
+    float32 [G, ng])."""
+    _check_lanes(codes, mask, num_groups, values)
+    if codes.device.type == "cpu":
+        return filtered_group_sum_lanes_plain(codes, values, mask, num_groups)
+    return _launch_lanes("filtered_group_sum", KIND_SUM, codes, values, mask, num_groups)
+
+
+def fused_group_aggregate_lanes(codes, values, mask, num_groups: int):
+    """K2 over the lanes of ``mask`` [G, N] -> (counts int64, sums, mins,
+    maxs float32), each [G, ng]."""
+    _check_lanes(codes, mask, num_groups, values)
+    if codes.device.type == "cpu":
+        return fused_group_aggregate_lanes_plain(codes, values, mask, num_groups)
+    return _launch_agg_lanes(codes, values, mask, num_groups)
+
+
+def partition_histogram_lanes(dest, mask, num_partitions: int):
+    """K3 over the lanes of ``mask`` [G, N] -> counts int64 [G, P]."""
+    _check_lanes(dest, mask, num_partitions)
+    if dest.device.type == "cpu":
+        return partition_histogram_lanes_plain(dest, mask, num_partitions)
+    return _launch_lanes("partition_histogram", KIND_HIST, dest, None, mask,
+                         num_partitions)[0]
+
+
+def _check_lanes(codes, mask, num_groups: int, values=None) -> None:
+    """Raise on what the lane kernels do not take: ``mask`` must be bool
+    [G, N] with 1 <= G <= 65535, contiguous, beside ``codes`` [N]."""
+    if mask.dtype is not torch.bool or mask.ndim != 2 or mask.shape[1:] != codes.shape \
+            or not 1 <= mask.shape[0] <= 65535:
+        raise TypeError(f"mask must be bool[G, N] with 1 <= G <= 65535 beside codes "
+                        f"{tuple(codes.shape)}, got {mask.dtype}{tuple(mask.shape)}")
+    _check(codes, mask[0], num_groups, values)
+    if mask.device != codes.device or not mask.is_contiguous():
+        raise ValueError("mask must be contiguous and lie on the codes' device")
+
+
+def _launch_lanes(name, kind, codes, values, mask, ng: int):
+    """K1/K3 over G lanes: one int64 [1 or 3, G * ng] buffer laid out as the
+    one-lane call's, each row holding the lanes one after another."""
+    lib = _library()
+    dev = codes.device
+    G, n = mask.shape
+    slots = G * ng
+    buf = torch.empty((1 if kind == KIND_HIST else 3, slots), dtype=torch.int64, device=dev)
+    base = buf.data_ptr()
+    err = lib.bk_group_agg_lanes(
+        _device_index(dev), kind, int(values is not None and values.dtype is torch.float64),
+        codes.data_ptr(), None if values is None else values.data_ptr(), mask.data_ptr(),
+        n, ng, G, base, None if kind == KIND_HIST else base + 8 * slots,
+        None if kind == KIND_HIST else base + 16 * slots,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name}_lanes: CUDA kernel launch failed with error {err}")
+    LANE_LAUNCHES[f"{name}_lanes"].add(1)
+    if kind == KIND_HIST:
+        return (buf[0].view(G, ng),)
+    return buf[0].view(G, ng), buf[2].view(torch.float32)[:slots].view(G, ng)
+
+
+def _launch_agg_lanes(codes, values, mask, ng: int):
+    """K2 over G lanes: each lane launches the one-lane call's blocks; one
+    int64 buffer of the [G, ng] counts, the float32 [G, 3, ng] outputs
+    (rounded up to whole words) and the lanes' workspace."""
+    lib = _library()
+    dev = codes.device
+    device = _device_index(dev)
+    f64 = int(values.dtype is torch.float64)
+    G, n = mask.shape
+    blocks = lib.bk_fused_agg_blocks(device, f64, n, ng)
+    if blocks <= 0:
+        raise RuntimeError(f"fused_group_aggregate_lanes: launch geometry failed with error "
+                           f"{-blocks}")
+    fwords = -(-3 * G * ng // 2)
+    ws_words = -(-G * lib.bk_fused_agg_ws_bytes(blocks, ng) // 8)
+    buf = torch.empty(G * ng + fwords + ws_words, dtype=torch.int64, device=dev)
+    base = buf.data_ptr()
+    err = lib.bk_fused_agg_lanes(device, f64, codes.data_ptr(), values.data_ptr(),
+                                 mask.data_ptr(), n, ng, G, blocks,
+                                 base + 8 * (G * ng + fwords), base, base + 8 * G * ng,
+                                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"fused_group_aggregate_lanes: CUDA kernel launch failed with "
+                           f"error {err}")
+    LANE_LAUNCHES["fused_group_aggregate_lanes"].add(1)
+    f = buf[G * ng:G * ng + fwords].view(torch.float32)[:3 * G * ng].view(G, 3, ng)
+    return buf[:G * ng].view(G, ng), f[:, 0], f[:, 1], f[:, 2]
+
+
+# ----------------------------------------------------------------------
 # build + bind
 
 
@@ -306,6 +426,10 @@ def _bind(lib) -> None:
     lib.bk_fused_agg_ws_bytes.restype = i64
     lib.bk_fused_agg.argtypes = [i32, i32, vp, vp, vp, i64, i32, i32, vp, vp, vp, vp]
     lib.bk_fused_agg.restype = i32
+    lib.bk_group_agg_lanes.argtypes = [i32, i32, i32, vp, vp, vp, i64, i32, i32] + [vp] * 4
+    lib.bk_group_agg_lanes.restype = i32
+    lib.bk_fused_agg_lanes.argtypes = [i32, i32, vp, vp, vp, i64, i32, i32, i32, vp, vp, vp, vp]
+    lib.bk_fused_agg_lanes.restype = i32
 
 
 def _library():

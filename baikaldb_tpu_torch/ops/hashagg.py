@@ -26,6 +26,10 @@ The partial-aggregate protocol (``MERGE_OP``, ``partial_specs``,
 SUM + COUNT, STDDEV -> SUM + SUMSQ + COUNT) and finishes them after a merge;
 the streamed fold (exec/streaming.py) aggregates each chunk into partials,
 merges them into its accumulator and finalizes once.
+
+``group_aggregate_dense_lanes`` is the dense group-by over the ``[G, n]``
+selection of a batched-dispatch tick (exec/lanes.py): the same routes, each
+kernel launched once over all lanes.
 """
 
 from __future__ import annotations
@@ -39,9 +43,11 @@ from ..column.batch import Column, ColumnBatch, dtype_max, dtype_min
 from ..types import LType
 from ..utils.flags import FLAGS
 from ..utils.hashing import GOLDEN, hash_columns, mix32
-from .group_kernels import (MAX_GROUPS, filtered_group_sum,
-                            fused_group_aggregate, partition_histogram)
-from .segments import max_segments, seg_max, seg_min, seg_sum
+from .group_kernels import (MAX_GROUPS, filtered_group_sum, filtered_group_sum_lanes,
+                            fused_group_aggregate, fused_group_aggregate_lanes,
+                            partition_histogram, partition_histogram_lanes)
+from .segments import (max_segments, seg_max, seg_max_lanes, seg_min, seg_min_lanes,
+                       seg_sum, seg_sum_lanes)
 
 
 def agg_result_type(op: str, input_type: LType) -> LType:
@@ -276,17 +282,7 @@ def group_aggregate_dense(batch: ColumnBatch, key_names: list[str],
         present = hist > 0
     else:
         present = seg_sum(torch.ones_like(gid_live), gid_live, ng) > 0
-    # reconstruct key columns from the slot index
-    out_names, out_cols = [], []
-    slot = torch.arange(ng, dtype=torch.int32, device=dev)
-    stride = ng
-    for name, c, dom in zip(key_names, key_cols, domains):
-        stride //= dom + 1
-        code = torch.remainder(torch.div(slot, stride, rounding_mode="floor"), dom + 1)
-        validity = code < dom if c.validity is not None else None
-        code = torch.where(code >= dom, 0, code)
-        out_names.append(name)
-        out_cols.append(Column(code.to(c.data.dtype), validity, c.ltype, c.dictionary))
+    out_names, out_cols = _dense_key_columns(key_names, key_cols, domains, ng, dev)
     kernel_cols = dense_kernel_cols(batch, specs, gid, ng, sel, hist)
     if kernel_cols is not None:
         out_names.extend(s.out_name for s in specs)
@@ -298,7 +294,23 @@ def group_aggregate_dense(batch: ColumnBatch, key_names: list[str],
     return ColumnBatch(tuple(out_names), out_cols, present, None, device=dev)
 
 
-def _present_histogram(gid, sel, ng: int):
+def _dense_key_columns(key_names, key_cols, domains, ng: int, dev):
+    """The key columns of a dense group-by's ``ng`` slots, rebuilt from the
+    slot index (NULL is each key's last code)."""
+    out_names, out_cols = [], []
+    slot = torch.arange(ng, dtype=torch.int32, device=dev)
+    stride = ng
+    for name, c, dom in zip(key_names, key_cols, domains):
+        stride //= dom + 1
+        code = torch.remainder(torch.div(slot, stride, rounding_mode="floor"), dom + 1)
+        validity = code < dom if c.validity is not None else None
+        code = torch.where(code >= dom, 0, code)
+        out_names.append(name)
+        out_cols.append(Column(code.to(c.data.dtype), validity, c.ltype, c.dictionary))
+    return out_names, out_cols
+
+
+def _present_histogram(gid, sel, ng: int, lanes: bool = False):
     """The live rows per slot from K3 over ``(gid, sel)``, where that is the
     card's route to ``present``: on CUDA, above the segment kernel's gate
     and within the group-by kernels' range (the same counts as the
@@ -306,14 +318,16 @@ def _present_histogram(gid, sel, ng: int):
     dead row into one drop slot).  None elsewhere: at or under the gate
     ``seg_sum`` takes the segment kernel, above ``MAX_GROUPS`` (or with
     ``pallas_group_kernels`` off) the scatter, and the CPU keeps the
-    reference's segment count."""
+    reference's segment count.  ``lanes``: ``sel`` is [G, n], one launch
+    over its rows."""
     if not (gid.device.type == "cuda" and bool(FLAGS.pallas_group_kernels)
             and max_segments(gid.device) < ng <= MAX_GROUPS):
         return None
-    return partition_histogram(gid.contiguous(), sel.contiguous(), ng)
+    k3 = partition_histogram_lanes if lanes else partition_histogram
+    return k3(gid.contiguous(), sel.contiguous(), ng)
 
 
-def dense_kernel_cols(batch, specs, gid, ng: int, sel, hist=None):
+def dense_kernel_cols(batch, specs, gid, ng: int, sel, hist=None, lanes: bool = False):
     """Mid-cardinality dense group-by through the hand-written kernels
     (ops/group_kernels.py), under the gate of the JAX package's
     ``_pallas_dense_cols`` with the port's crossover (``max_segments``):
@@ -326,7 +340,9 @@ def dense_kernel_cols(batch, specs, gid, ng: int, sel, hist=None):
 
     On CUDA the kernels launch, on the CPU their plain versions run (the
     crossover is the device's).  ``hist``, K3's counts over ``(gid, sel)``
-    if the caller has them, serves COUNT(*).  Returns the aggregate Columns
+    if the caller has them, serves COUNT(*).  ``lanes``: ``sel`` is
+    [G, n] and each kernel is its lane-batched entry, one launch over all
+    lanes; the columns are then [G, ng].  Returns the aggregate Columns
     (spec order), or None to use segment reductions."""
     if not (bool(FLAGS.pallas_group_kernels)
             and max_segments(gid.device) < ng + 1 <= MAX_GROUPS):
@@ -341,6 +357,9 @@ def dense_kernel_cols(batch, specs, gid, ng: int, sel, hist=None):
                 return None
             if s.op in ("min", "max") and lt is not LType.FLOAT32:
                 return None
+    k1, k2, k3 = ((filtered_group_sum_lanes, fused_group_aggregate_lanes,
+                   partition_histogram_lanes) if lanes else
+                  (filtered_group_sum, fused_group_aggregate, partition_histogram))
     gid = gid.contiguous()
     sel = sel.contiguous()
     fused: dict = {}          # input name -> (cnt, sm, mn, mx)
@@ -349,19 +368,19 @@ def dense_kernel_cols(batch, specs, gid, ng: int, sel, hist=None):
     for s in specs:
         if s.op == "count_star":
             if star_counts is None:
-                star_counts = partition_histogram(gid, sel, ng)
+                star_counts = k3(gid, sel, ng)
             cols.append(Column(star_counts, None, LType.INT64))
             continue
         c = batch.column(s.input)
         if s.input not in fused:
-            live = (c.valid_mask() & sel).contiguous()
+            live = _live(c, sel)
             values = c.data.contiguous()
             # min/max cost extra atomics per row: only the full kernel when
             # some spec on this column asks for them
             if any(x.op in ("min", "max") and x.input == s.input for x in specs):
-                fused[s.input] = fused_group_aggregate(gid, values, live, ng)
+                fused[s.input] = k2(gid, values, live, ng)
             else:
-                fused[s.input] = (*filtered_group_sum(gid, values, live, ng), None, None)
+                fused[s.input] = (*k1(gid, values, live, ng), None, None)
         cnt, sm, mn, mx = fused[s.input]
         nonempty = cnt > 0
         if s.op == "count":
@@ -377,6 +396,11 @@ def dense_kernel_cols(batch, specs, gid, ng: int, sel, hist=None):
         else:
             cols.append(Column(mx.to(c.data.dtype), nonempty, c.ltype))
     return cols
+
+
+def _live(c: Column, sel):
+    """The rows of ``c`` an aggregate reads: live and not NULL."""
+    return sel if c.validity is None else (c.validity & sel).contiguous()
 
 
 def _segment_one(batch: ColumnBatch, s: AggSpec, gid, ng: int, sel) -> Column:
@@ -450,6 +474,65 @@ def _segment_distinct(c: Column, gid, ng: int, s: AggSpec) -> Column:
     if s.op == "sum":
         return Column(sm, ct > 0, agg_result_type("sum", c.ltype))
     return Column(sm.to(torch.float64) / ct.clamp(min=1), ct > 0, LType.FLOAT64)
+
+
+# ----------------------------------------------------------------------
+# lanes: the dense group-by and its kernels over a [G, n] selection (the
+# batched dispatcher's tick, exec/lanes.py)
+
+LANE_AGGS = frozenset({"count_star", "count", "sum", "avg", "min", "max"})
+
+
+def group_aggregate_dense_lanes(batch: ColumnBatch, key_names: list[str],
+                                domains: list[int], specs: list[AggSpec], sel):
+    """``group_aggregate_dense`` once per row of the bool ``sel`` [G, n]
+    over shared columns, each lane's columns equal to the one-lane call's
+    with that row as its ``sel``: the same routes (the segment kernel under
+    the gate, K3 + K1/K2 above it, the scatter elsewhere), each one launch
+    over all lanes.  Only ``LANE_AGGS`` without DISTINCT.  -> (names,
+    columns, present): key columns [ng] shared, aggregates and ``present``
+    [G, ng]."""
+    dev = batch.device
+    key_cols = [batch.column(k) for k in key_names]
+    ng = dense_num_groups(domains)
+    gid = combined_dense_id(key_cols, domains)
+    hist = _present_histogram(gid, sel, ng, lanes=True)
+    if hist is not None:
+        present = hist > 0
+    else:
+        present = seg_sum_lanes(torch.ones_like(gid), gid, sel, ng) > 0
+    out_names, out_cols = _dense_key_columns(key_names, key_cols, domains, ng, dev)
+    kernel_cols = dense_kernel_cols(batch, specs, gid, ng, sel, hist, lanes=True)
+    out_names.extend(s.out_name for s in specs)
+    out_cols.extend(kernel_cols if kernel_cols is not None else
+                    [_segment_one_lanes(batch, s, gid, ng, sel) for s in specs])
+    return out_names, out_cols, present
+
+
+def _segment_one_lanes(batch: ColumnBatch, s: AggSpec, gid, ng: int, sel) -> Column:
+    """``_segment_one`` over the lanes of ``sel``: a lane's dead and NULL
+    rows drop by its mask row instead of by the drop slot."""
+    n = gid.shape[0]
+    if s.op == "count_star":
+        return Column(seg_sum_lanes(torch.ones(n, dtype=torch.int64, device=gid.device), gid,
+                                    sel, ng), None, LType.INT64)
+    c = batch.column(s.input)
+    live = _live(c, sel)
+
+    def live_count(dtype=torch.int32):
+        return seg_sum_lanes(torch.ones(n, dtype=dtype, device=gid.device), gid, live, ng)
+
+    if s.op == "count":
+        return Column(live_count(torch.int64), None, LType.INT64)
+    if s.op == "sum":
+        v = seg_sum_lanes(c.data.to(_sum_dtype(c)), gid, live, ng)
+        return Column(v, live_count() > 0, agg_result_type("sum", c.ltype))
+    if s.op == "avg":
+        sm = seg_sum_lanes(c.data.to(torch.float64), gid, live, ng)
+        ct = live_count()
+        return Column(sm / ct.clamp(min=1), ct > 0, LType.FLOAT64)
+    f = seg_min_lanes if s.op == "min" else seg_max_lanes
+    return Column(f(c.data, gid, live, ng), live_count() > 0, c.ltype, c.dictionary)
 
 
 def group_aggregate_sorted(batch: ColumnBatch, key_names: list[str],

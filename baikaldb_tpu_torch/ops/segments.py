@@ -23,6 +23,17 @@ lowering forks by backend:
 ``where(gid[:, None] == arange(S), x, identity)`` reduced block by block of
 rows, never building ``[n, S]`` at once, which is also what the kernel is
 held against on the card.
+
+Lanes (the batched dispatcher's tick, exec/lanes.py): ``seg_sum_lanes`` /
+``seg_min_lanes`` / ``seg_max_lanes`` reduce a shared 1-D ``x`` by shared
+ids ``gid`` once per row of a ``[G, n]`` ``mask`` (a row drops in lane
+``g`` where ``mask[g]`` is false) -> ``[G, S]``, each lane equal to the
+one-lane reduction over ``where(mask[g], gid, S)``.  On the kernel's route
+that is ONE launch of ``segment_reduce_lanes`` (the lane is the grid's y
+axis, every lane launching the one-lane plan, so a lane's result is the
+one-lane kernel's bit for bit); elsewhere the per-lane loop over the
+one-lane function, which is also ``segment_reduce_lanes_plain``.  The lane
+launches count in ``LANE_LAUNCHES``.
 """
 
 from __future__ import annotations
@@ -44,6 +55,7 @@ _TCODE = {torch.bool: 0, torch.int32: 1, torch.int64: 2, torch.float32: 3,
 _PLAIN_ELEMS = 1 << 24            # [rows, S] elements per block of the plain version
 
 LAUNCHES = {"segment_reduce": metrics.Counter("kernel_launches.segment_reduce")}
+LANE_LAUNCHES = {"segment_reduce_lanes": metrics.Counter("kernel_launches.segment_reduce_lanes")}
 
 
 # the JAX package's ONEHOT_MAX_SEGMENTS: the gate of the CPU routes, which
@@ -115,6 +127,39 @@ def seg_max(x, gid, num_segments: int):
     return _seg_extremum(x, gid, num_segments, False)
 
 
+def _lanes_route(x, gid, mask, num_segments: int) -> bool:
+    return (_kernel_route(x, gid, num_segments) and mask.device == x.device
+            and 1 <= mask.shape[0] <= 65535)
+
+
+def _per_lane(f, x, gid, mask, num_segments: int) -> torch.Tensor:
+    """``f`` (a one-lane segment function) once per mask row."""
+    drop = torch.full((), num_segments, dtype=gid.dtype, device=gid.device)
+    return torch.stack([f(x, torch.where(m, gid, drop), num_segments) for m in mask])
+
+
+def seg_sum_lanes(x, gid, mask, num_segments: int) -> torch.Tensor:
+    """``seg_sum`` of a shared ``x`` once per lane of ``mask`` -> [G, S]."""
+    if _lanes_route(x, gid, mask, num_segments):
+        return segment_reduce_lanes(x.contiguous(), gid.contiguous(), mask.contiguous(),
+                                    num_segments, "sum")
+    return _per_lane(seg_sum, x, gid, mask, num_segments)
+
+
+def seg_min_lanes(x, gid, mask, num_segments: int) -> torch.Tensor:
+    if _lanes_route(x, gid, mask, num_segments):
+        return segment_reduce_lanes(x.contiguous(), gid.contiguous(), mask.contiguous(),
+                                    num_segments, "min")
+    return _per_lane(seg_min, x, gid, mask, num_segments)
+
+
+def seg_max_lanes(x, gid, mask, num_segments: int) -> torch.Tensor:
+    if _lanes_route(x, gid, mask, num_segments):
+        return segment_reduce_lanes(x.contiguous(), gid.contiguous(), mask.contiguous(),
+                                    num_segments, "max")
+    return _per_lane(seg_max, x, gid, mask, num_segments)
+
+
 # ----------------------------------------------------------------------
 # the segment kernel and its plain version
 
@@ -165,6 +210,30 @@ def segment_reduce(x: torch.Tensor, gid: torch.Tensor, num_segments: int, op: st
     return _launch(x, gid, num_segments, op, MODES[mode])
 
 
+def segment_reduce_lanes_plain(x, gid, mask, num_segments: int, op: str) -> torch.Tensor:
+    """The per-lane loop over ``segment_reduce_plain``."""
+    return _per_lane(lambda xx, gg, s: segment_reduce_plain(xx, gg, s, op), x, gid, mask,
+                     num_segments)
+
+
+def segment_reduce_lanes(x: torch.Tensor, gid: torch.Tensor, mask: torch.Tensor,
+                         num_segments: int, op: str, mode: str = "auto") -> torch.Tensor:
+    """SUM/MIN/MAX of a shared 1-D ``x`` per segment of the shared ``gid``,
+    once per row of the bool ``mask`` [G, n] -> [G, num_segments].  On a
+    CUDA tensor ONE launch of the lane kernel; on a CPU tensor the plain
+    version."""
+    _check(x, gid, num_segments, op, mode)
+    if mask.dtype is not torch.bool or mask.ndim != 2 or mask.shape[1:] != x.shape \
+            or not 1 <= mask.shape[0] <= 65535:
+        raise TypeError(f"mask must be bool[G, N] with 1 <= G <= 65535 beside x "
+                        f"{tuple(x.shape)}, got {mask.dtype}{tuple(mask.shape)}")
+    if mask.device != x.device or not mask.is_contiguous():
+        raise ValueError("mask must be contiguous and lie on x's device")
+    if x.device.type == "cpu":
+        return segment_reduce_lanes_plain(x, gid, mask, num_segments, op)
+    return _launch(x, gid, num_segments, op, MODES[mode], mask)
+
+
 def _check(x, gid, num_segments: int, op: str, mode: str) -> None:
     """Raise on what the kernel does not take."""
     if op not in _OPS or mode not in MODES:
@@ -193,28 +262,41 @@ def _bind(lib) -> None:
     lib.bk_seg_max_segments.restype = i32
     lib.bk_seg_reduce.argtypes = [i32, i32, i32, i32, vp, vp, i64, i32, i32, i32, vp, vp, vp]
     lib.bk_seg_reduce.restype = i32
+    lib.bk_seg_reduce_lanes.argtypes = [i32, i32, i32, i32, vp, vp, vp, i32, i64, i32, i32,
+                                        i32, vp, vp, vp]
+    lib.bk_seg_reduce_lanes.restype = i32
     if lib.bk_seg_max_segments() != MAX_SEGMENTS:
         raise RuntimeError("csrc/segments.cu and ops/segments.py disagree on MAX_SEGMENTS")
 
 
-def _launch(x, gid, S: int, op: str, mode: int) -> torch.Tensor:
+def _launch(x, gid, S: int, op: str, mode: int, mask=None) -> torch.Tensor:
+    """The kernel over one lane (``mask`` None) or the rows of ``mask``."""
     lib = gk.library(SOURCE, _bind)
     dev = x.device
     device = gk._device_index(dev)
     opc, tcode, id64 = _OPS[op], _TCODE[x.dtype], int(gid.dtype is torch.int64)
     n = x.shape[0]
+    G = 1 if mask is None else mask.shape[0]
     blocks = lib.bk_seg_blocks(device, opc, tcode, id64, n, S, mode)
     if blocks <= 0:
         raise RuntimeError(f"segment_reduce: launch plan failed with error {-blocks}")
     # the workspace goes back to the caching allocator on return; it hands
     # the block out again only in this stream's order, after these kernels
-    ws = torch.empty(-(-lib.bk_seg_ws_bytes(opc, tcode, blocks, S) // 8), dtype=torch.int64,
-                     device=dev)
-    out = torch.empty(S, dtype=_widths(op, x.dtype)[1], device=dev)
-    err = lib.bk_seg_reduce(device, opc, tcode, id64, x.data_ptr(), gid.data_ptr(), n, S, mode,
-                            blocks, ws.data_ptr(), out.data_ptr(),
-                            torch.cuda.current_stream(dev).cuda_stream)
+    ws = torch.empty(-(-G * lib.bk_seg_ws_bytes(opc, tcode, blocks, S) // 8),
+                     dtype=torch.int64, device=dev)
+    out = torch.empty((S,) if mask is None else (G, S), dtype=_widths(op, x.dtype)[1],
+                      device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if mask is None:
+        err = lib.bk_seg_reduce(device, opc, tcode, id64, x.data_ptr(), gid.data_ptr(), n, S,
+                                mode, blocks, ws.data_ptr(), out.data_ptr(), stream)
+        name = "segment_reduce"
+    else:
+        err = lib.bk_seg_reduce_lanes(device, opc, tcode, id64, x.data_ptr(), gid.data_ptr(),
+                                      mask.data_ptr(), G, n, S, mode, blocks, ws.data_ptr(),
+                                      out.data_ptr(), stream)
+        name = "segment_reduce_lanes"
     if err != 0:
-        raise RuntimeError(f"segment_reduce: CUDA kernel launch failed with error {err}")
-    LAUNCHES["segment_reduce"].add(1)
+        raise RuntimeError(f"{name}: CUDA kernel launch failed with error {err}")
+    (LAUNCHES if mask is None else LANE_LAUNCHES)[name].add(1)
     return out

@@ -380,6 +380,10 @@ class ChunkSource:
         self.chunks = chunks
         self.keep = keep
 
+    @property
+    def names(self) -> tuple:
+        return self.chunks.names
+
 
 def chunk_set(store, table_key: str, fs) -> StreamChunkSet:
     """The store's chunk set for its current version (rebuilt only when the

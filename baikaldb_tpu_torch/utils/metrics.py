@@ -2,7 +2,8 @@
 
 The port of ``baikaldb_tpu/utils/metrics.py``, cut to the monotonically
 growing ``Counter`` (with a per-second rate over a sliding window), the
-``LatencyRecorder``, the sampled ``Gauge`` and the ``Registry`` that names every instrument.  The process-wide ``REGISTRY``
+``LatencyRecorder``, the sampled ``Gauge`` and the ``Registry`` that names
+every instrument.  The process-wide ``REGISTRY``
 serves the engine; ``registry.dump()`` prints one ``name.field : value``
 line per field; the kernel launch counters of ops/group_kernels.py
 register here like every other counter.
@@ -107,6 +108,11 @@ class LatencyRecorder:
             else:
                 self._ring[self._idx] = ms
                 self._idx = (self._idx + 1) % self.capacity
+
+    def reset(self) -> None:
+        """Forget every observation (a run that measures one phase)."""
+        with self._lock:
+            self._ring, self._idx, self._count, self._total, self._max = [], 0, 0, 0.0, 0.0
 
     def stats(self) -> dict:
         with self._lock:
@@ -221,6 +227,33 @@ stream_retries = Counter("stream_retries")
 stream_restarts = Counter("stream_restarts")
 stream_bytes_h2d = Counter("stream_bytes_h2d")
 stream_prefetch_wait_ms = LatencyRecorder("stream_prefetch_wait_ms")
+
+
+# the plan cache (exec/session.py): every cached-path SELECT counts exactly
+# one of hits (the same text), param_hits (another literal variant of the
+# entry's shape) and misses; param_fallbacks counts parameterized runs that
+# had to replan with baked literals (should stay ~0); params_hoisted the
+# literals plan/paramize.py hoisted; prepared_executes the EXECUTEs
+plan_cache_hits = Counter("plan_cache_hits")
+plan_cache_param_hits = Counter("plan_cache_param_hits")
+plan_cache_misses = Counter("plan_cache_misses")
+plan_cache_param_fallbacks = Counter("plan_cache_param_fallbacks")
+params_hoisted = Counter("params_hoisted")
+prepared_executes = Counter("prepared_executes")
+# the batched dispatcher (exec/dispatch.py): ticks that ran a lane-batched
+# execution, their group sizes, each member's queue wait, each tick's run
+# wall time; queries that ran inline (idle group, solo tick) and members
+# sent back inline by the valve (an unexpressible plan, an injected
+# dispatch.combine fault, a lane over its scatter budget)
+batched_groups = Counter("batched_groups")
+group_occupancy = LatencyRecorder("group_occupancy")
+queue_wait_ms = LatencyRecorder("queue_wait_ms")
+dispatch_tick_ms = LatencyRecorder("dispatch_tick_ms")
+dispatch_inline = Counter("dispatch_inline")
+dispatch_fallbacks = Counter("dispatch_fallbacks")
+# typed admission rejections: qos token buckets (per sign/user/table) and
+# the dispatcher's bounded per-group queue
+qos_rejections = Counter("qos_rejections")
 
 
 def count_swallowed(site: str) -> None:

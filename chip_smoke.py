@@ -3,8 +3,10 @@ its plain torch version, drive single-table SQL at real size resident and
 streamed, run the 22 TPC-H queries and the analytic queries on the card,
 the egress functions and catalog statements on the card against the CPU,
 vector search (VECTOR columns, the ANN index) at 1M x 128, the MPP mesh (8
-shards on the card: the 100M rows and TPC-H), and the HTAP write path
-(snapshot reads over the 100M rows under writes, sysbench, recovery).
+shards on the card: the 100M rows and TPC-H), the HTAP write path
+(snapshot reads over the 100M rows under writes, sysbench, recovery), and
+dispatch (the plan cache, PREPARE / EXECUTE, EXPLAIN ANALYZE, 64 concurrent
+clients through the batched dispatcher with the lane-batched kernels).
 
     python3 chip_smoke.py [--rows N] [--seed S] [--tpch-scale S]
                           [--compare-with DIR]
@@ -166,6 +168,39 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    recovery again, equal to the replay.  Its seconds: ``htap phase
    seconds: ...``.
 
+12. Dispatch (the plan cache, PREPARE / EXECUTE, EXPLAIN ANALYZE, the
+   batched dispatcher, ``exec/{dispatch,lanes}.py``), right after phase 10
+   (i), in phase 3's session over its unchanged 100M rows
+   (``streaming_scan = 0``).  (iv) K1, K2, K3 and the segment kernel with a
+   lane axis (``*_lanes``: one launch over G masks) against their plain
+   versions (the per-lane loops) at ``--rows`` rows with G = 8 and at
+   10,000,019 rows with G = 64: an all-dead lane, a lane of one live row,
+   NaN in MIN/MAX, a group of more than 2^24 rows in every lane; counts and
+   MIN/MAX exact, sums as in phase 2, the segment kernel's float64 sums
+   bit-identical to the one-lane kernel's; timed at both shapes against the
+   byte bound (the G masks plus one read of codes and values).  (i) (a)-(c)
+   with 30 literal variants of the WHERE threshold, the plan cache on and
+   with ``plan_cache_size = 0`` (warm p50 / p67, the ``plan.*`` spans of a
+   traced pass, the counter deltas), every variant against numpy (sorted
+   per-group prefix sums, ``ThresholdRefs``); after phase 10 (ii), the
+   host-bound TPC-H queries at SF1 with the cache on and off, their rows
+   equal.  (ii) (b) PREPAREd with a ``?`` threshold and EXECUTEd with 20
+   values, against numpy.  (iii) 64 sessions on 64 threads behind a barrier,
+   each sending 8 statements of D-a (17 slots: the segment kernel), D-b
+   (ranges of at most 100 groups of 2049 slots: K3 + K2; one client's range
+   holds 200 groups, past the 128-row scatter budget) and D-c (K1 + K3),
+   each with its own literals, against the same 512 statements one after
+   another on one session: every client's rows equal its serial run bit for
+   bit and numpy; each tick launches each lane kernel exactly as
+   ``D_TICK_LAUNCHES`` says, the inline runs exactly the one-lane kernels,
+   ``dispatch_fallbacks`` at most the overflowed lanes; serial and
+   concurrent walls, statements/s, p50 / p99, ticks and the occupancy
+   histogram, queue-wait p50, one tick of the 64 clients' first statements
+   profiled through the lane program (device ms, idle share), peak memory.
+   (v) EXPLAIN ANALYZE of (a)-(c): the scan's and the aggregate's live rows
+   equal numpy's, the ``-- dispatch`` and ``-- params`` lines present, the
+   D shapes' literals hoisted (``pinned=0``).  ``dispatch phase seconds``.
+
 Phases 5 and 6 run with the default flags, so a query over a table of at
 least ``streaming_min_rows`` rows that the streamed path accepts streams
 there (q1, q6 and some analytic queries, over lineitem); which ones did is
@@ -188,6 +223,7 @@ import os
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -209,7 +245,13 @@ REPLACES = {
     "partition_histogram": "baikaldb_tpu/ops/pallas_kernels.py:238",
     "segment_reduce": "baikaldb_tpu/ops/segments.py:50",
 }
-SOURCES = {"segment_reduce": "baikaldb_tpu_torch/ops/csrc/segments.cu"}
+SOURCES = {"segment_reduce": "baikaldb_tpu_torch/ops/csrc/segments.cu",
+           "segment_reduce_lanes": "baikaldb_tpu_torch/ops/csrc/segments.cu"}
+# the lane-batched entries of phase 12 and the one-lane kernel each extends
+LANE_KERNELS = {"filtered_group_sum_lanes": "filtered_group_sum",
+                "fused_group_aggregate_lanes": "fused_group_aggregate",
+                "partition_histogram_lanes": "partition_histogram",
+                "segment_reduce_lanes": "segment_reduce"}
 SEG_DTYPES = (torch.bool, torch.int32, torch.int64, torch.float32, torch.float64)
 NG_A = 17                        # query (a): 16 groups + the NULL slot
 QUERIES = {
@@ -242,11 +284,19 @@ def all_launches(gk) -> dict:
             **{k: c.value for k, c in seg.LAUNCHES.items()}}
 
 
+def lane_launches(gk) -> dict:
+    """Launch counts of the lane-batched entries (phase 12)."""
+    from baikaldb_tpu_torch.ops import segments as seg
+
+    return {k: c.value for k, c in {**gk.LANE_LAUNCHES, **seg.LANE_LAUNCHES}.items()}
+
+
 def reset_launches(gk) -> None:
     from baikaldb_tpu_torch.ops import segments as seg
 
-    for c in list(gk.LAUNCHES.values()) + list(seg.LAUNCHES.values()):
-        c.reset()
+    for reg in (gk.LAUNCHES, seg.LAUNCHES, gk.LANE_LAUNCHES, seg.LANE_LAUNCHES):
+        for c in reg.values():
+            c.reset()
 
 
 def card() -> str:
@@ -2265,6 +2315,670 @@ def durability_phase(gk, seed: int) -> tuple[dict, dict]:
     return launches, stats
 
 
+# ----------------------------------------------------------------------
+# phase 12: the plan cache, PREPARE / EXECUTE, the batched dispatcher with
+# its lane-batched kernels, EXPLAIN ANALYZE
+
+D_SHAPES = {
+    "D-a": "SELECT g16, COUNT(*), SUM(v), AVG(v), MIN(v) FROM t WHERE v*2+1 > {x} GROUP BY g16",
+    "D-b": ("SELECT g, COUNT(*), SUM(v), AVG(v), MIN(v) FROM t WHERE v*2+1 > {x} AND g >= {lo} "
+            "AND g < {hi} GROUP BY g"),
+    "D-c": "SELECT g, SUM(w), AVG(w) FROM t WHERE w > {x} AND g >= {lo} AND g < {hi} GROUP BY g",
+}
+D_CLIENTS = 64
+D_PER_CLIENT = 8
+D_TICK_MS = 20.0                 # the combiner's wait for a group to fill
+D_HOISTED = {"D-a": 3, "D-b": 5, "D-c": 3}
+# each tick's launches: one a kernel call, every call over all lanes
+D_TICK_LAUNCHES = {"D-a": {"segment_reduce_lanes": 8},
+                   "D-b": {"partition_histogram_lanes": 1, "fused_group_aggregate_lanes": 1},
+                   "D-c": {"filtered_group_sum_lanes": 1, "partition_histogram_lanes": 1}}
+D_INLINE_LAUNCHES = {"D-a": EXPECTED_LAUNCHES["a"], "D-b": EXPECTED_LAUNCHES["b"],
+                     "D-c": EXPECTED_LAUNCHES["c"]}
+CACHE_VARIANTS = 30
+CACHE_TPCH = ("q2", "q4", "q11", "q12", "q13", "q14", "q16", "q22")
+CACHE_TPCH_REPS = 5
+PREPARED_VALUES = 20
+
+
+class ThresholdRefs:
+    """numpy float64 references of ``key(col) > x AND lo <= group < hi``
+    per group, for any x: the rows sorted by (group, value) once (the sort
+    on the card, a permutation; everything else numpy), then a binary
+    search and prefix sums a group.  ``key`` is monotone in the value, so
+    each group's kept rows are a suffix of its sorted values."""
+
+    def __init__(self, groups: np.ndarray, vals: np.ndarray, key, ng: int):
+        g = torch.from_numpy(groups).cuda()
+        o = torch.sort(torch.from_numpy(vals).cuda(), stable=True).indices
+        o = o[torch.sort(g[o], stable=True).indices]
+        order = o.cpu().numpy()
+        del g, o
+        self.v = vals[order]
+        self.bounds = np.searchsorted(groups[order], np.arange(ng + 1))
+        self.key = key(self.v)
+        v64 = self.v.astype(np.float64)
+        self.cs = np.concatenate([[0.0], np.cumsum(v64)])
+        self.ca = np.concatenate([[0.0], np.cumsum(np.abs(v64))])
+        self.ng = ng
+
+    def groups(self, x: float, lo: int = 0, hi: int | None = None) -> dict:
+        """group -> (count, sum, sum |v|, min) of the kept rows."""
+        out = {}
+        for g in range(lo, self.ng if hi is None else min(hi, self.ng)):
+            s, e = int(self.bounds[g]), int(self.bounds[g + 1])
+            k = s + int(np.searchsorted(self.key[s:e], x, side="right"))
+            if k < e:
+                out[g] = (e - k, self.cs[e] - self.cs[k], self.ca[e] - self.ca[k],
+                          float(self.v[k]))
+        return out
+
+
+def d_refs(table) -> dict:
+    """The references of (a)/D-a, (b)/D-b and (c)/D-c over phase 3's table."""
+    t0 = time.perf_counter()
+    g = table.column("g").to_numpy()
+    g16 = table.column("g16").to_numpy()
+    v = table.column("v").to_numpy()
+    w = table.column("w").to_numpy()
+
+    def vkey(x):
+        return (x * np.float32(2) + np.float32(1)).astype(np.float64)
+
+    refs = {"D-a": ThresholdRefs(g16, v, vkey, 16), "D-b": ThresholdRefs(g, v, vkey, 2048),
+            "D-c": ThresholdRefs(g, w, lambda x: x.astype(np.float64), 2048)}
+    log(f"[phase12] numpy threshold references built in {time.perf_counter() - t0:.1f} s")
+    return refs
+
+
+def check_threshold(name: str, rows, want: dict, has_count=True, has_min=True) -> None:
+    """Group keys and counts exact, SUM within 1e-5 * sum(|v|) of its group,
+    AVG within that over the count, MIN exact (against ``ThresholdRefs``)."""
+    cols = list(rows[0]) if rows else []
+    rows = sorted(rows, key=lambda r: r[cols[0]])
+    if [r[cols[0]] for r in rows] != sorted(want):
+        raise AssertionError(f"{name}: group keys differ from numpy")
+    for r in rows:
+        g, *vals = (r[c] for c in cols)
+        cnt, sm, sabs, mn = want[g]
+        if has_count:
+            if vals[0] != cnt:
+                raise AssertionError(f"{name} group {g}: count {vals[0]} != {cnt}")
+            vals = vals[1:]
+        tol = 1e-5 * sabs + 1e-12
+        if abs(vals[0] - sm) > tol or abs(vals[1] - sm / cnt) > tol / cnt:
+            raise AssertionError(f"{name} group {g}: sum/avg {vals[0]}/{vals[1]} vs "
+                                 f"{sm}/{sm / cnt}")
+        if has_min and vals[2] != mn:
+            raise AssertionError(f"{name} group {g}: min {vals[2]} != {mn}")
+
+
+def check_d(name: str, sql_args: dict, rows, refs) -> None:
+    want = refs[name].groups(sql_args["x"], sql_args.get("lo", 0), sql_args.get("hi"))
+    check_threshold(f"{name} {sql_args}", rows, want, has_count=name != "D-c",
+                    has_min=name != "D-c")
+
+
+def d_statements(name: str, seed: int) -> list:
+    """Each client's D_PER_CLIENT statements of shape ``name`` with its own
+    literals -> [[(sql, args), ...] a client].  D-b's ranges hold at most
+    100 groups, but client 0's first holds 200: past the 128-row scatter
+    budget, so its lane re-runs inline."""
+    rng = np.random.default_rng(seed + len(name) * 7919)
+    out = []
+    for c in range(D_CLIENTS):
+        mine = []
+        for k in range(D_PER_CLIENT):
+            args = {"x": round(float(rng.normal()) * 0.5, 3)}
+            if name != "D-a":
+                width = 200 if (name == "D-b" and c == 0 and k == 0) else \
+                    int(rng.integers(20, 101))
+                args["lo"] = int(rng.integers(0, 2048 - width))
+                args["hi"] = args["lo"] + width
+            mine.append((D_SHAPES[name].format(**args), args))
+        out.append(mine)
+    return out
+
+
+def cache_phase(gk, single, refs) -> dict:
+    """Phase 12 (i): (a)-(c) with CACHE_VARIANTS literal variants of their
+    WHERE threshold, the plan cache on and with ``plan_cache_size = 0``:
+    warm p50 / p67, the spans of a traced pass, the counter deltas; every
+    variant's rows against numpy."""
+    from baikaldb_tpu_torch.obs import trace
+    from baikaldb_tpu_torch.utils import metrics
+
+    s = single
+    forms = {"a": ("D-a", QUERIES["a"].replace("0.5", "{x}")),
+             "b": ("D-b", QUERIES["b"].replace("0.5", "{x}")),
+             "c": ("D-c", QUERIES["c"].replace("-1", "{x}"))}
+    rng = np.random.default_rng(12)
+    out = {}
+    for q, (ref, form) in forms.items():
+        xs = [round(float(x), 4) for x in rng.normal(size=CACHE_VARIANTS) * 0.5]
+        sqls = [form.format(x=x) for x in xs]
+        res = {"on": {"walls": [], "first_ms": []}, "off": {"walls": [], "first_ms": []}}
+        # in turns (on, off, on, off): a difference is not the order's
+        for mode, size in (("on", 256), ("off", 0), ("on", 256), ("off", 0)):
+            r = res[mode]
+            with flag(s, "plan_cache_size", size):
+                c0 = (metrics.plan_cache_hits.value, metrics.plan_cache_param_hits.value,
+                      metrics.plan_cache_misses.value)
+                walls = []
+                for sql, x in zip(sqls, xs):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    rows = s.query(sql)
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t) * 1e3)
+                    check_d(ref, {"x": x}, rows, refs)
+                c1 = (metrics.plan_cache_hits.value, metrics.plan_cache_param_hits.value,
+                      metrics.plan_cache_misses.value)
+                r["first_ms"].append(walls[0])
+                r["walls"] += walls[1:]
+                r.setdefault("counters", []).append(
+                    {"hits": c1[0] - c0[0], "param_hits": c1[1] - c0[1],
+                     "misses": c1[2] - c0[2]})
+                if "span_ms" in r:
+                    continue
+                # one traced pass: the host ms of the planning spans a query
+                with flag(s, "tracing", 1):
+                    for sql in sqls:
+                        s.query(sql)
+                spans: dict = {}
+                for rec in trace.TRACER.list()[-len(sqls):]:
+                    for sp in rec["spans"]:
+                        if sp["name"].startswith("plan."):
+                            spans.setdefault(sp["name"], []).append(sp["dur_ms"])
+                r["span_ms"] = {k: {"n": len(v), "mean": statistics.fmean(v)}
+                                for k, v in spans.items()}
+        for r in res.values():
+            warm = sorted(r.pop("walls"))
+            r.update(warm_ms_p50=statistics.median(warm),
+                     warm_ms_p67=float(np.percentile(warm, 67)), runs=len(warm))
+        on = res["on"]
+        # every variant hits an entry with its own literal (a param hit);
+        # a negative threshold is its own shape (``neg`` wraps the literal)
+        for c in on["counters"]:
+            if c["misses"] > 1 or c["param_hits"] < CACHE_VARIANTS - 1:
+                raise AssertionError(f"({q}) with the plan cache: {on}")
+        if any(c["misses"] != CACHE_VARIANTS for c in res["off"]["counters"]):
+            raise AssertionError(f"({q}) with plan_cache_size = 0: {res['off']}")
+        out[q] = res
+        log(f"[phase12] (i) ({q}) {CACHE_VARIANTS} variants: cache on p50 "
+            f"{on['warm_ms_p50']:.2f} / p67 {on['warm_ms_p67']:.2f} ms, off "
+            f"{res['off']['warm_ms_p50']:.2f} / {res['off']['warm_ms_p67']:.2f} ms; "
+            f"spans on {on['span_ms']}, off {res['off']['span_ms']}; counters on "
+            f"{on['counters']}")
+    return out
+
+
+def prepared_phase(single, refs) -> dict:
+    """Phase 12 (ii): (b) PREPAREd with a ``?`` threshold, EXECUTEd with
+    PREPARED_VALUES values (a user variable, a literal in turn), each
+    against numpy."""
+    from baikaldb_tpu_torch.utils import metrics
+
+    s = single
+    s.execute("PREPARE pb FROM 'SELECT g, COUNT(*), SUM(v), AVG(v), MIN(v) FROM t "
+              "WHERE v*2+1 > ? GROUP BY g ORDER BY g'")
+    rng = np.random.default_rng(13)
+    e0 = metrics.prepared_executes.value
+    walls = []
+    for i, x in enumerate(round(float(x), 4) for x in rng.normal(size=PREPARED_VALUES)):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        if i % 2:
+            s.execute(f"SET @thr = {x}")
+            rows = s.query("EXECUTE pb USING @thr")
+        else:
+            rows = s.query(f"EXECUTE pb USING {x}")
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+        check_d("D-b", {"x": x}, rows, refs)
+    s.execute("DEALLOCATE PREPARE pb")
+    if metrics.prepared_executes.value - e0 != PREPARED_VALUES:
+        raise AssertionError("prepared_executes did not count every EXECUTE")
+    out = {"executes": PREPARED_VALUES, "first_ms": walls[0],
+           "warm_ms_p50": statistics.median(walls[1:])}
+    log(f"[phase12] (ii) EXECUTE of (b) with {PREPARED_VALUES} values equal numpy: {out}")
+    return out
+
+
+def run_clients(db, per_client: list, barrier_timeout: float = 600.0) -> tuple:
+    """Each client's statements on its own Session and thread, started
+    behind one barrier -> ({sql: arrow}, per-statement ms, wall s)."""
+    from baikaldb_tpu_torch.exec.session import Session
+
+    sessions = [Session(db) for _ in per_client]
+    out, lat, errs = {}, [], []
+    start = threading.Barrier(len(per_client) + 1)
+
+    def worker(s, mine):
+        start.wait(barrier_timeout)
+        for sql, _args in mine:
+            try:
+                t = time.perf_counter()
+                out[sql] = s.execute(sql).arrow
+                lat.append((time.perf_counter() - t) * 1e3)
+            except BaseException as e:      # noqa: BLE001 — re-raised below
+                errs.append(e)
+
+    ts = [threading.Thread(target=worker, args=(s, m)) for s, m in zip(sessions, per_client)]
+    for t in ts:
+        t.start()
+    start.wait(barrier_timeout)
+    t0 = time.perf_counter()
+    for t in ts:
+        t.join()
+    wall = time.perf_counter() - t0
+    if errs:
+        raise errs[0]
+    return out, lat, wall
+
+
+def tick_breakdown(gk, s, statements: list, serial: dict) -> dict:
+    """One tick of ``statements`` through the lane program directly (what
+    the leader runs): wall p50 of 3, device ms and idle share of one
+    profiled tick, its launches; each lane's rows equal the serial ones
+    (an overflowed lane aside)."""
+    from baikaldb_tpu_torch.exec import lanes
+    from baikaldb_tpu_torch.plan import paramize
+    from baikaldb_tpu_torch.sql.parser import parse_sql
+
+    norms = [paramize.normalize(parse_sql(sql)[0], s._param_resolver(parse_sql(sql)[0]))
+             for sql, _ in statements]
+    plan = s._plan_select(norms[0].stmt)
+    batches, _, _ = s._collect_batches(plan)
+    feeds = [paramize.bind(n.slots, batches) for n in norms]
+    G = len(feeds)
+    gpad = max(2, 1 << (G - 1).bit_length())
+    feeds += [feeds[0]] * (gpad - G)
+    stacked = tuple(np.stack([np.reshape(f[i], -1) for f in feeds]) for i in range(len(feeds[0])))
+    prog = lanes.LaneProgram(plan, s.device)
+    cap = 128
+
+    def tick():
+        return lanes.rebuild_clients(prog.run(batches, stacked, cap), G)
+
+    outs = tick()
+    overflowed = 0
+    for (sql, _), o in zip(statements, outs):
+        if serial[sql].num_rows > cap:
+            # past the scatter budget: the lane comes back empty (its member
+            # re-runs inline in a real tick)
+            if o is not None:
+                raise AssertionError(f"a lane over the scatter budget came back: {sql}")
+            overflowed += 1
+        elif o is None or not o.to_arrow().equals(serial[sql]):
+            raise AssertionError(f"a lane of the profiled tick differs from its serial run: "
+                                 f"{sql}")
+    walls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        tick()
+        walls.append((time.perf_counter() - t) * 1e3)
+    med = statistics.median(walls)
+    before = lane_launches(gk)
+    tick()
+    torch.cuda.synchronize()
+    launched = {k: v - before[k] for k, v in lane_launches(gk).items() if v != before[k]}
+    return {"lanes": G, "padded": gpad, "overflowed_lanes": overflowed, "wall_ms_p50": med,
+            "launches": launched, **device_breakdown(tick, med, host_ops=False)}
+
+
+def dispatch_phase(gk, single, refs, seed: int) -> dict:
+    """Phase 12 (iii): D_CLIENTS sessions on as many threads, each sending
+    D_PER_CLIENT statements of each shape with its own literals; against
+    the same statements one after another on one session."""
+    from baikaldb_tpu_torch.exec import dispatch
+    from baikaldb_tpu_torch.utils import metrics
+    from baikaldb_tpu_torch.utils.flags import FLAGS
+
+    s = single
+    db = s.db
+    out = {"clients": D_CLIENTS, "per_client": D_PER_CLIENT, "tick_ms": D_TICK_MS,
+           "max_group": int(FLAGS.batch_dispatch_max_group),
+           "scatter_rows": int(FLAGS.batch_dispatch_scatter_rows)}
+    for name in D_SHAPES:
+        per_client = d_statements(name, seed)
+        flat = [st for mine in per_client for st in mine]
+        # the serial baseline: one session, one statement after another
+        serial, lat_s = {}, []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for sql, _ in flat:
+            t = time.perf_counter()
+            serial[sql] = s.execute(sql).arrow
+            lat_s.append((time.perf_counter() - t) * 1e3)
+        serial_s = time.perf_counter() - t0
+        for sql, args in flat:
+            check_d(name, args, serial[sql].to_pylist(), refs)
+        # the concurrent run
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for m in (metrics.queue_wait_ms, metrics.dispatch_tick_ms, metrics.group_occupancy):
+            m.reset()
+        occ0 = dict(db.dispatcher.occupancy)
+        c0 = {k: getattr(metrics, k).value
+              for k in ("batched_groups", "dispatch_inline", "dispatch_fallbacks")}
+        reset_launches(gk)
+        with flag(s, "batch_dispatch_tick_ms", D_TICK_MS):
+            got, lat_c, conc_s = run_clients(db, per_client)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        c1 = {k: getattr(metrics, k).value - c0[k] for k in c0}
+        lanes_n = lane_launches(gk)
+        inline_n = all_launches(gk)
+        ticks = c1["batched_groups"]
+        occ = {k: v - occ0.get(k, 0) for k, v in db.dispatcher.occupancy.items()
+               if v != occ0.get(k, 0)}
+        bad = [sql for sql, _ in flat if not got[sql].equals(serial[sql])]
+        if bad:
+            raise AssertionError(f"{name}: {len(bad)} clients' rows differ from their serial "
+                                 f"run, e.g. {bad[0]}")
+        if ticks < 1:
+            raise AssertionError(f"{name}: no batched tick formed")
+        for k, n in D_TICK_LAUNCHES[name].items():
+            if lanes_n[k] != n * ticks:
+                raise AssertionError(f"{name}: {k} launched {lanes_n[k]} times over {ticks} "
+                                     f"ticks, expected {n} a tick")
+        extra = {k: v for k, v in lanes_n.items() if v and k not in D_TICK_LAUNCHES[name]}
+        if extra:
+            raise AssertionError(f"{name}: unexpected lane launches {extra}")
+        overflow = sum(1 for sql, _ in flat
+                       if serial[sql].num_rows > int(FLAGS.batch_dispatch_scatter_rows))
+        if c1["dispatch_fallbacks"] > overflow:
+            raise AssertionError(f"{name}: {c1['dispatch_fallbacks']} members fell back "
+                                 f"inline, {overflow} lanes overflowed")
+        # the members that ran inline (bypass, solo ticks, fallbacks) ran the
+        # one-lane kernels; nothing else launched them
+        inline_runs = len(flat) - sum(k * v for k, v in occ.items()) + c1["dispatch_fallbacks"]
+        for k, n in D_INLINE_LAUNCHES[name].items():
+            if inline_n[k] != n * inline_runs:
+                raise AssertionError(f"{name}: {k} launched {inline_n[k]} times for "
+                                     f"{inline_runs} inline runs")
+        tick = tick_breakdown(gk, s, [mine[0] for mine in per_client], serial)
+        tick.pop("kernel_names", None)
+        qw = metrics.queue_wait_ms.stats()
+        tk = metrics.dispatch_tick_ms.stats()
+        out[name] = {
+            "statements": len(flat),
+            "serial_wall_s": serial_s, "serial_stmt_per_s": len(flat) / serial_s,
+            "serial_ms": percentiles(lat_s),
+            "concurrent_wall_s": conc_s, "concurrent_stmt_per_s": len(flat) / conc_s,
+            "concurrent_ms": percentiles(lat_c),
+            "ticks": ticks, "occupancy": {str(k): v for k, v in sorted(occ.items())},
+            "dispatch_inline": c1["dispatch_inline"],
+            "dispatch_fallbacks": c1["dispatch_fallbacks"], "overflow_lanes": overflow,
+            "queue_wait_p50_ms": qw["p50_ms"], "tick_ms": tk,
+            "lane_launches": {k: v for k, v in lanes_n.items() if v},
+            "lane_launches_per_tick": {k: v / ticks for k, v in lanes_n.items() if v},
+            "inline_launches": {k: v for k, v in inline_n.items() if v},
+            "peak_mem_gib": peak, "profiled_tick": tick}
+        log(f"[phase12] (iii) {name}: serial {serial_s:.2f} s ({len(flat) / serial_s:.1f} "
+            f"stmt/s), concurrent {conc_s:.2f} s ({len(flat) / conc_s:.1f} stmt/s); "
+            f"{ticks} ticks {out[name]['occupancy']}, inline {c1['dispatch_inline']}, "
+            f"fallbacks {c1['dispatch_fallbacks']}, queue wait p50 {qw['p50_ms']} ms; "
+            f"lane launches {out[name]['lane_launches']}; tick of {tick['lanes']} lanes "
+            f"{tick['wall_ms_p50']:.2f} ms wall, {tick['device_ms']:.2f} device, idle "
+            f"{tick['idle_share']:.3f}; peak {peak:.2f} GiB")
+        if not dispatch.enabled():
+            raise AssertionError("the dispatcher is off")
+    return out
+
+
+def explain_phase(single, refs) -> dict:
+    """Phase 12 (v): EXPLAIN ANALYZE of (a)-(c) on the card: the scan's and
+    the aggregate's live rows equal numpy's counts; the ``-- dispatch`` and
+    ``-- params`` lines are there."""
+    s = single
+    out = {}
+    for q, ref in (("a", "D-a"), ("b", "D-b"), ("c", "D-c")):
+        x = {"a": 0.5, "b": 0.5, "c": -1.0}[q]
+        want = refs[ref].groups(x)
+        lines = [r["plan"] for r in s.query("EXPLAIN ANALYZE " + QUERIES[q])]
+        rows = {ln.strip().split("(")[0]: int(ln.rsplit("rows=", 1)[1]) for ln in lines
+                if "rows=" in ln}
+        live = sum(c for c, *_ in want.values())
+        if rows.get("Scan") != live or rows.get("Agg") != len(want):
+            raise AssertionError(f"EXPLAIN ANALYZE ({q}): {rows}, numpy {live} rows in "
+                                 f"{len(want)} groups")
+        for prefix in ("-- dispatch:", "-- params:", "-- run:", "-- trace:"):
+            if not any(ln.startswith(prefix) for ln in lines):
+                raise AssertionError(f"EXPLAIN ANALYZE ({q}) has no {prefix} line")
+        out[q] = [ln for ln in lines if ln.startswith("-- ")]
+    # the dispatcher's literals are hoisted, not pinned
+    for name, form in D_SHAPES.items():
+        lines = [r["plan"] for r in s.query("EXPLAIN ANALYZE " + form.format(x=0.25, lo=10,
+                                                                              hi=60))]
+        line = next(ln for ln in lines if ln.startswith("-- params:"))
+        if f"hoisted={D_HOISTED[name]} pinned=0" not in line:
+            raise AssertionError(f"{name}: {line}")
+        out[name] = line
+    log(f"[phase12] (v) EXPLAIN ANALYZE live rows equal numpy; {out}")
+    return out
+
+
+def lane_case(gk, seg, n: int, ng: int, G: int, gen, *, nans=False) -> float:
+    """K1, K2, K3 and the segment kernel over G lanes against their plain
+    versions (the per-lane loops) on one input: lane 1 all dead, lane 2 one
+    live row; counts exact, MIN/MAX exact (NaN equal), sums as
+    ``check_case``; -> max |err|."""
+    dev = torch.device("cuda")
+    codes, values, _ = make_inputs(n, ng, gen, dev, nans=nans)
+    # lane by lane: one [G, n] float32 draw at 64 lanes of 100M rows is 25.6 GB
+    mask = torch.empty((G, n), dtype=torch.bool, device=dev)
+    for g in range(G):
+        mask[g] = torch.rand(n, generator=gen, device=dev) < 0.6
+    if G > 2:
+        mask[1] = False
+        mask[2] = False
+        mask[2, n // 2] = True
+    if nans:
+        mask[3:, 100:133] = True          # the NaN groups live in lanes 3 and up
+    where = f"(lanes n={n} ng={ng} G={G})"
+    k1 = gk.filtered_group_sum_lanes(codes, values.to(torch.float64), mask, ng)
+    k2 = gk.fused_group_aggregate_lanes(codes, values, mask, ng)
+    k3 = gk.partition_histogram_lanes(codes, mask, ng)
+    torch.cuda.synchronize()
+    err = 0.0
+    for g in range(G):
+        m = mask[g]
+        p1 = gk.filtered_group_sum_plain(codes, values.to(torch.float64), m, ng)
+        p2 = gk.fused_group_aggregate_plain(codes, values, m, ng)
+        p3 = gk.partition_histogram_plain(codes, m, ng)
+        live = m & (codes >= 0) & (codes < ng)
+        gid = torch.where(live, codes, ng).long()
+        sabs = torch.zeros(ng + 1, dtype=torch.float64, device=dev)
+        sabs.index_add_(0, gid, values.abs().double().nan_to_num(0.0))
+        tol = 1e-5 * sabs[:ng]
+        for what, got, want in (("K3 counts", k3[g], p3), ("K1 counts", k1[0][g], p1[0]),
+                                ("K2 counts", k2[0][g], p2[0]), ("K2 mins", k2[2][g], p2[2]),
+                                ("K2 maxs", k2[3][g], p2[3])):
+            if not same(got, want):
+                raise AssertionError(f"{what} of lane {g} differ from the plain version {where}")
+        for what, got, want in (("K1 sums", k1[1][g], p1[1]), ("K2 sums", k2[1][g], p2[1])):
+            ok = torch.isfinite(want)
+            if not same(got[~ok], want[~ok]):
+                raise AssertionError(f"{what} of lane {g}: NaN or inf differs {where}")
+            d = (got[ok].double() - want[ok].double()).abs()
+            if bool((d > tol[ok]).any()):
+                raise AssertionError(f"{what} of lane {g} beyond 1e-5*sum|v| {where}")
+            err = max(err, float(d.max()) if d.numel() else 0.0)
+    # the segment kernel: SUM of a float64 column, MIN of float32, an int32
+    # count and D-a's COUNT(*) (int64 ones), over min(ng, 17) segments
+    # (dense ids, as a group-by's)
+    S = min(ng, NG_A)
+    gid = torch.remainder(codes, S).to(torch.int32)
+    for x, op in ((values.double(), "sum"), (values, "min"), (values, "max"),
+                  (torch.ones(n, dtype=torch.int32, device=dev), "sum"),
+                  (torch.ones(n, dtype=torch.int64, device=dev), "sum")):
+        got = seg.segment_reduce_lanes(x, gid, mask, S, op)
+        torch.cuda.synchronize()
+        for g in range(G):
+            want = seg.segment_reduce_plain(x, torch.where(mask[g], gid, S), S, op)
+            if op != "sum" or not x.dtype.is_floating_point:
+                if not same(got[g], want):
+                    raise AssertionError(f"segment {op} {x.dtype} lane {g} differs {where}")
+                continue
+            # the lane kernel runs the one-lane plan: bit-identical to it
+            one = seg.segment_reduce(x, torch.where(mask[g], gid, S), S, op)
+            if not same(got[g], one):
+                raise AssertionError(f"segment sum lane {g} differs from the one-lane kernel "
+                                     f"{where}")
+            d = (got[g] - want).abs()
+            ok = ~want.isnan()
+            if bool((d[ok] > 1e-9 * x.abs().nan_to_num(0.0).sum() + 1e-9).any()):
+                raise AssertionError(f"segment sum lane {g} beyond tolerance {where}")
+            err = max(err, float(d[ok].max()) if ok.any() else 0.0)
+    return err
+
+
+def lane_kernel_phase(gk, rows: int, seed: int) -> dict:
+    """Phase 12 (iv): the lane-batched kernels against their plain versions
+    at ``rows`` rows with G = 8 and 64 (the 64-lane ticks of (iii) at their
+    slot counts) and at 10,000,019 (odd) rows with G = 64, with empty and
+    all-dead lanes, NaN in MIN/MAX and a group of more than 2^24 rows; then
+    timed at G = 8 and at the odd length against the byte bound (the lanes'
+    masks plus one read of codes and values)."""
+    from baikaldb_tpu_torch.ops import segments as seg
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed + 12)
+    t0 = time.perf_counter()
+    small = 10_000_019
+    err = 0.0
+    for n, ng, G, kw in ((rows, NG_SQL, 8, {}), (small, NG_SQL, 64, {"nans": True}),
+                         (rows, 4, 8, {}), (small, NG_A, 64, {}),
+                         (rows, NG_SQL, 64, {}), (rows, NG_A, 64, {})):
+        err = max(err, lane_case(gk, seg, n, ng, G, gen, **kw))
+        torch.cuda.empty_cache()
+        log(f"[phase12] (iv) lanes n={n} ng={ng} G={G} {kw or ''}: match "
+            f"({time.perf_counter() - t0:.1f} s)")
+    # a group above 2^24 rows in every lane: exact int64 counts
+    n = (1 << 24) + 5
+    codes = torch.zeros(n, dtype=torch.int32, device=dev)
+    mask = torch.ones((4, n), dtype=torch.bool, device=dev)
+    mask[3, :10] = False
+    for name, counts in (("K1", gk.filtered_group_sum_lanes(codes, torch.ones(n, device=dev),
+                                                            mask, 2)[0]),
+                         ("K2", gk.fused_group_aggregate_lanes(codes, torch.ones(n, device=dev),
+                                                               mask, 2)[0]),
+                         ("K3", gk.partition_histogram_lanes(codes, mask, 2))):
+        if counts[:, 0].tolist() != [n, n, n, n - 10]:
+            raise AssertionError(f"{name} lane counts {counts[:, 0].tolist()}")
+    del codes, mask
+    out = {"max_abs_err": err, "check_s": time.perf_counter() - t0}
+    for n, G in ((rows, 8), (small, 64)):
+        codes, values, _ = make_inputs(n, NG_SQL, gen, dev)
+        w64 = values.double()
+        mask = torch.rand((G, n), generator=gen, device=dev) < 0.6
+        gid17 = torch.remainder(codes, NG_A).to(torch.int32)
+        # one index_add_ over lane-offset ids computes a lane-batched K1/K3
+        # or segment SUM (the library call beside each kernel)
+        lane_ids = (torch.where(mask, codes, NG_SQL).long()
+                    + torch.arange(G, device=dev)[:, None] * (NG_SQL + 1)).reshape(-1)
+        lane_ids17 = (torch.where(mask, gid17, NG_A).long()
+                      + torch.arange(G, device=dev)[:, None] * (NG_A + 1)).reshape(-1)
+        acc = torch.zeros(G * (NG_SQL + 1), dtype=torch.float64, device=dev)
+        acc17 = torch.zeros(G * (NG_A + 1), dtype=torch.float64, device=dev)
+        acc32 = torch.zeros(G * (NG_SQL + 1), dtype=torch.float32, device=dev)
+        wide = w64.expand(G, n).reshape(-1)
+        ones = torch.ones(G * n, dtype=torch.float32, device=dev)
+        specs = {
+            "filtered_group_sum_lanes": (lambda: gk.filtered_group_sum_lanes(codes, w64, mask,
+                                                                             NG_SQL),
+                                         lambda: gk.filtered_group_sum_lanes_plain(
+                                             codes, w64, mask, NG_SQL),
+                                         lambda: acc.index_add_(0, lane_ids, wide), 8),
+            "fused_group_aggregate_lanes": (lambda: gk.fused_group_aggregate_lanes(
+                codes, values, mask, NG_SQL), lambda: gk.fused_group_aggregate_lanes_plain(
+                codes, values, mask, NG_SQL), None, 4),
+            "partition_histogram_lanes": (lambda: gk.partition_histogram_lanes(codes, mask,
+                                                                               NG_SQL),
+                                          lambda: gk.partition_histogram_lanes_plain(
+                                              codes, mask, NG_SQL),
+                                          lambda: acc32.index_add_(0, lane_ids, ones), 0),
+            "segment_reduce_lanes": (lambda: seg.segment_reduce_lanes(w64, gid17, mask, NG_A,
+                                                                      "sum"),
+                                     lambda: seg.segment_reduce_lanes_plain(w64, gid17, mask,
+                                                                            NG_A, "sum"),
+                                     lambda: acc17.index_add_(0, lane_ids17, wide), 8),
+        }
+        key = f"n{n}_G{G}"
+        out[key] = {}
+        for name, (fn, plain, lib, vbytes) in specs.items():
+            nbytes = G * n + n * (4 + vbytes) + G * NG_SQL * 8
+            live = int(mask.sum())
+            bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+            ops_ms = live * 2 / F32_OPS_PER_S * 1e3
+            out[key][name] = {
+                "ms": cuda_ms(fn, 5), "device_ms": device_ms(fn, launches=5),
+                "plain_ms": cuda_ms(plain, 1),
+                "library_ms": None if lib is None else cuda_ms(lib, 1),
+                "bound_ms": max(bytes_ms, ops_ms),
+                "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
+                "rows": n, "lanes": G}
+            log(f"[phase12] (iv) {name} n={n} G={G}: {out[key][name]}")
+        del codes, values, w64, mask, gid17, lane_ids, lane_ids17, acc, acc17, acc32, wide, ones
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase12(gk, single, table, seed: int) -> tuple[dict, dict]:
+    """Phase 12 over phase 3's session and its unchanged 100M rows
+    (``streaming_scan = 0``): (iv) the lane-batched kernels, (i) the plan
+    cache, (ii) PREPARE / EXECUTE, (iii) the dispatcher, (v) EXPLAIN
+    ANALYZE.  -> (lane launches of (iii), measurements)."""
+    t0 = time.perf_counter()
+    out = {"kernels": lane_kernel_phase(gk, table.num_rows, seed)}
+    torch.cuda.empty_cache()
+    refs = d_refs(table)
+    with flag(single, "streaming_scan", 0):
+        out["cache"] = cache_phase(gk, single, refs)
+        out["prepared"] = prepared_phase(single, refs)
+        launches = {k: 0 for k in LANE_KERNELS}
+        out["dispatch"] = dispatch_phase(gk, single, refs, seed)
+        for name in D_SHAPES:
+            for k, v in out["dispatch"][name]["lane_launches"].items():
+                launches[k] += v
+        out["explain"] = explain_phase(single, refs)
+    out["seconds"] = time.perf_counter() - t0
+    return launches, out
+
+
+def cache_tpch_phase(s) -> dict:
+    """Phase 12 (i), TPC-H: the host-bound queries at SF1, warm p50 with the
+    plan cache on and with ``plan_cache_size = 0``; rows equal either way
+    (``models/parity.py``)."""
+    from baikaldb_tpu_torch.models import parity, tpch
+
+    out = {}
+    for q in CACHE_TPCH:
+        sql = tpch.QUERIES[q]
+        res, rows = {}, {}
+        for mode, size in (("on", 256), ("off", 0)):
+            with flag(s, "plan_cache_size", size):
+                rows[mode] = s.query(sql)
+                walls = []
+                for _ in range(CACHE_TPCH_REPS):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    s.query(sql)
+                    torch.cuda.synchronize()
+                    walls.append((time.perf_counter() - t) * 1e3)
+                res[mode] = statistics.median(walls)
+        diff = parity.mismatch(rows["on"], rows["off"], sql)
+        if diff is not None:
+            raise AssertionError(f"{q}: rows with the plan cache differ: {diff}")
+        out[q] = {"warm_ms_p50_on": res["on"], "warm_ms_p50_off": res["off"]}
+    log(f"[phase12] (i) TPC-H host-bound queries, cache on / off: {out}")
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=100_000_000)
@@ -2298,6 +3012,9 @@ def main() -> int:
     mesh_launches, mesh_stats = mesh_sql_phase(gk, single, refs)
     mesh_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    lane_counts, p12 = phase12(gk, single, table, args.seed)
+    dispatch_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     htap_launches, htap_stats = htap_snapshot_phase(gk, single, table, refs, args.seed)
     htap_s = time.perf_counter() - t0
     checks = htap_stats["kernel_checks"]
@@ -2312,7 +3029,8 @@ def main() -> int:
     phase_s["streamed"] = time.perf_counter() - t0
     del table
     for path, counts in (("resident", launches), ("streamed", stream_launches),
-                         ("mesh", mesh_launches), ("versioned", htap_launches)):
+                         ("mesh", mesh_launches), ("versioned", htap_launches),
+                         ("lane-batched", lane_counts)):
         missing = [k for k, n in counts.items() if n == 0]
         if missing:
             raise AssertionError(f"kernels not launched on the {path} path: {missing}")
@@ -2333,6 +3051,9 @@ def main() -> int:
     t0 = time.perf_counter()
     mesh_tpch_launches, mesh_stats["tpch"] = mesh_tpch_phase(gk, s)
     phase_s["mesh"] = mesh_s + time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p12["cache"]["tpch"] = cache_tpch_phase(s)
+    phase_s["dispatch"] = dispatch_s + time.perf_counter() - t0
     mesh_launches = {k: n + mesh_tpch_launches[k] for k, n in mesh_launches.items()}
     del s, tables
     t0 = time.perf_counter()
@@ -2355,6 +3076,7 @@ def main() -> int:
     print(f"analytic phase seconds: {phase_s['analytics']:.1f}", flush=True)
     print(f"vector phase seconds: {phase_s['vectors']:.1f}", flush=True)
     print(f"mesh phase seconds: {phase_s['mesh']:.1f}", flush=True)
+    print(f"dispatch phase seconds: {phase_s['dispatch']:.1f}", flush=True)
     print("phase seconds: " + json.dumps(phase_s), flush=True)
 
     kernels = [{"name": k, "route": "cuda",
@@ -2369,10 +3091,18 @@ def main() -> int:
                 "launches_htap": htap_launches[k],
                 **times[k]}
                for k in REPLACES]
+    # the lane-batched entries (phase 12): timed at --rows rows over 8 lanes
+    lane_times = p12["kernels"][f"n{args.rows}_G8"]
+    kernels += [{"name": k, "route": "cuda",
+                 "source": SOURCES.get(k, "baikaldb_tpu_torch/ops/csrc/group_agg.cu"),
+                 "replaces": REPLACES[base], "launches": lane_counts[k],
+                 "max_abs_err": p12["kernels"]["max_abs_err"], **lane_times[k]}
+                for k, base in LANE_KERNELS.items()]
     print(json.dumps({"card": name_power, "rows": args.rows, "phase_s": phase_s,
                       "sql": sql_stats, "streamed": stream_stats, "tpch": tpch_stats,
                       "analytics": analytic_stats, "egress": egress_stats,
-                      "vectors": vector_stats, "mesh": mesh_stats, "htap": htap_stats}),
+                      "vectors": vector_stats, "mesh": mesh_stats, "htap": htap_stats,
+                      "dispatch": p12}),
           flush=True)
     print(name_power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1102,3 +1102,126 @@ def test_mvcc_dml_then_pinned_reads_on_the_card_match_the_cpu(cuda):
     store = gpu_r.db.stores["default.t"]
     batch, versions = store.versioned_batch(gpu_r._snapshot[1])
     assert batch.sel.device.type == "cuda" and versions > 0
+
+
+# -- the lane axis (the batched dispatcher's tick) ----------------------------
+
+LANE_CASES = [  # (n, num_groups, lanes, seed)
+    (100_003, 2049, 8, 30), (65_537, 37, 64, 31), (4097, 4096, 3, 32), (6, 5, 2, 33),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,ng,G,seed", LANE_CASES)
+def test_lane_kernels_match_their_plain_versions(cuda, n, ng, G, seed):
+    """K1-K3 with a lane axis: one launch over G masks, each lane equal to
+    the one-lane plain function on its mask (an all-dead lane and a lane
+    with a NaN group among them)."""
+    from baikaldb_tpu_torch.ops import segments as seg
+
+    codes, values, _ = _inputs(n, ng, 0.5, seed, cuda)
+    mask = torch.rand((G, n), device=cuda, generator=torch.Generator(cuda).manual_seed(seed)) < 0.6
+    mask[0] = False
+    if n > 10:
+        values[3] = float("nan")
+        mask[1, 3] = True
+    before = {k: c.value for k, c in gk.LANE_LAUNCHES.items()}
+    k1 = gk.filtered_group_sum_lanes(codes, values.double(), mask, ng)
+    k2 = gk.fused_group_aggregate_lanes(codes, values, mask, ng)
+    k3 = gk.partition_histogram_lanes(codes, mask, ng)
+    torch.cuda.synchronize()
+    assert {k: c.value - before[k] for k, c in gk.LANE_LAUNCHES.items()} == \
+        {"filtered_group_sum_lanes": 1, "fused_group_aggregate_lanes": 1,
+         "partition_histogram_lanes": 1}
+    for g in range(G):
+        p1 = gk.filtered_group_sum_plain(codes, values.double(), mask[g], ng)
+        p2 = gk.fused_group_aggregate_plain(codes, values, mask[g], ng)
+        assert torch.equal(k3[g], gk.partition_histogram_plain(codes, mask[g], ng))
+        assert torch.equal(k1[0][g], p1[0]) and torch.equal(k2[0][g], p2[0])
+        torch.testing.assert_close(k1[1][g], p1[1], rtol=1e-5, atol=1e-5, equal_nan=True)
+        torch.testing.assert_close(k2[1][g], p2[1], rtol=1e-5, atol=1e-5, equal_nan=True)
+        assert _same(k2[2][g], p2[2]) and _same(k2[3][g], p2[3])
+    S = min(ng, 17)
+    gid = torch.remainder(codes, S).to(torch.int32)
+    for x, op in ((values.double(), "sum"), (values, "min"), (values, "max"),
+                  (torch.ones(n, dtype=torch.int64, device=cuda), "sum")):
+        got = seg.segment_reduce_lanes(x, gid, mask, S, op)
+        for g in range(G):
+            ids = torch.where(mask[g], gid, S)
+            # bit for bit the one-lane kernel (the same plan), and its plain version
+            assert _same(got[g], seg.segment_reduce(x, ids, S, op))
+            want = seg.segment_reduce_plain(x, ids, S, op)
+            if op == "sum" and x.dtype.is_floating_point:
+                torch.testing.assert_close(got[g], want, rtol=1e-12, atol=1e-9, equal_nan=True)
+            else:
+                assert _same(got[g], want)
+
+
+@pytest.mark.cuda
+def test_concurrent_group_on_the_card_matches_serial_rows(cuda):
+    """D-a (chip_smoke.py phase 12) from 8 clients: the tick launches the
+    lane segment kernel, and every client's rows equal its serial run bit
+    for bit."""
+    import threading
+    import time
+
+    import pyarrow as pa
+
+    from baikaldb_tpu_torch.exec.session import Database, Session
+    from baikaldb_tpu_torch.ops import segments as seg
+    from baikaldb_tpu_torch.utils import metrics
+    from baikaldb_tpu_torch.utils.flags import FLAGS
+
+    rng = np.random.default_rng(41)
+    n = 400_000
+    db = Database("cuda")
+    boot = Session(db)
+    boot.execute("CREATE TABLE t (g INT, v FLOAT, w DOUBLE, g16 INT)")
+    boot.load_arrow("t", pa.table({"g": rng.integers(0, 2048, n).astype(np.int32),
+                                   "v": rng.standard_normal(n).astype(np.float32),
+                                   "w": rng.standard_normal(n),
+                                   "g16": rng.integers(0, 16, n).astype(np.int32)}))
+    sqls = [f"SELECT g16, COUNT(*), SUM(v), AVG(v), MIN(v) FROM t WHERE v*2+1 > {x / 10} "
+            "GROUP BY g16" for x in range(-8, 8)]
+    prev = (FLAGS.streaming_scan, FLAGS.batch_dispatch_tick_ms)
+    FLAGS.set_flag("streaming_scan", False)
+    FLAGS.set_flag("batch_dispatch_tick_ms", 50.0)
+    try:
+        serial = {q: boot.execute(q).arrow for q in sqls}
+        g0 = metrics.batched_groups.value
+        l0 = seg.LANE_LAUNCHES["segment_reduce_lanes"].value
+        got, errs = {}, []
+        start = threading.Barrier(8)
+
+        def worker(mine):
+            s = Session(db)
+            start.wait()
+            for q in mine:
+                try:
+                    got[q] = s.execute(q).arrow
+                except Exception as e:      # noqa: BLE001 — re-raised below
+                    errs.append(e)
+
+        # each inline run holds 20 ms longer, so the first arrival is still
+        # in flight when the others queue behind it
+        real = Session._run_plan
+        Session._run_plan = lambda self, plan, batches: (time.sleep(0.02),
+                                                         real(self, plan, batches))[1]
+        ts = [threading.Thread(target=worker, args=(sqls[i::8],)) for i in range(8)]
+        try:
+            for t in ts:
+                t.start()
+            for t in ts:
+                t.join()
+        finally:
+            Session._run_plan = real
+        if errs:
+            raise errs[0]
+    finally:
+        FLAGS.set_flag("streaming_scan", prev[0])
+        FLAGS.set_flag("batch_dispatch_tick_ms", prev[1])
+    ticks = metrics.batched_groups.value - g0
+    assert ticks >= 1
+    assert seg.LANE_LAUNCHES["segment_reduce_lanes"].value - l0 == 8 * ticks
+    for q in sqls:
+        assert got[q].equals(serial[q]), q

@@ -1,0 +1,170 @@
+"""The lane-batched kernel entries (ops/group_kernels.py ``*_lanes``,
+ops/segments.py ``segment_reduce_lanes`` / ``seg_*_lanes``) against the JAX
+package's kernels under ``jax.vmap`` over the lanes' masks.
+
+The JAX batched dispatcher runs ``jax.vmap`` of the whole plan, so a
+Pallas kernel there is a ``pallas_call`` with a lane grid axis; these tests
+run the Pallas kernels that way in interpret mode (as tests/test_pallas.py
+runs them on the CPU), and the accelerator branch of the segment reductions
+under ``vmap`` with the one-hot route forced (as
+tests/test_torch_segments.py does).  Inputs are numpy with fixed seeds:
+codes and values shared by the lanes, one mask row a lane, including an
+all-dead lane, a lane of one live row and odd row counts.
+
+Tolerances: counts and MIN/MAX exactly; float32 sums rtol = atol = 1e-4 (the
+Pallas kernels' own test tolerance); the segment kernel's float64 sums
+rtol 1e-12 (another summation order).  On the CPU each lane entry runs its
+plain version, the per-lane loop over the one-lane plain function, and is
+also held to that loop; tests/test_torch_cuda.py holds the CUDA launches to
+the same loops on the card.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from baikaldb_tpu.ops import pallas_kernels as pk
+from baikaldb_tpu.ops import segments as jseg
+from baikaldb_tpu_torch.ops import group_kernels as gk
+from baikaldb_tpu_torch.ops import segments as tseg
+
+RTOL = ATOL = 1e-4
+
+CASES = [  # (n, num_groups, lanes, seed)
+    (3001, 37, 4, 0),
+    (5000, 1000, 3, 1),
+    (777, 2049, 8, 2),
+    (64, 5, 1, 3),
+]
+
+
+def _inputs(n, ng, G, seed):
+    rng = np.random.default_rng(seed)
+    codes = rng.integers(-2, ng + 2, n).astype(np.int32)
+    values = rng.normal(size=n).astype(np.float32)
+    mask = rng.random((G, n)) < rng.uniform(0.2, 0.9, (G, 1))
+    if G > 2:
+        mask[1] = False                 # an all-dead lane
+        mask[2] = False
+        mask[2, n // 2] = True          # a lane of one live row
+    return codes, values, mask
+
+
+def _t(*arrs):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrs]
+
+
+def _vmapped(fn, codes, values, mask, ng):
+    c, v = jnp.asarray(codes), jnp.asarray(values)
+    return jax.vmap(lambda m: fn(c, v, m, ng))(jnp.asarray(mask))
+
+
+@pytest.mark.parametrize("n,ng,G,seed", CASES)
+def test_filtered_group_sum_lanes_match_vmapped_pallas(n, ng, G, seed):
+    codes, values, mask = _inputs(n, ng, G, seed)
+    c_t, s_t = gk.filtered_group_sum_lanes(*_t(codes, values, mask), ng)
+    assert c_t.shape == s_t.shape == (G, ng) and c_t.dtype == torch.int64
+    c_p, s_p = _vmapped(lambda c, v, m, k: pk.filtered_group_sum(c, v, m, k, interpret=True),
+                        codes, values, mask, ng)
+    np.testing.assert_array_equal(c_t.numpy(), np.asarray(c_p))
+    np.testing.assert_allclose(s_t.numpy(), np.asarray(s_p), rtol=RTOL, atol=ATOL)
+    for g in range(G):
+        c1, s1 = gk.filtered_group_sum_plain(*_t(codes, values, mask[g]), ng)
+        assert torch.equal(c_t[g], c1) and torch.equal(s_t[g], s1)
+
+
+@pytest.mark.parametrize("n,ng,G,seed", CASES)
+def test_fused_group_aggregate_lanes_match_vmapped_xla(n, ng, G, seed):
+    codes, values, mask = _inputs(n, ng, G, seed)
+    values[n // 3] = np.nan            # a NaN group: NaN SUM/MIN/MAX in every lane holding it
+    out_t = gk.fused_group_aggregate_lanes(*_t(codes, values, mask), ng)
+    for g in range(G):
+        one = gk.fused_group_aggregate_plain(*_t(codes, values, mask[g]), ng)
+        for a, b in zip(out_t, one):
+            assert torch.equal(a[g], b) or torch.allclose(a[g], b, equal_nan=True, rtol=0, atol=0)
+    clean = values.copy()
+    clean[n // 3] = 0.5
+    out_t = gk.fused_group_aggregate_lanes(*_t(codes, clean, mask), ng)
+    out_x = _vmapped(pk._xla_agg_fallback, codes, clean, mask, ng)
+    np.testing.assert_array_equal(out_t[0].numpy(), np.asarray(out_x[0]))
+    np.testing.assert_allclose(out_t[1].numpy(), np.asarray(out_x[1]), rtol=RTOL, atol=ATOL)
+    for k in (2, 3):
+        live = out_t[0].numpy() > 0
+        np.testing.assert_array_equal(out_t[k].numpy()[live], np.asarray(out_x[k])[live])
+
+
+@pytest.mark.parametrize("n,ng,G,seed", CASES)
+def test_partition_histogram_lanes_match_vmapped_pallas(n, ng, G, seed):
+    codes, _, mask = _inputs(n, ng, G, seed)
+    got = gk.partition_histogram_lanes(*_t(codes, mask), ng)
+    m = jnp.asarray(mask)
+    want = jax.vmap(lambda r: pk.partition_histogram(jnp.asarray(codes), r, ng,
+                                                     interpret=True))(m)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for g in range(G):
+        assert torch.equal(got[g], gk.partition_histogram_plain(*_t(codes, mask[g]), ng))
+
+
+SEG_CASES = [  # (n, segments, lanes, x dtype, seed)
+    (2001, 17, 4, np.float64, 0),
+    (999, 17, 3, np.float32, 1),
+    (5000, 512, 2, np.int64, 2),
+    (333, 1, 5, np.int32, 3),
+]
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+@pytest.mark.parametrize("n,S,G,dt,seed", SEG_CASES)
+def test_segment_reduce_lanes_match_vmapped_onehot(monkeypatch, op, n, S, G, dt, seed):
+    monkeypatch.setattr(jseg, "_onehot_backend", lambda: True)
+    rng = np.random.default_rng(seed)
+    gid = rng.integers(-1, S + 1, n).astype(np.int32)
+    x = (rng.normal(size=n) * 100).astype(dt)
+    mask = rng.random((G, n)) < 0.6
+    mask[0] = False                     # an all-dead lane
+    got = tseg.segment_reduce_lanes(*_t(x, gid, mask), S, op)
+    assert got.shape == (G, S)
+    jf = {"sum": jseg.seg_sum, "min": jseg.seg_min, "max": jseg.seg_max}[op]
+    jx, jg = jnp.asarray(x), jnp.asarray(gid)
+    want = np.asarray(jax.vmap(lambda m: jf(jx, jnp.where(m, jg, S), S))(jnp.asarray(mask)))
+    if np.issubdtype(dt, np.floating) and op == "sum":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-12, atol=1e-9)
+    else:
+        np.testing.assert_array_equal(got.numpy(), want)
+    for g in range(G):
+        one = tseg.segment_reduce_plain(*_t(x, np.where(mask[g], gid, S).astype(np.int32)), S, op)
+        assert torch.equal(got[g], one)
+
+
+@pytest.mark.parametrize("fn,op", [(tseg.seg_sum_lanes, "sum"), (tseg.seg_min_lanes, "min"),
+                                   (tseg.seg_max_lanes, "max")])
+def test_seg_lanes_equal_the_one_lane_route_per_lane(fn, op):
+    """The dense group-by's lane entries: each lane equals the one-lane
+    ``seg_*`` over ``where(mask[g], gid, S)`` (the serial query's call)."""
+    rng = np.random.default_rng(5)
+    n, S, G = 4000, 700, 3
+    gid = torch.from_numpy(rng.integers(0, S, n).astype(np.int32))
+    x = torch.from_numpy(rng.normal(size=n))
+    mask = torch.from_numpy(rng.random((G, n)) < 0.5)
+    one = {"sum": tseg.seg_sum, "min": tseg.seg_min, "max": tseg.seg_max}[op]
+    got = fn(x, gid, mask, S)
+    for g in range(G):
+        assert torch.equal(got[g], one(x, torch.where(mask[g], gid, S), S))
+
+
+def test_lane_entries_reject_what_the_kernels_do_not_take():
+    codes = torch.zeros(10, dtype=torch.int32)
+    values = torch.zeros(10, dtype=torch.float32)
+    with pytest.raises(TypeError):
+        gk.filtered_group_sum_lanes(codes, values, torch.zeros(10, dtype=torch.bool), 4)
+    with pytest.raises(TypeError):
+        gk.partition_histogram_lanes(codes, torch.zeros((2, 9), dtype=torch.bool), 4)
+    with pytest.raises(ValueError):
+        gk.fused_group_aggregate_lanes(codes, values,
+                                       torch.zeros((10, 2), dtype=torch.bool).t(), 4)
+    with pytest.raises(TypeError):
+        tseg.segment_reduce_lanes(values, codes, torch.zeros((0, 10), dtype=torch.bool), 4,
+                                  "sum")
