@@ -28,7 +28,6 @@ import torch
 
 from ..expr.ast import Call, ColRef, Lit
 from ..obs import trace
-from ..plan.planner import parse_vector
 from ..sql.stmt import SelectStmt
 from ..utils.flags import FLAGS, define
 
@@ -62,14 +61,29 @@ def ann_index_for(info, col: str):
 
 
 def parse_vec_literal(v, dim: int) -> Optional[tuple]:
-    """The query vector of a literal, or None (not a vector of ``dim``
-    components: the exact scan runs and the planner reports it)."""
-    if v is None:
+    """The query vector of a literal, or None (the exact scan runs and the
+    planner reports it).  The matcher's grammar is the JAX package's: a
+    string in brackets with commas (``'[1,2,3]'``) or a list or tuple of
+    ``dim`` numbers.  ``plan/planner.parse_vector`` reads more forms
+    (``'1 2 3'``, ``'1,2,3'``) for INSERT and the distance functions, where
+    both packages take them; here they leave the query to the exact scan,
+    as in the reference."""
+    if isinstance(v, str):
+        s = v.strip()
+        if not (s.startswith("[") and s.endswith("]")):
+            return None
+        try:
+            vals = tuple(float(x) for x in s[1:-1].split(",") if x.strip())
+        except ValueError:
+            return None
+    elif isinstance(v, (list, tuple)):
+        try:
+            vals = tuple(float(x) for x in v)
+        except (TypeError, ValueError):
+            return None
+    else:
         return None
-    try:
-        return tuple(parse_vector(v, dim))
-    except (TypeError, ValueError):     # PlanError is a ValueError
-        return None
+    return vals if len(vals) == dim else None
 
 
 def _reads_beyond_topk(e) -> bool:

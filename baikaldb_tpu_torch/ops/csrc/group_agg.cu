@@ -59,15 +59,29 @@
 // memory rate, and it would add shared-memory traffic to the pipe the
 // atomics use.
 //
-// Lanes (bk_group_agg_lanes, bk_fused_agg_lanes): one launch serves the G
-// lanes of a batched-dispatch tick.  codes and values are shared, mask is
-// [G, n] (row L is lane L's filter), the outputs are [G, ng].  blockIdx.y is
-// the lane: a lane's blocks take the rows exactly as a one-lane call's
-// blocks do (the same grid-x geometry), so each lane's counts, mins and maxs
-// equal the one-lane call's on its mask, and its sums are the same float64
-// partials up to the order of the atomics.  The one-lane entry points are
-// these kernels at gridDim.y = 1, where the lane offsets are zero.  Each lane
-// reads codes and values again: G * n * (4 + value bytes) + G * n mask bytes.
+// Lanes: one launch serves the G lanes of a batched-dispatch tick.  codes
+// and values are shared, mask is [G, n] (row L is lane L's filter), the
+// outputs are [G, ng].
+// - K1/K3 (bk_group_agg_lanes, group_agg_lanes_kernel): block (tile, r)
+//   carries a tile of up to LANE_TILE_MAX lanes, one table each side by side
+//   in shared memory (tile * table <= 227 KB; ops/group_kernels.py
+//   lane_plan picks the tile), and takes row-block r.  It loads each quad's
+//   codes and values once (an int4 and a float4 or two double2, as K2 does),
+//   and for each lane of the tile that lane's 4 mask bytes as one uint32
+//   (four byte loads where the lane's mask row is not 4-byte aligned there:
+//   a ragged n), and updates that lane's table.  The tiles of a row-block
+//   are adjacent in the grid (tile is blockIdx.x), so they run together and
+//   the later ones read codes and values from L2; the grid is one wave.
+//   Counts are exact; sums are float64 atomics in another order than the
+//   one-lane call's, rounded once to float32 by finalize.  Device-memory
+//   bytes: G * n mask bytes + about one read of codes and values.  What
+//   bounds it on the H100 is the shared-memory atomics a live row makes in
+//   every lane: K3's count, and K1's float64 add, a compare-and-swap loop
+//   (K1 reaches under a fifth of its byte bound at 8 lanes, K3 half).
+// - K2 (bk_fused_agg_lanes): blockIdx.y is the lane; a lane's blocks take the
+//   rows exactly as a one-lane call's blocks do, so each lane's counts, mins
+//   and maxs equal the one-lane call's on its mask, and each lane reads codes
+//   and values again: G * n * (4 + value bytes) + G * n mask bytes.
 //
 // Host side: the dynamic-shared-memory attribute, the SM count and the
 // occupancy answer are queried once per (kernel, device, table size) and
@@ -97,6 +111,8 @@ constexpr int AGG_THREADS = 512;
 constexpr int AGG_QUADS = 2;          // quads a lane loads a step
 constexpr int WARP_QUADS = 32 * AGG_QUADS;
 constexpr int NAN_KEY = 0x7FFFFFFF;   // max-slot image of a NaN
+constexpr int LANE_TILE_MAX = 16;     // lanes one block of group_agg_lanes_kernel carries
+constexpr size_t LANE_SMEM_MAX = 232448;   // 227 KB: one block's shared memory on sm_90
 constexpr int MERGE_SLOTS = 32;       // slots of one agg_merge block, one a lane
 constexpr int MERGE_WARPS = 16;       // warps of one agg_merge block, splitting the rows
 
@@ -115,6 +131,11 @@ __host__ __device__ inline size_t table_bytes(int kind, int ng) {
     size_t b = sizeof(unsigned int) * ng;                        // counts
     if (kind != KIND_HIST) b += sizeof(double) * ng;             // sums
     return b;
+}
+
+// One lane's table in group_agg_lanes_kernel: table_bytes in whole words.
+__host__ __device__ inline size_t lane_table_bytes(int kind, int ng) {
+    return (table_bytes(kind, ng) + 7) & ~static_cast<size_t>(7);
 }
 
 // K2's table: sums, (min, max) pairs, counts.
@@ -138,10 +159,6 @@ group_agg_kernel(const int* __restrict__ codes, const V* __restrict__ values,
     double* s_sums = reinterpret_cast<double*>(smem);
     unsigned int* s_counts = reinterpret_cast<unsigned int*>(
         smem + (KIND != KIND_HIST ? sizeof(double) * ng : 0));
-    // lane blockIdx.y: its mask row and its output row (0 for one lane)
-    mask += static_cast<size_t>(blockIdx.y) * n;
-    g_counts += static_cast<size_t>(blockIdx.y) * ng;
-    if (KIND != KIND_HIST) g_sums += static_cast<size_t>(blockIdx.y) * ng;
 
     for (int g = threadIdx.x; g < ng; g += blockDim.x) {
         s_counts[g] = 0u;
@@ -167,6 +184,147 @@ group_agg_kernel(const int* __restrict__ codes, const V* __restrict__ values,
         if (c == 0u) continue;
         atomicAdd(&g_counts[g], static_cast<unsigned long long>(c));
         if (KIND != KIND_HIST) atomicAdd(&g_sums[g], s_sums[g]);
+    }
+}
+
+// ---------------------------------------------------------------------------
+// K1/K3 over a tile of lanes
+
+template <int KIND>
+__device__ __forceinline__ void lane_row(unsigned char* table, int ng, int g, float v) {
+    unsigned int* counts = reinterpret_cast<unsigned int*>(
+        table + (KIND != KIND_HIST ? sizeof(double) * ng : 0));
+    atomicAdd(&counts[g], 1u);
+    if (KIND != KIND_HIST) atomicAdd(&reinterpret_cast<double*>(table)[g], static_cast<double>(v));
+}
+
+// A quad of values as float32, left in L2 for the row-block's other tiles.
+__device__ __forceinline__ void load_quad_keep(const float* p, float v[4]) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p));
+    v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+
+__device__ __forceinline__ void load_quad_keep(const double* p, float v[4]) {
+    const double2 a = __ldg(reinterpret_cast<const double2*>(p));
+    const double2 b = __ldg(reinterpret_cast<const double2*>(p) + 1);
+    v[0] = static_cast<float>(a.x); v[1] = static_cast<float>(a.y);
+    v[2] = static_cast<float>(b.x); v[3] = static_cast<float>(b.y);
+}
+
+// A lane's 4 mask bytes of one quad, byte r in bits 8r..8r+7.
+__device__ __forceinline__ unsigned int mask_quad(const bool* m, bool aligned) {
+    if (aligned) return __ldcs(reinterpret_cast<const unsigned int*>(m));
+    const unsigned char* b = reinterpret_cast<const unsigned char*>(m);
+    return static_cast<unsigned int>(b[0]) | static_cast<unsigned int>(b[1]) << 8 |
+           static_cast<unsigned int>(b[2]) << 16 | static_cast<unsigned int>(b[3]) << 24;
+}
+
+// The quad one thread holds in one step: codes, values, and a mask word per
+// lane of the tile.
+template <int KIND, typename V>
+struct LaneQuad {
+    int4 c;
+    float v[4];
+    unsigned int m[LANE_TILE_MAX];
+
+    __device__ __forceinline__ void load(const int4* c4, const V* vq, const bool* mask,
+                                         long long n, long long quads, int nl,
+                                         unsigned int aligned, long long q) {
+        if (q >= quads) {
+            c = make_int4(-1, -1, -1, -1);
+#pragma unroll
+            for (int l = 0; l < LANE_TILE_MAX; ++l) m[l] = 0u;
+            return;
+        }
+        c = __ldg(c4 + q);      // kept in L2 for the row-block's other tiles
+        if (KIND != KIND_HIST) load_quad_keep(vq + 4 * q, v);
+        else v[0] = v[1] = v[2] = v[3] = 0.f;
+#pragma unroll
+        for (int l = 0; l < LANE_TILE_MAX; ++l)
+            m[l] = l < nl ? mask_quad(mask + static_cast<size_t>(l) * n + 4 * q,
+                                      (aligned >> l) & 1u)
+                          : 0u;
+    }
+
+    __device__ __forceinline__ void add(unsigned char* smem, size_t lane_bytes, int ng,
+                                        int nl) const {
+        const int g[4] = {c.x, c.y, c.z, c.w};
+#pragma unroll
+        for (int l = 0; l < LANE_TILE_MAX; ++l) {
+            if (l >= nl) break;
+            unsigned char* table = smem + l * lane_bytes;
+#pragma unroll
+            for (int r = 0; r < 4; ++r)
+                if (((m[l] >> (8 * r)) & 0xFFu) != 0u &&
+                    static_cast<unsigned int>(g[r]) < static_cast<unsigned int>(ng))
+                    lane_row<KIND>(table, ng, g[r], v[r]);
+        }
+    }
+};
+
+// Block (tile, r): the lanes [tile * lt, min(lanes, (tile + 1) * lt)) over
+// row-block r.  Rows [head, head + 4 * quads) go through the quad loop, the
+// rest through the scalar one; each lane's table is flushed into its row of
+// the [lanes, ng] workspace with global atomics.
+template <int KIND, typename V>
+__global__ void __launch_bounds__(THREADS)
+group_agg_lanes_kernel(const int* __restrict__ codes, const V* __restrict__ values,
+                       const bool* __restrict__ mask, long long n, long long head,
+                       long long quads, int ng, int lanes, int lt,
+                       unsigned long long* g_counts, double* g_sums) {
+    extern __shared__ __align__(8) unsigned char smem[];
+    const int first = blockIdx.x * lt;
+    const int nl = min(lt, lanes - first);
+    const size_t lane_bytes = lane_table_bytes(KIND, ng);
+    const size_t count_off = KIND != KIND_HIST ? sizeof(double) * ng : 0;
+    for (int i = threadIdx.x; i < nl * ng; i += THREADS) {
+        const int l = i / ng, g = i - l * ng;
+        unsigned char* table = smem + l * lane_bytes;
+        reinterpret_cast<unsigned int*>(table + count_off)[g] = 0u;
+        if (KIND != KIND_HIST) reinterpret_cast<double*>(table)[g] = 0.0;
+    }
+    __syncthreads();
+
+    mask += static_cast<size_t>(first) * n;
+    unsigned int aligned = 0u;      // lanes whose mask row is 4-byte aligned at `head`
+    for (int l = 0; l < nl; ++l)
+        if ((reinterpret_cast<uintptr_t>(mask + static_cast<size_t>(l) * n + head) & 3u) == 0)
+            aligned |= 1u << l;
+    const long long stride = (long long)gridDim.y * THREADS;
+    const int4* c4 = reinterpret_cast<const int4*>(codes + head);
+    const V* vq = KIND != KIND_HIST ? values + head : nullptr;
+    LaneQuad<KIND, V> cur, next;
+    long long q = (long long)blockIdx.y * THREADS + threadIdx.x;
+    cur.load(c4, vq, mask + head, n, quads, nl, aligned, q);
+    for (; q < quads; q += stride) {
+        // the next step's loads go out before this step's atomics
+        next.load(c4, vq, mask + head, n, quads, nl, aligned, q + stride);
+        cur.add(smem, lane_bytes, ng, nl);
+        cur = next;
+    }
+
+    // scalar rows: the head [0, head) and the tail [head + 4 * quads, n)
+    const long long tail = head + 4 * quads;
+    const long long scalar_rows = head + (n - tail);
+    for (long long k = (long long)blockIdx.y * THREADS + threadIdx.x; k < scalar_rows;
+         k += stride) {
+        const long long i = k < head ? k : tail + (k - head);
+        const int g = codes[i];
+        if (g < 0 || g >= ng) continue;
+        const float v = KIND != KIND_HIST ? static_cast<float>(values[i]) : 0.f;
+        for (int l = 0; l < nl; ++l)
+            if (mask[static_cast<size_t>(l) * n + i]) lane_row<KIND>(smem + l * lane_bytes, ng, g, v);
+    }
+    __syncthreads();
+
+    for (int i = threadIdx.x; i < nl * ng; i += THREADS) {
+        const int l = i / ng, g = i - l * ng;
+        const unsigned char* table = smem + l * lane_bytes;
+        const unsigned int c = reinterpret_cast<const unsigned int*>(table + count_off)[g];
+        if (c == 0u) continue;
+        const size_t o = static_cast<size_t>(first + l) * ng + g;
+        atomicAdd(&g_counts[o], static_cast<unsigned long long>(c));
+        if (KIND != KIND_HIST) atomicAdd(&g_sums[o], reinterpret_cast<const double*>(table)[g]);
     }
 }
 
@@ -395,8 +553,8 @@ cudaError_t grid_cap(const void* kern, int device, int threads, size_t smem, siz
 
 template <int KIND, typename V>
 cudaError_t launch_main(int device, const void* codes, const void* values, const void* mask,
-                        long long n, int ng, int lanes, unsigned long long* counts,
-                        double* sums, cudaStream_t stream) {
+                        long long n, int ng, unsigned long long* counts, double* sums,
+                        cudaStream_t stream) {
     auto kern = group_agg_kernel<KIND, V>;
     const size_t smem = table_bytes(KIND, ng);
     int cap = 0;
@@ -405,9 +563,45 @@ cudaError_t launch_main(int device, const void* codes, const void* values, const
     if (err != cudaSuccess) return err;
     long long want = (n + THREADS - 1) / THREADS;
     int blocks = static_cast<int>(want < cap ? (want > 0 ? want : 1) : cap);
-    kern<<<dim3(blocks, lanes), THREADS, smem, stream>>>(
+    kern<<<blocks, THREADS, smem, stream>>>(
         static_cast<const int*>(codes), static_cast<const V*>(values),
         static_cast<const bool*>(mask), n, ng, counts, sums);
+    return cudaGetLastError();
+}
+
+// K1/K3 over `lanes` lanes in tiles of `lt`: one wave of blocks, the tiles
+// of each row-block side by side.
+template <int KIND, typename V>
+cudaError_t launch_lanes(int device, const void* codes, const void* values, const void* mask,
+                         long long n, int ng, int lanes, int lt, unsigned long long* counts,
+                         double* sums, cudaStream_t stream) {
+    const size_t smem = lt * lane_table_bytes(KIND, ng);
+    if (lt < 1 || lt > LANE_TILE_MAX || smem > LANE_SMEM_MAX) return cudaErrorInvalidValue;
+    auto kern = group_agg_lanes_kernel<KIND, V>;
+    int cap = 0;
+    cudaError_t err = grid_cap(reinterpret_cast<const void*>(kern), device, THREADS, smem,
+                               LANE_SMEM_MAX, &cap);
+    if (err != cudaSuccess) return err;
+    // the quad loop starts at the codes' first 16-byte boundary; values must
+    // be aligned at that row too, or every row goes scalar (each lane's mask
+    // row is checked in the kernel)
+    const uintptr_t pc = reinterpret_cast<uintptr_t>(codes);
+    const uintptr_t pv = reinterpret_cast<uintptr_t>(values);
+    long long head = static_cast<long long>(((16 - pc % 16) % 16) / sizeof(int));
+    if (head > n) head = n;
+    const bool aligned = pc % sizeof(int) == 0 &&
+                         (KIND == KIND_HIST || (pv + head * sizeof(V)) % 16 == 0);
+    long long quads = 0;
+    if (aligned) quads = (n - head) / 4;
+    else head = n;
+    const int tiles = (lanes + lt - 1) / lt;
+    const long long want = (n + 4LL * THREADS - 1) / (4LL * THREADS);
+    long long rows = cap / tiles;
+    if (rows > want) rows = want;
+    if (rows < 1) rows = 1;
+    kern<<<dim3(tiles, static_cast<unsigned int>(rows)), THREADS, smem, stream>>>(
+        static_cast<const int*>(codes), static_cast<const V*>(values),
+        static_cast<const bool*>(mask), n, head, quads, ng, lanes, lt, counts, sums);
     return cudaGetLastError();
 }
 
@@ -450,10 +644,11 @@ cudaError_t launch_agg(const void* codes, const void* values, const void* mask, 
     return cudaGetLastError();
 }
 
-// K1/K3 over `lanes` mask rows (lanes = 1: the one-lane call).
+// K1/K3 over `lanes` mask rows in tiles of `lt` (lanes = 1 and mask one
+// row: the one-lane call, lt unused).
 int group_agg(int device, int kind, int value_f64, const void* codes, const void* values,
-              const void* mask, long long n, int ng, int lanes, void* ws_counts, void* ws_sums,
-              void* out_sums, void* stream_ptr) {
+              const void* mask, long long n, int ng, int lanes, int lt, void* ws_counts,
+              void* ws_sums, void* out_sums, void* stream_ptr) {
     if (ng < 1 || ng > MAX_GROUPS || n < 0 || lanes < 1 || lanes > 65535)
         return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSetDevice(device);
@@ -467,15 +662,22 @@ int group_agg(int device, int kind, int value_f64, const void* codes, const void
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
     if (n > 0) {
+        const bool one = lt == 0;
         if (kind == KIND_HIST)
-            err = launch_main<KIND_HIST, float>(device, codes, values, mask, n, ng, lanes, counts,
-                                                sums, stream);
+            err = one ? launch_main<KIND_HIST, float>(device, codes, values, mask, n, ng, counts,
+                                                      sums, stream)
+                      : launch_lanes<KIND_HIST, float>(device, codes, values, mask, n, ng,
+                                                       lanes, lt, counts, sums, stream);
         else if (kind == KIND_SUM && value_f64)
-            err = launch_main<KIND_SUM, double>(device, codes, values, mask, n, ng, lanes, counts,
-                                                sums, stream);
+            err = one ? launch_main<KIND_SUM, double>(device, codes, values, mask, n, ng, counts,
+                                                      sums, stream)
+                      : launch_lanes<KIND_SUM, double>(device, codes, values, mask, n, ng,
+                                                       lanes, lt, counts, sums, stream);
         else if (kind == KIND_SUM)
-            err = launch_main<KIND_SUM, float>(device, codes, values, mask, n, ng, lanes, counts,
-                                               sums, stream);
+            err = one ? launch_main<KIND_SUM, float>(device, codes, values, mask, n, ng, counts,
+                                                     sums, stream)
+                      : launch_lanes<KIND_SUM, float>(device, codes, values, mask, n, ng, lanes,
+                                                      lt, counts, sums, stream);
         else
             err = cudaErrorInvalidValue;
         if (err != cudaSuccess) return static_cast<int>(err);
@@ -498,19 +700,31 @@ extern "C" {
 int bk_group_agg(int device, int kind, int value_f64, const void* codes, const void* values,
                  const void* mask, long long n, int ng, void* ws_counts, void* ws_sums,
                  void* out_sums, void* stream_ptr) {
-    return group_agg(device, kind, value_f64, codes, values, mask, n, ng, 1, ws_counts,
+    return group_agg(device, kind, value_f64, codes, values, mask, n, ng, 1, 0, ws_counts,
                      ws_sums, out_sums, stream_ptr);
 }
 
-// K1/K3 over `lanes` lanes: mask is [lanes, n], ws_counts [lanes, ng]
+// K1/K3 over `lanes` lanes, `lane_tile` lanes a block (1..LANE_TILE_MAX,
+// their tables within 227 KB): mask is [lanes, n], ws_counts [lanes, ng]
 // uint64, ws_sums [lanes, ng] float64, out_sums [lanes, ng] float32; codes
 // and values are shared by the lanes.
 int bk_group_agg_lanes(int device, int kind, int value_f64, const void* codes,
                        const void* values, const void* mask, long long n, int ng, int lanes,
-                       void* ws_counts, void* ws_sums, void* out_sums, void* stream_ptr) {
-    return group_agg(device, kind, value_f64, codes, values, mask, n, ng, lanes, ws_counts,
-                     ws_sums, out_sums, stream_ptr);
+                       int lane_tile, void* ws_counts, void* ws_sums, void* out_sums,
+                       void* stream_ptr) {
+    if (lane_tile < 1) return static_cast<int>(cudaErrorInvalidValue);
+    return group_agg(device, kind, value_f64, codes, values, mask, n, ng, lanes, lane_tile,
+                     ws_counts, ws_sums, out_sums, stream_ptr);
 }
+
+// One lane's table of group_agg_lanes_kernel in bytes (ops/group_kernels.py
+// lane_plan computes the same), the most lanes a block, and the shared
+// memory the tile's tables may take.
+long long bk_group_agg_lane_table_bytes(int kind, int ng) {
+    return static_cast<long long>(lane_table_bytes(kind, ng));
+}
+int bk_group_agg_lane_tile_max() { return LANE_TILE_MAX; }
+long long bk_group_agg_lane_smem_max() { return static_cast<long long>(LANE_SMEM_MAX); }
 
 // K2: the number of blocks bk_fused_agg launches for n rows and ng groups;
 // its workspace takes bk_fused_agg_ws_bytes(blocks, ng) bytes.  A value

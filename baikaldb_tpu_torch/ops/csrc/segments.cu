@@ -36,14 +36,33 @@
 // slot's rows in a fixed order and writes the output dtype.  Two launches,
 // no init pass, no global atomics.
 //
-// Lanes (bk_seg_reduce_lanes): one launch serves the G lanes of a
-// batched-dispatch tick.  x and gid are shared, mask is [G, n] (a row drops
-// in lane L where mask[L, i] is false, as an id outside [0, S) does), the
-// output is [G, S]; blockIdx.y is the lane.  Every lane launches the blocks
-// and the table layout of the one-lane plan for (n, S), so a lane's rows
-// reach the same threads in the same order and its result equals, bit for
-// bit, the one-lane reduction of (x, where(mask[L], gid, S)).  Each lane
-// reads x and gid again: G * n * (x bytes + id bytes + 1) bytes.
+// Lanes (bk_seg_reduce_lanes, seg_lanes_kernel): one launch serves the G
+// lanes of a batched-dispatch tick.  x and gid are shared, mask is [G, n] (a
+// row drops in lane L where mask[L, i] is false, as an id outside [0, S)
+// does), the output is [G, S].  A lane's result must equal, bit for bit, the
+// one-lane reduction of (x, where(mask[L], gid, S)): the dispatcher promises
+// every client its serial run's float64 sums.  So a lane keeps the one-lane
+// plan for (n, S): its rows reach thread t of block b in the one-lane order
+// (base = b * span + k * stride, stride from the one-lane block count), each
+// lane's table has the one-lane layout and is folded by the same code, and
+// seg_merge reduces the lane's rows of the workspace as before.  What the
+// lane axis changes is who loads the shared columns: block (tile, b) carries
+// a tile of up to LANE_TILE_MAX lanes, with one table each side by side in
+// shared memory (tile * table bytes <= 227 KB), loads x and gid of its rows
+// once into registers, and updates every lane of the tile from them with the
+// lane's mask byte; a thread keeps two steps of loads in flight.  The tiles
+// of block b are adjacent in the grid (tile is blockIdx.x), so they run
+// together and the later tiles read x and gid from L2.  Device-memory bytes:
+// G * n mask bytes + about one read of x and gid, against G * n * (x + id +
+// 1) bytes when every lane launched the one-lane grid.  What bounds it on
+// the H100: the loads that miss L1 (the mask bytes and ceil(G / tile) reads
+// of x and gid, ~2.7 TB/s of them at 64 lanes), then the tables' 8-byte
+// read-modify-writes (two shared-memory wavefronts each way a warp).  One
+// read of x and gid a thread-block cluster (bulk copies multicast into the
+// blocks of a row-block, on mbarriers) measured slower: the cluster's
+// per-step handshakes cost more than the L2 reads they save.  The host plan
+// of the tile (ops/segments.py lane_plan) is Python, so the CPU tests reach
+// it; this side refuses a tile whose tables do not fit.
 //
 // Build: nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
 //        -Xcompiler -fPIC  (baikaldb_tpu_torch/ops/group_kernels.py builds it).
@@ -72,6 +91,8 @@ constexpr int MAX_SEGMENTS = 16384;       // a float64 table of 128 KB
 constexpr size_t PRIVATE_BYTES = 48 * 1024;
 constexpr size_t WARP_BYTES = 64 * 1024;
 constexpr size_t SMEM_MAX = 8 * MAX_SEGMENTS;
+constexpr int LANE_TILE_MAX = 6;          // lanes one block of seg_lanes_kernel carries
+constexpr size_t LANE_SMEM_MAX = 232448;  // 227 KB: one block's shared memory on sm_90
 constexpr int MERGE_SLOTS = 32;           // slots of one seg_merge block, one a lane
 constexpr int MERGE_WARPS = 16;           // warps of one seg_merge block, splitting the rows
 
@@ -95,6 +116,12 @@ __device__ __forceinline__ bool ld(const bool* p) {
 }
 template <typename T>
 __device__ __forceinline__ T ld(const T* p) { return __ldcs(p); }
+// the shared columns of the lane kernel: kept in L2 for the block's other tiles
+__device__ __forceinline__ bool ld_keep(const bool* p) {
+    return __ldg(reinterpret_cast<const unsigned char*>(p)) != 0;
+}
+template <typename T>
+__device__ __forceinline__ T ld_keep(const T* p) { return __ldg(p); }
 
 // Per (op, input type): the accumulator A, its identity, the key of a row,
 // how two accumulators combine, and the output type and value.
@@ -172,20 +199,41 @@ template <> struct Red<OP_MAX, float> : ExtFloat<false, float, int> {};
 template <> struct Red<OP_MIN, double> : ExtFloat<true, double, long long> {};
 template <> struct Red<OP_MAX, double> : ExtFloat<false, double, long long> {};
 
+// Folds a block's table (R copies of S slots) per slot in a fixed order
+// into `row`.  PRIVATE: one warp a slot, lanes read consecutive columns, then
+// a fixed shuffle tree; else copy 0, then 1, ...  Every thread of the block
+// calls it.
+template <typename R_, bool PRIVATE>
+__device__ __forceinline__ void fold_table(const typename R_::Acc* t, int S, int R,
+                                           typename R_::Acc* row) {
+    using A = typename R_::Acc;
+    if (PRIVATE) {
+        const int lane = threadIdx.x & 31;
+        for (int g = threadIdx.x >> 5; g < S; g += WARPS) {
+            A a = R_::ident();
+            for (int k = lane; k < THREADS; k += 32) a = R_::combine(a, t[g * THREADS + k]);
+#pragma unroll
+            for (int off = 16; off > 0; off >>= 1)
+                a = R_::combine(a, __shfl_down_sync(0xFFFFFFFFu, a, off));
+            if (lane == 0) row[g] = a;
+        }
+    } else {
+        for (int g = threadIdx.x; g < S; g += THREADS) {
+            A a = t[g];
+            for (int k = 1; k < R; ++k) a = R_::combine(a, t[static_cast<size_t>(k) * S + g]);
+            row[g] = a;
+        }
+    }
+}
+
 // One pass over the rows; block b leaves its table in row b of `ws`.
 // PRIVATE: R == THREADS, slot-major table, no atomics; else replica-major.
-// LANES: lane blockIdx.y reads mask row blockIdx.y and leaves its tables in
-// rows [blockIdx.y * gridDim.x, (blockIdx.y + 1) * gridDim.x) of `ws`.
-template <int OP, typename T, typename Id, bool PRIVATE, bool LANES>
+template <int OP, typename T, typename Id, bool PRIVATE>
 __global__ void __launch_bounds__(THREADS)
-seg_kernel(const T* __restrict__ x, const Id* __restrict__ gid, const bool* __restrict__ mask,
-           long long n, int S, int R, typename Red<OP, T>::Acc* __restrict__ ws) {
+seg_kernel(const T* __restrict__ x, const Id* __restrict__ gid, long long n, int S, int R,
+           typename Red<OP, T>::Acc* __restrict__ ws) {
     using R_ = Red<OP, T>;
     using A = typename R_::Acc;
-    if (LANES) {
-        mask += static_cast<size_t>(blockIdx.y) * n;
-        ws += static_cast<size_t>(blockIdx.y) * gridDim.x * S;
-    }
     extern __shared__ __align__(8) unsigned char smem[];
     A* t = reinterpret_cast<A*>(smem);
     for (int i = threadIdx.x; i < S * R; i += THREADS) t[i] = R_::ident();
@@ -205,7 +253,6 @@ seg_kernel(const T* __restrict__ x, const Id* __restrict__ gid, const bool* __re
             if (i < n) {
                 g[u] = ld(gid + i);
                 v[u] = ld(x + i);
-                if (LANES && !ld(mask + i)) g[u] = -1;     // dropped in this lane
             } else {
                 g[u] = -1;
                 v[u] = T(0);
@@ -221,26 +268,145 @@ seg_kernel(const T* __restrict__ x, const Id* __restrict__ gid, const bool* __re
         }
     }
     __syncthreads();
+    fold_table<R_, PRIVATE>(t, S, R, ws + static_cast<size_t>(blockIdx.x) * S);
+}
 
-    A* row = ws + static_cast<size_t>(blockIdx.x) * S;
-    if (PRIVATE) {
-        // one warp a slot: lanes read consecutive columns, then a fixed tree
-        const int lane = threadIdx.x & 31;
-        for (int g = threadIdx.x >> 5; g < S; g += WARPS) {
-            A a = R_::ident();
-            for (int k = lane; k < THREADS; k += 32) a = R_::combine(a, t[g * THREADS + k]);
+// The rows one thread holds in one step of the lane kernel: ids, values and
+// the mask byte of each row in each lane of the tile, as loaded.  Nothing
+// loaded is used here, so every load of a step is in flight at once and the
+// next step's loads overlap this step's updates.  Lanes past `nl` read lane
+// nl - 1's row again (an L1 hit; they update nothing); rows past n load
+// nothing and drop by an id of -1.
+template <typename T, typename Id>
+struct LaneStep {
+    Id g[UNROLL];
+    T v[UNROLL];
+    unsigned char m[LANE_TILE_MAX][UNROLL];
+
+    __device__ __forceinline__ void load(const T* x, const Id* gid, const bool* mask,
+                                         long long n, int nl, long long base) {
+        const unsigned char* rows[LANE_TILE_MAX];
 #pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-                a = R_::combine(a, __shfl_down_sync(0xFFFFFFFFu, a, off));
-            if (lane == 0) row[g] = a;
+        for (int l = 0; l < LANE_TILE_MAX; ++l)
+            rows[l] = reinterpret_cast<const unsigned char*>(mask) +
+                      static_cast<size_t>(min(l, nl - 1)) * n;
+        if (base + (long long)(UNROLL - 1) * THREADS < n) {
+#pragma unroll
+            for (int u = 0; u < UNROLL; ++u) {
+                const long long i = base + (long long)u * THREADS;
+                g[u] = ld_keep(gid + i);
+                v[u] = ld_keep(x + i);
+#pragma unroll
+                for (int l = 0; l < LANE_TILE_MAX; ++l) m[l][u] = __ldcs(rows[l] + i);
+            }
+            return;
         }
-    } else {
-        for (int g = threadIdx.x; g < S; g += THREADS) {
-            A a = t[g];
-            for (int k = 1; k < R; ++k) a = R_::combine(a, t[static_cast<size_t>(k) * S + g]);
-            row[g] = a;
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u) {
+            const long long i = base + (long long)u * THREADS;
+            const bool in = i < n;
+            g[u] = in ? ld_keep(gid + i) : Id(-1);
+            v[u] = in ? ld_keep(x + i) : T(0);
+#pragma unroll
+            for (int l = 0; l < LANE_TILE_MAX; ++l) m[l][u] = in ? __ldcs(rows[l] + i) : 0;
         }
     }
+};
+
+// One step of the lane kernel: `r`'s rows (loaded a step or two before)
+// into the tile's tables, after `r` has been handed its next load.  A row's
+// update of the tile's lanes reads every lane's slot first, then writes
+// them: the tables are disjoint, so the lanes' read-modify-writes overlap
+// instead of waiting on each other; each lane still takes its rows in the
+// one-lane order.
+template <int OP, typename T, typename Id, bool PRIVATE>
+__device__ __forceinline__ void lane_step(LaneStep<T, Id>& r, const T* x, const Id* gid,
+                                          const bool* mask, long long n, int S, int nl,
+                                          long long ahead, typename Red<OP, T>::Acc* mine,
+                                          size_t table) {
+    using R_ = Red<OP, T>;
+    using A = typename R_::Acc;
+    Id g[UNROLL];
+    T v[UNROLL];
+    unsigned int on[LANE_TILE_MAX];
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+        g[u] = r.g[u];
+        v[u] = r.v[u];
+    }
+#pragma unroll
+    for (int l = 0; l < LANE_TILE_MAX; ++l) {
+        on[l] = 0u;
+#pragma unroll
+        for (int u = 0; u < UNROLL; ++u)
+            if (l < nl && r.m[l][u] != 0) on[l] |= 1u << u;
+    }
+    r.load(x, gid, mask, n, nl, ahead);      // its registers are free again
+    const int pitch = PRIVATE ? THREADS : 1;
+#pragma unroll
+    for (int u = 0; u < UNROLL; ++u) {
+        if (g[u] < 0 || g[u] >= S) continue;     // the drop rule
+        A* p = mine + static_cast<size_t>(g[u]) * pitch;
+        const A k = R_::key(v[u]);
+        if (PRIVATE) {
+            A old[LANE_TILE_MAX];
+#pragma unroll
+            for (int l = 0; l < LANE_TILE_MAX; ++l)
+                if ((on[l] >> u) & 1u) old[l] = p[l * table];
+#pragma unroll
+            for (int l = 0; l < LANE_TILE_MAX; ++l)
+                if ((on[l] >> u) & 1u) p[l * table] = R_::combine(old[l], k);
+        } else {
+#pragma unroll
+            for (int l = 0; l < LANE_TILE_MAX; ++l)
+                if ((on[l] >> u) & 1u) R_::shared_update(p + l * table, k);
+        }
+    }
+}
+
+// Block (tile, b) of the lane kernel: one-lane block b's rows, in its
+// threads' order, for the lanes [tile * lt, min(lanes, (tile + 1) * lt));
+// lane L leaves its table in row L * gridDim.y + b of `ws` (seg_merge's
+// layout).  Each lane's table is the one-lane table, updated in the one-lane
+// order and folded by the one-lane code, so lane L's workspace rows are the
+// one-lane kernel's on (x, where(mask[L], gid, S)).  A thread keeps two
+// steps of loads in flight (one block an SM fits: the tables take the
+// shared memory), so the loads of the step after next overlap this step's
+// updates.
+template <int OP, typename T, typename Id, bool PRIVATE>
+__global__ void __launch_bounds__(THREADS)
+seg_lanes_kernel(const T* __restrict__ x, const Id* __restrict__ gid,
+                 const bool* __restrict__ mask, long long n, int S, int R, int lanes, int lt,
+                 typename Red<OP, T>::Acc* __restrict__ ws) {
+    using R_ = Red<OP, T>;
+    using A = typename R_::Acc;
+    const int first = blockIdx.x * lt;
+    const int nl = min(lt, lanes - first);
+    const size_t table = static_cast<size_t>(S) * R;
+    extern __shared__ __align__(8) unsigned char smem[];
+    A* t = reinterpret_cast<A*>(smem);
+    for (size_t i = threadIdx.x; i < table * nl; i += THREADS) t[i] = R_::ident();
+    __syncthreads();
+
+    A* mine = t + (PRIVATE ? threadIdx.x : static_cast<size_t>((threadIdx.x >> 5) % R) * S);
+    const long long span = (long long)THREADS * UNROLL;
+    const long long stride = (long long)gridDim.y * span;   // the one-lane block count
+    mask += static_cast<size_t>(first) * n;
+    LaneStep<T, Id> r0, r1;
+    long long base = (long long)blockIdx.y * span + threadIdx.x;
+    r0.load(x, gid, mask, n, nl, base);
+    r1.load(x, gid, mask, n, nl, base + stride);
+    for (; base < n; base += 2 * stride) {
+        lane_step<OP, T, Id, PRIVATE>(r0, x, gid, mask, n, S, nl, base + 2 * stride, mine,
+                                      table);
+        if (base + stride >= n) break;
+        lane_step<OP, T, Id, PRIVATE>(r1, x, gid, mask, n, S, nl, base + 3 * stride, mine,
+                                      table);
+    }
+    __syncthreads();
+    for (int l = 0; l < nl; ++l)
+        fold_table<R_, PRIVATE>(t + l * table, S, R,
+                                ws + (static_cast<size_t>(first + l) * gridDim.y + blockIdx.y) * S);
 }
 
 // Reduces the `blocks` rows of the workspace per slot in a fixed order and
@@ -309,32 +475,37 @@ cudaError_t blocks_per_sm(const void* kern, int device, size_t smem, int* per_sm
     return cudaSuccess;
 }
 
+// The table layout for S slots of `slot` bytes (one copy): resolves MODE_AUTO
+// by the segment count and gives the copies; false for an unknown mode.
+bool table_layout(size_t slot, int* mode, int* replicas) {
+    if (*mode == MODE_AUTO)
+        *mode = slot * THREADS <= PRIVATE_BYTES ? MODE_PRIVATE
+              : slot * 2 <= WARP_BYTES        ? MODE_WARP
+                                              : MODE_BLOCK;
+    if (*mode == MODE_PRIVATE) {
+        *replicas = THREADS;
+    } else if (*mode == MODE_WARP) {
+        const size_t fit = WARP_BYTES / slot;
+        *replicas = fit >= WARPS ? WARPS : (fit > 0 ? static_cast<int>(fit) : 1);
+    } else if (*mode == MODE_BLOCK) {
+        *replicas = 1;
+    } else {
+        return false;
+    }
+    return true;
+}
+
 template <int OP, typename T, typename Id>
 cudaError_t plan_for(int device, long long n, int S, int mode, Plan* p) {
     using A = typename Red<OP, T>::Acc;
     const size_t slot = sizeof(A) * static_cast<size_t>(S);
-    if (mode == MODE_AUTO)
-        mode = slot * THREADS <= PRIVATE_BYTES ? MODE_PRIVATE
-             : slot * 2 <= WARP_BYTES        ? MODE_WARP
-                                             : MODE_BLOCK;
-    if (mode == MODE_PRIVATE) {
-        p->priv = true;
-        p->replicas = THREADS;
-    } else if (mode == MODE_WARP) {
-        p->priv = false;
-        const size_t fit = WARP_BYTES / slot;
-        p->replicas = fit >= WARPS ? WARPS : (fit > 0 ? static_cast<int>(fit) : 1);
-    } else if (mode == MODE_BLOCK) {
-        p->priv = false;
-        p->replicas = 1;
-    } else {
-        return cudaErrorInvalidValue;
-    }
+    if (!table_layout(slot, &mode, &p->replicas)) return cudaErrorInvalidValue;
+    p->priv = mode == MODE_PRIVATE;
     p->smem = slot * p->replicas;
     if (p->smem > SMEM_MAX) return cudaErrorInvalidValue;
     const void* kern = p->priv
-        ? reinterpret_cast<const void*>(&seg_kernel<OP, T, Id, true, false>)
-        : reinterpret_cast<const void*>(&seg_kernel<OP, T, Id, false, false>);
+        ? reinterpret_cast<const void*>(&seg_kernel<OP, T, Id, true>)
+        : reinterpret_cast<const void*>(&seg_kernel<OP, T, Id, false>);
     int per_sm = 0, sms = 0;
     cudaError_t err = blocks_per_sm(kern, device, p->smem, &per_sm, &sms);
     if (err != cudaSuccess) return err;
@@ -352,35 +523,38 @@ cudaError_t lane_attr(const void* kern) {
     std::lock_guard<std::mutex> lock(g_lane_mu);
     if (g_lane_attr.count(kern)) return cudaSuccess;
     cudaError_t err = cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                           static_cast<int>(SMEM_MAX));
+                                           static_cast<int>(LANE_SMEM_MAX));
     if (err == cudaSuccess) g_lane_attr[kern] = true;
     return err;
 }
 
-// One reduction over `lanes` lanes; mask is null for the one-lane call.
+// One reduction over `lanes` lanes in tiles of `lt`; mask is null for the
+// one-lane call (lanes = lt = 1).
 template <int OP, typename T, typename Id>
-cudaError_t run(const void* x, const void* gid, const void* mask, int lanes, long long n, int S,
-                const Plan& p, void* ws, void* out, cudaStream_t stream) {
+cudaError_t run(const void* x, const void* gid, const void* mask, int lanes, int lt,
+                long long n, int S, const Plan& p, void* ws, void* out, cudaStream_t stream) {
     using R_ = Red<OP, T>;
     using A = typename R_::Acc;
     auto* w = static_cast<A*>(ws);
     const T* xs = static_cast<const T*>(x);
     const Id* ids = static_cast<const Id*>(gid);
-    const bool* m = static_cast<const bool*>(mask);
     cudaError_t err;
     if (mask == nullptr) {
         if (p.priv)
-            seg_kernel<OP, T, Id, true, false><<<p.blocks, THREADS, p.smem, stream>>>(
-                xs, ids, m, n, S, p.replicas, w);
+            seg_kernel<OP, T, Id, true><<<p.blocks, THREADS, p.smem, stream>>>(
+                xs, ids, n, S, p.replicas, w);
         else
-            seg_kernel<OP, T, Id, false, false><<<p.blocks, THREADS, p.smem, stream>>>(
-                xs, ids, m, n, S, p.replicas, w);
+            seg_kernel<OP, T, Id, false><<<p.blocks, THREADS, p.smem, stream>>>(
+                xs, ids, n, S, p.replicas, w);
     } else {
-        auto kern = p.priv ? seg_kernel<OP, T, Id, true, true> : seg_kernel<OP, T, Id, false, true>;
+        // the tile's tables side by side: the host plan must fit them
+        if (lt < 1 || lt > LANE_TILE_MAX || static_cast<size_t>(lt) * p.smem > LANE_SMEM_MAX)
+            return cudaErrorInvalidValue;
+        auto kern = p.priv ? seg_lanes_kernel<OP, T, Id, true> : seg_lanes_kernel<OP, T, Id, false>;
         err = lane_attr(reinterpret_cast<const void*>(kern));
         if (err != cudaSuccess) return err;
-        kern<<<dim3(p.blocks, lanes), THREADS, p.smem, stream>>>(xs, ids, m, n, S, p.replicas,
-                                                                 w);
+        kern<<<dim3((lanes + lt - 1) / lt, p.blocks), THREADS, lt * p.smem, stream>>>(
+            xs, ids, static_cast<const bool*>(mask), n, S, p.replicas, lanes, lt, w);
     }
     err = cudaGetLastError();
     if (err != cudaSuccess) return err;
@@ -428,9 +602,9 @@ template <int OP, typename T, typename Id> struct AccBytesF {
 };
 template <int OP, typename T, typename Id> struct RunF {
     static cudaError_t call(const void* x, const void* gid, const void* mask, int lanes,
-                            long long n, int S, Plan p, void* ws, void* out,
+                            int lt, long long n, int S, Plan p, void* ws, void* out,
                             cudaStream_t stream) {
-        return run<OP, T, Id>(x, gid, mask, lanes, n, S, p, ws, out, stream);
+        return run<OP, T, Id>(x, gid, mask, lanes, lt, n, S, p, ws, out, stream);
     }
 };
 
@@ -464,24 +638,27 @@ int bk_seg_max_segments() { return MAX_SEGMENTS; }
 // bk_seg_ws_bytes bytes, out [S] of the output dtype; `blocks` and `mode`
 // as bk_seg_blocks gave and took them.
 int bk_seg_reduce_lanes(int device, int op, int tcode, int id64, const void* x,
-                        const void* gid, const void* mask, int lanes, long long n, int S,
-                        int mode, int blocks, void* ws, void* out, void* stream_ptr);
+                        const void* gid, const void* mask, int lanes, int lane_tile,
+                        long long n, int S, int mode, int blocks, void* ws, void* out,
+                        void* stream_ptr);
 
 int bk_seg_reduce(int device, int op, int tcode, int id64, const void* x, const void* gid,
                   long long n, int S, int mode, int blocks, void* ws, void* out,
                   void* stream_ptr) {
-    return bk_seg_reduce_lanes(device, op, tcode, id64, x, gid, nullptr, 1, n, S, mode, blocks,
-                               ws, out, stream_ptr);
+    return bk_seg_reduce_lanes(device, op, tcode, id64, x, gid, nullptr, 1, 1, n, S, mode,
+                               blocks, ws, out, stream_ptr);
 }
 
 // The reduction over `lanes` lanes: x [n] and gid [n] shared, mask bool
 // [lanes, n], ws of lanes * bk_seg_ws_bytes bytes, out [lanes, S]; `blocks`
-// and `mode` as bk_seg_blocks gave and took them for ONE lane.
+// and `mode` as bk_seg_blocks gave and took them for ONE lane; `lane_tile`
+// lanes a block (1..bk_seg_lane_tile_max(), their tables within 227 KB).
 int bk_seg_reduce_lanes(int device, int op, int tcode, int id64, const void* x,
-                        const void* gid, const void* mask, int lanes, long long n, int S,
-                        int mode, int blocks, void* ws, void* out, void* stream_ptr) {
+                        const void* gid, const void* mask, int lanes, int lane_tile,
+                        long long n, int S, int mode, int blocks, void* ws, void* out,
+                        void* stream_ptr) {
     if (S < 1 || S > MAX_SEGMENTS || n < 0 || blocks < 1 || lanes < 1 || lanes > 65535 ||
-        (mask == nullptr && lanes != 1))
+        (mask == nullptr && (lanes != 1 || lane_tile != 1)))
         return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
@@ -489,8 +666,26 @@ int bk_seg_reduce_lanes(int device, int op, int tcode, int id64, const void* x,
     err = dispatch<PlanF>(op, tcode, id64, device, n, S, mode, &p);
     if (err != cudaSuccess) return static_cast<int>(err);
     if (p.blocks != blocks) return static_cast<int>(cudaErrorInvalidValue);
-    return static_cast<int>(dispatch<RunF>(op, tcode, id64, x, gid, mask, lanes, n, S, p, ws,
-                                           out, static_cast<cudaStream_t>(stream_ptr)));
+    return static_cast<int>(dispatch<RunF>(op, tcode, id64, x, gid, mask, lanes, lane_tile, n,
+                                           S, p, ws, out,
+                                           static_cast<cudaStream_t>(stream_ptr)));
 }
+
+// The shared-memory bytes of one lane's table (the one-lane kernel's) for
+// (op, tcode, S, mode), or minus a cudaError_t: ops/segments.py lane_plan
+// computes the same and is checked against it.
+long long bk_seg_table_bytes(int op, int tcode, int S, int mode) {
+    if (S < 1 || S > MAX_SEGMENTS) return -static_cast<long long>(cudaErrorInvalidValue);
+    size_t acc = 0;
+    if (dispatch<AccBytesF>(op, tcode, 0, &acc) != cudaSuccess)
+        return -static_cast<long long>(cudaErrorInvalidValue);
+    int replicas = 0;
+    if (!table_layout(acc * S, &mode, &replicas))
+        return -static_cast<long long>(cudaErrorInvalidValue);
+    return static_cast<long long>(acc * S * replicas);
+}
+
+int bk_seg_lane_tile_max() { return LANE_TILE_MAX; }
+long long bk_seg_lane_smem_max() { return static_cast<long long>(LANE_SMEM_MAX); }
 
 }  // extern "C"

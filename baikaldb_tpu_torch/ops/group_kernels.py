@@ -27,9 +27,13 @@ Each has a lane-batched entry beside it (``*_lanes``), for the batched
 dispatcher's tick (exec/lanes.py): ``codes`` and ``values`` are ``[N]``,
 shared by the lanes, ``mask`` is ``[G, N]`` (one row a lane) and every
 output is ``[G, num_groups]``; lane ``g``'s result equals the one-lane call
-on ``mask[g]``.  On a CUDA tensor it is ONE launch over all lanes (the lane
-is the grid's y axis; ``LANE_LAUNCHES[f"{name}_lanes"]``); on a CPU tensor its
-plain version, the per-lane loop over the one-lane plain function.
+on ``mask[g]`` (its sums up to the order of the float64 additions).  On a
+CUDA tensor it is ONE launch over all lanes
+(``LANE_LAUNCHES[f"{name}_lanes"]``): K1 and K3 carry a tile of lanes a
+block (``lane_plan``: as many lanes' tables as fit a block's shared memory,
+at most ``LANE_TILE_MAX``) and load codes and values once for the tile; K2
+launches its one-lane grid a lane.  On a CPU tensor its plain version, the
+per-lane loop over the one-lane plain function.
 
 The build machinery here (``build``, ``build_all``, ``library``) serves
 every CUDA source of the port (``SOURCES``): one ``nvcc`` per source, the
@@ -44,6 +48,7 @@ import os
 import shutil
 import subprocess
 import threading
+from typing import NamedTuple
 
 import torch
 
@@ -52,6 +57,8 @@ from ..utils import metrics
 MAX_GROUPS = 4096
 _BIG = 3.4e38                     # empty-group min/max sentinel (float32)
 KIND_HIST, KIND_SUM = 0, 1
+LANE_TILE_MAX = 16                # lanes one block of K1/K3's lane kernel carries
+LANE_SMEM_MAX = 232448            # 227 KB: one block's shared memory on sm_90
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {name: os.path.join(_HERE, "csrc", f"{name}.cu")
@@ -283,19 +290,49 @@ def _check_lanes(codes, mask, num_groups: int, values=None) -> None:
         raise ValueError("mask must be contiguous and lie on the codes' device")
 
 
-def _launch_lanes(name, kind, codes, values, mask, ng: int):
-    """K1/K3 over G lanes: one int64 [1 or 3, G * ng] buffer laid out as the
+def lane_tiles(lanes: int, fit: int, tile: int | None = None) -> tuple[int, int]:
+    """(lanes a block, tiles) for ``lanes`` lanes when a block holds at most
+    ``fit``: the lanes spread evenly over the fewest tiles, the last tile
+    the shorter; ``tile`` forces the lanes a block."""
+    if tile is None:
+        tile = -(-lanes // -(-lanes // fit))
+    elif not 1 <= tile <= fit:
+        raise ValueError(f"lane tile {tile} outside [1, {fit}]")
+    return tile, -(-lanes // tile)
+
+
+class LanePlan(NamedTuple):
+    table_bytes: int     # one lane's table in shared memory
+    fit: int             # lanes whose tables fit a block
+    tile: int            # lanes a block carries
+    tiles: int           # blocks a row-block becomes
+
+
+def lane_plan(kind: int, num_groups: int, lanes: int, tile: int | None = None) -> LanePlan:
+    """K1/K3's lane tiles: a lane's table is ``num_groups`` uint32 counts
+    (and float64 sums for K1) in whole words; as many as fit
+    ``LANE_SMEM_MAX``, at most ``LANE_TILE_MAX`` (csrc/group_agg.cu
+    lane_table_bytes)."""
+    nbytes = -(-(4 + (8 if kind == KIND_SUM else 0)) * int(num_groups) // 8) * 8
+    fit = min(LANE_TILE_MAX, LANE_SMEM_MAX // nbytes)
+    return LanePlan(nbytes, fit, *lane_tiles(lanes, fit, tile))
+
+
+def _launch_lanes(name, kind, codes, values, mask, ng: int, tile: int | None = None):
+    """K1/K3 over G lanes in the tiles of ``lane_plan`` (``tile`` forces the
+    lanes a block): one int64 [1 or 3, G * ng] buffer laid out as the
     one-lane call's, each row holding the lanes one after another."""
     lib = _library()
     dev = codes.device
     G, n = mask.shape
     slots = G * ng
+    tile = lane_plan(kind, ng, G, tile).tile
     buf = torch.empty((1 if kind == KIND_HIST else 3, slots), dtype=torch.int64, device=dev)
     base = buf.data_ptr()
     err = lib.bk_group_agg_lanes(
         _device_index(dev), kind, int(values is not None and values.dtype is torch.float64),
         codes.data_ptr(), None if values is None else values.data_ptr(), mask.data_ptr(),
-        n, ng, G, base, None if kind == KIND_HIST else base + 8 * slots,
+        n, ng, G, tile, base, None if kind == KIND_HIST else base + 8 * slots,
         None if kind == KIND_HIST else base + 16 * slots,
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -426,8 +463,16 @@ def _bind(lib) -> None:
     lib.bk_fused_agg_ws_bytes.restype = i64
     lib.bk_fused_agg.argtypes = [i32, i32, vp, vp, vp, i64, i32, i32, vp, vp, vp, vp]
     lib.bk_fused_agg.restype = i32
-    lib.bk_group_agg_lanes.argtypes = [i32, i32, i32, vp, vp, vp, i64, i32, i32] + [vp] * 4
+    lib.bk_group_agg_lanes.argtypes = [i32, i32, i32, vp, vp, vp, i64, i32, i32, i32] + [vp] * 4
     lib.bk_group_agg_lanes.restype = i32
+    lib.bk_group_agg_lane_table_bytes.argtypes = [i32, i32]
+    lib.bk_group_agg_lane_table_bytes.restype = i64
+    lib.bk_group_agg_lane_tile_max.restype = i32
+    lib.bk_group_agg_lane_smem_max.restype = i64
+    if (lib.bk_group_agg_lane_tile_max(), lib.bk_group_agg_lane_smem_max()) != \
+            (LANE_TILE_MAX, LANE_SMEM_MAX):
+        raise RuntimeError("csrc/group_agg.cu and ops/group_kernels.py disagree on "
+                           "LANE_TILE_MAX or LANE_SMEM_MAX")
     lib.bk_fused_agg_lanes.argtypes = [i32, i32, vp, vp, vp, i64, i32, i32, i32, vp, vp, vp, vp]
     lib.bk_fused_agg_lanes.restype = i32
 

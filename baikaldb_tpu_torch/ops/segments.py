@@ -29,16 +29,19 @@ Lanes (the batched dispatcher's tick, exec/lanes.py): ``seg_sum_lanes`` /
 ids ``gid`` once per row of a ``[G, n]`` ``mask`` (a row drops in lane
 ``g`` where ``mask[g]`` is false) -> ``[G, S]``, each lane equal to the
 one-lane reduction over ``where(mask[g], gid, S)``.  On the kernel's route
-that is ONE launch of ``segment_reduce_lanes`` (the lane is the grid's y
-axis, every lane launching the one-lane plan, so a lane's result is the
-one-lane kernel's bit for bit); elsewhere the per-lane loop over the
-one-lane function, which is also ``segment_reduce_lanes_plain``.  The lane
-launches count in ``LANE_LAUNCHES``.
+that is ONE launch of ``segment_reduce_lanes``: a block carries a tile of
+lanes (``lane_plan``: as many one-lane tables as fit in a block's shared
+memory, at most ``LANE_TILE_MAX``), loads ``x`` and ``gid`` once for them
+and runs the one-lane plan for each, so a lane's result is the one-lane
+kernel's bit for bit; elsewhere the per-lane loop over the one-lane
+function, which is also ``segment_reduce_lanes_plain``.  The lane launches
+count in ``LANE_LAUNCHES``.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -53,6 +56,17 @@ _OPS = {"sum": 0, "min": 1, "max": 2}
 _TCODE = {torch.bool: 0, torch.int32: 1, torch.int64: 2, torch.float32: 3,
           torch.float64: 4}
 _PLAIN_ELEMS = 1 << 24            # [rows, S] elements per block of the plain version
+
+# the kernel's table plan (csrc/segments.cu: THREADS, WARPS, PRIVATE_BYTES,
+# WARP_BYTES, SMEM_MAX, LANE_TILE_MAX, LANE_SMEM_MAX), and the bytes of its
+# accumulators per (op, dtype) (Red<OP, T>::Acc: float sums in float64,
+# float MIN/MAX as integer keys of the float's width, bool as int32)
+_THREADS, _WARPS = 256, 8
+_PRIVATE_BYTES, _WARP_BYTES, _SMEM_MAX = 48 * 1024, 64 * 1024, 8 * MAX_SEGMENTS
+LANE_TILE_MAX = 6                 # lanes one block of the lane kernel carries
+LANE_SMEM_MAX = gk.LANE_SMEM_MAX  # 227 KB: one block's shared memory on sm_90
+_ACC_BYTES = {torch.bool: 4, torch.int32: 4, torch.int64: 8, torch.float32: 4,
+              torch.float64: 8}
 
 LAUNCHES = {"segment_reduce": metrics.Counter("kernel_launches.segment_reduce")}
 LANE_LAUNCHES = {"segment_reduce_lanes": metrics.Counter("kernel_launches.segment_reduce_lanes")}
@@ -220,8 +234,8 @@ def segment_reduce_lanes(x: torch.Tensor, gid: torch.Tensor, mask: torch.Tensor,
                          num_segments: int, op: str, mode: str = "auto") -> torch.Tensor:
     """SUM/MIN/MAX of a shared 1-D ``x`` per segment of the shared ``gid``,
     once per row of the bool ``mask`` [G, n] -> [G, num_segments].  On a
-    CUDA tensor ONE launch of the lane kernel; on a CPU tensor the plain
-    version."""
+    CUDA tensor ONE launch of the lane kernel, in the tiles of ``lane_plan``;
+    on a CPU tensor the plain version."""
     _check(x, gid, num_segments, op, mode)
     if mask.dtype is not torch.bool or mask.ndim != 2 or mask.shape[1:] != x.shape \
             or not 1 <= mask.shape[0] <= 65535:
@@ -231,7 +245,44 @@ def segment_reduce_lanes(x: torch.Tensor, gid: torch.Tensor, mask: torch.Tensor,
         raise ValueError("mask must be contiguous and lie on x's device")
     if x.device.type == "cpu":
         return segment_reduce_lanes_plain(x, gid, mask, num_segments, op)
-    return _launch(x, gid, num_segments, op, MODES[mode], mask)
+    return _launch(x, gid, num_segments, op, MODES[mode], mask,
+                   lane_plan(op, x.dtype, num_segments, mask.shape[0], mode).tile)
+
+
+class LanePlan(NamedTuple):
+    layout: str          # "private", "warp" or "block": the one-lane table layout
+    table_bytes: int     # one lane's table in shared memory
+    fit: int             # lanes whose tables fit a block
+    tile: int            # lanes a block carries
+    tiles: int           # blocks a row-block of the one-lane grid becomes
+
+
+def table_layout(op: str, dtype: torch.dtype, num_segments: int,
+                 mode: str = "auto") -> tuple[str, int]:
+    """(layout, bytes) of the kernel's table of ``num_segments`` slots:
+    private copies a thread while they fit 48 KB, else copies a warp within
+    64 KB, else one a block (csrc/segments.cu table_layout)."""
+    acc = 8 if op == "sum" and dtype.is_floating_point else _ACC_BYTES[dtype]
+    slot = acc * int(num_segments)
+    if mode == "auto":
+        mode = ("private" if slot * _THREADS <= _PRIVATE_BYTES
+                else "warp" if slot * 2 <= _WARP_BYTES else "block")
+    replicas = {"private": _THREADS, "warp": max(1, min(_WARPS, _WARP_BYTES // slot)),
+                "block": 1}[mode]
+    if slot * replicas > _SMEM_MAX:
+        raise ValueError(f"a {mode} table of {num_segments} {dtype} {op} slots takes "
+                         f"{slot * replicas} bytes, over {_SMEM_MAX}")
+    return mode, slot * replicas
+
+
+def lane_plan(op: str, dtype: torch.dtype, num_segments: int, lanes: int,
+              mode: str = "auto") -> LanePlan:
+    """The lane kernel's tiles for ``lanes`` lanes: as many one-lane tables
+    as fit ``LANE_SMEM_MAX`` (at most ``LANE_TILE_MAX``), then the lanes
+    spread evenly over the fewest tiles (the last tile may be shorter)."""
+    layout, nbytes = table_layout(op, dtype, num_segments, mode)
+    fit = min(LANE_TILE_MAX, LANE_SMEM_MAX // nbytes)
+    return LanePlan(layout, nbytes, fit, *gk.lane_tiles(lanes, fit))
 
 
 def _check(x, gid, num_segments: int, op: str, mode: str) -> None:
@@ -262,15 +313,22 @@ def _bind(lib) -> None:
     lib.bk_seg_max_segments.restype = i32
     lib.bk_seg_reduce.argtypes = [i32, i32, i32, i32, vp, vp, i64, i32, i32, i32, vp, vp, vp]
     lib.bk_seg_reduce.restype = i32
-    lib.bk_seg_reduce_lanes.argtypes = [i32, i32, i32, i32, vp, vp, vp, i32, i64, i32, i32,
-                                        i32, vp, vp, vp]
+    lib.bk_seg_reduce_lanes.argtypes = [i32, i32, i32, i32, vp, vp, vp, i32, i32, i64, i32,
+                                        i32, i32, vp, vp, vp]
     lib.bk_seg_reduce_lanes.restype = i32
-    if lib.bk_seg_max_segments() != MAX_SEGMENTS:
-        raise RuntimeError("csrc/segments.cu and ops/segments.py disagree on MAX_SEGMENTS")
+    lib.bk_seg_table_bytes.argtypes = [i32, i32, i32, i32]
+    lib.bk_seg_table_bytes.restype = i64
+    lib.bk_seg_lane_tile_max.restype = i32
+    lib.bk_seg_lane_smem_max.restype = i64
+    if (lib.bk_seg_max_segments(), lib.bk_seg_lane_tile_max(), lib.bk_seg_lane_smem_max()) \
+            != (MAX_SEGMENTS, LANE_TILE_MAX, LANE_SMEM_MAX):
+        raise RuntimeError("csrc/segments.cu and ops/segments.py disagree on MAX_SEGMENTS, "
+                           "LANE_TILE_MAX or LANE_SMEM_MAX")
 
 
-def _launch(x, gid, S: int, op: str, mode: int, mask=None) -> torch.Tensor:
-    """The kernel over one lane (``mask`` None) or the rows of ``mask``."""
+def _launch(x, gid, S: int, op: str, mode: int, mask=None, tile: int = 1) -> torch.Tensor:
+    """The kernel over one lane (``mask`` None) or the rows of ``mask``,
+    ``tile`` lanes a block."""
     lib = gk.library(SOURCE, _bind)
     dev = x.device
     device = gk._device_index(dev)
@@ -293,8 +351,8 @@ def _launch(x, gid, S: int, op: str, mode: int, mask=None) -> torch.Tensor:
         name = "segment_reduce"
     else:
         err = lib.bk_seg_reduce_lanes(device, opc, tcode, id64, x.data_ptr(), gid.data_ptr(),
-                                      mask.data_ptr(), G, n, S, mode, blocks, ws.data_ptr(),
-                                      out.data_ptr(), stream)
+                                      mask.data_ptr(), G, tile, n, S, mode, blocks,
+                                      ws.data_ptr(), out.data_ptr(), stream)
         name = "segment_reduce_lanes"
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed with error {err}")

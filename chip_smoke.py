@@ -41,7 +41,9 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    one 65,536-row chunk (``chunk`` in the JSON line).  With
    ``--compare-with DIR`` (a checkout of another commit, e.g. from
    ``git archive``), that commit's kernels are timed too, in turns with
-   this one's (theirs, ours, ours, theirs).
+   this one's (theirs, ours, ours, theirs): K1-K3 and the segment kernel
+   here, their lane entries in phase 12 (iv), and the profiled 64-lane
+   ticks of phase 12 (iii) with its lane entries swapped in.
 3. SQL: ``Session(device="cuda")`` over ``--rows`` rows (default 100M, the
    BASELINE.json size) of ``t (g INT, v FLOAT, w DOUBLE, g16 INT)``:
    (a) the bench headline over 16 groups (eight segment-kernel launches and
@@ -172,13 +174,20 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    batched dispatcher, ``exec/{dispatch,lanes}.py``), right after phase 10
    (i), in phase 3's session over its unchanged 100M rows
    (``streaming_scan = 0``).  (iv) K1, K2, K3 and the segment kernel with a
-   lane axis (``*_lanes``: one launch over G masks) against their plain
-   versions (the per-lane loops) at ``--rows`` rows with G = 8 and at
-   10,000,019 rows with G = 64: an all-dead lane, a lane of one live row,
-   NaN in MIN/MAX, a group of more than 2^24 rows in every lane; counts and
-   MIN/MAX exact, sums as in phase 2, the segment kernel's float64 sums
-   bit-identical to the one-lane kernel's; timed at both shapes against the
-   byte bound (the G masks plus one read of codes and values).  (i) (a)-(c)
+   lane axis (``*_lanes``: one launch over G masks; K1/K3 and the segment
+   kernel carry a tile of lanes a block) against their plain versions (the
+   per-lane loops; five lanes at 100M rows x 64) and every lane against the
+   one-lane kernels at ``--rows`` rows with G = 8 and 64 and at 10,000,019
+   rows with G = 64: an all-dead lane, a lane of one live row, NaN in
+   MIN/MAX, a group of more than 2^24 rows in every lane; counts and
+   MIN/MAX exact, sums as in phase 2, every segment-kernel lane
+   bit-identical to the one-lane kernel; then the tiles' edges
+   (``lane_edge_cases``: the segment kernel's private, warp and block
+   tables at 17, 2,048 and 16,384 slots and K1/K3 at 2049, over lane counts
+   around each tile and 63-65, ragged row counts); timed at 100M rows x 8
+   and x 64 and at 10,000,019 x 64 against the byte bound (the G masks
+   plus one read of codes and values), the library call in chunks of 8
+   lanes.  (i) (a)-(c)
    with 30 literal variants of the WHERE threshold, the plan cache on and
    with ``plan_cache_size = 0`` (warm p50 / p67, the ``plan.*`` spans of a
    traced pass, the counter deltas), every variant against numpy (sorted
@@ -306,11 +315,13 @@ def card() -> str:
     return out.strip().splitlines()[0]
 
 
-def cuda_ms(fn, reps: int) -> float:
+def cuda_ms(fn, reps: int, warm: bool = True) -> float:
     """Median milliseconds of ``fn()`` over ``reps`` CUDA-event-timed calls,
-    after one warm-up call.  Each call is timed alone, so its host work (the
-    wrapper's checks, allocation and launch) is in the number."""
-    fn()
+    after one warm-up call (none with ``warm=False``).  Each call is timed
+    alone, so its host work (the wrapper's checks, allocation and launch) is
+    in the number."""
+    if warm:
+        fn()
     times = []
     for _ in range(reps):
         a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -456,6 +467,21 @@ def load_port(root: str):
     return importlib.import_module(f"{alias}.ops.group_kernels")
 
 
+def compared_segments(before):
+    """``ops/segments`` of the checkout ``load_port`` imported."""
+    return importlib.import_module(before.__name__.rsplit(".", 1)[0] + ".segments")
+
+
+def in_turns(this, before, timer) -> tuple[float, dict | None]:
+    """``timer(this)`` -> (its time, None); with ``before`` (the compared
+    commit's function of the same arguments) in turns, the compared one,
+    this, this, the compared one -> (this one's mean, both pairs)."""
+    if before is None:
+        return timer(this), None
+    b1, t1, t2, b2 = (timer(f) for f in (before, this, this, before))
+    return (t1 + t2) / 2, {"before": [b1, b2], "this": [t1, t2]}
+
+
 def kernel_phase(gk, rows: int, seed: int, before=None) -> dict:
     dev = torch.device("cuda")
     t0 = time.perf_counter()
@@ -595,11 +621,13 @@ def seg_inputs(n: int, S: int, dtype, gen, dev):
     return x, gid
 
 
-def seg_check(seg, x, gid, S: int, op: str) -> float:
-    """The segment kernel against its plain version on one input: integers,
-    MIN and MAX exact (NaN equal to NaN); float sums within 1e-9 * sum(|x|)
-    over the segment (float32 also one float32 ulp); -> max |err|."""
-    got = seg.segment_reduce(x, gid, S, op)
+def seg_check(seg, x, gid, S: int, op: str, got=None) -> float:
+    """The segment kernel (or ``got``, a lane of the lane kernel) against
+    the plain version on one input: integers, MIN and MAX exact (NaN equal
+    to NaN); float sums within 1e-9 * sum(|x|) over the segment (float32
+    also one float32 ulp); -> max |err|."""
+    if got is None:
+        got = seg.segment_reduce(x, gid, S, op)
     torch.cuda.synchronize()
     want = seg.segment_reduce_plain(x, gid, S, op)
     where = f"({op} {x.dtype} S={S} n={x.shape[0]})"
@@ -644,7 +672,7 @@ def segment_cases(seg, n: int, gen) -> tuple[float, int]:
     return max_err, checked
 
 
-def segment_phase(rows: int, seed: int) -> dict:
+def segment_phase(rows: int, seed: int, before=None) -> dict:
     """The segment kernel against its plain version (``segment_cases`` at
     ``rows``, 65,536, 1,048,576 and 16,777,216 rows), then timed at query (a)'s shape: SUM of a float64 column over 17 slots,
     dead rows routed past the last (two of (a)'s eight launches), beside
@@ -682,15 +710,21 @@ def segment_phase(rows: int, seed: int) -> dict:
     ops = live                                  # one float64 add a live row
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = ops / F64_OPS_PER_S * 1e3
+    bseg = None if before is None else compared_segments(before)
+    dev_ms, turns = in_turns(lambda: seg.segment_reduce(w, gid, NG_A, "sum"),
+                             None if bseg is None else
+                             lambda: bseg.segment_reduce(w, gid, NG_A, "sum"), device_ms)
     out = {
         "ms": cuda_ms(lambda: seg.segment_reduce(w, gid, NG_A, "sum"), 20),
-        "device_ms": device_ms(lambda: seg.segment_reduce(w, gid, NG_A, "sum")),
+        "device_ms": dev_ms,
         "plain_ms": cuda_ms(lambda: seg.segment_reduce_plain(w, gid, NG_A, "sum"), 3),
         "library_ms": cuda_ms(lambda: acc.index_add_(0, ids, w), 3),
         "bound_ms": max(bytes_ms, ops_ms),
         "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
         "max_abs_err": max_err, "checked_cases": checked, "segments": NG_A,
         "gate": gate, "by_case": {}}
+    if turns is not None:
+        out["before"] = turns
     for name, x, op in (("count_i32", mask.to(torch.int32), "sum"),
                         ("count_i64", mask.to(torch.int64), "sum"),
                         ("min_f32", v, "min")):
@@ -2577,6 +2611,28 @@ def run_clients(db, per_client: list, barrier_timeout: float = 600.0) -> tuple:
     return out, lat, wall
 
 
+@contextlib.contextmanager
+def compared_lane_kernels(before):
+    """The compared commit's K1/K3/K2 and segment lane entries in this
+    port's lane program (ops/hashagg.py's names and the segments module's),
+    for a tick timed before and after in one call."""
+    from baikaldb_tpu_torch.ops import hashagg
+    from baikaldb_tpu_torch.ops import segments as seg
+
+    names = ("filtered_group_sum_lanes", "fused_group_aggregate_lanes",
+             "partition_histogram_lanes")
+    saved = {k: getattr(hashagg, k) for k in names}, seg.segment_reduce_lanes
+    for k in names:
+        setattr(hashagg, k, getattr(before, k))
+    seg.segment_reduce_lanes = compared_segments(before).segment_reduce_lanes
+    try:
+        yield
+    finally:
+        for k, f in saved[0].items():
+            setattr(hashagg, k, f)
+        seg.segment_reduce_lanes = saved[1]
+
+
 def tick_breakdown(gk, s, statements: list, serial: dict) -> dict:
     """One tick of ``statements`` through the lane program directly (what
     the leader runs): wall p50 of 3, device ms and idle share of one
@@ -2628,7 +2684,7 @@ def tick_breakdown(gk, s, statements: list, serial: dict) -> dict:
             "launches": launched, **device_breakdown(tick, med, host_ops=False)}
 
 
-def dispatch_phase(gk, single, refs, seed: int) -> dict:
+def dispatch_phase(gk, single, refs, seed: int, before=None) -> dict:
     """Phase 12 (iii): D_CLIENTS sessions on as many threads, each sending
     D_PER_CLIENT statements of each shape with its own literals; against
     the same statements one after another on one session."""
@@ -2699,8 +2755,17 @@ def dispatch_phase(gk, single, refs, seed: int) -> dict:
             if inline_n[k] != n * inline_runs:
                 raise AssertionError(f"{name}: {k} launched {inline_n[k]} times for "
                                      f"{inline_runs} inline runs")
-        tick = tick_breakdown(gk, s, [mine[0] for mine in per_client], serial)
+        firsts = [mine[0] for mine in per_client]
+        tick = tick_breakdown(gk, s, firsts, serial)
         tick.pop("kernel_names", None)
+        if before is not None:
+            # the compared commit's lane kernels in this lane program, in turns
+            ticks_dev = {"before": [], "this": [tick["device_ms"]]}
+            for who in ("before", "this", "before"):
+                with (compared_lane_kernels(before) if who == "before"
+                      else contextlib.nullcontext()):
+                    ticks_dev[who].append(tick_breakdown(gk, s, firsts, serial)["device_ms"])
+            tick["device_ms_in_turns"] = ticks_dev
         qw = metrics.queue_wait_ms.stats()
         tk = metrics.dispatch_tick_ms.stats()
         out[name] = {
@@ -2761,11 +2826,13 @@ def explain_phase(single, refs) -> dict:
     return out
 
 
-def lane_case(gk, seg, n: int, ng: int, G: int, gen, *, nans=False) -> float:
-    """K1, K2, K3 and the segment kernel over G lanes against their plain
-    versions (the per-lane loops) on one input: lane 1 all dead, lane 2 one
-    live row; counts exact, MIN/MAX exact (NaN equal), sums as
-    ``check_case``; -> max |err|."""
+def lane_case(gk, seg, n: int, ng: int, G: int, gen, *, nans=False,
+              plain_lanes=None) -> float:
+    """K1, K2, K3 and the segment kernel over G lanes on one input (lane 1
+    all dead, lane 2 one live row): every lane against the one-lane kernels
+    on its mask (the segment kernel bit for bit), and the lanes
+    ``plain_lanes`` (all when None) against the plain versions; counts
+    exact, MIN/MAX exact (NaN equal), sums as ``check_case``; -> max |err|."""
     dev = torch.device("cuda")
     codes, values, _ = make_inputs(n, ng, gen, dev, nans=nans)
     # lane by lane: one [G, n] float32 draw at 64 lanes of 100M rows is 25.6 GB
@@ -2779,70 +2846,166 @@ def lane_case(gk, seg, n: int, ng: int, G: int, gen, *, nans=False) -> float:
     if nans:
         mask[3:, 100:133] = True          # the NaN groups live in lanes 3 and up
     where = f"(lanes n={n} ng={ng} G={G})"
-    k1 = gk.filtered_group_sum_lanes(codes, values.to(torch.float64), mask, ng)
+    plain_lanes = range(G) if plain_lanes is None else [g for g in plain_lanes if g < G]
+    w64 = values.to(torch.float64)
+    k1 = gk.filtered_group_sum_lanes(codes, w64, mask, ng)
     k2 = gk.fused_group_aggregate_lanes(codes, values, mask, ng)
     k3 = gk.partition_histogram_lanes(codes, mask, ng)
     torch.cuda.synchronize()
     err = 0.0
+
+    def sums_close(what, got, want, tol):
+        ok = torch.isfinite(want)
+        if not same(got[~ok], want[~ok]):
+            raise AssertionError(f"{what}: NaN or inf differs {where}")
+        d = (got[ok].double() - want[ok].double()).abs()
+        if bool((d > tol[ok]).any()):
+            raise AssertionError(f"{what} beyond 1e-5*sum|v| {where}")
+        return float(d.max()) if d.numel() else 0.0
+
     for g in range(G):
         m = mask[g]
-        p1 = gk.filtered_group_sum_plain(codes, values.to(torch.float64), m, ng)
-        p2 = gk.fused_group_aggregate_plain(codes, values, m, ng)
-        p3 = gk.partition_histogram_plain(codes, m, ng)
         live = m & (codes >= 0) & (codes < ng)
         gid = torch.where(live, codes, ng).long()
         sabs = torch.zeros(ng + 1, dtype=torch.float64, device=dev)
         sabs.index_add_(0, gid, values.abs().double().nan_to_num(0.0))
         tol = 1e-5 * sabs[:ng]
-        for what, got, want in (("K3 counts", k3[g], p3), ("K1 counts", k1[0][g], p1[0]),
-                                ("K2 counts", k2[0][g], p2[0]), ("K2 mins", k2[2][g], p2[2]),
-                                ("K2 maxs", k2[3][g], p2[3])):
-            if not same(got, want):
-                raise AssertionError(f"{what} of lane {g} differ from the plain version {where}")
-        for what, got, want in (("K1 sums", k1[1][g], p1[1]), ("K2 sums", k2[1][g], p2[1])):
-            ok = torch.isfinite(want)
-            if not same(got[~ok], want[~ok]):
-                raise AssertionError(f"{what} of lane {g}: NaN or inf differs {where}")
-            d = (got[ok].double() - want[ok].double()).abs()
-            if bool((d > tol[ok]).any()):
-                raise AssertionError(f"{what} of lane {g} beyond 1e-5*sum|v| {where}")
-            err = max(err, float(d.max()) if d.numel() else 0.0)
+        refs = {"kernel": (gk.filtered_group_sum(codes, w64, m, ng),
+                           gk.fused_group_aggregate(codes, values, m, ng),
+                           gk.partition_histogram(codes, m, ng))}
+        if g in plain_lanes:
+            refs["plain version"] = (gk.filtered_group_sum_plain(codes, w64, m, ng),
+                                     gk.fused_group_aggregate_plain(codes, values, m, ng),
+                                     gk.partition_histogram_plain(codes, m, ng))
+        for ref, (p1, p2, p3) in refs.items():
+            for what, got, want in (("K3 counts", k3[g], p3), ("K1 counts", k1[0][g], p1[0]),
+                                    ("K2 counts", k2[0][g], p2[0]),
+                                    ("K2 mins", k2[2][g], p2[2]), ("K2 maxs", k2[3][g], p2[3])):
+                if not same(got, want):
+                    raise AssertionError(f"{what} of lane {g} differ from the one-lane {ref} "
+                                         f"{where}")
+            for what, got, want in (("K1 sums", k1[1][g], p1[1]), ("K2 sums", k2[1][g], p2[1])):
+                err = max(err, sums_close(f"{what} of lane {g} against the {ref}", got, want,
+                                          tol))
     # the segment kernel: SUM of a float64 column, MIN of float32, an int32
     # count and D-a's COUNT(*) (int64 ones), over min(ng, 17) segments
     # (dense ids, as a group-by's)
     S = min(ng, NG_A)
     gid = torch.remainder(codes, S).to(torch.int32)
-    for x, op in ((values.double(), "sum"), (values, "min"), (values, "max"),
+    for x, op in ((w64, "sum"), (values, "min"), (values, "max"),
                   (torch.ones(n, dtype=torch.int32, device=dev), "sum"),
                   (torch.ones(n, dtype=torch.int64, device=dev), "sum")):
         got = seg.segment_reduce_lanes(x, gid, mask, S, op)
         torch.cuda.synchronize()
         for g in range(G):
-            want = seg.segment_reduce_plain(x, torch.where(mask[g], gid, S), S, op)
-            if op != "sum" or not x.dtype.is_floating_point:
-                if not same(got[g], want):
-                    raise AssertionError(f"segment {op} {x.dtype} lane {g} differs {where}")
-                continue
+            ids = torch.where(mask[g], gid, S)
             # the lane kernel runs the one-lane plan: bit-identical to it
-            one = seg.segment_reduce(x, torch.where(mask[g], gid, S), S, op)
-            if not same(got[g], one):
-                raise AssertionError(f"segment sum lane {g} differs from the one-lane kernel "
-                                     f"{where}")
-            d = (got[g] - want).abs()
-            ok = ~want.isnan()
-            if bool((d[ok] > 1e-9 * x.abs().nan_to_num(0.0).sum() + 1e-9).any()):
-                raise AssertionError(f"segment sum lane {g} beyond tolerance {where}")
-            err = max(err, float(d[ok].max()) if ok.any() else 0.0)
+            if not same(got[g], seg.segment_reduce(x, ids, S, op)):
+                raise AssertionError(f"segment {op} {x.dtype} lane {g} differs from the "
+                                     f"one-lane kernel {where}")
+            if g in plain_lanes:
+                err = max(err, seg_check(seg, x, ids, S, op, got=got[g]))
     return err
 
 
-def lane_kernel_phase(gk, rows: int, seed: int) -> dict:
+def lane_edges(fit: int) -> list:
+    """Lane counts around a tile of ``fit`` lanes and the ticks' 64."""
+    return sorted({1, max(1, fit - 1), fit + 1, 63, 64, 65})
+
+
+def lane_edge_cases(gk, seg, gen) -> float:
+    """The lane tiles' edges: the segment kernel in each table layout
+    (private at 17 slots, warp at 2,048, block at 16,384) and K1/K3 at 2049
+    slots, over lane counts around each tile (``lane_edges``), on ragged
+    row counts with an all-dead lane and NaN in MIN/MAX.  Every segment lane
+    equals the one-lane kernel in the same layout bit for bit (float64 sums
+    of whole numbers in the warp and block layouts, whose shared atomics add
+    in no fixed order; any values in the private one), and at 64 lanes three
+    lanes equal the plain version; every K1/K3 lane equals the plain
+    version (counts exactly, sums within 1e-5 * sum|v|) and K3's the
+    one-lane kernel; -> max |err|."""
+    dev = torch.device("cuda")
+    err = 0.0
+    for mode, S, n in (("private", NG_A, 1_000_003), ("warp", 2048, 1_000_003),
+                       ("block", 16384, 100_003)):
+        gid = torch.randint(-1, S + 1, (n,), generator=gen, device=dev, dtype=torch.int32)
+        v = torch.randn(n, generator=gen, device=dev, dtype=torch.float64) * 1e3
+        f32 = v.float()
+        f32.view(torch.int32)[7:9] = torch.tensor([PLUS_NAN, MINUS_NAN], dtype=torch.int32,
+                                                  device=dev)
+        for x, op in ((v if mode == "private" else v.round(), "sum"),
+                      (torch.ones(n, dtype=torch.int64, device=dev), "sum"),
+                      (f32, "min"), (f32, "max")):
+            for G in lane_edges(seg.lane_plan(op, x.dtype, S, 1, mode).fit):
+                mask = torch.rand((G, n), generator=gen, device=dev) < 0.6
+                mask[G // 2] = False
+                got = seg.segment_reduce_lanes(x, gid, mask, S, op, mode=mode)
+                torch.cuda.synchronize()
+                for g in range(G):
+                    ids = torch.where(mask[g], gid, S)
+                    if not same(got[g], seg.segment_reduce(x, ids, S, op, mode=mode)):
+                        raise AssertionError(f"segment {op} {x.dtype} {mode} S={S} G={G}: "
+                                             f"lane {g} differs from the one-lane kernel")
+                    if G == 64 and g in (0, G // 2, G - 1):
+                        err = max(err, seg_check(seg, x, ids, S, op, got=got[g]))
+        log(f"[phase12] (iv) segment lane tiles, {mode} tables at S={S} n={n}: every lane "
+            f"bit-identical to the one-lane kernel")
+    n, ng = 1_000_003, NG_SQL
+    codes, values, _ = make_inputs(n, ng, gen, dev)
+    w64 = values.double()
+    fits = {gk.lane_plan(k, ng, 1).fit for k in (gk.KIND_SUM, gk.KIND_HIST)}
+    for G in sorted(set().union(*(lane_edges(f) for f in fits))):
+        mask = torch.rand((G, n), generator=gen, device=dev) < 0.6
+        mask[G // 2] = False
+        k1 = gk.filtered_group_sum_lanes(codes, w64, mask, ng)
+        k3 = gk.partition_histogram_lanes(codes, mask, ng)
+        torch.cuda.synchronize()
+        for g in range(G):
+            p1 = gk.filtered_group_sum_plain(codes, w64, mask[g], ng)
+            p3 = gk.partition_histogram_plain(codes, mask[g], ng)
+            if not (same(k3[g], p3) and same(k1[0][g], p1[0])
+                    and same(k3[g], gk.partition_histogram(codes, mask[g], ng))):
+                raise AssertionError(f"K1/K3 lane tiles: counts of lane {g} of {G} differ "
+                                     f"from the plain version or the one-lane kernel")
+            live = mask[g] & (codes >= 0) & (codes < ng)
+            sabs = torch.zeros(ng + 1, dtype=torch.float64, device=dev)
+            sabs.index_add_(0, torch.where(live, codes, ng).long(), w64.abs())
+            d = (k1[1][g].double() - p1[1].double()).abs()
+            if bool((d > 1e-5 * sabs[:ng]).any()):
+                raise AssertionError(f"K1 lane tiles: sums of lane {g} of {G} beyond tolerance")
+            err = max(err, float(d.max()))
+    log(f"[phase12] (iv) K1/K3 lane tiles at {sorted(fits)} lanes a block: match")
+    return err
+
+
+def lane_library_ms(mask, ids, src, ng: int, dtype, chunk: int = 8) -> tuple[float, int]:
+    """The library call beside a lane kernel: ``index_add_`` of ``src`` over
+    lane-offset ids (``ids`` where ``mask``, else ``ng``), timed once a chunk
+    of ``chunk`` lanes: one call over 64 lanes of 100M rows would need 77 GB
+    of ids and values -> (milliseconds summed, calls)."""
+    G, n = mask.shape
+    total, calls = 0.0, 0
+    for a in range(0, G, chunk):
+        k = min(chunk, G - a)
+        lane_ids = (torch.where(mask[a:a + k], ids, ng).long()
+                    + torch.arange(k, device=ids.device)[:, None] * (ng + 1)).reshape(-1)
+        wide = src.expand(k, n).reshape(-1)
+        acc = torch.zeros(k * (ng + 1), dtype=dtype, device=ids.device)
+        total += cuda_ms(lambda: acc.index_add_(0, lane_ids, wide), 1)
+        calls += 1
+        del lane_ids, wide, acc
+    return total, calls
+
+
+def lane_kernel_phase(gk, rows: int, seed: int, before=None) -> dict:
     """Phase 12 (iv): the lane-batched kernels against their plain versions
-    at ``rows`` rows with G = 8 and 64 (the 64-lane ticks of (iii) at their
-    slot counts) and at 10,000,019 (odd) rows with G = 64, with empty and
-    all-dead lanes, NaN in MIN/MAX and a group of more than 2^24 rows; then
-    timed at G = 8 and at the odd length against the byte bound (the lanes'
-    masks plus one read of codes and values)."""
+    and the one-lane kernels at ``rows`` rows with G = 8 and 64 (the 64-lane
+    ticks of (iii) at their slot counts) and at 10,000,019 (odd) rows with G
+    = 64, with empty and all-dead lanes, NaN in MIN/MAX and a group of more
+    than 2^24 rows; the lane tiles' edges (``lane_edge_cases``); then timed
+    at G = 8 and 64 over ``rows`` rows and at 64 over the odd length against
+    the byte bound (the lanes' masks plus one read of codes and values),
+    with ``before`` (the compared commit's group_kernels) in turns."""
     from baikaldb_tpu_torch.ops import segments as seg
 
     dev = torch.device("cuda")
@@ -2851,13 +3014,18 @@ def lane_kernel_phase(gk, rows: int, seed: int) -> dict:
     t0 = time.perf_counter()
     small = 10_000_019
     err = 0.0
+    # at 100M rows x 64 lanes the plain versions (per-lane loops) take a few
+    # lanes; every lane meets the one-lane kernels
     for n, ng, G, kw in ((rows, NG_SQL, 8, {}), (small, NG_SQL, 64, {"nans": True}),
                          (rows, 4, 8, {}), (small, NG_A, 64, {}),
-                         (rows, NG_SQL, 64, {}), (rows, NG_A, 64, {})):
+                         (rows, NG_SQL, 64, {"plain_lanes": (0, 1, 2, 3, 63)}),
+                         (rows, NG_A, 64, {"plain_lanes": (0, 1, 2, 3, 63)})):
         err = max(err, lane_case(gk, seg, n, ng, G, gen, **kw))
         torch.cuda.empty_cache()
         log(f"[phase12] (iv) lanes n={n} ng={ng} G={G} {kw or ''}: match "
             f"({time.perf_counter() - t0:.1f} s)")
+    err = max(err, lane_edge_cases(gk, seg, gen))
+    torch.cuda.empty_cache()
     # a group above 2^24 rows in every lane: exact int64 counts
     n = (1 << 24) + 5
     codes = torch.zeros(n, dtype=torch.int32, device=dev)
@@ -2872,76 +3040,87 @@ def lane_kernel_phase(gk, rows: int, seed: int) -> dict:
             raise AssertionError(f"{name} lane counts {counts[:, 0].tolist()}")
     del codes, mask
     out = {"max_abs_err": err, "check_s": time.perf_counter() - t0}
-    for n, G in ((rows, 8), (small, 64)):
+    bseg = None if before is None else compared_segments(before)
+    for n, G in ((rows, 8), (rows, 64), (small, 64)):
         codes, values, _ = make_inputs(n, NG_SQL, gen, dev)
         w64 = values.double()
-        mask = torch.rand((G, n), generator=gen, device=dev) < 0.6
+        mask = torch.empty((G, n), dtype=torch.bool, device=dev)
+        for g in range(G):
+            mask[g] = torch.rand(n, generator=gen, device=dev) < 0.6
         gid17 = torch.remainder(codes, NG_A).to(torch.int32)
-        # one index_add_ over lane-offset ids computes a lane-batched K1/K3
-        # or segment SUM (the library call beside each kernel)
-        lane_ids = (torch.where(mask, codes, NG_SQL).long()
-                    + torch.arange(G, device=dev)[:, None] * (NG_SQL + 1)).reshape(-1)
-        lane_ids17 = (torch.where(mask, gid17, NG_A).long()
-                      + torch.arange(G, device=dev)[:, None] * (NG_A + 1)).reshape(-1)
-        acc = torch.zeros(G * (NG_SQL + 1), dtype=torch.float64, device=dev)
-        acc17 = torch.zeros(G * (NG_A + 1), dtype=torch.float64, device=dev)
-        acc32 = torch.zeros(G * (NG_SQL + 1), dtype=torch.float32, device=dev)
-        wide = w64.expand(G, n).reshape(-1)
-        ones = torch.ones(G * n, dtype=torch.float32, device=dev)
+        live = int(mask.sum())
+        # over 8e8 lane-rows the plain versions run once, unwarmed, and K2's
+        # (13 s there, its lane path unchanged) not at all
+        big = G * n > 8 * 10**8
         specs = {
-            "filtered_group_sum_lanes": (lambda: gk.filtered_group_sum_lanes(codes, w64, mask,
-                                                                             NG_SQL),
-                                         lambda: gk.filtered_group_sum_lanes_plain(
-                                             codes, w64, mask, NG_SQL),
-                                         lambda: acc.index_add_(0, lane_ids, wide), 8),
-            "fused_group_aggregate_lanes": (lambda: gk.fused_group_aggregate_lanes(
-                codes, values, mask, NG_SQL), lambda: gk.fused_group_aggregate_lanes_plain(
-                codes, values, mask, NG_SQL), None, 4),
-            "partition_histogram_lanes": (lambda: gk.partition_histogram_lanes(codes, mask,
-                                                                               NG_SQL),
-                                          lambda: gk.partition_histogram_lanes_plain(
-                                              codes, mask, NG_SQL),
-                                          lambda: acc32.index_add_(0, lane_ids, ones), 0),
-            "segment_reduce_lanes": (lambda: seg.segment_reduce_lanes(w64, gid17, mask, NG_A,
-                                                                      "sum"),
-                                     lambda: seg.segment_reduce_lanes_plain(w64, gid17, mask,
-                                                                            NG_A, "sum"),
-                                     lambda: acc17.index_add_(0, lane_ids17, wide), 8),
+            # name: (the call given the module, the plain version, the library
+            #        call's ids, values, slots and accumulator dtype, value
+            #        bytes a row, output bytes a lane)
+            "filtered_group_sum_lanes": (
+                lambda m: m.filtered_group_sum_lanes(codes, w64, mask, NG_SQL),
+                lambda: gk.filtered_group_sum_lanes_plain(codes, w64, mask, NG_SQL),
+                (codes, w64, NG_SQL, torch.float64), 8, NG_SQL * 12),
+            "fused_group_aggregate_lanes": (
+                lambda m: m.fused_group_aggregate_lanes(codes, values, mask, NG_SQL),
+                None if big else lambda: gk.fused_group_aggregate_lanes_plain(
+                    codes, values, mask, NG_SQL), None, 4, NG_SQL * 20),
+            "partition_histogram_lanes": (
+                lambda m: m.partition_histogram_lanes(codes, mask, NG_SQL),
+                lambda: gk.partition_histogram_lanes_plain(codes, mask, NG_SQL),
+                (codes, torch.ones(n, device=dev), NG_SQL, torch.float32), 0, NG_SQL * 8),
+            "segment_reduce_lanes": (
+                lambda m: m.segment_reduce_lanes(w64, gid17, mask, NG_A, "sum"),
+                lambda: seg.segment_reduce_lanes_plain(w64, gid17, mask, NG_A, "sum"),
+                (gid17, w64, NG_A, torch.float64), 8, NG_A * 8),
         }
         key = f"n{n}_G{G}"
         out[key] = {}
-        for name, (fn, plain, lib, vbytes) in specs.items():
-            nbytes = G * n + n * (4 + vbytes) + G * NG_SQL * 8
-            live = int(mask.sum())
+        for name, (fn, plain, lib, vbytes, obytes) in specs.items():
+            mod = seg if name == "segment_reduce_lanes" else gk
+            bmod = bseg if name == "segment_reduce_lanes" else before
+            nbytes = G * n + n * (4 + vbytes) + G * obytes
             bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
             ops_ms = live * 2 / F32_OPS_PER_S * 1e3
+            dev_ms, turns = in_turns(lambda: fn(mod), None if bmod is None else
+                                     lambda: fn(bmod),
+                                     lambda f: device_ms(f, launches=5))
+            lib_ms, lib_calls = (None, 0) if lib is None else lane_library_ms(mask, *lib)
             out[key][name] = {
-                "ms": cuda_ms(fn, 5), "device_ms": device_ms(fn, launches=5),
-                "plain_ms": cuda_ms(plain, 1),
-                "library_ms": None if lib is None else cuda_ms(lib, 1),
+                "ms": cuda_ms(lambda: fn(mod), 5), "device_ms": dev_ms,
+                "plain_ms": None if plain is None else cuda_ms(plain, 1, warm=not big),
+                "library_ms": lib_ms, "library_calls": lib_calls,
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "rows": n, "lanes": G}
+            if name != "fused_group_aggregate_lanes":
+                out[key][name]["lane_plan"] = (
+                    seg.lane_plan("sum", torch.float64, NG_A, G) if mod is seg else
+                    gk.lane_plan(gk.KIND_SUM if "sum" in name else gk.KIND_HIST, NG_SQL,
+                                 G))._asdict()
+            if turns is not None:
+                out[key][name]["before"] = turns
             log(f"[phase12] (iv) {name} n={n} G={G}: {out[key][name]}")
-        del codes, values, w64, mask, gid17, lane_ids, lane_ids17, acc, acc17, acc32, wide, ones
+        del codes, values, w64, mask, gid17, specs
         torch.cuda.empty_cache()
     return out
 
 
-def phase12(gk, single, table, seed: int) -> tuple[dict, dict]:
+def phase12(gk, single, table, seed: int, before=None) -> tuple[dict, dict]:
     """Phase 12 over phase 3's session and its unchanged 100M rows
     (``streaming_scan = 0``): (iv) the lane-batched kernels, (i) the plan
     cache, (ii) PREPARE / EXECUTE, (iii) the dispatcher, (v) EXPLAIN
-    ANALYZE.  -> (lane launches of (iii), measurements)."""
+    ANALYZE; with ``before`` (the compared commit's group_kernels) its lane
+    kernels are timed in turns with these, in (iv) and in (iii)'s profiled
+    ticks.  -> (lane launches of (iii), measurements)."""
     t0 = time.perf_counter()
-    out = {"kernels": lane_kernel_phase(gk, table.num_rows, seed)}
+    out = {"kernels": lane_kernel_phase(gk, table.num_rows, seed, before)}
     torch.cuda.empty_cache()
     refs = d_refs(table)
     with flag(single, "streaming_scan", 0):
         out["cache"] = cache_phase(gk, single, refs)
         out["prepared"] = prepared_phase(single, refs)
         launches = {k: 0 for k in LANE_KERNELS}
-        out["dispatch"] = dispatch_phase(gk, single, refs, seed)
+        out["dispatch"] = dispatch_phase(gk, single, refs, seed, before)
         for name in D_SHAPES:
             for k, v in out["dispatch"][name]["lane_launches"].items():
                 launches[k] += v
@@ -3002,7 +3181,7 @@ def main() -> int:
     phase_s = {}
     t0 = time.perf_counter()
     times = kernel_phase(gk, args.rows, args.seed, before)
-    times["segment_reduce"] = segment_phase(args.rows, args.seed)
+    times["segment_reduce"] = segment_phase(args.rows, args.seed, before)
     phase_s["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     table, refs = sql_table(args.rows, args.seed)
@@ -3012,7 +3191,7 @@ def main() -> int:
     mesh_launches, mesh_stats = mesh_sql_phase(gk, single, refs)
     mesh_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    lane_counts, p12 = phase12(gk, single, table, args.seed)
+    lane_counts, p12 = phase12(gk, single, table, args.seed, before)
     dispatch_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     htap_launches, htap_stats = htap_snapshot_phase(gk, single, table, refs, args.seed)

@@ -61,9 +61,7 @@ def _ids(s, sql):
 
 
 def _plan(s, sql):
-    # the JAX session annotates the other scans with their access path; the
-    # port's scans have one (the full scan)
-    return s.execute("EXPLAIN " + sql).plan_text.replace(" access=full", "")
+    return s.execute("EXPLAIN " + sql).plan_text
 
 
 def test_ann_ddl_and_explain_match_jax():
@@ -92,6 +90,26 @@ def test_ann_ddl_and_explain_match_jax():
     js.execute("ALTER TABLE vt ADD ANN INDEX (v)")
     ts.execute("ALTER TABLE vt ADD ANN INDEX (v)")
     assert ts.query("SHOW INDEX FROM vt") == js.query("SHOW INDEX FROM vt")
+
+
+@pytest.mark.parametrize("lit", ["1 2 3 4", "[1 2 3 4]", "1,2,3,4"])
+def test_ann_matcher_reads_the_reference_literal_grammar(lit):
+    """The matcher takes brackets with commas, as the JAX package's does:
+    other forms of a query vector (which INSERT and the distance functions
+    read in both packages) run the exact scan, with no ``ann(`` line, and
+    give the JAX session's rows."""
+    rng = np.random.RandomState(3)
+    vecs = rng.randn(1500, 4).astype(np.float32)
+    js, ts = _sessions("CREATE TABLE vt (id BIGINT, v VECTOR(4), ANN INDEX a (v))", vecs)
+    assert tann.parse_vec_literal(lit, 4) is None
+    assert tann.parse_vec_literal("[1,2,3,4]", 4) == (1.0, 2.0, 3.0, 4.0)
+    sql = f"SELECT id FROM vt ORDER BY l2_distance(v, '{lit}') LIMIT 5"
+    plan = _plan(ts, sql)
+    assert plan == _plan(js, sql) and "ann(" not in plan
+    assert _ids(ts, sql) == _ids(js, sql)
+    exact = np.argsort(((vecs - np.arange(1, 5, dtype=np.float32)) ** 2).sum(1),
+                       kind="stable")[:5]
+    assert _ids(ts, sql) == exact.tolist()
 
 
 def test_other_index_and_alter_forms_still_raise():

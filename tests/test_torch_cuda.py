@@ -1157,6 +1157,112 @@ def test_lane_kernels_match_their_plain_versions(cuda, n, ng, G, seed):
                 assert _same(got[g], want)
 
 
+def _lane_edges(fit: int) -> list:
+    """Lane counts around a tile of ``fit`` lanes and the ticks' 64."""
+    return sorted({1, max(1, fit - 1), fit + 1, 63, 64, 65})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode,S", [("private", 17), ("warp", 2048), ("block", 16384)])
+def test_segment_lane_tiles_equal_the_one_lane_kernel_bit_for_bit(cuda, mode, S):
+    """Every lane of the lane-tile kernel equals the one-lane kernel on
+    ``where(mask[L], gid, S)`` bit for bit, in each table layout, at lane
+    counts around the tile's edges, over a ragged row count with an all-dead
+    lane and NaN in MIN/MAX.  The warp and block layouts add float64 sums
+    with shared atomics in no fixed order, so their float64 values there are
+    whole numbers (every order gives the same sum); the private layout adds
+    in a fixed order and takes any values."""
+    from baikaldb_tpu_torch.ops import segments as seg
+
+    rng = np.random.default_rng(S)
+    n = 100_003
+    gid = torch.from_numpy(rng.integers(-1, S + 1, n).astype(np.int32)).to(cuda)
+    vals = rng.normal(size=n) * 1e3
+    f64 = torch.from_numpy(vals if mode == "private" else np.round(vals)).to(cuda)
+    f32 = torch.from_numpy(vals.astype(np.float32)).to(cuda)
+    f32[7] = float("nan")
+    f32[8] = -float("nan")
+    cases = [(f64, "sum"), (torch.ones(n, dtype=torch.int64, device=cuda), "sum"),
+             (f32, "min"), (f32, "max"), (torch.from_numpy(rng.integers(-9, 9, n)).to(cuda),
+                                          "max")]
+    for x, op in cases:
+        plan = seg.lane_plan(op, x.dtype, S, 64, mode)
+        assert plan.layout == mode
+        for G in _lane_edges(plan.fit):
+            mask = torch.from_numpy(rng.random((G, n)) < 0.6).to(cuda)
+            mask[G // 2] = False                 # an all-dead lane
+            before = seg.LANE_LAUNCHES["segment_reduce_lanes"].value
+            got = seg.segment_reduce_lanes(x, gid, mask, S, op, mode=mode)
+            torch.cuda.synchronize()
+            assert seg.LANE_LAUNCHES["segment_reduce_lanes"].value == before + 1
+            for g in range(G):
+                one = seg.segment_reduce(x, torch.where(mask[g], gid, S), S, op, mode=mode)
+                assert _same(got[g].double(), one.double()), (op, x.dtype, G, g)
+            for g in (0, G // 2, G - 1):
+                _seg_close(op, x, torch.where(mask[g], gid, S), S, got[g],
+                           seg.segment_reduce_plain(x, torch.where(mask[g], gid, S), S, op))
+
+
+@pytest.mark.cuda
+def test_lane_plans_match_the_kernels_tables(cuda):
+    """The Python lane plans' table bytes are the ones the kernels build."""
+    from baikaldb_tpu_torch.ops import segments as seg
+
+    slib = gk.library(seg.SOURCE, seg._bind)
+    for op, opc in seg._OPS.items():
+        for dtype, tcode in seg._TCODE.items():
+            for S in (1, 17, 64, 512, 2048, 4096, 16384):
+                for mode in ("auto", "warp", "block"):
+                    assert slib.bk_seg_table_bytes(opc, tcode, S, seg.MODES[mode]) == \
+                        seg.lane_plan(op, dtype, S, 8, mode).table_bytes
+    lib = gk._library()
+    for kind in (gk.KIND_HIST, gk.KIND_SUM):
+        for ng in (1, 17, 2049, 4096):
+            assert lib.bk_group_agg_lane_table_bytes(kind, ng) == \
+                gk.lane_plan(kind, ng, 8).table_bytes
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ng", [37, 2049, 4096])
+def test_k1_k3_lane_tiles_match_plain_at_tile_edges(cuda, ng):
+    """K1 and K3 over lane counts around their tiles' edges, on a ragged row
+    count (most lanes' mask rows are not 4-byte aligned) and an aligned one:
+    counts exact, sums within 1e-5 (float64 partials in another order,
+    rounded once)."""
+    rng = np.random.default_rng(ng)
+    fits = {gk.lane_plan(k, ng, 1).fit for k in (gk.KIND_SUM, gk.KIND_HIST)}
+    for n in (100_003, 65_536):
+        codes, values, _ = _inputs(n, ng, 0.5, n, cuda)
+        for G in sorted(set().union(*(_lane_edges(f) for f in fits))):
+            mask = torch.from_numpy(rng.random((G, n)) < 0.6).to(cuda)
+            mask[G // 2] = False
+            k1 = gk.filtered_group_sum_lanes(codes, values.double(), mask, ng)
+            k3 = gk.partition_histogram_lanes(codes, mask, ng)
+            for g in range(G):
+                p1 = gk.filtered_group_sum_plain(codes, values.double(), mask[g], ng)
+                assert torch.equal(k3[g], gk.partition_histogram_plain(codes, mask[g], ng))
+                assert torch.equal(k1[0][g], p1[0])
+                torch.testing.assert_close(k1[1][g], p1[1], rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_k1_k3_lane_tiles_count_exactly_above_2_pow_24(cuda):
+    """One group of 2^24 + 5 rows in every lane of two tiles, on an odd row
+    count: the int64 counts are exact in every lane."""
+    n = (1 << 24) + 5
+    codes = torch.zeros(n, dtype=torch.int32, device=cuda)
+    G = gk.lane_plan(gk.KIND_HIST, 2, 1).tile + 3
+    mask = torch.ones((G, n), dtype=torch.bool, device=cuda)
+    mask[-1, :10] = False
+    want = [n] * (G - 1) + [n - 10]
+    ones = torch.ones(n, device=cuda)
+    assert gk.filtered_group_sum_lanes(codes, ones, mask, 2)[0][:, 0].tolist() == want
+    assert gk.partition_histogram_lanes(codes, mask, 2)[:, 0].tolist() == want
+    # the float64 sums round once to float32
+    assert gk.filtered_group_sum_lanes(codes, ones, mask, 2)[1][:, 0].tolist() == \
+        torch.tensor(want, dtype=torch.float64).float().tolist()
+
+
 @pytest.mark.cuda
 def test_concurrent_group_on_the_card_matches_serial_rows(cuda):
     """D-a (chip_smoke.py phase 12) from 8 clients: the tick launches the

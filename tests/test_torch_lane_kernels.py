@@ -168,3 +168,93 @@ def test_lane_entries_reject_what_the_kernels_do_not_take():
     with pytest.raises(TypeError):
         tseg.segment_reduce_lanes(values, codes, torch.zeros((0, 10), dtype=torch.bool), 4,
                                   "sum")
+
+
+# -- the lane kernels' host plans (ops/segments.py lane_plan, ops/group_kernels.py
+# lane_plan): how many lanes a block carries, as many one-lane tables as fit
+# a block's shared memory, and how the lanes spread over the tiles.  The CUDA
+# side checks the tile against the tables it builds (tests/test_torch_cuda.py
+# holds the two plans' table bytes to the kernels' on the card).
+
+SEG_ACC_BYTES = {  # (op is sum, dtype) -> bytes of the kernel's accumulator
+    torch.bool: (4, 4), torch.int32: (4, 4), torch.int64: (8, 8),
+    torch.float32: (8, 4), torch.float64: (8, 8),
+}
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+@pytest.mark.parametrize("dtype", list(SEG_ACC_BYTES))
+@pytest.mark.parametrize("S", [1, 16, 17, 64, 512, 2048, 4096, 16384])
+def test_segment_lane_plan_fits_every_dtype_and_segment_count(op, dtype, S):
+    acc = SEG_ACC_BYTES[dtype][0 if op == "sum" else 1]
+    slot = acc * S
+    layout, nbytes = tseg.table_layout(op, dtype, S)
+    # the one-lane layout: a private copy a thread while 256 of them fit 48
+    # KB, else copies a warp within 64 KB, else one table a block
+    want = "private" if slot * 256 <= 48 * 1024 else "warp" if slot * 2 <= 64 * 1024 \
+        else "block"
+    assert layout == want
+    replicas = {"private": 256, "warp": max(1, min(8, 64 * 1024 // slot)), "block": 1}[layout]
+    assert nbytes == slot * replicas
+    for G in (1, 2, 5, 7, 8, 9, 63, 64, 65, 1000):
+        plan = tseg.lane_plan(op, dtype, S, G)
+        assert plan.layout == layout and plan.table_bytes == nbytes
+        assert 1 <= plan.tile <= tseg.LANE_TILE_MAX
+        assert plan.tile * nbytes <= tseg.LANE_SMEM_MAX
+        fit = min(tseg.LANE_TILE_MAX, tseg.LANE_SMEM_MAX // nbytes)
+        assert plan.fit == fit and plan.tiles == -(-G // fit)     # the fewest tiles
+        assert plan.tile * (plan.tiles - 1) < G <= plan.tile * plan.tiles
+
+
+@pytest.mark.parametrize("mode,S,dtype,fit", [
+    ("private", 17, torch.float64, 6),      # query (a)'s float64 sums: 34,816 bytes a lane
+    ("private", 17, torch.int64, 6),        # its COUNT(*)
+    ("private", 17, torch.int32, 13),       # int32 counts: 17,408 bytes
+    ("warp", 2048, torch.float64, 3),       # 4 copies of 16 KB
+    ("block", 2048, torch.float64, 14),     # one copy of 16 KB
+    ("block", 16384, torch.float64, 1),     # 128 KB: one lane a block
+    ("block", 16384, torch.int32, 3),       # 64 KB
+])
+def test_segment_lane_plan_in_each_table_mode(mode, S, dtype, fit):
+    """``fit``: the lanes whose tables fit 227 KB; a block carries at most
+    ``LANE_TILE_MAX`` of them."""
+    tile = min(fit, tseg.LANE_TILE_MAX)
+    plan = tseg.lane_plan("sum", dtype, S, 64, mode)
+    assert (plan.layout, plan.fit, plan.tile, plan.tiles) == \
+        (mode, tile, -(-64 // -(-64 // tile)), -(-64 // tile))
+    assert plan.tile * plan.table_bytes <= tseg.LANE_SMEM_MAX < (fit + 1) * plan.table_bytes
+
+
+def test_segment_lane_plan_refuses_a_private_table_past_the_limit():
+    with pytest.raises(ValueError):
+        tseg.table_layout("sum", torch.float64, 16384, "private")
+
+
+@pytest.mark.parametrize("fit", [1, 2, 3, 6, 8, 9, 16])
+def test_lane_tiles_spread_the_lanes_over_the_fewest_tiles(fit):
+    for G in list(range(1, 70)) + [255, 256, 257, 65535]:
+        tile, tiles = gk.lane_tiles(G, fit)
+        assert 1 <= tile <= fit and tiles == -(-G // fit)
+        sizes = [min(tile, G - k * tile) for k in range(tiles)]
+        assert sum(sizes) == G and min(sizes) >= 1
+        assert max(sizes) - min(sizes) <= tiles     # even but for the last tile
+        assert gk.lane_tiles(G, fit, tile=1) == (1, G)
+    with pytest.raises(ValueError):
+        gk.lane_tiles(8, fit, tile=fit + 1)
+
+
+@pytest.mark.parametrize("ng", [1, 2, 17, 37, 1000, 2049, 4096])
+def test_group_agg_lane_plan_fits_k1_and_k3_tables(ng):
+    for G, (kind, per_slot) in ((G, k) for G in (1, 8, 9, 15, 16, 17, 63, 64, 65)
+                                for k in ((gk.KIND_SUM, 12), (gk.KIND_HIST, 4))):
+        plan = gk.lane_plan(kind, ng, G)
+        assert plan.table_bytes == -(-per_slot * ng // 8) * 8      # whole words
+        assert plan.tile * plan.table_bytes <= gk.LANE_SMEM_MAX
+        assert 1 <= plan.tile <= gk.LANE_TILE_MAX
+        assert plan.fit == min(gk.LANE_TILE_MAX, gk.LANE_SMEM_MAX // plan.table_bytes)
+        assert plan.tiles == -(-G // plan.fit)
+        assert plan.tile * (plan.tiles - 1) < G <= plan.tile * plan.tiles
+    # the dense GROUP BY's 2049 slots: K1 carries 8 of 64 lanes a block, K3 16
+    if ng == 2049:
+        assert gk.lane_plan(gk.KIND_SUM, ng, 64)[2:] == (8, 8)
+        assert gk.lane_plan(gk.KIND_HIST, ng, 64)[2:] == (16, 4)

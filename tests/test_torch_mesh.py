@@ -338,9 +338,7 @@ SHUFFLED = {
 
 
 def _plan_text(s, sql: str) -> str:
-    # the JAX session annotates each scan's access path; the port's is the
-    # full scan
-    return s.execute("EXPLAIN " + sql).plan_text.replace(" access=full", "")
+    return s.execute("EXPLAIN " + sql).plan_text
 
 
 def _check_sql(sql_pair, sql):

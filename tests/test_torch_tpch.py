@@ -98,10 +98,7 @@ def test_stock_q20_has_no_rows_and_its_variant_has(tpch_sessions):
 
 
 def _plan_text(sess, sql: str) -> str:
-    # stripped: " access=full", the JAX session's annotation of the scan's
-    # access path (the port has one, the full scan).  Nothing else differs.
-    text = sess.execute("EXPLAIN " + sql).plan_text
-    return text.replace(" access=full", "")
+    return sess.execute("EXPLAIN " + sql).plan_text
 
 
 @pytest.mark.parametrize("name", list(ALL))
