@@ -78,10 +78,31 @@
 //   bounds it on the H100 is the shared-memory atomics a live row makes in
 //   every lane: K3's count, and K1's float64 add, a compare-and-swap loop
 //   (K1 reaches under a fifth of its byte bound at 8 lanes, K3 half).
-// - K2 (bk_fused_agg_lanes): blockIdx.y is the lane; a lane's blocks take the
-//   rows exactly as a one-lane call's blocks do, so each lane's counts, mins
-//   and maxs equal the one-lane call's on its mask, and each lane reads codes
-//   and values again: G * n * (4 + value bytes) + G * n mask bytes.
+// - K2 (bk_fused_agg_lanes, agg_lanes_kernel + agg_merge): block (tile, r)
+//   carries the K2 tables (20 bytes a slot) of up to AGG_LANE_MAX lanes in
+//   shared memory (4 at 2049 slots, 2 at 4096) and takes row-block r in
+//   chunks of two quads a thread.  Loads as K1/K3's tile: each quad's codes
+//   and values once for the tile, each lane's mask word once, a ragged n
+//   through four byte loads.  The tables fill the SM's shared memory, so a
+//   block is alone on its SM (16 warps), and each thread keeps the loads of
+//   two chunks in flight while it updates the tables from a third (one
+//   chunk in flight took 1.2x as long at D-b's masks).  A live row-lane takes
+//   the one-lane kernel's update (agg_row: a count atomic, the float64
+//   compare-and-swap add, the (min, max) read).  A slot-owned update (each
+//   chunk bucketed by slot with one uint32 atomic a row, each thread folding
+//   its slots' rows in registers with no compare-and-swap) and staged runs
+//   of one slot were built and measured no faster at 60% live and slower at
+//   D-b's 2% (PERF.md, section 6): their scan, staging and barriers cost what
+//   the compare-and-swap loops they remove cost, at ~2 rows a slot a chunk.
+//   Each block stores its lanes' tables to rows (lane, r) of a [lanes,
+//   row-blocks, ng] workspace, which agg_merge reduces per (lane, slot) in a
+//   fixed order.  Counts and MIN/MAX are exact; sums are float64 partials in
+//   another order than the one-lane call's, rounded once.  Device-memory
+//   bytes: G * n mask bytes + about one read of codes and values (the tiles
+//   of a row-block read them from L2).  What bounds it: the loads reach
+//   about 1.7 TB/s of L1 fills at one block an SM, and at 60% live the
+//   compare-and-swap loops a live row-lane, which 16 warps hide worse than
+//   the one-lane kernel's 32.
 //
 // Host side: the dynamic-shared-memory attribute, the SM count and the
 // occupancy answer are queried once per (kernel, device, table size) and
@@ -115,6 +136,8 @@ constexpr int LANE_TILE_MAX = 16;     // lanes one block of group_agg_lanes_kern
 constexpr size_t LANE_SMEM_MAX = 232448;   // 227 KB: one block's shared memory on sm_90
 constexpr int MERGE_SLOTS = 32;       // slots of one agg_merge block, one a lane
 constexpr int MERGE_WARPS = 16;       // warps of one agg_merge block, splitting the rows
+constexpr int AGG_LANE_MAX = 4;       // lanes one block of agg_lanes_kernel carries
+constexpr int CHUNK_QUADS = 2 * AGG_THREADS;   // quads agg_lanes_kernel loads at a time
 
 // float32 -> int32 whose signed order is the float order (NaN aside).
 __device__ __forceinline__ int ordered_int(float v) {
@@ -141,6 +164,11 @@ __host__ __device__ inline size_t lane_table_bytes(int kind, int ng) {
 // K2's table: sums, (min, max) pairs, counts.
 __host__ __device__ inline size_t agg_table_bytes(int ng) {
     return (sizeof(double) + sizeof(int2) + sizeof(unsigned int)) * ng;
+}
+
+// One lane's table in agg_lanes_kernel: agg_table_bytes in whole words.
+__host__ __device__ inline size_t agg_lane_table_bytes(int ng) {
+    return (agg_table_bytes(ng) + 7) & ~static_cast<size_t>(7);
 }
 
 __global__ void init_workspace(int kind, int ng, unsigned long long* counts, double* sums) {
@@ -426,7 +454,6 @@ agg_kernel(const int* __restrict__ codes, const V* __restrict__ values,
     }
     __syncthreads();
 
-    mask += static_cast<size_t>(blockIdx.y) * n;     // this lane's mask row
     const int lane = threadIdx.x & 31;
     const long long warp = ((long long)blockIdx.x * AGG_THREADS + threadIdx.x) >> 5;
     const long long step = (((long long)gridDim.x * AGG_THREADS) >> 5) * WARP_QUADS;
@@ -453,9 +480,8 @@ agg_kernel(const int* __restrict__ codes, const V* __restrict__ values,
     }
     __syncthreads();
 
-    // lane L's blocks own rows [L * blocks, (L + 1) * blocks) of the workspace
-    const AggTable w = agg_table(ws, static_cast<size_t>(gridDim.y) * gridDim.x * ng);
-    const size_t row = (static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x) * ng;
+    const AggTable w = agg_table(ws, static_cast<size_t>(gridDim.x) * ng);
+    const size_t row = static_cast<size_t>(blockIdx.x) * ng;
     for (int g = threadIdx.x; g < ng; g += AGG_THREADS) {
         w.sums[row + g] = t.sums[g];
         w.ext[row + g] = t.ext[g];
@@ -466,7 +492,7 @@ agg_kernel(const int* __restrict__ codes, const V* __restrict__ values,
 // Reduces the `blocks` rows of the workspace per slot; -> int64 counts and
 // float32 outputs out[0:ng] sums, [ng:2ng] mins, [2ng:3ng] maxs.  Lane
 // blockIdx.y reads its own `blocks` rows and writes counts[L * ng ...] and
-// out[L * 3 * ng ...].
+// out[L * 3 * ng ...] (agg_kernel fills one lane, agg_lanes_kernel many).
 __global__ void __launch_bounds__(MERGE_SLOTS * MERGE_WARPS)
 agg_merge(int blocks, int ng, const void* __restrict__ ws, long long* __restrict__ counts,
           float* __restrict__ out) {
@@ -513,6 +539,134 @@ agg_merge(int blocks, int ng, const void* __restrict__ ws, long long* __restrict
     const float nan = __int_as_float(0x7FC00000);
     out[ng + g] = mx == NAN_KEY ? nan : ordered_float(mn);
     out[2 * ng + g] = mx == NAN_KEY ? nan : ordered_float(mx);
+}
+
+// ---------------------------------------------------------------------------
+// K2 over a tile of lanes
+
+// The two quads one thread takes in a chunk (quads q and q + AGG_THREADS):
+// codes, values and one mask word a lane of the tile, as loaded.
+struct ChunkQuads {
+    int4 c[2];
+    float v[2][4];
+    unsigned int m[2][AGG_LANE_MAX];
+
+    template <typename V>
+    __device__ __forceinline__ void load(const int4* c4, const V* vq, const bool* mask,
+                                         long long n, long long quads, int nl,
+                                         unsigned int aligned, long long q) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j, q += AGG_THREADS) {
+            if (q >= quads) {
+                c[j] = make_int4(-1, -1, -1, -1);
+#pragma unroll
+                for (int l = 0; l < AGG_LANE_MAX; ++l) m[j][l] = 0u;
+                continue;
+            }
+            c[j] = __ldg(c4 + q);       // kept in L2 for the row-block's other tiles
+            load_quad_keep(vq + 4 * q, v[j]);
+#pragma unroll
+            for (int l = 0; l < AGG_LANE_MAX; ++l)
+                m[j][l] = l < nl ? mask_quad(mask + static_cast<size_t>(l) * n + 4 * q,
+                                             (aligned >> l) & 1u)
+                                 : 0u;
+        }
+    }
+};
+
+// A quad's mask words, one a lane of the tile, as one word: byte r holds
+// row r's lanes, one bit each.
+__device__ __forceinline__ unsigned int quad_lanes(const unsigned int m[AGG_LANE_MAX]) {
+    unsigned int packed = 0u;
+#pragma unroll
+    for (int l = 0; l < AGG_LANE_MAX; ++l) packed |= (__vcmpne4(m[l], 0u) & 0x01010101u) << l;
+    return packed;
+}
+
+// Block (tile, r): the lanes [tile * lt, min(lanes, (tile + 1) * lt)) over
+// the chunks r, r + R, ... of rows [head, head + 4 * quads); the other rows
+// through the scalar loop.  Lane l's table lands in row (first + l) * R + r
+// of the workspace.
+template <typename V>
+__global__ void __launch_bounds__(AGG_THREADS, 1)
+agg_lanes_kernel(const int* __restrict__ codes, const V* __restrict__ values,
+                 const bool* __restrict__ mask, long long n, long long head, long long quads,
+                 int ng, int lanes, int lt, void* __restrict__ ws) {
+    extern __shared__ __align__(8) unsigned char smem[];
+    const int first = blockIdx.x * lt;
+    const int nl = min(lt, lanes - first);
+    const size_t lane_bytes = agg_lane_table_bytes(ng);
+    for (int i = threadIdx.x; i < nl * ng; i += AGG_THREADS) {
+        const int l = i / ng, g = i - l * ng;
+        const AggTable t = agg_table(smem + l * lane_bytes, ng);
+        t.sums[g] = 0.0;
+        t.ext[g] = make_int2(ordered_int(BIG), ordered_int(-BIG));
+        t.counts[g] = 0u;
+    }
+    __syncthreads();
+
+    mask += static_cast<size_t>(first) * n;
+    unsigned int aligned = 0u;      // lanes whose mask row is 4-byte aligned at `head`
+    for (int l = 0; l < nl; ++l)
+        if ((reinterpret_cast<uintptr_t>(mask + static_cast<size_t>(l) * n + head) & 3u) == 0)
+            aligned |= 1u << l;
+    const int4* c4 = reinterpret_cast<const int4*>(codes + head);
+    const V* vq = values + head;
+    const bool* mh = mask + head;
+    const long long chunks = (quads + CHUNK_QUADS - 1) / CHUNK_QUADS;
+    // each thread keeps the loads of two chunks in flight while it updates
+    // the tables from a third
+    ChunkQuads cur, next, after;
+    long long k = blockIdx.y;
+    cur.load(c4, vq, mh, n, quads, nl, aligned, k * CHUNK_QUADS + threadIdx.x);
+    next.load(c4, vq, mh, n, quads, nl, aligned, (k + gridDim.y) * CHUNK_QUADS + threadIdx.x);
+    for (; k < chunks; k += gridDim.y) {
+        after.load(c4, vq, mh, n, quads, nl, aligned,
+                   (k + 2 * gridDim.y) * CHUNK_QUADS + threadIdx.x);
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+            const unsigned int packed = quad_lanes(cur.m[j]);
+            const int g[4] = {cur.c[j].x, cur.c[j].y, cur.c[j].z, cur.c[j].w};
+#pragma unroll
+            for (int r = 0; r < 4; ++r) {
+                if (static_cast<unsigned int>(g[r]) >= static_cast<unsigned int>(ng)) continue;
+                const unsigned int bits = (packed >> (8 * r)) & 0xFFu;
+#pragma unroll
+                for (int l = 0; l < AGG_LANE_MAX; ++l)
+                    if ((bits >> l) & 1u)
+                        agg_row(agg_table(smem + l * lane_bytes, ng), ng, g[r], true,
+                                cur.v[j][r]);
+            }
+        }
+        cur = next;
+        next = after;
+    }
+
+    // scalar rows: the head [0, head) and the tail [head + 4 * quads, n)
+    const long long tail = head + 4 * quads;
+    const long long scalar_rows = head + (n - tail);
+    const long long stride = (long long)gridDim.y * AGG_THREADS;
+    for (long long i0 = (long long)blockIdx.y * AGG_THREADS + threadIdx.x; i0 < scalar_rows;
+         i0 += stride) {
+        const long long i = i0 < head ? i0 : tail + (i0 - head);
+        const int g = codes[i];
+        if (static_cast<unsigned int>(g) >= static_cast<unsigned int>(ng)) continue;
+        const float v = static_cast<float>(values[i]);
+        for (int l = 0; l < nl; ++l)
+            if (mask[static_cast<size_t>(l) * n + i])
+                agg_row(agg_table(smem + l * lane_bytes, ng), ng, g, true, v);
+    }
+    __syncthreads();
+
+    const AggTable w = agg_table(ws, static_cast<size_t>(lanes) * gridDim.y * ng);
+    for (int i = threadIdx.x; i < nl * ng; i += AGG_THREADS) {
+        const int l = i / ng, g = i - l * ng;
+        const AggTable t = agg_table(smem + l * lane_bytes, ng);
+        const size_t o = (static_cast<size_t>(first + l) * gridDim.y + blockIdx.y) * ng + g;
+        w.sums[o] = t.sums[g];
+        w.ext[o] = t.ext[g];
+        w.counts[o] = t.counts[g];
+    }
 }
 
 // ---------------------------------------------------------------------------
@@ -619,7 +773,7 @@ cudaError_t agg_blocks(int device, long long n, int ng, int* blocks) {
 
 template <typename V>
 cudaError_t launch_agg(const void* codes, const void* values, const void* mask, long long n,
-                       int ng, int blocks, int lanes, void* ws, long long* counts, float* out,
+                       int ng, int blocks, void* ws, long long* counts, float* out,
                        cudaStream_t stream) {
     // the vector loop starts at the codes' first 16-byte boundary; values and
     // mask must be aligned at that row too, or every row goes scalar
@@ -628,19 +782,68 @@ cudaError_t launch_agg(const void* codes, const void* values, const void* mask, 
     const uintptr_t pm = reinterpret_cast<uintptr_t>(mask);
     long long head = static_cast<long long>(((16 - pc % 16) % 16) / sizeof(int));
     if (head > n) head = n;
-    // every lane's mask row must be aligned at that row as well
     const bool aligned = pc % sizeof(int) == 0 && (pm + head) % 4 == 0 &&
-                         (pv + head * sizeof(V)) % 16 == 0 && (lanes == 1 || n % 4 == 0);
+                         (pv + head * sizeof(V)) % 16 == 0;
     long long quads = 0;
     if (aligned) quads = (n - head) / 4;
     else head = n;
-    agg_kernel<V><<<dim3(blocks, lanes), AGG_THREADS, agg_table_bytes(ng), stream>>>(
+    agg_kernel<V><<<blocks, AGG_THREADS, agg_table_bytes(ng), stream>>>(
         static_cast<const int*>(codes), static_cast<const V*>(values),
         static_cast<const bool*>(mask), n, head, quads, ng, ws);
     cudaError_t err = cudaGetLastError();
     if (err != cudaSuccess) return err;
+    agg_merge<<<(ng + MERGE_SLOTS - 1) / MERGE_SLOTS, MERGE_SLOTS * MERGE_WARPS, 0, stream>>>(
+        blocks, ng, ws, counts, out);
+    return cudaGetLastError();
+}
+
+// K2 over `lanes` lanes in tiles of `lt`: the row-blocks of one wave (at
+// most one a chunk, at least 1).  Also sets the kernel's shared-memory limit.
+template <typename V>
+cudaError_t agg_lane_rows(int device, long long n, int ng, int lanes, int lt, int* rows) {
+    const size_t smem = lt * agg_lane_table_bytes(ng);
+    if (lt < 1 || lt > AGG_LANE_MAX || smem > LANE_SMEM_MAX) return cudaErrorInvalidValue;
+    int cap = 0;
+    cudaError_t err = grid_cap(reinterpret_cast<const void*>(&agg_lanes_kernel<V>), device,
+                               AGG_THREADS, smem, LANE_SMEM_MAX, &cap);
+    if (err != cudaSuccess) return err;
+    const int tiles = (lanes + lt - 1) / lt;
+    const long long chunks = (n / 4 + CHUNK_QUADS - 1) / CHUNK_QUADS;
+    long long r = cap / tiles;
+    if (r > chunks) r = chunks;
+    *rows = static_cast<int>(r < 1 ? 1 : r);
+    return cudaSuccess;
+}
+
+// K2 over `lanes` lanes in tiles of `lt` over `rows` row-blocks
+// (agg_lane_rows), then agg_merge of each lane's `rows` tables.
+template <typename V>
+cudaError_t launch_agg_lanes(int device, const void* codes, const void* values,
+                             const void* mask, long long n, int ng, int lanes, int lt, int rows,
+                             void* ws, long long* counts, float* out, cudaStream_t stream) {
+    int planned = 0;      // agg_lane_rows checks the tile and sets the shared-memory limit
+    cudaError_t err = agg_lane_rows<V>(device, n, ng, lanes, lt, &planned);
+    if (err != cudaSuccess) return err;
+    // the quad loop starts at the codes' first 16-byte boundary; values must
+    // be aligned at that row too, or every row goes scalar (each lane's mask
+    // row is checked in the kernel)
+    const uintptr_t pc = reinterpret_cast<uintptr_t>(codes);
+    const uintptr_t pv = reinterpret_cast<uintptr_t>(values);
+    long long head = static_cast<long long>(((16 - pc % 16) % 16) / sizeof(int));
+    if (head > n) head = n;
+    const bool aligned = pc % sizeof(int) == 0 && (pv + head * sizeof(V)) % 16 == 0;
+    long long quads = 0;
+    if (aligned) quads = (n - head) / 4;
+    else head = n;
+    const int tiles = (lanes + lt - 1) / lt;
+    agg_lanes_kernel<V><<<dim3(tiles, rows), AGG_THREADS, lt * agg_lane_table_bytes(ng),
+                          stream>>>(
+        static_cast<const int*>(codes), static_cast<const V*>(values),
+        static_cast<const bool*>(mask), n, head, quads, ng, lanes, lt, ws);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
     agg_merge<<<dim3((ng + MERGE_SLOTS - 1) / MERGE_SLOTS, lanes), MERGE_SLOTS * MERGE_WARPS, 0,
-                stream>>>(blocks, ng, ws, counts, out);
+                stream>>>(rows, ng, ws, counts, out);
     return cudaGetLastError();
 }
 
@@ -746,35 +949,63 @@ long long bk_fused_agg_ws_bytes(int blocks, int ng) {
 // K2: count + sum + min + max.  ws: 8-byte aligned workspace of
 // bk_fused_agg_ws_bytes(blocks, ng) bytes; counts: int64[ng]; out:
 // float32[3 * ng] (sums, mins, maxs).
-int bk_fused_agg_lanes(int device, int value_f64, const void* codes, const void* values,
-                       const void* mask, long long n, int ng, int lanes, int blocks, void* ws,
-                       void* counts, void* out, void* stream_ptr);
-
 int bk_fused_agg(int device, int value_f64, const void* codes, const void* values,
                  const void* mask, long long n, int ng, int blocks, void* ws, void* counts,
                  void* out, void* stream_ptr) {
-    return bk_fused_agg_lanes(device, value_f64, codes, values, mask, n, ng, 1, blocks, ws,
-                              counts, out, stream_ptr);
-}
-
-// K2 over `lanes` lanes: mask [lanes, n]; `blocks` is bk_fused_agg_blocks'
-// answer for one lane and every lane launches that many; ws takes lanes *
-// bk_fused_agg_ws_bytes(blocks, ng) bytes; counts int64 [lanes, ng]; out
-// float32 [lanes, 3, ng] (each lane's sums, mins, maxs).
-int bk_fused_agg_lanes(int device, int value_f64, const void* codes, const void* values,
-                       const void* mask, long long n, int ng, int lanes, int blocks, void* ws,
-                       void* counts, void* out, void* stream_ptr) {
-    if (ng < 1 || ng > MAX_GROUPS || n < 0 || blocks < 1 || lanes < 1 || lanes > 65535)
+    if (ng < 1 || ng > MAX_GROUPS || n < 0 || blocks < 1)
         return static_cast<int>(cudaErrorInvalidValue);
     cudaError_t err = cudaSetDevice(device);
     if (err != cudaSuccess) return static_cast<int>(err);
     cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
     auto* c = static_cast<long long*>(counts);
     auto* o = static_cast<float*>(out);
-    err = value_f64
-        ? launch_agg<double>(codes, values, mask, n, ng, blocks, lanes, ws, c, o, stream)
-        : launch_agg<float>(codes, values, mask, n, ng, blocks, lanes, ws, c, o, stream);
+    err = value_f64 ? launch_agg<double>(codes, values, mask, n, ng, blocks, ws, c, o, stream)
+                    : launch_agg<float>(codes, values, mask, n, ng, blocks, ws, c, o, stream);
     return static_cast<int>(err);
 }
+
+// K2 over `lanes` lanes, `lane_tile` lanes a block (1..AGG_LANE_MAX, their
+// tables within 227 KB): the row-blocks of its grid; its
+// workspace takes bk_fused_agg_ws_bytes(lanes * rows, ng) bytes.  A value <= 0
+// is minus a cudaError_t.
+int bk_fused_agg_lane_rows(int device, int value_f64, long long n, int ng, int lanes,
+                           int lane_tile) {
+    if (ng < 1 || ng > MAX_GROUPS || n < 0 || lanes < 1 || lanes > 65535)
+        return -static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return -static_cast<int>(err);
+    int rows = 0;
+    err = value_f64 ? agg_lane_rows<double>(device, n, ng, lanes, lane_tile, &rows)
+                    : agg_lane_rows<float>(device, n, ng, lanes, lane_tile, &rows);
+    return err == cudaSuccess ? rows : -static_cast<int>(err);
+}
+
+// K2 over `lanes` lanes: mask [lanes, n]; `rows` is bk_fused_agg_lane_rows'
+// answer; ws takes bk_fused_agg_ws_bytes(lanes * rows, ng) bytes; counts
+// int64 [lanes, ng]; out float32 [lanes, 3, ng] (each lane's sums, mins,
+// maxs).
+int bk_fused_agg_lanes(int device, int value_f64, const void* codes, const void* values,
+                       const void* mask, long long n, int ng, int lanes, int lane_tile,
+                       int rows, void* ws, void* counts, void* out, void* stream_ptr) {
+    if (ng < 1 || ng > MAX_GROUPS || n < 0 || rows < 1 || lanes < 1 || lanes > 65535)
+        return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err = cudaSetDevice(device);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    cudaStream_t stream = static_cast<cudaStream_t>(stream_ptr);
+    auto* c = static_cast<long long*>(counts);
+    auto* o = static_cast<float*>(out);
+    err = value_f64 ? launch_agg_lanes<double>(device, codes, values, mask, n, ng, lanes,
+                                               lane_tile, rows, ws, c, o, stream)
+                    : launch_agg_lanes<float>(device, codes, values, mask, n, ng, lanes,
+                                              lane_tile, rows, ws, c, o, stream);
+    return static_cast<int>(err);
+}
+
+// agg_lanes_kernel's tile (ops/group_kernels.py lane_plan computes the
+// same): one lane's table in bytes, and the most lanes a block.
+long long bk_fused_agg_lane_table_bytes(int ng) {
+    return static_cast<long long>(agg_lane_table_bytes(ng));
+}
+int bk_fused_agg_lane_max() { return AGG_LANE_MAX; }
 
 }  // extern "C"

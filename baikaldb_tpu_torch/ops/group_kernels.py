@@ -29,11 +29,11 @@ shared by the lanes, ``mask`` is ``[G, N]`` (one row a lane) and every
 output is ``[G, num_groups]``; lane ``g``'s result equals the one-lane call
 on ``mask[g]`` (its sums up to the order of the float64 additions).  On a
 CUDA tensor it is ONE launch over all lanes
-(``LANE_LAUNCHES[f"{name}_lanes"]``): K1 and K3 carry a tile of lanes a
+(``LANE_LAUNCHES[f"{name}_lanes"]``): each kernel carries a tile of lanes a
 block (``lane_plan``: as many lanes' tables as fit a block's shared memory,
-at most ``LANE_TILE_MAX``) and load codes and values once for the tile; K2
-launches its one-lane grid a lane.  On a CPU tensor its plain version, the
-per-lane loop over the one-lane plain function.
+at most ``LANE_TILE_MAX``, for K2 ``AGG_LANE_MAX``) and loads codes and
+values once for the tile.  On a CPU tensor its plain version, the per-lane
+loop over the one-lane plain function.
 
 The build machinery here (``build``, ``build_all``, ``library``) serves
 every CUDA source of the port (``SOURCES``): one ``nvcc`` per source, the
@@ -56,9 +56,10 @@ from ..utils import metrics
 
 MAX_GROUPS = 4096
 _BIG = 3.4e38                     # empty-group min/max sentinel (float32)
-KIND_HIST, KIND_SUM = 0, 1
+KIND_HIST, KIND_SUM, KIND_AGG = 0, 1, 2     # K3, K1, K2 in lane_plan
 LANE_TILE_MAX = 16                # lanes one block of K1/K3's lane kernel carries
 LANE_SMEM_MAX = 232448            # 227 KB: one block's shared memory on sm_90
+AGG_LANE_MAX = 4                  # lanes one block of K2's lane kernel carries
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {name: os.path.join(_HERE, "csrc", f"{name}.cu")
@@ -309,12 +310,16 @@ class LanePlan(NamedTuple):
 
 
 def lane_plan(kind: int, num_groups: int, lanes: int, tile: int | None = None) -> LanePlan:
-    """K1/K3's lane tiles: a lane's table is ``num_groups`` uint32 counts
-    (and float64 sums for K1) in whole words; as many as fit
-    ``LANE_SMEM_MAX``, at most ``LANE_TILE_MAX`` (csrc/group_agg.cu
-    lane_table_bytes)."""
-    nbytes = -(-(4 + (8 if kind == KIND_SUM else 0)) * int(num_groups) // 8) * 8
-    fit = min(LANE_TILE_MAX, LANE_SMEM_MAX // nbytes)
+    """The lane tiles of K1/K3 and of K2 (``KIND_AGG``): a lane's table is
+    ``num_groups`` uint32 counts (and float64 sums for K1; float64 sums,
+    int32 (min, max) pairs and uint32 counts, 20 bytes a slot, for K2) in
+    whole words; as many as fit ``LANE_SMEM_MAX``, at most ``LANE_TILE_MAX``
+    (K2 ``AGG_LANE_MAX``) (csrc/group_agg.cu lane_table_bytes,
+    agg_lane_table_bytes)."""
+    per_slot = {KIND_HIST: 4, KIND_SUM: 12, KIND_AGG: 20}[kind]
+    nbytes = -(-per_slot * int(num_groups) // 8) * 8
+    most = AGG_LANE_MAX if kind == KIND_AGG else LANE_TILE_MAX
+    fit = min(most, LANE_SMEM_MAX // nbytes)
     return LanePlan(nbytes, fit, *lane_tiles(lanes, fit, tile))
 
 
@@ -343,25 +348,27 @@ def _launch_lanes(name, kind, codes, values, mask, ng: int, tile: int | None = N
     return buf[0].view(G, ng), buf[2].view(torch.float32)[:slots].view(G, ng)
 
 
-def _launch_agg_lanes(codes, values, mask, ng: int):
-    """K2 over G lanes: each lane launches the one-lane call's blocks; one
-    int64 buffer of the [G, ng] counts, the float32 [G, 3, ng] outputs
-    (rounded up to whole words) and the lanes' workspace."""
+def _launch_agg_lanes(codes, values, mask, ng: int, tile: int | None = None):
+    """K2 over G lanes in the tiles of ``lane_plan(KIND_AGG, ...)``
+    (``tile`` forces the lanes a block): one int64 buffer of the [G, ng]
+    counts, the float32 [G, 3, ng] outputs (rounded up to whole words) and
+    the workspace, one table a lane and row-block."""
     lib = _library()
     dev = codes.device
     device = _device_index(dev)
     f64 = int(values.dtype is torch.float64)
     G, n = mask.shape
-    blocks = lib.bk_fused_agg_blocks(device, f64, n, ng)
-    if blocks <= 0:
+    tile = lane_plan(KIND_AGG, ng, G, tile).tile
+    rows = lib.bk_fused_agg_lane_rows(device, f64, n, ng, G, tile)
+    if rows <= 0:
         raise RuntimeError(f"fused_group_aggregate_lanes: launch geometry failed with error "
-                           f"{-blocks}")
+                           f"{-rows}")
     fwords = -(-3 * G * ng // 2)
-    ws_words = -(-G * lib.bk_fused_agg_ws_bytes(blocks, ng) // 8)
+    ws_words = -(-lib.bk_fused_agg_ws_bytes(G * rows, ng) // 8)
     buf = torch.empty(G * ng + fwords + ws_words, dtype=torch.int64, device=dev)
     base = buf.data_ptr()
     err = lib.bk_fused_agg_lanes(device, f64, codes.data_ptr(), values.data_ptr(),
-                                 mask.data_ptr(), n, ng, G, blocks,
+                                 mask.data_ptr(), n, ng, G, tile, rows,
                                  base + 8 * (G * ng + fwords), base, base + 8 * G * ng,
                                  torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
@@ -473,8 +480,16 @@ def _bind(lib) -> None:
             (LANE_TILE_MAX, LANE_SMEM_MAX):
         raise RuntimeError("csrc/group_agg.cu and ops/group_kernels.py disagree on "
                            "LANE_TILE_MAX or LANE_SMEM_MAX")
-    lib.bk_fused_agg_lanes.argtypes = [i32, i32, vp, vp, vp, i64, i32, i32, i32, vp, vp, vp, vp]
+    lib.bk_fused_agg_lane_rows.argtypes = [i32, i32, i64, i32, i32, i32]
+    lib.bk_fused_agg_lane_rows.restype = i32
+    lib.bk_fused_agg_lanes.argtypes = [i32, i32, vp, vp, vp, i64, i32, i32, i32, i32, vp, vp, vp,
+                                       vp]
     lib.bk_fused_agg_lanes.restype = i32
+    lib.bk_fused_agg_lane_table_bytes.argtypes = [i32]
+    lib.bk_fused_agg_lane_table_bytes.restype = i64
+    lib.bk_fused_agg_lane_max.restype = i32
+    if lib.bk_fused_agg_lane_max() != AGG_LANE_MAX:
+        raise RuntimeError("csrc/group_agg.cu and ops/group_kernels.py disagree on AGG_LANE_MAX")
 
 
 def _library():

@@ -174,8 +174,8 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    batched dispatcher, ``exec/{dispatch,lanes}.py``), right after phase 10
    (i), in phase 3's session over its unchanged 100M rows
    (``streaming_scan = 0``).  (iv) K1, K2, K3 and the segment kernel with a
-   lane axis (``*_lanes``: one launch over G masks; K1/K3 and the segment
-   kernel carry a tile of lanes a block) against their plain versions (the
+   lane axis (``*_lanes``: one launch over G masks; each kernel carries a
+   tile of lanes a block) against their plain versions (the
    per-lane loops; five lanes at 100M rows x 64) and every lane against the
    one-lane kernels at ``--rows`` rows with G = 8 and 64 and at 10,000,019
    rows with G = 64: an all-dead lane, a lane of one live row, NaN in
@@ -183,11 +183,13 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    MIN/MAX exact, sums as in phase 2, every segment-kernel lane
    bit-identical to the one-lane kernel; then the tiles' edges
    (``lane_edge_cases``: the segment kernel's private, warp and block
-   tables at 17, 2,048 and 16,384 slots and K1/K3 at 2049, over lane counts
-   around each tile and 63-65, ragged row counts); timed at 100M rows x 8
-   and x 64 and at 10,000,019 x 64 against the byte bound (the G masks
-   plus one read of codes and values), the library call in chunks of 8
-   lanes.  (i) (a)-(c)
+   tables at 17, 2,048 and 16,384 slots, K1/K3 at 2049 and K2 at 37, 2049
+   and 4096, over lane counts around each tile and 63-65, ragged row
+   counts; K2 also with every code in one slot and at D-b's masks); timed
+   at 100M rows x 8 and x 64 and at 10,000,019 x 64 against the byte bound
+   (the G masks plus one read of codes and values), the library call in
+   chunks of 8 lanes, K2 also at D-b's masks (about 2% live) and with the
+   bytes a call allocates.  (i) (a)-(c)
    with 30 literal variants of the WHERE threshold, the plan cache on and
    with ``plan_cache_size = 0`` (warm p50 / p67, the ``plan.*`` spans of a
    traced pass, the counter deltas), every variant against numpy (sorted
@@ -205,7 +207,8 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    ``dispatch_fallbacks`` at most the overflowed lanes; serial and
    concurrent walls, statements/s, p50 / p99, ticks and the occupancy
    histogram, queue-wait p50, one tick of the 64 clients' first statements
-   profiled through the lane program (device ms, idle share), peak memory.
+   profiled through the lane program (device ms, K2's device ms, idle
+   share), peak memory.
    (v) EXPLAIN ANALYZE of (a)-(c): the scan's and the aggregate's live rows
    equal numpy's, the ``-- dispatch`` and ``-- params`` lines present, the
    D shapes' literals hoisted (``pinned=0``).  ``dispatch phase seconds``.
@@ -229,6 +232,7 @@ import importlib.util
 import contextlib
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -277,6 +281,8 @@ EXPECTED_LAUNCHES = {
     "c": {"filtered_group_sum": 1, "partition_histogram": 1},
 }
 MESH_SHARDS = 8
+# K2's kernels by name in a profile (not K1/K3's group_agg_*kernel)
+K2_KERNEL = re.compile(r"(?<![A-Za-z_])agg_(lanes_)?kernel<|(?<![A-Za-z_])agg_merge\(")
 # launches of each shard's partial on the mesh: (a)'s AVG shares SUM's partial
 MESH_EXPECTED_LAUNCHES = EXPECTED_LAUNCHES | {"a": {"segment_reduce": 7}}
 
@@ -784,9 +790,11 @@ def check_rows(name, rows, ref, has_count=True, has_min=True):
 
 def device_breakdown(run, wall_ms: float, host_ops: bool = True) -> dict:
     """One profiled run: device time summed over CUDA kernels and copies,
-    the idle share of the unprofiled wall time, and the top kernels.
-    ``host_ops=False`` traces the device alone (a streamed run launches too
-    many host operators to trace them all cheaply)."""
+    the idle share of the unprofiled wall time, the top kernels, and K2's
+    kernels' device time (``k2_device_ms``: ``agg_lanes_kernel``,
+    ``agg_kernel`` and ``agg_merge``).  ``host_ops=False`` traces the device
+    alone (a streamed run launches too many host operators to trace them all
+    cheaply)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -800,6 +808,7 @@ def device_breakdown(run, wall_ms: float, host_ops: bool = True) -> dict:
     top = sorted(dev, key=lambda kv: -kv[1])[:4]
     return {"device_ms": busy, "idle_share": max(0.0, 1.0 - busy / wall_ms),
             "top_kernels": [[k[:60], ms] for k, ms in top],
+            "k2_device_ms": sum(ms for k, ms in dev if K2_KERNEL.search(k)),
             "device_ops": sum(e.count for e in prof.key_averages()
                               if e.device_type == DeviceType.CUDA),
             "kernel_names": sorted(k for k, _ in dev)}
@@ -2761,11 +2770,15 @@ def dispatch_phase(gk, single, refs, seed: int, before=None) -> dict:
         if before is not None:
             # the compared commit's lane kernels in this lane program, in turns
             ticks_dev = {"before": [], "this": [tick["device_ms"]]}
+            k2_dev = {"before": [], "this": [tick["k2_device_ms"]]}
             for who in ("before", "this", "before"):
                 with (compared_lane_kernels(before) if who == "before"
                       else contextlib.nullcontext()):
-                    ticks_dev[who].append(tick_breakdown(gk, s, firsts, serial)["device_ms"])
+                    t = tick_breakdown(gk, s, firsts, serial)
+                ticks_dev[who].append(t["device_ms"])
+                k2_dev[who].append(t["k2_device_ms"])
             tick["device_ms_in_turns"] = ticks_dev
+            tick["k2_device_ms_in_turns"] = k2_dev
         qw = metrics.queue_wait_ms.stats()
         tk = metrics.dispatch_tick_ms.stats()
         out[name] = {
@@ -2787,8 +2800,8 @@ def dispatch_phase(gk, single, refs, seed: int, before=None) -> dict:
             f"{ticks} ticks {out[name]['occupancy']}, inline {c1['dispatch_inline']}, "
             f"fallbacks {c1['dispatch_fallbacks']}, queue wait p50 {qw['p50_ms']} ms; "
             f"lane launches {out[name]['lane_launches']}; tick of {tick['lanes']} lanes "
-            f"{tick['wall_ms_p50']:.2f} ms wall, {tick['device_ms']:.2f} device, idle "
-            f"{tick['idle_share']:.3f}; peak {peak:.2f} GiB")
+            f"{tick['wall_ms_p50']:.2f} ms wall, {tick['device_ms']:.2f} device (K2 "
+            f"{tick['k2_device_ms']:.2f}), idle {tick['idle_share']:.3f}; peak {peak:.2f} GiB")
         if not dispatch.enabled():
             raise AssertionError("the dispatcher is off")
     return out
@@ -2913,17 +2926,50 @@ def lane_edges(fit: int) -> list:
     return sorted({1, max(1, fit - 1), fit + 1, 63, 64, 65})
 
 
+def k2_lanes_check(gk, codes, values, mask, ng: int, where: str) -> float:
+    """Every lane of K2's lane entry against the one-lane kernel and the
+    plain version on its mask: counts, MIN and MAX exact (NaN equal), sums
+    within 1e-5 * sum|v| of the lane's group; -> max |err|."""
+    got = gk.fused_group_aggregate_lanes(codes, values, mask, ng)
+    torch.cuda.synchronize()
+    err = 0.0
+    for g in range(mask.shape[0]):
+        one = gk.fused_group_aggregate(codes, values, mask[g], ng)
+        plain = gk.fused_group_aggregate_plain(codes, values, mask[g], ng)
+        for k, what in ((0, "counts"), (2, "mins"), (3, "maxs")):
+            if not (same(got[k][g], one[k]) and same(got[k][g], plain[k])):
+                raise AssertionError(f"K2 lane tile {what} of lane {g} differ from the one-lane "
+                                     f"kernel or the plain version {where}")
+        live = mask[g] & (codes >= 0) & (codes < ng)
+        sabs = torch.zeros(ng + 1, dtype=torch.float64, device=codes.device)
+        sabs.index_add_(0, torch.where(live, codes, ng).long(),
+                        values.abs().double().nan_to_num(0.0))
+        ok = torch.isfinite(plain[1])
+        if not same(got[1][g][~ok], plain[1][~ok]):
+            raise AssertionError(f"K2 lane tile sums of lane {g}: NaN or inf differs {where}")
+        d = (got[1][g][ok].double() - plain[1][ok].double()).abs()
+        if bool((d > 1e-5 * sabs[:ng][ok]).any()):
+            raise AssertionError(f"K2 lane tile sums of lane {g} beyond 1e-5*sum|v| {where}")
+        err = max(err, float(d.max()) if d.numel() else 0.0)
+    return err
+
+
 def lane_edge_cases(gk, seg, gen) -> float:
     """The lane tiles' edges: the segment kernel in each table layout
-    (private at 17 slots, warp at 2,048, block at 16,384) and K1/K3 at 2049
-    slots, over lane counts around each tile (``lane_edges``), on ragged
-    row counts with an all-dead lane and NaN in MIN/MAX.  Every segment lane
-    equals the one-lane kernel in the same layout bit for bit (float64 sums
-    of whole numbers in the warp and block layouts, whose shared atomics add
-    in no fixed order; any values in the private one), and at 64 lanes three
-    lanes equal the plain version; every K1/K3 lane equals the plain
-    version (counts exactly, sums within 1e-5 * sum|v|) and K3's the
-    one-lane kernel; -> max |err|."""
+    (private at 17 slots, warp at 2,048, block at 16,384), K1/K3 at 2049
+    slots and K2 at 37, 2049 and 4096 slots, over lane counts around each
+    tile (``lane_edges``), on ragged row counts with an all-dead lane and NaN
+    in MIN/MAX; K2 also with every code in one slot and at D-b's ~2% live.
+    Every segment lane equals the one-lane
+    kernel in the same layout bit for bit (float64 sums of whole numbers in
+    the warp and block layouts, whose shared atomics add in no fixed order;
+    any values in the private one), and at 64 lanes three lanes equal the
+    plain version; every K1/K3 lane equals the plain version (counts
+    exactly, sums within 1e-5 * sum|v|) and K3's the one-lane kernel; every
+    K2 lane equals the one-lane kernel and the plain version (counts, MIN
+    and MAX exactly, sums within 1e-5 * sum|v|); -> max |err|."""
+    from baikaldb_tpu_torch.bench.lane_tiles import masks
+
     dev = torch.device("cuda")
     err = 0.0
     for mode, S, n in (("private", NG_A, 1_000_003), ("warp", 2048, 1_000_003),
@@ -2975,6 +3021,23 @@ def lane_edge_cases(gk, seg, gen) -> float:
                 raise AssertionError(f"K1 lane tiles: sums of lane {g} of {G} beyond tolerance")
             err = max(err, float(d.max()))
     log(f"[phase12] (iv) K1/K3 lane tiles at {sorted(fits)} lanes a block: match")
+    for ng, n in ((NG_SQL, 1_000_003), (4096, 100_003), (37, 100_003)):
+        codes, values, _ = make_inputs(n, ng, gen, dev, nans=True)
+        fit = gk.lane_plan(gk.KIND_AGG, ng, 1).fit
+        for G in lane_edges(fit):
+            mask = torch.rand((G, n), generator=gen, device=dev) < 0.6
+            mask[:, 100:133] = True               # the NaN groups live in every lane
+            mask[G // 2] = False
+            err = max(err, k2_lanes_check(gk, codes, values, mask, ng, f"(ng={ng} G={G})"))
+        log(f"[phase12] (iv) K2 lane tiles at {fit} lanes a block, ng={ng}: match")
+    n = 1_000_003
+    codes, values, _ = make_inputs(n, NG_SQL, gen, dev)
+    mask = torch.rand((9, n), generator=gen, device=dev) < 0.6
+    err = max(err, k2_lanes_check(gk, torch.full_like(codes, 5), values, mask, NG_SQL,
+                                  "(every code in one slot)"))
+    err = max(err, k2_lanes_check(gk, codes, values, masks("D-b", n, 9, codes, values, gen),
+                                  NG_SQL, "(D-b masks)"))
+    log("[phase12] (iv) K2 lane tiles with every code in one slot and at D-b's masks: match")
     return err
 
 
@@ -3006,6 +3069,7 @@ def lane_kernel_phase(gk, rows: int, seed: int, before=None) -> dict:
     at G = 8 and 64 over ``rows`` rows and at 64 over the odd length against
     the byte bound (the lanes' masks plus one read of codes and values),
     with ``before`` (the compared commit's group_kernels) in turns."""
+    from baikaldb_tpu_torch.bench.lane_tiles import alloc_bytes, lane_rows, masks
     from baikaldb_tpu_torch.ops import segments as seg
 
     dev = torch.device("cuda")
@@ -3048,9 +3112,9 @@ def lane_kernel_phase(gk, rows: int, seed: int, before=None) -> dict:
         for g in range(G):
             mask[g] = torch.rand(n, generator=gen, device=dev) < 0.6
         gid17 = torch.remainder(codes, NG_A).to(torch.int32)
-        live = int(mask.sum())
+        live = lane_rows(mask)
         # over 8e8 lane-rows the plain versions run once, unwarmed, and K2's
-        # (13 s there, its lane path unchanged) not at all
+        # plain version (13 s there) not at all
         big = G * n > 8 * 10**8
         specs = {
             # name: (the call given the module, the plain version, the library
@@ -3092,13 +3156,34 @@ def lane_kernel_phase(gk, rows: int, seed: int, before=None) -> dict:
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
                 "rows": n, "lanes": G}
-            if name != "fused_group_aggregate_lanes":
-                out[key][name]["lane_plan"] = (
-                    seg.lane_plan("sum", torch.float64, NG_A, G) if mod is seg else
-                    gk.lane_plan(gk.KIND_SUM if "sum" in name else gk.KIND_HIST, NG_SQL,
-                                 G))._asdict()
+            kind = {"filtered_group_sum_lanes": gk.KIND_SUM,
+                    "fused_group_aggregate_lanes": gk.KIND_AGG}.get(name, gk.KIND_HIST)
+            out[key][name]["lane_plan"] = (
+                seg.lane_plan("sum", torch.float64, NG_A, G) if mod is seg else
+                gk.lane_plan(kind, NG_SQL, G))._asdict()
             if turns is not None:
                 out[key][name]["before"] = turns
+            if name == "fused_group_aggregate_lanes":
+                # the bytes a call allocates, and D-b's live share
+                k2 = out[key][name]
+                k2["alloc_bytes"] = alloc_bytes(lambda: fn(gk))
+                if before is not None:
+                    k2["before_alloc_bytes"] = alloc_bytes(lambda: fn(before))
+                db = masks("D-b", n, G, codes, values, gen)
+                db_live = lane_rows(db)
+                db_bytes_ms = (G * n + n * 8 + G * NG_SQL * 20) / HBM_BYTES_PER_S * 1e3
+
+                def k2_db(m):
+                    return m.fused_group_aggregate_lanes(codes, values, db, NG_SQL)
+
+                db_ms, db_turns = in_turns(lambda: k2_db(gk), None if before is None else
+                                           lambda: k2_db(before),
+                                           lambda f: device_ms(f, launches=5))
+                k2["d_b"] = {"live_share": db_live / (G * n), "device_ms": db_ms,
+                             "bound_ms": max(db_bytes_ms, db_live * 2 / F32_OPS_PER_S * 1e3)}
+                if db_turns is not None:
+                    k2["d_b"]["before"] = db_turns
+                del db
             log(f"[phase12] (iv) {name} n={n} G={G}: {out[key][name]}")
         del codes, values, w64, mask, gid17, specs
         torch.cuda.empty_cache()

@@ -1220,6 +1220,9 @@ def test_lane_plans_match_the_kernels_tables(cuda):
         for ng in (1, 17, 2049, 4096):
             assert lib.bk_group_agg_lane_table_bytes(kind, ng) == \
                 gk.lane_plan(kind, ng, 8).table_bytes
+    for ng in (1, 17, 37, 2049, 4096):
+        assert lib.bk_fused_agg_lane_table_bytes(ng) == gk.lane_plan(gk.KIND_AGG, ng, 8).table_bytes
+    assert lib.bk_fused_agg_lane_max() == gk.AGG_LANE_MAX
 
 
 @pytest.mark.cuda
@@ -1261,6 +1264,96 @@ def test_k1_k3_lane_tiles_count_exactly_above_2_pow_24(cuda):
     # the float64 sums round once to float32
     assert gk.filtered_group_sum_lanes(codes, ones, mask, 2)[1][:, 0].tolist() == \
         torch.tensor(want, dtype=torch.float64).float().tolist()
+
+
+def _k2_lanes_match(codes, values, mask, ng, got, where=""):
+    """Every lane of K2's lane kernel against the one-lane kernel and the
+    plain version on its mask: counts, MIN and MAX exact (NaN equal), sums
+    within 1e-5 * sum|v| of the lane's group."""
+    for g in range(mask.shape[0]):
+        one = gk.fused_group_aggregate(codes, values, mask[g], ng)
+        plain = gk.fused_group_aggregate_plain(codes, values, mask[g], ng)
+        for k in (0, 2, 3):
+            assert _same(got[k][g], one[k]) and _same(got[k][g], plain[k]), (where, g, k)
+        live = mask[g] & (codes >= 0) & (codes < ng)
+        sabs = torch.zeros(ng + 1, dtype=torch.float64, device=codes.device)
+        sabs.index_add_(0, torch.where(live, codes, ng).long(),
+                        values.double().abs().nan_to_num(0.0))
+        ok = plain[1].isfinite()
+        assert _same(got[1][g][~ok], plain[1][~ok]), (where, g)
+        d = (got[1][g][ok].double() - plain[1][ok].double()).abs()
+        assert bool((d <= 1e-5 * sabs[:ng][ok]).all()), (where, g, float(d.max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ng", [37, 2049, 4096])
+def test_k2_lane_tiles_match_the_one_lane_kernel_at_tile_edges(cuda, ng):
+    """K2's lane tile over lane counts around its fit and 63-65, on a ragged
+    row count (most lanes' mask rows are not 4-byte aligned) and an aligned
+    one, with an all-dead lane and NaN of either sign in live rows: one
+    launch, every lane equal to the one-lane kernel and the plain version."""
+    rng = np.random.default_rng(ng + 12)
+    fit = gk.lane_plan(gk.KIND_AGG, ng, 1).fit
+    for n in (100_003, 65_536):
+        codes, values, _ = _inputs(n, ng, 0.5, n + ng, cuda)
+        values.view(torch.int32)[7:9] = torch.tensor([0x7FC00000, -0x00400000], device=cuda,
+                                                     dtype=torch.int32)
+        for G in _lane_edges(fit):
+            mask = torch.from_numpy(rng.random((G, n)) < 0.6).to(cuda)
+            mask[G // 2] = False
+            mask[:, 7:9] = True
+            before = gk.LANE_LAUNCHES["fused_group_aggregate_lanes"].value
+            got = gk.fused_group_aggregate_lanes(codes, values, mask, ng)
+            torch.cuda.synchronize()
+            assert gk.LANE_LAUNCHES["fused_group_aggregate_lanes"].value == before + 1
+            _k2_lanes_match(codes, values, mask, ng, got, (n, G))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["dense", "sparse", "skewed", "mixed"])
+def test_k2_lane_tiles_match_on_dense_sparse_and_skewed_masks(cuda, kind):
+    """K2's lane kernel over dense masks, sparse ones, every code in one slot
+    and all of these in one call (a dense first half with a stretch of one
+    slot, a sparse second half): every forced tile from 1 to the fit equals
+    the one-lane kernel."""
+    rng = np.random.default_rng({"dense": 1, "sparse": 2, "skewed": 3, "mixed": 4}[kind])
+    n, ng, G = 300_007, 2049, 9
+    codes = rng.integers(0, ng, n).astype(np.int32)
+    values = rng.normal(size=n).astype(np.float32)
+    live = rng.random((G, n))
+    if kind == "dense":
+        mask = live < 0.6
+    elif kind == "sparse":
+        mask = live < 0.01
+    elif kind == "skewed":
+        codes[:] = 3
+        mask = live < 0.6
+    else:
+        mask = live < np.where(np.arange(n) < n // 2, 0.6, 0.01)
+        codes[50_000:80_000] = 11
+    c, v, m = (torch.from_numpy(a).to(cuda) for a in (codes, values, mask))
+    for tile in range(1, gk.lane_plan(gk.KIND_AGG, ng, G).fit + 1):
+        got = gk._launch_agg_lanes(c, v, m, ng, tile)
+        torch.cuda.synchronize()
+        _k2_lanes_match(c, v, m, ng, got, (kind, tile))
+
+
+@pytest.mark.cuda
+def test_k2_lane_tiles_count_exactly_above_2_pow_24(cuda):
+    """One group of 2^24 + 5 rows in every lane of two tiles of K2's lane
+    kernel, on an odd row count: the int64 counts are exact in every lane,
+    and the float64 sums of ones round once to float32."""
+    n = (1 << 24) + 5
+    codes = torch.zeros(n, dtype=torch.int32, device=cuda)
+    G = gk.lane_plan(gk.KIND_AGG, 2, 1).fit + 3
+    mask = torch.ones((G, n), dtype=torch.bool, device=cuda)
+    mask[-1, :10] = False
+    want = [n] * (G - 1) + [n - 10]
+    counts, sums, mins, maxs = gk.fused_group_aggregate_lanes(codes, torch.ones(n, device=cuda),
+                                                              mask, 2)
+    assert counts[:, 0].tolist() == want and counts[:, 1].tolist() == [0] * G
+    assert sums[:, 0].tolist() == torch.tensor(want, dtype=torch.float64).float().tolist()
+    assert mins[:, 0].tolist() == maxs[:, 0].tolist() == [1.0] * G
 
 
 @pytest.mark.cuda

@@ -96,6 +96,37 @@ def test_fused_group_aggregate_lanes_match_vmapped_xla(n, ng, G, seed):
         np.testing.assert_array_equal(out_t[k].numpy()[live], np.asarray(out_x[k])[live])
 
 
+@pytest.mark.parametrize("kind", ["sparse", "skewed"])
+def test_fused_group_aggregate_lanes_sparse_and_skewed_match_vmapped_xla(kind):
+    """K2's lanes at ~3% live (the dispatcher's D-b share: each lane keeps a
+    range of slots under a threshold) and with every code in one slot, each
+    lane against the JAX K2 under ``vmap`` and the one-lane plain function:
+    counts and MIN/MAX exact, sums rtol = atol = 1e-4."""
+    rng = np.random.default_rng(7 if kind == "sparse" else 8)
+    n, ng, G = 20_011, 2049, 9
+    values = rng.normal(size=n).astype(np.float32)
+    if kind == "sparse":
+        codes = rng.integers(0, ng, n).astype(np.int32)
+        lo = rng.integers(0, ng - 120, (G, 1))
+        mask = (codes >= lo) & (codes < lo + 120) & (values * 2 + 1 > rng.normal(size=(G, 1)))
+        assert 0.01 < mask.mean() < 0.05
+    else:
+        codes = np.full(n, 5, dtype=np.int32)
+        mask = rng.random((G, n)) < 0.6
+    mask[G // 2] = False                # an all-dead lane
+    out_t = gk.fused_group_aggregate_lanes(*_t(codes, values, mask), ng)
+    out_x = _vmapped(pk._xla_agg_fallback, codes, values, mask, ng)
+    np.testing.assert_array_equal(out_t[0].numpy(), np.asarray(out_x[0]))
+    np.testing.assert_allclose(out_t[1].numpy(), np.asarray(out_x[1]), rtol=RTOL, atol=ATOL)
+    live = out_t[0].numpy() > 0
+    for k in (2, 3):
+        np.testing.assert_array_equal(out_t[k].numpy()[live], np.asarray(out_x[k])[live])
+    for g in range(G):
+        one = gk.fused_group_aggregate_plain(*_t(codes, values, mask[g]), ng)
+        for a, b in zip(out_t, one):
+            assert torch.equal(a[g], b)
+
+
 @pytest.mark.parametrize("n,ng,G,seed", CASES)
 def test_partition_histogram_lanes_match_vmapped_pallas(n, ng, G, seed):
     codes, _, mask = _inputs(n, ng, G, seed)
@@ -171,8 +202,9 @@ def test_lane_entries_reject_what_the_kernels_do_not_take():
 
 
 # -- the lane kernels' host plans (ops/segments.py lane_plan, ops/group_kernels.py
-# lane_plan): how many lanes a block carries, as many one-lane tables as fit
-# a block's shared memory, and how the lanes spread over the tiles.  The CUDA
+# lane_plan): how many lanes a block carries, as many one-lane
+# tables as fit a block's shared memory, and how
+# the lanes spread over the tiles.  The CUDA
 # side checks the tile against the tables it builds (tests/test_torch_cuda.py
 # holds the two plans' table bytes to the kernels' on the card).
 
@@ -258,3 +290,56 @@ def test_group_agg_lane_plan_fits_k1_and_k3_tables(ng):
     if ng == 2049:
         assert gk.lane_plan(gk.KIND_SUM, ng, 64)[2:] == (8, 8)
         assert gk.lane_plan(gk.KIND_HIST, ng, 64)[2:] == (16, 4)
+
+
+@pytest.mark.parametrize("ng", [1, 17, 37, 2049, 4096])
+def test_group_agg_lane_plan_fits_k2_tables(ng):
+    """K2's tile: 20 bytes a slot in whole words, as many lanes as fit 227 KB,
+    at most ``AGG_LANE_MAX``, spread as ``lane_tiles`` does; 2049 slots fit
+    4 lanes, 4096 fit 2."""
+    for G in (1, 2, 3, 4, 5, 7, 8, 9, 15, 16, 17, 63, 64, 65):
+        plan = gk.lane_plan(gk.KIND_AGG, ng, G)
+        assert plan.table_bytes == -(-20 * ng // 8) * 8
+        assert plan.fit == min(gk.AGG_LANE_MAX, gk.LANE_SMEM_MAX // plan.table_bytes)
+        assert 1 <= plan.tile <= plan.fit <= gk.AGG_LANE_MAX <= gk.LANE_TILE_MAX
+        assert plan.tile * plan.table_bytes <= gk.LANE_SMEM_MAX
+        assert plan.tiles == -(-G // plan.fit)
+        assert (plan.tile, plan.tiles) == gk.lane_tiles(G, plan.fit)
+        assert plan.tile * (plan.tiles - 1) < G <= plan.tile * plan.tiles
+    assert gk.lane_plan(gk.KIND_AGG, ng, 64).fit == {1: 4, 17: 4, 37: 4, 2049: 4, 4096: 2}[ng]
+
+
+def test_k2_lane_plan_fits_every_slot_count_and_tile():
+    """K2's tile for every slot count: as many lanes as fit 227 KB, at most
+    ``AGG_LANE_MAX``, and no forced tile beyond the fit."""
+    for ng in range(1, gk.MAX_GROUPS + 1):
+        plan = gk.lane_plan(gk.KIND_AGG, ng, 1)
+        assert plan.table_bytes == -(-20 * ng // 8) * 8
+        assert 1 <= plan.fit <= gk.AGG_LANE_MAX
+        assert plan.fit * plan.table_bytes <= gk.LANE_SMEM_MAX
+        if plan.fit < gk.AGG_LANE_MAX:
+            assert (plan.fit + 1) * plan.table_bytes > gk.LANE_SMEM_MAX
+        with pytest.raises(ValueError):
+            gk.lane_plan(gk.KIND_AGG, ng, 64, plan.fit + 1)
+
+
+@pytest.mark.parametrize("kind", ["D-b", "0.6"])
+def test_lane_tiles_masks_draw_the_dispatcher_shapes(kind):
+    """bench/lane_tiles.py's masks (also chip_smoke.py's D-b timing): D-b keeps
+    a range of 20 to 100 slots a lane under a value threshold, about 2% live;
+    a share keeps that share of rows at random."""
+    from baikaldb_tpu_torch.bench import lane_tiles
+
+    gen = torch.Generator().manual_seed(3)
+    n, G = 60_000, 6
+    codes = torch.randint(0, 2049, (n,), generator=gen, dtype=torch.int32)
+    values = torch.randn(n, generator=gen)
+    m = lane_tiles.masks(kind, n, G, codes, values, gen)
+    assert m.shape == (G, n) and m.dtype == torch.bool
+    if kind == "0.6":
+        assert abs(float(m.float().mean()) - 0.6) < 0.01
+        return
+    assert 0.005 < float(m.float().mean()) < 0.05
+    for g in range(G):
+        kept = codes[m[g]]
+        assert 0 < int(kept.max()) - int(kept.min()) < 100
