@@ -7,18 +7,38 @@ UNION, WHERE / GROUP BY / HAVING / ORDER BY / LIMIT / OFFSET (all 22 TPC-H
 queries), window functions.  The copied planner plans it; the executor runs
 the plan eagerly, and a scalar subquery with more than one row raises
 "Subquery returns more than 1 row" as in the JAX session.  Results are
-densified on the device and returned as Arrow.  CONNECTION_ID() and
-VERSION() in a SELECT become literals before planning, as in the JAX
-session (``_resolve_session_exprs``).  FORMAT, DATE_FORMAT, HEX, BIN and
-OCT of numbers are evaluated at egress (exec/egress.py), and SELECT ...
-INTO OUTFILE writes the rows to a file.
+densified on the device and returned as Arrow.  The connection
+environment (``@@var``, ``@@session.var`` / ``@@global.var``, ``@var``,
+DATABASE() / SCHEMA(), USER() and its aliases, CONNECTION_ID(), VERSION())
+becomes literals before planning, as in the JAX session
+(``_resolve_session_exprs``); such a statement skips the plan cache, since
+the values are session state.  FORMAT, DATE_FORMAT, HEX, BIN and OCT of
+numbers are evaluated at egress (exec/egress.py), SELECT ... INTO OUTFILE
+writes the rows to a file, and LOAD DATA INFILE reads a CSV file back in
+(pyarrow's reader into the bulk ingest, primary key checked).
+MATCH(col) AGAINST(...) is the fulltext relevance of index/fulltext.py,
+gathered by dictionary code on the device; FULLTEXT KEY declares it.
 
 The statements that need only the catalog are the JAX session's: CREATE /
 DROP DATABASE, USE, DROP TABLE (its store and device image go with it),
 TRUNCATE, CREATE / DROP VIEW, DESCRIBE, and SHOW DATABASES, [FULL] TABLES,
-CREATE TABLE, [FULL] COLUMNS, INDEX and VARIABLES.  The SHOW forms that read
-a plane the port lacks (regions, processlist, status, grants, profiles, ...)
-raise ``NotPortedError``.
+CREATE TABLE, [FULL] COLUMNS, INDEX, VARIABLES, COLLATION, CHARSET, ENGINES
+and TABLE STATUS; ``information_schema`` renders tables, columns, views,
+partitions, snapshots, trace_spans, flags, failpoints, column_stats,
+query_log and dispatcher; HANDLE runs checkpoint, gc, split and set_flag.
+The SHOW forms, ``information_schema`` tables and HANDLE commands that read
+a plane the port lacks (regions, processlist, status, grants, profiles, the
+binlog, the fleet, ...) raise ``NotPortedError``.
+
+Tables may be partitioned (``PARTITION BY RANGE (col) (PARTITION p VALUES
+LESS THAN (v | MAXVALUE), ...)`` or ``PARTITION BY HASH (col) PARTITIONS
+n``; ALTER TABLE ADD / DROP PARTITION): each partition's rows fill their own
+regions, and a predicate on the partition column stages only the kept
+partitions' regions, as one batch (``access=partition(k/n partitions
+pruned)``).  A ``GLOBAL [UNIQUE] INDEX`` keeps its entries in a hidden
+backing table (index/globalindex.py), maintained by INSERT, UPDATE, DELETE,
+the upserts and LOAD DATA inside the statement's transaction; an equality
+on its first column reads through it (``access=global_index(ix:col)``).
 
 A session runs on one device, named when it is made.  ``Session()`` with no
 device runs on CUDA and raises when CUDA is unavailable; only an explicit
@@ -51,8 +71,8 @@ and exec/streaming.py folds it chunk by chunk.  The chunks are Parquet
 segments in the cold tier (``Database(cold_dir=...)`` or the
 ``cold_fs_dir`` flag) or in host memory.
 
-The write half is the JAX session's, without its binlog / CDC, global
-index, matview and replicated-tier hooks: INSERT ... VALUES / SELECT (small
+The write half is the JAX session's, without its binlog / CDC, matview
+and replicated-tier hooks: INSERT ... VALUES / SELECT (small
 ones row by row through the row tier, large ones bulk), AUTO_INCREMENT,
 REPLACE and INSERT ... ON DUPLICATE KEY UPDATE, UPDATE and DELETE (WHERE
 evaluated region by region with the session's own expression compiler on the
@@ -95,12 +115,13 @@ over full table images run through the batched dispatcher
 (exec/dispatch.py): one lane-batched execution (exec/lanes.py) per tick.
 
 Not ported yet: the host presort permutations, pushdown, matviews and
-rollups, the binlog, partitions, global indexes, online ADD INDEX, SHOW
+rollups, the binlog, online ADD INDEX (global indexes included), SHOW
 PROCESSLIST / PROFILE, KILL, and the replicated tier.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import datetime
 import functools
@@ -129,6 +150,7 @@ from ..expr.ast import AggCall, Call, ColRef, Lit, Subquery, WindowCall
 from ..expr.compile import ExprError, eval_output, eval_predicate
 from ..expr.params import PARAMS_KEY, ParamError
 from ..index import annindex
+from ..index import globalindex as gi
 from ..index.selector import analyze_conjuncts, choose_access, is_point_statement, point_key
 from ..meta.catalog import Catalog, IndexInfo, parse_type
 from ..obs import progress, trace
@@ -143,9 +165,9 @@ from ..sql.parser import parse_sql
 from ..sql.stmt import (AlterTableStmt, CreateDatabaseStmt, CreateTableStmt,
                         CreateViewStmt, DeallocateStmt, DeleteStmt, DescribeStmt,
                         DropDatabaseStmt, DropTableStmt, DropViewStmt, ExecuteStmt,
-                        ExplainStmt, InsertStmt, OrderItem, PrepareStmt, SelectItem,
-                        SelectStmt, SetStmt, ShowStmt, TableRef, TruncateStmt, TxnStmt,
-                        UpdateStmt, UseStmt)
+                        ExplainStmt, HandleStmt, InsertStmt, LoadDataStmt, OrderItem,
+                        PrepareStmt, SelectItem, SelectStmt, SetStmt, ShowStmt, TableRef,
+                        TruncateStmt, TxnStmt, UpdateStmt, UseStmt)
 from ..storage.coldfs import ExternalFS
 from ..storage.column_store import TableStore, commit_group, schema_to_arrow
 from ..storage.mvcc import MvccRuntime, SnapshotRefused
@@ -200,6 +222,39 @@ _SERVER_VARS = {
     "license": "Apache-2.0",
     "performance_schema": "0",
 }
+
+# the connection-environment functions answered before planning
+_ENV_FNS = ("database", "schema", "user", "current_user", "session_user",
+            "system_user", "connection_id", "version")
+
+# the TTL table options: their plane is not ported (BINLOG=1 neither)
+_TTL_OPTIONS = ("ttl", "ttl_column")
+
+# the JAX session's HANDLE commands whose planes the port lacks
+_HANDLE_PLANES = ("flightrec", "ttl", "ttl_tick", "ddl", "add_privilege",
+                  "drop_privilege", "drop_instance", "migrate", "add_instance",
+                  "add_peer", "remove_peer", "trans_leader", "add_learner",
+                  "remove_learner", "split_region", "merge_region", "store_heartbeat",
+                  "balance_tick", "cold_flush", "cold_gc", "cold_status", "compact")
+
+
+def _env_alias(e):
+    """MySQL column captions of environment expressions: SELECT @@version
+    titles its column '@@version', DATABASE() titles it 'DATABASE()'."""
+    if isinstance(e, Call):
+        if e.op == "__sysvar__":
+            return "@@" + e.args[0].value
+        if e.op == "__uservar__":
+            return "@" + e.args[0].value
+        if e.op in _ENV_FNS and not e.args:
+            return f"{e.op.upper()}()"
+    return None
+
+
+def _opt_on(v) -> bool:
+    """Table-option truth: option values arrive as strings, so BINLOG=0 and
+    BINLOG=false read as off."""
+    return v is not None and str(v).strip().lower() not in ("", "0", "false", "off", "no")
 
 
 @functools.lru_cache(maxsize=64)
@@ -457,6 +512,102 @@ class Session:
         """This session's id, answered by CONNECTION_ID()."""
         return self._conn_id
 
+    # -- the connection environment ----------------------------------------
+    def _sysvar(self, name: str):
+        """@@name: a session SET overrides the server's value; the flags are
+        visible too (SHOW VARIABLES lists them)."""
+        if name in ("tx_isolation", "transaction_isolation"):
+            # one variable under two spellings in MySQL
+            for k in ("transaction_isolation", "tx_isolation"):
+                if k in self.session_vars:
+                    return self.session_vars[k]
+            return _SERVER_VARS[name]
+        if name in self.session_vars:
+            return self.session_vars[name]
+        if name in _SERVER_VARS:
+            if name == "autocommit":
+                return 1 if self.session_vars.get("autocommit", "ON") in ("ON", 1) else 0
+            return _SERVER_VARS[name]
+        flags = FLAGS.snapshot()
+        if name in flags:
+            return flags[name]
+        raise SqlError(f"Unknown system variable '{name}'")
+
+    def _resolve_session_exprs(self, stmt):
+        """The connection environment (@@sysvars, @user vars, DATABASE() /
+        USER() / VERSION() / CONNECTION_ID()) -> literals before planning,
+        with MySQL's column captions where an item has no alias, in a
+        SELECT and in the expressions of UPDATE, DELETE and INSERT ...
+        SELECT.  A statement that names none comes back as it was (the
+        caller's test for keeping the plan cache)."""
+        changed = [False]
+
+        def lit(v):
+            changed[0] = True
+            return Lit(v)
+
+        def walk_e(e):
+            if isinstance(e, Call):
+                if e.op == "__sysvar__":
+                    return lit(self._sysvar(e.args[0].value))
+                if e.op == "__uservar__":
+                    return lit(self.session_vars.get("@" + e.args[0].value))
+                if e.op in ("database", "schema") and not e.args:
+                    return lit(self.current_db or None)
+                if e.op in ("user", "current_user", "session_user",
+                            "system_user") and not e.args:
+                    return lit(f"{self.user}@localhost")
+                if e.op == "connection_id" and not e.args:
+                    return lit(self.connection_id())
+                if e.op == "version" and not e.args:
+                    return lit(SERVER_VERSION)
+                return Call(e.op, tuple(walk_e(a) for a in e.args))
+            if isinstance(e, AggCall):
+                return AggCall(e.op, tuple(walk_e(a) for a in e.args), e.distinct)
+            if isinstance(e, WindowCall):
+                return WindowCall(e.op, tuple(walk_e(a) for a in e.args),
+                                  tuple(walk_e(p) for p in e.partition_by),
+                                  tuple((walk_e(oe), asc) for oe, asc in e.order_by),
+                                  e.running, e.frame)
+            if isinstance(e, Subquery):
+                return Subquery(walk_s(e.stmt))
+            return e
+
+        def opt(e):
+            return None if e is None else walk_e(e)
+
+        def walk_t(t):
+            if t is not None and t.subquery is not None:
+                return replace(t, subquery=walk_s(t.subquery))
+            return t
+
+        def walk_s(st: SelectStmt) -> SelectStmt:
+            return replace(
+                st,
+                items=[SelectItem(opt(it.expr), it.alias or _env_alias(it.expr),
+                                  it.star_table) for it in st.items],
+                table=walk_t(st.table),
+                where=opt(st.where),
+                group_by=[walk_e(g) for g in st.group_by],
+                having=opt(st.having),
+                order_by=[OrderItem(walk_e(o.expr), o.asc) for o in st.order_by],
+                joins=[replace(j, table=walk_t(j.table), on=opt(j.on)) for j in st.joins],
+                ctes=[(n, walk_s(c)) for n, c in st.ctes],
+                union=None if st.union is None else (st.union[0], walk_s(st.union[1])))
+
+        if isinstance(stmt, SelectStmt):
+            out = walk_s(stmt)
+        elif isinstance(stmt, UpdateStmt):
+            out = replace(stmt, assignments=[(n, walk_e(e)) for n, e in stmt.assignments],
+                          where=opt(stmt.where))
+        elif isinstance(stmt, DeleteStmt):
+            out = replace(stmt, where=opt(stmt.where))
+        elif isinstance(stmt, InsertStmt) and stmt.select is not None:
+            out = replace(stmt, select=walk_s(stmt.select))
+        else:
+            return stmt
+        return out if changed[0] else stmt
+
     # -- entry points ---------------------------------------------------
     def execute(self, sql: str) -> Result:
         metrics.queries_total.add(1)
@@ -483,7 +634,7 @@ class Session:
                 self.db.qos.admit(sql, cost=float(billable), user=self.user,
                                   tables=self._qos_tables(stmts))
         if len(stmts) == 1 and isinstance(stmts[0], SelectStmt):
-            stmt = _resolve_session_exprs(stmts[0], self.connection_id())
+            stmt = self._resolve_session_exprs(stmts[0])
             # session-substituted literals are session state: never cached
             return self._select(stmt, cache_key=(sql, self.current_db)
                                 if stmt is stmts[0] else None)
@@ -516,7 +667,7 @@ class Session:
         vcols = (store.info.options or {}).get("vector_cols") or {}
         if vcols:
             table = _expand_vector_arrow(table, vcols)
-        store.insert_arrow(table, self._tctx(store))
+        self._ingest_arrow(store, table)
         return table.num_rows
 
     # -- statements -----------------------------------------------------
@@ -536,10 +687,13 @@ class Session:
                 raise PlanError(f"unknown prepared statement {s.name!r}")
             del self._prepared[s.name]
             return Result()
+        if isinstance(s, (SelectStmt, UpdateStmt, DeleteStmt, InsertStmt)):
+            # the environment is legal wherever MySQL takes an expression
+            s = self._resolve_session_exprs(s)
         if isinstance(s, SelectStmt):
-            return self._select(_resolve_session_exprs(s, self.connection_id()))
+            return self._select(s)
         if isinstance(s, ExplainStmt) and s.fmt == "analyze":
-            return self._explain_analyze(_resolve_session_exprs(s.stmt, self.connection_id()))
+            return self._explain_analyze(self._resolve_session_exprs(s.stmt))
         if isinstance(s, CreateTableStmt):
             return self._create_table(s)
         if isinstance(s, InsertStmt):
@@ -570,14 +724,25 @@ class Session:
             return Result()
         if isinstance(s, DropTableStmt):
             db = s.table.database or self.current_db
+            globals_ = []
+            if self.db.catalog.has_table(db, s.table.name):
+                globals_ = [ix for ix in self.db.catalog.get_table(db, s.table.name).indexes
+                            if gi.is_global(ix)]
             self.db.catalog.drop_table(db, s.table.name, s.if_exists)
             key = f"{db}.{s.table.name}"
             self._drop_durable(key, self.db.stores.pop(key, None))
+            self._forget_access(key)
             annindex.manager(self.db).forget(key)
+            for ix in globals_:          # the backing tables go with it
+                self._drop_global_backing(db, s.table.name, ix)
             self.db.save_catalog()
             return Result()
         if isinstance(s, TruncateStmt):
-            self._store(s.table).truncate()
+            store = self._store(s.table)
+            store.truncate()
+            self._forget_access(f"{store.info.database}.{store.info.name}")
+            for _, bstore in self._coupled_global(store):
+                bstore.truncate()       # the index entries go with the rows
             return Result()
         if isinstance(s, CreateDatabaseStmt):
             self.db.catalog.create_database(s.name, if_not_exists=s.if_not_exists)
@@ -587,6 +752,7 @@ class Session:
             self.db.catalog.drop_database(s.name, s.if_exists)
             for k in [k for k in self.db.stores if k.startswith(s.name + ".")]:
                 self._drop_durable(k, self.db.stores.pop(k))
+                self._forget_access(k)
                 annindex.manager(self.db).forget(k)
             self.db.save_catalog()
             return Result()
@@ -599,6 +765,10 @@ class Session:
             return self._describe(s)
         if isinstance(s, ShowStmt):
             return self._show(s)
+        if isinstance(s, LoadDataStmt):
+            return self._load_data(s)
+        if isinstance(s, HandleStmt):
+            return self._handle(s)
         raise NotPortedError(f"statement {type(s).__name__}")
 
     def _set_stmt(self, s: SetStmt) -> Result:
@@ -678,25 +848,86 @@ class Session:
                                       "Key": keys}))
 
     def _show(self, s: ShowStmt) -> Result:
-        """The SHOW forms that read only the catalog and the flags."""
+        """The SHOW forms that read only the catalog, the stores and the
+        flags.  Global-index backing tables are internal: SHOW TABLES and
+        TABLE STATUS leave them out."""
         cat = self.db.catalog
 
         def like(name: str) -> bool:
             return s.pattern is None or _show_like_rx(s.pattern).match(name) is not None
+
+        def visible(db):
+            return ([n for n in cat.tables(db) if not gi.is_backing_table(n)],
+                    list(cat.views(db)))
 
         if s.what == "databases":
             return Result(columns=["Database"],
                           arrow=pa.table({"Database": cat.databases()}))
         if s.what in ("tables", "full_tables"):
             db = s.database or self.current_db
-            views = list(cat.views(db))
-            names = [n for n in sorted(cat.tables(db) + views) if like(n)]
+            tbls, views = visible(db)
+            names = [n for n in sorted(tbls + views) if like(n)]
             cols = {f"Tables_in_{db}": names}
             if s.what == "full_tables":
                 cols["Table_type"] = ["VIEW" if n in views else "BASE TABLE" for n in names]
             return Result(columns=list(cols), arrow=pa.table(cols))
         if s.what == "create_table":
             return self._show_create(s)
+        if s.what == "collation":
+            # the collations the engine implements: _bin comparisons, and
+            # utf8mb4_general_ci through COLLATE
+            rows = [r for r in (("utf8mb4_bin", "utf8mb4", 46, "Yes"),
+                                ("utf8mb4_general_ci", "utf8mb4", 45, ""),
+                                ("binary", "binary", 63, "Yes")) if like(r[0])]
+            return Result(
+                columns=["Collation", "Charset", "Id", "Default", "Compiled", "Sortlen"],
+                arrow=pa.table({"Collation": [r[0] for r in rows],
+                                "Charset": [r[1] for r in rows],
+                                "Id": pa.array([r[2] for r in rows], pa.int64()),
+                                "Default": [r[3] for r in rows],
+                                "Compiled": ["Yes"] * len(rows),
+                                "Sortlen": pa.array([1] * len(rows), pa.int64())}))
+        if s.what == "charset":
+            rows = [r for r in (("utf8mb4", "UTF-8 Unicode", "utf8mb4_bin", 4),
+                                ("binary", "Binary pseudo charset", "binary", 1))
+                    if like(r[0])]
+            return Result(
+                columns=["Charset", "Description", "Default collation", "Maxlen"],
+                arrow=pa.table({"Charset": [r[0] for r in rows],
+                                "Description": [r[1] for r in rows],
+                                "Default collation": [r[2] for r in rows],
+                                "Maxlen": pa.array([r[3] for r in rows], pa.int64())}))
+        if s.what == "engines":
+            # the JAX session's row, with this engine's own comment
+            return Result(
+                columns=["Engine", "Support", "Comment", "Transactions", "XA", "Savepoints"],
+                arrow=pa.table({"Engine": ["BaikalTPU"], "Support": ["DEFAULT"],
+                                "Comment": ["columnar HTAP engine (PyTorch/CUDA)"],
+                                "Transactions": ["YES"], "XA": ["NO"],
+                                "Savepoints": ["YES"]}))
+        if s.what == "table_status":
+            db = s.database or self.current_db
+            tbls, views = visible(db)
+            rows = []
+            for n in (n for n in tbls if like(n)):
+                # a table no statement touched has no store: Rows is NULL
+                # (unknown), and listing it stages nothing
+                st = self.db.stores.get(f"{db}.{n}")
+                pspec = (cat.get_table(db, n).options or {}).get("partition")
+                rows.append((n, "BaikalTPU", st.num_rows if st is not None else None,
+                             "partitioned" if pspec else "", ""))
+            rows += [(n, None, None, "", "VIEW") for n in views if like(n)]
+            rows.sort(key=lambda r: r[0])
+            return Result(
+                columns=["Name", "Engine", "Rows", "Collation", "Create_options", "Comment"],
+                arrow=pa.table({
+                    "Name": [r[0] for r in rows],
+                    "Engine": pa.array([r[1] for r in rows], pa.string()),
+                    "Rows": pa.array([r[2] for r in rows], pa.int64()),
+                    "Collation": pa.array(["utf8mb4_bin" if r[1] else None for r in rows],
+                                          pa.string()),
+                    "Create_options": [r[3] for r in rows],
+                    "Comment": [r[4] for r in rows]}))
         if s.what in ("columns", "full_columns"):
             base = self._describe(DescribeStmt(s.table)).arrow
             if s.pattern is not None:
@@ -758,17 +989,30 @@ class Session:
         info = cat.get_table(db, s.table.name)
         lines = []
         pk = info.primary_key()
+        auto_col = (info.options or {}).get("auto_increment")
         for f in info.schema.fields:
             lines.append(f"  `{f.name}` {f.ltype.value.upper()}"
-                         + ("" if f.nullable else " NOT NULL"))
+                         + ("" if f.nullable else " NOT NULL")
+                         + (" AUTO_INCREMENT" if f.name == auto_col else ""))
         if pk:
             lines.append("  PRIMARY KEY (" + ", ".join(f"`{c}`" for c in pk.columns) + ")")
         for ix in info.indexes:
             if ix.kind != "primary":
-                # the JAX session's keyword for an ANN index
-                lines.append(f"  KEY `{ix.name}` (" + ", ".join(f"`{c}`" for c in ix.columns)
-                             + ")")
+                # the JAX session's keywords (an ANN index shows as KEY)
+                kw = {"unique": "UNIQUE KEY", "fulltext": "FULLTEXT KEY",
+                      "global": "GLOBAL KEY",
+                      "global_unique": "GLOBAL UNIQUE KEY"}.get(ix.kind, "KEY")
+                lines.append(f"  {kw} `{ix.name}` ("
+                             + ", ".join(f"`{c}`" for c in ix.columns) + ")")
         ddl = f"CREATE TABLE `{s.table.name}` (\n" + ",\n".join(lines) + "\n)"
+        pspec = (info.options or {}).get("partition")
+        if pspec and pspec["kind"] == "hash":
+            ddl += f"\nPARTITION BY HASH (`{pspec['column']}`) PARTITIONS {pspec['n']}"
+        elif pspec and pspec["kind"] == "range":
+            parts = ", ".join(f"PARTITION {nm} VALUES LESS THAN "
+                              + ("MAXVALUE" if u is None else f"({u!r})")
+                              for nm, u in zip(pspec["names"], pspec["uppers"]))
+            ddl += f"\nPARTITION BY RANGE (`{pspec['column']}`) ({parts})"
         return Result(columns=["Table", "Create Table"],
                       arrow=pa.table({"Table": [s.table.name], "Create Table": [ddl]}))
 
@@ -800,10 +1044,9 @@ class Session:
 
     def _create_table(self, s: CreateTableStmt) -> Result:
         db = s.table.database or self.current_db
-        if s.options:
-            raise NotPortedError("table options (partitions, binlog, TTL, ...)")
-        if any(kind not in ("ann", "key", "unique") for kind, _, _ in s.indexes):
-            raise NotPortedError("global indexes and rollups")
+        opts = dict(s.options or {})
+        if _opt_on(opts.get("binlog")) or any(k in opts for k in _TTL_OPTIONS):
+            raise NotPortedError("table options with a plane (binlog, TTL)")
         fields = []
         vector_cols: dict[str, int] = {}
         for c in s.columns:
@@ -824,9 +1067,12 @@ class Session:
                 continue
             fields.append(Field(c.name, parse_type(c.type_name),
                                 c.nullable and c.name not in s.primary_key))
-        options: dict = {}
+        options = opts
         if vector_cols:
             options["vector_cols"] = vector_cols
+        pspec = options.get("partition")
+        if pspec:
+            self._check_partition_spec(pspec, fields)
         auto_cols = [c for c in s.columns if c.auto_increment]
         if auto_cols:
             if len(auto_cols) > 1:
@@ -849,8 +1095,57 @@ class Session:
         key = f"{db}.{s.table.name}"
         if key not in self.db.stores:
             self.db.stores[key] = self.db.make_store(info)
+        for ix in info.indexes:
+            if gi.is_global(ix):
+                self._create_global_backing(db, info, ix)
         self.db.save_catalog()
         return Result()
+
+    @staticmethod
+    def _check_partition_spec(pspec: dict, fields: list) -> None:
+        """A partition clause names a column of the table; RANGE bounds are
+        distinctly named, of the column's type and strictly increasing;
+        HASH takes at least one partition."""
+        names = {f.name: f for f in fields}
+        if pspec["column"] not in names:
+            raise PlanError(f"unknown partition column {pspec['column']!r}")
+        if pspec["kind"] == "range":
+            if len(set(pspec["names"])) != len(pspec["names"]):
+                raise PlanError("duplicate partition name")
+            pf = names[pspec["column"]]
+            try:
+                finite = [TableStore._norm_part_scalar(u, pf)
+                          for u in pspec["uppers"] if u is not None]
+                bad = any(b <= a for a, b in zip(finite, finite[1:]))
+            except (TypeError, ValueError) as e:
+                raise PlanError(f"partition bounds do not match column "
+                                f"{pspec['column']!r}: {e}") from None
+            if bad:
+                raise PlanError("partition bounds must be strictly increasing")
+        elif pspec["kind"] == "hash" and int(pspec["n"]) < 1:
+            raise PlanError("PARTITIONS must be at least 1")
+
+    def _create_global_backing(self, db: str, info, ix) -> TableStore:
+        """A global index's hidden backing table: its own catalog entry and
+        its own store, keyed by (index cols, primary-key cols)."""
+        for c in ix.columns:
+            if c not in info.schema:
+                raise PlanError(f"unknown column {c!r} in global index {ix.name!r}")
+        bname = gi.backing_table_name(info.name, ix.name)
+        bkey = f"{db}.{bname}"
+        if bkey not in self.db.stores:
+            binfo = self.db.catalog.create_table(
+                db, bname, gi.backing_schema(info, ix),
+                [IndexInfo("PRIMARY", "primary", gi.backing_pk(info, ix))],
+                if_not_exists=True)
+            self.db.stores[bkey] = self.db.make_store(binfo)
+        return self.db.stores[bkey]
+
+    def _drop_global_backing(self, db: str, table: str, ix) -> None:
+        bname = gi.backing_table_name(table, ix.name)
+        self.db.catalog.drop_table(db, bname, if_exists=True)
+        bkey = f"{db}.{bname}"
+        self._drop_durable(bkey, self.db.stores.pop(bkey, None))
 
     def _insert(self, s: InsertStmt) -> Result:
         store = self._store(s.table)
@@ -861,9 +1156,9 @@ class Session:
             if s.replace or s.on_dup:
                 return self._insert_upsert(store, s, t.to_pylist())
             if t.num_rows <= HOT_INSERT_ROWS:
-                store.insert_rows(t.to_pylist(), self._tctx(store))
+                self._insert_rows(store, t.to_pylist())
             else:
-                store.insert_arrow(t, self._tctx(store), check_dups=True)
+                self._ingest_arrow(store, t, check_dups=True)
             return Result(affected_rows=t.num_rows)
         vcols = (store.info.options or {}).get("vector_cols") or {}
         # positional VALUES address user-visible columns (vector columns by
@@ -887,8 +1182,141 @@ class Session:
                     r[f.name] = _temporal_value(v, f.ltype)
         if s.replace or s.on_dup:
             return self._insert_upsert(store, s, rows)
-        store.insert_rows(rows, self._tctx(store))
+        self._insert_rows(store, rows)
         return Result(affected_rows=len(rows))
+
+    # -- global-index maintenance (the JAX session's coupled DML) ----------
+    def _coupled_global(self, store: TableStore) -> list:
+        """[(IndexInfo, backing store)] of the table's public global
+        indexes: DML maintains their backing tables in the statement's own
+        transaction."""
+        info = store.info
+        if gi.is_backing_table(info.name):
+            return []
+        out = []
+        for ix in gi.public_global_indexes(info):
+            bname = gi.backing_table_name(info.name, ix.name)
+            bkey = f"{info.database}.{bname}"
+            if bkey not in self.db.stores:
+                self.db.stores[bkey] = self.db.make_store(
+                    self.db.catalog.get_table(info.database, bname))
+            out.append((ix, self.db.stores[bkey]))
+        return out
+
+    def _run_coupled(self, store: TableStore, coupled: list, fn_main, fns_backing: list):
+        """The main table's write and each backing table's maintenance as
+        one transaction: inside an open transaction they ride its contexts
+        (COMMIT groups them); in autocommit they run under contexts of their
+        own, committed together by ``commit_group`` (one commit stamp)."""
+        if self._sql_txn is not None:
+            r = fn_main(self._tctx(store))
+            for (_, bstore), fb in zip(coupled, fns_backing):
+                fb(self._tctx(bstore), r)
+            return r
+        tctxs = [store.begin_txn()]
+        try:
+            tctxs += [bstore.begin_txn() for _, bstore in coupled]
+            r = fn_main(tctxs[0])
+            for fb, t in zip(fns_backing, tctxs[1:]):
+                fb(t, r)
+        except BaseException:
+            for t in tctxs:
+                try:
+                    t.rollback()
+                except Exception:       # noqa: BLE001 — unwind the rest, counted
+                    metrics.count_swallowed("session.coupled_rollback")
+            raise
+        commit_group(tctxs)
+        return r
+
+    def _ingest_arrow(self, store: TableStore, table: pa.Table,
+                      check_dups: bool = False) -> None:
+        """Bulk ingest; the entries of each global index land in its backing
+        table in the same transaction."""
+        with store._lock:
+            coupled = self._coupled_global(store)
+            if not coupled:
+                store.insert_arrow(table, self._tctx(store), check_dups=check_dups)
+                return
+            info = store.info
+            if any(ix.kind == "global_unique" for ix, _ in coupled):
+                rows = table.to_pylist()
+                for ix, bstore in coupled:
+                    gi.check_unique(info, ix, bstore, rows)
+            fbs = [(lambda t, _r, ix=ix, b=bstore:
+                    b.insert_arrow(gi.entry_table(info, ix, table), t))
+                   for ix, bstore in coupled]
+            self._run_coupled(store, coupled,
+                              lambda t: store.insert_arrow(table, t, check_dups=check_dups),
+                              fbs)
+
+    def _insert_rows(self, store: TableStore, rows: list[dict]) -> None:
+        with store._lock:
+            coupled = self._coupled_global(store)
+            if not coupled:
+                store.insert_rows(rows, self._tctx(store))
+                return
+            info = store.info
+            for ix, bstore in coupled:
+                gi.check_unique(info, ix, bstore, rows)
+            fbs = [(lambda t, _r, ix=ix, b=bstore: b.insert_rows(gi.entry_rows(info, ix, rows), t))
+                   for ix, bstore in coupled]
+            self._run_coupled(store, coupled, lambda t: store.insert_rows(rows, t), fbs)
+
+    def _delete_rows(self, store: TableStore, mask_fn) -> int:
+        with store._lock:
+            coupled = self._coupled_global(store)
+            if not coupled:
+                return store.delete_where(mask_fn, self._tctx(store))
+            info = store.info
+            cols = sorted({f.name for ix, _ in coupled
+                           for f in gi.backing_schema(info, ix).fields})
+
+            def fb(t, r, ix, b):
+                entries = gi.entry_table(info, ix, r[1])
+                if entries.num_rows:
+                    b.delete_where(None, t, rowids=b.pk_rowids(entries))
+            fbs = [(lambda t, r, ix=ix, b=bstore: fb(t, r, ix, b)) for ix, bstore in coupled]
+            return self._run_coupled(
+                store, coupled, lambda t: store.delete_where(mask_fn, t, collect_cols=cols),
+                fbs)[0]
+
+    def _update_rows(self, store: TableStore, mask_fn, assign_fn, changed: list[str]) -> int:
+        with store._lock:
+            coupled = self._coupled_global(store)
+            pk = store.info.primary_key()
+            pk_cols = list(pk.columns) if pk else []
+            # only the indexes whose entries the assignments can change
+            touched = [(ix, b) for ix, b in coupled
+                       if set(changed) & set(list(ix.columns) + pk_cols)]
+            if not touched:
+                return store.update_where(mask_fn, assign_fn, self._tctx(store),
+                                          changed_cols=changed)
+            info = store.info
+            cols = sorted({f.name for ix, _ in touched
+                           for f in gi.backing_schema(info, ix).fields})
+            # the unique check before any write: a dry run gives the rows'
+            # old and new entries (the lock holds them still)
+            _, dry_old, dry_new = store.update_where(
+                mask_fn, assign_fn, self._tctx(store), changed_cols=changed,
+                collect_cols=cols, dry_run=True)
+            exclude = set(zip(*[dry_old.column(c).to_pylist() for c in pk_cols])) \
+                if pk_cols and dry_old.num_rows else set()
+            for ix, bstore in touched:
+                gi.check_unique(info, ix, bstore, dry_new.to_pylist(), exclude_pks=exclude)
+
+            def fb(t, r, ix, b):
+                old_e, new_e = gi.entry_table(info, ix, r[1]), gi.entry_table(info, ix, r[2])
+                if old_e.num_rows:
+                    b.delete_where(None, t, rowids=b.pk_rowids(old_e))
+                if new_e.num_rows:
+                    b.insert_rows(new_e.to_pylist(), t)
+            fbs = [(lambda t, r, ix=ix, b=bstore: fb(t, r, ix, b)) for ix, bstore in touched]
+            return self._run_coupled(
+                store, touched,
+                lambda t: store.update_where(mask_fn, assign_fn, t, changed_cols=changed,
+                                             collect_cols=cols),
+                fbs)[0]
 
     def _user_columns(self, store: TableStore) -> list[str]:
         """Declared column order with vector components collapsed back to
@@ -905,37 +1333,105 @@ class Session:
 
     def _alter_table(self, s: AlterTableStmt) -> Result:
         """ALTER TABLE ADD / DROP COLUMN (the store rewrites its regions; a
-        checkpoint boundary under ``data_dir``), ADD ANN INDEX and DROP
-        INDEX, as the JAX session does them: an ANN index is trained lazily
-        on its first ANN query (index/annindex), so there is no backfill.
-        Online ADD INDEX of other kinds, rollups and partitions raise
-        ``NotPortedError``."""
+        checkpoint boundary under ``data_dir``), ADD / DROP PARTITION, ADD
+        ANN INDEX, ADD FULLTEXT KEY and DROP INDEX, as the JAX session does
+        them: an ANN index is trained lazily on its first ANN query
+        (index/annindex) and a fulltext index is built per dictionary
+        (index/fulltext), so neither has a backfill; dropping a global
+        index drops its backing table.  Online ADD INDEX of the other kinds
+        (global ones included) and rollups raise ``NotPortedError``."""
         db = s.table.database or self.current_db
         info = self.db.catalog.get_table(db, s.table.name)
         if s.action in ("add_column", "drop_column"):
             return self._alter_columns(s, info)
+        if s.action in ("add_partition", "drop_partition"):
+            return self._alter_partition(s, db, info)
         if s.action == "drop_index":
             kept = [ix for ix in info.indexes
-                    if not (ix.name == s.index_name and ix.kind in ("ann", "key", "unique"))]
+                    if not (ix.name == s.index_name and
+                            ix.kind in ("key", "unique", "fulltext", "ann", "global",
+                                        "global_unique"))]
             if len(kept) == len(info.indexes):
                 raise PlanError(f"unknown index {s.index_name!r}")
+            dropped = [ix for ix in info.indexes if ix not in kept]
             info.indexes = kept
             info.version += 1
+            for ix in dropped:
+                if gi.is_global(ix):
+                    self._drop_global_backing(db, info.name, ix)
             self.db.save_catalog()
             return Result()
-        if s.action != "add_index" or s.index_kind != "ann":
-            raise NotPortedError(f"ALTER TABLE {s.action} (online ADD INDEX, rollups and "
-                                 "partitions)")
-        vcols = (info.options or {}).get("vector_cols") or {}
-        if len(s.index_cols) != 1 or s.index_cols[0] not in vcols:
-            raise PlanError("ANN INDEX needs exactly one VECTOR column")
-        name = s.index_name or f"ann_{s.index_cols[0]}"
+        if s.action != "add_index" or s.index_kind not in ("ann", "fulltext"):
+            raise NotPortedError(f"ALTER TABLE {s.action} (online ADD INDEX, global "
+                                 "indexes and rollups)")
+        if s.index_kind == "ann":
+            vcols = (info.options or {}).get("vector_cols") or {}
+            if len(s.index_cols) != 1 or s.index_cols[0] not in vcols:
+                raise PlanError("ANN INDEX needs exactly one VECTOR column")
+        else:
+            if not s.index_cols:
+                raise PlanError("index needs at least one column")
+            for c in s.index_cols:
+                if c not in info.schema:
+                    raise PlanError(f"unknown column {c!r}")
+        prefix = {"fulltext": "ft", "ann": "ann"}[s.index_kind]
+        name = s.index_name or f"{prefix}_{'_'.join(s.index_cols)}"
         if any(ix.name == name for ix in info.indexes):
             raise PlanError(f"index {name!r} exists")
-        info.indexes.append(IndexInfo(name, "ann", list(s.index_cols)))
+        info.indexes.append(IndexInfo(name, s.index_kind, list(s.index_cols)))
         info.version += 1
         self.db.save_catalog()
         return Result()
+
+    def _alter_partition(self, s: AlterTableStmt, db: str, info) -> Result:
+        """ADD PARTITION extends a RANGE table's bounds; DROP PARTITION
+        deletes the partition's rows (and their global-index entries) and
+        renumbers the later partitions' region tags.  An open transaction
+        was committed before this DDL ran, so no ROLLBACK crosses it."""
+        spec = (info.options or {}).get("partition")
+        if spec is None:
+            raise PlanError(f"table {info.name!r} is not partitioned")
+        store = self._store(s.table)
+        if spec["kind"] != "range":
+            raise PlanError(f"{s.action.replace('_', ' ').upper()} applies to RANGE "
+                            "partitioning")
+        if s.action == "add_partition":
+            if s.partition_name in spec["names"]:
+                raise PlanError(f"partition {s.partition_name!r} exists")
+            if spec["uppers"] and spec["uppers"][-1] is None:
+                raise PlanError("cannot ADD PARTITION after MAXVALUE")
+            f = info.schema.field(spec["column"])
+            if s.partition_upper is not None and spec["uppers"]:
+                if store._norm_part_scalar(s.partition_upper, f) <= \
+                        store._norm_part_scalar(spec["uppers"][-1], f):
+                    raise PlanError("new partition bound must exceed the last bound")
+            with store._lock:
+                spec["names"].append(s.partition_name)
+                spec["uppers"].append(s.partition_upper)
+                info.version += 1
+                store._bump()
+            self.db.save_catalog()
+            return Result()
+        if s.partition_name not in spec["names"]:
+            raise PlanError(f"unknown partition {s.partition_name!r}")
+        if len(spec["names"]) == 1:
+            raise PlanError("cannot remove all partitions; use DROP TABLE")
+        pid = spec["names"].index(s.partition_name)
+        with store._lock:
+            def mask_fn(t):
+                return store.partition_ids(t) == pid
+            n = self._delete_rows(store, mask_fn)
+            spec["names"].pop(pid)
+            spec["uppers"].pop(pid)
+            for r in store.regions:
+                if r.part == pid:
+                    r.part = -1          # emptied: the tag goes
+                elif r.part > pid:
+                    r.part -= 1
+            info.version += 1
+            store._bump()
+        self.db.save_catalog()
+        return Result(affected_rows=n)
 
     def _alter_columns(self, s: AlterTableStmt, info) -> Result:
         fields = list(info.schema.fields)
@@ -958,6 +1454,57 @@ class Session:
         store.alter_schema(Schema(tuple(fields)))
         self.db.save_catalog()
         return Result()
+
+    def _load_data(self, s: LoadDataStmt) -> Result:
+        """LOAD DATA INFILE: pyarrow's CSV reader into the bulk ingest, the
+        primary key checked (global indexes maintained), as in the JAX
+        session.  Its binlog row is not written: the port has no binlog."""
+        from pyarrow import csv as pacsv
+
+        store = self._store(s.table)
+        types = {f.name: f.type for f in store.arrow_schema}
+        table = pacsv.read_csv(
+            s.path,
+            read_options=pacsv.ReadOptions(column_names=list(types), skip_rows=s.ignore_lines),
+            parse_options=pacsv.ParseOptions(delimiter=s.sep),
+            convert_options=pacsv.ConvertOptions(column_types=types,
+                                                 null_values=["", "\\N", "NULL"],
+                                                 strings_can_be_null=True))
+        self._ingest_arrow(store, table, check_dups=True)
+        return Result(affected_rows=table.num_rows)
+
+    def _handle(self, s: HandleStmt) -> Result:
+        """HANDLE's in-process commands: checkpoint, gc (the row tier's MVCC
+        versions), split <db.table> <rows> and set_flag <name> <value>.  The
+        commands of planes the port lacks (the fleet, the cold tier, TTL,
+        online DDL, privileges, the flight recorder) raise
+        ``NotPortedError``."""
+        if s.command == "checkpoint":
+            self.db.checkpoint()
+            return Result()
+        if s.command == "gc":
+            for st in self.db.stores.values():
+                if st.row_table is not None:
+                    st.row_table.gc(st.row_table.snapshot())
+            return Result()
+        if s.command == "split" and len(s.args) >= 2:
+            # `db.t` lexes as three tokens: the row count is the last one
+            key, rows = "".join(s.args[:-1]), int(s.args[-1])
+            st = self.db.stores.get(key)
+            if st is None:
+                raise PlanError(f"unknown table {key!r}")
+            with st._lock:
+                st.region_rows = rows
+                for r in list(st.regions):
+                    st._maybe_split(r)
+                st._bump()
+            return Result()
+        if s.command == "set_flag" and len(s.args) >= 2:
+            FLAGS.set_flag(s.args[0], " ".join(s.args[1:]))
+            return Result()
+        if s.command in _HANDLE_PLANES:
+            raise NotPortedError(f"HANDLE {s.command} (its plane is not ported)")
+        raise SqlError(f"unsupported HANDLE command {s.command!r}")
 
     # -- transactions ------------------------------------------------------
     def _txn_stmt(self, s: TxnStmt) -> Result:
@@ -1032,15 +1579,15 @@ class Session:
             affected = 0
             if s.replace:
                 if dupset:
-                    affected += store.delete_where(mask_over(dupset), tctx)
+                    affected += self._delete_rows(store, mask_over(dupset))
                 effective: dict = {}
                 for k, r in zip(keys, rows):
                     effective[k] = r            # the last row of a key wins
-                store.insert_rows(list(effective.values()), tctx)
+                self._insert_rows(store, list(effective.values()))
                 affected += len(rows) + batch_extras
                 return Result(affected_rows=affected)
             if new_rows:
-                store.insert_rows(new_rows, tctx)
+                self._insert_rows(store, new_rows)
                 affected += len(new_rows)
             if dup_rows:
                 mapping: dict = {}
@@ -1065,8 +1612,8 @@ class Session:
                                              pa.array(newv, f.type))
                     return out
 
-                n = store.update_where(mask_over({k for k, _ in dup_rows}), assign_fn,
-                                       tctx, changed_cols=assigned)
+                n = self._update_rows(store, mask_over({k for k, _ in dup_rows}), assign_fn,
+                                      assigned)
                 affected += 2 * n
         return Result(affected_rows=affected)
 
@@ -1186,14 +1733,13 @@ class Session:
                 return out
         else:
             mask_fn = self._host_mask(store, s.where)
-        n = store.update_where(mask_fn, assign_fn, self._tctx(store),
-                               changed_cols=[name for name, _ in assigns])
+        n = self._update_rows(store, mask_fn, assign_fn, [name for name, _ in assigns])
         return Result(affected_rows=n)
 
     def _delete(self, s: DeleteStmt) -> Result:
         store = self._store(s.table)
         mask_fn = self._point_write_mask(store, s.where) or self._host_mask(store, s.where)
-        return Result(affected_rows=store.delete_where(mask_fn, self._tctx(store)))
+        return Result(affected_rows=self._delete_rows(store, mask_fn))
 
     # -- snapshots ---------------------------------------------------------
     def _set_snapshot(self, value) -> None:
@@ -1736,7 +2282,7 @@ class Session:
         bound = paramize.substitute_placeholders(stmt, vals)
         metrics.prepared_executes.add(1)
         if isinstance(bound, SelectStmt):
-            resolved = _resolve_session_exprs(bound, self.connection_id())
+            resolved = self._resolve_session_exprs(bound)
             # the text key carries the bound values: distinct values in
             # pinned positions (IN lists, LIMIT) must not collide; hoisted
             # ones share the normalized entry anyway
@@ -1888,7 +2434,105 @@ class Session:
             return pa.table({"kind": [r[0] for r in rows], "name": [r[1] for r in rows],
                              "value": pa.array([r[2] for r in rows], pa.float64()),
                              "detail": [r[3] for r in rows]})
-        raise NotPortedError(f"information_schema.{name} (its plane is not ported)")
+        render = getattr(self, f"_info_{name}", None)
+        if render is not None:
+            rows = render()
+            if not rows:
+                return empty()
+            sch = schema_to_arrow(Catalog.INFORMATION_SCHEMA[name])
+            return pa.table({f.name: pa.array([r[i] for r in rows], f.type)
+                             for i, f in enumerate(sch)}, schema=sch)
+        if name in Catalog.INFORMATION_SCHEMA:
+            raise NotPortedError(f"information_schema.{name} (its plane is not ported)")
+        raise PlanError(f"unknown information_schema table {name!r}")
+
+    # the information_schema tables, one method each: rows in the table's
+    # catalog column order, as the JAX session renders them
+    def _info_tables(self) -> list:
+        cat = self.db.catalog
+        rows = []
+        for db in cat.databases():
+            for t in cat.tables(db):
+                st = self.db.stores.get(f"{db}.{t}")
+                rows.append((db, t, st.num_rows if st else 0, cat.get_table(db, t).version))
+        return rows
+
+    def _info_columns(self) -> list:
+        cat = self.db.catalog
+        return [(db, t, f.name, f.ltype.value, "YES" if f.nullable else "NO")
+                for db in cat.databases() for t in cat.tables(db)
+                for f in cat.get_table(db, t).schema.fields]
+
+    def _info_views(self) -> list:
+        return [(*k.split(".", 1), v["sql"])
+                for k, v in sorted(self.db.catalog._views.items())]
+
+    def _info_partitions(self) -> list:
+        cat = self.db.catalog
+        rows = []
+        for db in cat.databases():
+            if db == "information_schema":
+                continue
+            for t in cat.tables(db):
+                spec = (cat.get_table(db, t).options or {}).get("partition")
+                if not spec:
+                    continue
+                st = self.db.stores.get(f"{db}.{t}")
+                counts: dict = {}
+                # names, bounds and counts under the store's lock: ADD / DROP
+                # PARTITION change them under it
+                with st._lock if st is not None else contextlib.nullcontext():
+                    names, uppers = list(spec.get("names", ())), list(spec.get("uppers", ()))
+                    for r in (st.regions if st is not None else ()):
+                        counts[r.part] = counts.get(r.part, 0) + r.num_rows
+                if spec["kind"] == "hash":
+                    rows += [(db, t, f"p{i}", "HASH", spec["column"], "", counts.get(i, 0))
+                             for i in range(int(spec["n"]))]
+                else:
+                    rows += [(db, t, nm, "RANGE", spec["column"],
+                              "MAXVALUE" if up is None else str(up), counts.get(i, 0))
+                             for i, (nm, up) in enumerate(zip(names, uppers))]
+        return rows
+
+    def _info_snapshots(self) -> list:
+        return [(r["snapshot_ts"], r["age_ms"], r["query"], r["holder"])
+                for r in self.db.mvcc.snapshots.describe()]
+
+    def _info_trace_spans(self) -> list:
+        return [(rec["query_id"], rec["trace_id"], sp["span_id"], sp["parent_id"], sp["name"],
+                 sp.get("node") or "frontend", float(sp["ts_us"]), float(sp["dur_ms"]),
+                 json.dumps(sp["attrs"], default=str) if sp["attrs"] else "")
+                for rec in trace.TRACER.list() for sp in rec["spans"]]
+
+    def _info_flags(self) -> list:
+        return [(n, str(v), str(d), h) for n, v, d, h in FLAGS.describe()]
+
+    def _info_failpoints(self) -> list:
+        from ..chaos import failpoint
+
+        return [(r[0], r[2], r[3], r[4], r[1]) for r in failpoint.describe()]
+
+    def _info_column_stats(self) -> list:
+        cat = self.db.catalog
+        rows = []
+        for db in cat.databases():
+            if db == "information_schema":
+                continue
+            for t in cat.tables(db):
+                st = self.db.stores.get(f"{db}.{t}")
+                if st is None:
+                    continue
+                for f in cat.get_table(db, t).schema.fields:
+                    try:
+                        s = st.column_stats(f.name) or {}
+                    except Exception:   # noqa: BLE001 — statistics are advisory
+                        metrics.count_swallowed("session.column_stats")
+                        continue
+                    rows.append((db, t, f.name, int(s.get("ndv") or 0),
+                                 s.get("ndv_method") or "", int(s.get("nulls") or 0),
+                                 int(s.get("n") or 0), len(s.get("mcv") or ()),
+                                 max(0, len(s.get("hist") or ()) - 1)))
+        return rows
 
     def _select_into_outfile(self, stmt: SelectStmt) -> Result:
         """SELECT ... INTO OUTFILE: the rows go to a file, the row count is
@@ -2006,22 +2650,54 @@ class Session:
 
     _ACCESS_CACHE_MAX = 16
 
+    def _forget_access(self, table_key: str) -> None:
+        """Free this session's access-path batches of a dropped or emptied
+        table now, not when the table next stages one."""
+        self._access_batches = {k: v for k, v in self._access_batches.items()
+                                if k[0] != table_key}
+
     def _access_path_batch(self, n: ScanNode, store) -> Optional[ColumnBatch]:
         """The scan's input by its access path (index/selector.choose_access):
-        a selective KEY equality gathers its rows on the host, zone maps drop
-        whole regions; None is the full scan.  The device filter still runs,
-        so each is a conservative superset of the rows."""
+        a selective KEY equality gathers its rows on the host, a global
+        index's equality reads the backing table and gathers the main
+        table's rows by primary key, partition pruning and zone maps drop
+        whole regions (the kept ones staged as one batch, cached per table
+        version); None is the full scan.  The device filter still runs, so
+        each is a conservative superset of the rows."""
         if n.pushed_filter is None:
             return None
         try:
-            access = choose_access(store.info, store, analyze_conjuncts(self._pushed_filter(n)))
-        except Exception:       # noqa: BLE001 — an odd predicate: full scan
+            pred = analyze_conjuncts(self._pushed_filter(n))
+        except Exception:       # noqa: BLE001 — a predicate it cannot read: full scan
+            return None
+        try:
+            access = choose_access(store.info, store, pred, db=self.db)
+        except Exception:       # noqa: BLE001 — rows stay right, the count shows the fault
+            metrics.count_swallowed("session.access_path")
             return None
         if access[0] == "secondary":
             _, ix_name, col, value = access
             n.access_desc = f"index({ix_name}:{col})"
             ck = (n.table_key, store.version, "sec", col, value)
             build = lambda: store.secondary_scan(col, value)     # noqa: E731
+        elif access[0] == "global":
+            _, ix_name, col, value = access
+            n.access_desc = f"global_index({ix_name}:{col})"
+            bstore = self.db.stores[
+                f"{store.info.database}.{gi.backing_table_name(store.info.name, ix_name)}"]
+            ck = (n.table_key, store.version, "gidx", ix_name, col, value)
+            build = lambda: store.lookup_by_pks(                  # noqa: E731
+                bstore.secondary_scan(col, value))
+        elif access[0] == "partition":
+            _, parts, ptotal = access
+            keep, total = store.prune_parts(parts)
+            if len(keep) == total:
+                n.access_desc = "full"
+                return None     # untagged regions: nothing drops
+            n.access_desc = f"partition({ptotal - len(parts)}/{ptotal} partitions pruned)"
+            metrics.regions_pruned.add(total - len(keep))
+            ck = (n.table_key, store.version, "part", tuple(keep))
+            build = lambda: store.regions_table(keep)            # noqa: E731
         elif access[0] == "zonemap":
             keep, total = store.prune_regions(access[1])
             if len(keep) == total:
@@ -2034,7 +2710,10 @@ class Session:
         else:
             n.access_desc = "full"
             return None
-        b = self._access_batches.get(ck)
+        hit = self._access_batches.get(ck)
+        # a store dropped and made again under the same name starts its
+        # versions anew: a batch is only its own store's
+        b = hit[1] if hit is not None and hit[0]() is store else None
         if b is None:
             b = ColumnBatch.from_arrow(build(), self.device)
             # older versions of this table go, and the cache stays bounded
@@ -2042,7 +2721,7 @@ class Session:
                                     if not (k[0] == n.table_key and k[1] != store.version)}
             while len(self._access_batches) >= self._ACCESS_CACHE_MAX:
                 self._access_batches.pop(next(iter(self._access_batches)))
-            self._access_batches[ck] = b
+            self._access_batches[ck] = (weakref.ref(store), b)
         metrics.index_scans.add(1)
         return b
 
@@ -2058,9 +2737,14 @@ class Session:
                 if store is not None and not n.table_key.startswith("information_schema."):
                     try:
                         access = choose_access(store.info, store,
-                                               analyze_conjuncts(n.pushed_filter))
+                                               analyze_conjuncts(n.pushed_filter), db=self.db)
                         if access[0] == "secondary":
                             n.access_desc = f"index({access[1]}:{access[2]})"
+                        elif access[0] == "global":
+                            n.access_desc = f"global_index({access[1]}:{access[2]})"
+                        elif access[0] == "partition":
+                            n.access_desc = (f"partition({access[2] - len(access[1])}"
+                                             f"/{access[2]} partitions pruned)")
                         elif access[0] == "zonemap":
                             keep, total = store.prune_regions(access[1])
                             n.access_desc = ("full" if len(keep) == total else
@@ -2257,62 +2941,6 @@ def _qualify_free(e):
     if isinstance(e, Call):
         return Call(e.op, tuple(_qualify_free(a) for a in e.args))
     return e
-
-
-def _resolve_session_exprs(stmt: SelectStmt, conn_id: int) -> SelectStmt:
-    """CONNECTION_ID() and VERSION() -> literals before planning, and their
-    MySQL column captions where the item has no alias (the part of the JAX
-    session's ``_resolve_session_exprs`` the port serves).  A statement that
-    names neither comes back as it was."""
-    env = {"connection_id": conn_id, "version": SERVER_VERSION}
-    changed = [False]
-
-    def walk_e(e):
-        if isinstance(e, Call):
-            if e.op in env and not e.args:
-                changed[0] = True
-                return Lit(env[e.op])
-            return Call(e.op, tuple(walk_e(a) for a in e.args))
-        if isinstance(e, AggCall):
-            return AggCall(e.op, tuple(walk_e(a) for a in e.args), e.distinct)
-        if isinstance(e, WindowCall):
-            return WindowCall(e.op, tuple(walk_e(a) for a in e.args),
-                              tuple(walk_e(p) for p in e.partition_by),
-                              tuple((walk_e(oe), asc) for oe, asc in e.order_by),
-                              e.running, e.frame)
-        if isinstance(e, Subquery):
-            return Subquery(walk_s(e.stmt))
-        return e
-
-    def opt(e):
-        return None if e is None else walk_e(e)
-
-    def alias(e):
-        if isinstance(e, Call) and e.op in env and not e.args:
-            return f"{e.op.upper()}()"
-        return None
-
-    def walk_t(t):
-        if t is not None and t.subquery is not None:
-            return replace(t, subquery=walk_s(t.subquery))
-        return t
-
-    def walk_s(st: SelectStmt) -> SelectStmt:
-        return replace(
-            st,
-            items=[SelectItem(opt(it.expr), it.alias or alias(it.expr), it.star_table)
-                   for it in st.items],
-            table=walk_t(st.table),
-            where=opt(st.where),
-            group_by=[walk_e(g) for g in st.group_by],
-            having=opt(st.having),
-            order_by=[OrderItem(walk_e(o.expr), o.asc) for o in st.order_by],
-            joins=[replace(j, table=walk_t(j.table), on=opt(j.on)) for j in st.joins],
-            ctes=[(n, walk_s(c)) for n, c in st.ctes],
-            union=None if st.union is None else (st.union[0], walk_s(st.union[1])))
-
-    out = walk_s(stmt)
-    return out if changed[0] else stmt
 
 
 def _host_rows_result(names: list, rows: list) -> Result:

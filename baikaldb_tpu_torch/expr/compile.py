@@ -517,6 +517,7 @@ def _default_type_rule(op, argts):
         "is_not_null": LType.BOOL, "like": LType.BOOL, "not_like": LType.BOOL,
         "__row_index": LType.INT64,
         "in": LType.BOOL, "not_in": LType.BOOL, "between": LType.BOOL,
+        "match_against": LType.FLOAT32,
         "case_when": argts[1] if len(argts) > 1 else LType.NULL,
         "if": argts[1] if len(argts) > 1 else LType.NULL,
         "ifnull": argts[0] if argts else LType.NULL,
@@ -901,6 +902,32 @@ def _row_index(e, batch):
     one device, so the row position is unique."""
     return Column(torch.arange(len(batch), dtype=torch.int64, device=batch.device),
                   None, LType.INT64)
+
+
+@_raw("match_against")
+def _match_against(e, batch):
+    """MATCH(col) AGAINST('query' [IN BOOLEAN MODE]), compiled as the JAX
+    package compiles it: the inverted index (index/fulltext.py) over the
+    column's dictionary gives one BM25 relevance per code on the host, and
+    the per-row value is one gather by code on the device (0.0 where the
+    code is negative).  The value is FLOAT, so a WHERE reads > 0 as a match
+    and ORDER BY MATCH(...) ranks."""
+    a = _eval(e.args[0], batch)
+    q = e.args[1]
+    if not (isinstance(q, Lit) and isinstance(q.value, str)):
+        raise ExprError("AGAINST requires a string literal")
+    boolean_mode = bool(e.args[2].value) if len(e.args) > 2 else False
+    if not (isinstance(a, Column) and a.ltype is LType.STRING and a.dictionary is not None):
+        raise ExprError("MATCH requires a dictionary-encoded string column")
+    from ..index.fulltext import match_scores
+
+    scores = match_scores(a.dictionary, q.value, boolean_mode=boolean_mode)
+    if len(scores) == 0:
+        hit = torch.zeros(a.data.shape, dtype=torch.float32, device=a.data.device)
+    else:
+        hit = torch.where(a.data >= 0, _take(scores, a.data),
+                          torch.zeros((), dtype=torch.float32, device=a.data.device))
+    return Column(hit, a.validity, LType.FLOAT32)
 
 
 @_raw("like")

@@ -1,8 +1,7 @@
 """IndexSelector: each scan's access path from its predicates.
 
-The port of ``baikaldb_tpu/index/selector.py`` without global indexes and
-partitions.  A full device scan is the baseline, so the choice is about what
-not to stage on the device:
+The port of ``baikaldb_tpu/index/selector.py``.  A full device scan is the
+baseline, so the choice is about what not to stage on the device:
 
 - **point**: WHERE fixes every primary-key column by equality and the
   statement is a plain row fetch -> the host answers from the primary-key
@@ -10,6 +9,12 @@ not to stage on the device:
 - **secondary**: an equality on a declared KEY column -> the host gathers
   the matching rows and only they are staged; chosen when the estimated
   match fraction is small.
+- **global**: an equality on a global index's first column -> the backing
+  table's rows give the primary keys, and the main table's rows with those
+  keys are staged (the lookup join); chosen on the same fraction.
+- **partition**: a predicate on a partitioned table's partition column ->
+  the regions of the partitions it cannot touch drop before staging; the
+  kept regions are staged as one batch, which the kernels read once.
 - **zonemap**: range / equality predicates on numeric and temporal columns
   drop whole regions by their min/max before staging.
 - **full**: everything else.
@@ -143,9 +148,13 @@ def _collect_eq_terms(e, out: list) -> bool:
 
 
 def choose_access(info, store, pred: ScanPredicates,
-                  secondary_max_fraction: float = 0.2):
-    """-> ("secondary", index_name, col, value) | ("zonemap", ranges) |
-    ("full",).  Point reads are decided per statement, not here."""
+                  secondary_max_fraction: float = 0.2, db=None):
+    """-> ("secondary", index_name, col, value) | ("global", index_name,
+    col, value) | ("partition", kept partition ids, partitions) |
+    ("zonemap", ranges) | ("full",), in the JAX selector's order.  Point
+    reads are decided per statement, not here.  ``db`` (the Database)
+    resolves global indexes' backing stores; without it the global route is
+    not considered."""
     for ix in info.indexes:
         if ix.kind not in ("key", "unique"):
             continue
@@ -157,6 +166,37 @@ def choose_access(info, store, pred: ScanPredicates,
             matches = store.secondary_count(col, pred.eq[col])
             if matches is not None and matches / n <= secondary_max_fraction:
                 return ("secondary", ix.name, col, pred.eq[col])
+    if db is not None:
+        from .globalindex import backing_table_name
+
+        for ix in info.indexes:
+            if ix.kind not in ("global", "global_unique") \
+                    or ix.params.get("state", "public") != "public":
+                continue
+            col = ix.columns[0]
+            if col not in pred.eq:
+                continue
+            bstore = db.stores.get(f"{info.database}.{backing_table_name(info.name, ix.name)}")
+            if bstore is None:
+                continue
+            matches = bstore.secondary_count(col, pred.eq[col])
+            if matches is not None and matches / max(store.num_rows, 1) \
+                    <= secondary_max_fraction:
+                return ("global", ix.name, col, pred.eq[col])
+    # partition pruning (the reference's PartitionAnalyze,
+    # physical_planner.cpp:27-120) before the zone maps look
+    spec = store.partition_spec()
+    if spec is not None:
+        pcol = spec["column"]
+        parts = None
+        if pcol in pred.eq:
+            parts = store.partitions_for(eq_value=pred.eq[pcol])
+        elif pcol in pred.ranges:
+            parts = store.partitions_for(range_=tuple(pred.ranges[pcol]))
+        if parts is not None:
+            total = len(spec.get("names") or []) or int(spec.get("n", 0))
+            if len(parts) < total:
+                return ("partition", parts, total)
     prunable = {c: r for c, r in pred.ranges.items()
                 if store.zone_map_column(c) is not None}
     if prunable:

@@ -2,8 +2,8 @@
 MVCC row tier behind them for durability and transactions.
 
 The port of ``baikaldb_tpu/storage/column_store.py`` without the replicated
-and remote tiers, partitions, global indexes, the binlog and the cold tier's
-segments (ROADMAP.md lists them).
+and remote tiers, the binlog and the cold tier's segments (ROADMAP.md lists
+them).
 
 - **Regions**: the table's rows, cut by row count into regions of at most
   ``region_rows`` rows (``DEFAULT_REGION_ROWS`` = 2^20).  Each region holds
@@ -23,9 +23,17 @@ segments (ROADMAP.md lists them).
   (Arrow tables and the stamp arrays are never mutated in place, so capture
   copies nothing); rollback restores them.  ``commit_group`` commits several
   tables under one commit timestamp.
-- **Access paths**: per-region zone maps (``prune_regions``), the primary
-  key index (``point_lookup``, ``lookup_by_pks``) and sorted secondary orders
-  (``secondary_scan``), which index/selector.py chooses among.
+- **Partitions**: a table declared ``PARTITION BY RANGE`` / ``HASH``
+  (``partition_spec``) routes each row into its partition's own regions
+  (``Region.part``, ``partition_ids``); an unroutable row is refused before
+  any durable write, an UPDATE of the partition column moves its rows
+  (``_rehome_partition_rows``), and the tags survive a checkpoint in the
+  region files' names.  ``partitions_for`` / ``prune_parts`` give the
+  regions a predicate on the partition column can touch.
+- **Access paths**: per-region zone maps (``prune_regions``), partition
+  pruning, the primary key index (``point_lookup``, ``lookup_by_pks``) and
+  sorted secondary orders (``secondary_scan``), which index/selector.py
+  chooses among.
 - **Snapshots**: ``versioned_batch`` is the device batch of a pinned read:
   the live image and the history versions alive at the snapshot, with
   ``visibility_mask`` ANDed into ``sel`` on the device.
@@ -40,6 +48,7 @@ under it a commit takes the snapshot registry's (12) and the TSO client's
 
 from __future__ import annotations
 
+import bisect
 import datetime
 import os
 import threading
@@ -63,6 +72,15 @@ from .rowstore import ConflictError, KeyCodec, RowTable, Txn
 
 DEFAULT_REGION_ROWS = 1 << 20  # split threshold on the row axis
 ROWID = "__rowid"              # hidden parquet column carrying row identity
+
+
+def _fnv64(b: bytes) -> int:
+    """FNV-1a 64-bit: the hash partition of a string key (the JAX package's
+    ``storage/replicated._fnv64``)."""
+    h = 0xcbf29ce484222325
+    for x in b:
+        h = ((h ^ x) * 0x100000001b3) & 0xFFFFFFFFFFFFFFFF
+    return h
 
 
 def schema_to_arrow(schema: Schema) -> pa.Schema:
@@ -128,13 +146,16 @@ class Region:
     """One row-range shard of a table: its rows, their rowids and their
     MVCC commit stamps (int64, aligned with the rows; 0 = visible to every
     snapshot).  The arrays are replaced, never written in place, so a
-    transaction's pre-image is a set of references."""
+    transaction's pre-image is a set of references.  ``part`` is the table
+    partition the region holds (-1: unpartitioned, or unknown)."""
 
-    __slots__ = ("region_id", "data", "rowids", "_cts", "_cts_max", "version")
+    __slots__ = ("region_id", "data", "rowids", "_cts", "_cts_max", "version", "part")
 
-    def __init__(self, region_id: int, data: pa.Table, rowids=None, cts=None):
+    def __init__(self, region_id: int, data: pa.Table, rowids=None, cts=None,
+                 part: int = -1):
         n = data.num_rows
         self.region_id = region_id
+        self.part = part
         self.data = data
         self.rowids = np.zeros(n, np.int64) if rowids is None else rowids
         self.cts = np.zeros(n, np.int64) if cts is None else cts
@@ -381,6 +402,9 @@ class TableStore:
                 reg.rowids = reg.rowids[keep]
                 reg.cts = reg.cts[keep]
                 reg.version += 1
+            if self.partition_spec() is not None:
+                # a replayed UPDATE of the partition column moves its row
+                self._rehome_partition_rows()
             appends = [r for r, s in zip(rows, seen) if not s and not r.get("__del")]
             if appends:
                 rowids = np.asarray([int(r[ROWID]) for r in appends], np.int64)
@@ -800,22 +824,173 @@ class TableStore:
                     return r.data.slice(int(hit[0]), 1).to_pylist()[0]
         return None
 
+    # -- table partitions (the reference's range / hash partitions in
+    # SchemaInfo, schema_factory.h:427-533; PartitionAnalyze prunes) ------
+    def partition_spec(self) -> Optional[dict]:
+        """{"kind": "range", "column": c, "names": [...], "uppers": [...]}
+        (a last upper of None is MAXVALUE), {"kind": "hash", "column": c,
+        "n": N}, or None."""
+        return (self.info.options or {}).get("partition")
+
+    @staticmethod
+    def _norm_part_scalar(v, f):
+        """One partition-column literal -> a comparable value (temporal to
+        its epoch integer, everything else as it is)."""
+        if v is None or not f.ltype.is_temporal:
+            return v
+        if isinstance(v, str):
+            from ..expr.compile import parse_temporal
+
+            return parse_temporal(v, f.ltype)
+        if isinstance(v, datetime.datetime):
+            return int((v - datetime.datetime(1970, 1, 1)).total_seconds() * 1e6)
+        if isinstance(v, datetime.date):
+            return (v - datetime.date(1970, 1, 1)).days
+        return v
+
+    @staticmethod
+    def _norm_part_array(arr, f) -> np.ndarray:
+        if f.ltype is LType.DATE:
+            return np.asarray(arr.cast(pa.int32()).to_numpy(zero_copy_only=False), np.int64)
+        if f.ltype.is_temporal:
+            return np.asarray(arr.cast(pa.timestamp("us")).cast(pa.int64())
+                              .to_numpy(zero_copy_only=False), np.int64)
+        if f.ltype is LType.STRING:
+            return np.asarray(arr.to_pylist(), dtype=object)
+        return arr.to_numpy(zero_copy_only=False)
+
+    def partition_ids(self, table: pa.Table) -> np.ndarray:
+        """The partition id of each row.  A value past the last range bound
+        of a table without MAXVALUE raises MySQL's "no partition for value".
+        NULL keys route to partition 0 (MySQL's lowest partition); no
+        comparison matches NULL, so pruning stays correct."""
+        spec = self.partition_spec()
+        f = self.info.schema.field(spec["column"])
+        arr = table.column(spec["column"])
+        null_mask = np.asarray(arr.is_null()) if arr.null_count else None
+        if null_mask is not None:
+            if f.ltype is LType.STRING:
+                fill = ""
+            elif f.ltype is LType.DATE:
+                fill = datetime.date(1970, 1, 1)
+            elif f.ltype.is_temporal:
+                fill = datetime.datetime(1970, 1, 1)
+            else:
+                fill = 0
+            arr = pc.fill_null(arr, fill)
+        vals = self._norm_part_array(arr, f)
+        if spec["kind"] == "hash":
+            n = int(spec["n"])
+            if vals.dtype == object:
+                pids = np.fromiter((_fnv64(str(v).encode()) % n for v in vals),
+                                   dtype=np.int64, count=len(vals))
+            else:
+                pids = (vals.astype(np.int64) % n + n) % n
+            if null_mask is not None:
+                pids[null_mask] = 0
+            return pids
+        uppers = [self._norm_part_scalar(u, f) for u in spec["uppers"]]
+        has_max = bool(uppers) and uppers[-1] is None
+        finite = np.array([u for u in uppers if u is not None],
+                          dtype=object if vals.dtype == object else None)
+        pids = np.searchsorted(finite, vals, side="right")
+        if null_mask is not None:
+            pids[null_mask] = 0
+        if not has_max and len(finite):
+            over = pids >= len(finite)
+            if null_mask is not None:
+                over = over & ~null_mask
+            if over.any():
+                raise ValueError(f"table {self.info.name!r} has no partition for value "
+                                 f"{vals[over][0]!r} in column {spec['column']!r}")
+        return pids
+
+    def partitions_for(self, eq_value=None, range_=None) -> Optional[set]:
+        """The partition ids a predicate on the partition column can touch,
+        or None when it cannot prune (a range on a hash partitioning)."""
+        spec = self.partition_spec()
+        if spec is None:
+            return None
+        f = self.info.schema.field(spec["column"])
+        if eq_value is not None:
+            t = pa.table({spec["column"]: pa.array([eq_value]).cast(
+                self.arrow_schema.field(spec["column"]).type)})
+            try:
+                return {int(self.partition_ids(t)[0])}
+            except ValueError:
+                return set()          # a value past every bound matches none
+        if spec["kind"] != "range" or range_ is None:
+            return None
+        lo, hi = range_
+        finite = [u for u in (self._norm_part_scalar(u, f) for u in spec["uppers"])
+                  if u is not None]
+        nparts = len(spec["uppers"])
+        lo_n = self._norm_part_scalar(lo, f) if lo is not None else None
+        hi_n = self._norm_part_scalar(hi, f) if hi is not None else None
+        # the selector's ranges are closed ([lo, hi]): the partition that
+        # holds hi itself stays (bisect_right routes as partition_ids does)
+        first = bisect.bisect_right(finite, lo_n) if lo_n is not None else 0
+        last = bisect.bisect_right(finite, hi_n) if hi_n is not None else nparts - 1
+        return set(range(first, min(last, nparts - 1) + 1))
+
+    def _rehome_partition_rows(self, only_ids: Optional[set] = None) -> None:
+        """Move rows whose partition-column value no longer matches their
+        region's tag into their partition's regions (after an UPDATE; the
+        caller holds the lock and has checked that every row routes).
+        ``only_ids``: id()s of the regions the update staged, the only ones
+        that can hold moved rows."""
+        moved_tabs, moved_ids, moved_cts = [], [], []
+        for r in self.regions:
+            if r.part < 0 or not r.num_rows or (only_ids is not None
+                                                and id(r) not in only_ids):
+                continue
+            wrong = self.partition_ids(r.data) != r.part
+            if not wrong.any():
+                continue
+            moved_tabs.append(r.data.filter(pa.array(wrong)))
+            moved_ids.append(r.rowids[wrong])
+            moved_cts.append(r.cts[wrong])
+            r.data = r.data.filter(pa.array(~wrong))
+            r.rowids = r.rowids[~wrong]
+            r.cts = r.cts[~wrong]
+            r.version += 1
+        if moved_tabs:
+            self._pk_stale = True
+            self._append_table(pa.concat_tables(moved_tabs).combine_chunks(),
+                               np.concatenate(moved_ids), np.concatenate(moved_cts),
+                               track=False)
+
+    def prune_parts(self, parts: set) -> tuple[list[int], int]:
+        """(kept region indexes, as ``regions_table`` addresses them; regions
+        with rows): regions of a pruned partition drop; an untagged region
+        (part -1) always stays, so pruning is conservative."""
+        with self._lock:
+            keep = [i for i, r in enumerate(self.regions)
+                    if r.num_rows and (r.part == -1 or r.part in parts)]
+            return keep, sum(1 for r in self.regions if r.num_rows)
+
     def lookup_by_pks(self, pk_table: pa.Table) -> pa.Table:
         """Full rows matching the given primary-key values, in table order
         (a missing key is absent): the main-table half of a global index's
-        lookup join, which arrives with global indexes."""
+        lookup join (the reference's select_manager_node.cpp:1081)."""
         with self._lock:
             if self._pk_codec is None or not pk_table.num_rows:
                 return self.snapshot().slice(0, 0)
-            idx = self._ensure_pk_index()
-            rids = {idx[k] for k in self._encode_pk_table(pk_table) if k in idx}
-            wanted = np.fromiter(rids, dtype=np.int64, count=len(rids))
+            wanted = self.pk_rowids(pk_table)
             parts = [r.data.filter(pa.array(np.isin(r.rowids, wanted)))
                      for r in self.regions if r.num_rows]
             parts = [p for p in parts if p.num_rows]
             if not parts:
                 return self.snapshot().slice(0, 0)
             return pa.concat_tables(parts).combine_chunks()
+
+    def pk_rowids(self, pk_table: pa.Table) -> np.ndarray:
+        """The rowids of the rows holding the given primary-key values (a
+        missing key is absent)."""
+        with self._lock:
+            idx = self._ensure_pk_index()
+            rids = {idx[k] for k in self._encode_pk_table(pk_table) if k in idx}
+            return np.fromiter(rids, dtype=np.int64, count=len(rids))
 
     # -- primary-key index -------------------------------------------------
     def _ensure_pk_index(self):
@@ -868,17 +1043,37 @@ class TableStore:
 
     # -- writes -----------------------------------------------------------
     def _append_table(self, table: pa.Table, rowids: np.ndarray, cts: np.ndarray,
-                      split: bool = True):
-        # every ingest path moves the AUTO_INCREMENT watermark past explicit
-        # ids, so later automatic ids never collide with loaded ones
-        self._distinct_move(None, table)
-        auto_col = (self.info.options or {}).get("auto_increment")
-        if auto_col and auto_col in table.column_names and table.num_rows:
-            mx = pc.max(table.column(auto_col)).as_py()
-            if mx is not None:
-                self._auto_incr = int(mx) if self._auto_incr is None \
-                    else max(self._auto_incr, int(mx))
-        last = self.regions[-1]
+                      split: bool = True, track: bool = True):
+        """Append rows to the last region (a partitioned table: to the last
+        region of each row's partition).  ``track``: the rows are new to the
+        table (a re-home moves rows the table already holds)."""
+        if track:
+            # every ingest path moves the AUTO_INCREMENT watermark past
+            # explicit ids, so later automatic ids never collide with loaded
+            # ones
+            self._distinct_move(None, table)
+            auto_col = (self.info.options or {}).get("auto_increment")
+            if auto_col and auto_col in table.column_names and table.num_rows:
+                mx = pc.max(table.column(auto_col)).as_py()
+                if mx is not None:
+                    self._auto_incr = int(mx) if self._auto_incr is None \
+                        else max(self._auto_incr, int(mx))
+        if self.partition_spec() is not None:
+            # each partition's rows land in that partition's own regions
+            pids = self.partition_ids(table)
+            for pid in np.unique(pids).tolist():
+                m = pids == pid
+                reg = next((r for r in reversed(self.regions) if r.part == pid), None)
+                if reg is None:
+                    reg = Region(self._alloc_region_id(), self.arrow_schema.empty_table(),
+                                 part=pid)
+                    self.regions.append(reg)
+                self._append_to(reg, table.filter(pa.array(m)), rowids[m], cts[m], split)
+            return
+        self._append_to(self.regions[-1], table, rowids, cts, split)
+
+    def _append_to(self, last: Region, table: pa.Table, rowids: np.ndarray,
+                   cts: np.ndarray, split: bool) -> None:
         if last.num_rows:
             last.data = pa.concat_tables([last.data, table]).combine_chunks()
             last.rowids = np.concatenate([last.rowids, rowids])
@@ -906,7 +1101,8 @@ class TableStore:
         for lo in range(rr, data.num_rows, rr):
             self.regions.append(Region(self._alloc_region_id(),
                                        data.slice(lo, rr).combine_chunks(),
-                                       rowids[lo:lo + rr], cts[lo:lo + rr]))
+                                       rowids[lo:lo + rr], cts[lo:lo + rr],
+                                       part=region.part))
 
     def insert_arrow(self, table: pa.Table, tctx: Optional[TxnContext] = None,
                      check_dups: bool = False):
@@ -919,6 +1115,8 @@ class TableStore:
             self._writer_check(tctx)
             if check_dups:
                 self._check_duplicates(table)
+            if self.partition_spec() is not None:
+                self.partition_ids(table)   # refuse an unroutable row first
             rowids = self._alloc_rowids(table.num_rows)
             self._bump()
             self._pk_stale = True
@@ -936,6 +1134,10 @@ class TableStore:
         with self._lock:
             self._writer_check(tctx)
             new_keys = self._check_duplicates(table)
+            if self.partition_spec() is not None:
+                # before the WAL write: a replay must never meet an
+                # unroutable row
+                self.partition_ids(table)
             self._bump()
             rowids = self._alloc_rowids(len(rows))
             self._write_hot([dict(r, **{ROWID: int(rid)}) for r, rid in zip(rows, rowids)],
@@ -947,10 +1149,15 @@ class TableStore:
             if new_keys and self._pk_index is not None and not self._pk_stale:
                 self._pk_index.update(zip(new_keys, rowids.tolist()))
 
-    def delete_where(self, host_mask_fn, tctx: Optional[TxnContext] = None) -> int:
-        """Delete the rows where ``host_mask_fn(region table) -> bool array``:
-        the regions filter, the row tier records ``__del`` markers, and with
-        MVCC on the outgoing versions enter the history."""
+    def delete_where(self, host_mask_fn, tctx: Optional[TxnContext] = None,
+                     collect_cols: Optional[list[str]] = None,
+                     rowids: Optional[np.ndarray] = None):
+        """Delete the rows where ``host_mask_fn(region table) -> bool array``
+        (or, with ``rowids``, the rows of those rowids): the regions filter,
+        the row tier records ``__del`` markers, and with MVCC on the outgoing
+        versions enter the history.  With ``collect_cols``: (count, the
+        deleted rows' projection), what a global index's maintenance
+        deletes."""
         with self._lock:
             self._writer_check(tctx)
             # phase 1: masks only, so a failed row-tier write leaves the
@@ -958,21 +1165,31 @@ class TableStore:
             masks: list[tuple[Region, np.ndarray]] = []
             for r in self.regions:
                 if r.num_rows:
-                    mask = np.asarray(host_mask_fn(r.data), dtype=bool)
+                    mask = np.isin(r.rowids, rowids) if rowids is not None \
+                        else np.asarray(host_mask_fn(r.data), dtype=bool)
                     if mask.any():
                         masks.append((r, mask))
             if not masks:
+                if collect_cols is not None:
+                    return 0, self.arrow_schema.empty_table().select(collect_cols)
                 return 0
             fresh = self._pk_codec is not None and self._pk_index is not None \
                 and not self._pk_stale
-            markers = [{ROWID: rid, "__del": True}
-                       for r, m in masks for rid in r.rowids[m].tolist()]
-            self._write_hot(markers, tctx)
+            n = sum(int(m.sum()) for _, m in masks)
+            if tctx is not None or self.wal_path is not None:
+                # the row tier's __del markers (a non-durable autocommit
+                # delete has no reader for them: a partition's millions of
+                # rows build none)
+                self._write_hot([{ROWID: rid, "__del": True}
+                                 for r, m in masks for rid in r.rowids[m].tolist()], tctx)
             # phase 2: the delete is durable; apply it to the regions
             self._bump()
             dts = self._dead_stamp(tctx) if FLAGS.mvcc else 0
+            gone = []
             for r, mask in masks:
                 dead = r.data.filter(pa.array(mask))
+                if collect_cols is not None:
+                    gone.append(dead.select(collect_cols))
                 self._distinct_move(dead, None)
                 if fresh:
                     for k in self._encode_pk_table(dead):
@@ -985,15 +1202,23 @@ class TableStore:
                 r.version += 1
             if not fresh:
                 self._pk_stale = True
-            return len(markers)
+            if collect_cols is not None:
+                return n, pa.concat_tables(gone).combine_chunks()
+            return n
 
     def update_where(self, host_mask_fn, assign_fn, tctx: Optional[TxnContext] = None,
-                     changed_cols: Optional[list[str]] = None) -> int:
+                     changed_cols: Optional[list[str]] = None,
+                     collect_cols: Optional[list[str]] = None, dry_run: bool = False):
         """Update rows in place: ``assign_fn(region table, mask) -> table``.
         The row tier records the new row versions under the same rowids; with
         MVCC on, the old versions close and the new ones open at one stamp.
         ``changed_cols`` (the assignment targets) keeps the primary-key index
-        when no key column changes."""
+        when no key column changes.  Rows whose partition column changes
+        move to their partition's regions; a value no partition takes fails
+        the statement before any write.  With ``collect_cols``: (count, old
+        rows' projection, new rows' projection), what a global index's
+        maintenance reads; ``dry_run`` computes them and changes nothing
+        (a global UNIQUE check before the write)."""
         with self._lock:
             self._writer_check(tctx)
             staged: list[tuple[Region, np.ndarray, pa.Table]] = []
@@ -1005,11 +1230,30 @@ class TableStore:
                 if mask.any():
                     new_data = _coerce(assign_fn(r.data, mask), self.arrow_schema)
                     staged.append((r, mask, new_data))
+                    if dry_run:
+                        continue
                     new_rows = new_data.filter(pa.array(mask)).to_pylist()
                     hot.extend(dict(row, **{ROWID: rid})
                                for row, rid in zip(new_rows, r.rowids[mask].tolist()))
-            if not staged:
-                return 0
+            n = sum(int(m.sum()) for _, m, _ in staged)
+            out = n
+            if collect_cols is not None:
+                if staged:
+                    old = pa.concat_tables([r.data.filter(pa.array(m)).select(collect_cols)
+                                            for r, m, _ in staged]).combine_chunks()
+                    new = pa.concat_tables([d.filter(pa.array(m)).select(collect_cols)
+                                            for _, m, d in staged]).combine_chunks()
+                else:
+                    old = new = self.arrow_schema.empty_table().select(collect_cols)
+                out = (n, old, new)
+            if dry_run or not staged:
+                return out
+            spec = self.partition_spec()
+            part_moved = spec is not None and (changed_cols is None
+                                               or spec["column"] in changed_cols)
+            if part_moved:
+                for _, _, new_data in staged:
+                    self.partition_ids(new_data)   # before the durable write
             self._write_hot(hot, tctx)
             self._bump()
             if FLAGS.mvcc:
@@ -1027,7 +1271,10 @@ class TableStore:
                     self._distinct_move(r.data.filter(m), new_data.filter(m))
                 r.data = new_data
                 r.version += 1
-            return len(hot)
+            if part_moved:
+                # a stale tag would let pruning drop the moved rows
+                self._rehome_partition_rows({id(r) for r, _, _ in staged})
+            return out
 
     def truncate(self):
         """Every row goes, with the row tier and the WAL (TRUNCATE is never
@@ -1085,7 +1332,9 @@ class TableStore:
                     os.remove(os.path.join(directory, f))
             for r in self.regions:
                 t = r.data.append_column(ROWID, pa.array(r.rowids, pa.int64()))
-                pq.write_table(t, os.path.join(directory, f"region_{r.region_id}.parquet"))
+                suffix = f"_p{r.part}" if r.part >= 0 else ""
+                pq.write_table(t, os.path.join(directory,
+                                               f"region_{r.region_id}{suffix}.parquet"))
 
     def load_parquet(self, directory: str):
         files = sorted(f for f in os.listdir(directory) if f.endswith(".parquet"))
@@ -1105,9 +1354,11 @@ class TableStore:
                     rowids = self._alloc_rowids(t.num_rows)
                 if len(rowids):
                     self._next_rowid = max(self._next_rowid, int(rowids.max()) + 1)
+                stem = f[:-len(".parquet")]
+                tag = stem.rsplit("_p", 1)[1] if "_p" in stem else ""
                 self.regions.append(Region(self._alloc_region_id(),
                                            _coerce(t, self.arrow_schema).combine_chunks(),
-                                           rowids))
+                                           rowids, part=int(tag) if tag.isdigit() else -1))
             if not self.regions:
                 self.regions = [Region(self._alloc_region_id(),
                                        self.arrow_schema.empty_table())]

@@ -6,7 +6,8 @@ vector search (VECTOR columns, the ANN index) at 1M x 128, the MPP mesh (8
 shards on the card: the 100M rows and TPC-H), the HTAP write path
 (snapshot reads over the 100M rows under writes, sysbench, recovery), and
 dispatch (the plan cache, PREPARE / EXECUTE, EXPLAIN ANALYZE, 64 concurrent
-clients through the batched dispatcher with the lane-batched kernels).
+clients through the batched dispatcher with the lane-batched kernels), and
+partitioned tables, global indexes, MATCH and the session surface.
 
     python3 chip_smoke.py [--rows N] [--seed S] [--tpch-scale S]
                           [--compare-with DIR]
@@ -212,6 +213,33 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    (v) EXPLAIN ANALYZE of (a)-(c): the scan's and the aggregate's live rows
    equal numpy's, the ``-- dispatch`` and ``-- params`` lines present, the
    D shapes' literals hoisted (``pinned=0``).  ``dispatch phase seconds``.
+
+13. Partitions and the session surface.  (i)-(v) Right after phase 12, in
+   phase 3's session beside its unchanged ``t`` (``streaming_scan = 0``):
+   ``tp``, the same ``--rows`` rows declared ``PARTITION BY RANGE (g)`` in 8
+   partitions of 256 values (the last MAXVALUE), loaded through the bulk
+   ingest (load seconds, regions).  (a-p)-(c-p) are (a)-(c) with ``g >= 512
+   AND g < 1024``: EXPLAIN shows ``partition(5/8 partitions pruned)`` (the
+   reference's closed-range rule keeps p2-p4), the rows equal numpy and
+   the same SQL over ``t``, and each launches exactly (a)-(c)'s kernels
+   once over the pruned batch (``EXPECTED_LAUNCHES``; the batch holds
+   p2-p4's rows); per query the first run ((a-p) stages the pruned batch), the
+   warm p50 / p67 of 30 runs, device ms and idle share, and the same SQL's
+   over ``t``.  K1, K2, K3 and the segment kernel against their plain
+   versions on the pruned batch's own codes, values and masks (phase 2's
+   tolerances), each timed there against its byte bound.  ``ALTER TABLE
+   tp DROP PARTITION p2``, timed, then (b-p) against numpy without p2's
+   rows.  (vi) After phase 11: sysbench's 1M rows twice, ``sbtest1`` (KEY
+   k_1) and ``sbg`` (k_1 a GLOBAL INDEX): 100 point selects ``WHERE k = ?``
+   through ``global_index(k_1:k)`` equal sbtest1's, 100 UPDATE-k / DELETE /
+   INSERT pairs on both, then sbg's backing table equals its (k, id)
+   projection; p50 / p99 of each kind.  (vii) After phase 12's TPC-H part:
+   MATCH ... AGAINST over the SF ``--tpch-scale`` ``orders`` (a COUNT and a
+   boolean-mode top 10 by relevance), equal to a CPU session's rows; first
+   (the index builds) and warm p50 ms.  (viii) The session surface (the
+   environment, SHOW, the ``information_schema`` tables, HANDLE, a LOAD
+   DATA round trip of 1M rows through INTO OUTFILE) on a CUDA and a CPU
+   ``Session``, equal.  ``partition phase seconds``.
 
 Phases 5 and 6 run with the default flags, so a query over a table of at
 least ``streaming_min_rows`` rows that the streamed path accepts streams
@@ -3243,6 +3271,401 @@ def cache_tpch_phase(s) -> dict:
     return out
 
 
+# ----------------------------------------------------------------------
+# phase 13: partitions, global indexes, MATCH and the session surface
+
+PART_LO, PART_HI = 512, 1024          # (a-p)-(c-p)'s range of g
+PART_BOUNDS = tuple(256 * (i + 1) for i in range(7))
+TP_DDL = ("CREATE TABLE tp (g INT, v FLOAT, w DOUBLE, g16 INT) PARTITION BY RANGE (g) ("
+          + ", ".join(f"PARTITION p{i} VALUES LESS THAN ({u})" for i, u in enumerate(PART_BOUNDS))
+          + ", PARTITION p7 VALUES LESS THAN MAXVALUE)")
+PART_QUERIES = {
+    "a-p": "SELECT g16, COUNT(*), SUM(v), AVG(v), MIN(v) FROM {t} WHERE v*2+1 > 0.5 "
+           f"AND g >= {PART_LO} AND g < {PART_HI} GROUP BY g16 ORDER BY g16",
+    "b-p": "SELECT g, COUNT(*), SUM(v), AVG(v), MIN(v) FROM {t} WHERE v*2+1 > 0.5 "
+           f"AND g >= {PART_LO} AND g < {PART_HI} GROUP BY g ORDER BY g",
+    "c-p": f"SELECT g, SUM(w), AVG(w) FROM {{t}} WHERE w > -1 AND g >= {PART_LO} "
+           f"AND g < {PART_HI} GROUP BY g ORDER BY g",
+}
+GIDX_SELECTS = 100
+GIDX_PAIRS = 100
+MATCH_QUERIES = {
+    "m-count": "SELECT COUNT(*) FROM orders WHERE MATCH(o_comment) AGAINST('special requests')",
+    "m-top": "SELECT o_orderkey, MATCH(o_comment) AGAINST('+special -deposits' IN BOOLEAN "
+             "MODE) AS s FROM orders ORDER BY s DESC, o_orderkey LIMIT 10",
+}
+MATCH_REPS = 10
+SURFACE_ROWS = 1_000_000
+# the session surface: each statement's rows on the card equal the CPU's
+SURFACE_STATEMENTS = (
+    "SELECT @@version, @@session.autocommit, @@global.max_allowed_packet, @@version_comment",
+    "SELECT @x, @never_set, DATABASE(), SCHEMA(), USER(), CURRENT_USER(), VERSION()",
+    "SELECT @@tx_isolation, @@transaction_isolation",
+    "SELECT id FROM su WHERE owner = USER() AND db = DATABASE() ORDER BY id",
+    "SHOW COLLATION", "SHOW CHARSET", "SHOW ENGINES", "SHOW TABLE STATUS",
+    "SHOW CREATE TABLE sp", "SHOW SESSION VARIABLES LIKE 'version'",
+    "SELECT * FROM information_schema.tables",
+    "SELECT * FROM information_schema.columns",
+    "SELECT * FROM information_schema.views",
+    "SELECT * FROM information_schema.partitions",
+    "SELECT snapshot_ts > 0 AS pinned, query, holder FROM information_schema.snapshots",
+    "SELECT COUNT(*) > 0 AS n FROM information_schema.trace_spans",
+    "SELECT name, value, default_value FROM information_schema.flags",
+    "SELECT name, spec, hits, trips FROM information_schema.failpoints",
+    "SELECT * FROM information_schema.column_stats",
+)
+
+
+def partition_refs(table) -> dict:
+    """numpy float64 references of (a-p)-(c-p) over ``table``'s rows, and of
+    (b-p) after DROP PARTITION p2 (g in [512, 768) gone)."""
+    g, v, w, g16 = (table.column(c).to_numpy() for c in ("g", "v", "w", "g16"))
+    rng = (g >= PART_LO) & (g < PART_HI)
+    keep_v = ((v * np.float32(2) + np.float32(1)).astype(np.float64) > 0.5) & rng
+    keep_w = (w > -1) & rng
+    p2 = (g >= PART_BOUNDS[1]) & (g < PART_BOUNDS[2])
+    return {"a-p": reference(g16, v, keep_v, 16), "b-p": reference(g, v, keep_v, 2048),
+            "c-p": reference(g, w, keep_w, 2048),
+            "b-p dropped": reference(g, v, keep_v & ~p2, 2048),
+            "kept_rows": int(((g >= PART_BOUNDS[1]) & (g < PART_BOUNDS[4])).sum()),
+            "p2_rows": int(p2.sum())}
+
+
+def pruned_kernel_checks(gk, batch) -> dict:
+    """K1, K2, K3 and the segment kernel against their plain versions on the
+    pruned batch itself (its codes, values and (a-p)-(c-p)'s masks), with
+    phase 2's tolerances, then each timed there against its byte bound:
+    ``ms`` (single event-timed calls), ``device_ms`` (20 back-to-back), the
+    plain version and the library call where there is one."""
+    from baikaldb_tpu_torch.ops import segments as seg
+
+    col = dict(zip(batch.names, batch.columns))
+    g, g16, v, w = (col[c].data for c in ("g", "g16", "v", "w"))
+    n = int(g.shape[0])
+    rng = (g >= PART_LO) & (g < PART_HI)
+    where_v = rng & ((v * 2 + 1).double() > 0.5)        # (a-p), (b-p)
+    where_w = rng & (w > -1)                             # (c-p)
+    k_err = max(check_case(gk, g, v, where_v, NG_SQL), check_case(gk, g, w.float(), where_w,
+                                                                   NG_SQL))
+    gid = torch.where(where_v, g16, NG_A)
+    s_err = 0.0
+    for x, op in ((where_v.to(torch.int64), "sum"), (where_v.to(torch.int32), "sum"),
+                  (v.double(), "sum"), (v, "sum"), (v, "min"), (v, "max")):
+        s_err = max(s_err, seg_check(seg, x, gid, NG_A, op))
+    live_v, live_w = int(where_v.sum()), int(where_w.sum())
+    gid_v = torch.where(where_v, g, NG_SQL).long()
+    gid_w = torch.where(where_w, g, NG_SQL).long()
+    ones = torch.ones(n, dtype=torch.float32, device=g.device)
+    acc32 = torch.zeros(NG_SQL + 1, dtype=torch.float32, device=g.device)
+    acc64 = torch.zeros(NG_SQL + 1, dtype=torch.float64, device=g.device)
+    accs = torch.zeros(NG_A + 1, dtype=torch.float64, device=g.device)
+    v64, ids_a = v.double(), gid.long()
+    specs = {
+        # name: (call, plain call, library call or None, bytes, ops, ops/s)
+        "filtered_group_sum": (lambda: gk.filtered_group_sum(g, w, where_w, NG_SQL),
+                               lambda: gk.filtered_group_sum_plain(g, w, where_w, NG_SQL),
+                               lambda: acc64.index_add_(0, gid_w, w),
+                               n * 5 + live_w * 8 + NG_SQL * 8, live_w * 2, F32_OPS_PER_S),
+        "fused_group_aggregate": (lambda: gk.fused_group_aggregate(g, v, where_v, NG_SQL),
+                                  lambda: gk.fused_group_aggregate_plain(g, v, where_v, NG_SQL),
+                                  None, n * 5 + live_v * 4 + NG_SQL * 16, live_v * 4,
+                                  F32_OPS_PER_S),
+        "partition_histogram": (lambda: gk.partition_histogram(g, where_v, NG_SQL),
+                                lambda: gk.partition_histogram_plain(g, where_v, NG_SQL),
+                                lambda: acc32.index_add_(0, gid_v, ones),
+                                n * 5 + NG_SQL * 4, live_v, F32_OPS_PER_S),
+        "segment_reduce": (lambda: seg.segment_reduce(v64, gid, NG_A, "sum"),
+                           lambda: seg.segment_reduce_plain(v64, gid, NG_A, "sum"),
+                           lambda: accs.index_add_(0, ids_a, v64),
+                           n * (4 + 8) + NG_A * 8, live_v, F64_OPS_PER_S),
+    }
+    out = {"rows": n, "live_v": live_v, "live_w": live_w, "k_max_abs_err": k_err,
+           "seg_max_abs_err": s_err, "kernels": {}}
+    for name, (fn, plain, lib, nbytes, ops, rate) in specs.items():
+        bytes_ms, ops_ms = nbytes / HBM_BYTES_PER_S * 1e3, ops / rate * 1e3
+        out["kernels"][name] = {
+            "ms": cuda_ms(fn, 20), "device_ms": device_ms(fn),
+            "plain_ms": cuda_ms(plain, 3), "library_ms": None if lib is None else cuda_ms(lib, 3),
+            "bound_ms": max(bytes_ms, ops_ms),
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+    log(f"[partitions] K1-K3 at {NG_SQL} slots and the segment kernel at {NG_A} on the pruned "
+        f"batch ({n} rows) match the plain versions; "
+        + ", ".join(f"{k} {t['device_ms']:.4f} device-ms (bound {t['bound_ms']:.4f})"
+                    for k, t in out["kernels"].items()))
+    return out
+
+
+def partition_phase(gk, single, table) -> tuple[dict, dict]:
+    """Phase 13 (i)-(v), in phase 3's session beside its unchanged ``t``:
+    ``tp``, the same rows in 8 RANGE partitions of ``g``; (a-p)-(c-p)
+    pruned to 3 of them (the closed-range rule keeps p2-p4), against numpy,
+    the same SQL over ``t`` and their kernels' launches; the kernels against
+    their plain versions on the pruned batch, timed there; DROP PARTITION
+    p2 and (b-p) again.  -> (launches, measurements)."""
+    from baikaldb_tpu_torch.models.parity import mismatch
+
+    refs = partition_refs(table)
+    torch.cuda.reset_peak_memory_stats()
+    s = single
+    store_t = s.db.stores["default.t"]
+    stats: dict = {}
+    with flag(s, "streaming_scan", 0):
+        s.execute(TP_DDL)
+        t0 = time.perf_counter()
+        s.load_arrow("tp", table)
+        stats["load_s"] = time.perf_counter() - t0
+        store = s.db.stores["default.tp"]
+        stats["regions"] = sum(1 for r in store.regions if r.num_rows)
+        stats["partitions"] = sorted({r.part for r in store.regions if r.num_rows})
+        log(f"[partitions] {table.num_rows} rows into 8 RANGE partitions of g in "
+            f"{stats['load_s']:.2f} s: {stats['regions']} regions")
+        # the partitioned path: counters at 0 just before, read just after
+        reset_launches(gk)
+        per_query = {}
+        for q, sql in PART_QUERIES.items():
+            qp = sql.format(t="tp")
+            plan = s.execute("EXPLAIN " + qp).plan_text
+            if "access=partition(5/8 partitions pruned)" not in plan:
+                raise AssertionError(f"({q}) EXPLAIN lacks the reference's pruning: {plan}")
+            before = all_launches(gk)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rows = s.query(qp)
+            torch.cuda.synchronize()
+            first_ms = (time.perf_counter() - t0) * 1e3
+            got = {k: n - before[k] for k, n in all_launches(gk).items() if n != before[k]}
+            base = q[0]
+            if got != EXPECTED_LAUNCHES[base]:
+                raise AssertionError(f"({q}) launched {got}, expected {EXPECTED_LAUNCHES[base]}")
+            if base == "c":
+                check_rows(q, rows, refs[q], has_count=False, has_min=False)
+            else:
+                check_rows(q, rows, refs[q])
+            flat = s.query(sql.format(t="t"))
+            diff = mismatch(rows, flat, qp, rtol=1e-6)
+            if diff is not None:
+                raise AssertionError(f"({q}) over tp differs from the same SQL over t: {diff}")
+            per_query[q] = got
+            st = stats[q] = {"first_ms": first_ms, "launches": got, "plan": plan,
+                             **timed_query(s, qp, WARM_REPS)}
+            if base == "a" and st["index_add_kernels"]:
+                raise AssertionError(f"({q}) ran index_add_ on the card")
+            st["over_t"] = timed_query(s, sql.format(t="t"), WARM_REPS)
+            log(f"[partitions] ({q}) first {first_ms:.1f} ms (the first query stages the pruned "
+                f"batch), warm "
+                f"p50 {st['warm_ms_p50']:.3f} ms p67 {st['warm_ms_p67']:.3f} ms, device "
+                f"{st['device_ms']:.3f} ms, idle {st['idle_share']:.3f}; over t p50 "
+                f"{st['over_t']['warm_ms_p50']:.3f} ms; launches {got}")
+        launches = {k: sum(p.get(k, 0) for p in per_query.values()) for k in REPLACES}
+        pruned = [b for k, (_, b) in s._access_batches.items()
+                  if k[0] == "default.tp" and k[2] == "part"]
+        if len(pruned) != 1 or len(pruned[0]) != refs["kept_rows"]:
+            raise AssertionError(f"the pruned batch holds {[len(b) for b in pruned]} rows, "
+                                 f"expected one of {refs['kept_rows']} (p2-p4)")
+        stats["pruned_rows"] = refs["kept_rows"]
+        stats["kernel_checks"] = pruned_kernel_checks(gk, pruned[0])
+        del pruned
+        t0 = time.perf_counter()
+        n = s.execute("ALTER TABLE tp DROP PARTITION p2").affected_rows
+        stats["drop_partition_s"] = time.perf_counter() - t0
+        if n != refs["p2_rows"]:
+            raise AssertionError(f"DROP PARTITION p2 removed {n} rows, expected "
+                                 f"{refs['p2_rows']}")
+        qp = PART_QUERIES["b-p"].format(t="tp")
+        plan = s.execute("EXPLAIN " + qp).plan_text
+        t0 = time.perf_counter()
+        rows = s.query(qp)
+        stats["after_drop_first_ms"] = (time.perf_counter() - t0) * 1e3
+        check_rows("b-p dropped", rows, refs["b-p dropped"])
+        stats["after_drop_plan"] = plan
+        log(f"[partitions] DROP PARTITION p2 ({n} rows) in {stats['drop_partition_s']:.2f} s; "
+            f"(b-p) after it equals numpy without p2's rows ({plan.splitlines()[-1].strip()})")
+        s.execute("DROP TABLE tp")
+        if store_t is not s.db.stores["default.t"]:
+            raise AssertionError("phase 13 replaced t's store")
+    stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return launches, stats
+
+
+def global_index_phase(seed: int) -> dict:
+    """Phase 13 (vi): sysbench's 1M-row table twice on the card, ``sbtest1``
+    with its KEY k_1 and ``sbg`` with k_1 as a GLOBAL INDEX, from the same
+    generator and seed; point selects ``WHERE k = ?`` through
+    ``global_index(k_1:k)`` equal to the same statements over sbtest1; then
+    UPDATE-k / DELETE / INSERT on both, after which sbg's backing table
+    equals its (k, id) projection and the selects still agree."""
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.models import sysbench as sb
+
+    s = Session(device="cuda")
+    s.execute(sb.DDL)
+    s.execute(sb.DDL.replace("sbtest1", "sbg").replace("KEY k_1 (k)", "GLOBAL INDEX k_1 (k)"))
+    for name in ("sbtest1", "sbg"):
+        s.db.stores[f"default.{name}"].region_rows = SB_REGION_ROWS
+    table = sb.table(SB_ROWS, seed)
+    s.load_arrow("sbtest1", table)
+    t0 = time.perf_counter()
+    s.load_arrow("sbg", table)
+    stats = {"rows": SB_ROWS, "load_s": time.perf_counter() - t0}
+    rng = np.random.default_rng(seed + 17)
+    ks = table.column("k").to_numpy()
+    plan = s.execute("EXPLAIN SELECT id, k, c, pad FROM sbg WHERE k = 5").plan_text
+    if "access=global_index(k_1:k)" not in plan:
+        raise AssertionError(f"the point select does not read through the global index: {plan}")
+    times: dict = {"select": [], "update": [], "delete": [], "insert": []}
+
+    def timed(kind, sql):
+        t = time.perf_counter()
+        out = s.execute(sql)
+        torch.cuda.synchronize()
+        times[kind].append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def selects(keys, kind):
+        for k in keys:
+            sql = "SELECT id, k, c, pad FROM {t} WHERE k = " + str(int(k)) + " ORDER BY id"
+            got = timed(kind, sql.format(t="sbg")).to_pylist() if kind else \
+                s.query(sql.format(t="sbg"))
+            want = s.query(sql.format(t="sbtest1"))
+            if got != want or not got:
+                raise AssertionError(f"k = {k}: sbg gives {got}, sbtest1 {want}")
+    selects(rng.choice(ks, GIDX_SELECTS), "select")
+    ids = rng.choice(np.arange(1, SB_ROWS + 1), 2 * GIDX_PAIRS, replace=False)
+    for up, de in zip(ids[:GIDX_PAIRS], ids[GIDX_PAIRS:]):
+        for t, kind in (("sbg", True), ("sbtest1", False)):
+            stmts = (("update", f"UPDATE {t} SET k = k + 1 WHERE id = {int(up)}"),
+                     ("delete", f"DELETE FROM {t} WHERE id = {int(de)}"),
+                     ("insert", f"INSERT INTO {t} VALUES ({int(de)}, {int(up) % SB_ROWS + 1}, "
+                                f"'c{int(de)}', 'p{int(de)}')"))
+            for k, sql in stmts:
+                r = timed(k, sql) if kind else s.execute(sql)
+                if r.affected_rows != 1:
+                    raise AssertionError(f"{sql}: {r.affected_rows} rows")
+    main = s.execute("SELECT k, id FROM sbg").arrow
+    back = s.execute("SELECT k, id FROM `__gidx__sbg__k_1`").arrow
+    pairs = [np.lexsort((t.column("id").to_numpy(), t.column("k").to_numpy())) for t in (main, back)]
+    for c in ("k", "id"):
+        if not np.array_equal(main.column(c).to_numpy()[pairs[0]],
+                              back.column(c).to_numpy()[pairs[1]]):
+            raise AssertionError("the backing table differs from sbg's (k, id) projection")
+    selects(np.concatenate([rng.choice(ks, 10), [int(u) % SB_ROWS + 1 for u in ids[:10]]]), None)
+    stats["per_kind"] = {k: percentiles(v) for k, v in times.items()}
+    stats["plan"] = plan
+    log(f"[global index] {GIDX_SELECTS} point selects through global_index(k_1:k) equal "
+        f"sbtest1's; {GIDX_PAIRS} UPDATE-k / DELETE / INSERT pairs keep the backing table equal "
+        f"to (k, id); p50 / p99 ms "
+        + ", ".join(f"{k} {v['p50_ms']:.2f} / {v['p99_ms']:.2f}"
+                    for k, v in stats["per_kind"].items()))
+    s.execute("DROP TABLE sbg")
+    s.execute("DROP TABLE sbtest1")
+    return stats
+
+
+def match_phase(s, tables: dict) -> dict:
+    """Phase 13 (vii): MATCH ... AGAINST over phase 5 (ii)'s ``orders`` on
+    the card (the inverted index builds at the first query), each query's
+    rows equal a CPU session's over the same rows (relevance within 1e-6
+    relative); first and warm p50 ms."""
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.models import tpch
+    from baikaldb_tpu_torch.models.parity import mismatch
+
+    cpu = Session(device="cpu")
+    cpu.execute(tpch.DDL["orders"])
+    cpu.load_arrow("orders", tables["orders"])
+    stats = {"orders": tables["orders"].num_rows}
+    for name, sql in MATCH_QUERIES.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rows = s.query(sql)
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t0) * 1e3
+        diff = mismatch(rows, cpu.query(sql), sql, rtol=1e-6)
+        if diff is not None or not rows:
+            raise AssertionError(f"{name}: the card differs from the CPU ({diff}): {sql}")
+        walls = []
+        for _ in range(MATCH_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            s.query(sql)
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t) * 1e3)
+        stats[name] = {"first_ms": first, "warm_ms_p50": statistics.median(walls),
+                       "rows": rows if name == "m-count" else len(rows)}
+        log(f"[match] {name}: first {first:.1f} ms, warm p50 {stats[name]['warm_ms_p50']:.2f} "
+            f"ms, equal to the CPU's rows")
+    return stats
+
+
+def surface_phase() -> dict:
+    """Phase 13 (viii): the session surface through a CUDA and a CPU
+    ``Session``, every statement's rows equal: the connection environment,
+    the SHOW forms, the ``information_schema`` tables, HANDLE set_flag, and
+    a LOAD DATA round trip of 1M rows through SELECT ... INTO OUTFILE."""
+    import tempfile
+
+    import pyarrow as pa
+
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.models.parity import mismatch
+
+    rng = np.random.default_rng(23)
+    data = pa.table({"id": np.arange(SURFACE_ROWS, dtype=np.int64),
+                     "g": rng.integers(0, 1000, SURFACE_ROWS, dtype=np.int32),
+                     "v": rng.standard_normal(SURFACE_ROWS)})
+    sessions = {"card": Session(device="cuda"), "cpu": Session(device="cpu")}
+    stats: dict = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, s in sessions.items():
+            for q in ("SET @x = 7", "SET SESSION TRANSACTION ISOLATION LEVEL READ COMMITTED",
+                      "CREATE TABLE su (id BIGINT PRIMARY KEY, owner VARCHAR(32), "
+                      "db VARCHAR(16))",
+                      "INSERT INTO su VALUES (1, 'root@localhost', 'default'), "
+                      "(2, 'other', 'x')",
+                      "CREATE TABLE sp (id BIGINT PRIMARY KEY, g INT, v DOUBLE) "
+                      "PARTITION BY HASH (g) PARTITIONS 4",
+                      "CREATE TABLE sl (id BIGINT PRIMARY KEY, g INT, v DOUBLE)",
+                      "CREATE VIEW sv AS SELECT id, g FROM sp WHERE g < 10",
+                      "HANDLE set_flag plan_cache_size 256"):
+                s.execute(q)
+            s.load_arrow("sp", data)
+            t0 = time.perf_counter()
+            path = os.path.join(tmp, f"{name}.csv")
+            n_out = s.execute(f"SELECT id, g, v FROM sp ORDER BY id INTO OUTFILE '{path}'"
+                              ).affected_rows
+            t1 = time.perf_counter()
+            n_in = s.execute(f"LOAD DATA INFILE '{path}' INTO TABLE sl").affected_rows
+            t2 = time.perf_counter()
+            if n_out != SURFACE_ROWS or n_in != SURFACE_ROWS:
+                raise AssertionError(f"{name}: OUTFILE {n_out} rows, LOAD DATA {n_in} rows")
+            stats[name] = {"outfile_s": t1 - t0, "load_data_s": t2 - t1}
+        if open(os.path.join(tmp, "card.csv")).read() != open(os.path.join(tmp, "cpu.csv")).read():
+            raise AssertionError("INTO OUTFILE: the card's file differs from the CPU's")
+    card, cpu = sessions["card"], sessions["cpu"]
+    for s in sessions.values():
+        s.execute("SET SNAPSHOT = 'now'")          # a pin for information_schema.snapshots
+    checks = SURFACE_STATEMENTS + (
+        "SELECT g, COUNT(*) n, SUM(v) s FROM sl GROUP BY g ORDER BY g",
+        "SELECT COUNT(*) n FROM sl WHERE v > 1", "SELECT id, g, v FROM sl WHERE id = 4242")
+    for sql in checks:
+        got, want = card.query(sql), cpu.query(sql)
+        if not sql.startswith("SELECT"):
+            diff = None if got == want else f"{got} != {want}"
+        else:
+            # 1,000 groups: the card's segment kernel against the CPU's K1
+            # (float32 sums) under the contract's 1e-4
+            diff = mismatch(got, want, sql, rtol=1e-4 if "GROUP BY" in sql else 1e-9)
+        if diff is not None:
+            raise AssertionError(f"surface: the card differs from the CPU ({diff}): {sql}")
+    for s in sessions.values():
+        s.execute("SET SNAPSHOT = 0")
+    stats["statements"] = len(checks)
+    log(f"[surface] {len(checks)} statements equal on the card and the CPU; OUTFILE / LOAD DATA "
+        f"of {SURFACE_ROWS} rows {stats['card']['outfile_s']:.2f} / "
+        f"{stats['card']['load_data_s']:.2f} s on the card")
+    return stats
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=100_000_000)
@@ -3279,12 +3702,15 @@ def main() -> int:
     lane_counts, p12 = phase12(gk, single, table, args.seed, before)
     dispatch_s = time.perf_counter() - t0
     t0 = time.perf_counter()
+    part_launches, part_stats = partition_phase(gk, single, table)
+    part_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
     htap_launches, htap_stats = htap_snapshot_phase(gk, single, table, refs, args.seed)
     htap_s = time.perf_counter() - t0
-    checks = htap_stats["kernel_checks"]
-    for k in REPLACES:
-        err = checks["seg_max_abs_err" if k == "segment_reduce" else "k_max_abs_err"]
-        times[k]["max_abs_err"] = max(times[k]["max_abs_err"], err)
+    for checks in (htap_stats["kernel_checks"], part_stats["kernel_checks"]):
+        for k in REPLACES:
+            err = checks["seg_max_abs_err" if k == "segment_reduce" else "k_max_abs_err"]
+            times[k]["max_abs_err"] = max(times[k]["max_abs_err"], err)
     del single
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
@@ -3294,7 +3720,7 @@ def main() -> int:
     del table
     for path, counts in (("resident", launches), ("streamed", stream_launches),
                          ("mesh", mesh_launches), ("versioned", htap_launches),
-                         ("lane-batched", lane_counts)):
+                         ("lane-batched", lane_counts), ("partitioned", part_launches)):
         missing = [k for k, n in counts.items() if n == 0]
         if missing:
             raise AssertionError(f"kernels not launched on the {path} path: {missing}")
@@ -3318,6 +3744,9 @@ def main() -> int:
     t0 = time.perf_counter()
     p12["cache"]["tpch"] = cache_tpch_phase(s)
     phase_s["dispatch"] = dispatch_s + time.perf_counter() - t0
+    t0 = time.perf_counter()
+    part_stats["match"] = match_phase(s, tables)
+    part_s += time.perf_counter() - t0
     mesh_launches = {k: n + mesh_tpch_launches[k] for k, n in mesh_launches.items()}
     del s, tables
     t0 = time.perf_counter()
@@ -3336,24 +3765,32 @@ def main() -> int:
     phase_s["htap"] = htap_s + time.perf_counter() - t0
     htap_launches = {k: n + sb_launches[k] + durable_launches[k]
                      for k, n in htap_launches.items()}
+    t0 = time.perf_counter()
+    part_stats["global_index"] = global_index_phase(args.seed)
+    part_stats["surface"] = surface_phase()
+    phase_s["partitions"] = part_s + time.perf_counter() - t0
     print(f"htap phase seconds: {phase_s['htap']:.1f}", flush=True)
     print(f"analytic phase seconds: {phase_s['analytics']:.1f}", flush=True)
     print(f"vector phase seconds: {phase_s['vectors']:.1f}", flush=True)
     print(f"mesh phase seconds: {phase_s['mesh']:.1f}", flush=True)
     print(f"dispatch phase seconds: {phase_s['dispatch']:.1f}", flush=True)
+    print(f"partition phase seconds: {phase_s['partitions']:.1f}", flush=True)
     print("phase seconds: " + json.dumps(phase_s), flush=True)
 
     kernels = [{"name": k, "route": "cuda",
                 "source": SOURCES.get(k, "baikaldb_tpu_torch/ops/csrc/group_agg.cu"),
                 "replaces": REPLACES[k],
                 "launches": (launches[k] + stream_launches.get(k, 0) + vector_launches[k]
-                             + mesh_launches[k] + htap_launches[k]),
+                             + mesh_launches[k] + htap_launches[k] + part_launches[k]),
                 "launches_resident": launches[k],
                 "launches_streamed": stream_launches.get(k, 0),
                 "launches_vectors": vector_launches[k],
                 "launches_mesh": mesh_launches[k],
                 "launches_htap": htap_launches[k],
-                **times[k]}
+                "launches_partitioned": part_launches[k],
+                **times[k],
+                # this kernel on phase 13's pruned batch
+                "pruned": part_stats["kernel_checks"]["kernels"][k]}
                for k in REPLACES]
     # the lane-batched entries (phase 12): timed at --rows rows over 8 lanes
     lane_times = p12["kernels"][f"n{args.rows}_G8"]
@@ -3366,7 +3803,7 @@ def main() -> int:
                       "sql": sql_stats, "streamed": stream_stats, "tpch": tpch_stats,
                       "analytics": analytic_stats, "egress": egress_stats,
                       "vectors": vector_stats, "mesh": mesh_stats, "htap": htap_stats,
-                      "dispatch": p12}),
+                      "dispatch": p12, "partitions": part_stats}),
           flush=True)
     print(name_power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

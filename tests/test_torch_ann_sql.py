@@ -113,17 +113,38 @@ def test_ann_matcher_reads_the_reference_literal_grammar(lit):
 
 
 def test_other_index_and_alter_forms_still_raise():
-    """Online ADD INDEX (a backfill worker), global indexes, rollups and
-    partitions are not ported; ADD / DROP COLUMN, KEY indexes in CREATE
-    TABLE and AUTO_INCREMENT are (tests/test_torch_dml.py)."""
+    """Online ADD INDEX (a backfill worker) and rollups are not ported;
+    ADD / DROP COLUMN, KEY indexes in CREATE TABLE and AUTO_INCREMENT are
+    (tests/test_torch_dml.py), and so are global indexes and partitions
+    (``test_vector_tables_with_global_indexes_and_partitions_match_jax``)."""
     s = TSession(device="cpu")
     s.execute("CREATE TABLE vt (id BIGINT, v VECTOR(4), ANN INDEX av (v))")
-    for sql in ("ALTER TABLE vt ADD INDEX k (id)",
-                "CREATE TABLE t2 (id BIGINT, v VECTOR(2), GLOBAL INDEX g (id))",
-                "CREATE TABLE t3 (id BIGINT, v VECTOR(2)) PARTITION BY HASH (id) "
-                "PARTITIONS 2"):
-        with pytest.raises(NotPortedError):
-            s.execute(sql)
+    with pytest.raises(NotPortedError):
+        s.execute("ALTER TABLE vt ADD INDEX k (id)")
+
+
+@pytest.mark.parametrize("ddl", [
+    "CREATE TABLE vt (id BIGINT, v VECTOR(4), PRIMARY KEY (id), GLOBAL INDEX g (id))",
+    "CREATE TABLE vt (id BIGINT, v VECTOR(4), ANN INDEX av (v)) PARTITION BY HASH (id) "
+    "PARTITIONS 2",
+    "CREATE TABLE vt (id BIGINT, v VECTOR(4), PRIMARY KEY (id), ANN INDEX av (v)) "
+    "PARTITION BY RANGE (id) (PARTITION p0 VALUES LESS THAN (600), "
+    "PARTITION p1 VALUES LESS THAN MAXVALUE)",
+])
+def test_vector_tables_with_global_indexes_and_partitions_match_jax(ddl):
+    """The GLOBAL INDEX and PARTITION BY statements over a VECTOR table,
+    as parity cases: the same rows (exact top-k ids, a pruned or an
+    index-routed point select) and EXPLAIN as the JAX session."""
+    rng = np.random.RandomState(5)
+    vecs = rng.randn(1200, 4).astype(np.float32)
+    js, ts = _sessions(ddl, vecs)
+    q = _vec_lit(vecs[17] + 0.01)
+    for sql in (f"SELECT id FROM vt ORDER BY l2_distance(v, '{q}') LIMIT 5",
+                f"SELECT id FROM vt WHERE id < 300 ORDER BY l2_distance(v, '{q}') LIMIT 5",
+                "SELECT id FROM vt WHERE id = 17"):
+        assert _plan(ts, sql) == _plan(js, sql)
+        assert ts.query(sql) == js.query(sql)
+    assert js.query("SHOW CREATE TABLE vt") == ts.query("SHOW CREATE TABLE vt")
 
 
 def test_ann_recall_and_rows_match_jax():

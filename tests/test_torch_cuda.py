@@ -1424,3 +1424,115 @@ def test_concurrent_group_on_the_card_matches_serial_rows(cuda):
     assert seg.LANE_LAUNCHES["segment_reduce_lanes"].value - l0 == 8 * ticks
     for q in sqls:
         assert got[q].equals(serial[q]), q
+
+
+# -- partitions, global indexes and MATCH on the card -----------------------
+
+def _partitioned_sessions(rows: int, seed: int):
+    import pyarrow as pa
+
+    from baikaldb_tpu_torch.exec.session import Session
+
+    rng = np.random.default_rng(seed)
+    data = pa.table({"g": rng.integers(0, 2048, rows, dtype=np.int32),
+                     "v": rng.standard_normal(rows, dtype=np.float32),
+                     "w": rng.standard_normal(rows),
+                     "g16": rng.integers(0, 16, rows, dtype=np.int32)})
+    ddl = ("CREATE TABLE tp (g INT, v FLOAT, w DOUBLE, g16 INT) PARTITION BY RANGE (g) ("
+           + ", ".join(f"PARTITION p{i} VALUES LESS THAN ({256 * (i + 1)})" for i in range(7))
+           + ", PARTITION p7 VALUES LESS THAN MAXVALUE)")
+    out = []
+    for dev in ("cuda", "cpu"):
+        s = Session(device=dev)
+        s.execute("SET GLOBAL streaming_scan = 0")
+        s.execute(ddl)
+        s.load_arrow("tp", data)
+        out.append(s)
+    return out, data
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("q,launches", [
+    ("SELECT g16, COUNT(*), SUM(v), AVG(v), MIN(v) FROM tp WHERE v*2+1 > 0.5 "
+     "AND g >= 512 AND g < 1024 GROUP BY g16 ORDER BY g16", {"segment_reduce": 8}),
+    ("SELECT g, COUNT(*), SUM(v), AVG(v), MIN(v) FROM tp WHERE v*2+1 > 0.5 "
+     "AND g >= 512 AND g < 1024 GROUP BY g ORDER BY g",
+     {"partition_histogram": 1, "fused_group_aggregate": 1}),
+    ("SELECT g, SUM(w), AVG(w) FROM tp WHERE w > -1 AND g >= 512 AND g < 1024 "
+     "GROUP BY g ORDER BY g", {"filtered_group_sum": 1, "partition_histogram": 1}),
+])
+def test_pruned_query_launches_each_kernel_once_over_the_pruned_batch(cuda, q, launches):
+    """A pruned GROUP BY on the card: EXPLAIN's partition line, the rows of
+    the CPU session (rtol 1e-4 for the float32 sums), and each kernel of its
+    path launched once, over the kept partitions' batch."""
+    from baikaldb_tpu_torch.models.parity import mismatch
+    from baikaldb_tpu_torch.ops import segments as seg
+    from baikaldb_tpu_torch.utils.flags import FLAGS
+
+    prev = FLAGS.streaming_scan
+    (card, cpu), data = _partitioned_sessions(300_000, 4)
+    try:
+        assert "access=partition(5/8 partitions pruned)" in card.execute("EXPLAIN " + q).plan_text
+        counters = {**gk.LAUNCHES, **seg.LAUNCHES}
+        before = {k: c.value for k, c in counters.items()}
+        got = card.query(q)
+        torch.cuda.synchronize()
+        ran = {k: c.value - before[k] for k, c in counters.items() if c.value != before[k]}
+        assert ran == launches
+        assert mismatch(got, cpu.query(q), q, rtol=1e-4) is None
+        g = data.column("g").to_numpy()
+        batches = [b for k, (_, b) in card._access_batches.items() if k[2] == "part"]
+        assert [len(b) for b in batches] == [int(((g >= 512) & (g < 1280)).sum())]   # p2-p4
+        assert batches[0].device.type == "cuda"
+    finally:
+        FLAGS.set_flag("streaming_scan", int(prev))
+
+
+@pytest.mark.cuda
+def test_match_gathers_relevance_by_code_on_the_card(cuda):
+    from baikaldb_tpu_torch.column.batch import ColumnBatch
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.expr.ast import Call, ColRef, Lit
+    from baikaldb_tpu_torch.expr.compile import eval_output
+    import pyarrow as pa
+
+    t = pa.table({"body": ["special requests", "deposits", None, "special deposits",
+                           "requests special requests"]})
+    outs = []
+    for dev in (cuda, torch.device("cpu")):
+        b = ColumnBatch.from_arrow(t, dev)
+        c = eval_output(Call("match_against", (ColRef("body"), Lit("special requests"),
+                                                Lit(False))), b)
+        assert c.data.device.type == dev.type and c.data.dtype == torch.float32
+        outs.append(c.data.cpu())
+    assert torch.equal(outs[0], outs[1]) and outs[0][0] > 0 and outs[0][1] == 0
+    rows = []
+    for dev in ("cuda", "cpu"):
+        s = Session(device=dev)
+        s.execute("CREATE TABLE o (k BIGINT, c VARCHAR(40))")
+        s.load_arrow("o", t.append_column("k", pa.array(range(5), pa.int64())).select(["k", "body"])
+                     .rename_columns(["k", "c"]))
+        rows.append(s.query("SELECT k, MATCH(c) AGAINST('+special -deposits' IN BOOLEAN MODE) "
+                            "AS s FROM o ORDER BY s DESC, k"))
+    assert rows[0] == rows[1]
+
+
+@pytest.mark.cuda
+def test_global_index_lookup_on_the_card(cuda):
+    from baikaldb_tpu_torch.exec.session import Session
+
+    rows = []
+    for dev in ("cuda", "cpu"):
+        s = Session(device=dev)
+        s.execute("CREATE TABLE u (id BIGINT, k BIGINT, c VARCHAR(8), PRIMARY KEY (id), "
+                  "GLOBAL INDEX gk (k))")
+        s.execute("INSERT INTO u VALUES " + ", ".join(f"({i}, {i % 97}, 'c{i}')"
+                                                      for i in range(2000)))
+        assert "access=global_index(gk:k)" in s.execute(
+            "EXPLAIN SELECT id, c FROM u WHERE k = 5").plan_text
+        s.execute("UPDATE u SET k = 5 WHERE id = 3")
+        s.execute("DELETE FROM u WHERE id = 5")
+        rows.append(s.query("SELECT id, c FROM u WHERE k = 5 ORDER BY id"))
+        back = s.query("SELECT k, id FROM `__gidx__u__gk` WHERE k = 5 ORDER BY id")
+        assert [r["id"] for r in back] == [r["id"] for r in rows[-1]]
+    assert rows[0] == rows[1] and 3 in [r["id"] for r in rows[0]]
