@@ -3,7 +3,10 @@
 A copy of ``baikaldb_tpu/chaos/failpoint.py`` (host-only Python).  The port
 wires the cold tier's two seams, ``coldfs.put`` and ``coldfs.get``
 (storage/coldfs.py; a streamed scan reads its chunks through the second),
-and the batched dispatcher's tick, ``dispatch.combine`` (exec/dispatch.py).
+the batched dispatcher's tick, ``dispatch.combine`` (exec/dispatch.py), the
+binlog append, ``binlog.append`` (storage/binlog.py), a subscription's fetch
+and ack, ``cdc.fetch`` and ``cdc.apply`` (cdc/streams.py), and a
+materialized view's fold, ``view.fold`` (cdc/views.py).
 Each site follows one discipline:
 
     if failpoint.ENABLED:
@@ -73,6 +76,20 @@ CATALOG: dict[str, str] = {
     "coldfs.get": "cold-tier segment read (drop: FileNotFoundError)",
     "dispatch.combine": "batched-dispatch tick (drop, return and panic abandon the "
                         "tick: every member re-runs inline; delay stalls it)",
+    "binlog.append": "local WAL binlog append, before durability "
+                     "(drop: the event is lost; panic: crash mid-append)",
+    "cdc.fetch": "subscription fetch, before events are read off the "
+                 "merged stream (drop: the fetch returns nothing this "
+                 "round — delivery deferred, never lost; delay: a slow "
+                 "consumer)",
+    "cdc.apply": "subscription ack after a delivered batch (drop: the "
+                 "ack is skipped — the batch redelivers; consumers "
+                 "dedupe by commit_ts, so exactly-once application "
+                 "must survive)",
+    "view.fold": "matview delta fold over a fetched batch (drop: the "
+                 "fold round is abandoned before any state change — "
+                 "events stay unacked and staleness grows, state stays "
+                 "consistent)",
 }
 
 _SPEC_RE = re.compile(

@@ -28,7 +28,7 @@ partitions, snapshots, trace_spans, flags, failpoints, column_stats,
 query_log and dispatcher; HANDLE runs checkpoint, gc, split and set_flag.
 The SHOW forms, ``information_schema`` tables and HANDLE commands that read
 a plane the port lacks (regions, processlist, status, grants, profiles, the
-binlog, the fleet, ...) raise ``NotPortedError``.
+fleet, ...) raise ``NotPortedError``.
 
 Tables may be partitioned (``PARTITION BY RANGE (col) (PARTITION p VALUES
 LESS THAN (v | MAXVALUE), ...)`` or ``PARTITION BY HASH (col) PARTITIONS
@@ -71,8 +71,8 @@ and exec/streaming.py folds it chunk by chunk.  The chunks are Parquet
 segments in the cold tier (``Database(cold_dir=...)`` or the
 ``cold_fs_dir`` flag) or in host memory.
 
-The write half is the JAX session's, without its binlog / CDC, matview
-and replicated-tier hooks: INSERT ... VALUES / SELECT (small
+The write half is the JAX session's, without its replicated-tier hooks:
+INSERT ... VALUES / SELECT (small
 ones row by row through the row tier, large ones bulk), AUTO_INCREMENT,
 REPLACE and INSERT ... ON DUPLICATE KEY UPDATE, UPDATE and DELETE (WHERE
 evaluated region by region with the session's own expression compiler on the
@@ -114,9 +114,27 @@ sign, user and table.  Concurrent parameterized statements of one shape
 over full table images run through the batched dispatcher
 (exec/dispatch.py): one lane-batched execution (exec/lanes.py) per tick.
 
-Not ported yet: the host presort permutations, pushdown, matviews and
-rollups, the binlog, online ADD INDEX (global indexes included), SHOW
-PROCESSLIST / PROFILE, KILL, and the replicated tier.
+The lifecycle planes are the JAX session's, off the cluster.  Every
+committed change is a binlog event (storage/binlog.py): INSERT with its row
+images (a statement image past ``BINLOG_ROW_IMAGES_MAX`` rows), UPDATE and
+DELETE with old / new images when a subscription or view reads the table
+(``cdc.wants_rows``), upserts, LOAD DATA, TRUNCATE, ALTER and the TTL purge
+with statement images; a transaction's events wait for COMMIT and go at
+ROLLBACK.  CREATE / DROP SUBSCRIPTION and FETCH read it (cdc/streams.py).
+CREATE MATERIALIZED VIEW keeps an integer GROUP BY's partials folded from
+its change stream (cdc/views.py), and ALTER TABLE ADD ROLLUP a hidden
+partial-aggregate table refreshed when the base moves (index/rollup.py);
+a GROUP BY either covers is rewritten over the hidden table before the
+plan cache (``/*mv*/`` / ``/*rollup*/`` in its key), EXPLAIN shows the
+rewrite, and the automatic analytical pin defers to them.  Their seeds,
+rescans and refreshes are GROUP BYs over the base table, so on the card
+they launch the group kernels.  TTL=<s> [TTL_COLUMN=c] tables purge on
+``ttl_tick`` / HANDLE ttl; ALTER TABLE ADD [UNIQUE | GLOBAL [UNIQUE]] INDEX
+backfills online (meta/ddl.py; HANDLE ddl suspend | resume,
+``information_schema.ddl_work``).
+
+Not ported yet: the host presort permutations, pushdown, SHOW PROCESSLIST /
+PROFILE, KILL, and the replicated tier (the distributed binlog with it).
 """
 
 from __future__ import annotations
@@ -127,6 +145,7 @@ import datetime
 import functools
 import itertools
 import json
+import logging
 import os
 import re
 import shutil
@@ -149,10 +168,13 @@ from ..exec import dispatch, egress, executor, streaming
 from ..expr.ast import AggCall, Call, ColRef, Lit, Subquery, WindowCall
 from ..expr.compile import ExprError, eval_output, eval_predicate
 from ..expr.params import PARAMS_KEY, ParamError
+from ..cdc import ChangeStreams, MatViews, is_mv_table
 from ..index import annindex
 from ..index import globalindex as gi
+from ..index import rollup
 from ..index.selector import analyze_conjuncts, choose_access, is_point_statement, point_key
 from ..meta.catalog import Catalog, IndexInfo, parse_type
+from ..meta.ddl import DdlManager
 from ..obs import progress, trace
 from ..parallel.mesh import Mesh
 from ..plan import paramize
@@ -162,12 +184,15 @@ from ..plan.nodes import (AggNode, ExchangeNode, JoinNode, MultiJoinNode,
 from ..plan.planner import PlanError, Planner, parse_vector
 from ..sql.lexer import SqlError
 from ..sql.parser import parse_sql
-from ..sql.stmt import (AlterTableStmt, CreateDatabaseStmt, CreateTableStmt,
-                        CreateViewStmt, DeallocateStmt, DeleteStmt, DescribeStmt,
-                        DropDatabaseStmt, DropTableStmt, DropViewStmt, ExecuteStmt,
-                        ExplainStmt, HandleStmt, InsertStmt, LoadDataStmt, OrderItem,
-                        PrepareStmt, SelectItem, SelectStmt, SetStmt, ShowStmt, TableRef,
-                        TruncateStmt, TxnStmt, UpdateStmt, UseStmt)
+from ..sql.stmt import (AlterTableStmt, CreateDatabaseStmt, CreateMatViewStmt,
+                        CreateSubscriptionStmt, CreateTableStmt, CreateViewStmt,
+                        DeallocateStmt, DeleteStmt, DescribeStmt, DropDatabaseStmt,
+                        DropMatViewStmt, DropSubscriptionStmt, DropTableStmt, DropViewStmt,
+                        ExecuteStmt, ExplainStmt, FetchStmt, HandleStmt, InsertStmt,
+                        LoadDataStmt, OrderItem, PrepareStmt, SelectItem, SelectStmt,
+                        SetStmt, ShowStmt, TableRef, TruncateStmt, TxnStmt, UpdateStmt,
+                        UseStmt)
+from ..storage.binlog import Binlog
 from ..storage.coldfs import ExternalFS
 from ..storage.column_store import TableStore, commit_group, schema_to_arrow
 from ..storage.mvcc import MvccRuntime, SnapshotRefused
@@ -182,6 +207,8 @@ define("param_queries", True,
        "entry serves every literal variant of a query shape; 0 restores "
        "SQL-text-keyed caching with baked literals")
 
+_LOG = logging.getLogger(__name__)
+
 # the JAX session's server version string (its _SERVER_VARS["version"])
 SERVER_VERSION = "8.0.0-baikaldb-tpu"
 
@@ -195,7 +222,8 @@ HOT_INSERT_ROWS = 100_000
 
 # DDL commits an open transaction first (MySQL)
 _DDL = (CreateTableStmt, DropTableStmt, CreateDatabaseStmt, DropDatabaseStmt,
-        TruncateStmt, AlterTableStmt, CreateViewStmt, DropViewStmt)
+        TruncateStmt, AlterTableStmt, CreateViewStmt, DropViewStmt, CreateMatViewStmt,
+        DropMatViewStmt)
 
 # what SHOW VARIABLES reports beside the flags (the JAX session's
 # _SERVER_VARS; only version_comment names this package)
@@ -227,11 +255,12 @@ _SERVER_VARS = {
 _ENV_FNS = ("database", "schema", "user", "current_user", "session_user",
             "system_user", "connection_id", "version")
 
-# the TTL table options: their plane is not ported (BINLOG=1 neither)
-_TTL_OPTIONS = ("ttl", "ttl_column")
+# an event of more rows than this carries a statement image instead of
+# row images (the JAX session's cut)
+BINLOG_ROW_IMAGES_MAX = 1000
 
 # the JAX session's HANDLE commands whose planes the port lacks
-_HANDLE_PLANES = ("flightrec", "ttl", "ttl_tick", "ddl", "add_privilege",
+_HANDLE_PLANES = ("flightrec", "add_privilege",
                   "drop_privilege", "drop_instance", "migrate", "add_instance",
                   "add_peer", "remove_peer", "trans_leader", "add_learner",
                   "remove_learner", "split_region", "merge_region", "store_heartbeat",
@@ -249,12 +278,6 @@ def _env_alias(e):
         if e.op in _ENV_FNS and not e.args:
             return f"{e.op.upper()}()"
     return None
-
-
-def _opt_on(v) -> bool:
-    """Table-option truth: option values arrive as strings, so BINLOG=0 and
-    BINLOG=false read as off."""
-    return v is not None and str(v).strip().lower() not in ("", "0", "false", "off", "no")
 
 
 @functools.lru_cache(maxsize=64)
@@ -362,7 +385,15 @@ class Database:
     chunk segments in.  With ``data_dir`` the database is durable: each
     table gets a WAL for its committed DML, DDL persists the catalog as
     ``catalog.json``, ``checkpoint()`` flushes Parquet and resets the WALs,
-    and a new Database over the directory recovers the committed state."""
+    and a new Database over the directory recovers the committed state.
+
+    The lifecycle planes: ``binlog`` (storage/binlog.py, WAL-backed as
+    ``binlog.wal`` under ``data_dir``) takes every committed change as an
+    event; ``cdc`` (cdc/streams.py) holds the subscriptions over it and
+    ``matviews`` (cdc/views.py) the materialized views, both attached
+    before recovery so that recovery re-arms them on the recovered
+    cursors; ``ddl`` (meta/ddl.py) runs online ADD INDEX backfills on a
+    daemon thread, and recovery resubmits the unfinished ones."""
 
     def __init__(self, device=None, cold_dir: Optional[str] = None,
                  data_dir: Optional[str] = None):
@@ -379,13 +410,22 @@ class Database:
         self.qos = None
         self.dispatcher = dispatch.BatchDispatcher()
         self.query_log: deque = deque(maxlen=1000)
+        self.ddl = DdlManager(self)
         if data_dir:
             os.makedirs(data_dir, exist_ok=True)
+            self.binlog = Binlog(path=os.path.join(data_dir, "binlog.wal"))
+        else:
+            self.binlog = Binlog()
+        self.cdc = ChangeStreams(self)
+        self.matviews = MatViews(self)
+        if data_dir:
             self._recover()
 
     def close(self) -> None:
-        """Stop the MVCC GC thread, if one was started."""
+        """Stop the MVCC GC thread, if one was started, and the DDL
+        worker."""
         self.mvcc.stop_gc()
+        self.ddl.stop()
 
     def make_store(self, info) -> TableStore:
         """A table's store on this database's device, joined to its MVCC
@@ -404,8 +444,8 @@ class Database:
 
     def save_catalog(self) -> None:
         """``catalog.json`` in the JAX package's layout (written to a
-        temporary name, then moved into place); the subscription and
-        matview lists, which the port does not keep, are written empty."""
+        temporary name, then moved into place), the subscriptions and
+        materialized views with it."""
         if not self.data_dir:
             return
         dbs = [d for d in self.catalog.databases() if d != "information_schema"]
@@ -425,8 +465,8 @@ class Database:
         out["views"] = [{"database": k.split(".", 1)[0], "name": k.split(".", 1)[1], **v}
                         for k, v in sorted(self.catalog._views.items())
                         if k.split(".", 1)[0] in dbs]
-        out["subscriptions"] = []
-        out["matviews"] = []
+        out["subscriptions"] = self.cdc.to_meta()
+        out["matviews"] = self.matviews.to_meta()
         tmp = os.path.join(self.data_dir, "catalog.json.tmp")
         with open(tmp, "w") as f:
             json.dump(out, f)
@@ -441,6 +481,7 @@ class Database:
         for db in saved["databases"]:
             if db not in self.catalog.databases():
                 self.catalog.create_database(db, if_not_exists=True)
+        resume: list[tuple[str, IndexInfo]] = []
         for t in saved["tables"]:
             fields = tuple(Field(n, LType(v), nullable) for n, v, nullable in t["fields"])
             indexes = [IndexInfo(ix[0], ix[1], ix[2], ix[3] if len(ix) > 3 else {})
@@ -448,10 +489,20 @@ class Database:
             info = self.catalog.create_table(t["database"], t["name"], Schema(fields),
                                              indexes, options=t["options"],
                                              if_not_exists=True)
-            self.stores[f"{t['database']}.{t['name']}"] = self.make_store(info)
+            key = f"{t['database']}.{t['name']}"
+            self.stores[key] = self.make_store(info)
+            resume += [(key, ix) for ix in indexes if ix.params.get("state") == "backfilling"]
         for v in saved.get("views", []):
             self.catalog.create_view(v["database"], v["name"], v["sql"],
                                      v.get("columns"), or_replace=True)
+        # the binlog recovered its cursors first: these re-attach the
+        # subscriptions (and their GC holds) and the views to them
+        self.cdc.recover(saved.get("subscriptions"))
+        self.matviews.recover(saved.get("matviews"))
+        # interrupted backfills resume once every table is loaded: the
+        # worker saves the catalog at publish
+        for key, ix in resume:
+            self.ddl.submit(key, ix)
 
     def checkpoint(self) -> None:
         """Flush every table's live state to Parquet and reset the WALs."""
@@ -488,8 +539,14 @@ class Session:
         self.session_vars: dict = {}     # SET name = value without GLOBAL
         self._conn_id = next(_CONN_IDS)
         self.user = "root"
-        # the open SQL transaction: table key -> TxnContext, or None
+        # the open SQL transaction: table key -> TxnContext, or None; its
+        # binlog events, appended at COMMIT and dropped at ROLLBACK
         self._sql_txn: Optional[dict] = None
+        self._txn_binlog: list = []
+        # set while a view's seed / rescan or a rollup's refresh runs its
+        # internal GROUP BY: it reads the base table, never a rewrite
+        self._in_mv_refresh = False
+        self._in_rollup_refresh = False
         # SET SNAPSHOT: (pin id, snapshot ts) in the database's registry
         self._snapshot: Optional[tuple[int, int]] = None
         # the snapshot ts the current SELECT reads at (0 = unpinned)
@@ -511,6 +568,20 @@ class Session:
     def connection_id(self) -> int:
         """This session's id, answered by CONNECTION_ID()."""
         return self._conn_id
+
+    def _log_binlog(self, event_type, db_name, table, rows=None, statement="",
+                    affected=0) -> None:
+        """One change event: row images up to ``BINLOG_ROW_IMAGES_MAX`` rows,
+        else the statement image; inside a transaction it waits for
+        COMMIT."""
+        if rows and len(rows) > BINLOG_ROW_IMAGES_MAX:
+            statement = statement or f"bulk insert {len(rows)} rows"
+            rows = None
+        if self._sql_txn is not None:
+            self._txn_binlog.append((event_type, db_name, table, rows, statement, affected))
+            return
+        self.db.binlog.append(event_type, db_name, table, rows=rows, statement=statement,
+                              affected=affected)
 
     # -- the connection environment ----------------------------------------
     def _sysvar(self, name: str):
@@ -707,7 +778,10 @@ class Session:
         if isinstance(s, SetStmt):
             return self._set_stmt(s)
         if isinstance(s, ExplainStmt) and s.fmt != "analyze":
-            text = self._annotate_access(self._plan_select(s.stmt)).tree_repr()
+            # a view or rollup that would answer shows as its rewrite
+            stmt = self._try_matview(s.stmt, refresh=False) or \
+                self._try_rollup(s.stmt, refresh=False) or s.stmt
+            text = self._annotate_access(self._plan_select(stmt)).tree_repr()
             return Result(columns=["plan"], plan_text=text,
                           arrow=pa.table({"plan": text.split("\n")}))
         if isinstance(s, AlterTableStmt):
@@ -724,17 +798,22 @@ class Session:
             return Result()
         if isinstance(s, DropTableStmt):
             db = s.table.database or self.current_db
-            globals_ = []
+            indexes = []
             if self.db.catalog.has_table(db, s.table.name):
-                globals_ = [ix for ix in self.db.catalog.get_table(db, s.table.name).indexes
-                            if gi.is_global(ix)]
+                indexes = self.db.catalog.get_table(db, s.table.name).indexes
             self.db.catalog.drop_table(db, s.table.name, s.if_exists)
             key = f"{db}.{s.table.name}"
             self._drop_durable(key, self.db.stores.pop(key, None))
             self._forget_access(key)
             annindex.manager(self.db).forget(key)
-            for ix in globals_:          # the backing tables go with it
-                self._drop_global_backing(db, s.table.name, ix)
+            # the views over it, its rollups' and global indexes' hidden
+            # tables go with it
+            self.db.matviews.drop_for_base(self, key)
+            for ix in indexes:
+                if ix.kind == "rollup":
+                    self._drop_hidden(db, rollup.rollup_table_name(s.table.name, ix.name))
+                elif gi.is_global(ix):
+                    self._drop_global_backing(db, s.table.name, ix)
             self.db.save_catalog()
             return Result()
         if isinstance(s, TruncateStmt):
@@ -743,7 +822,45 @@ class Session:
             self._forget_access(f"{store.info.database}.{store.info.name}")
             for _, bstore in self._coupled_global(store):
                 bstore.truncate()       # the index entries go with the rows
+            self._log_binlog("truncate", s.table.database or self.current_db, s.table.name,
+                             statement="truncate")
             return Result()
+        if isinstance(s, CreateMatViewStmt):
+            try:
+                self.db.matviews.create(self, s.table.database or self.current_db,
+                                        s.table.name, s.select_sql, s.if_not_exists)
+            except ValueError as e:
+                raise PlanError(str(e)) from None
+            return Result()
+        if isinstance(s, DropMatViewStmt):
+            self.db.matviews.drop(self, s.table.database or self.current_db, s.table.name,
+                                  s.if_exists)
+            return Result()
+        if isinstance(s, CreateSubscriptionStmt):
+            table_key = None
+            if s.table is not None:
+                tdb = s.table.database or self.current_db
+                self.db.catalog.get_table(tdb, s.table.name)   # unknown: raises now
+                table_key = f"{tdb}.{s.table.name}"
+            try:
+                self.db.cdc.create(s.name, table_key, if_not_exists=s.if_not_exists)
+            except ValueError as e:
+                raise PlanError(str(e)) from None
+            self.db.save_catalog()
+            return Result()
+        if isinstance(s, DropSubscriptionStmt):
+            try:
+                sub = self.db.cdc.subs.get(s.name)
+                if sub is not None and sub.internal:
+                    raise PlanError(f"subscription {s.name!r} maintains a materialized "
+                                    "view; drop the view instead")
+                self.db.cdc.drop(s.name, s.if_exists)
+            except KeyError as e:
+                raise PlanError(str(e.args[0])) from None
+            self.db.save_catalog()
+            return Result()
+        if isinstance(s, FetchStmt):
+            return self._fetch_stmt(s)
         if isinstance(s, CreateDatabaseStmt):
             self.db.catalog.create_database(s.name, if_not_exists=s.if_not_exists)
             self.db.save_catalog()
@@ -849,15 +966,17 @@ class Session:
 
     def _show(self, s: ShowStmt) -> Result:
         """The SHOW forms that read only the catalog, the stores and the
-        flags.  Global-index backing tables are internal: SHOW TABLES and
-        TABLE STATUS leave them out."""
+        flags.  Global-index backing tables and the hidden tables of rollups
+        and materialized views are internal: SHOW TABLES and TABLE STATUS
+        leave them out."""
         cat = self.db.catalog
 
         def like(name: str) -> bool:
             return s.pattern is None or _show_like_rx(s.pattern).match(name) is not None
 
         def visible(db):
-            return ([n for n in cat.tables(db) if not gi.is_backing_table(n)],
+            return ([n for n in cat.tables(db) if not gi.is_backing_table(n)
+                     and not rollup.is_rollup_table(n) and not is_mv_table(n)],
                     list(cat.views(db)))
 
         if s.what == "databases":
@@ -1026,6 +1145,14 @@ class Session:
             self.db.stores[key] = self.db.make_store(info)
         return self.db.stores[key]
 
+    def _drop_hidden(self, db: str, name: str) -> None:
+        """A hidden table (a rollup's, a global index's backing table) goes:
+        its catalog entry, store and files."""
+        self.db.catalog.drop_table(db, name, if_exists=True)
+        key = f"{db}.{name}"
+        self._drop_durable(key, self.db.stores.pop(key, None))
+        self._forget_access(key)
+
     def _drop_durable(self, key: str, store) -> None:
         """A dropped table's images go, and under ``data_dir`` its WAL and
         Parquet checkpoint."""
@@ -1044,9 +1171,9 @@ class Session:
 
     def _create_table(self, s: CreateTableStmt) -> Result:
         db = s.table.database or self.current_db
+        # BINLOG=1 is kept and changes nothing off the cluster (every change
+        # goes to the local binlog); TTL / TTL_COLUMN are read by ttl_tick
         opts = dict(s.options or {})
-        if _opt_on(opts.get("binlog")) or any(k in opts for k in _TTL_OPTIONS):
-            raise NotPortedError("table options with a plane (binlog, TTL)")
         fields = []
         vector_cols: dict[str, int] = {}
         for c in s.columns:
@@ -1142,14 +1269,12 @@ class Session:
         return self.db.stores[bkey]
 
     def _drop_global_backing(self, db: str, table: str, ix) -> None:
-        bname = gi.backing_table_name(table, ix.name)
-        self.db.catalog.drop_table(db, bname, if_exists=True)
-        bkey = f"{db}.{bname}"
-        self._drop_durable(bkey, self.db.stores.pop(bkey, None))
+        self._drop_hidden(db, gi.backing_table_name(table, ix.name))
 
     def _insert(self, s: InsertStmt) -> Result:
         store = self._store(s.table)
         schema = store.info.schema
+        db_name = s.table.database or self.current_db
         if s.select is not None:
             t = self._select(s.select).arrow
             t = t.rename_columns(s.columns or schema.names()[:t.num_columns])
@@ -1159,6 +1284,13 @@ class Session:
                 self._insert_rows(store, t.to_pylist())
             else:
                 self._ingest_arrow(store, t, check_dups=True)
+            if t.num_rows > BINLOG_ROW_IMAGES_MAX:
+                self._log_binlog("insert", db_name, s.table.name,
+                                 statement=f"bulk insert {t.num_rows} rows",
+                                 affected=t.num_rows)
+            else:
+                self._log_binlog("insert", db_name, s.table.name, rows=t.to_pylist(),
+                                 affected=t.num_rows)
             return Result(affected_rows=t.num_rows)
         vcols = (store.info.options or {}).get("vector_cols") or {}
         # positional VALUES address user-visible columns (vector columns by
@@ -1183,6 +1315,7 @@ class Session:
         if s.replace or s.on_dup:
             return self._insert_upsert(store, s, rows)
         self._insert_rows(store, rows)
+        self._log_binlog("insert", db_name, s.table.name, rows=rows, affected=len(rows))
         return Result(affected_rows=len(rows))
 
     # -- global-index maintenance (the JAX session's coupled DML) ----------
@@ -1263,10 +1396,19 @@ class Session:
                    for ix, bstore in coupled]
             self._run_coupled(store, coupled, lambda t: store.insert_rows(rows, t), fbs)
 
-    def _delete_rows(self, store: TableStore, mask_fn) -> int:
+    def _delete_rows(self, store: TableStore, mask_fn, captured: Optional[list] = None) -> int:
+        """``captured``: the deleted rows' images are appended to it, unless
+        a global index couples the delete (the JAX session captures none
+        there)."""
         with store._lock:
             coupled = self._coupled_global(store)
             if not coupled:
+                if captured is not None:
+                    def mask_fn(t, _inner=mask_fn):
+                        m = np.asarray(_inner(t), bool)
+                        if m.any():
+                            captured.extend(t.filter(pa.array(m)).to_pylist())
+                        return m
                 return store.delete_where(mask_fn, self._tctx(store))
             info = store.info
             cols = sorted({f.name for ix, _ in coupled
@@ -1281,9 +1423,21 @@ class Session:
                 store, coupled, lambda t: store.delete_where(mask_fn, t, collect_cols=cols),
                 fbs)[0]
 
-    def _update_rows(self, store: TableStore, mask_fn, assign_fn, changed: list[str]) -> int:
+    def _update_rows(self, store: TableStore, mask_fn, assign_fn, changed: list[str],
+                     captured: Optional[list] = None) -> int:
+        """``captured``: {"old", "new"} row-image pairs are appended to it,
+        unless the table has a public global index (as in the JAX
+        session)."""
         with store._lock:
             coupled = self._coupled_global(store)
+            if captured is not None and not coupled:
+                def assign_fn(t, mask, _inner=assign_fn):
+                    cond = pa.array(np.asarray(mask, bool))
+                    old = t.filter(cond).to_pylist()
+                    out = _inner(t, mask)
+                    captured.extend({"old": o, "new": w}
+                                    for o, w in zip(old, out.filter(cond).to_pylist()))
+                    return out
             pk = store.info.primary_key()
             pk_cols = list(pk.columns) if pk else []
             # only the indexes whose entries the assignments can change
@@ -1333,17 +1487,20 @@ class Session:
 
     def _alter_table(self, s: AlterTableStmt) -> Result:
         """ALTER TABLE ADD / DROP COLUMN (the store rewrites its regions; a
-        checkpoint boundary under ``data_dir``), ADD / DROP PARTITION, ADD
-        ANN INDEX, ADD FULLTEXT KEY and DROP INDEX, as the JAX session does
-        them: an ANN index is trained lazily on its first ANN query
+        checkpoint boundary under ``data_dir``; a ``ddl`` binlog event), ADD
+        / DROP PARTITION, ADD / DROP ROLLUP, and the index forms, as the JAX
+        session does them: ADD [UNIQUE] INDEX and ADD GLOBAL [UNIQUE] INDEX
+        register the index as ``backfilling`` and hand its backfill to the
+        online-DDL worker (meta/ddl.py), returning the ``work_id`` at once;
+        an ANN index is trained lazily on its first ANN query
         (index/annindex) and a fulltext index is built per dictionary
-        (index/fulltext), so neither has a backfill; dropping a global
-        index drops its backing table.  Online ADD INDEX of the other kinds
-        (global ones included) and rollups raise ``NotPortedError``."""
+        (index/fulltext), so neither has a backfill; DROP INDEX takes the
+        secondary kinds only (a global one's backing table with it), never
+        a rollup."""
         db = s.table.database or self.current_db
         info = self.db.catalog.get_table(db, s.table.name)
-        if s.action in ("add_column", "drop_column"):
-            return self._alter_columns(s, info)
+        if s.action in ("add_rollup", "drop_rollup"):
+            return self._alter_rollup(s, db, info)
         if s.action in ("add_partition", "drop_partition"):
             return self._alter_partition(s, db, info)
         if s.action == "drop_index":
@@ -1361,9 +1518,17 @@ class Session:
                     self._drop_global_backing(db, info.name, ix)
             self.db.save_catalog()
             return Result()
-        if s.action != "add_index" or s.index_kind not in ("ann", "fulltext"):
-            raise NotPortedError(f"ALTER TABLE {s.action} (online ADD INDEX, global "
-                                 "indexes and rollups)")
+        if s.action == "add_index":
+            return self._alter_index(s, db, info)
+        if s.action not in ("add_column", "drop_column"):
+            raise PlanError(f"unsupported ALTER action {s.action!r}")
+        self._alter_columns(s, info)
+        self.db.binlog.append("ddl", db, s.table.name,
+                              statement=f"ALTER TABLE {s.table.name} {s.action}")
+        self.db.save_catalog()
+        return Result()
+
+    def _alter_index(self, s: AlterTableStmt, db: str, info) -> Result:
         if s.index_kind == "ann":
             vcols = (info.options or {}).get("vector_cols") or {}
             if len(s.index_cols) != 1 or s.index_cols[0] not in vcols:
@@ -1374,12 +1539,51 @@ class Session:
             for c in s.index_cols:
                 if c not in info.schema:
                     raise PlanError(f"unknown column {c!r}")
-        prefix = {"fulltext": "ft", "ann": "ann"}[s.index_kind]
+        prefix = {"fulltext": "ft", "global": "gidx", "global_unique": "gidx",
+                  "ann": "ann"}.get(s.index_kind, "idx")
         name = s.index_name or f"{prefix}_{'_'.join(s.index_cols)}"
         if any(ix.name == name for ix in info.indexes):
             raise PlanError(f"index {name!r} exists")
-        info.indexes.append(IndexInfo(name, s.index_kind, list(s.index_cols)))
-        info.version += 1
+        if s.index_kind in ("ann", "fulltext"):
+            info.indexes.append(IndexInfo(name, s.index_kind, list(s.index_cols)))
+            info.version += 1
+            self.db.save_catalog()
+            return Result()
+        # online: choosable (and, if global, maintained by DML) only once
+        # the worker publishes it
+        ix = IndexInfo(name, s.index_kind, list(s.index_cols), {"state": "backfilling"})
+        info.indexes.append(ix)
+        if gi.is_global(ix):
+            self._create_global_backing(db, info, ix)
+        self.db.save_catalog()
+        work = self.db.ddl.submit(f"{db}.{s.table.name}", ix)
+        return Result(columns=["work_id"], arrow=pa.table({"work_id": [work.work_id]}))
+
+    def _alter_rollup(self, s: AlterTableStmt, db: str, info) -> Result:
+        """ADD ROLLUP registers the rollup and its hidden table (filled at
+        the first query it answers); DROP ROLLUP drops both."""
+        if s.action == "add_rollup":
+            if any(ix.name == s.rollup_name for ix in info.indexes):
+                raise PlanError(f"index {s.rollup_name!r} exists")
+            for c in s.rollup_keys + s.rollup_aggs:
+                if c not in info.schema:
+                    raise PlanError(f"unknown column {c!r}")
+            if not s.rollup_keys:
+                raise PlanError("rollup needs at least one key column")
+            sch = rollup.rollup_schema(info.schema, s.rollup_keys, s.rollup_aggs)
+            rt = rollup.rollup_table_name(info.name, s.rollup_name)
+            rinfo = self.db.catalog.create_table(db, rt, sch, [])
+            self.db.stores[f"{db}.{rt}"] = self.db.make_store(rinfo)
+            info.indexes.append(IndexInfo(s.rollup_name, "rollup", list(s.rollup_keys),
+                                          {"measures": list(s.rollup_aggs), "fresh_at": -1}))
+            self.db.save_catalog()
+            return Result()
+        kept = [ix for ix in info.indexes
+                if not (ix.kind == "rollup" and ix.name == s.rollup_name)]
+        if len(kept) == len(info.indexes):
+            raise PlanError(f"unknown rollup {s.rollup_name!r}")
+        info.indexes = kept
+        self._drop_hidden(db, rollup.rollup_table_name(info.name, s.rollup_name))
         self.db.save_catalog()
         return Result()
 
@@ -1433,7 +1637,7 @@ class Session:
         self.db.save_catalog()
         return Result(affected_rows=n)
 
-    def _alter_columns(self, s: AlterTableStmt, info) -> Result:
+    def _alter_columns(self, s: AlterTableStmt, info) -> None:
         fields = list(info.schema.fields)
         store = self._store(s.table)
         if s.action == "add_column":
@@ -1452,13 +1656,11 @@ class Session:
             fields = [f for f in fields if f.name != s.column_name]
             info.indexes = [ix for ix in info.indexes if s.column_name not in ix.columns]
         store.alter_schema(Schema(tuple(fields)))
-        self.db.save_catalog()
-        return Result()
 
     def _load_data(self, s: LoadDataStmt) -> Result:
         """LOAD DATA INFILE: pyarrow's CSV reader into the bulk ingest, the
-        primary key checked (global indexes maintained), as in the JAX
-        session.  Its binlog row is not written: the port has no binlog."""
+        primary key checked (global indexes maintained), one binlog event
+        with the statement image, as in the JAX session."""
         from pyarrow import csv as pacsv
 
         store = self._store(s.table)
@@ -1471,17 +1673,30 @@ class Session:
                                                  null_values=["", "\\N", "NULL"],
                                                  strings_can_be_null=True))
         self._ingest_arrow(store, table, check_dups=True)
+        self._log_binlog("insert", s.table.database or self.current_db, s.table.name,
+                         statement=f"LOAD DATA INFILE {s.path!r}", affected=table.num_rows)
         return Result(affected_rows=table.num_rows)
 
     def _handle(self, s: HandleStmt) -> Result:
         """HANDLE's in-process commands: checkpoint, gc (the row tier's MVCC
-        versions), split <db.table> <rows> and set_flag <name> <value>.  The
-        commands of planes the port lacks (the fleet, the cold tier, TTL,
-        online DDL, privileges, the flight recorder) raise
-        ``NotPortedError``."""
+        versions), split <db.table> <rows>, set_flag <name> <value>, ttl /
+        ttl_tick (``ttl_tick``) and ddl suspend | resume (the online-DDL
+        worker).  The commands of planes the port lacks (the fleet, the cold
+        tier, privileges, the flight recorder) raise ``NotPortedError``."""
         if s.command == "checkpoint":
             self.db.checkpoint()
             return Result()
+        if s.command in ("ttl", "ttl_tick"):
+            return Result(affected_rows=self.ttl_tick())
+        if s.command == "ddl" and s.args:
+            op = s.args[0]
+            if op == "suspend":
+                self.db.ddl.suspend()
+                return Result()
+            if op in ("resume", "restart"):
+                self.db.ddl.resume()
+                return Result()
+            raise SqlError(f"unsupported HANDLE ddl {op!r}")
         if s.command == "gc":
             for st in self.db.stores.values():
                 if st.row_table is not None:
@@ -1506,6 +1721,37 @@ class Session:
             raise NotPortedError(f"HANDLE {s.command} (its plane is not ported)")
         raise SqlError(f"unsupported HANDLE command {s.command!r}")
 
+    def ttl_tick(self, now=None) -> int:
+        """Purge the expired rows of every TTL table (reference: store-side
+        TTL timers): a table with option TTL=<seconds> drops the rows whose
+        TTL_COLUMN (default create_time) is older; one delete event each.
+        A misconfigured table is skipped, logged, and does not stop the
+        sweep."""
+        now = now or datetime.datetime.now()
+        purged = 0
+        for key, store in list(self.db.stores.items()):
+            opts = store.info.options or {}
+            if "ttl" not in opts:
+                continue
+            try:
+                col = opts.get("ttl_column", "create_time")
+                f = store.info.schema.field(col) if col in store.info.schema else None
+                if f is None or not f.ltype.is_temporal:
+                    raise ValueError(f"TTL column {col!r} missing or not temporal")
+                cutoff = now - datetime.timedelta(seconds=int(opts["ttl"]))
+                if f.ltype is LType.DATE:
+                    cutoff = cutoff.date()
+                n = store.purge_expired(col, cutoff)
+            except Exception as exc:    # noqa: BLE001 — one table must not block the sweep
+                _LOG.warning("TTL skip %s: %s", key, exc)
+                continue
+            if n:
+                db, name = key.split(".", 1)
+                self.db.binlog.append("delete", db, name,
+                                      statement=f"TTL purge {col} < {cutoff}", affected=n)
+            purged += n
+        return purged
+
     # -- transactions ------------------------------------------------------
     def _txn_stmt(self, s: TxnStmt) -> Result:
         """BEGIN / COMMIT / ROLLBACK: each table the transaction touches gets
@@ -1524,12 +1770,25 @@ class Session:
         txn, self._sql_txn = self._sql_txn, None
         for tctx in txn.values():
             tctx.rollback()
+        self._txn_binlog.clear()        # rolled back: no subscriber sees them
         return Result()
 
     def _commit_txn(self) -> None:
+        """COMMIT, then the transaction's binlog events in order; a failed
+        commit publishes none of them."""
         if self._sql_txn is not None:
             txn, self._sql_txn = self._sql_txn, None
-            commit_group(list(txn.values()))
+            try:
+                commit_group(list(txn.values()))
+            except BaseException:
+                self._txn_binlog.clear()
+                raise
+        events, self._txn_binlog = self._txn_binlog, []
+        if events:
+            with trace.span("binlog.flush", events=len(events)):
+                for event_type, db_name, table, rows, statement, affected in events:
+                    self.db.binlog.append(event_type, db_name, table, rows=rows,
+                                          statement=statement, affected=affected)
 
     def _tctx(self, store: TableStore):
         """The open transaction's context for ``store`` (made at its first
@@ -1585,36 +1844,39 @@ class Session:
                     effective[k] = r            # the last row of a key wins
                 self._insert_rows(store, list(effective.values()))
                 affected += len(rows) + batch_extras
-                return Result(affected_rows=affected)
-            if new_rows:
-                self._insert_rows(store, new_rows)
-                affected += len(new_rows)
-            if dup_rows:
-                mapping: dict = {}
-                for k, r in dup_rows:
-                    vals = {}
-                    for col, (kind, v) in s.on_dup:
-                        if col not in store.info.schema:
-                            raise PlanError(f"unknown column {col!r}")
-                        vals[col] = r.get(v) if kind == "values" else v
-                    mapping[k] = vals
-                assigned = sorted({c for c, _ in s.on_dup})
+            else:
+                if new_rows:
+                    self._insert_rows(store, new_rows)
+                    affected += len(new_rows)
+                if dup_rows:
+                    mapping: dict = {}
+                    for k, r in dup_rows:
+                        vals = {}
+                        for col, (kind, v) in s.on_dup:
+                            if col not in store.info.schema:
+                                raise PlanError(f"unknown column {col!r}")
+                            vals[col] = r.get(v) if kind == "values" else v
+                        mapping[k] = vals
+                    assigned = sorted({c for c, _ in s.on_dup})
 
-                def assign_fn(t: pa.Table, mask):
-                    ks = store._encode_pk_table(t)
-                    out = t
-                    for col in assigned:
-                        f = store.arrow_schema.field(col)
-                        old = t.column(col).to_pylist()
-                        newv = [mapping.get(k, {}).get(col, old[i]) if m else old[i]
-                                for i, (k, m) in enumerate(zip(ks, np.asarray(mask)))]
-                        out = out.set_column(out.column_names.index(col), f,
-                                             pa.array(newv, f.type))
-                    return out
+                    def assign_fn(t: pa.Table, mask):
+                        ks = store._encode_pk_table(t)
+                        out = t
+                        for col in assigned:
+                            f = store.arrow_schema.field(col)
+                            old = t.column(col).to_pylist()
+                            newv = [mapping.get(k, {}).get(col, old[i]) if m else old[i]
+                                    for i, (k, m) in enumerate(zip(ks, np.asarray(mask)))]
+                            out = out.set_column(out.column_names.index(col), f,
+                                                 pa.array(newv, f.type))
+                        return out
 
-                n = self._update_rows(store, mask_over({k for k, _ in dup_rows}), assign_fn,
-                                      assigned)
-                affected += 2 * n
+                    n = self._update_rows(store, mask_over({k for k, _ in dup_rows}), assign_fn,
+                                          assigned)
+                    affected += 2 * n
+        # a statement image: the rows an upsert leaves differ from its VALUES
+        self._log_binlog("insert", store.info.database, store.info.name, affected=affected,
+                         statement=_stmt_image("replace" if s.replace else "upsert", s))
         return Result(affected_rows=affected)
 
     def _host_mask(self, store: TableStore, where):
@@ -1733,13 +1995,31 @@ class Session:
                 return out
         else:
             mask_fn = self._host_mask(store, s.where)
-        n = self._update_rows(store, mask_fn, assign_fn, [name for name, _ in assigns])
+        db_name = s.table.database or self.current_db
+        # row images for the subscriptions and views that read this table,
+        # kept only when they account for every affected row
+        captured = [] if self.db.cdc.wants_rows(f"{db_name}.{s.table.name}") else None
+        n = self._update_rows(store, mask_fn, assign_fn, [name for name, _ in assigns],
+                              captured)
+        if n:
+            self._log_binlog("update", db_name, s.table.name,
+                             rows=captured if captured is not None and len(captured) == n
+                             else None,
+                             statement=_stmt_image("update", s), affected=n)
         return Result(affected_rows=n)
 
     def _delete(self, s: DeleteStmt) -> Result:
         store = self._store(s.table)
         mask_fn = self._point_write_mask(store, s.where) or self._host_mask(store, s.where)
-        return Result(affected_rows=self._delete_rows(store, mask_fn))
+        db_name = s.table.database or self.current_db
+        captured = [] if self.db.cdc.wants_rows(f"{db_name}.{s.table.name}") else None
+        n = self._delete_rows(store, mask_fn, captured)
+        if n:
+            self._log_binlog("delete", db_name, s.table.name,
+                             rows=captured if captured is not None and len(captured) == n
+                             else None,
+                             statement=_stmt_image("delete", s), affected=n)
+        return Result(affected_rows=n)
 
     # -- snapshots ---------------------------------------------------------
     def _set_snapshot(self, value) -> None:
@@ -1803,6 +2083,11 @@ class Session:
         if self._sql_txn is not None or self.mesh is not None:
             return None
         if not (stmt.group_by or any(isinstance(it.expr, AggCall) for it in stmt.items)):
+            return None
+        if self._try_matview(stmt, refresh=False) is not None or \
+                self._try_rollup(stmt, refresh=False) is not None:
+            # a view or rollup answers: its maintenance writes one consistent
+            # cut of the base, and a pin taken first would hide those writes
             return None
         ts = self.db.mvcc.now_ts()
         try:
@@ -2037,6 +2322,15 @@ class Session:
             # skeletons evaluate on the host over its rows
             inner = self._select(eg[0])
             return _host_rows_result(*egress.finish(eg[1], inner))
+        # a materialized view (its deltas folded first) or a rollup (refreshed
+        # if the base moved) answers a GROUP BY it covers: the statement
+        # re-enters over the hidden table, under a cache key of its own
+        rewritten, tag = self._try_matview(stmt), " /*mv*/"
+        if rewritten is None:
+            rewritten, tag = self._try_rollup(stmt), " /*rollup*/"
+        if rewritten is not None:
+            stmt = rewritten
+            cache_key = None if cache_key is None else (cache_key[0] + tag, cache_key[1])
         # auto-parameterization (plan/paramize.py): hoist WHERE literals
         # into a params vector and key the plan cache on the statement's
         # shape, so WHERE id = 42 and WHERE id = 43 share one entry
@@ -2291,6 +2585,108 @@ class Session:
             return self._select(resolved, cache_key=key)
         return self._execute_stmt(bound)
 
+    # -- CDC: FETCH, materialized views and rollups -------------------------
+    def _fetch_stmt(self, s: FetchStmt) -> Result:
+        """FETCH [n] FROM sub: the next ordered batch of events, then a
+        durable ack past it (deliver-then-ack: a crash after the reply never
+        redelivers the batch, one before it redelivers all of it)."""
+        try:
+            sub = self.db.cdc.get(s.name)
+        except KeyError as e:
+            raise PlanError(str(e.args[0])) from None
+        events = sub.fetch(s.limit)     # may raise CursorLagging (typed)
+        names = ["commit_ts", "event_type", "table_name", "rows", "statement", "affected"]
+        rows = [(e.commit_ts, e.event_type, f"{e.database}.{e.table}",
+                 json.dumps(e.rows, default=str), e.statement, e.affected) for e in events]
+        if events:
+            sub.ack(events[-1].commit_ts)
+        return _host_rows_result(names, rows)
+
+    def _try_matview(self, stmt: SelectStmt, refresh: bool = True):
+        """The statement rewritten over a materialized view's hidden table
+        when the view covers it, after its pending deltas are folded
+        (``matview_auto_maintain``) and its state flushed there; None
+        otherwise.  ``refresh=False`` (EXPLAIN, the pin decision) only
+        rewrites.  Never under a pinned snapshot, in a transaction or inside
+        a seed / rescan / refresh query."""
+        if not bool(FLAGS.matview_answer) or self._in_mv_refresh or self._in_rollup_refresh:
+            return None
+        if self._snap_ts or self._sql_txn is not None:
+            return None
+        if stmt.table is None or stmt.joins or stmt.ctes or stmt.union:
+            return None
+        db = stmt.table.database or self.current_db
+        for mv in self.db.matviews.for_base(f"{db}.{stmt.table.name}"):
+            rw = rollup.try_rewrite(stmt, stmt.table.name, mv.name, mv.keys, mv.measures,
+                                    mv.database, target_table=mv.hidden)
+            if rw is None:
+                continue
+            if refresh:
+                if bool(FLAGS.matview_auto_maintain):
+                    mv.maintain(self)
+                mv.materialize(self)
+                mv.answered += 1
+                metrics.view_answered_queries.add(1)
+                # a marker span: EXPLAIN ANALYZE's `-- view:` line
+                with trace.span("view", view=f"{mv.database}.{mv.name}",
+                                applied_ts=mv.applied_ts, staleness_ms=mv.staleness_ms(),
+                                deltas_folded=mv.deltas_folded,
+                                groups=len(mv.state or {})):
+                    pass
+            return rw
+        return None
+
+    def _try_rollup(self, stmt: SelectStmt, refresh: bool = True):
+        """The statement rewritten over a rollup's hidden table when the
+        rollup covers it, refreshed first if the base table's version moved;
+        None otherwise.  ``refresh=False`` only rewrites.  Never under a
+        pinned snapshot (the rollup tracks commit-time freshness, and its
+        refresh would write after the pin), in a transaction (its own
+        uncommitted writes must show) or inside a refresh."""
+        if self._in_rollup_refresh or self._snap_ts or self._sql_txn is not None:
+            return None
+        if stmt.table is None or stmt.joins or stmt.ctes or stmt.union:
+            return None
+        db = stmt.table.database or self.current_db
+        try:
+            info = self.db.catalog.get_table(db, stmt.table.name)
+        except ValueError:
+            return None
+        for ix in info.indexes:
+            if ix.kind != "rollup":
+                continue
+            rw = rollup.try_rewrite(stmt, stmt.table.name, ix.name, list(ix.columns),
+                                    list(ix.params.get("measures", ())), db)
+            if rw is None:
+                continue
+            if refresh:
+                self._refresh_rollup(db, info, ix)
+            return rw
+        return None
+
+    def _refresh_rollup(self, db: str, info, ix) -> None:
+        """Re-materialize the rollup iff the base version moved: one GROUP BY
+        over the base table (``rollup.refresh_sql``), its rows into the
+        hidden table."""
+        base = self._store(TableRef(db, info.name))
+        if ix.params.get("fresh_at") == base.version:
+            return
+        rt = rollup.rollup_table_name(info.name, ix.name)
+        sql = rollup.refresh_sql(f"{db}.{info.name}", rt, list(ix.columns),
+                                 list(ix.params.get("measures", ())))
+        self._in_rollup_refresh = True
+        try:
+            table = self._execute(sql).arrow
+        finally:
+            self._in_rollup_refresh = False
+        store = self.db.stores[f"{db}.{rt}"]
+        store.truncate()
+        if table is not None and table.num_rows:
+            sch = store.arrow_schema
+            store.insert_arrow(pa.table({f.name: table.column(f.name).cast(f.type)
+                                         for f in sch}), self._tctx(store))
+        ix.params["fresh_at"] = base.version
+
     # -- EXPLAIN ANALYZE ---------------------------------------------------
     def _explain_analyze(self, stmt: SelectStmt) -> Result:
         """Run the query once, always traced (a forced root: the span store
@@ -2308,7 +2704,10 @@ class Session:
 
     def _explain_analyze_measure(self, stmt: SelectStmt) -> None:
         """Plan, stage, run (counting each operator's live output rows) and
-        record the telemetry events the renderer reads."""
+        record the telemetry events the renderer reads.  A materialized view
+        answers here as in a SELECT (its ``view`` span is the ``-- view:``
+        line)."""
+        stmt = self._try_matview(stmt) or stmt
         plan = self._plan_select(stmt)
         batches, shape_key, full_scan = self._collect_batches(plan)
         by_node: dict = {}
@@ -2493,6 +2892,19 @@ class Session:
                               "MAXVALUE" if up is None else str(up), counts.get(i, 0))
                              for i, (nm, up) in enumerate(zip(names, uppers))]
         return rows
+
+    def _info_subscriptions(self) -> list:
+        return [(r["name"], r["table_key"], "YES" if r["internal"] else "NO", r["acked_ts"],
+                 r["cursor_lag_ms"], r["events_delivered"]) for r in self.db.cdc.describe()]
+
+    def _info_materialized_views(self) -> list:
+        return [(r["database"], r["name"], r["base_table"], r["definition"], r["applied_ts"],
+                 r["staleness_ms"], r["cursor_lag_ms"], r["deltas_folded"], r["rescans"],
+                 r["answered_queries"], r["groups"]) for r in self.db.matviews.describe()]
+
+    def _info_ddl_work(self) -> list:
+        return [(w.work_id, w.table_key, w.index_name, w.kind, w.state, w.regions_done,
+                 w.regions_total, w.error) for w in list(self.db.ddl.works.values())]
 
     def _info_snapshots(self) -> list:
         return [(r["snapshot_ts"], r["age_ms"], r["query"], r["holder"])
@@ -2869,8 +3281,8 @@ def _scan_tables(plan: PlanNode) -> set:
 def _render_analyze(spans: list[dict]) -> list[str]:
     """EXPLAIN ANALYZE display, rendered only from the span records: the
     JAX session's lines, without its XLA-specific ones (``-- xla``, ``--
-    aot``, ``-- device``, ``-- guards``) and those of planes the port lacks
-    (``-- view``, ``-- fragments``)."""
+    aot``, ``-- device``, ``-- guards``) and that of the plane the port
+    lacks (``-- fragments``)."""
     def find(name):
         return [s for s in spans if s["name"] == name]
 
@@ -2885,6 +3297,11 @@ def _render_analyze(spans: list[dict]) -> list[str]:
     for s in find("batch"):
         a = s["attrs"]
         lines.append(f"-- batch: {a['table']} {a['kind']}={a['capacity']} live={a['live']}")
+    for s in find("view"):
+        a = s["attrs"]
+        lines.append(f"-- view: {a['view']} applied_ts={a['applied_ts']} "
+                     f"staleness_ms={a['staleness_ms']} deltas_folded={a['deltas_folded']} "
+                     f"groups={a['groups']}")
     snaps = find("snapshot")
     if snaps:
         # one line a query: the pinned ts is shared; versions sum
@@ -2930,6 +3347,22 @@ def _region_batch(region_table: pa.Table, exprs: list, device) -> ColumnBatch:
         stack.extend(getattr(x, "args", ()) or ())
     cols = [c for c in region_table.column_names if c in names] or region_table.column_names[:1]
     return ColumnBatch.from_arrow(region_table.select(cols), device)
+
+
+def _stmt_image(kind: str, s) -> str:
+    """The statement image of an UPDATE / DELETE / upsert event (the JAX
+    session's text)."""
+    where = f" WHERE {s.where!r}" if getattr(s, "where", None) is not None else ""
+    if kind == "update":
+        sets = ", ".join(f"{n}={e!r}" for n, e in s.assignments)
+        return f"UPDATE {s.table.name} SET {sets}{where}"
+    if kind == "replace":
+        return f"REPLACE INTO {s.table.name} ({len(s.rows)} rows)"
+    if kind == "upsert":
+        sets = ", ".join(f"{c}={v!r}" for c, v in s.on_dup)
+        return (f"INSERT INTO {s.table.name} ({len(s.rows)} rows) "
+                f"ON DUPLICATE KEY UPDATE {sets}")
+    return f"DELETE FROM {s.table.name}{where}"
 
 
 def _qualify_free(e):

@@ -2,8 +2,8 @@
 MVCC row tier behind them for durability and transactions.
 
 The port of ``baikaldb_tpu/storage/column_store.py`` without the replicated
-and remote tiers, the binlog and the cold tier's segments (ROADMAP.md lists
-them).
+and remote tiers, the distributed binlog and the cold tier's segments
+(ROADMAP.md lists them).  ``purge_expired`` is the TTL delete.
 
 - **Regions**: the table's rows, cut by row count into regions of at most
   ``region_rows`` rows (``DEFAULT_REGION_ROWS`` = 2^20).  Each region holds
@@ -1320,6 +1320,15 @@ class TableStore:
                 else:
                     self._pk_codec = KeyCodec(new_schema, self._pk_cols)
                 self._pk_index = None
+
+    def purge_expired(self, ttl_column: str, expire_before) -> int:
+        """TTL purge (reference: TTL delete loops, store.cpp:46-48 timers +
+        ttl_delete_node): delete rows whose ttl_column < expire_before."""
+        def mask_fn(t: pa.Table):
+            col = t.column(ttl_column)
+            return np.asarray(pc.less(col, pa.scalar(expire_before)).fill_null(False))
+
+        return self.delete_where(mask_fn)
 
     # -- persistence ------------------------------------------------------
     def save_parquet(self, directory: str):

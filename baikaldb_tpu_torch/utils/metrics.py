@@ -256,6 +256,25 @@ dispatch_fallbacks = Counter("dispatch_fallbacks")
 qos_rejections = Counter("qos_rejections")
 
 
+# CDC change streams (cdc/streams.py) + incrementally maintained rollup
+# views (cdc/views.py): events handed to subscribers, fetch calls, how far
+# behind the table high-water a cursor's ack stands, ring-trim deferrals
+# because an unacked cursor pinned events, cursors force-expired past
+# cdc_cursor_max_lag_s (their next fetch raises CursorLagging), matview
+# fold rounds / individual deltas folded / full-or-group rescans (MIN/MAX
+# retract + statement-image events), and queries the planner answered
+# from view state instead of recomputing
+cdc_events_delivered = Counter("cdc_events_delivered")
+cdc_fetches = Counter("cdc_fetches")
+cdc_cursor_lag_ms = LatencyRecorder("cdc_cursor_lag_ms")
+binlog_gc_held_by_cursor = Counter("binlog_gc_held_by_cursor")
+cdc_cursors_expired = Counter("cdc_cursors_expired")
+view_folds = Counter("view_folds")
+view_deltas_folded = Counter("view_deltas_folded")
+view_rescans = Counter("view_rescans")
+view_answered_queries = Counter("view_answered_queries")
+
+
 def count_swallowed(site: str) -> None:
     """Record an intentionally-swallowed exception at ``site``."""
     swallowed_exceptions.add(1)

@@ -7,7 +7,9 @@ shards on the card: the 100M rows and TPC-H), the HTAP write path
 (snapshot reads over the 100M rows under writes, sysbench, recovery), and
 dispatch (the plan cache, PREPARE / EXECUTE, EXPLAIN ANALYZE, 64 concurrent
 clients through the batched dispatcher with the lane-batched kernels), and
-partitioned tables, global indexes, MATCH and the session surface.
+partitioned tables, global indexes, MATCH and the session surface, and the
+lifecycle plane (rollups, a materialized view, change capture, online ADD
+INDEX, TTL).
 
     python3 chip_smoke.py [--rows N] [--seed S] [--tpch-scale S]
                           [--compare-with DIR]
@@ -240,6 +242,38 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    environment, SHOW, the ``information_schema`` tables, HANDLE, a LOAD
    DATA round trip of 1M rows through INTO OUTFILE) on a CUDA and a CPU
    ``Session``, equal.  ``partition phase seconds``.
+14. The lifecycle plane (storage/binlog.py, cdc/, index/rollup.py,
+   meta/ddl.py, TTL).  (i)-(iii) Right after phase 11 (ii), in phase 3's
+   session over ``t`` as those writes left it (``streaming_scan = 0``; the
+   numpy state is phase 11's columns with each later write applied), under
+   ``CREATE SUBSCRIPTION feed ON t``.  (i) The same SQL warm (p50 / p67 of
+   30) with no rollup, then ``ALTER TABLE t ADD ROLLUP`` r_g (g, AGGREGATE(v)),
+   r_g16 (g16, AGGREGATE(v)) and r_gw (g, AGGREGATE(w)): EXPLAIN names each
+   rollup table; each query's first answer (its refresh over the table, with
+   the kernels it launched) and warm p50 / p67; an INSERT of 1,000 rows, and
+   each next answer's refresh; every answer against numpy (sums within
+   1e-5 * sum|v|, counts and MIN exact).  (ii) ``CREATE MATERIALIZED VIEW mv AS
+   SELECT g16, COUNT(*), SUM(g), MIN(g), MAX(g) FROM t GROUP BY g16``: the
+   seed (the first answer), then rounds of an INSERT of 500 rows, a DELETE
+   and an UPDATE of k < 1,000 rows, a DELETE of rows holding a group's MIN
+   (a group rescan) and a DELETE of ~49,000 rows (a statement image: a full
+   re-seed), each answer (fold + answer) timed and equal to numpy and to
+   ``matview_answer = 0`` bit for bit; ``staleness_ms``, ``deltas_folded``,
+   ``rescans``.  (iii) ``FETCH 1 FROM feed`` until empty: each event's kind,
+   affected count and row images equal the statements (numpy); FETCH's p50.
+   K1-K3 and the segment kernel against their plain versions on the
+   refreshed table's batch (and the segment kernel over g as the view's
+   integer SUM / MIN / MAX), timed there.  Phase 11 (iii)'s ``data_dir``
+   also holds a subscription and a view on sbtest1: reopened, the same
+   un-acked events and the view's answers come back.  (iv) sysbench's 1M
+   rows without k_1: ``ALTER TABLE sbtest1 ADD INDEX k_1 (k)`` while a second
+   session updates k by primary key, seconds to publish, EXPLAIN full before
+   and ``index(k_1:k)`` after, the rows equal to the replay; then ``ADD
+   GLOBAL INDEX gk (k)``, its backfill's seconds and the point selects'
+   p50 / p99 through ``global_index(gk:k)``.  (v) ``ev (id BIGINT PRIMARY
+   KEY, ts DATETIME, v INT) TTL=3600 TTL_COLUMN=ts``, 10M rows, 30% expired:
+   HANDLE ttl timed, the rows left equal numpy, the binlog holds the purge.
+   ``lifecycle phase seconds``.
 
 Phases 5 and 6 run with the default flags, so a query over a table of at
 least ``streaming_min_rows`` rows that the streamed path accepts streams
@@ -2173,6 +2207,18 @@ def sysbench_literal(sb, seed: int) -> dict:
 def htap_post_refs(table, seed: int):
     """Phase 11 (ii)'s writes as numpy: the inserted rows (Arrow) and the
     references of (a)-(c) over the rows after the transaction."""
+    ins, cols, deleted, updated = htap_post_columns(table, seed)
+    keep_v = (cols["v"] * np.float32(2) + np.float32(1)).astype(np.float64) > 0.5
+    keep_w = cols["w"] > -1
+    refs = {"a": reference(cols["g16"], cols["v"], keep_v, 16),
+            "b": reference(cols["g"], cols["v"], keep_v, 2048),
+            "c": reference(cols["g"], cols["w"], keep_w, 2048)}
+    return ins, refs, deleted, updated
+
+
+def htap_post_columns(table, seed: int):
+    """-> (the inserted rows (Arrow), the columns after phase 11 (ii)'s
+    transaction (numpy), rows deleted, rows updated)."""
     import pyarrow as pa
 
     rng = np.random.default_rng(seed + 11)
@@ -2187,12 +2233,7 @@ def htap_post_refs(table, seed: int):
     cols["v"] = np.where(upd, cols["v"] + np.float32(1), cols["v"]).astype(np.float32)
     cols["w"] = np.where(upd, cols["w"] + 1.0, cols["w"])
     cols = {c: np.concatenate([cols[c], ins.column(c).to_numpy()]) for c in cols}
-    keep_v = (cols["v"] * np.float32(2) + np.float32(1)).astype(np.float64) > 0.5
-    keep_w = cols["w"] > -1
-    refs = {"a": reference(cols["g16"], cols["v"], keep_v, 16),
-            "b": reference(cols["g"], cols["v"], keep_v, 2048),
-            "c": reference(cols["g"], cols["w"], keep_w, 2048)}
-    return ins, refs, int((~keep).sum()), int(upd.sum())
+    return ins, cols, int((~keep).sum()), int(upd.sum())
 
 
 def timed_query(s, sql: str, reps: int) -> dict:
@@ -2354,6 +2395,10 @@ def durability_phase(gk, seed: int) -> tuple[dict, dict]:
         s.execute(sb.DDL)
         s.execute(sb.DDL.replace("sbtest1", "sbsrc").replace("k_1", "k_2"))
         s.load_arrow("sbsrc", sb.table(DURABLE_ROWS, seed + 3))
+        # phase 14: a subscription and a view live through the writes and
+        # the restarts
+        s.execute("CREATE SUBSCRIPTION sbfeed ON sbtest1")
+        s.execute(f"CREATE MATERIALIZED VIEW sbv AS {SB_VIEW}")
         t0 = time.perf_counter()
         s.execute("INSERT INTO sbtest1 SELECT * FROM sbsrc")
         stats["insert_select_s"] = time.perf_counter() - t0
@@ -2365,6 +2410,9 @@ def durability_phase(gk, seed: int) -> tuple[dict, dict]:
         s.execute("UPDATE sbtest1 SET c = 'gone' WHERE id < 100")
         s.execute("ROLLBACK")
         want = [s.query(q) for q in probe]
+        pending = [(e.event_type, json.dumps(e.rows, default=str), e.statement, e.affected)
+                   for e in s.db.cdc.get("sbfeed").fetch(1 << 30)]
+        view = view_and_recompute(s, SB_VIEW + " ORDER BY k")
         for step in ("recover", "checkpoint"):
             t0 = time.perf_counter()
             s = Session(Database("cuda", data_dir=d))
@@ -2373,6 +2421,13 @@ def durability_phase(gk, seed: int) -> tuple[dict, dict]:
             if got != want:
                 raise AssertionError(f"recovery after {step} differs from the rows written")
             if step == "recover":
+                fetched = [(r["event_type"], r["rows"], r["statement"], r["affected"])
+                           for r in s.query("FETCH 1000000 FROM sbfeed")]
+                if fetched != pending:
+                    raise AssertionError("the reopened data_dir's un-acked events differ")
+                if view_and_recompute(s, SB_VIEW + " ORDER BY k") != view:
+                    raise AssertionError("the reopened view answers differently")
+                stats["events_after_recover"] = len(fetched)
                 s.db.checkpoint()
                 drv.session = s
                 drv.run(20)
@@ -2382,8 +2437,22 @@ def durability_phase(gk, seed: int) -> tuple[dict, dict]:
             raise AssertionError("the recovered rows differ from the sysbench replay")
     launches = all_launches(gk)
     log(f"[durable] {DURABLE_ROWS} rows: recovered from the WAL in {stats['recover_s']:.2f} s "
-        f"and from checkpoint + WAL in {stats['checkpoint_s']:.2f} s, same rows and GROUP BY")
+        f"and from checkpoint + WAL in {stats['checkpoint_s']:.2f} s, same rows and GROUP BY; "
+        f"the subscription's {stats['events_after_recover']} un-acked events and the view's "
+        "answers came back")
     return launches, stats
+
+
+SB_VIEW = "SELECT k, COUNT(*), SUM(id) FROM sbtest1 GROUP BY k"
+
+
+def view_and_recompute(s, sql: str) -> list:
+    """A view's answer, held equal to ``matview_answer = 0``'s."""
+    rows = s.query(sql)
+    with flag(s, "matview_answer", 0):
+        if s.query(sql) != rows:
+            raise AssertionError(f"the view's answer differs from the recompute: {sql}")
+    return rows
 
 
 # ----------------------------------------------------------------------
@@ -3337,20 +3406,34 @@ def pruned_kernel_checks(gk, batch) -> dict:
     phase 2's tolerances, then each timed there against its byte bound:
     ``ms`` (single event-timed calls), ``device_ms`` (20 back-to-back), the
     plain version and the library call where there is one."""
+    col = dict(zip(batch.names, batch.columns))
+    g, v, w = (col[c].data for c in ("g", "v", "w"))
+    rng = (g >= PART_LO) & (g < PART_HI)
+    return batch_kernel_checks(gk, batch, rng & ((v * 2 + 1).double() > 0.5),   # (a-p), (b-p)
+                               rng & (w > -1), "[partitions]", "pruned")        # (c-p)
+
+
+def batch_kernel_checks(gk, batch, where_v, where_w, tag: str, what: str,
+                        ints: bool = False) -> dict:
+    """K1-K3 at ``NG_SQL`` slots of g and the segment kernel at ``NG_A`` of
+    g16 against their plain versions on ``batch``'s own columns under the
+    masks ``where_v`` (over v) and ``where_w`` (over w), phase 2's
+    tolerances; ``ints``: the segment kernel also over g as a view's integer
+    SUM / MIN / MAX.  Then each timed there against its byte bound."""
     from baikaldb_tpu_torch.ops import segments as seg
 
     col = dict(zip(batch.names, batch.columns))
     g, g16, v, w = (col[c].data for c in ("g", "g16", "v", "w"))
     n = int(g.shape[0])
-    rng = (g >= PART_LO) & (g < PART_HI)
-    where_v = rng & ((v * 2 + 1).double() > 0.5)        # (a-p), (b-p)
-    where_w = rng & (w > -1)                             # (c-p)
     k_err = max(check_case(gk, g, v, where_v, NG_SQL), check_case(gk, g, w.float(), where_w,
                                                                    NG_SQL))
     gid = torch.where(where_v, g16, NG_A)
     s_err = 0.0
-    for x, op in ((where_v.to(torch.int64), "sum"), (where_v.to(torch.int32), "sum"),
-                  (v.double(), "sum"), (v, "sum"), (v, "min"), (v, "max")):
+    cases = [(where_v.to(torch.int64), "sum"), (where_v.to(torch.int32), "sum"),
+             (v.double(), "sum"), (v, "sum"), (v, "min"), (v, "max")]
+    if ints:
+        cases += [(g.to(torch.int64), "sum"), (g, "min"), (g, "max")]
+    for x, op in cases:
         s_err = max(s_err, seg_check(seg, x, gid, NG_A, op))
     live_v, live_w = int(where_v.sum()), int(where_w.sum())
     gid_v = torch.where(where_v, g, NG_SQL).long()
@@ -3388,7 +3471,7 @@ def pruned_kernel_checks(gk, batch) -> dict:
             "plain_ms": cuda_ms(plain, 3), "library_ms": None if lib is None else cuda_ms(lib, 3),
             "bound_ms": max(bytes_ms, ops_ms),
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
-    log(f"[partitions] K1-K3 at {NG_SQL} slots and the segment kernel at {NG_A} on the pruned "
+    log(f"{tag} K1-K3 at {NG_SQL} slots and the segment kernel at {NG_A} on the {what} "
         f"batch ({n} rows) match the plain versions; "
         + ", ".join(f"{k} {t['device_ms']:.4f} device-ms (bound {t['bound_ms']:.4f})"
                     for k, t in out["kernels"].items()))
@@ -3666,6 +3749,602 @@ def surface_phase() -> dict:
     return stats
 
 
+# ----------------------------------------------------------------------
+# phase 14: rollups, a materialized view and change capture over the 100M
+# rows; online ADD INDEX over sysbench's 1M; TTL over 10M
+
+# r_g keeps FLOAT measures only: a DOUBLE MIN / MAX in a refresh fails the
+# group kernels' gate (ops/hashagg.dense_kernel_cols, the JAX package's
+# too), and the whole refresh then scatters; r_gw shows that path
+ROLLUPS = {"r_g": "(g, AGGREGATE(v))", "r_g16": "(g16, AGGREGATE(v))",
+           "r_gw": "(g, AGGREGATE(w))"}
+ROLLUP_QUERIES = {
+    "r_g": "SELECT g, COUNT(*), SUM(v), AVG(v), MIN(v) FROM t GROUP BY g ORDER BY g",
+    "r_g16": "SELECT g16, COUNT(*), SUM(v), AVG(v), MIN(v) FROM t GROUP BY g16 ORDER BY g16",
+    "r_gw": "SELECT g, SUM(w), AVG(w), MIN(w) FROM t GROUP BY g ORDER BY g",
+}
+LC_INSERT_ROWS = 1000             # the write after which the rollups refresh
+LC_ROUND_ROWS = 500               # the view's insert round
+ROLLUP_TURNS = 3                  # no-rollup and rollup answers timed in alternating turns
+MV_SQL = "SELECT g16, COUNT(*), SUM(g), MIN(g), MAX(g) FROM t GROUP BY g16"
+MV_QUERY = MV_SQL + " ORDER BY g16"
+# the view's write rounds (name, event, SQL, rows): each touches at most
+# 1,000 rows (row images) but the last; round "min" moves rows off g = 0,
+# group g16 = 5's MIN, so the UPDATE's row pairs retract that MIN (one group
+# rescan); the bulk delete's ~49,000 rows log a statement image (a re-seed)
+MV_ROUNDS = [("insert", "insert", None, None),
+             ("delete", "delete", "DELETE FROM t WHERE g = 3 AND v > 3",
+              lambda c: (c["g"] == 3) & (c["v"] > np.float32(3))),
+             ("update", "update", "UPDATE t SET g = g + 1 WHERE g = 9 AND v > 3",
+              lambda c: (c["g"] == 9) & (c["v"] > np.float32(3))),
+             ("min", "update", "UPDATE t SET g = g + 1 WHERE g = 0 AND g16 = 5 AND v > 2.5",
+              lambda c: (c["g"] == 0) & (c["g16"] == 5) & (c["v"] > np.float32(2.5))),
+             ("bulk", "delete", "DELETE FROM t WHERE g = 11", lambda c: c["g"] == 11)]
+# each round's (group rescans, re-seeds): the folds none, "min" one rescan
+# of its group, "bulk" one re-seed
+MV_REFOLDS = {"insert": (0, 0), "delete": (0, 0), "update": (0, 0), "min": (1, 0),
+              "bulk": (0, 1)}
+# the kernels the refreshes and the view's seed launch (EXPLAIN and the
+# counters: r_g's refresh K3 + K2, r_g16's and the seed the segment kernel)
+LIFECYCLE_KERNELS = ("fused_group_aggregate", "partition_histogram", "segment_reduce")
+# a change-stream consumer: sysbench oltp_write_only transactions over the
+# 1M rows, read back by FETCH batches of 100 and of 1,000
+LC_CDC_TXNS = 300                 # 1,200 events (~50 ms a write with row capture)
+LC_CDC_BATCHES = (100, 1000)
+SB_WRITES = {"index_update": "update", "non_index_update": "update", "delete": "delete",
+             "insert": "insert"}
+LC_DDL_UPDATES = 400              # the second session's point UPDATEs of k, at most
+LC_TTL_ROWS = 10_000_000
+LC_TTL_EXPIRED = 0.3
+
+
+class HostRows:
+    """Phase 14's numpy state of ``t``: the columns, the view's references
+    from a (g16, g) histogram, and each write applied the way the SQL does
+    it (-> the rows it touched, for the change events)."""
+
+    def __init__(self, cols: dict):
+        self.cols = cols
+        self.hist = self._hist(cols)
+        self.refs: dict = {}        # the rollups' references, kept across inserts
+
+    @staticmethod
+    def _hist(cols) -> np.ndarray:
+        return np.bincount(cols["g16"].astype(np.int64) * 2048 + cols["g"],
+                           minlength=16 * 2048).reshape(16, 2048)
+
+    def rows(self, mask) -> list:
+        return sorted(zip(*(self.cols[c][mask].tolist() for c in ("g", "v", "w", "g16"))))
+
+    def insert(self, new: dict) -> None:
+        self.cols = {c: np.concatenate([self.cols[c], new[c]]) for c in self.cols}
+        self.hist += self._hist(new)
+        for name, ref in self.refs.items():
+            add = self._group_ref(name, new)
+            self.refs[name] = (ref[0] + add[0], ref[1] + add[1], ref[2] + add[2],
+                               np.minimum(ref[3], add[3]))
+
+    def delete(self, mask) -> None:
+        self.refs = {}
+        self.hist -= self._hist({c: a[mask] for c, a in self.cols.items()})
+        self.cols = {c: a[~mask] for c, a in self.cols.items()}
+
+    def update_g(self, mask) -> None:
+        self.refs = {}
+        self.hist -= self._hist({c: a[mask] for c, a in self.cols.items()})
+        self.cols["g"] = np.where(mask, self.cols["g"] + 1, self.cols["g"]).astype(np.int32)
+        self.hist += self._hist({c: a[mask] for c, a in self.cols.items()})
+
+    def view_rows(self) -> list:
+        """MV_QUERY's rows: exact integers."""
+        gs = np.arange(2048)
+        out = []
+        for k in range(16):
+            h = self.hist[k]
+            nz = np.nonzero(h)[0]
+            if len(nz):
+                out.append({"g16": k, "count_star()": int(h.sum()), "sum(g)": int(h @ gs),
+                            "min(g)": int(nz[0]), "max(g)": int(nz[-1])})
+        return out
+
+    def rollup_ref(self, name: str):
+        """``reference()``'s (counts, sums, sum|x|, mins) of rollup ``name``'s
+        query over the rows."""
+        if name not in self.refs:
+            self.refs[name] = self._group_ref(name, self.cols)
+        return self.refs[name]
+
+    @staticmethod
+    def _group_ref(name: str, c: dict):
+        key, val, ng = {"r_g": ("g", "v", 2048), "r_g16": ("g16", "v", 16),
+                        "r_gw": ("g", "w", 2048)}[name]
+        k, x = c[key], c[val].astype(np.float64)
+        counts = np.bincount(k, minlength=ng)
+        mins = np.full(ng, np.inf)
+        np.minimum.at(mins, k, x)
+        return (counts, np.bincount(k, weights=x, minlength=ng),
+                np.bincount(k, weights=np.abs(x), minlength=ng), mins)
+
+
+def lifecycle_rows(n: int, seed: int) -> dict:
+    rng = np.random.default_rng(seed)
+    return {"g": rng.integers(0, 2048, n, dtype=np.int32),
+            "v": rng.standard_normal(n, dtype=np.float32),
+            "w": rng.standard_normal(n),
+            "g16": rng.integers(0, 16, n, dtype=np.int32)}
+
+
+def insert_sql(rows: dict) -> str:
+    return "INSERT INTO t VALUES " + ",".join(
+        f"({int(g)}, {float(v)!r}, {float(w)!r}, {int(k)})"
+        for g, v, w, k in zip(rows["g"], rows["v"], rows["w"], rows["g16"]))
+
+
+def timed_first(gk, s, sql: str):
+    """One run, timed, with the kernel launches it made -> (rows, ms, launches)."""
+    before = all_launches(gk)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rows = s.query(sql)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    return rows, ms, {k: n - before[k] for k, n in all_launches(gk).items() if n != before[k]}
+
+
+def warm_walls(s, sql: str, reps: int) -> list:
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s.query(sql)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    return walls
+
+
+def warm_stats(walls: list, turns: list) -> dict:
+    """p50 / p67 of all the runs, and each turn's p50 (the spread)."""
+    return {"warm_ms_p50": statistics.median(walls),
+            "warm_ms_p67": float(np.percentile(walls, 67)), "turn_p50_ms": turns}
+
+
+def check_rollup(name: str, rows, host: HostRows) -> None:
+    check_rows(name, rows, host.rollup_ref(name), has_count=name != "r_gw")
+
+
+def rollup_part(gk, s, host: HostRows, seed: int) -> tuple[dict, dict]:
+    """(i): the three rollups over ``t``.  Each query is timed with no rollup
+    and from its rollup in alternating turns (ADD ROLLUP before each rollup
+    turn, DROP ROLLUP after it); -> (launches by statement, stats)."""
+    reps = WARM_REPS // ROLLUP_TURNS
+    walls = {(n, side): ([], []) for n in ROLLUPS for side in ("base", "rollup")}
+    stats: dict = {n: {"refresh_first_ms": [], "launches": []} for n in ROLLUPS}
+    launches: dict = {}
+
+    def timed(name, side, sql):
+        w = warm_walls(s, sql, reps)
+        walls[name, side][0].extend(w)
+        walls[name, side][1].append(statistics.median(w))
+
+    for turn in range(ROLLUP_TURNS):
+        for name, sql in ROLLUP_QUERIES.items():
+            s.query(sql)                # the plan after the DROP, untimed
+            timed(name, "base", sql)
+        for name, cols in ROLLUPS.items():
+            s.execute(f"ALTER TABLE t ADD ROLLUP {name} {cols}")
+        for name, sql in ROLLUP_QUERIES.items():
+            rows, first_ms, got = timed_first(gk, s, sql)
+            check_rollup(name, rows, host)
+            plan = s.execute("EXPLAIN " + sql).plan_text
+            if f"__rollup_t_{name}" not in plan:
+                raise AssertionError(f"{name}: EXPLAIN does not name its rollup table: {plan}")
+            launches[f"refresh_{name}_{turn}"] = got
+            stats[name]["refresh_first_ms"].append(first_ms)
+            stats[name]["launches"].append(got)
+            stats[name]["plan"] = plan
+            timed(name, "rollup", sql)
+        if turn < ROLLUP_TURNS - 1:
+            for name in ROLLUPS:
+                s.execute(f"ALTER TABLE t DROP ROLLUP {name}")
+    stats["no_rollup"] = {n: warm_stats(*walls[n, "base"]) for n in ROLLUPS}
+    for name in ROLLUPS:
+        st = stats[name]
+        st.update(warm_stats(*walls[name, "rollup"]))
+        base = stats["no_rollup"][name]
+        log(f"[lifecycle] rollup {name}: first answer (its refresh over {len(host.cols['g'])} "
+            f"rows) {', '.join(f'{x:.1f}' for x in st['refresh_first_ms'])} ms in "
+            f"{ROLLUP_TURNS} turns, launches {st['launches'][0]}; warm p50 "
+            f"{st['warm_ms_p50']:.3f} ms p67 {st['warm_ms_p67']:.3f} ms (turns "
+            f"{', '.join(f'{x:.3f}' for x in st['turn_p50_ms'])}) against "
+            f"{base['warm_ms_p50']:.3f} ms p67 {base['warm_ms_p67']:.3f} ms with no rollup "
+            f"(turns {', '.join(f'{x:.3f}' for x in base['turn_p50_ms'])})")
+    new = lifecycle_rows(LC_INSERT_ROWS, seed + 141)
+    t0 = time.perf_counter()
+    s.execute(insert_sql(new))
+    stats["insert_s"] = time.perf_counter() - t0
+    host.insert(new)
+    for name, sql in ROLLUP_QUERIES.items():
+        rows, ms, got = timed_first(gk, s, sql)
+        check_rollup(name, rows, host)
+        launches[f"refresh_after_insert_{name}"] = got
+        stats[name]["refresh_after_insert_ms"] = ms
+        stats[name]["launches_after_insert"] = got
+    log(f"[lifecycle] INSERT of {LC_INSERT_ROWS} rows {stats['insert_s']:.2f} s; the next "
+        "answers refresh in " + ", ".join(f"{n} {stats[n]['refresh_after_insert_ms']:.1f} ms"
+                                          for n in ROLLUPS) + "; all equal numpy")
+    return launches, stats
+
+
+def call_counter(obj, *names: str) -> dict:
+    """Count the calls of ``obj``'s methods ``names`` (wrapped on the
+    instance) -> the live counts."""
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        def counted(*a, _fn=getattr(obj, name), _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+        setattr(obj, name, counted)
+    return calls
+
+
+def view_part(gk, s, host: HostRows, seed: int) -> tuple[dict, dict, list]:
+    """(ii): the materialized view over ``t`` and its write rounds; -> (launches
+    by statement, stats, the events the rounds must have logged).  Each
+    round's group rescans and re-seeds are counted on the view itself, so a
+    re-seed cannot pass for a group rescan."""
+    stats: dict = {"rounds": {}}
+    launches: dict = {}
+    s.execute(f"CREATE MATERIALIZED VIEW mv AS {MV_SQL}")
+    calls = call_counter(s.db.matviews.get("default", "mv"), "_rescan_group", "_rebuild")
+    rows, ms, got = timed_first(gk, s, MV_QUERY)
+    launches["seed"] = got
+    stats["seed_ms"], stats["seed_launches"] = ms, got
+
+    def check(step):
+        want = host.view_rows()
+        if rows != want:
+            raise AssertionError(f"view after {step}: {rows} != numpy {want}")
+        if view_and_recompute(s, MV_QUERY) != rows:
+            raise AssertionError(f"view after {step} answered differently a second time")
+
+    def rescans():
+        return s.query("SELECT rescans FROM information_schema.materialized_views")[0]["rescans"]
+
+    check("its seed")
+    log(f"[lifecycle] view seed over {len(host.cols['g'])} rows {ms:.1f} ms, launches {got}")
+    events = []
+    for name, kind, sql, where in MV_ROUNDS:
+        if kind == "insert":
+            new = lifecycle_rows(LC_ROUND_ROWS, seed + 142)
+            sql = insert_sql(new)
+            images = sorted(zip(*(new[c].tolist() for c in ("g", "v", "w", "g16"))))
+            want_n = len(images)
+        else:
+            m = where(host.cols)
+            want_n = int(m.sum())
+            images = host.rows(m) if want_n <= 1000 else []
+        before = (calls["_rescan_group"], calls["_rebuild"], rescans())
+        t0 = time.perf_counter()
+        n = s.execute(sql).affected_rows
+        write_s = time.perf_counter() - t0
+        if n != want_n:
+            raise AssertionError(f"round {name}: {n} rows, numpy {want_n}")
+        if kind == "insert":
+            host.insert(new)
+        elif kind == "update":
+            host.update_g(m)
+            images = (images, host.rows(m))
+        else:
+            host.delete(m)
+        events.append((kind, n, images))
+        rows, ms, got = timed_first(gk, s, MV_QUERY)
+        refolds = (calls["_rescan_group"] - before[0], calls["_rebuild"] - before[1])
+        if refolds != MV_REFOLDS[name] or rescans() - before[2] != sum(refolds):
+            raise AssertionError(f"round {name}: (group rescans, re-seeds) {refolds}, "
+                                 f"rescans +{rescans() - before[2]}, want {MV_REFOLDS[name]}")
+        check(name)
+        launches[f"round_{name}"] = got
+        stats["rounds"][name] = {"rows": n, "write_s": write_s, "answer_ms": ms,
+                                 "group_rescans": refolds[0], "reseeds": refolds[1],
+                                 "launches": got}
+        log(f"[lifecycle] view round {name}: {n} rows written in {write_s:.2f} s, the "
+            f"answer (fold + {refolds[0]} group rescans + {refolds[1]} re-seeds + answer) "
+            f"{ms:.1f} ms, launches {got}; equal to numpy and the recompute")
+    info = s.query("SELECT staleness_ms, deltas_folded, rescans, groups FROM "
+                   "information_schema.materialized_views")[0]
+    stats.update(info)
+    return launches, stats, events
+
+
+def cdc_check(s, events: list) -> dict:
+    """(iii): FETCH the subscription over ``t``; each event's kind, affected
+    count and row images equal the statements run."""
+    import json as _json
+
+    got = s.query("FETCH 1000 FROM feed")
+    if len(got) != len(events) or s.query("FETCH 1000 FROM feed"):
+        raise AssertionError(f"FETCH gave {len(got)} events, the statements {len(events)}")
+    for e, (kind, n, images) in zip(got, events):
+        if (e["event_type"], e["affected"], e["table_name"]) != (kind, n, "default.t"):
+            raise AssertionError(f"event {e['event_type']} {e['affected']} != {kind} {n}")
+        imgs = _json.loads(e["rows"])
+        key = ("g", "v", "w", "g16")
+        if kind == "update":
+            old = sorted(tuple(r["old"][c] for c in key) for r in imgs)
+            new = sorted(tuple(r["new"][c] for c in key) for r in imgs)
+            if (old, new) != (images[0], images[1]):
+                raise AssertionError("update event's row images differ from numpy")
+        elif sorted(tuple(r[c] for c in key) for r in imgs) != images:
+            raise AssertionError(f"{kind} event's row images differ from numpy")
+        if not images and not e["statement"]:
+            raise AssertionError(f"{kind} event carries neither rows nor a statement")
+    return {"events": len(got)}
+
+
+def check_sb_event(e: dict, kind: str, args: tuple) -> None:
+    """One FETCH row against the sysbench write that logged it."""
+    import json as _json
+
+    rows = _json.loads(e["rows"])
+    ok = (e["event_type"], e["affected"], e["table_name"], len(rows)) == \
+        (SB_WRITES[kind], 1, "default.sbtest1", 1)
+    if ok and kind == "insert":
+        ok = rows[0] == dict(zip(("id", "k", "c", "pad"), args))
+    elif ok and kind == "delete":
+        ok = rows[0]["id"] == args[0]
+    elif ok:
+        old, new = rows[0]["old"], rows[0]["new"]
+        ok = old["id"] == new["id"] == args[0] and (
+            new["k"] == old["k"] + 1 if kind == "index_update"
+            else (new["c"], new["k"]) == (args[1], old["k"]))
+    if not ok:
+        raise AssertionError(f"the event of sysbench {kind} {args}: {e}")
+
+
+def cdc_stream_part(s, seed: int) -> dict:
+    """(iii) at a consumer's scale: sysbench oltp_write_only transactions
+    over sbtest1's 1M rows (one event a statement, its row images), read by
+    one subscription in FETCH batches of 100 and by another in batches of
+    1,000, each until empty; every event against the statement that logged
+    it.  -> per batch size, the calls' p50 / p99 ms and events/s."""
+    from baikaldb_tpu_torch.models import sysbench as sb
+
+    for b in LC_CDC_BATCHES:
+        s.execute(f"CREATE SUBSCRIPTION f{b} ON sbtest1")
+    wl = sb.Workload(SB_ROWS, seed + 145)
+    writes, walls = [], {k: [] for k in SB_WRITES}
+    t0 = time.perf_counter()
+    for _ in range(LC_CDC_TXNS):
+        s.execute("BEGIN")
+        for kind, sql, args in wl.transaction():
+            if kind in SB_WRITES:
+                t = time.perf_counter()
+                if s.execute(sql).affected_rows != 1:
+                    raise AssertionError(f"sysbench {kind} missed its row: {sql}")
+                walls[kind].append((time.perf_counter() - t) * 1e3)
+                writes.append((kind, args))
+        s.execute("COMMIT")
+    stats: dict = {"transactions": LC_CDC_TXNS, "events": len(writes),
+                   "write_s": time.perf_counter() - t0,
+                   "write_ms": {k: percentiles(w) for k, w in walls.items()}}
+    for b in LC_CDC_BATCHES:
+        walls, full, got = [], [], []
+        while True:
+            t = time.perf_counter()
+            rows = s.query(f"FETCH {b} FROM f{b}")
+            walls.append((time.perf_counter() - t) * 1e3)
+            if len(rows) == b:
+                full.append(walls[-1])
+            if not rows:
+                break
+            got += rows
+        if len(got) != len(writes):
+            raise AssertionError(f"FETCH {b}: {len(got)} events, {len(writes)} statements")
+        for e, (kind, args) in zip(got, writes):
+            check_sb_event(e, kind, args)
+        stats[f"fetch_{b}"] = {**percentiles(walls), "calls": len(walls),
+                               "full_batch_p50_ms": statistics.median(full),
+                               "events_per_s": len(got) / (sum(walls) / 1e3)}
+        s.execute(f"DROP SUBSCRIPTION f{b}")
+    log(f"[lifecycle] change stream: {LC_CDC_TXNS} oltp_write_only transactions over "
+        f"{SB_ROWS} rows in {stats['write_s']:.2f} s (write p50 ms " + ", ".join(
+            f"{k} {w['p50_ms']:.1f}" for k, w in stats["write_ms"].items()) +
+        f"), {len(writes)} events equal the statements; " + "; ".join(
+            f"FETCH {b}: {st['calls']} calls p50 {st['p50_ms']:.2f} ms p99 {st['p99_ms']:.2f} ms "
+            f"(a full batch p50 {st['full_batch_p50_ms']:.2f}), {st['events_per_s']:.0f} events/s"
+            for b in LC_CDC_BATCHES for st in [stats[f"fetch_{b}"]]))
+    return stats
+
+
+def online_ddl_part(seed: int) -> tuple[dict, object]:
+    """(iv): ADD INDEX k_1 over sysbench's 1M rows while a second session
+    updates k by primary key, then ADD GLOBAL INDEX gk (k), dropped after
+    its point selects; -> (stats, the session over sbtest1)."""
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.models import sysbench as sb
+
+    s = Session(device="cuda")
+    s.execute(sb.DDL.replace(", KEY k_1 (k)", ""))
+    table = sb.table(SB_ROWS, seed)
+    s.load_arrow("sbtest1", table)
+    k = table.column("k").to_numpy().copy()        # k of id i at k[i - 1]
+    del table
+    probe = int(k[12345])
+    q = f"SELECT id FROM sbtest1 WHERE k = {probe} ORDER BY id"
+    stats = {"rows": SB_ROWS, "plan_before": s.execute("EXPLAIN " + q).plan_text}
+    if "access=full" not in stats["plan_before"]:
+        raise AssertionError(f"before ADD INDEX: {stats['plan_before']}")
+    rng = np.random.default_rng(seed + 143)
+    ids = rng.integers(1, SB_ROWS + 1, LC_DDL_UPDATES)
+    done = threading.Event()
+    applied: list = []
+    errors: list = []
+
+    def updater():
+        other = Session(s.db)
+        try:
+            for i in ids:
+                if done.is_set():
+                    break
+                if other.execute(f"UPDATE sbtest1 SET k = k + 1 WHERE id = {int(i)}"
+                                 ).affected_rows != 1:
+                    raise AssertionError(f"UPDATE of id {i} missed its row")
+                applied.append(int(i))
+        except BaseException as e:  # noqa: BLE001 — reported by the main thread
+            errors.append(e)
+
+    th = threading.Thread(target=updater)
+    th.start()
+    t0 = time.perf_counter()
+    wid = s.query("ALTER TABLE sbtest1 ADD INDEX k_1 (k)")[0]["work_id"]
+    w = s.db.ddl.wait(wid, 600.0)
+    stats["publish_s"] = time.perf_counter() - t0
+    done.set()
+    th.join(600)
+    if errors or th.is_alive():
+        raise AssertionError(f"the updating session failed: {errors}")
+    if w.state != "public":
+        raise AssertionError(f"ADD INDEX ended {w.state}: {w.error}")
+    for i in applied:
+        k[i - 1] += 1
+    stats["updates_during"] = len(applied)
+    stats["plan_after"] = s.execute("EXPLAIN " + q).plan_text
+    if "access=index(k_1:k)" not in stats["plan_after"]:
+        raise AssertionError(f"after ADD INDEX: {stats['plan_after']}")
+    got = s.execute("SELECT id, k FROM sbtest1").arrow
+    order = np.argsort(got.column("id").to_numpy())
+    if not np.array_equal(got.column("k").to_numpy()[order], k):
+        raise AssertionError("k after the online ADD INDEX differs from the replay")
+    want = [{"id": int(i) + 1} for i in np.nonzero(k == probe)[0]]
+    if s.query(q) != want:
+        raise AssertionError("the point select through k_1 differs from the replay")
+    log(f"[lifecycle] ADD INDEX k_1 over {SB_ROWS} rows published in {stats['publish_s']:.3f} s "
+        f"with {len(applied)} point UPDATEs of k from a second session; rows equal the replay")
+    s.execute("ALTER TABLE sbtest1 DROP INDEX k_1")
+    t0 = time.perf_counter()
+    wid = s.query("ALTER TABLE sbtest1 ADD GLOBAL INDEX gk (k)")[0]["work_id"]
+    w = s.db.ddl.wait(wid, 600.0)
+    stats["global_backfill_s"] = time.perf_counter() - t0
+    if w.state != "public":
+        raise AssertionError(f"ADD GLOBAL INDEX ended {w.state}: {w.error}")
+    stats["plan_global"] = s.execute("EXPLAIN " + q).plan_text
+    if "access=global_index(gk:k)" not in stats["plan_global"]:
+        raise AssertionError(f"after ADD GLOBAL INDEX: {stats['plan_global']}")
+    walls = []
+    for kv in rng.choice(k, GIDX_SELECTS):
+        sql = f"SELECT id FROM sbtest1 WHERE k = {int(kv)} ORDER BY id"
+        t0 = time.perf_counter()
+        rows = s.query(sql)
+        walls.append((time.perf_counter() - t0) * 1e3)
+        if rows != [{"id": int(i) + 1} for i in np.nonzero(k == kv)[0]]:
+            raise AssertionError(f"k = {kv} through gk differs from the replay")
+    stats["global_select"] = percentiles(walls)
+    log(f"[lifecycle] ADD GLOBAL INDEX gk backfilled in {stats['global_backfill_s']:.3f} s; "
+        f"point selects through it p50 {stats['global_select']['p50_ms']:.2f} ms")
+    # the coupled global-index path captures no row images (as in the JAX
+    # session): the change stream after it runs without gk
+    s.execute("ALTER TABLE sbtest1 DROP INDEX gk")
+    return stats, s
+
+
+def ttl_part(seed: int) -> dict:
+    """(v): ``ev`` with TTL=3600 on ts, 10M rows, 30% of them past it."""
+    import datetime
+
+    import pyarrow as pa
+
+    from baikaldb_tpu_torch.exec.session import Session
+
+    rng = np.random.default_rng(seed + 144)
+    n = LC_TTL_ROWS
+    now = datetime.datetime.now()
+    expired = rng.random(n) < LC_TTL_EXPIRED
+    age_s = np.where(expired, 7200, rng.integers(0, 3000, n))
+    ts = np.datetime64(now, "us") - age_s.astype("timedelta64[s]")
+    v = rng.integers(0, 1000, n, dtype=np.int32)
+    s = Session(device="cuda")
+    s.execute("CREATE TABLE ev (id BIGINT PRIMARY KEY, ts DATETIME, v INT) TTL=3600 "
+              "TTL_COLUMN=ts")
+    s.load_arrow("ev", pa.table({"id": np.arange(n, dtype=np.int64),
+                                 "ts": pa.array(ts, pa.timestamp("us")), "v": v}))
+    t0 = time.perf_counter()
+    purged = s.execute("HANDLE ttl").affected_rows
+    stats = {"rows": n, "purged": purged, "handle_ttl_s": time.perf_counter() - t0}
+    if purged != int(expired.sum()):
+        raise AssertionError(f"HANDLE ttl purged {purged}, numpy {int(expired.sum())}")
+    left = s.query("SELECT COUNT(*) n, SUM(v) sv, SUM(id) si FROM ev")[0]
+    keep = ~expired
+    want = {"n": int(keep.sum()), "sv": int(v[keep].astype(np.int64).sum()),
+            "si": int(np.arange(n)[keep].sum())}
+    if left != want:
+        raise AssertionError(f"rows left {left} != numpy {want}")
+    ev = s.db.binlog.read(0)[-1]
+    if (ev.event_type, ev.table, ev.affected) != ("delete", "ev", purged) or \
+            not ev.statement.startswith("TTL purge ts < "):
+        raise AssertionError(f"the binlog lacks the purge's event: {ev}")
+    log(f"[lifecycle] HANDLE ttl purged {purged} of {n} rows in {stats['handle_ttl_s']:.2f} s; "
+        "rows left equal numpy, the binlog holds its event")
+    s.execute("DROP TABLE ev")
+    return stats
+
+
+def lifecycle_phase(gk, single, table, seed: int) -> tuple[dict, dict]:
+    """Phase 14 (i)-(iii), in phase 3's session right after phase 11 (ii),
+    over ``t`` as those writes left it; then (iv) and (v) on sessions of
+    their own.  -> (launches, measurements)."""
+    torch.cuda.reset_peak_memory_stats()
+    s = single
+    t0 = time.perf_counter()
+    host = HostRows(htap_post_columns(table, seed)[1])
+    stats: dict = {"seconds": {"numpy_state": time.perf_counter() - t0}}
+    lane_before = lane_launches(gk)
+
+    def part(name, fn, *args):
+        t = time.perf_counter()
+        out = fn(*args)
+        stats["seconds"][name] = time.perf_counter() - t
+        return out
+
+    with flag(s, "streaming_scan", 0):
+        s.execute("CREATE SUBSCRIPTION feed ON t")
+        rl, stats["rollups"] = part("rollups", rollup_part, gk, s, host, seed)
+        vl, stats["view"], events = part("view", view_part, gk, s, host, seed)
+        # the lifecycle path's launches: each refresh's, the seed's and each
+        # round's answer, read around the statement (the recomputes and the
+        # warm repeats beside them are not counted)
+        stats["launches_by_statement"] = {**rl, **vl}
+        launches = {k: sum(d.get(k, 0) for d in stats["launches_by_statement"].values())
+                    for k in all_launches(gk)}
+        stats["lane_launches"] = {k: n - lane_before[k] for k, n in lane_launches(gk).items()}
+        rows = host.cols["g"].shape[0]
+        ins = lifecycle_rows(LC_INSERT_ROWS, seed + 141)
+        first = ("insert", LC_INSERT_ROWS,
+                 sorted(zip(*(ins[c].tolist() for c in ("g", "v", "w", "g16")))))
+        stats["cdc"] = part("cdc", cdc_check, s, [first] + events)
+        log(f"[lifecycle] FETCH: {stats['cdc']['events']} events equal the statements")
+        store = s.db.stores["default.t"]
+        batch = store.device_table_batch()
+        sel = batch.sel_mask()
+        stats["kernel_checks"] = part("kernel_checks", batch_kernel_checks, gk, batch, sel, sel,
+                                      "[lifecycle]", "refreshed", True)
+        del batch, sel
+        if store.num_rows != rows:
+            raise AssertionError(f"t holds {store.num_rows} rows, numpy {rows}")
+        s.execute("DROP MATERIALIZED VIEW mv")
+        s.execute("DROP SUBSCRIPTION feed")
+        for name in ROLLUPS:
+            s.execute(f"ALTER TABLE t DROP ROLLUP {name}")
+    stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    stats["online_ddl"], sb_s = part("online_ddl", online_ddl_part, seed)
+    stats["cdc_stream"] = part("cdc_stream", cdc_stream_part, sb_s, seed)
+    sb_s.execute("DROP TABLE sbtest1")
+    sb_s.db.close()
+    del sb_s
+    stats["ttl"] = part("ttl", ttl_part, seed)
+    log("[lifecycle] seconds: " + ", ".join(f"{k} {v:.1f}" for k, v in stats["seconds"].items()))
+    return launches, stats
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=100_000_000)
@@ -3707,7 +4386,11 @@ def main() -> int:
     t0 = time.perf_counter()
     htap_launches, htap_stats = htap_snapshot_phase(gk, single, table, refs, args.seed)
     htap_s = time.perf_counter() - t0
-    for checks in (htap_stats["kernel_checks"], part_stats["kernel_checks"]):
+    t0 = time.perf_counter()
+    lc_launches, lc_stats = lifecycle_phase(gk, single, table, args.seed)
+    phase_s["lifecycle"] = time.perf_counter() - t0
+    for checks in (htap_stats["kernel_checks"], part_stats["kernel_checks"],
+                   lc_stats["kernel_checks"]):
         for k in REPLACES:
             err = checks["seg_max_abs_err" if k == "segment_reduce" else "k_max_abs_err"]
             times[k]["max_abs_err"] = max(times[k]["max_abs_err"], err)
@@ -3720,7 +4403,8 @@ def main() -> int:
     del table
     for path, counts in (("resident", launches), ("streamed", stream_launches),
                          ("mesh", mesh_launches), ("versioned", htap_launches),
-                         ("lane-batched", lane_counts), ("partitioned", part_launches)):
+                         ("lane-batched", lane_counts), ("partitioned", part_launches),
+                         ("lifecycle", {k: lc_launches[k] for k in LIFECYCLE_KERNELS})):
         missing = [k for k, n in counts.items() if n == 0]
         if missing:
             raise AssertionError(f"kernels not launched on the {path} path: {missing}")
@@ -3775,35 +4459,41 @@ def main() -> int:
     print(f"mesh phase seconds: {phase_s['mesh']:.1f}", flush=True)
     print(f"dispatch phase seconds: {phase_s['dispatch']:.1f}", flush=True)
     print(f"partition phase seconds: {phase_s['partitions']:.1f}", flush=True)
+    print(f"lifecycle phase seconds: {phase_s['lifecycle']:.1f}", flush=True)
     print("phase seconds: " + json.dumps(phase_s), flush=True)
 
     kernels = [{"name": k, "route": "cuda",
                 "source": SOURCES.get(k, "baikaldb_tpu_torch/ops/csrc/group_agg.cu"),
                 "replaces": REPLACES[k],
                 "launches": (launches[k] + stream_launches.get(k, 0) + vector_launches[k]
-                             + mesh_launches[k] + htap_launches[k] + part_launches[k]),
+                             + mesh_launches[k] + htap_launches[k] + part_launches[k]
+                             + lc_launches[k]),
                 "launches_resident": launches[k],
                 "launches_streamed": stream_launches.get(k, 0),
                 "launches_vectors": vector_launches[k],
                 "launches_mesh": mesh_launches[k],
                 "launches_htap": htap_launches[k],
                 "launches_partitioned": part_launches[k],
+                "launches_lifecycle": lc_launches[k],
                 **times[k],
-                # this kernel on phase 13's pruned batch
-                "pruned": part_stats["kernel_checks"]["kernels"][k]}
+                # this kernel on phase 13's pruned batch and on phase 14's
+                # refreshed table
+                "pruned": part_stats["kernel_checks"]["kernels"][k],
+                "lifecycle": lc_stats["kernel_checks"]["kernels"][k]}
                for k in REPLACES]
     # the lane-batched entries (phase 12): timed at --rows rows over 8 lanes
     lane_times = p12["kernels"][f"n{args.rows}_G8"]
     kernels += [{"name": k, "route": "cuda",
                  "source": SOURCES.get(k, "baikaldb_tpu_torch/ops/csrc/group_agg.cu"),
                  "replaces": REPLACES[base], "launches": lane_counts[k],
+                 "launches_lifecycle": lc_stats["lane_launches"][k],
                  "max_abs_err": p12["kernels"]["max_abs_err"], **lane_times[k]}
                 for k, base in LANE_KERNELS.items()]
     print(json.dumps({"card": name_power, "rows": args.rows, "phase_s": phase_s,
                       "sql": sql_stats, "streamed": stream_stats, "tpch": tpch_stats,
                       "analytics": analytic_stats, "egress": egress_stats,
                       "vectors": vector_stats, "mesh": mesh_stats, "htap": htap_stats,
-                      "dispatch": p12, "partitions": part_stats}),
+                      "dispatch": p12, "partitions": part_stats, "lifecycle": lc_stats}),
           flush=True)
     print(name_power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -16,7 +16,6 @@ from baikaldb_tpu.exec.session import Session as JSession
 from baikaldb_tpu.index import annindex as jann  # noqa: F401 — registers ann flags
 from baikaldb_tpu.utils.flags import FLAGS as JFLAGS
 from baikaldb_tpu.utils.flags import set_flag as jset_flag
-from baikaldb_tpu_torch.errors import NotPortedError
 from baikaldb_tpu_torch.exec.session import Database as TDatabase
 from baikaldb_tpu_torch.exec.session import Session as TSession
 from baikaldb_tpu_torch.index import annindex as tann
@@ -113,14 +112,23 @@ def test_ann_matcher_reads_the_reference_literal_grammar(lit):
 
 
 def test_other_index_and_alter_forms_still_raise():
-    """Online ADD INDEX (a backfill worker) and rollups are not ported;
-    ADD / DROP COLUMN, KEY indexes in CREATE TABLE and AUTO_INCREMENT are
-    (tests/test_torch_dml.py), and so are global indexes and partitions
-    (``test_vector_tables_with_global_indexes_and_partitions_match_jax``)."""
-    s = TSession(device="cpu")
-    s.execute("CREATE TABLE vt (id BIGINT, v VECTOR(4), ANN INDEX av (v))")
-    with pytest.raises(NotPortedError):
-        s.execute("ALTER TABLE vt ADD INDEX k (id)")
+    """Online ADD INDEX on a vector table (its backfill worker) gives the
+    JAX session's work record, index state and access path; ADD / DROP
+    COLUMN, KEY indexes in CREATE TABLE and AUTO_INCREMENT are in
+    tests/test_torch_dml.py, global indexes and partitions in
+    ``test_vector_tables_with_global_indexes_and_partitions_match_jax``."""
+    vecs = np.random.RandomState(4).randn(600, 4).astype(np.float32)
+    js, ts = _sessions("CREATE TABLE vt (id BIGINT, v VECTOR(4), ANN INDEX av (v))", vecs)
+    recs = []
+    for s in (js, ts):
+        wid = s.execute("ALTER TABLE vt ADD INDEX k (id)").to_pylist()[0]["work_id"]
+        w = s.db.ddl.wait(wid, 30.0)
+        ix = next(i for i in s.db.catalog.get_table("default", "vt").indexes if i.name == "k")
+        recs.append((wid, w.state, w.error, w.regions_done, ix.params.get("state")))
+    assert recs[1] == recs[0] and recs[1][1] == "public"
+    sql = "SELECT id FROM vt WHERE id = 17"
+    assert _plan(ts, sql) == _plan(js, sql) and "index(k:id)" in _plan(ts, sql)
+    assert _ids(ts, sql) == _ids(js, sql) == [17]
 
 
 @pytest.mark.parametrize("ddl", [

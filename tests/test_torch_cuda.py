@@ -1536,3 +1536,120 @@ def test_global_index_lookup_on_the_card(cuda):
         back = s.query("SELECT k, id FROM `__gidx__u__gk` WHERE k = 5 ORDER BY id")
         assert [r["id"] for r in back] == [r["id"] for r in rows[-1]]
     assert rows[0] == rows[1] and 3 in [r["id"] for r in rows[0]]
+
+
+def _lifecycle_table(s, n=300_000, seed=14):
+    """``t (g INT, v FLOAT, w DOUBLE, g16 INT)`` of seeded rows: g over 2048
+    slots (K1-K3 on the card), g16 over 16 (the segment kernel)."""
+    import pyarrow as pa
+
+    rng = np.random.default_rng(seed)
+    s.execute("CREATE TABLE t (g INT, v FLOAT, w DOUBLE, g16 INT)")
+    s.load_arrow("t", pa.table({"g": rng.integers(0, 2048, n, dtype=np.int32),
+                                "v": rng.standard_normal(n, dtype=np.float32),
+                                "w": rng.standard_normal(n),
+                                "g16": rng.integers(0, 16, n, dtype=np.int32)}))
+
+
+def _all_launches():
+    from baikaldb_tpu_torch.ops import segments as seg
+
+    return {**{k: c.value for k, c in gk.LAUNCHES.items()},
+            **{k: c.value for k, c in seg.LAUNCHES.items()}}
+
+
+def _moved(before):
+    return {k: v - before[k] for k, v in _all_launches().items() if v != before[k]}
+
+
+def _close_rollup_rows(got, want, rtol, atol):
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert list(a) == list(b)
+        for k in b:
+            if isinstance(b[k], float):
+                assert a[k] == pytest.approx(b[k], rel=rtol, abs=atol), (k, a, b)
+            else:
+                assert a[k] == b[k], (k, a, b)
+
+
+@pytest.mark.cuda
+def test_rollup_refresh_on_the_card_matches_the_cpu(cuda):
+    """A rollup's refresh is a GROUP BY over the base table: on the card it
+    launches the group kernels; its answers equal the port on the CPU
+    (FLOAT sums within rtol 1e-4, or 2e-3 absolute near zero), before and
+    after a write."""
+    from baikaldb_tpu_torch.exec.session import Session
+
+    sql = {"g": "SELECT g, COUNT(*), SUM(v), AVG(v), MIN(v) FROM t GROUP BY g ORDER BY g",
+           "g16": "SELECT g16, COUNT(*), SUM(v), AVG(v), MIN(v) FROM t GROUP BY g16 "
+                  "ORDER BY g16"}
+    out, moved = {}, {}
+    for dev in ("cuda", "cpu"):
+        s = Session(device=dev)
+        _lifecycle_table(s)
+        # FLOAT measures: a DOUBLE MIN / MAX would send the whole refresh to
+        # the scatter (the kernels' gate)
+        s.execute("ALTER TABLE t ADD ROLLUP r_g (g, AGGREGATE(v))")
+        s.execute("ALTER TABLE t ADD ROLLUP r_g16 (g16, AGGREGATE(v))")
+        for k, q in sql.items():
+            assert f"__rollup_t_r_{k}" in s.execute("EXPLAIN " + q).plan_text
+            before = _all_launches()
+            out[dev, k] = s.query(q)
+            moved[dev, k] = _moved(before)
+        s.execute("INSERT INTO t VALUES " + ", ".join(f"({i}, {i / 7}, {i / 3}, {i % 16})"
+                                                      for i in range(1000)))
+        out[dev, "after"] = s.query(sql["g"])
+    # a group's FLOAT sum near zero is held to the kernels' 1e-5 * sum|v|:
+    # ~150 standard-normal rows a group of g give sum|v| ~ 120
+    for k in ("g", "g16", "after"):
+        _close_rollup_rows(out["cuda", k], out["cpu", k], 1e-4, 2e-3)
+    assert moved["cuda", "g"].get("fused_group_aggregate", 0) >= 1
+    assert moved["cuda", "g"].get("partition_histogram", 0) >= 1
+    assert moved["cuda", "g16"].get("segment_reduce", 0) >= 1
+    assert not moved["cpu", "g"] and not moved["cpu", "g16"]
+
+
+@pytest.mark.cuda
+def test_view_answers_on_the_card_match_the_cpu(cuda):
+    """A view's seed, group rescan and re-seed run on the card (the group
+    kernels); its answers equal the CPU port's and ``matview_answer = 0`` bit
+    for bit after inserts, an update, an update that moves rows off a group's
+    MIN (one group rescan) and a bulk delete (a re-seed), each counted on the
+    view itself."""
+    from baikaldb_tpu_torch.exec.session import Session
+
+    q = "SELECT g16, COUNT(*), SUM(g), MIN(g), MAX(g) FROM t GROUP BY g16 ORDER BY g16"
+    # (statement, (group rescans, re-seeds) its fold makes)
+    steps = [("INSERT INTO t VALUES " + ", ".join(f"({i}, 0.5, 0.5, {i % 16})"
+                                                  for i in range(3000, 3400)), (0, 0)),
+             ("UPDATE t SET g = g + 1 WHERE g = 7", (0, 0)),
+             ("UPDATE t SET g = g + 1 WHERE g = 0 AND g16 = 5", (1, 0)),
+             ("DELETE FROM t WHERE g >= 2000", (0, 1))]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = Session(device=dev)
+        _lifecycle_table(s, n=100_000)
+        s.execute(f"CREATE MATERIALIZED VIEW mv AS {q.split(' ORDER BY')[0]}")
+        mv = s.db.matviews.get("default", "mv")
+        calls = {"_rescan_group": 0, "_rebuild": 0}
+        for name in calls:
+            def counted(*a, _fn=getattr(mv, name), _name=name, **kw):
+                calls[_name] += 1
+                return _fn(*a, **kw)
+            setattr(mv, name, counted)
+        got = [s.query(q)]
+        for st, refolds in steps:
+            before = (calls["_rescan_group"], calls["_rebuild"])
+            s.execute(st)
+            got.append(s.query(q))
+            assert (calls["_rescan_group"] - before[0], calls["_rebuild"] - before[1]) == refolds
+            s.execute("SET GLOBAL matview_answer = 0")
+            try:
+                assert s.query(q) == got[-1]
+            finally:
+                s.execute("SET GLOBAL matview_answer = 1")
+        out[dev] = got
+        rescans = s.query("SELECT rescans FROM information_schema.materialized_views")
+        assert rescans[0]["rescans"] == 3           # the seed, the group, the re-seed
+    assert out["cuda"] == out["cpu"]

@@ -10,10 +10,9 @@ Each statement runs in a JAX ``Session`` (CPU, x64) and a port
 ``Session(device="cpu")``; rows, affected counts and error types are
 compared exactly, floats within rtol 1e-9, and after every script the
 backing table equals the main table's (index cols, pk cols) projection in
-both.  The cases mirror tests/test_global_index.py but for its fleet,
-cluster-process and online-backfill cases: the replicated tier and online
-ADD INDEX are not ported, and ALTER TABLE ADD GLOBAL INDEX raises
-``NotPortedError``.
+both.  The cases mirror tests/test_global_index.py but for its fleet and
+cluster-process cases (the replicated tier is not ported) and its online
+ADD GLOBAL INDEX cases, which are in tests/test_torch_online_ddl.py.
 """
 
 import math
@@ -23,7 +22,6 @@ import pytest
 
 from baikaldb_tpu.exec.session import Database as JDatabase
 from baikaldb_tpu.exec.session import Session as JSession
-from baikaldb_tpu_torch.errors import NotPortedError
 from baikaldb_tpu_torch.exec.session import Database as TDatabase
 from baikaldb_tpu_torch.exec.session import Session as TSession
 
@@ -265,8 +263,31 @@ def test_seeded_dml_keeps_the_backing_table_equal_to_the_projection():
 ])
 def test_online_index_ddl_and_plane_options_raise(sql):
     """Online ADD INDEX (its backfill worker, global indexes included) and
-    the binlog / TTL table options wait for their planes."""
-    s = TSession(device="cpu")
-    s.execute(PLAIN_DDL)
-    with pytest.raises(NotPortedError):
-        s.execute(sql)
+    the binlog / TTL table options give the JAX session's outcome: the work
+    record, the index state, the backing table, EXPLAIN, and the rows the
+    table takes afterwards."""
+    p = Pair()
+    p.run(PLAIN_DDL)
+    p.run("INSERT INTO u VALUES " + ", ".join(f"({i}, 'e{i}', {float(i % 13)})"
+                                             for i in range(60)))
+    out = p.run(sql)
+    if isinstance(out, list):           # ALTER ... ADD INDEX: the work id
+        recs = []
+        for s in (p.j, p.t):
+            w = s.db.ddl.wait(out[0]["work_id"], 30.0)
+            recs.append((w.state, w.kind, w.error, [
+                (ix.name, ix.kind, ix.params.get("state"))
+                for ix in s.db.catalog.get_table("default", "u").indexes]))
+        assert recs[1] == recs[0] and recs[1][0] == "public"
+        name, col = sql.split("INDEX ")[1].split(" (")
+        col = col.rstrip(")")
+        lit = "'e5'" if col == "email" else "5"
+        p.explain(f"SELECT id FROM u WHERE {col} = {lit}")
+        if "GLOBAL" in sql:
+            p.check_backing("u", name, (col, "id"))
+        p.run("INSERT INTO u VALUES (100, 'new', 5.0)")
+        p.run(f"SELECT id FROM u WHERE {col} = {lit} ORDER BY id")
+    else:
+        p.run("SHOW CREATE TABLE b")
+        p.run("INSERT INTO b (id, v) VALUES (1, 2)")
+        p.run("SELECT id, v FROM b")

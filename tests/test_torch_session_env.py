@@ -11,7 +11,8 @@ row order); floats within rtol 1e-9 (no float32 sum runs here); result sets
 without ORDER BY as multisets.  The cases mirror tests/test_session_env.py
 (all but its wire-protocol case, which waits for the server),
 tests/test_sql_show.py and tests/test_upsert.py::test_select_into_outfile.
-The forms whose planes the port lacks raise ``NotPortedError``.
+The forms whose planes the port lacks raise ``NotPortedError``; those of the
+lifecycle plane (subscriptions, views, online DDL, TTL) are compared.
 """
 
 import math
@@ -289,15 +290,40 @@ def test_information_schema_trace_spans_of_a_traced_query():
         p.run("SET GLOBAL tracing = 0")
 
 
+# the lifecycle plane's tables: a subscription, a view and a finished
+# online ADD INDEX give them rows in both packages
+LIFECYCLE_TABLES = {
+    "subscriptions": "name, table_key, internal, events_delivered",
+    "materialized_views": ("table_schema, view_name, base_table, definition, deltas_folded, "
+                           "rescans, answered_queries, groups"),
+    "ddl_work": "*",
+}
+
+
 @pytest.mark.parametrize("table", [
     "subscriptions", "materialized_views", "ddl_work", "processlist", "flight_recorder",
     "metrics", "regions", "fragments", "cold_segments", "cluster_metrics",
     "executables", "aot_cache",
 ])
 def test_information_schema_tables_of_unported_planes_raise(table):
-    s = TSession(device="cpu")
-    with pytest.raises(NotPortedError):
-        s.query(f"SELECT * FROM information_schema.{table}")
+    """The tables of planes the port lacks raise ``NotPortedError``; those
+    of the lifecycle plane (ported) equal the JAX session's."""
+    if table not in LIFECYCLE_TABLES:
+        s = TSession(device="cpu")
+        with pytest.raises(NotPortedError):
+            s.query(f"SELECT * FROM information_schema.{table}")
+        return
+    p = _info_pair()
+    p.run(f"SELECT * FROM information_schema.{table}")          # empty in both
+    p.script(["CREATE SUBSCRIPTION feed ON a",
+              "CREATE MATERIALIZED VIEW mv AS SELECT g, COUNT(*), SUM(id) FROM a GROUP BY g",
+              "INSERT INTO a VALUES (100, 1, 0.5, 'x')",
+              "SELECT g, COUNT(*), SUM(id) FROM a GROUP BY g ORDER BY g"])
+    wid = p.run("ALTER TABLE a ADD INDEX ig (g)")[0]["work_id"]
+    for s in (p.j, p.t):
+        assert s.db.ddl.wait(wid, 30.0).state == "public"
+    p.run(f"SELECT {LIFECYCLE_TABLES[table]} FROM information_schema.{table}", ordered=False)
+    p.run(f"SELECT COUNT(*) AS n FROM information_schema.{table}")
 
 
 # -- LOAD DATA INFILE (tests/test_upsert.py::test_select_into_outfile) -----
@@ -383,6 +409,21 @@ def test_handle_split_matches_jax():
     "store_heartbeat", "cold_status default.t", "split_region 1",
 ])
 def test_handle_commands_of_unported_planes_raise(cmd):
-    s = TSession(device="cpu")
-    with pytest.raises(NotPortedError):
-        s.execute(f"HANDLE {cmd}")
+    """The commands of planes the port lacks raise ``NotPortedError``; TTL
+    and online DDL (ported) give the JAX session's outcome."""
+    if cmd not in ("ttl", "ddl suspend"):
+        s = TSession(device="cpu")
+        with pytest.raises(NotPortedError):
+            s.execute(f"HANDLE {cmd}")
+        return
+    p = Pair()
+    p.script(["CREATE TABLE e (id BIGINT PRIMARY KEY, create_time DATETIME) TTL=60",
+              "INSERT INTO e VALUES (1, '2001-01-01 00:00:00'), (2, '2999-01-01 00:00:00')",
+              f"HANDLE {cmd}", "SELECT id FROM e ORDER BY id"])
+    if cmd == "ddl suspend":
+        wid = p.run("ALTER TABLE e ADD INDEX ic (create_time)")[0]["work_id"]
+        p.run("SELECT state, regions_done FROM information_schema.ddl_work")
+        p.run("HANDLE ddl resume")
+        for s in (p.j, p.t):
+            assert s.db.ddl.wait(wid, 30.0).state == "public"
+        p.run("SELECT state FROM information_schema.ddl_work")
