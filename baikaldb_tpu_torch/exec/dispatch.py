@@ -232,14 +232,19 @@ class BatchDispatcher:
     def _wait(self, w: _Waiter, run_inline):
         qp = progress.current()
         with trace.span("batch.enqueue") as sp:
-            # a sliced wait: each slice is a progress beat (and, once KILL
-            # is ported, a cancellation point: the queue is a pure read
-            # path, so walking away leaves one unread lane in the tick)
+            # a sliced wait: each slice is a progress beat and a KILL
+            # cancellation point (the queue is a pure read path: walking
+            # away leaves one unread lane in the tick).  The member shows
+            # exec.queued from the moment it queues, not after its first
+            # slice as in the JAX package: a tick shorter than a slice
+            # would otherwise never show its members queued
+            qp.beat(phase="exec.queued", queue_wait_ms=0.0)
             deadline = time.perf_counter() + float(FLAGS.batch_dispatch_wait_s)
             while True:
                 remaining = deadline - time.perf_counter()
                 ok = w.done.wait(timeout=min(0.05, max(0.0, remaining)))
-                qp.beat(phase="exec.queued")
+                qp.beat(phase="exec.queued",
+                        queue_wait_ms=(time.perf_counter() - w.t0) * 1e3)
                 if ok or remaining <= 0:
                     break
             sp.set(queue_wait_ms=round((time.perf_counter() - w.t0) * 1e3, 3), group=w.group)

@@ -63,6 +63,7 @@ from ..column.batch import Column, ColumnBatch, concat_batches
 from ..column.dictionary import Dictionary
 from ..expr.compile import cast_column, eval_output, eval_predicate
 from ..expr.params import PARAMS_KEY, bind_params
+from ..obs import progress
 from ..ops import join as join_ops
 from ..ops.compact import compact, head
 from ..ops.hashagg import (group_aggregate_dense, group_aggregate_sorted,
@@ -372,6 +373,9 @@ def _mesh_node(node: PlanNode, kids: list, ctx: Ctx):
     """The nodes that run a collective, over at least one sharded input;
     None for every other node (it runs shard by shard)."""
     mesh = ctx.mesh
+    # a KILL lands between exchange rounds: every operator over sharded
+    # inputs starts at a cancellation point (a host seam, no device read)
+    progress.current().checkpoint()
     if isinstance(node, ExchangeNode):
         child = kids[0]
         if node.kind == "gather":
@@ -513,6 +517,32 @@ def exchange_summary(plan: PlanNode) -> dict:
     keys.reverse()
     return {"rounds": rounds, "reused": reused, "collectives": collectives,
             "keys": keys}
+
+
+def progress_totals(plan: PlanNode) -> dict:
+    """Host-side work estimates for the live progress record (obs/
+    progress.py): operator count, scan count, and the executed exchange
+    rounds a multi-round mesh query pays: the denominators SHOW
+    PROCESSLIST renders "m/n" against.  A walk over the plan's host
+    objects; nothing here touches a tensor."""
+    operators = 0
+    scans = 0
+    seen: set = set()
+
+    def walk(n: PlanNode) -> None:
+        nonlocal operators, scans
+        if id(n) in seen:
+            return
+        seen.add(id(n))
+        operators += 1
+        if isinstance(n, ScanNode):
+            scans += 1
+        for c in n.children:
+            walk(c)
+
+    walk(plan)
+    return {"operators": operators, "scans": scans,
+            "rounds": exchange_summary(plan)["rounds"]}
 
 
 def _broadcast(c: Column, n: int) -> Column:

@@ -26,9 +26,25 @@ CREATE TABLE, [FULL] COLUMNS, INDEX, VARIABLES, COLLATION, CHARSET, ENGINES
 and TABLE STATUS; ``information_schema`` renders tables, columns, views,
 partitions, snapshots, trace_spans, flags, failpoints, column_stats,
 query_log and dispatcher; HANDLE runs checkpoint, gc, split and set_flag.
+
+The observability plane and users are the JAX session's too.  Every
+statement opens a live progress record (obs/progress.py) that beats at the
+host seams (parse, plan, each staged scan, each streamed chunk, each mesh
+round, the dispatcher's queued wait, egress): SHOW [FULL] PROCESSLIST and
+``information_schema.processlist`` read the records, and KILL [QUERY |
+CONNECTION] n flips one's cancel token, so the victim raises
+``QueryKilled`` at its next beat.  Every finished statement leaves a
+flight-recorder record (``information_schema.flight_recorder``, HANDLE
+flightrec dump | clear), with a forensic bundle when it was slow, killed
+or failed; SHOW STATUS, ``information_schema.metrics`` and
+``cluster_metrics`` read the metrics registry (the kernel launch counters
+among it) and the watchdog's health rows; SHOW PROFILES / PROFILE [FOR
+QUERY n] read the kept traces.  ``Session(db, user=...)`` runs as that
+account: each statement is checked against its grants (CREATE / DROP
+USER, GRANT, REVOKE, SHOW GRANTS, HANDLE add_privilege / drop_privilege).
 The SHOW forms, ``information_schema`` tables and HANDLE commands that read
-a plane the port lacks (regions, processlist, status, grants, profiles, the
-fleet, ...) raise ``NotPortedError``.
+a plane the port lacks (regions, the fleet, the cold tier, ...) raise
+``NotPortedError``.
 
 Tables may be partitioned (``PARTITION BY RANGE (col) (PARTITION p VALUES
 LESS THAN (v | MAXVALUE), ...)`` or ``PARTITION BY HASH (col) PARTITIONS
@@ -175,7 +191,12 @@ from ..index import rollup
 from ..index.selector import analyze_conjuncts, choose_access, is_point_statement, point_key
 from ..meta.catalog import Catalog, IndexInfo, parse_type
 from ..meta.ddl import DdlManager
+from ..meta.privileges import READ, WRITE, AccessError, PrivilegeManager
 from ..obs import progress, trace
+from ..obs.flightrec import FlightRecorder, device_stats, metric_delta, metric_marks
+from ..obs.progress import PROGRESS, QueryKilled
+from ..obs.telemetry import Telemetry
+from ..obs.watchdog import QueryWatchdog
 from ..parallel.mesh import Mesh
 from ..plan import paramize
 from ..plan.distribute import distribute
@@ -185,13 +206,14 @@ from ..plan.planner import PlanError, Planner, parse_vector
 from ..sql.lexer import SqlError
 from ..sql.parser import parse_sql
 from ..sql.stmt import (AlterTableStmt, CreateDatabaseStmt, CreateMatViewStmt,
-                        CreateSubscriptionStmt, CreateTableStmt, CreateViewStmt,
-                        DeallocateStmt, DeleteStmt, DescribeStmt, DropDatabaseStmt,
-                        DropMatViewStmt, DropSubscriptionStmt, DropTableStmt, DropViewStmt,
-                        ExecuteStmt, ExplainStmt, FetchStmt, HandleStmt, InsertStmt,
-                        LoadDataStmt, OrderItem, PrepareStmt, SelectItem, SelectStmt,
-                        SetStmt, ShowStmt, TableRef, TruncateStmt, TxnStmt, UpdateStmt,
-                        UseStmt)
+                        CreateSubscriptionStmt, CreateTableStmt, CreateUserStmt,
+                        CreateViewStmt, DeallocateStmt, DeleteStmt, DescribeStmt,
+                        DropDatabaseStmt, DropMatViewStmt, DropSubscriptionStmt,
+                        DropTableStmt, DropUserStmt, DropViewStmt, ExecuteStmt,
+                        ExplainStmt, FetchStmt, GrantStmt, HandleStmt, InsertStmt, KillStmt,
+                        LoadDataStmt, OrderItem, PrepareStmt, RevokeStmt, SelectItem,
+                        SelectStmt, SetStmt, ShowStmt, TableRef, TruncateStmt, TxnStmt,
+                        UpdateStmt, UseStmt)
 from ..storage.binlog import Binlog
 from ..storage.coldfs import ExternalFS
 from ..storage.column_store import TableStore, commit_group, schema_to_arrow
@@ -260,8 +282,7 @@ _ENV_FNS = ("database", "schema", "user", "current_user", "session_user",
 BINLOG_ROW_IMAGES_MAX = 1000
 
 # the JAX session's HANDLE commands whose planes the port lacks
-_HANDLE_PLANES = ("flightrec", "add_privilege",
-                  "drop_privilege", "drop_instance", "migrate", "add_instance",
+_HANDLE_PLANES = ("drop_instance", "migrate", "add_instance",
                   "add_peer", "remove_peer", "trans_leader", "add_learner",
                   "remove_learner", "split_region", "merge_region", "store_heartbeat",
                   "balance_tick", "cold_flush", "cold_gc", "cold_status", "compact")
@@ -393,7 +414,16 @@ class Database:
     ``matviews`` (cdc/views.py) the materialized views, both attached
     before recovery so that recovery re-arms them on the recovered
     cursors; ``ddl`` (meta/ddl.py) runs online ADD INDEX backfills on a
-    daemon thread, and recovery resubmits the unfinished ones."""
+    daemon thread, and recovery resubmits the unfinished ones.
+
+    The observability planes: ``telemetry`` (obs/telemetry.py: this
+    frontend's registry, the device and process gauges), ``privileges``
+    (meta/privileges.py: users and grants), ``processlist`` (the wire
+    server's connections, empty until the server is ported), ``flightrec``
+    (obs/flightrec.py: every finished statement, with a forensic bundle for
+    slow, killed and failed ones) and ``watchdog`` (obs/watchdog.py: scans
+    this database's live queries on demand; its thread runs only in
+    cluster mode, as in the JAX package)."""
 
     def __init__(self, device=None, cold_dir: Optional[str] = None,
                  data_dir: Optional[str] = None):
@@ -410,6 +440,11 @@ class Database:
         self.qos = None
         self.dispatcher = dispatch.BatchDispatcher()
         self.query_log: deque = deque(maxlen=1000)
+        self.telemetry = Telemetry()
+        self.privileges = PrivilegeManager()
+        self.processlist: dict[int, dict] = {}
+        self.flightrec = FlightRecorder()
+        self.watchdog = QueryWatchdog(db=self)
         self.ddl = DdlManager(self)
         if data_dir:
             os.makedirs(data_dir, exist_ok=True)
@@ -422,8 +457,10 @@ class Database:
             self._recover()
 
     def close(self) -> None:
-        """Stop the MVCC GC thread, if one was started, and the DDL
-        worker."""
+        """Stop the telemetry and the watchdog, the MVCC GC thread, if one
+        was started, and the DDL worker."""
+        self.telemetry.stop()
+        self.watchdog.stop()
         self.mvcc.stop_gc()
         self.ddl.stop()
 
@@ -523,10 +560,11 @@ class Database:
 
 class Session:
     def __init__(self, db: Optional[Database] = None, database: str = "default",
-                 device=None, mesh: Optional[Mesh] = None):
+                 device=None, mesh: Optional[Mesh] = None, user: str = "root"):
         """``mesh``: when set, every SELECT is distributed over its shards
         (the MPP mode); the database, unless given, lives on the mesh's
-        first device."""
+        first device.  ``user``: the authenticated account; each statement
+        is checked against its grants before it runs."""
         if db is None:
             db = Database(mesh.home if device is None and mesh is not None else device)
         elif device is not None and resolve_device(device) != db.device:
@@ -538,7 +576,7 @@ class Session:
         self.current_db = database
         self.session_vars: dict = {}     # SET name = value without GLOBAL
         self._conn_id = next(_CONN_IDS)
-        self.user = "root"
+        self.user = user
         # the open SQL transaction: table key -> TxnContext, or None; its
         # binlog events, appended at COMMIT and dropped at ROLLBACK
         self._sql_txn: Optional[dict] = None
@@ -566,8 +604,111 @@ class Session:
         self._where_sel_hint = None
 
     def connection_id(self) -> int:
-        """This session's id, answered by CONNECTION_ID()."""
+        """This session's id in the processlist and KILL space, answered by
+        CONNECTION_ID()."""
         return self._conn_id
+
+    # -- access control ---------------------------------------------------
+    def _stmt_dbs(self, s) -> set[str]:
+        """Databases a SELECT reads: FROM, joins, CTEs, unions and the
+        expression subqueries (WHERE, items, HAVING), so a subquery cannot
+        read around the grants (database-granular, as the reference)."""
+        out: set[str] = set()
+
+        def walk_expr(e):
+            if e is None:
+                return
+            if isinstance(e, Subquery):
+                walk_sel(e.stmt)
+                return
+            for a in getattr(e, "args", ()):
+                walk_expr(a)
+
+        def walk_sel(st):
+            refs = ([st.table] if st.table is not None else []) + [j.table for j in st.joins]
+            for r in refs:
+                if r.subquery is not None:
+                    walk_sel(r.subquery)
+                else:
+                    out.add(r.database or self.current_db)
+            for j in st.joins:
+                walk_expr(j.on)
+            for it in st.items:
+                walk_expr(it.expr)
+            walk_expr(st.where)
+            walk_expr(st.having)
+            for _, sub in st.ctes:
+                walk_sel(sub)
+            if st.union is not None:
+                walk_sel(st.union[1])
+
+        walk_sel(s)
+        return out or {self.current_db}
+
+    def _access_check(self, s) -> None:
+        """Raise ``AccessError`` unless this session's user may run ``s``:
+        user and grant statements and HANDLE need SUPER, reads a READ grant
+        on every database they read, writes and DDL a WRITE grant (and READ
+        on what feeds them), as in the JAX session."""
+        P = self.db.privileges
+        if isinstance(s, (CreateUserStmt, DropUserStmt, GrantStmt, RevokeStmt, HandleStmt)):
+            u = P.users.get(self.user)
+            if u is None or not u.is_super:
+                raise AccessError(f"{type(s).__name__} requires SUPER")
+            return
+        if isinstance(s, SelectStmt):
+            for db in self._stmt_dbs(s):
+                P.check(self.user, db, READ)
+            return
+        if isinstance(s, (InsertStmt, UpdateStmt, DeleteStmt, TruncateStmt, LoadDataStmt)):
+            P.check(self.user, s.table.database or self.current_db, WRITE)
+            # the reads feeding the write need grants too (INSERT ... SELECT,
+            # subqueries in WHERE and assignments)
+            if isinstance(s, InsertStmt) and s.select is not None:
+                for db in self._stmt_dbs(s.select):
+                    P.check(self.user, db, READ)
+
+            def sub_dbs(e):
+                if e is None:
+                    return
+                if isinstance(e, Subquery):
+                    for db in self._stmt_dbs(e.stmt):
+                        P.check(self.user, db, READ)
+                    return
+                for a in getattr(e, "args", ()):
+                    sub_dbs(a)
+
+            sub_dbs(getattr(s, "where", None))
+            for _, e in getattr(s, "assignments", []) or []:
+                sub_dbs(e)
+            return
+        if isinstance(s, (CreateTableStmt, DropTableStmt, AlterTableStmt, CreateViewStmt,
+                          DropViewStmt, CreateMatViewStmt, DropMatViewStmt)):
+            P.check(self.user, s.table.database or self.current_db, WRITE)
+            return
+        if isinstance(s, (CreateSubscriptionStmt, DropSubscriptionStmt)):
+            db = (s.table.database if getattr(s, "table", None) is not None
+                  else None) or self.current_db
+            P.check(self.user, db, READ)
+            return
+        if isinstance(s, (CreateDatabaseStmt, DropDatabaseStmt)):
+            P.check(self.user, s.name, WRITE)
+            return
+        if isinstance(s, UseStmt):
+            P.check(self.user, s.database, READ)
+            return
+        if isinstance(s, ExplainStmt):
+            for db in self._stmt_dbs(s.stmt):
+                P.check(self.user, db, READ)
+            return
+        if isinstance(s, DescribeStmt):
+            P.check(self.user, s.table.database or self.current_db, READ)
+            return
+        if isinstance(s, ShowStmt):
+            # a SHOW of another database needs a grant there
+            db = s.database or (s.table.database if s.table is not None
+                                else None) or self.current_db
+            P.check(self.user, db, READ)
 
     def _log_binlog(self, event_type, db_name, table, rows=None, statement="",
                     affected=0) -> None:
@@ -682,16 +823,77 @@ class Session:
     # -- entry points ---------------------------------------------------
     def execute(self, sql: str) -> Result:
         metrics.queries_total.add(1)
-        try:
-            with progress.track():
+        t0 = time.perf_counter()
+        marks = metric_marks()          # the flight recorder's counter baseline
+        err: Optional[BaseException] = None
+        spans: list = []
+        # the progress record lives for the statement's whole life, so SHOW
+        # PROCESSLIST, the watchdog and KILL from other threads see it
+        with progress.track(sql, conn_id=self.connection_id(), user=self.user,
+                            db=self.db, dbname=self.current_db) as qp:
+            try:
+                tmark = trace.mark()
                 with trace.root("query", sql):
-                    res = self._execute(sql)
-        except Exception:
-            metrics.queries_failed.add(1)
-            raise
+                    try:
+                        res = self._execute(sql)
+                    finally:
+                        # the live buffer dies with the root: copy it first
+                        spans = trace.since(tmark)
+            except Exception as e:
+                metrics.queries_failed.add(1)
+                err = e
+                raise
+            finally:
+                dur_ms = (time.perf_counter() - t0) * 1e3
+                metrics.query_latency.observe(dur_ms)
+                if dur_ms > FLAGS.slow_query_ms:
+                    metrics.slow_queries.add(1)
+                self._flight_record(sql, qp, dur_ms, err, marks, spans)
+                # the exception's traceback holds this frame: drop the
+                # frame's hold on it, so a killed or failed query's tensors
+                # go when the caller lets the exception go, not at a GC pass
+                err = None
         if res.arrow is not None:
             metrics.rows_returned.add(res.arrow.num_rows)
+        if res.affected_rows:
+            metrics.dml_rows.add(res.affected_rows)
         return res
+
+    def _flight_record(self, sql: str, qp, dur_ms: float, err: Optional[BaseException],
+                       marks: dict, spans: list) -> None:
+        """The flight-recorder entry of the statement that just finished: a
+        summary always, and the forensic bundle (plan, trace spans, counter
+        deltas, device memory, exchange summary) when it was slow, killed
+        or failed."""
+        try:
+            killed = isinstance(err, QueryKilled)
+            slow = dur_ms > float(FLAGS.slow_query_ms)
+            summary = {
+                "query_id": getattr(qp, "query_id", 0),
+                "conn_id": getattr(qp, "conn_id", 0),
+                "user": self.user, "db": self.current_db,
+                "text": sql, "dur_ms": round(dur_ms, 3),
+                "status": "killed" if killed else "error" if err is not None else "ok",
+                "error": "" if err is None else f"{type(err).__name__}: {err}",
+                "phase_ms": {k: round(v, 3) for k, v in qp.phase_ms().items()},
+                "rows": getattr(qp, "rows_done", 0),
+                "batches": getattr(qp, "batches_done", 0),
+                "rounds": getattr(qp, "round_no", 0),
+            }
+            bundle = None
+            if killed or err is not None or slow:
+                plan = getattr(qp, "plan", None)
+                bundle = {
+                    "plan": (plan.tree_repr() if hasattr(plan, "tree_repr") else str(plan))
+                    if plan is not None else "",
+                    "spans": spans,
+                    "metric_delta": metric_delta(marks),
+                    "device_stats": device_stats(),
+                    "exchange": getattr(qp, "exchange", None),
+                }
+            self.db.flightrec.record(summary, bundle=bundle)
+        except Exception:       # noqa: BLE001 — forensics never fail a query
+            metrics.count_swallowed("session.flight_record")
 
     def _execute(self, sql: str) -> Result:
         progress.current().beat(phase="parse")
@@ -705,12 +907,16 @@ class Session:
                 self.db.qos.admit(sql, cost=float(billable), user=self.user,
                                   tables=self._qos_tables(stmts))
         if len(stmts) == 1 and isinstance(stmts[0], SelectStmt):
+            self._access_check(stmts[0])
             stmt = self._resolve_session_exprs(stmts[0])
             # session-substituted literals are session state: never cached
             return self._select(stmt, cache_key=(sql, self.current_db)
                                 if stmt is stmts[0] else None)
         res = Result()
         for s in stmts:
+            # checked right before each statement: an earlier USE in the
+            # batch changes what an unqualified name resolves to
+            self._access_check(s)
             res = self._execute_stmt(s)
         return res
 
@@ -886,7 +1092,39 @@ class Session:
             return self._load_data(s)
         if isinstance(s, HandleStmt):
             return self._handle(s)
+        if isinstance(s, KillStmt):
+            return self._kill(s)
+        if isinstance(s, CreateUserStmt):
+            self.db.privileges.create_user(s.name, s.password, s.if_not_exists)
+            return Result()
+        if isinstance(s, DropUserStmt):
+            self.db.privileges.drop_user(s.name, s.if_exists)
+            return Result()
+        if isinstance(s, GrantStmt):
+            self.db.privileges.grant(s.user, s.level, s.db)
+            return Result()
+        if isinstance(s, RevokeStmt):
+            self.db.privileges.revoke(s.user, s.db)
+            return Result()
         raise NotPortedError(f"statement {type(s).__name__}")
+
+    def _kill(self, s: KillStmt) -> Result:
+        """KILL [QUERY | CONNECTION] <id>: flip the cancel token of the
+        connection's live statements; the victim's own thread raises
+        ``QueryKilled`` at its next progress beat, so no exception is
+        injected across threads and no side effect is torn.  CONNECTION
+        also marks a wire connection for teardown (the wire server, when
+        ported, severs its socket)."""
+        tid = int(s.target_id)
+        n = PROGRESS.kill(conn_id=tid, db=self.db, reason=f"kill {s.kind} {tid}")
+        known = bool(n) or tid in self.db.processlist or tid == self._conn_id
+        if s.kind == "connection":
+            ent = self.db.processlist.get(tid)
+            if ent is not None:
+                ent["kill"] = True
+        if not known:
+            raise SqlError(f"Unknown thread id: {tid}")
+        return Result()
 
     def _set_stmt(self, s: SetStmt) -> Result:
         """SET GLOBAL name = value updates the flag registry; SET SNAPSHOT
@@ -979,6 +1217,8 @@ class Session:
                      and not rollup.is_rollup_table(n) and not is_mv_table(n)],
                     list(cat.views(db)))
 
+        if s.what in ("profile", "profiles"):
+            return self._show_profile(s)
         if s.what == "databases":
             return Result(columns=["Database"],
                           arrow=pa.table({"Database": cat.databases()}))
@@ -1094,7 +1334,90 @@ class Session:
             return Result(columns=["Variable_name", "Value"],
                           arrow=pa.table({"Variable_name": [k for k, _ in items],
                                           "Value": [v for _, v in items]}))
+        if s.what == "status":
+            vals = {"Threads_connected": str(len(self.db.processlist)), "Uptime": "0"}
+            # the engine's counters flattened (the bvar dump), the kernel
+            # launch counters among them
+            for name, st in metrics.REGISTRY.expose().items():
+                for k, v in st.items():
+                    vals[f"{name}.{k}"] = str(v)
+            # the fleet's cluster.* rows appear only with daemons registered
+            if self.db.telemetry.has_daemons():
+                vals.update(self.db.telemetry.status_rows())
+            vals.update(self.db.watchdog.status_rows())
+            items = [(k, v) for k, v in sorted(vals.items()) if like(k)]
+            return Result(columns=["Variable_name", "Value"],
+                          arrow=pa.table({"Variable_name": [k for k, _ in items],
+                                          "Value": [v for _, v in items]}))
+        if s.what == "processlist":
+            return self._show_processlist(s)
+        if s.what == "grants":
+            user = s.user or self.user
+            lines = [f"GRANT {lv} ON {'*' if db == '*' else db}.* TO '{user}'"
+                     for db, lv in self.db.privileges.grants_of(user)]
+            return Result(columns=[f"Grants for {user}"],
+                          arrow=pa.table({f"Grants for {user}": lines}))
         raise NotPortedError(f"SHOW {s.what.upper()} (its plane is not ported)")
+
+    def _show_processlist(self, s: ShowStmt) -> Result:
+        """The wire connections (``db.processlist``) merged with the live
+        progress records of this database: an embedded session mid-query
+        shows with no socket.  Info is cut at 100 characters unless FULL."""
+        now = time.time()
+        merged: dict[int, dict] = {}
+        for cid, ent in dict(self.db.processlist).items():
+            merged[cid] = {"user": ent.get("user", ""), "host": ent.get("host", ""),
+                           "db": ent.get("db", ""), "command": ent.get("command", "Sleep"),
+                           "time_s": int(now - ent.get("since", now)), "state": "",
+                           "info": ent.get("info", "")}
+        for qp in PROGRESS.live(self.db):
+            row = merged.setdefault(qp.conn_id, {"user": qp.user, "host": qp.host,
+                                                 "db": qp.dbname})
+            row.update(command=qp.command, time_s=int(qp.elapsed_s()), state=qp.state(),
+                       info=qp.text)
+        rows = sorted(merged.items())
+        infos = [r.get("info", "") for _, r in rows]
+        if not s.full:
+            infos = [i[:100] for i in infos]
+        return Result(
+            columns=["Id", "User", "Host", "db", "Command", "Time", "State", "Info"],
+            arrow=pa.table({
+                "Id": pa.array([i for i, _ in rows], pa.int64()),
+                "User": [r.get("user", "") for _, r in rows],
+                "Host": [r.get("host", "") for _, r in rows],
+                "db": [r.get("db", "") for _, r in rows],
+                "Command": [r.get("command", "Sleep") for _, r in rows],
+                "Time": pa.array([r.get("time_s", 0) for _, r in rows], pa.int64()),
+                "State": [r.get("state", "") for _, r in rows],
+                "Info": infos}))
+
+    def _show_profile(self, s: ShowStmt) -> Result:
+        """SHOW PROFILES / SHOW PROFILE [FOR QUERY n] over the kept traces
+        (obs/trace.py): the span tree EXPLAIN ANALYZE renders from, one row
+        a span, indented by depth."""
+        # introspection never keeps its own trace
+        trace.discard()
+        if s.what == "profiles":
+            recs = trace.TRACER.list()
+            return Result(
+                columns=["Query_ID", "Duration_ms", "Kind", "Query"],
+                arrow=pa.table({
+                    "Query_ID": pa.array([r["query_id"] for r in recs], pa.int64()),
+                    "Duration_ms": pa.array([r["duration_ms"] for r in recs], pa.float64()),
+                    "Kind": [r["kind"] for r in recs],
+                    "Query": [r["text"] for r in recs]}))
+        rec = trace.TRACER.get(s.query_id) if s.query_id is not None else trace.TRACER.last()
+        if rec is None:
+            where = f"query {s.query_id}" if s.query_id is not None else "any query"
+            raise PlanError(f"no kept trace for {where} (enable tracing: "
+                            "SET GLOBAL tracing = 1; see SHOW PROFILES)")
+        rows = trace.span_tree(rec)
+        return Result(
+            columns=["Status", "Duration_ms", "Node"],
+            arrow=pa.table({
+                "Status": ["  " * d + sp["name"] for d, sp in rows],
+                "Duration_ms": pa.array([sp["dur_ms"] for _, sp in rows], pa.float64()),
+                "Node": [sp.get("node") or "frontend" for _, sp in rows]}))
 
     def _show_create(self, s: ShowStmt) -> Result:
         db = s.table.database or self.current_db
@@ -1680,12 +2003,23 @@ class Session:
     def _handle(self, s: HandleStmt) -> Result:
         """HANDLE's in-process commands: checkpoint, gc (the row tier's MVCC
         versions), split <db.table> <rows>, set_flag <name> <value>, ttl /
-        ttl_tick (``ttl_tick``) and ddl suspend | resume (the online-DDL
-        worker).  The commands of planes the port lacks (the fleet, the cold
-        tier, privileges, the flight recorder) raise ``NotPortedError``."""
+        ttl_tick (``ttl_tick``), ddl suspend | resume (the online-DDL
+        worker), flightrec dump '<path>' [id] | clear, add_privilege <user>
+        <db|*> <read|write|all> and drop_privilege <user> <db|*>.  The
+        commands of planes the port lacks (the fleet, the cold tier) raise
+        ``NotPortedError``."""
         if s.command == "checkpoint":
             self.db.checkpoint()
             return Result()
+        if s.command == "flightrec" and s.args:
+            # the JSON-lines export of the flight recorder
+            op = s.args[0].lower()
+            if op == "dump" and len(s.args) >= 2:
+                rid = int(s.args[2]) if len(s.args) > 2 else None
+                return Result(affected_rows=self.db.flightrec.dump(s.args[1], rec_id=rid))
+            if op == "clear":
+                self.db.flightrec.clear()
+                return Result()
         if s.command in ("ttl", "ttl_tick"):
             return Result(affected_rows=self.ttl_tick())
         if s.command == "ddl" and s.args:
@@ -1713,6 +2047,12 @@ class Session:
                 for r in list(st.regions):
                     st._maybe_split(r)
                 st._bump()
+            return Result()
+        if s.command == "add_privilege" and len(s.args) >= 3:
+            self.db.privileges.grant(s.args[0], s.args[2], s.args[1])
+            return Result()
+        if s.command == "drop_privilege" and len(s.args) >= 2:
+            self.db.privileges.revoke(s.args[0], s.args[1])
             return Result()
         if s.command == "set_flag" and len(s.args) >= 2:
             FLAGS.set_flag(s.args[0], " ".join(s.args[1:]))
@@ -2411,6 +2751,7 @@ class Session:
                 sig = plan_signature(plan)
                 if sig != entry["plan_sig"]:
                     entry["plan"], entry["plan_sig"] = plan, sig
+                    entry.pop("progress_totals", None)
                     replanned = True
                 entry["versions"] = self._table_versions(_scan_tables(plan))
         hit = entry is not None and not replanned
@@ -2442,7 +2783,14 @@ class Session:
         qlog_outcome = self._qlog_outcome or outcome
         trace.event("plan.cache", outcome=qlog_outcome)
         plan = entry["plan"]
-        qp.beat(phase="exec.batches")
+        # the progress denominators (a host walk of the plan, kept on the
+        # entry): SHOW PROCESSLIST renders "batch m/n" / "round m/n" against
+        # them; the plan rides the flight-recorder bundle
+        totals = entry.get("progress_totals")
+        if totals is None:
+            totals = entry["progress_totals"] = executor.progress_totals(plan)
+        qp.beat(phase="exec.batches", plan=plan, batches_total=totals["scans"],
+                rounds_total=totals["rounds"] if self.mesh is not None else 0)
         # the access paths see this execution's literal values
         self._param_subst = {sl.index: sl for sl in norm.slots} if norm is not None else None
         try:
@@ -2462,7 +2810,7 @@ class Session:
         with trace.span("egress.arrow"):
             table = out.to_arrow()
         dur_ms = (time.perf_counter() - t0) * 1e3
-        qp.beat(phase="finish")
+        qp.beat(phase="finish", rows_done=table.num_rows)
         if text_key is not None:
             buckets = ";".join(f"{p[0]}={p[2]}" for p in shape_key)
             self.db.query_log.append((text_key[0], dur_ms, table.num_rows, qlog_outcome,
@@ -2506,10 +2854,21 @@ class Session:
             # execution is a chunk fold driven from the host
             out = streaming.run_streamed(plan, batches, self.device)
         else:
+            qp = progress.current()
+            summary = None
+            if self.mesh is not None:
+                # the planned rounds are the mesh query's denominator; the
+                # summary also rides the flight-recorder bundle
+                summary = executor.exchange_summary(plan)
+                qp.beat(rounds_total=int(summary["rounds"]), round_no=0, exchange=summary)
+            # the seam before the device work: a KILL lands here
+            qp.checkpoint()
             run = executor.compile_plan(plan, self.device, self.mesh)
             out = run(batches)
             if self.mesh is not None:
-                self._mpp_telemetry(plan, run.exchanges)
+                # every round is behind the run once it returns
+                qp.beat(round_no=int(summary["rounds"]))
+                self._mpp_telemetry(plan, run.exchanges, summary)
         with trace.span("egress.compact"):
             return _egress_compact(out)
 
@@ -2575,6 +2934,7 @@ class Session:
                             f"parameters, got {len(vals)}")
         bound = paramize.substitute_placeholders(stmt, vals)
         metrics.prepared_executes.add(1)
+        self._access_check(bound)
         if isinstance(bound, SelectStmt):
             resolved = self._resolve_session_exprs(bound)
             # the text key carries the bound values: distinct values in
@@ -2916,6 +3276,31 @@ class Session:
                  json.dumps(sp["attrs"], default=str) if sp["attrs"] else "")
                 for rec in trace.TRACER.list() for sp in rec["spans"]]
 
+    def _info_processlist(self) -> list:
+        rows = sorted((qp.row() for qp in PROGRESS.live(self.db)), key=lambda r: r["query_id"])
+        return [(r["id"], r["user"], r["host"], r["db"], r["command"], r["time_s"], r["state"],
+                 r["info"], r["query_id"], r["phase"], r["operator"], r["batches_done"],
+                 r["batches_total"], r["rows_done"], r["rows_est"], r["round"],
+                 r["rounds_total"], r["chunk_no"], r["chunks_total"], r["queue_wait_ms"],
+                 r["elapsed_ms"]) for r in rows]
+
+    def _info_flight_recorder(self) -> list:
+        return [(r["rec_id"], r["ts"], r.get("query_id", 0), r.get("conn_id", 0),
+                 r.get("user", ""), r.get("db", ""), r.get("text", ""), r.get("dur_ms", 0.0),
+                 r.get("status", ""), r.get("error", ""),
+                 json.dumps(r.get("phase_ms") or {}, default=str), r.get("rows", 0),
+                 bool(r.get("bundle"))) for r in self.db.flightrec.rows()]
+
+    def _info_metrics(self) -> list:
+        return [(name, k, float(v)) for name, st in metrics.REGISTRY.expose().items()
+                for k, v in st.items() if v is not None]
+
+    def _info_cluster_metrics(self) -> list:
+        # this frontend's registry (and, with daemons, theirs merged under
+        # daemon='fleet')
+        return [(r[0], r[1], r[2], r[3], r[4], int(r[5]), round(float(r[6]), 3))
+                for r in self.db.telemetry.cluster_rows()]
+
     def _info_flags(self) -> list:
         return [(n, str(v), str(d), h) for n, v, d, h in FLAGS.describe()]
 
@@ -3003,6 +3388,19 @@ class Session:
                 count(c)
         count(plan)
 
+        # a progress beat per scan staged (a host seam between table loads,
+        # so also a cancellation point); rows come from shapes, never from
+        # a device read
+        qp = progress.current()
+        staged = [0, 0]                      # batches staged, rows seen
+        qp.beat(batches_total=len(scans))
+
+        def scan_beat(table_key: str, b) -> None:
+            staged[0] += 1
+            staged[1] += _batch_rows(b)
+            qp.beat(operator=f"scan {table_key}", batches_done=staged[0],
+                    rows_done=staged[1])
+
         def walk(n: PlanNode):
             if isinstance(n, ScanNode) and n.table_key not in batches:
                 db, name = n.table_key.split(".", 1)
@@ -3014,6 +3412,7 @@ class Session:
                         b = shard_batch(b, self.mesh)
                     batches[n.table_key] = b
                     key_parts.append((n.table_key, -1, len(b)))
+                    scan_beat(n.table_key, b)
                     for c in n.children:
                         walk(c)
                     return
@@ -3047,10 +3446,18 @@ class Session:
                 part = (n.table_key, store.version,
                         len(b) if isinstance(b, ColumnBatch) else -1)
                 key_parts.append(part + ("snap",) if snapped else part)
+                scan_beat(n.table_key, b)
             for c in n.children:
                 walk(c)
 
-        walk(plan)
+        try:
+            walk(plan)
+        finally:
+            # the recursive closures hold themselves through their cells,
+            # and walk holds the batches: break the cycles, so a query's
+            # device inputs (its bound params among them) go with the query
+            # and not at the collector's next pass
+            walk = count = scan_beat = None
         return batches, tuple(sorted(key_parts)), full_scan
 
     def _pushed_filter(self, n: ScanNode):
@@ -3171,14 +3578,13 @@ class Session:
         walk(plan)
         return plan
 
-    def _mpp_telemetry(self, plan: PlanNode, exchanges: list) -> None:
+    def _mpp_telemetry(self, plan: PlanNode, exchanges: list, summary: dict) -> None:
         """Exchange observability of one mesh execution: the
         ``shuffle_rounds`` / ``shuffle_rounds_saved`` counters, and with
         tracing on one ``mpp.repartition`` span per executed repartition
         (its keys or site, the most rows one shard sent one destination),
         one ``mpp.join`` span per shuffle join (its output rows over all
         shards) and one ``mpp.agg`` span per distributed aggregate."""
-        summary = executor.exchange_summary(plan)
         metrics.shuffle_rounds.add(summary["rounds"])
         if summary["reused"]:
             metrics.shuffle_rounds_saved.add(summary["reused"])
@@ -3264,6 +3670,17 @@ class Session:
         n.access_desc = (f"stream({len(keep)}/{cs.n_chunks} chunks, "
                          f"{cs.capacity} rows each)")
         return ChunkSource(cs, keep)
+
+
+def _batch_rows(b) -> int:
+    """A staged input's row count from its shapes (no device read): a
+    batch, a sharded batch, or a streamed scan's chunk set."""
+    if isinstance(b, ChunkSource):
+        return b.chunks.total_rows
+    shards = getattr(b, "shards", None)
+    if shards is not None:
+        return sum(len(sh) for sh in shards)
+    return len(b)
 
 
 def _scan_tables(plan: PlanNode) -> set:

@@ -52,7 +52,7 @@ import torch
 from ..column.batch import (Column, ColumnBatch, bucket_capacity, concat_batches,
                             dtype_max, dtype_min)
 from ..expr.params import PARAMS_KEY, bind_params
-from ..obs import trace
+from ..obs import progress, trace
 from ..ops.hashagg import (finalize_partials, group_aggregate_dense,
                            group_aggregate_sorted, partial_specs, scalar_aggregate)
 from ..parallel.agg import merge_partial_agg_specs, rewrap_partial
@@ -281,12 +281,18 @@ class StreamRunner:
             return chunk
 
         acc, ovf = None, None
+        qp = progress.current()
+        op = f"StreamScan({self.table_key})"
         it = staged(ids, stage, name="stream-prefetch")
         try:
             with trace.span("stream.fold", chunks=len(ids)):
-                nxt = take()
+                nxt = None
                 for m in range(len(ids)):
-                    chunk = nxt
+                    # a beat a chunk, before the next copy is issued: a KILL
+                    # lands between two chunks' launches (and before the
+                    # first chunk of an overflow re-fold)
+                    qp.beat(operator=op, chunk_no=m, chunks_total=len(ids))
+                    chunk = nxt if nxt is not None else take()
                     # the next chunk's copy goes out before this one folds
                     nxt = take() if m + 1 < len(ids) else None
                     loader.wait(chunk)
@@ -297,6 +303,7 @@ class StreamRunner:
                     if not dead:
                         metrics.stream_chunks.add(1)
                         stats["chunks"] += 1
+                qp.beat(chunk_no=len(ids), chunks_total=len(ids))
         finally:
             it.close()      # stops the stager and drains on early exit
         return acc, ovf

@@ -66,6 +66,12 @@ SOURCES = {name: os.path.join(_HERE, "csrc", f"{name}.cu")
            for name in ("group_agg", "segments")}
 SOURCE = SOURCES["group_agg"]
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
+# nvcc options of one source beyond the common ones: segments.cu's many
+# template instances make it the build's long pole, and --split-compile
+# spreads its optimization over the cores (chip_smoke.py prints the build's
+# seconds); group_agg.cu does not build with it under nvcc 12.9 ("Failed to
+# read bitcode")
+_SOURCE_FLAGS = {SOURCES["segments"]: ("--split-compile=0",)}
 
 # one launch counter per kernel: added to only where the kernel launches
 LAUNCHES = {name: metrics.Counter(f"kernel_launches.{name}")
@@ -413,7 +419,7 @@ def _start(source: str):
     os.makedirs(BUILD_DIR, exist_ok=True)
     cmd = [_nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
            "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-           "-o", f"{so}.{os.getpid()}.tmp", source]
+           *_SOURCE_FLAGS.get(source, ()), "-o", f"{so}.{os.getpid()}.tmp", source]
     return so, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                 text=True)
 

@@ -790,10 +790,13 @@ class TableStore:
         """How many rows have column = value (None if unindexable)."""
         try:
             svals, _ = self._secondary_order(column)
-            return int(np.searchsorted(svals, value, "right")
-                       - np.searchsorted(svals, value, "left"))
-        except Exception:       # noqa: BLE001 — an odd literal: no index path
+        except Exception:       # noqa: BLE001 — an unsortable column: no index path
             return None
+        # a literal the column's values cannot be compared with raises here,
+        # as in the JAX package: the EXPLAIN annotation swallows it (no
+        # access=), and execution falls back to the full scan
+        return int(np.searchsorted(svals, value, "right")
+                   - np.searchsorted(svals, value, "left"))
 
     def secondary_positions(self, column: str, value) -> np.ndarray:
         svals, spos = self._secondary_order(column)

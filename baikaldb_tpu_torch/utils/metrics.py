@@ -1,20 +1,42 @@
-"""Metrics instruments — the bvar analog (SURVEY §5.5), the part the port uses.
+"""Metrics instruments — the bvar analog (SURVEY §5.5).
 
-The port of ``baikaldb_tpu/utils/metrics.py``, cut to the monotonically
-growing ``Counter`` (with a per-second rate over a sliding window), the
-``LatencyRecorder``, the sampled ``Gauge`` and the ``Registry`` that names
-every instrument.  The process-wide ``REGISTRY``
-serves the engine; ``registry.dump()`` prints one ``name.field : value``
-line per field; the kernel launch counters of ops/group_kernels.py
-register here like every other counter.
+The port of ``baikaldb_tpu/utils/metrics.py`` (host-only Python): the
+monotonically growing ``Counter`` (with a per-second rate over a sliding
+window), the ``LatencyRecorder`` ring, the fixed-bucket ``Histogram`` (the
+instrument that merges across processes, bucket-wise), the sampled or
+settable ``Gauge``, the labelled ``*Family`` variants, and the ``Registry``
+that names every instrument.  The process-wide ``REGISTRY`` serves the
+engine.  Surfaces: ``SHOW STATUS``, ``information_schema.metrics`` /
+``cluster_metrics``, ``registry.dump()`` (one ``name.field : value`` line
+per field) and ``registry.snapshot()``, the JSON-safe form that
+obs/telemetry.py renders as Prometheus text.
+
+The engine's instruments are the port's: the kernel launch counters of
+ops/group_kernels.py and ops/segments.py (``kernel_launches.*``) register
+here like every other counter, and the JAX package's XLA / AOT / RPC /
+region counters have no counterpart.  ``Counter.reset`` and
+``LatencyRecorder.reset`` (a run that counts one phase) are the port's.
 """
 
 from __future__ import annotations
 
 import threading
 import time
+from bisect import bisect_left
 from collections import deque
-from typing import Optional
+from typing import Callable, Optional
+
+
+class _NullRegistry:
+    """Registration sink for family children: the family itself is the
+    registered object; its labeled children must not collide in the
+    by-name table."""
+
+    def _register(self, inst) -> None:
+        pass
+
+
+NULL_REGISTRY = _NullRegistry()
 
 
 class Counter:
@@ -81,9 +103,6 @@ class Counter:
 
 
 class LatencyRecorder:
-    """A ring of the last ``capacity`` observations in milliseconds, with
-    count/total/max over the recorder's life (the JAX package's recorder,
-    cut to what the port reads)."""
     kind = "latency"
 
     def __init__(self, name: str, capacity: int = 4096,
@@ -114,41 +133,286 @@ class LatencyRecorder:
         with self._lock:
             self._ring, self._idx, self._count, self._total, self._max = [], 0, 0, 0.0, 0.0
 
+    def time(self):
+        """Context manager: records elapsed milliseconds."""
+        rec = self
+
+        class _T:
+            def __enter__(self):
+                self.t0 = time.perf_counter()
+                return self
+
+            def __exit__(self, *exc):
+                rec.observe((time.perf_counter() - self.t0) * 1e3)
+                return False
+        return _T()
+
     def stats(self) -> dict:
         with self._lock:
-            ring = sorted(self._ring)
-            count, total, mx = self._count, self._total, self._max
+            n = self._count
+            if n == 0:
+                return {"count": 0, "avg_ms": 0.0, "p50_ms": 0.0,
+                        "p95_ms": 0.0, "p99_ms": 0.0, "max_ms": 0.0}
+            s = sorted(self._ring)
 
-        def pct(p: float) -> float:
-            return ring[min(len(ring) - 1, int(p * len(ring)))] if ring else 0.0
-        return {"count": count, "total_ms": round(total, 3),
-                "avg_ms": round(total / count, 3) if count else 0.0,
-                "p50_ms": round(pct(0.5), 3), "p99_ms": round(pct(0.99), 3),
-                "max_ms": round(mx, 3)}
+            def q(p):
+                return s[min(len(s) - 1, int(p * (len(s) - 1) + 0.5))]
+            return {"count": n, "avg_ms": round(self._total / n, 3),
+                    "p50_ms": round(q(0.50), 3), "p95_ms": round(q(0.95), 3),
+                    "p99_ms": round(q(0.99), 3), "max_ms": round(self._max, 3)}
+
+
+# default latency-histogram bounds (milliseconds): 1-2.5-5 per decade from
+# 0.1 ms to 50 s.  FIXED and log-spaced so every process bins identically —
+# bucket-wise summation across daemons is exact only when bounds match.
+DEFAULT_BUCKETS = (0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 25.0, 50.0,
+                   100.0, 250.0, 500.0, 1000.0, 2500.0, 5000.0,
+                   10000.0, 25000.0, 50000.0)
+
+
+def histogram_quantile(q: float, le: list, buckets: list) -> float:
+    """Quantile estimate from cumulative-able bucket counts (per-bin counts
+    + the +Inf overflow bin): linear interpolation inside the owning bucket
+    — the Prometheus histogram_quantile estimator, shared by live
+    instruments and the fleet aggregator's merged rows."""
+    total = sum(buckets)
+    if total <= 0:
+        return 0.0
+    rank = q * total
+    cum = 0.0
+    lo = 0.0
+    for i, c in enumerate(buckets):
+        cum += c
+        if cum >= rank:
+            if i >= len(le):            # +Inf bin: no upper bound to
+                return float(lo)        # interpolate toward — clamp
+            hi = le[i]
+            frac = (rank - (cum - c)) / c if c > 0 else 0.0
+            return float(lo + (hi - lo) * frac)
+        if i < len(le):
+            lo = le[i]
+    return float(lo)
+
+
+def histogram_stats(le: list, buckets: list, count: float,
+                    total: float) -> dict:
+    """count/sum/avg + interpolated quantiles from bucket counts — works on
+    a live instrument's state AND on merged snapshot rows."""
+    n = float(count)
+    return {"count": n, "sum": round(float(total), 3),
+            "avg": round(float(total) / n, 3) if n > 0 else 0.0,
+            "p50": round(histogram_quantile(0.50, le, buckets), 3),
+            "p95": round(histogram_quantile(0.95, le, buckets), 3),
+            "p99": round(histogram_quantile(0.99, le, buckets), 3)}
+
+
+class Histogram:
+    """Fixed-bucket histogram: the fleet-mergeable latency instrument.
+
+    ``LatencyRecorder``'s ring of recent raw samples gives better local
+    quantiles but cannot aggregate across processes; bucket counts sum
+    bucket-wise (order-independent, exact) as long as every party uses the
+    same bounds — which is why the bounds are fixed at construction and
+    ride along in every snapshot."""
+
+    kind = "histogram"
+
+    def __init__(self, name: str, buckets=DEFAULT_BUCKETS,
+                 registry: Optional["Registry"] = None):
+        self.name = name
+        self.le = tuple(float(b) for b in buckets)
+        self._counts = [0] * (len(self.le) + 1)     # last = +Inf overflow
+        self._count = 0
+        self._sum = 0.0
+        self._lock = threading.Lock()
+        (registry or REGISTRY)._register(self)
+
+    def observe(self, v: float) -> None:
+        # bisect_left: a value exactly on a bound belongs to THAT bucket
+        # (Prometheus ``le`` = less-than-or-equal semantics)
+        i = bisect_left(self.le, v)
+        with self._lock:
+            self._counts[i] += 1
+            self._count += 1
+            self._sum += v
+
+    def time(self):
+        """Context manager: records elapsed milliseconds."""
+        rec = self
+
+        class _T:
+            def __enter__(self):
+                self.t0 = time.perf_counter()
+                return self
+
+            def __exit__(self, *exc):
+                rec.observe((time.perf_counter() - self.t0) * 1e3)
+                return False
+        return _T()
+
+    def stats(self) -> dict:
+        with self._lock:
+            counts = list(self._counts)
+            n, s = self._count, self._sum
+        return histogram_stats(list(self.le), counts, n, s)
+
+    def snapshot_fields(self) -> dict:
+        with self._lock:
+            counts = list(self._counts)
+            n, s = self._count, self._sum
+        out = histogram_stats(list(self.le), counts, n, s)
+        out["le"] = list(self.le)
+        out["buckets"] = counts
+        return out
 
 
 class Gauge:
-    """Sampled at dump time from a callable (the MVCC plane's
-    ``mvcc.live_versions`` / ``mvcc.oldest_pin``)."""
+    """Sampled at dump time: construct with a callable, or call ``set()``
+    on a plain instance (family cells are settable)."""
 
     kind = "gauge"
 
-    def __init__(self, name: str, fn, registry: Optional["Registry"] = None):
+    def __init__(self, name: str, fn: Optional[Callable[[], float]] = None,
+                 registry: Optional["Registry"] = None):
         self.name = name
         self.fn = fn
+        self._value = float("nan")
+        self._vlock = threading.Lock()
         (registry or REGISTRY)._register(self)
 
-    @property
-    def value(self) -> float:
-        return float(self.fn())
+    def set(self, v: float) -> None:
+        with self._vlock:
+            self._value = float(v)
+
+    def add(self, d: float) -> None:
+        """Relative move (in-flight counts, pool sizes); an unset gauge
+        starts from 0."""
+        with self._vlock:
+            v = self._value
+            self._value = (0.0 if v != v else v) + float(d)
 
     def stats(self) -> dict:
-        return {"value": self.value}
+        if self.fn is None:
+            return {"value": self._value}
+        try:
+            return {"value": float(self.fn())}
+        except Exception:
+            # a raising gauge fn must not break SHOW STATUS / expose():
+            # the row stays (NaN) and the failure is countable per-site
+            count_swallowed("metrics.gauge")
+            return {"value": float("nan")}
+
+
+class _Family:
+    """One logical metric keyed by a label tuple.  Children are real
+    instruments created on first ``labels()`` touch, registered nowhere
+    (the family is the registry entry); the hot path after creation is one
+    dict lookup under the family lock."""
+
+    def __init__(self, name: str, label_names: tuple, factory,
+                 registry: Optional["Registry"] = None):
+        self.name = name
+        self.label_names = tuple(label_names)
+        self._factory = factory
+        self._children: dict[tuple, object] = {}
+        self._lock = threading.Lock()
+        (registry or REGISTRY)._register(self)
+
+    def _key(self, kv: dict) -> tuple:
+        if set(kv) != set(self.label_names):
+            raise ValueError(
+                f"metric {self.name}: labels {sorted(kv)} != declared "
+                f"{sorted(self.label_names)}")
+        return tuple(str(kv[n]) for n in self.label_names)
+
+    def labels(self, **kv):
+        key = self._key(kv)
+        child = self._children.get(key)
+        if child is None:
+            with self._lock:
+                child = self._children.get(key)
+                if child is None:
+                    child = self._factory(
+                        f"{self.name}{{{','.join(key)}}}")
+                    self._children[key] = child
+        return child
+
+    def remove(self, **kv) -> None:
+        """Drop one labeled row (a region moved away, a table dropped)."""
+        with self._lock:
+            self._children.pop(self._key(kv), None)
+
+    def rows(self) -> list[tuple[tuple, object]]:
+        with self._lock:
+            return sorted(self._children.items())
+
+    def stats(self) -> dict:
+        """Flattened ``{label=value,...}.field`` rows — the SHOW STATUS /
+        dump() rendering of a labeled family."""
+        out: dict = {}
+        for key, child in self.rows():
+            tag = ",".join(f"{n}={v}"
+                           for n, v in zip(self.label_names, key))
+            for f, v in child.stats().items():
+                out[f"{{{tag}}}.{f}"] = v
+        return out
+
+    def snapshot_rows(self) -> list[dict]:
+        rows = []
+        for key, child in self.rows():
+            fields = child.snapshot_fields() \
+                if isinstance(child, Histogram) else child.stats()
+            rows.append({"labels": list(key), **fields})
+        return rows
+
+
+class CounterFamily(_Family):
+    kind = "counter"
+
+    def __init__(self, name: str, label_names: tuple,
+                 registry: Optional["Registry"] = None):
+        super().__init__(name, label_names,
+                         lambda n: Counter(n, registry=NULL_REGISTRY),
+                         registry)
+
+
+class GaugeFamily(_Family):
+    kind = "gauge"
+
+    def __init__(self, name: str, label_names: tuple,
+                 registry: Optional["Registry"] = None):
+        super().__init__(name, label_names,
+                         lambda n: Gauge(n, registry=NULL_REGISTRY),
+                         registry)
+
+
+class HistogramFamily(_Family):
+    kind = "histogram"
+
+    def __init__(self, name: str, label_names: tuple,
+                 buckets=DEFAULT_BUCKETS,
+                 registry: Optional["Registry"] = None):
+        super().__init__(
+            name, label_names,
+            lambda n: Histogram(n, buckets=buckets,
+                                registry=NULL_REGISTRY),
+            registry)
+
+
+class LatencyFamily(_Family):
+    kind = "latency"
+
+    def __init__(self, name: str, label_names: tuple,
+                 registry: Optional["Registry"] = None):
+        super().__init__(
+            name, label_names,
+            lambda n: LatencyRecorder(n, registry=NULL_REGISTRY),
+            registry)
 
 
 class Registry:
     def __init__(self):
-        self._by_name: dict = {}
+        self._by_name: dict[str, object] = {}
         self._lock = threading.Lock()
 
     def _register(self, inst) -> None:
@@ -159,20 +423,38 @@ class Registry:
         with self._lock:
             return self._by_name.get(name)
 
-    def counter(self, name: str) -> Counter:
-        """The counter named ``name``, made on first touch (atomically: two
-        racing threads never mint two counters for one name)."""
-        with self._lock:
-            inst = self._by_name.get(name)
-            if inst is None:
-                inst = self._by_name[name] = Counter(name, registry=_UNREGISTERED)
-            return inst
-
     def expose(self) -> dict[str, dict]:
-        """{metric -> stats dict}."""
+        """{metric -> stats dict}; the SHOW STATUS / info_schema source.
+        Labeled families flatten to ``{label=value,...}.field`` keys."""
         with self._lock:
             items = sorted(self._by_name.items())
         return {name: inst.stats() for name, inst in items}
+
+    def snapshot(self) -> dict:
+        """Structured, JSON-safe snapshot — the wire form of this registry
+        (daemon ``rpc_metrics`` responses, the fleet aggregator's input,
+        the Prometheus renderer's input)::
+
+            {name: {"kind": "counter|latency|histogram|gauge",
+                    "label_names": [...],        # [] for plain instruments
+                    "rows": [{"labels": [...], <fields>}, ...]}}
+
+        Histogram rows carry ``le`` + per-bin ``buckets`` so merging can
+        sum bucket-wise; every other row is its ``stats()`` fields."""
+        with self._lock:
+            items = sorted(self._by_name.items())
+        out: dict = {}
+        for name, inst in items:
+            if isinstance(inst, _Family):
+                out[name] = {"kind": inst.kind,
+                             "label_names": list(inst.label_names),
+                             "rows": inst.snapshot_rows()}
+            else:
+                fields = inst.snapshot_fields() \
+                    if isinstance(inst, Histogram) else inst.stats()
+                out[name] = {"kind": inst.kind, "label_names": [],
+                             "rows": [{"labels": [], **fields}]}
+        return out
 
     def dump(self) -> str:
         """bvar-dump-style text: one ``name.field : value`` per line."""
@@ -182,21 +464,70 @@ class Registry:
                 lines.append(f"{name}.{k} : {v}")
         return "\n".join(lines)
 
+    def _get_or_create(self, name: str, make):
+        """Atomic first-touch: lookup-and-create under the registry lock.
+        A bare get()-then-construct lets two racing threads mint two
+        instruments for one name — the loser keeps mutating an orphan the
+        snapshot never sees.  ``make`` constructs with NULL_REGISTRY so the
+        instrument's self-registration no-ops while we hold the lock."""
+        with self._lock:
+            inst = self._by_name.get(name)
+            if inst is None:
+                inst = make()
+                self._by_name[name] = inst
+            return inst
 
-class _Unregistered:
-    """Registration sink for counters the Registry files itself."""
+    def counter(self, name: str) -> Counter:
+        return self._get_or_create(
+            name, lambda: Counter(name, registry=NULL_REGISTRY))
 
-    def _register(self, inst) -> None:
-        pass
+    def latency(self, name: str) -> LatencyRecorder:
+        return self._get_or_create(
+            name, lambda: LatencyRecorder(name, registry=NULL_REGISTRY))
 
+    def histogram(self, name: str, buckets=DEFAULT_BUCKETS) -> Histogram:
+        return self._get_or_create(
+            name, lambda: Histogram(name, buckets=buckets,
+                                    registry=NULL_REGISTRY))
 
-_UNREGISTERED = _Unregistered()
+    def gauge(self, name: str,
+              fn: Optional[Callable[[], float]] = None) -> Gauge:
+        return self._get_or_create(
+            name, lambda: Gauge(name, fn=fn, registry=NULL_REGISTRY))
+
+    def counter_family(self, name: str, label_names: tuple) -> CounterFamily:
+        return self._get_or_create(
+            name, lambda: CounterFamily(name, label_names,
+                                        registry=NULL_REGISTRY))
+
+    def gauge_family(self, name: str, label_names: tuple) -> GaugeFamily:
+        return self._get_or_create(
+            name, lambda: GaugeFamily(name, label_names,
+                                      registry=NULL_REGISTRY))
+
+    def histogram_family(self, name: str, label_names: tuple,
+                         buckets=DEFAULT_BUCKETS) -> HistogramFamily:
+        return self._get_or_create(
+            name, lambda: HistogramFamily(name, label_names, buckets=buckets,
+                                          registry=NULL_REGISTRY))
+
+    def latency_family(self, name: str, label_names: tuple) -> LatencyFamily:
+        return self._get_or_create(
+            name, lambda: LatencyFamily(name, label_names,
+                                        registry=NULL_REGISTRY))
+
 
 REGISTRY = Registry()
 
+# -- engine-wide instruments ------------------------------------------------
 queries_total = Counter("queries_total")
 queries_failed = Counter("queries_failed")
+# statements over slow_query_ms, rows written by DML, and every statement's
+# wall time (the session's execute records all three)
+slow_queries = Counter("slow_queries")
 rows_returned = Counter("rows_returned")
+dml_rows = Counter("dml_rows")
+query_latency = LatencyRecorder("query_latency")
 swallowed_exceptions = Counter("swallowed_exceptions")
 traces_sampled = Counter("traces_sampled")
 trace_spans_dropped = Counter("trace_spans_dropped")
@@ -273,6 +604,16 @@ view_folds = Counter("view_folds")
 view_deltas_folded = Counter("view_deltas_folded")
 view_rescans = Counter("view_rescans")
 view_answered_queries = Counter("view_answered_queries")
+# live query introspection (obs/progress.py): queries whose cancel token a
+# KILL flipped (the victim raises QueryKilled at its next beat)
+queries_killed = Counter("queries_killed")
+# the query watchdog (obs/watchdog.py): stall detections, each counted once
+# per stalled subject, not per scan
+watchdog_stalls_detected = Counter("watchdog_stalls_detected")
+# flight recorder (obs/flightrec.py): completed-query summaries recorded
+# and the subset that carried a full forensic bundle (slow/killed/failed)
+flightrec_records = Counter("flightrec_records")
+flightrec_bundles = Counter("flightrec_bundles")
 
 
 def count_swallowed(site: str) -> None:

@@ -9,7 +9,9 @@ dispatch (the plan cache, PREPARE / EXECUTE, EXPLAIN ANALYZE, 64 concurrent
 clients through the batched dispatcher with the lane-batched kernels), and
 partitioned tables, global indexes, MATCH and the session surface, and the
 lifecycle plane (rollups, a materialized view, change capture, online ADD
-INDEX, TTL).
+INDEX, TTL), and the observability plane and users (SHOW PROCESSLIST, KILL
+between streamed chunks and in the dispatcher's queue, SHOW STATUS /
+PROFILE, the flight recorder, grants).
 
     python3 chip_smoke.py [--rows N] [--seed S] [--tpch-scale S]
                           [--compare-with DIR]
@@ -160,7 +162,7 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    p50 / p67 of 10 runs, device ms and idle share; peak memory.  (i) After
    phase 9: sysbench ``oltp_read_write`` (``models/sysbench.py``) over
    BASELINE.json config #1's 1M-row ``sbtest1`` (regions of 4,096 rows),
-   200 transactions of 18 statements in BEGIN ... COMMIT, every SELECT equal
+   100 transactions of 18 statements in BEGIN ... COMMIT, every SELECT equal
    to a numpy replay, then COUNT(*), SUM(k) and 1,000 sampled rows equal to
    it; transactions/s, p50 / p99 per statement kind, device ms and idle
    share of 5 profiled transactions; then ``SELECT COUNT(*) ... WHERE k
@@ -274,6 +276,36 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    KEY, ts DATETIME, v INT) TTL=3600 TTL_COLUMN=ts``, 10M rows, 30% expired:
    HANDLE ttl timed, the rows left equal numpy, the binlog holds the purge.
    ``lifecycle phase seconds``.
+15. Live-query introspection, KILL, SHOW STATUS / PROFILE, the flight
+   recorder and users (obs/, meta/privileges.py).  (i) Right after phase 3,
+   in its session over its unchanged rows: (a)-(c) warm in 3 alternating
+   turns of 10 runs with ``progress_tracking = 1`` and ``= 0`` (p50 / p67,
+   each turn's p50, one profiled run a side: device ms and idle share);
+   SHOW STATUS around one run of each: the ``kernel_launches.*`` deltas
+   equal phase 3's launches, ``query_latency`` moves by the query and the
+   SHOW before it, ``device_hbm_in_use_bytes`` equals
+   ``torch.cuda.memory_allocated()`` and ``device_hbm_limit_bytes`` the
+   card's memory; (b) under ``slow_query_ms = 1`` and tracing leaves a
+   flight record whose bundle holds its plan, spans and the card's memory
+   stats; SHOW PROFILE's root of (b) within 10% of the client's wall
+   (median of 5); ``CREATE USER app``: (c) as app raises AccessError before
+   any launch, after ``GRANT SELECT ON default.*`` it gives numpy's rows
+   with K1 1, K3 1; the access check's host ms.  (ii) In phase 4's session:
+   (b) streamed (1,526 chunks) on a worker thread while a second session
+   polls ``information_schema.processlist`` every 50 ms (``operator``
+   ``StreamScan(default.t)``, ``chunk_no`` never down); at chunk 763 it
+   KILLs the query: the worker raises QueryKilled (the kill latency from
+   KILL's return, the chunks folded after it, the K2 / K3 launches before
+   it), then no ``stream-prefetch`` thread, ``memory_allocated`` at its
+   level before the query, an empty processlist, no watchdog stall, a
+   ``killed`` flight record with a bundle; the next (b) gives numpy's rows
+   with one streamed run's launches.  (iii) After phase 12 (iii), in phase
+   3's session: 16 D-b clients through the dispatcher (20 ms tick), 4 of
+   them KILLed while SHOW PROCESSLIST shows them in ``exec.queued``: a
+   killed client raises QueryKilled (or returns its serial rows had its
+   tick taken it), every other client returns its serial rows bit for bit;
+   the ticks and their lane launches.  ``observability phase seconds``;
+   each kernel's launches here are ``launches_observability``.
 
 Phases 5 and 6 run with the default flags, so a query over a table of at
 least ``streaming_min_rows`` rows that the streamed path accepts streams
@@ -289,6 +321,7 @@ lines of standard output are the ``kernels`` JSON line and the
 from __future__ import annotations
 
 import argparse
+import gc
 import importlib
 import importlib.util
 import contextlib
@@ -1059,10 +1092,12 @@ def streamed_query(gk, s, q: str, refs, n_chunks: int, reps: int) -> dict:
     return out
 
 
-def streamed_phase(gk, table, refs) -> tuple[dict, dict]:
+def streamed_phase(gk, table, refs, observe: dict | None = None) -> tuple[dict, dict]:
     """Phase 4: (b) and (c) streamed over a fresh Database (so the resident
     image of phase 3 is not counted), then (b) at 1M-row chunks.  -> (K1-K3
-    launches of the phase's runs, measurements)."""
+    launches of the phase's runs, measurements).  With ``observe``, phase 15
+    (ii) follows in the same session and leaves its launches and
+    measurements there."""
     from baikaldb_tpu_torch.exec.session import Database, Session
     from baikaldb_tpu_torch.utils.flags import FLAGS
 
@@ -1088,6 +1123,8 @@ def streamed_phase(gk, table, refs) -> tuple[dict, dict]:
     # the launches of the checked (first) runs
     launches = {k: sum(out[q]["kernel_launches"].get(k, 0) for q in ("b", "c", "b_1m"))
                 for k in gk.LAUNCHES}
+    if observe is not None:
+        observe["ii_launches"], observe["ii"] = kill_streamed_part(gk, s, refs)
     return launches, out
 
 
@@ -2006,10 +2043,10 @@ def mesh_tpch_phase(gk, single) -> tuple[dict, dict]:
 # phase 11: the HTAP write path
 
 SB_ROWS = 1_000_000              # BASELINE.json config #1
-SB_TXNS = 200
+SB_TXNS = 100                    # 200 until PR 14; cut to keep the run within its limit
 SB_PROFILED_TXNS = 5             # the last ones, under torch.profiler
 SB_REGION_ROWS = 4096            # a cut: the default region holds all 1M rows
-SB_LITERAL_TXNS = 3              # sysbench's own BETWEEN at the default region size
+SB_LITERAL_TXNS = 1              # sysbench's own BETWEEN at the default region size (3 until PR 14)
 HTAP_INSERT_ROWS = 10_000
 HTAP_REPS = 10
 DURABLE_ROWS = 100_000
@@ -3287,13 +3324,16 @@ def lane_kernel_phase(gk, rows: int, seed: int, before=None) -> dict:
     return out
 
 
-def phase12(gk, single, table, seed: int, before=None) -> tuple[dict, dict]:
+def phase12(gk, single, table, seed: int, before=None,
+            observe: dict | None = None) -> tuple[dict, dict]:
     """Phase 12 over phase 3's session and its unchanged 100M rows
     (``streaming_scan = 0``): (iv) the lane-batched kernels, (i) the plan
     cache, (ii) PREPARE / EXECUTE, (iii) the dispatcher, (v) EXPLAIN
     ANALYZE; with ``before`` (the compared commit's group_kernels) its lane
     kernels are timed in turns with these, in (iv) and in (iii)'s profiled
-    ticks.  -> (lane launches of (iii), measurements)."""
+    ticks.  -> (lane launches of (iii), measurements).  With ``observe``,
+    phase 15 (iii) follows (iii) and leaves its launches and measurements
+    there."""
     t0 = time.perf_counter()
     out = {"kernels": lane_kernel_phase(gk, table.num_rows, seed, before)}
     torch.cuda.empty_cache()
@@ -3306,6 +3346,9 @@ def phase12(gk, single, table, seed: int, before=None) -> tuple[dict, dict]:
         for name in D_SHAPES:
             for k, v in out["dispatch"][name]["lane_launches"].items():
                 launches[k] += v
+        if observe is not None:
+            observe["iii_launches"], observe["iii_lanes"], observe["iii"] = \
+                kill_dispatch_part(gk, single, refs, seed)
         out["explain"] = explain_phase(single, refs)
     out["seconds"] = time.perf_counter() - t0
     return launches, out
@@ -3789,7 +3832,7 @@ MV_REFOLDS = {"insert": (0, 0), "delete": (0, 0), "update": (0, 0), "min": (1, 0
 LIFECYCLE_KERNELS = ("fused_group_aggregate", "partition_histogram", "segment_reduce")
 # a change-stream consumer: sysbench oltp_write_only transactions over the
 # 1M rows, read back by FETCH batches of 100 and of 1,000
-LC_CDC_TXNS = 300                 # 1,200 events (~50 ms a write with row capture)
+LC_CDC_TXNS = 250                 # 1,000 events: one full FETCH 1000 (~50 ms a write with row capture; 300 until PR 14)
 LC_CDC_BATCHES = (100, 1000)
 SB_WRITES = {"index_update": "update", "non_index_update": "update", "delete": "delete",
              "insert": "insert"}
@@ -4345,6 +4388,426 @@ def lifecycle_phase(gk, single, table, seed: int) -> tuple[dict, dict]:
     return launches, stats
 
 
+# ----------------------------------------------------------------------
+# phase 15: live-query introspection, KILL, SHOW STATUS / PROFILE, the
+# flight recorder and users
+
+OBS_TURNS = 3                    # alternating turns of progress_tracking = 1 / 0
+OBS_TURN_REPS = 10
+OBS_PROFILE_REPS = 5
+OBS_KILL_AT = 763                # half of (b)'s 1,526 streamed chunks
+OBS_CLIENTS = 16                 # D-b clients through the dispatcher in (iii)
+OBS_KILLS = 4
+OBS_POLL_S = 0.05                # the processlist poll period of (ii)
+OBS_CHECKS = 1000                # access checks timed a query
+
+
+def status_values(s, pattern: str) -> dict:
+    """``SHOW STATUS LIKE pattern`` -> {name: float}, the numeric rows."""
+    out = {}
+    for r in s.query(f"SHOW STATUS LIKE '{pattern}'"):
+        try:
+            out[r["Variable_name"]] = float(r["Value"])
+        except ValueError:        # health.status, health.watchdog
+            pass
+    return out
+
+
+def kernel_status(s) -> tuple[dict, float]:
+    """One SHOW STATUS: the kernel launch counters as it renders them, and
+    ``query_latency.count``."""
+    vals = status_values(s, "%.%")
+    return ({k[len("kernel_launches."):-len(".value")]: int(v) for k, v in vals.items()
+             if k.startswith("kernel_launches.") and k.endswith(".value")
+             and not k.endswith("_lanes.value")}, vals["query_latency.count"])
+
+
+def tracking_overhead(s) -> dict:
+    """(a)-(c) warm in OBS_TURNS alternating turns of OBS_TURN_REPS runs with
+    ``progress_tracking = 1`` and ``= 0`` (the flight recorder on in both):
+    p50 / p67 of each side's runs, each turn's p50, and one profiled run of
+    each side (device ms and idle share must not move with the beats)."""
+    out = {}
+    for q, sql in QUERIES.items():
+        walls = {1: [], 0: []}
+        turns = {1: [], 0: []}
+        for _turn in range(OBS_TURNS):
+            for on in (1, 0):
+                with flag(s, "progress_tracking", on):
+                    mine = []
+                    for _ in range(OBS_TURN_REPS):
+                        torch.cuda.synchronize()
+                        t = time.perf_counter()
+                        s.query(sql)
+                        torch.cuda.synchronize()
+                        mine.append((time.perf_counter() - t) * 1e3)
+                walls[on] += mine
+                turns[on].append(statistics.median(mine))
+        res = {}
+        for on, name in ((1, "on"), (0, "off")):
+            w = sorted(walls[on])
+            with flag(s, "progress_tracking", on):
+                prof = device_breakdown(lambda: s.query(sql), statistics.median(w))
+            res[name] = {"p50_ms": statistics.median(w), "p67_ms": w[len(w) - 11],
+                         "turn_p50_ms": turns[on], "device_ms": prof["device_ms"],
+                         "idle_share": prof["idle_share"]}
+        out[q] = res
+        log(f"[phase15] ({q}) progress_tracking on p50 {res['on']['p50_ms']:.3f} ms "
+            f"(turns {[round(x, 3) for x in turns[1]]}), off {res['off']['p50_ms']:.3f} ms "
+            f"(turns {[round(x, 3) for x in turns[0]]}); device {res['on']['device_ms']:.3f} / "
+            f"{res['off']['device_ms']:.3f} ms, idle {res['on']['idle_share']:.3f} / "
+            f"{res['off']['idle_share']:.3f}")
+    return out
+
+
+def status_part(gk, s, refs) -> dict:
+    """SHOW STATUS around one run each of (a)-(c): the ``kernel_launches.*``
+    deltas equal phase 3's launches, ``query_latency`` counts the query and
+    the SHOW before it, and the device gauges equal torch's reads beside
+    them."""
+    out = {}
+    for q, sql in QUERIES.items():
+        k0, l0 = kernel_status(s)
+        rows = s.query(sql)
+        torch.cuda.synchronize()
+        k1, l1 = kernel_status(s)
+        check_query(q, rows, refs)
+        moved = {k: v - k0[k] for k, v in k1.items() if v != k0[k]}
+        if moved != EXPECTED_LAUNCHES[q]:
+            raise AssertionError(f"SHOW STATUS: ({q}) moved kernel_launches {moved}, "
+                                 f"expected {EXPECTED_LAUNCHES[q]}")
+        # the query itself and the SHOW STATUS read before it
+        if l1 - l0 != 2:
+            raise AssertionError(f"SHOW STATUS: query_latency moved {l1 - l0} over ({q})")
+        out[q] = {"kernel_launches": moved, "query_latency_count": l1 - l0}
+    hbm = status_values(s, "device_hbm_%.value")
+    allocated = torch.cuda.memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    if hbm["device_hbm_in_use_bytes.value"] != allocated:
+        raise AssertionError(f"device_hbm_in_use_bytes {hbm['device_hbm_in_use_bytes.value']} "
+                             f"!= memory_allocated {allocated}")
+    if hbm["device_hbm_limit_bytes.value"] != total:
+        raise AssertionError(f"device_hbm_limit_bytes {hbm['device_hbm_limit_bytes.value']} "
+                             f"!= the card's {total}")
+    out["device_hbm"] = {**hbm, "memory_allocated": allocated, "total_memory": total}
+    log(f"[phase15] SHOW STATUS: kernel_launches deltas {[out[q]['kernel_launches'] for q in QUERIES]}"
+        f", device_hbm_in_use_bytes {allocated}, limit {total}")
+    return out
+
+
+def flightrec_part(s) -> dict:
+    """(b) under ``slow_query_ms = 1`` and tracing: its flight record
+    carries a bundle with the plan, the spans and the card's memory."""
+    sql = QUERIES["b"]
+    with flag(s, "slow_query_ms", 1), flag(s, "tracing", 1):
+        s.query(sql)
+    rec = [r for r in s.db.flightrec.rows() if r["text"] == sql][-1]
+    b = rec["bundle"]
+    if b is None or "Agg" not in b["plan"] or not b["spans"]:
+        raise AssertionError(f"flight record of (b) lacks its bundle: {rec}")
+    dev = [d for d in b["device_stats"] if d["device"] == "cuda:0"]
+    if len(dev) != 1 or not dev[0]["bytes_in_use"] > 0 or not dev[0]["bytes_limit"] > 0:
+        raise AssertionError(f"flight record of (b): device_stats {b['device_stats']}")
+    out = {"status": rec["status"], "dur_ms": rec["dur_ms"], "spans": len(b["spans"]),
+           "plan_lines": len(b["plan"].splitlines()), "device_stats": dev[0],
+           "phase_ms": rec["phase_ms"]}
+    log(f"[phase15] flight record of (b): {rec['dur_ms']} ms, {len(b['spans'])} spans, "
+        f"device_stats {dev[0]}")
+    return out
+
+
+def profile_part(s) -> dict:
+    """(b) under ``tracing = 1``: SHOW PROFILE's root against the wall the
+    client saw around ``execute`` (within 10%, median of the runs)."""
+    from baikaldb_tpu_torch.obs import trace
+
+    sql = QUERIES["b"]
+    ratios, walls, roots = [], [], []
+    with flag(s, "tracing", 1):
+        for _ in range(OBS_PROFILE_REPS):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            s.execute(sql)
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t) * 1e3
+            prof = s.query("SHOW PROFILE")
+            if prof[0]["Status"] != "query":
+                raise AssertionError(f"SHOW PROFILE's root is {prof[0]['Status']!r}")
+            walls.append(wall)
+            roots.append(prof[0]["Duration_ms"])
+            ratios.append(prof[0]["Duration_ms"] / wall)
+        stages = [r["Status"].strip() for r in s.query("SHOW PROFILE")]
+    trace.TRACER.clear()
+    ratio = statistics.median(ratios)
+    if abs(ratio - 1.0) > 0.10:
+        raise AssertionError(f"SHOW PROFILE root {roots} ms against walls {walls} ms")
+    log(f"[phase15] SHOW PROFILE root / wall {[round(x, 3) for x in ratios]}, stages {stages}")
+    return {"root_ms": roots, "wall_ms": walls, "ratio_p50": ratio, "stages": stages}
+
+
+def users_part(gk, s, refs) -> dict:
+    """``CREATE USER app``: (c) as app raises AccessError before any launch;
+    after a grant on the table's database (c) gives numpy's rows with K1 1,
+    K3 1.  The access check's host ms a query."""
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.meta.privileges import AccessError
+    from baikaldb_tpu_torch.sql.parser import parse_sql
+
+    sql = QUERIES["c"]
+    s.execute("CREATE USER app")
+    try:
+        app = Session(s.db, user="app")
+        before = all_launches(gk)
+        try:
+            app.query(sql)
+        except AccessError:
+            denied = True
+        else:
+            denied = False
+        torch.cuda.synchronize()
+        if not denied or all_launches(gk) != before:
+            raise AssertionError("(c) as app without a grant was not denied before its launches")
+        s.execute("GRANT SELECT ON default.* TO app")
+        before = all_launches(gk)
+        rows = app.query(sql)
+        torch.cuda.synchronize()
+        launched = {k: v - before[k] for k, v in all_launches(gk).items() if v != before[k]}
+        check_query("c", rows, refs)
+        if launched != EXPECTED_LAUNCHES["c"]:
+            raise AssertionError(f"(c) as app launched {launched}")
+        stmt = parse_sql(sql)[0]
+        check_ms = {}
+        for who, sess in (("root", s), ("app", app)):
+            t = time.perf_counter()
+            for _ in range(OBS_CHECKS):
+                sess._access_check(stmt)
+            check_ms[who] = (time.perf_counter() - t) * 1e3 / OBS_CHECKS
+        grants = s.query("SHOW GRANTS FOR app")
+    finally:
+        s.execute("DROP USER IF EXISTS app")
+    log(f"[phase15] users: denied before any launch; granted (c) launched {launched}; "
+        f"access check {check_ms} ms a query")
+    return {"denied_before_launch": True, "granted_launches": launched,
+            "access_check_ms": check_ms, "grants": [r["Grants for app"] for r in grants]}
+
+
+def observability_part(gk, s, refs) -> tuple[dict, dict]:
+    """Phase 15 (i), right after phase 3 in its session over its unchanged
+    rows.  -> (launches of its runs, measurements)."""
+    t0 = time.perf_counter()
+    # this path's launches: counters at 0 just before, read just after
+    reset_launches(gk)
+    with flag(s, "streaming_scan", 0):      # phase 3's resident path
+        out = {"overhead": tracking_overhead(s), "status": status_part(gk, s, refs),
+               "flightrec": flightrec_part(s), "profile": profile_part(s),
+               "users": users_part(gk, s, refs)}
+    launches = all_launches(gk)
+    out["seconds"] = time.perf_counter() - t0
+    return launches, out
+
+
+def proc_row(s, conn_id: int) -> list:
+    return s.query("SELECT operator, chunk_no, chunks_total, phase FROM "
+                   f"information_schema.processlist WHERE id = {conn_id}")
+
+
+def kill_streamed_part(gk, s, refs) -> tuple[dict, dict]:
+    """Phase 15 (ii), in phase 4's session (``streaming_chunk_rows`` at its
+    default): (b) streamed on a worker thread; a second session polls
+    ``information_schema.processlist`` and, once ``chunk_no`` reaches
+    OBS_KILL_AT, KILLs it.  The worker raises QueryKilled; then the card is
+    as before the query, and the next (b) gives numpy's rows with one
+    streamed run's launches.  -> (launches, measurements)."""
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.obs.progress import QueryKilled
+    from baikaldb_tpu_torch.utils import metrics
+    from baikaldb_tpu_torch.utils.flags import FLAGS
+
+    t_phase = time.perf_counter()
+    sql = QUERIES["b"]
+    n_chunks = -(-s.db.stores["default.t"].num_rows // int(FLAGS.streaming_chunk_rows))
+    worker_s = Session(s.db)
+    killer = Session(s.db)
+    proc_row(killer, worker_s.connection_id())        # the poll's first run, before the baseline
+    # this path's launches: counters at 0 just before, read just after
+    reset_launches(gk)
+    torch.cuda.synchronize()
+    # small tensors of earlier runs wait in reference cycles (frames and
+    # tracebacks) until the collector's pass: the baseline is taken after one
+    gc.collect()
+    mem0 = torch.cuda.memory_allocated()
+    c0 = metrics.stream_chunks.value
+    done = {}
+
+    def work():
+        try:
+            worker_s.query(sql)
+            done["outcome"] = "ran"
+        except QueryKilled:
+            done["outcome"] = "killed"
+        except BaseException as e:      # noqa: BLE001 — reported below
+            done["outcome"] = f"{type(e).__name__}: {e}"
+        done["t"] = time.perf_counter()
+
+    th = threading.Thread(target=work, name="phase15-worker")
+    th.start()
+    seen, kill = [], None
+    deadline = time.perf_counter() + 120.0
+    while th.is_alive() and time.perf_counter() < deadline:
+        rows = proc_row(killer, worker_s.connection_id())
+        if rows and rows[0]["chunks_total"]:
+            r = rows[0]
+            seen.append(r["chunk_no"])
+            if r["operator"] != "StreamScan(default.t)":
+                raise AssertionError(f"processlist operator {r['operator']!r}")
+            if r["chunk_no"] >= OBS_KILL_AT:
+                k_before = all_launches(gk)
+                killer.execute(f"KILL QUERY {worker_s.connection_id()}")
+                t_kill = time.perf_counter()
+                c_at_kill = metrics.stream_chunks.value
+                kill = {"chunk_no": r["chunk_no"], "chunks_total": r["chunks_total"],
+                        "launches_before": {k: v for k, v in k_before.items() if v}}
+                break
+        time.sleep(OBS_POLL_S)
+    th.join(60.0)
+    if th.is_alive() or kill is None:
+        raise AssertionError(f"the KILL of streamed (b) did not land: {done}, seen {seen[-3:]}")
+    if done["outcome"] != "killed":
+        raise AssertionError(f"the killed streamed (b) ended {done['outcome']}")
+    torch.cuda.synchronize()
+    kill["latency_ms"] = (done["t"] - t_kill) * 1e3
+    kill["chunks_after_kill"] = metrics.stream_chunks.value - c_at_kill
+    kill["chunks_folded"] = metrics.stream_chunks.value - c0
+    if seen != sorted(seen):
+        raise AssertionError(f"processlist chunk_no went down: {seen}")
+    if kill["chunks_total"] != n_chunks or kill["chunks_folded"] >= n_chunks:
+        raise AssertionError(f"the killed (b) folded {kill['chunks_folded']} of "
+                             f"{kill['chunks_total']} chunks, expected fewer of {n_chunks}")
+    stagers = [t.name for t in threading.enumerate() if t.name == "stream-prefetch"]
+    mem1_before_gc = torch.cuda.memory_allocated()
+    gc.collect()
+    mem1 = torch.cuda.memory_allocated()
+    live = proc_row(killer, worker_s.connection_id())
+    stalls = s.db.watchdog.scan_now()
+    rec = [r for r in s.db.flightrec.rows() if r["text"] == sql][-1]
+    if stagers or mem1 != mem0 or live or stalls or rec["status"] != "killed" \
+            or rec["bundle"] is None:
+        raise AssertionError(f"after the KILL: stagers {stagers}, memory {mem1} vs {mem0}, "
+                             f"processlist {live}, stalls {stalls}, record {rec['status']}")
+    # the next streamed (b): numpy's rows with one streamed run's launches
+    before = all_launches(gk)
+    rows = s.query(sql)
+    torch.cuda.synchronize()
+    check_query("b", rows, refs)
+    launched = {k: v - before[k] for k, v in all_launches(gk).items() if v != before[k]}
+    want = {k: n * n_chunks for k, n in STREAM_EXPECTED["b"].items()}
+    if launched != want:
+        raise AssertionError(f"the streamed (b) after the KILL launched {launched}, "
+                             f"expected {want}")
+    launches = all_launches(gk)
+    out = {**kill, "polls": len(seen), "memory_before": mem0, "memory_after": mem1,
+           "memory_after_before_gc": mem1_before_gc,
+           "record": {"status": rec["status"], "dur_ms": rec["dur_ms"],
+                      "phase_ms": rec["phase_ms"]},
+           "next_run_launches": launched, "seconds": time.perf_counter() - t_phase}
+    log(f"[phase15] (ii) KILL at chunk {kill['chunk_no']}/{kill['chunks_total']}: raised "
+        f"{kill['latency_ms']:.2f} ms after KILL returned, {kill['chunks_after_kill']} chunks "
+        f"folded after it, launches before {kill['launches_before']}; memory {mem1} == {mem0} "
+        f"({mem1_before_gc} before the collector's pass); "
+        f"next run launched {launched}")
+    return launches, out
+
+
+def kill_dispatch_part(gk, s, refs, seed: int) -> tuple[dict, dict, dict]:
+    """Phase 15 (iii), after phase 12 (iii) in phase 3's session: OBS_CLIENTS
+    clients of D-b through the dispatcher (tick D_TICK_MS); OBS_KILLS of
+    them KILLed while ``information_schema.processlist`` shows them in
+    ``exec.queued``.  A killed client raises QueryKilled (or, had its tick
+    already taken it, returns its serial rows); every other client returns
+    its serial rows bit for bit.  -> (one-lane launches, lane launches,
+    measurements)."""
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.obs.progress import QueryKilled
+    from baikaldb_tpu_torch.utils import metrics
+
+    t_phase = time.perf_counter()
+    stmts = [mine[0] for mine in d_statements("D-b", seed + 15)[:OBS_CLIENTS]]
+    serial = {sql: s.execute(sql).arrow for sql, _ in stmts}
+    for sql, args in stmts:
+        check_d("D-b", args, serial[sql].to_pylist(), refs)
+    sessions = [Session(s.db) for _ in stmts]
+    ids = {x.connection_id(): i for i, x in enumerate(sessions)}
+    killer = Session(s.db)
+    got, outcome = {}, {}
+    start = threading.Barrier(len(stmts) + 1)
+
+    def client(i, x, sql):
+        start.wait(60.0)
+        try:
+            got[i] = x.execute(sql).arrow
+            outcome[i] = "rows"
+        except QueryKilled:
+            outcome[i] = "killed"
+        except BaseException as e:      # noqa: BLE001 — reported below
+            outcome[i] = f"{type(e).__name__}: {e}"
+
+    reset_launches(gk)
+    g0 = metrics.batched_groups.value
+    killed = []
+    with flag(s, "batch_dispatch_tick_ms", D_TICK_MS):
+        ts = [threading.Thread(target=client, args=(i, x, sql))
+              for i, (x, (sql, _)) in enumerate(zip(sessions, stmts))]
+        for t in ts:
+            t.start()
+        start.wait(60.0)
+        deadline = time.perf_counter() + 60.0
+        # SHOW PROCESSLIST reads the records on the host; a SELECT over
+        # information_schema.processlist runs on the card, where it waits
+        # behind the tick's kernels on the same stream and sees the queue
+        # only once it has drained
+        while len(killed) < OBS_KILLS and any(t.is_alive() for t in ts) \
+                and time.perf_counter() < deadline:
+            for r in killer.query("SHOW PROCESSLIST"):
+                if r["Id"] in ids and r["Id"] not in killed and len(killed) < OBS_KILLS \
+                        and r["State"].split(" ", 1)[0] == "exec.queued":
+                    killer.execute(f"KILL QUERY {r['Id']}")
+                    killed.append(r["Id"])
+        for t in ts:
+            t.join(60.0)
+    torch.cuda.synchronize()
+    if any(t.is_alive() for t in ts):
+        raise AssertionError("a dispatcher client did not finish")
+    ticks = metrics.batched_groups.value - g0
+    lanes = lane_launches(gk)
+    inline = all_launches(gk)
+    killed_i = {ids[c] for c in killed}
+    for i, (sql, _) in enumerate(stmts):
+        if outcome[i] == "rows":
+            if not got[i].equals(serial[sql]):
+                raise AssertionError(f"(iii) client {i}'s rows differ from its serial run")
+        elif outcome[i] != "killed" or i not in killed_i:
+            raise AssertionError(f"(iii) client {i} ended {outcome[i]}")
+    if len(killed) != OBS_KILLS:
+        raise AssertionError(f"(iii) saw {len(killed)} clients in exec.queued, wanted "
+                             f"{OBS_KILLS}")
+    if ticks < 1:
+        raise AssertionError("(iii) no batched tick formed")
+    for k, n in D_TICK_LAUNCHES["D-b"].items():
+        if lanes[k] != n * ticks:
+            raise AssertionError(f"(iii) {k} launched {lanes[k]} times over {ticks} ticks")
+    out = {"clients": len(stmts), "killed": len(killed),
+           "killed_raised": sum(1 for i in killed_i if outcome[i] == "killed"),
+           "killed_returned_rows": sum(1 for i in killed_i if outcome[i] == "rows"),
+           "survivors_equal_serial": sum(1 for i in outcome if i not in killed_i),
+           "ticks": ticks, "lane_launches": {k: v for k, v in lanes.items() if v},
+           "inline_launches": {k: v for k, v in inline.items() if v},
+           "seconds": time.perf_counter() - t_phase}
+    log(f"[phase15] (iii) {len(stmts)} D-b clients, {len(killed)} KILLed in exec.queued "
+        f"({out['killed_raised']} raised, {out['killed_returned_rows']} returned rows); "
+        f"{ticks} ticks, lane launches {out['lane_launches']}, inline {out['inline_launches']}")
+    return inline, lanes, out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=100_000_000)
@@ -4374,11 +4837,16 @@ def main() -> int:
     table, refs = sql_table(args.rows, args.seed)
     launches, sql_stats, single = sql_phase(gk, table, refs)
     phase_s["sql"] = time.perf_counter() - t0
+    # phase 15 (i) in phase 3's session; (ii) and (iii) ride phases 4 and 12
+    t0 = time.perf_counter()
+    observe: dict = {}
+    observe["i_launches"], observe["i"] = observability_part(gk, single, refs)
+    obs_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     mesh_launches, mesh_stats = mesh_sql_phase(gk, single, refs)
     mesh_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    lane_counts, p12 = phase12(gk, single, table, args.seed, before)
+    lane_counts, p12 = phase12(gk, single, table, args.seed, before, observe)
     dispatch_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     part_launches, part_stats = partition_phase(gk, single, table)
@@ -4397,11 +4865,17 @@ def main() -> int:
     del single
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    stream_launches, stream_stats = streamed_phase(gk, table, refs)
+    stream_launches, stream_stats = streamed_phase(gk, table, refs, observe)
     stream_stats["resident_peak_mem_gib"] = sql_stats["peak_mem_gib"]
     phase_s["streamed"] = time.perf_counter() - t0
     del table
+    obs_launches = {k: sum(observe[f"{p}_launches"][k] for p in ("i", "ii", "iii"))
+                    for k in REPLACES}
+    obs_lanes = {k: observe["iii_lanes"][k] for k in LANE_KERNELS}
+    obs_stats = {p: observe[p] for p in ("i", "ii", "iii")}
+    phase_s["observability"] = obs_s + sum(observe[p]["seconds"] for p in ("ii", "iii"))
     for path, counts in (("resident", launches), ("streamed", stream_launches),
+                         ("observability", obs_launches),
                          ("mesh", mesh_launches), ("versioned", htap_launches),
                          ("lane-batched", lane_counts), ("partitioned", part_launches),
                          ("lifecycle", {k: lc_launches[k] for k in LIFECYCLE_KERNELS})):
@@ -4460,6 +4934,7 @@ def main() -> int:
     print(f"dispatch phase seconds: {phase_s['dispatch']:.1f}", flush=True)
     print(f"partition phase seconds: {phase_s['partitions']:.1f}", flush=True)
     print(f"lifecycle phase seconds: {phase_s['lifecycle']:.1f}", flush=True)
+    print(f"observability phase seconds: {phase_s['observability']:.1f}", flush=True)
     print("phase seconds: " + json.dumps(phase_s), flush=True)
 
     kernels = [{"name": k, "route": "cuda",
@@ -4467,7 +4942,7 @@ def main() -> int:
                 "replaces": REPLACES[k],
                 "launches": (launches[k] + stream_launches.get(k, 0) + vector_launches[k]
                              + mesh_launches[k] + htap_launches[k] + part_launches[k]
-                             + lc_launches[k]),
+                             + lc_launches[k] + obs_launches[k]),
                 "launches_resident": launches[k],
                 "launches_streamed": stream_launches.get(k, 0),
                 "launches_vectors": vector_launches[k],
@@ -4475,6 +4950,7 @@ def main() -> int:
                 "launches_htap": htap_launches[k],
                 "launches_partitioned": part_launches[k],
                 "launches_lifecycle": lc_launches[k],
+                "launches_observability": obs_launches[k],
                 **times[k],
                 # this kernel on phase 13's pruned batch and on phase 14's
                 # refreshed table
@@ -4487,13 +4963,15 @@ def main() -> int:
                  "source": SOURCES.get(k, "baikaldb_tpu_torch/ops/csrc/group_agg.cu"),
                  "replaces": REPLACES[base], "launches": lane_counts[k],
                  "launches_lifecycle": lc_stats["lane_launches"][k],
+                 "launches_observability": obs_lanes[k],
                  "max_abs_err": p12["kernels"]["max_abs_err"], **lane_times[k]}
                 for k, base in LANE_KERNELS.items()]
     print(json.dumps({"card": name_power, "rows": args.rows, "phase_s": phase_s,
                       "sql": sql_stats, "streamed": stream_stats, "tpch": tpch_stats,
                       "analytics": analytic_stats, "egress": egress_stats,
                       "vectors": vector_stats, "mesh": mesh_stats, "htap": htap_stats,
-                      "dispatch": p12, "partitions": part_stats, "lifecycle": lc_stats}),
+                      "dispatch": p12, "partitions": part_stats, "lifecycle": lc_stats,
+                      "observability": obs_stats}),
           flush=True)
     print(name_power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -679,6 +679,103 @@ def test_streamed_copies_survive_a_slow_fold(cuda, monkeypatch, chunk_rows):
     assert got == want
 
 
+# -- observability on the card (obs/flightrec.py, obs/telemetry.py, KILL) ---
+
+@pytest.mark.cuda
+def test_device_stats_and_gauges_read_the_card(cuda):
+    """device_stats() gives one row a card under the JAX package's keys;
+    the device gauges equal torch's reads beside them."""
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.obs.flightrec import device_stats
+
+    s = Session()
+    keep = torch.ones(1 << 20, device=cuda)
+    torch.cuda.synchronize()
+    rows = device_stats()
+    assert [r["device"] for r in rows] == [f"cuda:{i}" for i in range(torch.cuda.device_count())]
+    assert rows[0]["bytes_in_use"] == torch.cuda.memory_allocated(0) > 0
+    assert rows[0]["peak_bytes_in_use"] >= rows[0]["bytes_in_use"]
+    assert rows[0]["bytes_limit"] == torch.cuda.get_device_properties(0).total_memory
+    vals = {r["Variable_name"]: float(r["Value"])
+            for r in s.query("SHOW STATUS LIKE 'device_hbm_%'")}
+    n = torch.cuda.device_count()
+    assert vals["device_hbm_in_use_bytes.value"] == sum(
+        torch.cuda.memory_allocated(i) for i in range(n))
+    assert vals["device_hbm_limit_bytes.value"] == sum(
+        torch.cuda.get_device_properties(i).total_memory for i in range(n))
+    assert vals["device_hbm_peak_bytes.value"] >= vals["device_hbm_in_use_bytes.value"]
+    del keep
+
+
+@pytest.mark.cuda
+def test_killed_streamed_query_leaves_the_card_as_it_found_it(stream_session):
+    """A KILL at chunk 5 of a streamed GROUP BY (16 chunks): the query raises
+    QueryKilled between two chunks' launches, no stager thread is left, the
+    card's allocated memory is back to its level, and the next run gives the
+    resident rows with one pass's launches."""
+    import gc
+    import threading
+
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.models.parity import mismatch
+    from baikaldb_tpu_torch.obs import progress
+    from baikaldb_tpu_torch.utils import metrics
+
+    s = stream_session
+    sql, per_chunk = STREAM_QUERIES["b"]
+    killer = Session(s.db)
+    real = progress.QueryProgress.beat
+    fired = []
+
+    def beat(self, phase=None, operator=None, **counts):
+        real(self, phase, operator, **counts)
+        if not fired and self.db is s.db and self.chunk_no == 5 and self.chunks_total:
+            fired.append(True)
+            th = threading.Thread(target=killer.execute,
+                                  args=(f"KILL QUERY {self.conn_id}",))
+            th.start()
+            th.join(60.0)
+
+    with _port_flags(streaming_scan=True, streaming_min_rows=1 << 18,
+                     streaming_chunk_rows=1 << 16):
+        s.query(sql)                            # warm: plan and chunk set built
+        torch.cuda.synchronize()
+        # small tensors of earlier runs wait in reference cycles until the
+        # collector's pass: both reads come after one
+        gc.collect()
+        mem0 = torch.cuda.memory_allocated()
+        before = {k: c.value for k, c in gk.LAUNCHES.items()}
+        c0 = metrics.stream_chunks.value
+        progress.QueryProgress.beat = beat
+        try:
+            with pytest.raises(progress.QueryKilled):
+                s.query(sql)
+        finally:
+            progress.QueryProgress.beat = real
+        torch.cuda.synchronize()
+        folded = metrics.stream_chunks.value - c0
+        launched = {k: c.value - before[k] for k, c in gk.LAUNCHES.items()
+                    if c.value != before[k]}
+        assert fired and folded == 6            # chunks 0-5: it lands at chunk 6's beat
+        assert launched == {k: n * folded for k, n in per_chunk.items()}
+        assert not [t for t in threading.enumerate() if t.name == "stream-prefetch"]
+        gc.collect()
+        assert torch.cuda.memory_allocated() == mem0
+        assert s.db.flightrec.rows()[-1]["status"] == "killed"
+        assert progress.PROGRESS.live(s.db) == []
+        before = {k: c.value for k, c in gk.LAUNCHES.items()}
+        got = s.query(sql)
+        torch.cuda.synchronize()
+        launched = {k: c.value - before[k] for k, c in gk.LAUNCHES.items()
+                    if c.value != before[k]}
+    chunks = -(-STREAM_ROWS // (1 << 16))
+    assert launched == {k: n * chunks for k, n in per_chunk.items()}
+    with _port_flags(streaming_scan=False):
+        want = s.query(sql)
+    diff = mismatch(got, want, sql, 1e-4)
+    assert diff is None, diff
+
+
 # ----------------------------------------------------------------------
 # vectors (ops/vector.py, index/annindex.py, VECTOR columns): the card
 # against the CPU.  GEMM scores within rtol 1e-5 (L2: 1e-5 of the squared

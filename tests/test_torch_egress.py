@@ -18,7 +18,6 @@ import pyarrow as pa
 import pytest
 
 from baikaldb_tpu.exec.session import Session as JSession
-from baikaldb_tpu_torch.errors import NotPortedError
 from baikaldb_tpu_torch.exec.session import Session as TSession
 
 DDL = ("CREATE TABLE t (id BIGINT, d DATE, ts DATETIME, v DOUBLE, n INT, b BIGINT, "
@@ -203,10 +202,48 @@ def test_select_into_outfile_matches_jax(pair, tmp_path):
 
 
 @pytest.mark.parametrize("what", ["PROCESSLIST", "STATUS", "PROFILES"])
-def test_show_forms_of_unported_planes_raise(what):
-    s = TSession(device="cpu")
-    with pytest.raises(NotPortedError):
-        s.execute(f"SHOW {what}")
+def test_show_forms_of_unported_planes_raise(sessions, what):
+    """SHOW PROCESSLIST, STATUS and PROFILES read the observability plane,
+    ported since: each gives the JAX session's rows (without the columns
+    that read the clock or each package's own connection ids)."""
+    from baikaldb_tpu.obs.trace import TRACER as JTRACER
+    from baikaldb_tpu.utils.flags import FLAGS as JFLAGS
+    from baikaldb_tpu_torch.obs.trace import TRACER as TTRACER
+    from baikaldb_tpu_torch.utils.flags import FLAGS as TFLAGS
+
+    def run(s, sql):
+        rows = s.query(sql)
+        if what == "PROCESSLIST":
+            return [{k: v for k, v in r.items() if k not in ("Id", "Time")} for r in rows]
+        if what == "PROFILES":
+            return [(r["Kind"], r["Query"], r["Duration_ms"] > 0.0) for r in rows]
+        return rows
+
+    if what == "PROFILES":
+        for tracer in (JTRACER, TTRACER):
+            tracer.clear()
+        for f in (JFLAGS, TFLAGS):
+            f.set_flag("tracing", True)
+        try:
+            for s in sessions:
+                s.query("SELECT COUNT(*) FROM t WHERE n > 10")
+            got = [run(s, "SHOW PROFILES") for s in sessions]
+        finally:
+            for f in (JFLAGS, TFLAGS):
+                f.set_flag("tracing", False)
+            for tracer in (JTRACER, TTRACER):
+                tracer.clear()
+        assert got[1] == got[0] == [("query", "SELECT COUNT(*) FROM t WHERE n > 10", True)]
+        return
+    sql = {"PROCESSLIST": "SHOW FULL PROCESSLIST",
+           "STATUS": "SHOW STATUS LIKE 'health.%'"}[what]
+    got = [run(s, sql) for s in sessions]
+    assert got[1] == got[0] and got[1]
+    if what == "STATUS":
+        names = [[r["Variable_name"] for r in s.query("SHOW STATUS LIKE 'query_latency.%'")]
+                 for s in sessions]
+        assert names[1] == names[0] == [f"query_latency.{f}" for f in (
+            "avg_ms", "count", "max_ms", "p50_ms", "p95_ms", "p99_ms")]
 
 
 @pytest.mark.parametrize("sql", [

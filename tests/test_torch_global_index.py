@@ -291,3 +291,22 @@ def test_online_index_ddl_and_plane_options_raise(sql):
         p.run("SHOW CREATE TABLE b")
         p.run("INSERT INTO b (id, v) VALUES (1, 2)")
         p.run("SELECT id, v FROM b")
+
+
+@pytest.mark.parametrize("ddl", [
+    PLAIN_DDL,
+    "CREATE TABLE u (id BIGINT, email VARCHAR(64), v DOUBLE, PRIMARY KEY (id), "
+    "KEY k_email (email))",
+])
+def test_number_against_an_indexed_string_column_matches_jax(ddl):
+    """``email = 5`` over a KEY- or GLOBAL-indexed string column: the
+    selector cannot compare the number with the column's strings, so EXPLAIN
+    carries no ``access=`` on the scan in either package (compared whole),
+    and the rows come from the full scan."""
+    p = Pair()
+    p.run(ddl)
+    p.run("INSERT INTO u VALUES " + ", ".join(f"({i}, '{i % 7}', {float(i % 13)})"
+                                             for i in range(60)))
+    assert "access=" not in p.explain("SELECT id FROM u WHERE email = 5")
+    p.run("SELECT id FROM u WHERE email = 5 ORDER BY id")
+    p.run("SELECT COUNT(*) AS n FROM u WHERE email = 5")

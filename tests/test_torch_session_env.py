@@ -155,15 +155,62 @@ def test_connect_burst_set_forms_match_jax():
               "SELECT @@character_set_results"])
 
 
+# SHOW STATUS names by design in one package only: the JAX package's XLA,
+# AOT-cache, RPC, region, fragment, binlog-retry, transaction-counter and
+# lockset-witness instruments have no counterpart in the port; the port's
+# kernel launch counters none in the JAX package
+STATUS_JAX_ONLY = {
+    "aot_cache_deser_ms", "aot_cache_evictions", "aot_cache_fallbacks", "aot_cache_hits",
+    "aot_cache_misses", "aot_cache_peer_fetches", "aot_cache_publishes",
+    "binlog_events_dropped", "binlog_retry_queued", "compile_ms", "connections_total",
+    "fragment_bytes_saved", "fragment_fallbacks", "fragment_retargets",
+    "fragment_warm_compiles", "fragments_dispatched", "guard_lock_trips", "guard_owner_trips",
+    "guard_transfer_trips", "learner_fallback_reads", "region.handoff_ms", "region.merges",
+    "region.migrate_aborts", "region.migrations", "region.split_aborts", "region.splits",
+    "rpc_dedup_hits", "rpc_retries", "rpc_timeouts", "shuffle_overflow_retries",
+    "txn_commits", "txn_rollbacks", "wal_appends", "xla_retraces",
+}
+STATUS_PORT_ONLY = {f"kernel_launches.{k}{lanes}" for lanes in ("", "_lanes") for k in (
+    "filtered_group_sum", "fused_group_aggregate", "partition_histogram", "segment_reduce")}
+# made on first touch by whatever ran before in the process
+_LAZY = ("swallowed.", "failpoint.", "test_")
+# counters both packages move over the same statements
+STATUS_MOVED = ("queries_total.value", "queries_failed.value", "dml_rows.value",
+                "plan_cache_misses.value", "query_latency.count", "flightrec_records.value",
+                "queries_killed.value", "Threads_connected", "health.status")
+
+
+def _status(s) -> dict:
+    return {r["Variable_name"]: r["Value"] for r in s.query("SHOW GLOBAL STATUS")}
+
+
+def _metric_names(status: dict) -> set:
+    return {k if k.startswith("health.") or "." not in k else k.rsplit(".", 1)[0]
+            for k in status if not k.startswith(_LAZY)}
+
+
 def test_show_scope_prefix_matches_jax():
     """SHOW SESSION VARIABLES and a SET seen by SHOW VARIABLES; SHOW GLOBAL
-    STATUS reads the metrics plane, which the port lacks."""
+    STATUS gives the JAX session's names but for the two lists above, and
+    the counters both packages move move alike."""
     p = Pair()
     p.run("SHOW SESSION VARIABLES LIKE 'version'")
     p.run("SET sql_mode = ''")
     p.run("SHOW VARIABLES LIKE 'sql_mode'")
-    with pytest.raises(NotPortedError):
-        p.t.execute("SHOW GLOBAL STATUS")
+    before = [_status(s) for s in (p.j, p.t)]
+    p.script(["CREATE TABLE st (id BIGINT, v DOUBLE)", "INSERT INTO st VALUES (1, 0.5), (2, 1.5)",
+              "SELECT SUM(v) AS s FROM st", "UPDATE st SET v = 2.0 WHERE id = 1"])
+    p.run("SELECT nope FROM st")
+    after = [_status(s) for s in (p.j, p.t)]
+    jn, tn = _metric_names(after[0]), _metric_names(after[1])
+    assert jn - tn == STATUS_JAX_ONLY and tn - jn == STATUS_PORT_ONLY
+
+    def moved(b, a):
+        return {k: (float(a[k]) - float(b[k]) if k != "health.status" else a[k])
+                for k in STATUS_MOVED}
+    assert moved(before[1], after[1]) == moved(before[0], after[0])
+    p.run("SHOW GLOBAL STATUS LIKE 'health.%'")
+    p.run("SHOW SESSION STATUS LIKE 'Threads_connected'")
 
 
 # -- SHOW COLLATION / CHARSET / ENGINES / TABLE STATUS --------------------
@@ -292,6 +339,23 @@ def test_information_schema_trace_spans_of_a_traced_query():
 
 # the lifecycle plane's tables: a subscription, a view and a finished
 # online ADD INDEX give them rows in both packages
+# the observability plane's tables: the columns that do not read the clock,
+# the process-wide counters' values, or each package's connection ids
+OBSERVABILITY_TABLES = {
+    "processlist": "SELECT user, host, db, command, state, info, phase, operator, "
+                   "batches_done, batches_total, rounds_total, chunk_no, chunks_total "
+                   "FROM information_schema.processlist",
+    "flight_recorder": "SELECT rec_id, query_id > 0 AS q, user, db, query, status, rows "
+                       "FROM information_schema.flight_recorder ORDER BY rec_id",
+    "metrics": "SELECT name, field FROM information_schema.metrics WHERE name IN "
+               "('queries_total', 'query_latency', 'flightrec_records', 'queries_killed', "
+               "'process_rss_bytes') ORDER BY name, field",
+    "cluster_metrics": "SELECT daemon, metric, labels, field, stale, age_ms FROM "
+                       "information_schema.cluster_metrics WHERE metric IN "
+                       "('queries_total', 'query_latency', 'slow_queries') "
+                       "ORDER BY daemon, metric, field",
+}
+
 LIFECYCLE_TABLES = {
     "subscriptions": "name, table_key, internal, events_delivered",
     "materialized_views": ("table_schema, view_name, base_table, definition, deltas_folded, "
@@ -307,7 +371,14 @@ LIFECYCLE_TABLES = {
 ])
 def test_information_schema_tables_of_unported_planes_raise(table):
     """The tables of planes the port lacks raise ``NotPortedError``; those
-    of the lifecycle plane (ported) equal the JAX session's."""
+    of the lifecycle plane and of the observability plane (ported) equal the
+    JAX session's."""
+    if table in OBSERVABILITY_TABLES:
+        p = _info_pair()
+        p.run("SELECT COUNT(*) FROM a WHERE g > 1")
+        p.run("SELECT missing FROM a")
+        p.run(OBSERVABILITY_TABLES[table])
+        return
     if table not in LIFECYCLE_TABLES:
         s = TSession(device="cpu")
         with pytest.raises(NotPortedError):
@@ -409,8 +480,17 @@ def test_handle_split_matches_jax():
     "store_heartbeat", "cold_status default.t", "split_region 1",
 ])
 def test_handle_commands_of_unported_planes_raise(cmd):
-    """The commands of planes the port lacks raise ``NotPortedError``; TTL
-    and online DDL (ported) give the JAX session's outcome."""
+    """The commands of planes the port lacks raise ``NotPortedError``; TTL,
+    online DDL, the flight recorder and the privileges (ported) give the JAX
+    session's outcome."""
+    if cmd in ("flightrec clear", "add_privilege u d read"):
+        p = Pair()
+        p.script(["CREATE TABLE h (id BIGINT)", "INSERT INTO h VALUES (1)",
+                  "SELECT COUNT(*) AS n FROM h", f"HANDLE {cmd}", "CREATE USER u",
+                  f"HANDLE {cmd}", "SHOW GRANTS FOR u",
+                  "SELECT query, status FROM information_schema.flight_recorder "
+                  "ORDER BY rec_id"])
+        return
     if cmd not in ("ttl", "ddl suspend"):
         s = TSession(device="cpu")
         with pytest.raises(NotPortedError):
