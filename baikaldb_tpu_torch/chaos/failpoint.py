@@ -5,8 +5,10 @@ wires the cold tier's two seams, ``coldfs.put`` and ``coldfs.get``
 (storage/coldfs.py; a streamed scan reads its chunks through the second),
 the batched dispatcher's tick, ``dispatch.combine`` (exec/dispatch.py), the
 binlog append, ``binlog.append`` (storage/binlog.py), a subscription's fetch
-and ack, ``cdc.fetch`` and ``cdc.apply`` (cdc/streams.py), and a
-materialized view's fold, ``view.fold`` (cdc/views.py).
+and ack, ``cdc.fetch`` and ``cdc.apply`` (cdc/streams.py), a
+materialized view's fold, ``view.fold`` (cdc/views.py), and the replicated
+tier's raft, 2PC, split, migration and balancer seams (``raft.*``,
+``2pc.*``, ``region.*``, ``migrate.*``, ``meta.balance_tick``).
 Each site follows one discipline:
 
     if failpoint.ENABLED:
@@ -90,6 +92,33 @@ CATALOG: dict[str, str] = {
                  "fold round is abandoned before any state change — "
                  "events stay unacked and staleness grows, state stays "
                  "consistent)",
+    # the in-process replicated tier (raft/, meta/service.py,
+    # storage/replicated.py), with the JAX package's texts
+    "raft.append": "RaftGroup.propose_cmd / store rpc_propose "
+                   "(drop: the append never happens, caller sees failure)",
+    "raft.commit": "ReplicatedRegion.apply_committed "
+                   "(drop: defer applying committed entries this round)",
+    "raft.leader_step": "leader resolution (drop: report leaderless / "
+                        "not_leader, forcing election churn + retries)",
+    "2pc.prepare": "two-phase commit prepare fan-out "
+                   "(drop: a participant's prepare fails)",
+    "2pc.decide": "two-phase commit decision propose "
+                  "(drop: the decision propose fails, in-doubt window)",
+    "region.split_fence": "live split, before the fence/routing switch "
+                          "(drop: the split aborts cleanly — child "
+                          "retires, parent routing untouched)",
+    "region.handoff": "live split bulk row handoff into the child region "
+                      "(drop: the copy fails, split aborts; parent keeps "
+                      "serving its whole range)",
+    "migrate.snapshot": "live migration snapshot catch-up of the new "
+                        "learner (drop: the learner is never added, "
+                        "migration aborts with membership unchanged)",
+    "migrate.promote": "live migration learner->voter promotion (drop: "
+                       "promotion skipped, the learner is torn back down "
+                       "— clean rollback)",
+    "meta.balance_tick": "MetaService.tick control loop (drop: the tick "
+                         "emits no orders — a stalled balancer; the data "
+                         "plane must stay correct without it)",
 }
 
 _SPEC_RE = re.compile(

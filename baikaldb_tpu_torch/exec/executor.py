@@ -41,12 +41,18 @@ Every executed repartition is recorded in the run's ``exchanges`` (what the
 session's mesh telemetry reads).
 
 Ported nodes: all of them.  Scan (with its pushed filter), Filter, Shrink,
-Project, Join (cross, EXISTS-with-<>, dense PK-FK, sort join), MultiJoin,
+Project, Join (cross, EXISTS-with-<>, dense PK-FK, sort join, the radix
+join under ``radix_join_buckets``), MultiJoin,
 Exchange, Union, Membership (SQL three-valued IN / NOT IN), ScalarSource,
 Agg (scalar, dense with ``key_shift``, sorted, the mesh merges), Distinct,
 Window, Sort (with top-k), Limit and Values, and the StreamResult leaf
 through which the finalize step of a streamed scan (exec/streaming.py) reads
 its folded aggregate.
+
+A join's build side, an EXISTS-with-<> build and a sorted GROUP BY take the
+host presort permutation the session staged for them (``presort_input``, a
+``__presort__`` key of the batches) in place of a device sort, as the JAX
+executor does (``_presort_order``).
 """
 
 from __future__ import annotations
@@ -83,6 +89,14 @@ from ..plan.nodes import (AggNode, DistinctNode, ExchangeNode, FilterNode,
                           ValuesNode, WindowNode, plan_signature)
 from ..plan.planner import PlanError
 from ..types import LType
+from ..utils.flags import FLAGS, define
+
+define("radix_join_buckets", 0,
+       "hash-partition sort-join builds into this many buckets (power of "
+       "two; 0 = off): per-bucket sorts replace the one global sort "
+       "(ops/radix.py)")
+define("radix_join_min_build", 65536,
+       "radix-partition joins only engage for builds at least this large")
 
 
 class ExecError(RuntimeError):
@@ -99,6 +113,7 @@ class Ctx:
 
     device: torch.device
     mesh: Optional[Mesh] = None
+    batches: dict = field(default_factory=dict)
     memo: dict = field(default_factory=dict)
     exchanges: list = field(default_factory=list)
     counts: Optional[dict] = None
@@ -124,7 +139,7 @@ def compile_plan(plan: PlanNode, device, mesh: Optional[Mesh] = None,
     device = torch.device(device)
 
     def run(batches: dict) -> ColumnBatch:
-        ctx = Ctx(device, mesh, counts={} if count_rows else None)
+        ctx = Ctx(device, mesh, batches, counts={} if count_rows else None)
         run.exchanges = ctx.exchanges
         params = batches.get(PARAMS_KEY)
         with bind_params(device_params(params, device) if params is not None else ()):
@@ -238,6 +253,17 @@ def _scan(node: ScanNode, b: ColumnBatch) -> ColumnBatch:
     return out
 
 
+def _presort_order(node, ctx: Ctx, expected_len: int):
+    """The host presort permutation the session staged for ``node``, or
+    None when there is none or the input's positions are not the base
+    table's (an access-path gather, a shard)."""
+    pkey = getattr(node, "presort_input", None)
+    order = ctx.batches.get(pkey) if pkey else None
+    if order is not None and len(order) != expected_len:
+        return None
+    return order
+
+
 def _apply(node: PlanNode, kids: list, ctx: Ctx) -> ColumnBatch:
     """``node`` over its evaluated children, on one device (one shard)."""
     if isinstance(node, FilterNode):
@@ -261,7 +287,8 @@ def _apply(node: PlanNode, kids: list, ctx: Ctx) -> ColumnBatch:
             # EXISTS + one <> residual: range counts, no expansion
             out, rows = join_ops.semi_join_neq(left, node.left_keys, right,
                                                node.right_keys, node.neq[0],
-                                               node.neq[1], how=node.how)
+                                               node.neq[1], how=node.how,
+                                               order=_presort_order(node, ctx, len(right)))
         elif node.strategy == "dense":
             # unique-build PK-FK join: scatter/gather over the dense key
             # domain(s); the output keeps the probe's rows
@@ -269,10 +296,23 @@ def _apply(node: PlanNode, kids: list, ctx: Ctx) -> ColumnBatch:
                                             node.right_keys, list(node.dense_lo),
                                             list(node.dense_span), how=node.how)
         else:
-            out, rows = join_ops.join(
-                left, node.left_keys, right, node.right_keys, how=node.how,
-                wide_keys_ok=getattr(node, "pack32_verified", False),
-                build_sorted=getattr(node, "build_sorted", False))
+            nb = int(FLAGS.radix_join_buckets)
+            presort = _presort_order(node, ctx, len(right))
+            float_keys = any(right.column(k).ltype.is_float
+                             for k in node.right_keys if k in right.names)
+            # the JAX executor's gate: a presorted or planner-sorted build
+            # side, or float keys, keep the sort join
+            if nb >= 2 and nb & (nb - 1) == 0 and presort is None and not float_keys \
+                    and not getattr(node, "build_sorted", False) \
+                    and len(right) >= int(FLAGS.radix_join_min_build):
+                out, rows, _ = join_ops.radix_join(
+                    left, node.left_keys, right, node.right_keys, how=node.how,
+                    wide_keys_ok=getattr(node, "pack32_verified", False), n_buckets=nb)
+            else:
+                out, rows = join_ops.join(
+                    left, node.left_keys, right, node.right_keys, how=node.how,
+                    wide_keys_ok=getattr(node, "pack32_verified", False),
+                    build_sorted=getattr(node, "build_sorted", False), order=presort)
         if ctx.mesh is not None and any(isinstance(c, ExchangeNode)
                                         and c.kind == "repartition"
                                         for c in node.children):
@@ -338,7 +378,8 @@ def _apply(node: PlanNode, kids: list, ctx: Ctx) -> ColumnBatch:
             out = group_aggregate_dense(work, node.key_names, node.domains, node.specs)
             return _shift_keys(out, shift, 1) if shift else out
         mg = node.max_groups or max(1, len(child))
-        return group_aggregate_sorted(child, node.key_names, node.specs, mg)
+        return group_aggregate_sorted(child, node.key_names, node.specs, mg,
+                                      order=_presort_order(node, ctx, len(child)))
 
     if isinstance(node, DistinctNode):
         child = kids[0]

@@ -43,8 +43,8 @@ QUERY n] read the kept traces.  ``Session(db, user=...)`` runs as that
 account: each statement is checked against its grants (CREATE / DROP
 USER, GRANT, REVOKE, SHOW GRANTS, HANDLE add_privilege / drop_privilege).
 The SHOW forms, ``information_schema`` tables and HANDLE commands that read
-a plane the port lacks (regions, the fleet, the cold tier, ...) raise
-``NotPortedError``.
+a plane the port lacks (the cold tier's segments, the network plane, ...)
+raise ``NotPortedError``.
 
 Tables may be partitioned (``PARTITION BY RANGE (col) (PARTITION p VALUES
 LESS THAN (v | MAXVALUE), ...)`` or ``PARTITION BY HASH (col) PARTITIONS
@@ -149,8 +149,21 @@ they launch the group kernels.  TTL=<s> [TTL_COLUMN=c] tables purge on
 backfills online (meta/ddl.py; HANDLE ddl suspend | resume,
 ``information_schema.ddl_work``).
 
-Not ported yet: the host presort permutations, pushdown, SHOW PROCESSLIST /
-PROFILE, KILL, and the replicated tier (the distributed binlog with it).
+A ``Database(fleet=...)`` replicates every table through the in-process
+Raft fleet (storage/replicated.py): SHOW REGIONS, ``information_schema.
+regions`` and HANDLE's fleet commands (``drop_instance``, ``migrate``,
+``add_instance``, ``add_peer``, ``remove_peer``, ``trans_leader``,
+``add_learner``, ``remove_learner``, ``split_region``, ``merge_region``,
+``store_heartbeat``, ``balance_tick``, ``compact``) read and drive it.
+
+A join's build side or a sorted GROUP BY over a whole table (the planner's
+``presort``) takes a host permutation of the table's key columns, cached per
+version, instead of a device sort (``_collect_batches``, under the JAX
+session's guards); the radix join runs under ``radix_join_buckets``.
+
+Not ported yet: pushdown, the cold tier's segments and the distributed
+binlog of a fleet (ROADMAP item 6b), the HANDLE cold_* commands, and
+``Database(cluster=...)``.
 """
 
 from __future__ import annotations
@@ -216,7 +229,7 @@ from ..sql.stmt import (AlterTableStmt, CreateDatabaseStmt, CreateMatViewStmt,
                         UpdateStmt, UseStmt)
 from ..storage.binlog import Binlog
 from ..storage.coldfs import ExternalFS
-from ..storage.column_store import TableStore, commit_group, schema_to_arrow
+from ..storage.column_store import ROWID, TableStore, commit_group, schema_to_arrow
 from ..storage.mvcc import MvccRuntime, SnapshotRefused
 from ..storage.streamchunks import ChunkSource, chunk_set
 from ..types import Field, LType, Schema
@@ -282,10 +295,9 @@ _ENV_FNS = ("database", "schema", "user", "current_user", "session_user",
 BINLOG_ROW_IMAGES_MAX = 1000
 
 # the JAX session's HANDLE commands whose planes the port lacks
-_HANDLE_PLANES = ("drop_instance", "migrate", "add_instance",
-                  "add_peer", "remove_peer", "trans_leader", "add_learner",
-                  "remove_learner", "split_region", "merge_region", "store_heartbeat",
-                  "balance_tick", "cold_flush", "cold_gc", "cold_status", "compact")
+# HANDLE commands of a plane the port lacks: the cold tier's segments
+# (ROADMAP item 6b)
+_HANDLE_PLANES = ("cold_flush", "cold_gc", "cold_status")
 
 
 def _env_alias(e):
@@ -423,16 +435,41 @@ class Database:
     (obs/flightrec.py: every finished statement, with a forensic bundle for
     slow, killed and failed ones) and ``watchdog`` (obs/watchdog.py: scans
     this database's live queries on demand; its thread runs only in
-    cluster mode, as in the JAX package)."""
+    cluster mode, as in the JAX package).
+
+    ``fleet`` (a raft.fleet.StoreFleet over a meta.service.MetaService):
+    every table's row tier is raft-replicated across the fleet's stores
+    (storage/replicated.py): DML quorum-commits through the region groups,
+    the MVCC clock is the meta service's TSO (one per fleet, shared by every
+    Database on it), and a new Database over the same fleet rebuilds each
+    table it creates from the replicas.  ``read_replica="follower"`` rebuilds
+    from non-leader replicas within ``read_max_lag`` applied entries,
+    optionally only on instances tagged ``read_tag`` (an OLAP-isolated
+    reader).  A fleet-bound Database takes no ``data_dir`` (the replicas are
+    its durability) and no cold tier yet (ROADMAP item 6b); ``cluster``, the
+    multi-process variant, waits for item 7."""
 
     def __init__(self, device=None, cold_dir: Optional[str] = None,
-                 data_dir: Optional[str] = None):
+                 data_dir: Optional[str] = None, fleet=None, cluster=None,
+                 read_replica: str = "leader", read_tag: str = "",
+                 read_max_lag: int = 0):
+        if cluster is not None:
+            raise NotPortedError("Database(cluster=...) (the store daemons, ROADMAP item 7)")
+        if data_dir and fleet is not None:
+            # the replicated tier is the durability of a fleet-bound table;
+            # skipping the WAL the caller asked for would be worse
+            raise ValueError("data_dir cannot combine with fleet/cluster "
+                             "mode: durability lives in the replicated tier")
         self.device = resolve_device(device)
         self.catalog = Catalog()
         self.stores: dict[str, TableStore] = {}
         self.cold_dir = cold_dir
         self._cold_fs = None
-        self.mvcc = MvccRuntime()
+        self.fleet = fleet
+        self.read_replica = read_replica
+        self.read_tag = read_tag
+        self.read_max_lag = int(read_max_lag)
+        self.mvcc = MvccRuntime(fleet.meta.tso.gen if fleet is not None else None)
         self.data_dir = data_dir
         # admission control (utils/qos.QosManager), off unless set; the
         # engine-wide batched dispatcher; the query log
@@ -467,9 +504,25 @@ class Database:
     def make_store(self, info) -> TableStore:
         """A table's store on this database's device, joined to its MVCC
         plane; under ``data_dir`` it loads its checkpoint and replays its
-        WAL."""
+        WAL; on a fleet it binds to the table's replicated tier (made at the
+        first CREATE over the fleet) and replays the replicas' rows."""
         st = TableStore(info, self.device)
         st.attach_mvcc(self.mvcc)
+        if self.fleet is not None:
+            from ..storage.replicated import ReplicatedRowTier
+
+            if self.cold_fs() is not None:
+                raise NotPortedError("a fleet-bound Database with a cold tier "
+                                     "(the cold segments, ROADMAP item 6b)")
+            key = f"{info.database}.{info.name}"
+            tier = ReplicatedRowTier.get_or_create(self.fleet, info.table_id, key,
+                                                   st._row_schema(), [ROWID])
+            hot = None
+            if self.read_replica == "follower":
+                hot = tier.follower_rows(max_lag=self.read_max_lag,
+                                         resource_tag=self.read_tag)
+            st.attach_replicated(tier, hot_rows=hot)
+            return st
         if self.data_dir:
             key = f"{info.database}.{info.name}"
             pq_dir = os.path.join(self.data_dir, key)
@@ -1357,6 +1410,21 @@ class Session:
                      for db, lv in self.db.privileges.grants_of(user)]
             return Result(columns=[f"Grants for {user}"],
                           arrow=pa.table({f"Grants for {user}": lines}))
+        if s.what == "regions":
+            # the stores' column regions (the raft regions of a fleet are
+            # information_schema.regions), as the JAX session lists them
+            rows = []
+            for key, st in sorted(self.db.stores.items()):
+                if s.table is not None and \
+                        key != f"{s.table.database or self.current_db}.{s.table.name}":
+                    continue
+                rows += [(key, r.region_id, r.num_rows, r.version) for r in st.regions]
+            return Result(columns=["Table", "Region_id", "Rows", "Version"],
+                          arrow=pa.table({
+                              "Table": [r[0] for r in rows],
+                              "Region_id": pa.array([r[1] for r in rows], pa.int64()),
+                              "Rows": pa.array([r[2] for r in rows], pa.int64()),
+                              "Version": pa.array([r[3] for r in rows], pa.int64())}))
         raise NotPortedError(f"SHOW {s.what.upper()} (its plane is not ported)")
 
     def _show_processlist(self, s: ShowStmt) -> Result:
@@ -1477,10 +1545,15 @@ class Session:
         self._forget_access(key)
 
     def _drop_durable(self, key: str, store) -> None:
-        """A dropped table's images go, and under ``data_dir`` its WAL and
-        Parquet checkpoint."""
+        """A dropped table's images go, on a fleet its replicated tier's
+        raft groups, and under ``data_dir`` its WAL and Parquet
+        checkpoint."""
         if store is not None:
             store.release()
+        if self.db.fleet is not None:
+            tier = self.db.fleet.row_tiers.pop(key, None)
+            if tier is not None:
+                tier.release_regions()   # no ghost raft groups in the fleet
         if not self.db.data_dir:
             return
         if store is not None:
@@ -2057,9 +2130,76 @@ class Session:
         if s.command == "set_flag" and len(s.args) >= 2:
             FLAGS.set_flag(s.args[0], " ".join(s.args[1:]))
             return Result()
+        fleet_cmd = self._handle_fleet(s)
+        if fleet_cmd is not None:
+            return fleet_cmd
         if s.command in _HANDLE_PLANES:
-            raise NotPortedError(f"HANDLE {s.command} (its plane is not ported)")
+            raise NotPortedError(f"HANDLE {s.command} (the cold tier's segments, "
+                                 "ROADMAP item 6b)")
         raise SqlError(f"unsupported HANDLE command {s.command!r}")
+
+    def _handle_fleet(self, s: HandleStmt) -> Optional[Result]:
+        """HANDLE's commands of a fleet-bound Database, as the JAX session
+        runs them; None for any other command."""
+        if s.command in ("drop_instance", "migrate") and s.args:
+            # mark a store MIGRATE: balancing drains its peers
+            self._fleet_required().meta.drop_instance("".join(s.args))
+            return Result()
+        if s.command == "add_instance" and s.args:
+            # add_instance <store_addr> [resource_tag]; the lexer splits
+            # "host:port" into tokens, so the tag is only a trailing token
+            # that cannot be part of an address
+            args = [str(a) for a in s.args]
+            tag = ""
+            if len(args) > 1 and ":" not in args[-1] and not args[-1].isdigit():
+                tag = args[-1]
+                args = args[:-1]
+            self._fleet_required().meta.add_instance("".join(args), resource_tag=tag)
+            return Result()
+        if s.command in ("add_peer", "remove_peer", "trans_leader", "add_learner",
+                         "remove_learner") and len(s.args) >= 2:
+            # <region_id> <store>: validated, run and recorded in meta by the
+            # fleet; a failure raises, never a success for an op not done
+            try:
+                self._fleet_required().operator_order(s.command, int(s.args[0]),
+                                                      "".join(s.args[1:]))
+            except (ValueError, RuntimeError) as e:
+                raise PlanError(str(e)) from None
+            return Result(affected_rows=1)
+        if s.command in ("split_region", "merge_region") and s.args:
+            tier, idx = self._find_region(int(s.args[0]))
+            if s.command == "split_region":
+                tier.split_region(idx)
+            else:
+                tier.merge_region(idx)
+            return Result()
+        if s.command in ("store_heartbeat", "balance_tick"):
+            # one control-loop turn: heartbeats in, balance orders run
+            return Result(affected_rows=self._fleet_required().control_tick())
+        if s.command == "compact":
+            # raft log compaction over every replicated tier and the meta
+            fleet = self.db.fleet
+            if fleet is not None:
+                for tier in fleet.row_tiers.values():
+                    tier.compact_all()
+                if hasattr(fleet.meta, "compact_all"):
+                    fleet.meta.compact_all()
+            return Result()
+        return None
+
+    def _fleet_required(self):
+        if self.db.fleet is None:
+            raise PlanError("this HANDLE command needs a fleet-bound "
+                            "Database (store fleet + meta)")
+        return self.db.fleet
+
+    def _find_region(self, region_id: int):
+        """(tier, index) of the replicated region ``region_id``."""
+        for tier in self._fleet_required().row_tiers.values():
+            for i, m in enumerate(tier.metas):
+                if m.region_id == region_id:
+                    return tier, i
+        raise PlanError(f"unknown region {region_id}")
 
     def ttl_tick(self, now=None) -> int:
         """Purge the expired rows of every TTL table (reference: store-side
@@ -2890,6 +3030,10 @@ class Session:
         for tk, v, *_rest in shape_key:
             if v < 0 or tk not in full_scan:
                 return inline()
+        # a presort permutation is per-plan-object state: such a query runs
+        # inline, as in the JAX session
+        if any(isinstance(k, str) and k.startswith("__presort__") for k in batches):
+            return inline()
         # members coalesce on (statement shape + pinned values, scan shapes
         # at exact versions, plan signature): they differ only in params
         group_key = (lookup_key, shape_key, entry["plan_sig"])
@@ -3207,6 +3351,18 @@ class Session:
 
     # the information_schema tables, one method each: rows in the table's
     # catalog column order, as the JAX session renders them
+    def _info_regions(self) -> list:
+        """One row per region in the fleet meta's routing table (none
+        without a fleet); a region whose tier is gone shows its table id."""
+        fleet = self.db.fleet
+        if fleet is None:
+            return []
+        names = {t.table_id: t.table_key for t in fleet.row_tiers.values()}
+        return [(r.region_id, names.get(r.table_id, str(r.table_id)), r.start_key,
+                 r.end_key, ",".join(r.peers), ",".join(r.learners), r.leader, r.state,
+                 r.version, r.num_rows, r.apply_lag, r.proposal_queue, r.write_rate)
+                for r in sorted(fleet.meta.regions.values(), key=lambda r: r.region_id)]
+
     def _info_tables(self) -> list:
         cat = self.db.catalog
         rows = []
@@ -3450,14 +3606,42 @@ class Session:
             for c in n.children:
                 walk(c)
 
+        captured: dict = {}                  # table -> version its image was read at
+
+        def walk_presort(n: PlanNode):
+            # a node the planner marked (``presort``: kind, table, key
+            # columns) takes the host permutation of its table's keys, under
+            # the JAX session's guards: off the mesh, its input the table's
+            # whole image (not a pinned, streamed, pruned, zone-map or
+            # index-gathered batch) and the store still at the version that
+            # image was captured at
+            spec = getattr(n, "presort", None)
+            if spec is not None and self.mesh is None:
+                n.presort_input = None
+                kind, table_key, cols = spec
+                store = self.db.stores.get(table_key)
+                if store is not None and table_key in batches and table_key in full_scan \
+                        and store.version == captured.get(table_key):
+                    pkey = f"__presort__{kind}|{table_key}|{','.join(cols)}"
+                    if pkey not in batches:
+                        perm = store.presort_order(kind, tuple(cols), captured[table_key])
+                        if perm is not None:
+                            batches[pkey] = perm
+                    if pkey in batches:
+                        n.presort_input = pkey
+            for c in n.children:
+                walk_presort(c)
+
         try:
             walk(plan)
+            captured.update((p[0], p[1]) for p in key_parts)
+            walk_presort(plan)
         finally:
             # the recursive closures hold themselves through their cells,
             # and walk holds the batches: break the cycles, so a query's
             # device inputs (its bound params among them) go with the query
             # and not at the collector's next pass
-            walk = count = scan_beat = None
+            walk = walk_presort = count = scan_beat = None
         return batches, tuple(sorted(key_parts)), full_scan
 
     def _pushed_filter(self, n: ScanNode):

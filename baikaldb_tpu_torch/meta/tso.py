@@ -1,7 +1,8 @@
-"""The process-local timestamp oracle behind ``storage.mvcc.TsoClient()``.
+"""The hybrid timestamp oracle: process-local behind
+``storage.mvcc.TsoClient()``, and the meta service's (meta/service.py
+``MetaService.tso``) behind every fleet-bound Database, so a fleet has one.
 
-The port of ``Tso`` in ``baikaldb_tpu/meta/service.py`` (the meta service,
-its raft group and the fleet are not ported).  A hybrid timestamp is
+The port of ``Tso`` in ``baikaldb_tpu/meta/service.py``.  A hybrid timestamp is
 ``physical_ms << 18 | logical``; a grant of ``count`` timestamps is the
 integer interval ``[first, first + count)``: logical overflow carries into
 the physical bits by plain arithmetic, so the client serves allocations as

@@ -1,11 +1,14 @@
-"""The native row engine (``engine.cpp``): build and ctypes binding.
+"""The native host libraries: the row engine (``engine.cpp``) and the Raft
+core (``raft.cpp``, bound in raft/core.py), their build and ctypes binding.
 
-The port's copy of ``baikaldb_tpu/native/__init__.py``.  ``engine.cpp`` is
-host C++ (the memcomparable key codec, the MVCC memtable and its WAL), not a
-device kernel.  It is compiled with ``g++`` at first use into
-``baikaldb_tpu_torch/_build/`` (git-ignored), under a temporary name that is
-then moved into place, so concurrent first users (test workers) never load a
-half-written library.  ``get_lib()`` returns None when no compiler is
+The port's copy of ``baikaldb_tpu/native/__init__.py``.  Both sources are
+host C++, not device kernels: ``engine.cpp`` is the memcomparable key codec,
+the MVCC memtable and its WAL; ``raft.cpp`` is a deterministic consensus
+state machine.  Each is compiled with ``g++`` at first use into
+``baikaldb_tpu_torch/_build/`` (git-ignored), under a name that carries a
+hash of its source, to a temporary name that is then moved into place, so
+concurrent first users (test workers) never load a half-written or stale
+library (``build_library``).  ``get_lib()`` returns None when no compiler is
 available and the callers take the pure-Python codec (storage/_pykeys.py);
 ``require()`` raises instead, for runs that must use the native engine.
 """
@@ -27,20 +30,27 @@ _lib = None
 _err: str | None = None
 
 
-def _so_path() -> str:
-    """One library per source content: an edited engine.cpp never loads a
-    stale build."""
-    with open(_SRC, "rb") as f:
+def _so_path(src: str = _SRC, stem: str = "bkengine") -> str:
+    """One library per source content (the row engine's by default): an
+    edited source never loads a stale build."""
+    with open(src, "rb") as f:
         digest = hashlib.sha1(f.read()).hexdigest()[:12]
-    return os.path.join(BUILD_DIR, f"libbkengine_{digest}.so")
+    return os.path.join(BUILD_DIR, f"lib{stem}_{digest}.so")
 
 
-def _build(so: str) -> str | None:
+def build_library(src: str, stem: str) -> tuple[str, str | None]:
+    """Compile ``src`` into ``_build/lib<stem>_<hash>.so`` unless it is
+    there -> (library path, compiler error or None)."""
+    so = _so_path(src, stem)
+    return so, _build(src, so)
+
+
+def _build(src: str, so: str) -> str | None:
     if os.path.exists(so):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{so}.{os.getpid()}.{threading.get_ident()}.tmp"
-    cmd = ["g++", "-O2", "-fPIC", "-shared", "-std=c++17", _SRC, "-o", tmp]
+    cmd = ["g++", "-O2", "-fPIC", "-shared", "-std=c++17", src, "-o", tmp]
     try:
         r = subprocess.run(cmd, capture_output=True, text=True, timeout=300)
     except Exception as e:  # noqa: BLE001 — no compiler: the caller decides
@@ -103,8 +113,7 @@ def get_lib():
     with _lock:
         if _lib is not None or _err is not None:
             return _lib
-        so = _so_path()
-        err = _build(so)
+        so, err = build_library(_SRC, "bkengine")
         if err is not None:
             _err = err
             return None

@@ -1,6 +1,9 @@
 // Native row engine of baikaldb_tpu_torch: memcomparable key codec + MVCC
 // memtable.  A copy of baikaldb_tpu/native/engine.cpp (same key bytes, same
-// WAL records), so the port reads a WAL the JAX package wrote.
+// WAL records), so the port reads a WAL the JAX package wrote.  One change:
+// a table counts its live keys as versions are pushed, so
+// bk_table_num_live_keys (read after every replicated write) is O(1), not a
+// walk of the map.
 //
 // The reference's OLTP tier is RocksDB behind a memcomparable key encoding
 // (include/common/key_encoder.h: sign-flipped big-endian ints, IEEE-rearranged
@@ -134,9 +137,20 @@ struct Version {
 struct BkTable {
     std::map<std::string, std::vector<Version>> rows;  // newest last
     uint64_t next_seq = 1;
+    int64_t live = 0;        // keys whose newest version is not a tombstone
     std::mutex mu;
     FILE* wal = nullptr;
 };
+
+// append a key's newest version, keeping the live-key count (the region
+// size signal read after every replicated write) without a scan
+static void push_version(BkTable* t, const std::string& k, uint64_t seq,
+                         bool tombstone, const std::string& v) {
+    auto& vs = t->rows[k];
+    bool was_live = !vs.empty() && !vs.back().tombstone;
+    vs.push_back(Version{seq, tombstone, v});
+    t->live += (tombstone ? 0 : 1) - (was_live ? 1 : 0);
+}
 
 BkTable* bk_table_new() { return new BkTable(); }
 
@@ -172,7 +186,7 @@ int bk_table_open_wal(BkTable* t, const char* path) {
             std::string k(kl, '\0'), v(vl, '\0');
             if (kl && fread(&k[0], 1, kl, f) != kl) break;
             if (vl && fread(&v[0], 1, vl, f) != vl) break;
-            t->rows[k].push_back(Version{seq, op == 1, v});
+            push_version(t, k, seq, op == 1, v);
             if (seq >= t->next_seq) t->next_seq = seq + 1;
         }
         fclose(f);
@@ -200,7 +214,7 @@ uint64_t bk_table_write_batch(BkTable* t, const uint8_t* ops,
                       (size_t)(key_offs[i + 1] - key_offs[i]));
         std::string v((const char*)vals + val_offs[i],
                       (size_t)(val_offs[i + 1] - val_offs[i]));
-        t->rows[k].push_back(Version{seq, ops[i] == 1, v});
+        push_version(t, k, seq, ops[i] == 1, v);
         wal_record(t, ops[i], k, v, seq);
     }
     return seq;
@@ -318,12 +332,10 @@ int64_t bk_table_num_keys(BkTable* t) {
 int64_t bk_table_num_live_keys(BkTable* t) {
     // keys whose newest version is not a tombstone — the region-size signal
     // for split/merge policy (tombstoned keys linger until gc, so
-    // num_keys would re-trigger splits on just-trimmed regions)
+    // num_keys would re-trigger splits on just-trimmed regions); counted as
+    // versions are pushed (gc drops only older versions and dead keys)
     std::lock_guard<std::mutex> g(t->mu);
-    int64_t n = 0;
-    for (auto& kv : t->rows)
-        if (!kv.second.empty() && !kv.second.back().tombstone) ++n;
-    return n;
+    return t->live;
 }
 
 }  // extern "C"

@@ -43,6 +43,7 @@ from ..column.batch import Column, ColumnBatch, dtype_max, dtype_min
 from ..types import LType
 from ..utils.flags import FLAGS
 from ..utils.hashing import GOLDEN, hash_columns, mix32
+from .compact import stable_partition
 from .group_kernels import (MAX_GROUPS, filtered_group_sum, filtered_group_sum_lanes,
                             fused_group_aggregate, fused_group_aggregate_lanes,
                             partition_histogram, partition_histogram_lanes)
@@ -537,9 +538,12 @@ def _segment_one_lanes(batch: ColumnBatch, s: AggSpec, gid, ng: int, sel) -> Col
 
 def group_aggregate_sorted(batch: ColumnBatch, key_names: list[str],
                            specs: list[AggSpec], max_groups: int,
-                           with_overflow: bool = False):
+                           with_overflow: bool = False, order=None):
     """General GROUP BY: lexicographic stable sort, boundary cumsum group
-    ids, segment reductions into a ``max_groups``-slot table.
+    ids, segment reductions into a ``max_groups``-slot table.  ``order``:
+    the key order of the whole base table computed on the host (the
+    session's presort, storage/column_store.py ``agg_sort_permutation``),
+    so only the stable partition of live rows first stays on the device.
 
     ``max_groups`` must upper-bound the true group count (the planner
     supplies it from statistics or len(batch)); groups fill slots densely
@@ -562,12 +566,16 @@ def group_aggregate_sorted(batch: ColumnBatch, key_names: list[str],
     def stable(x):
         return torch.argsort(x.to(torch.int8) if x.dtype is torch.bool else x, stable=True)
 
-    perm = torch.arange(n, device=dev)
-    for c, d in zip(reversed(key_cols), reversed(key_data)):
-        perm = perm[stable(d[perm])]
-        if c.validity is not None:
-            perm = perm[stable(c.validity[perm])]     # NULLs first
-    perm = perm[stable(~sel[perm])]                   # dead rows last
+    if order is not None:
+        order = order.to(torch.int64)
+        perm = order[stable_partition(sel[order])]    # dead rows last
+    else:
+        perm = torch.arange(n, device=dev)
+        for c, d in zip(reversed(key_cols), reversed(key_data)):
+            perm = perm[stable(d[perm])]
+            if c.validity is not None:
+                perm = perm[stable(c.validity[perm])]     # NULLs first
+        perm = perm[stable(~sel[perm])]                   # dead rows last
 
     sel_s = sel[perm]
     boundary = torch.arange(n, device=dev) == 0

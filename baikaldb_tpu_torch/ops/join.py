@@ -20,10 +20,13 @@ gather probes it.
   and semi/anti ``join`` keep the probe's rows and refine its ``sel``.
 - Indices are clamped explicitly wherever the JAX code relies on
   ``mode="clip"``: an out-of-range index on CUDA is a device-side assert.
-
-Not ported yet: ``radix_join`` (off by default in the JAX package) and the
-host presort permutations (``order=``): this module always sorts the build
-side on the device, which is the ``order=None`` path of the JAX functions.
+- ``order=``: a host permutation that sorts the build side's keys over the
+  whole base table (storage/column_store.py ``sort_permutation``, fed by
+  the session's presort), so only a stable partition by deadness stays on
+  the device.
+- ``radix_join`` hash-partitions the build side into buckets and sorts
+  each one (ops/radix.py); the executor takes it under the flag
+  ``radix_join_buckets``.
 """
 
 from __future__ import annotations
@@ -130,13 +133,18 @@ def _probe_dead(probe: ColumnBatch, pvalid):
     return sel_dead, dead
 
 
-def _live_sorted(keys: torch.Tensor, dead: torch.Tensor, presorted: bool = False):
+def _live_sorted(keys: torch.Tensor, dead: torch.Tensor, presorted: bool = False,
+                 order=None):
     """The ``lexsort((keys, dead))`` layout: live rows sorted by key (stable)
     in front, dead rows behind them, the dead tail's keys replaced by the
     dtype's maximum.  ``presorted``: the live rows already arrive in key
-    order, so a stable partition by deadness replaces the sort.
-    -> (order, sorted keys, live count as a 0-d tensor)."""
-    if presorted:
+    order, so a stable partition by deadness replaces the sort; ``order``:
+    a permutation that sorts ``keys`` (the host presort), composed with that
+    partition.  -> (order, sorted keys, live count as a 0-d tensor)."""
+    if order is not None:
+        order = order.to(torch.int64)
+        order = order[stable_partition(~dead[order])]
+    elif presorted:
         order = stable_partition(~dead)
     else:
         by_key = torch.sort(keys, stable=True).indices
@@ -158,7 +166,8 @@ def _search(sorted_keys: torch.Tensor, values: torch.Tensor, side: str):
 
 def semi_join_neq(probe: ColumnBatch, probe_keys: list[str],
                   build: ColumnBatch, build_keys: list[str],
-                  neq_probe: str, neq_build: str, how: str = "semi"):
+                  neq_probe: str, neq_build: str, how: str = "semi",
+                  order=None):
     """[NOT] EXISTS with equality keys plus ONE ``build_col <> probe_col``
     residual — the TPC-H q21 shape — without expanding the many-to-many
     match space.  For each probe row the residual-satisfying match count is
@@ -166,8 +175,11 @@ def semi_join_neq(probe: ColumnBatch, probe_keys: list[str],
         #(key matches with build_col NOT NULL)  -  #(key, build_col=probe_col)
 
     both computed as range counts over one build array sorted by the packed
-    (key, residual column).  Returns (out_batch, 0).  Key and residual
-    columns must be 32-bit-safe (the planner checks)."""
+    (key, residual column).  ``order``: the host presort of that packed
+    array over the whole base table; dead rows then stay among the live
+    ones, and a prefix sum of deadness turns value-range counts into live
+    counts.  Returns (out_batch, 0).  Key and residual columns must be
+    32-bit-safe (the planner checks)."""
     probe, build = _align_string_keys(probe, probe_keys, build, build_keys)
     pk, pvalid = _key_array(probe, probe_keys)
     bk, bvalid = _key_array(build, build_keys)
@@ -184,19 +196,34 @@ def semi_join_neq(probe: ColumnBatch, probe_keys: list[str],
     pk2 = (bk.to(torch.int64) << 32) | (b.data.to(torch.int64) & mask32)
     base = pk.to(torch.int64) << 32
     pp = base | (a.data.to(torch.int64) & mask32)
-    _, pk2_sorted, n_live = _live_sorted(pk2, bdead)
+    if order is not None:
+        order = order.to(torch.int64)
+        pk2_sorted = pk2[order]
+        dead_sorted = bdead[order].to(torch.int64)
+        cum = torch.cat([torch.zeros(1, dtype=torch.int64, device=pk2.device),
+                         torch.cumsum(dead_sorted, 0)])
 
-    def clamp(x):
-        return torch.minimum(x, n_live)
+        def live_range(lo_v, hi_v):
+            lo = _search(pk2_sorted, lo_v, "left")
+            hi = _search(pk2_sorted, hi_v, "right")
+            return (hi - lo) - (cum[hi] - cum[lo])
 
-    key_lo = clamp(_search(pk2_sorted, base, "left"))
-    # upper bound via side="right" on the all-ones low word: adding 2^32
-    # would overflow int64 for a key at dtype max
-    key_hi = clamp(_search(pk2_sorted, base | mask32, "right"))
-    pp_lo = clamp(_search(pk2_sorted, pp, "left"))
-    pp_hi = clamp(_search(pk2_sorted, pp, "right"))
-    key_cnt = key_hi - key_lo
-    eq_cnt = pp_hi - pp_lo
+        key_cnt = live_range(base, base | mask32)
+        eq_cnt = live_range(pp, pp)
+    else:
+        _, pk2_sorted, n_live = _live_sorted(pk2, bdead)
+
+        def clamp(x):
+            return torch.minimum(x, n_live)
+
+        key_lo = clamp(_search(pk2_sorted, base, "left"))
+        # upper bound via side="right" on the all-ones low word: adding
+        # 2^32 would overflow int64 for a key at dtype max
+        key_hi = clamp(_search(pk2_sorted, base | mask32, "right"))
+        pp_lo = clamp(_search(pk2_sorted, pp, "left"))
+        pp_hi = clamp(_search(pk2_sorted, pp, "right"))
+        key_cnt = key_hi - key_lo
+        eq_cnt = pp_hi - pp_lo
 
     _, pdead = _probe_dead(probe, pvalid)
     if a.validity is not None:
@@ -212,7 +239,7 @@ def semi_join_neq(probe: ColumnBatch, probe_keys: list[str],
 def join(probe: ColumnBatch, probe_keys: list[str],
          build: ColumnBatch, build_keys: list[str],
          how: str = "inner", suffix: str = "_r", wide_keys_ok: bool = False,
-         build_sorted: bool = False):
+         build_sorted: bool = False, order=None):
     """Returns (out_batch, output rows).
 
     how: inner | left | semi | anti.
@@ -222,6 +249,8 @@ def join(probe: ColumnBatch, probe_keys: list[str],
       without a match.
     ``build_sorted``: the planner proved the build side arrives key-sorted
     over its live rows, so a stable partition by deadness replaces the sort.
+    ``order``: a permutation sorting the build keys (the host presort of the
+    base table), composed with that partition instead of a device sort.
     Column names: probe names keep their own; clashing build names get suffix.
     """
     probe, build = _align_string_keys(probe, probe_keys, build, build_keys)
@@ -233,7 +262,7 @@ def join(probe: ColumnBatch, probe_keys: list[str],
     # dtype's maximum; a live key equal to that maximum still sorts before
     # every dead row, so the first-dead clamp below is exact
     bdead = _build_dead(build, bvalid)
-    order, bk_sorted, n_live = _live_sorted(bk, bdead, build_sorted)
+    order, bk_sorted, n_live = _live_sorted(bk, bdead, build_sorted, order)
 
     lo = _search(bk_sorted, pk, "left")
     hi = _search(bk_sorted, pk, "right")
@@ -252,6 +281,49 @@ def join(probe: ColumnBatch, probe_keys: list[str],
         return order[bpos.clamp(0, len(build) - 1)]
 
     return _expand_matches(probe, build, how, counts, psel_dead, bidx_of, suffix)
+
+
+def radix_join(probe: ColumnBatch, probe_keys: list[str],
+               build: ColumnBatch, build_keys: list[str],
+               how: str = "inner", suffix: str = "_r", wide_keys_ok: bool = False,
+               n_buckets: int = 256):
+    """The hash-partitioned variant of ``join`` (ops/radix.py): the build
+    side partitions into ``n_buckets`` by key hash and sorts per bucket;
+    probes binary-search only their bucket's row.  The same rows as
+    ``join`` (inner / left / semi / anti, NULL keys, name suffixing); the
+    order of one probe row's matches may differ among equal build keys.
+    Returns (out_batch, output rows, width), ``width`` the largest live
+    bucket, where the JAX package reports the width it needs."""
+    from .radix import radix_build, radix_probe
+
+    probe, build = _align_string_keys(probe, probe_keys, build, build_keys)
+    pk, pvalid = _key_array(probe, probe_keys, wide_keys_ok)
+    bk, bvalid = _key_array(build, build_keys, wide_keys_ok)
+    bdead = _build_dead(build, bvalid)
+    sort_src, sort_keys, width = radix_build(bk, bdead, n_buckets)
+    psel_dead, pdead = _probe_dead(probe, pvalid)
+    b, lo, hi = radix_probe(pk, pdead, sort_keys, n_buckets)
+    # live rows fill the front of their bucket's row, so clamping to the
+    # bucket's live count keeps a probe key equal to the padding out of it
+    live_w = (sort_src < len(build)).sum(1)
+    bl = live_w[b.to(torch.int64)]
+    lo = torch.minimum(lo, bl)
+    hi = torch.minimum(hi, bl)
+    counts = torch.where(pdead, 0, hi - lo)
+
+    if how == "semi":
+        return probe.and_sel(counts > 0), 0, width
+    if how == "anti":
+        return probe.and_sel(counts == 0), 0, width
+
+    flat_src = sort_src.reshape(-1)
+
+    def bidx_of(pi, k):
+        bpos = b[pi].to(torch.int64) * width + lo[pi] + k
+        return flat_src[bpos.clamp(0, flat_src.shape[0] - 1)].clamp(0, len(build) - 1)
+
+    out, total = _expand_matches(probe, build, how, counts, psel_dead, bidx_of, suffix)
+    return out, total, width
 
 
 def _expand_matches(probe: ColumnBatch, build: ColumnBatch, how: str,

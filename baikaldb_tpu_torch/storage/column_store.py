@@ -1,9 +1,9 @@
 """Columnar table storage: regions of Arrow rows, their device image, and the
 MVCC row tier behind them for durability and transactions.
 
-The port of ``baikaldb_tpu/storage/column_store.py`` without the replicated
-and remote tiers, the distributed binlog and the cold tier's segments
-(ROADMAP.md lists them).  ``purge_expired`` is the TTL delete.
+The port of ``baikaldb_tpu/storage/column_store.py`` without the remote
+tier, the distributed binlog and the cold tier's segments (ROADMAP.md item
+6b).  ``purge_expired`` is the TTL delete.
 
 - **Regions**: the table's rows, cut by row count into regions of at most
   ``region_rows`` rows (``DEFAULT_REGION_ROWS`` = 2^20).  Each region holds
@@ -18,6 +18,19 @@ and remote tiers, the distributed binlog and the cold tier's segments
   (``Database(data_dir=...)``) committed DML is durable, and on restart the
   WAL replays over the last Parquet checkpoint.  ``insert_arrow`` (bulk
   load) lands in the regions only and is durable at the next checkpoint.
+- **Replicated tier** (``attach_replicated``; storage/replicated.py over
+  the in-process Raft fleet): a fleet-bound table's writes quorum-commit
+  before its regions change.  An autocommit statement is one replicated
+  write (1PC within a region, 2PC across regions), a bulk load one write
+  of all its rows, a COMMIT the transaction's buffered write set, and
+  ``commit_group`` one 2PC over every replicated table it touches;
+  TRUNCATE and ALTER replicate too.  Rowids come from cluster-wide ranges
+  the meta service hands out, and a new Database over the fleet rebuilds
+  the regions from the replicas.
+- **Presort permutations** (``sort_permutation``, ``agg_sort_permutation``):
+  host argsorts of the device image's key columns that let a join's build
+  side and a sorted GROUP BY skip their device sort, cached per version
+  with their device copies.
 - **Transactions**: a ``TxnContext`` holds the table's writer lease, row
   locks and buffered row-tier writes, and region pre-image references
   (Arrow tables and the stamp arrays are never mutated in place, so capture
@@ -205,7 +218,20 @@ class TxnContext:
         """``commit_ts``: the decide-time MVCC stamp (commit_group passes one
         for the whole transaction); None allocates one for this table."""
         try:
-            if self.store.wal_path is not None:
+            if self.store.replicated is not None:
+                # a replicated table's write set becomes raft proposals (1PC
+                # in one region, primary-first 2PC across regions); the local
+                # buffer only held the row locks
+                ops = self.row_txn.pending_ops()
+                self.row_txn.rollback()
+                try:
+                    self.store.replicated.write_ops(ops)
+                except Exception:
+                    # quorum lost at COMMIT: the regions already hold this
+                    # transaction's statements, so restore the pre-image
+                    self._restore_preimage()
+                    raise
+            elif self.store.wal_path is not None:
                 self.row_txn.commit()   # one atomic WAL batch + flush
             else:
                 # non-durable store: nothing reads the buffered rows; the
@@ -257,11 +283,42 @@ class TxnContext:
 def commit_group(tctxs: list[TxnContext]) -> None:
     """Commit several tables' buffered writes as one transaction: one
     decide-time commit timestamp for all of them, so a snapshot sees all of
-    the transaction or none of it."""
+    the transaction or none of it.  Two or more replicated tables commit
+    through one primary-first 2PC over every region group they touch:
+    either every table's writes replicate or none do, and on failure every
+    table's regions return to their pre-image."""
+    from .replicated import write_ops_atomic
+
     commit_ts = None
     if FLAGS.mvcc and tctxs:
         commit_ts = tctxs[0].store._mvcc_ts()
-    for t in tctxs:
+    fleet = [t for t in tctxs if t.store.replicated is not None]
+    others = [t for t in tctxs if len(fleet) <= 1 or t.store.replicated is None]
+    if len(fleet) > 1:
+        try:
+            pairs = []
+            for t in fleet:
+                pairs.append((t.store.replicated, t.row_txn.pending_ops()))
+                t.row_txn.rollback()  # the buffer only held the row locks
+            try:
+                # the 2PC keeps the commit_ts in its decision record
+                write_ops_atomic(pairs, commit_ts=commit_ts or 0)
+            except Exception:
+                for t in fleet:
+                    t._restore_preimage()
+                raise
+        except BaseException:
+            # the other tables must not keep their leases and uncommitted
+            # region changes: roll them back too
+            for t in fleet:
+                t.store._end_txn(t)
+            for t in others:
+                t.rollback()
+            raise
+        for t in fleet:
+            t._stamp_commit(commit_ts)
+            t.store._end_txn(t)
+    for t in others:
         t.commit(commit_ts=commit_ts)
 
 
@@ -285,6 +342,11 @@ class TableStore:
                                              self.arrow_schema.empty_table())]
         self.wal_path = None
         self.durable_dir: Optional[str] = None   # Parquet checkpoint home
+        # the raft-replicated row tier (storage/replicated.py) and the
+        # cluster-wide rowid range drawn from it (attach_replicated)
+        self.replicated = None
+        self._rowid_pool = 0
+        self._rowid_pool_left = 0
         self._writer: Optional[TxnContext] = None
         self._auto_incr: Optional[int] = None
         # MVCC (storage/mvcc.py): the history beside the regions; the TSO
@@ -308,6 +370,8 @@ class TableStore:
         self._distinct: dict = {}        # string column -> {value: count}
         self._zones: tuple = (-1, {})
         self._sec: tuple = (-1, {})
+        # presort permutations: (version, {(kind, *cols): [host, device]})
+        self._perm: tuple = (-1, {})
         if wal_path:
             self.attach_wal(wal_path)
 
@@ -329,6 +393,7 @@ class TableStore:
         self._sharded = None
         self._versioned = None
         self._stream_chunks = None
+        self._perm = (-1, {})
 
     @property
     def num_rows(self) -> int:
@@ -354,6 +419,14 @@ class TableStore:
         checkpoint apply over the current regions."""
         self._build_row_tier(path)
         self._replay_hot(self.row_table.scan_rows())
+
+    def attach_replicated(self, tier, hot_rows: Optional[list] = None):
+        """Bind this table to its raft-replicated row tier and recover: the
+        replicas' committed rows (``hot_rows``, a follower read, or the
+        leaders' ``tier.scan_rows()``) replay over the regions as a WAL
+        would, from a log that survives any one store."""
+        self.replicated = tier
+        self._replay_hot(hot_rows if hot_rows is not None else tier.scan_rows())
 
     def _replay_hot(self, rows: list[dict]):
         if rows:
@@ -436,12 +509,38 @@ class TableStore:
             # live; a non-durable store drops the buffer at commit
             tctx.row_txn.put_rows(recs)
             return
-        if self.wal_path is None:
+        if self.wal_path is None and self.replicated is None:
             return      # non-durable autocommit: nothing would read it
         kc, rc = self.row_table.key_codec, self.row_table.row_codec
         keys = kc.encode_rows([np.fromiter((r[ROWID] for r in recs), np.int64, len(recs))],
                               [None])
-        self.row_table.write_batch([(0, k, rc.encode(rec)) for k, rec in zip(keys, recs)])
+        ops = [(0, k, rc.encode(rec)) for k, rec in zip(keys, recs)]
+        if self.replicated is not None:
+            # autocommit DML on a replicated table: the batch quorum-commits
+            # before the regions change (the 1PC path); no quorum fails the
+            # statement
+            self.replicated.write_ops(ops)
+            return
+        self.row_table.write_batch(ops)
+
+    def _bulk_ops(self, table: pa.Table, rowids: np.ndarray) -> Optional[list]:
+        """A bulk load's row-tier writes, encoded a column at a time (the
+        bytes ``_write_hot`` would write), or None where a column is a
+        string, a temporal one or partly NULL."""
+        cols: dict = {ROWID: rowids, "__del": None}
+        for f in self.arrow_schema:
+            c = table.column(f.name)
+            if c.null_count == len(c):
+                cols[f.name] = None
+            elif c.null_count:
+                return None
+            else:
+                cols[f.name] = c.to_numpy()
+        vals = self.row_table.row_codec.encode_columns(cols, len(rowids))
+        if vals is None:
+            return None
+        keys = self.row_table.key_codec.encode_rows([rowids], [None])
+        return [(0, k, v) for k, v in zip(keys, vals)]
 
     # -- transactions -----------------------------------------------------
     def begin_txn(self) -> TxnContext:
@@ -554,6 +653,20 @@ class TableStore:
         return rid
 
     def _alloc_rowids(self, n: int) -> np.ndarray:
+        """Rowids: a replicated table draws cluster-wide ranges from the
+        meta service (at least 512 at a time; a burnt remainder is never
+        reused), so two frontends over one fleet never mint the same one;
+        any other table counts up locally."""
+        if self.replicated is not None:
+            if self._rowid_pool_left < n:
+                grab = max(n, 512)
+                self._rowid_pool = self.replicated.alloc_rowids(grab, floor=self._next_rowid)
+                self._rowid_pool_left = grab
+            start = self._rowid_pool
+            self._rowid_pool += n
+            self._rowid_pool_left -= n
+            self._next_rowid = max(self._next_rowid, start + n)
+            return np.arange(start, start + n, dtype=np.int64)
         start = self._next_rowid
         self._next_rowid += n
         return np.arange(start, start + n, dtype=np.int64)
@@ -593,6 +706,7 @@ class TableStore:
             self._sharded = None
             self._versioned = None
             self._stream_chunks = None
+            self._perm = (-1, {})
 
     def _cache(self, name: str) -> dict:
         """A per-version cache dict (``_stats``, ``_zones``, ``_sec``)."""
@@ -763,6 +877,86 @@ class TableStore:
         with self._lock:
             tabs = [self.regions[i].data for i in keep]
             return pa.concat_tables(tabs) if tabs else self.arrow_schema.empty_table()
+
+    # -- presort permutations (the session's walk over plan.presort) -------
+    def sort_permutation(self, cols: tuple) -> np.ndarray:
+        """Host permutation (int32) sorting the device image's ``cols`` packed
+        as the join kernels pack them (one column as is; two as
+        ``k0 << 32 | k1 & 0xFFFFFFFF``), stably: the build side of a join
+        over the whole table then needs no device sort.  Cached per
+        version."""
+        def compute(host):
+            arrs = [d.astype(np.int64) for d, _ in host]
+            keys = arrs[0] if len(arrs) == 1 else \
+                (arrs[0] << 32) | (arrs[1] & 0xFFFFFFFF)
+            return np.argsort(keys, kind="stable")
+        return self._presort("join", cols, compute)
+
+    def agg_sort_permutation(self, cols: tuple) -> np.ndarray:
+        """Host permutation (int32) with ``group_aggregate_sorted``'s key
+        order exactly (0 under a NULL lane, a stable sort per key from the
+        last, NULLs first): the sorted GROUP BY then keeps only its liveness
+        partition on the device.  Cached per version."""
+        def compute(host):
+            perm = np.arange(len(host[0][0]) if host else 0)
+            for d, vmask in reversed(host):
+                if d.dtype == np.bool_:
+                    d = d.astype(np.int32)
+                if vmask is not None:
+                    d = np.where(vmask, d, np.zeros((), d.dtype))
+                perm = perm[np.argsort(d[perm], kind="stable")]
+                if vmask is not None:
+                    perm = perm[np.argsort(vmask[perm], kind="stable")]
+            return perm
+        return self._presort("agg", cols, compute)
+
+    def presort_order(self, kind: str, cols: tuple, version: int):
+        """The device copy of the ``kind`` ("join" or "agg") permutation of
+        ``cols`` for the image at ``version``, uploaded once per version
+        (outside the lock); None once the table has moved past
+        ``version``."""
+        ck = (kind,) + tuple(cols)
+        (self.sort_permutation if kind == "join" else self.agg_sort_permutation)(cols)
+        with self._lock:
+            entry = self._perm[1].get(ck) if self._perm[0] == version else None
+            if entry is None or entry[1] is not None:
+                return None if entry is None else entry[1]
+            host = entry[0]
+        dev = torch.from_numpy(host).to(self.device)
+        with self._lock:
+            entry = self._perm[1].get(ck) if self._perm[0] == version else None
+            if entry is None:
+                return None
+            if entry[1] is None:
+                entry[1] = dev
+            return entry[1]
+
+    def _presort(self, kind: str, cols: tuple, compute) -> np.ndarray:
+        """The cached permutation, or ``compute`` over the key columns'
+        (data, validity) arrays.  They are read off the device image outside
+        the lock (a blocking copy under it would stall every writer), one
+        ``.cpu()`` each; the result is kept only while the table still sits
+        at the version it was read at, so a permutation over older data
+        never serves newer."""
+        ck = (kind,) + tuple(cols)
+        with self._lock:
+            v = self._mutations
+            if self._perm[0] != v:
+                self._perm = (v, {})
+            hit = self._perm[1].get(ck)
+            if hit is not None:
+                return hit[0]
+            batch = self._image()
+        host = []
+        for c in cols:
+            col = batch.column(c)
+            host.append((col.data.cpu().numpy(),
+                         None if col.validity is None else col.validity.cpu().numpy()))
+        perm = compute(host).astype(np.int32)
+        with self._lock:
+            if self._perm[0] == v and self._mutations == v:
+                self._perm[1][ck] = [perm, None]
+        return perm
 
     def _secondary_order(self, column: str):
         """(sorted values, row positions) over the snapshot, NULLs excluded;
@@ -1121,6 +1315,15 @@ class TableStore:
             if self.partition_spec() is not None:
                 self.partition_ids(table)   # refuse an unroutable row first
             rowids = self._alloc_rowids(table.num_rows)
+            if self.replicated is not None:
+                # a rebuild from the replicas is a replicated table's only
+                # recovery, so the bulk load replicates as one write
+                ops = self._bulk_ops(table, rowids) if tctx is None else None
+                if ops is not None:
+                    self.replicated.write_ops(ops)
+                else:
+                    self._write_hot([dict(row, **{ROWID: int(rid)})
+                                     for row, rid in zip(table.to_pylist(), rowids)], tctx)
             self._bump()
             self._pk_stale = True
             stamp = self._new_stamp(tctx)
@@ -1179,7 +1382,8 @@ class TableStore:
             fresh = self._pk_codec is not None and self._pk_index is not None \
                 and not self._pk_stale
             n = sum(int(m.sum()) for _, m in masks)
-            if tctx is not None or self.wal_path is not None:
+            if tctx is not None or self.wal_path is not None or \
+                    self.replicated is not None:
                 # the row tier's __del markers (a non-durable autocommit
                 # delete has no reader for them: a partition's millions of
                 # rows build none)
@@ -1286,6 +1490,10 @@ class TableStore:
         with self._lock:
             if self._writer is not None:
                 raise ConflictError("TRUNCATE while a transaction is open")
+            if self.replicated is not None:
+                # the wipe replicates (by retiring the regions), or a
+                # rebuild from the replicas would bring the rows back
+                self.replicated.truncate()
             self._bump()
             self._pk_stale = True
             self._distinct = {}
@@ -1317,6 +1525,15 @@ class TableStore:
             if self.durable_dir:
                 self.save_parquet(self.durable_dir)
             self._reset_wal()
+            if self.replicated is not None:
+                # the replicated encoding is schema-bound too: the regions
+                # retire and the rewritten rows replicate anew
+                kc, rc = self.row_table.key_codec, self.row_table.row_codec
+                ops = [(0, kc.encode_one({ROWID: int(rid)}),
+                        rc.encode(dict(row, **{ROWID: int(rid)})))
+                       for r in self.regions
+                       for row, rid in zip(r.data.to_pylist(), r.rowids)]
+                self.replicated.reset_schema(self._row_schema(), ops)
             if self._pk_cols:
                 if any(c not in new_schema for c in self._pk_cols):
                     self._pk_cols = self._pk_codec = None

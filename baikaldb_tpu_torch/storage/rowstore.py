@@ -142,6 +142,11 @@ class RowCodec:
     def __init__(self, schema: Schema):
         self.schema = schema
         self.fields = schema.fields
+        # each field's decoding, read once here: "i" an int64, "f" a float64,
+        # "o" anything else (strings, dates, temporals)
+        self._kinds = ["o" if f.ltype is LType.STRING or f.ltype is LType.DATE
+                       or f.ltype.is_temporal else "f" if f.ltype.is_float else "i"
+                       for f in self.fields]
 
     def encode(self, row: dict) -> bytes:
         nf = len(self.fields)
@@ -166,15 +171,51 @@ class RowCodec:
                 parts.append(struct.pack("<q", int(v)))
         return bytes(bitmap) + b"".join(parts)
 
+    def encode_columns(self, cols: dict, n: int) -> Optional[list[bytes]]:
+        """``encode`` of ``n`` rows given as whole columns (name -> numpy
+        array, or None where every value is NULL), as one fixed-width
+        record array: the same bytes, without a Python call a row.  None
+        when a column is a string or temporal one (variable width, or a
+        conversion a value), so the caller encodes row by row."""
+        nf = len(self.fields)
+        bitmap = np.zeros((nf + 7) // 8, np.uint8)
+        layout, values = [("bitmap", np.uint8, (len(bitmap),))], []
+        for i, f in enumerate(self.fields):
+            a = cols.get(f.name)
+            if a is None:
+                continue
+            if f.ltype is LType.STRING or f.ltype is LType.DATE or f.ltype.is_temporal:
+                return None
+            bitmap[i // 8] |= 1 << (i % 8)
+            dt = "<f8" if f.ltype.is_float else "<i8"
+            layout.append((f.name, dt))
+            values.append((f.name, np.asarray(a).astype(dt)))
+        rec = np.empty(n, dtype=layout)
+        rec["bitmap"] = bitmap
+        for name, v in values:
+            rec[name] = v
+        buf, w = rec.tobytes(), rec.dtype.itemsize
+        return [buf[i * w:(i + 1) * w] for i in range(n)]
+
     def decode(self, data: bytes) -> dict:
         nf = len(self.fields)
         nb = (nf + 7) // 8
         bitmap = data[:nb]
         pos = nb
         out = {}
+        kinds = self._kinds
         for i, f in enumerate(self.fields):
             if not (bitmap[i // 8] >> (i % 8)) & 1:
                 out[f.name] = None
+                continue
+            kind = kinds[i]
+            if kind == "i":
+                (out[f.name],) = struct.unpack_from("<q", data, pos)
+                pos += 8
+                continue
+            if kind == "f":
+                (out[f.name],) = struct.unpack_from("<d", data, pos)
+                pos += 8
                 continue
             lt = f.ltype
             if lt is LType.STRING:
@@ -182,22 +223,16 @@ class RowCodec:
                 pos += 4
                 out[f.name] = data[pos:pos + ln].decode()
                 pos += ln
-            elif lt.is_float:
-                (out[f.name],) = struct.unpack_from("<d", data, pos)
-                pos += 8
             elif lt is LType.DATE:
                 (d,) = struct.unpack_from("<q", data, pos)
                 import datetime
                 out[f.name] = datetime.date(1970, 1, 1) + datetime.timedelta(days=d)
                 pos += 8
-            elif lt.is_temporal:
+            else:                                 # a temporal
                 (us,) = struct.unpack_from("<q", data, pos)
                 import datetime
                 out[f.name] = datetime.datetime(1970, 1, 1) + \
                     datetime.timedelta(microseconds=us)
-                pos += 8
-            else:
-                (out[f.name],) = struct.unpack_from("<q", data, pos)
                 pos += 8
         return out
 
@@ -330,8 +365,8 @@ class RowTable:
                                    vout.ctypes.data_as(P8),
                                    voffs.ctypes.data_as(P64))
             kraw, vraw = kout.tobytes(), vout.tobytes()
-            return [(kraw[koffs[i]:koffs[i + 1]], vraw[voffs[i]:voffs[i + 1]])
-                    for i in range(n)]
+            ko, vo = koffs.tolist(), voffs.tolist()      # plain ints slice faster
+            return [(kraw[ko[i]:ko[i + 1]], vraw[vo[i]:vo[i + 1]]) for i in range(n)]
         finally:
             self._lib.bk_scan_free(s)
 

@@ -13,8 +13,9 @@ obs/telemetry.py renders as Prometheus text.
 
 The engine's instruments are the port's: the kernel launch counters of
 ops/group_kernels.py and ops/segments.py (``kernel_launches.*``) register
-here like every other counter, and the JAX package's XLA / AOT / RPC /
-region counters have no counterpart.  ``Counter.reset`` and
+here like every other counter, and the JAX package's XLA / AOT / RPC
+counters have no counterpart.  The region counters of the replicated tier
+count but are not registered (SHOW STATUS leaves them out until item 6b).  ``Counter.reset`` and
 ``LatencyRecorder.reset`` (a run that counts one phase) are the port's.
 """
 
@@ -614,6 +615,20 @@ watchdog_stalls_detected = Counter("watchdog_stalls_detected")
 # and the subset that carried a full forensic bundle (slow/killed/failed)
 flightrec_records = Counter("flightrec_records")
 flightrec_bundles = Counter("flightrec_bundles")
+# the in-process replicated tier (storage/replicated.py, raft/fleet.py):
+# leaderless regions served by the most advanced live replica instead of
+# failing the read; completed / aborted live splits, merges and
+# learner-first migrations, and the fenced-handoff window each one paid.
+# They count as in the JAX package but stay off the registry, so SHOW
+# STATUS does not list them until the cluster's status rows come with the
+# network plane (ROADMAP item 6b)
+learner_fallback_reads = Counter("learner_fallback_reads", registry=NULL_REGISTRY)
+region_splits = Counter("region.splits", registry=NULL_REGISTRY)
+region_split_aborts = Counter("region.split_aborts", registry=NULL_REGISTRY)
+region_merges = Counter("region.merges", registry=NULL_REGISTRY)
+region_migrations = Counter("region.migrations", registry=NULL_REGISTRY)
+region_migrate_aborts = Counter("region.migrate_aborts", registry=NULL_REGISTRY)
+region_handoff_ms = LatencyRecorder("region.handoff_ms", registry=NULL_REGISTRY)
 
 
 def count_swallowed(site: str) -> None:

@@ -2,6 +2,8 @@
 its plain torch version, drive single-table SQL at real size resident and
 streamed, run the 22 TPC-H queries and the analytic queries on the card,
 the egress functions and catalog statements on the card against the CPU,
+the radix join, the host presort and a table on a 3-store Raft fleet
+(rebuilt from its replicas after a leader kill),
 vector search (VECTOR columns, the ANN index) at 1M x 128, the MPP mesh (8
 shards on the card: the 100M rows and TPC-H), the HTAP write path
 (snapshot reads over the 100M rows under writes, sysbench, recovery), and
@@ -202,11 +204,11 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    host-bound TPC-H queries at SF1 with the cache on and off, their rows
    equal.  (ii) (b) PREPAREd with a ``?`` threshold and EXECUTEd with 20
    values, against numpy.  (iii) 64 sessions on 64 threads behind a barrier,
-   each sending 8 statements of D-a (17 slots: the segment kernel), D-b
+   each sending 4 statements (8 until PR 15) of D-a (17 slots: the segment kernel), D-b
    (ranges of at most 100 groups of 2049 slots: K3 + K2; one client's range
    holds 200 groups, past the 128-row scatter budget) and D-c (K1 + K3),
    each with its own literals, against the same 512 statements one after
-   another on one session: every client's rows equal its serial run bit for
+   another on one session (256 a shape): every client's rows equal its serial run bit for
    bit and numpy; each tick launches each lane kernel exactly as
    ``D_TICK_LAUNCHES`` says, the inline runs exactly the one-lane kernels,
    ``dispatch_fallbacks`` at most the overflowed lanes; serial and
@@ -306,6 +308,38 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    tick taken it), every other client returns its serial rows bit for bit;
    the ticks and their lane launches.  ``observability phase seconds``;
    each kernel's launches here are ``launches_observability``.
+16. The radix join, the host presort and the replicated tier.  (i) After
+   phase 13 (vii), in phase 5 (ii)'s session: every TPC-H query's plan
+   nodes that take a presort (``__presort__`` batches; q3, q10, q18 and
+   q21 listed either way); each such query with and without its presort
+   (the ``__presort__`` keys stripped, the JAX package's own method) in 3
+   alternating turns (10 warm runs a side, p50 / p67 and each turn's p50),
+   the first run after the permutations are dropped and the host argsort
+   alone, one profiled run a side; both sides' rows equal phase 5 (ii)'s.
+   Then ``radix_join_buckets = 256``: q3 (all its joins are dense: none
+   takes the radix path) and q13, whose LEFT JOIN takes it with the
+   presort stripped (the gate refuses a presorted build): the joins and
+   their widths, q13 against the sort join in alternating turns, rows
+   equal, and ``radix_join`` alone against ``join`` alone at that build,
+   in device ms.  (ii) At the end: BASELINE.json config #2 deployed as
+   3-replica Raft groups, ``MetaService(peer_count=3)`` and a
+   ``StoreFleet`` of 3 stores: ``tr (id BIGINT PRIMARY KEY, g INT, v FLOAT,
+   w DOUBLE, g16 INT)``, 2^20 rows of phase 3's generator (cut from 10M:
+   ~70 us a replicated row of host work), loaded through Raft (seconds,
+   rows/s), then split at ``region_split_rows`` = 262,144 into 8 regions
+   (seconds apart); SHOW REGIONS and ``information_schema.regions`` (8
+   regions, their leaders); (a)-(c) over ``tr`` with phase 3's launches,
+   against numpy; 200 single-row autocommit writes (1PC; p50 / p99 beside
+   the same statements on a plain ``Session(device="cuda")``), 20
+   transactions over the first and the last region (one 2PC each) and a
+   rollback; ``kill_store`` of the store leading the most regions, 20
+   writes (the first one's latency); a fresh ``Database(fleet=...)``
+   rebuilt from the replicas: seconds, its rows equal a numpy replay of
+   every acknowledged write, its (a)-(c) launch phase 3's kernels and equal
+   numpy, K1-K3 and the segment kernel against their plain versions on its
+   batch; ``memory_allocated`` and the peak; ``revive_store``.  ``replicated
+   phase seconds``; each kernel's launches in (ii) are
+   ``launches_replicated``.
 
 Phases 5 and 6 run with the default flags, so a query over a table of at
 least ``streaming_min_rows`` rows that the streamed path accepts streams
@@ -1267,7 +1301,8 @@ def span_ms(s, sql: str) -> dict:
 
 
 def tpch_on_the_card(gk, scale: float, seed: int) -> tuple:
-    """(ii): the 22 queries at ``scale`` on the card, timed."""
+    """(ii): the 22 queries at ``scale`` on the card, timed.  -> (stats, the
+    session, the tables, each query's rows: phase 16 (i)'s references)."""
     from baikaldb_tpu_torch.exec.session import Session
     from baikaldb_tpu_torch.models import tpch
 
@@ -1293,7 +1328,7 @@ def tpch_on_the_card(gk, scale: float, seed: int) -> tuple:
     log(f"[tpch] SF {scale}: q1 and q6 match numpy")
     return {"scale": scale, "seed": seed, "gen_s": gen_s, "load_s": load_s,
             "peak_mem_gib": max([load_peak] + [v["peak_mem_gib"] for v in per_query.values()]),
-            "queries": per_query}, s, tables
+            "queries": per_query}, s, tables, first
 
 
 def time_queries(gk, s, queries: dict, tag: str) -> tuple[dict, dict]:
@@ -2503,7 +2538,7 @@ D_SHAPES = {
     "D-c": "SELECT g, SUM(w), AVG(w) FROM t WHERE w > {x} AND g >= {lo} AND g < {hi} GROUP BY g",
 }
 D_CLIENTS = 64
-D_PER_CLIENT = 8
+D_PER_CLIENT = 4                 # 8 until PR 15; cut to keep the run within its limit
 D_TICK_MS = 20.0                 # the combiner's wait for a group to fill
 D_HOISTED = {"D-a": 3, "D-b": 5, "D-c": 3}
 # each tick's launches: one a kernel call, every call over all lanes
@@ -4808,6 +4843,497 @@ def kill_dispatch_part(gk, s, refs, seed: int) -> tuple[dict, dict, dict]:
     return inline, lanes, out
 
 
+# ----------------------------------------------------------------------
+# phase 16: the radix join and the host presort on TPC-H at --tpch-scale;
+# the replicated tier (Raft regions, 2PC, the meta service, the store fleet)
+
+PRESORT_TPCH = ("q3", "q10", "q18", "q21")   # listed whether or not they take one
+PRESORT_TURNS = (4, 3, 3)        # 10 warm runs a side, in 3 alternating turns
+RADIX_BUCKETS = 256
+RADIX_QUERIES = ("q3", "q13")    # q3's joins are all dense; q13's LEFT JOIN is a sort join
+RADIX_TURNS = (4, 3, 3)
+REP_ROWS = 1 << 20               # config #2's 10M rows, cut: ~70 us a replicated row on the host
+REP_SPLIT_ROWS = 262_144         # a region splits at the threshold: 8 regions of 131,072 rows
+REP_STORES = ("s1:8110", "s2:8110", "s3:8110")
+REP_WRITES = 200                 # single-row autocommit writes, each a 1PC
+REP_TXNS = 20                    # transactions over two regions, each a 2PC
+REP_AFTER_KILL = 20
+REP_REPS = 10
+REP_DDL = "CREATE TABLE tr (id BIGINT PRIMARY KEY, g INT, v FLOAT, w DOUBLE, g16 INT)"
+REP_COLS = ("id", "g", "v", "w", "g16")
+
+
+@contextlib.contextmanager
+def presort_stripped(s):
+    """``s``'s batches without their ``__presort__`` keys: the JAX package's
+    own way to run without the presort (its tests/test_ops.py)."""
+    orig = s._collect_batches
+
+    def strip(plan):
+        b, k, full = orig(plan)
+        return {kk: v for kk, v in b.items() if not str(kk).startswith("__presort__")}, k, full
+    s._collect_batches = strip
+    try:
+        yield
+    finally:
+        del s._collect_batches
+
+
+def presort_nodes(s, sql: str) -> list:
+    """The plan nodes that took a presort in one run of ``sql``, each as
+    "<node>: <its __presort__ key>"."""
+    seen = []
+    orig = s._collect_batches
+
+    def spy(plan):
+        out = orig(plan)
+        stack = [plan]
+        while stack:
+            n = stack.pop()
+            if getattr(n, "presort_input", None):
+                seen.append(f"{type(n).__name__}: {n.presort_input}")
+            stack.extend(n.children)
+        return out
+    s._collect_batches = spy
+    try:
+        s.query(sql)
+        torch.cuda.synchronize()
+    finally:
+        del s._collect_batches
+    return sorted(set(seen))
+
+
+def alternating(s, sql: str, sides: dict, turns) -> dict:
+    """Warm walls of ``sql`` under each side's context (a factory), side
+    after side in each turn -> per side p50 / p67 and each turn's p50."""
+    walls = {k: [] for k in sides}
+    per_turn = {k: [] for k in sides}
+    for n in turns:
+        for name, ctx in sides.items():
+            with ctx():
+                w = []
+                for _ in range(n):
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    s.query(sql)
+                    torch.cuda.synchronize()
+                    w.append((time.perf_counter() - t) * 1e3)
+            walls[name] += w
+            per_turn[name].append(statistics.median(w))
+    return {k: {"warm_ms_p50": statistics.median(w),
+                "warm_ms_p67": float(np.percentile(w, 67)), "turns_p50": per_turn[k]}
+            for k, w in walls.items()}
+
+
+def same_rows(what: str, got, want, sql: str) -> None:
+    from baikaldb_tpu_torch.models.parity import mismatch
+
+    diff = mismatch(got, want, sql, 1e-9)
+    if diff is not None:
+        raise AssertionError(f"{what}: {diff}")
+
+
+def presort_part(s, first: dict) -> dict:
+    """(i) Which TPC-H plan nodes take a presort; those queries with and
+    without it in alternating turns, the first run after the permutations
+    are dropped, their host argsort alone, one profiled run a side; the
+    rows of both sides equal phase 5 (ii)'s."""
+    from baikaldb_tpu_torch.models import tpch
+
+    nodes = {q: presort_nodes(s, sql) for q, sql in tpch.QUERIES.items()}
+    engaged = [q for q in tpch.QUERIES if nodes[q]]
+    log(f"[presort] nodes with a presort: "
+        + "; ".join(f"{q}: {nodes[q]}" for q in tpch.QUERIES if nodes[q] or q in PRESORT_TPCH))
+    out = {"nodes": {q: nodes[q] for q in tpch.QUERIES if nodes[q] or q in PRESORT_TPCH},
+           "queries": {}}
+    for q in engaged:
+        sql = tpch.QUERIES[q]
+        stores = {k.split(": ", 1)[1].split("|")[1] for k in nodes[q]}
+        # the first run with the permutations dropped: it pays the host
+        # argsorts and the uploads, then their host part alone
+        for tk in stores:
+            s.db.stores[tk]._perm = (-1, {})
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        on_rows = s.query(sql)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t
+        argsort_s = 0.0
+        for key in nodes[q]:
+            kind, tk, cols = key.split(": ", 1)[1][len("__presort__"):].split("|")
+            st = s.db.stores[tk]
+            st._perm = (-1, {})
+            t = time.perf_counter()
+            (st.sort_permutation if kind == "join" else st.agg_sort_permutation)(
+                tuple(cols.split(",")))
+            argsort_s += time.perf_counter() - t
+        s.query(sql)                     # the uploads again, before the timed turns
+        with presort_stripped(s):
+            off_rows = s.query(sql)
+        same_rows(f"{q} with the presort vs phase 5 (ii)", on_rows, first[q], sql)
+        same_rows(f"{q} without the presort vs phase 5 (ii)", off_rows, first[q], sql)
+        walls = alternating(s, sql, {"presort": contextlib.nullcontext,
+                                     "no_presort": lambda: presort_stripped(s)},
+                            PRESORT_TURNS)
+        for side, ctx in (("presort", contextlib.nullcontext),
+                          ("no_presort", lambda: presort_stripped(s))):
+            with ctx():
+                walls[side].update(device_breakdown(lambda: s.query(sql),
+                                                    walls[side]["warm_ms_p50"]))
+            walls[side]["index_add_kernels"] = sum(
+                "indexFunc" in k for k in walls[side].pop("kernel_names"))
+        out["queries"][q] = {"first_s": first_s, "host_argsort_s": argsort_s, **walls}
+        log(f"[presort] {q}: p50 {walls['presort']['warm_ms_p50']:.2f} ms with the presort "
+            f"vs {walls['no_presort']['warm_ms_p50']:.2f} without (turns "
+            f"{walls['presort']['turns_p50']} / {walls['no_presort']['turns_p50']}); device "
+            f"{walls['presort']['device_ms']:.2f} / {walls['no_presort']['device_ms']:.2f} ms, "
+            f"idle {walls['presort']['idle_share']:.3f} / {walls['no_presort']['idle_share']:.3f}; "
+            f"first run {first_s:.3f} s, host argsort {argsort_s:.3f} s; rows equal")
+    return out
+
+
+def radix_part(s, first: dict) -> dict:
+    """(i) The radix join on TPC-H: for each of RADIX_QUERIES, the joins
+    that take the radix path at ``radix_join_buckets`` = 256 (with the
+    presort kept, else stripped, else also at ``radix_join_min_build`` = 1)
+    and their widths.  The first query where one does runs against 0 in
+    alternating turns, rows equal to phase 5 (ii)'s; then ``radix_join``
+    alone against the sort ``join`` alone at its largest radix build and
+    that build's probe.  q3's joins are all dense PK-FK joins, which the
+    radix gate never takes (the JAX executor's gate); q13's LEFT JOIN of
+    customer to orders is the one sort join of the 22 queries, and it takes
+    the presort, which the gate refuses, so its radix side runs stripped."""
+    from baikaldb_tpu_torch.models import tpch
+    from baikaldb_tpu_torch.ops import join as join_ops
+
+    calls: list = []
+    orig = join_ops.radix_join
+
+    def spy(probe, pkeys, build, bkeys, how="inner", **kw):
+        res = orig(probe, pkeys, build, bkeys, how=how, **kw)
+        calls.append({"build_rows": len(build), "probe_rows": len(probe), "keys": list(bkeys),
+                      "how": how, "width": res[2], "args": (probe, pkeys, build, bkeys, how, kw)})
+        return res
+
+    modes = [("presort kept", contextlib.nullcontext, 65536),
+             ("presort stripped", lambda: presort_stripped(s), 65536),
+             ("presort stripped, radix_join_min_build = 1", lambda: presort_stripped(s), 1)]
+    out: dict = {"engaged": {}}
+    join_ops.radix_join = spy
+    try:
+        for q in RADIX_QUERIES:
+            sql = tpch.QUERIES[q]
+            for mode, strip, min_build in modes:
+                with strip(), flag(s, "radix_join_buckets", RADIX_BUCKETS), \
+                        flag(s, "radix_join_min_build", min_build):
+                    rows = s.query(sql)
+                    torch.cuda.synchronize()
+                if calls:
+                    break
+            out["engaged"][q] = {"mode": mode if calls else None,
+                                 "joins": [{k: v for k, v in c.items() if k != "args"}
+                                           for c in calls]}
+            if calls:
+                break
+    finally:
+        join_ops.radix_join = orig
+    if not calls:
+        raise AssertionError(f"{RADIX_QUERIES}: no join took the radix path")
+    same_rows(f"{q} under the radix join vs phase 5 (ii)", rows, first[q], sql)
+
+    @contextlib.contextmanager
+    def radix_side():
+        with strip(), flag(s, "radix_join_buckets", RADIX_BUCKETS), \
+                flag(s, "radix_join_min_build", min_build):
+            yield
+    walls = alternating(s, sql, {"radix": radix_side, "sort": contextlib.nullcontext},
+                        RADIX_TURNS)
+    big = max(calls, key=lambda c: c["build_rows"])
+    probe, pkeys, build, bkeys, how, kw = big["args"]
+    calls.clear()
+    radix_ms = device_ms(lambda: join_ops.radix_join(probe, pkeys, build, bkeys, how=how, **kw))
+    sort_ms = device_ms(lambda: join_ops.join(probe, pkeys, build, bkeys, how=how,
+                                              wide_keys_ok=kw.get("wide_keys_ok", False)))
+    del probe, build, big
+    largest = max(out["engaged"][q]["joins"], key=lambda c: c["build_rows"])
+    out.update({"query": q, "mode": mode, **walls,
+                "largest_build": {**largest, "radix_join_device_ms": radix_ms,
+                                  "join_device_ms": sort_ms}})
+    log(f"[radix] engaged: {out['engaged']}; {q} ({mode}): p50 "
+        f"{walls['radix']['warm_ms_p50']:.2f} ms radix vs {walls['sort']['warm_ms_p50']:.2f} "
+        f"sort join; at its largest build ({out['largest_build']['build_rows']} rows, probe "
+        f"{out['largest_build']['probe_rows']}) radix_join {radix_ms:.3f} device-ms vs join "
+        f"{sort_ms:.3f}; rows equal")
+    return out
+
+
+class Replay:
+    """The numpy state of ``tr`` under every acknowledged write."""
+
+    def __init__(self, table):
+        n = table.num_rows
+        cap = n + REP_WRITES + REP_AFTER_KILL
+        self.cols = {c: np.zeros(cap, table.column(c).type.to_pandas_dtype())
+                     for c in REP_COLS}
+        for c in REP_COLS:
+            self.cols[c][:n] = table.column(c).to_numpy()
+        self.live = np.zeros(cap, bool)
+        self.live[:n] = True
+        self.n = n
+        self.at = {}                     # id -> slot, for ids written after the load
+
+    def slot(self, i: int) -> int:
+        return self.at.get(i, i)
+
+    def update(self, i: int, v: float, w: float) -> None:
+        k = self.slot(i)
+        self.cols["v"][k], self.cols["w"][k] = v, w
+
+    def insert(self, row: dict) -> None:
+        k = self.n
+        self.n += 1
+        for c in REP_COLS:
+            self.cols[c][k] = row[c]
+        self.live[k] = True
+        self.at[row["id"]] = k
+
+    def delete(self, i: int) -> None:
+        self.live[self.slot(i)] = False
+
+    def table(self) -> dict:
+        m = self.live[:self.n]
+        order = np.argsort(self.cols["id"][:self.n][m], kind="stable")
+        return {c: a[:self.n][m][order] for c, a in self.cols.items()}
+
+    def refs(self) -> dict:
+        t = self.table()
+        keep_v = (t["v"] * np.float32(2) + np.float32(1)).astype(np.float64) > 0.5
+        return {"a": reference(t["g16"], t["v"], keep_v, 16),
+                "b": reference(t["g"], t["v"], keep_v, 2048),
+                "c": reference(t["g"], t["w"], t["w"] > -1, 2048)}
+
+
+def rep_queries(gk, s, refs: dict, tag: str) -> dict:
+    """(a)-(c) over ``tr``: each launches exactly phase 3's kernels and
+    equals numpy; warm p50 / p67 of REP_REPS runs, one profiled run."""
+    out = {}
+    for q, sql in QUERIES.items():
+        sql = sql.replace(" FROM t ", " FROM tr ")
+        before = all_launches(gk)
+        rows = s.query(sql)
+        torch.cuda.synchronize()
+        got = {k: v - before[k] for k, v in all_launches(gk).items() if v != before[k]}
+        if got != EXPECTED_LAUNCHES[q]:
+            raise AssertionError(f"{tag} ({q}) launched {got}, expected {EXPECTED_LAUNCHES[q]}")
+        check_query(q, rows, refs)
+        out[q] = {"launches": got, **timed_query(s, sql, REP_REPS)}
+    log(f"{tag} (a)-(c) equal numpy with phase 3's launches; warm p50 "
+        + ", ".join(f"({q}) {v['warm_ms_p50']:.2f} ms / {v['device_ms']:.2f} device-ms"
+                    for q, v in out.items()))
+    return out
+
+
+def rep_writes(s, statements: list) -> list:
+    """Each statement's wall milliseconds (autocommit, one at a time)."""
+    ms = []
+    for sql in statements:
+        t = time.perf_counter()
+        s.execute(sql)
+        ms.append((time.perf_counter() - t) * 1e3)
+    return ms
+
+
+def replicated_phase(gk, seed: int) -> tuple[dict, dict]:
+    """(ii) BASELINE.json config #2 (GROUP BY over 8 regions) deployed as
+    BaikalDB deploys a region, a 3-replica Raft group: a fleet of 3 stores
+    under ``MetaService(peer_count=3)``, ``tr`` of REP_ROWS rows split into
+    8 regions.  The load through Raft and the splits, SHOW REGIONS and the
+    regions' leaders, (a)-(c), 1PC writes against a plain session's, 2PC
+    transactions and a rollback, a leader kill and the writes after it,
+    then a fresh Database rebuilt from the replicas: its rows equal the
+    numpy replay of every acknowledged write, its (a)-(c) launch phase 3's
+    kernels and equal numpy, the kernels against their plain versions on
+    its batch.  -> (launches, measurements)."""
+    import pyarrow as pa
+
+    from baikaldb_tpu_torch.exec.session import Database, Session
+    from baikaldb_tpu_torch.meta.service import MetaService
+    from baikaldb_tpu_torch.raft import twopc
+    from baikaldb_tpu_torch.raft.fleet import StoreFleet
+    from baikaldb_tpu_torch.utils.flags import FLAGS
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base, _ = sql_table(REP_ROWS, seed)
+    table = pa.table({"id": np.arange(REP_ROWS, dtype=np.int64),
+                      **{c: base.column(c) for c in ("g", "v", "w", "g16")}})
+    del base
+    replay = Replay(table)
+    rng = np.random.default_rng(seed + 16)
+    prev_split = FLAGS.get("region_split_rows")
+    prev_stream = FLAGS.get("streaming_scan")
+    FLAGS.set_flag("streaming_scan", "0")       # resident, as phase 3
+    out: dict = {"rows": REP_ROWS, "stores": list(REP_STORES)}
+    try:
+        fleet = StoreFleet(MetaService(peer_count=3), list(REP_STORES), seed=seed + 1)
+        s = Session(Database("cuda", fleet=fleet))
+        s.execute(REP_DDL)
+        tier = fleet.row_tiers["default.tr"]
+        tier.split_rows = 1 << 62                  # the load first, the splits apart
+        t = time.perf_counter()
+        s.load_arrow("tr", table)
+        out["load_s"] = time.perf_counter() - t
+        out["load_rows_per_s"] = REP_ROWS / out["load_s"]
+        FLAGS.set_flag("region_split_rows", str(REP_SPLIT_ROWS))
+        tier.split_rows = 0
+        t = time.perf_counter()
+        out["splits"] = tier.maybe_split()
+        out["split_s"] = time.perf_counter() - t
+        fleet.heartbeat_all()
+        regions = s.query("SELECT region_id, leader, peers, num_rows FROM "
+                          "information_schema.regions ORDER BY region_id")
+        out["regions"] = regions
+        out["show_regions"] = s.query("SHOW REGIONS")
+        if len(regions) != 8 or len(tier.groups) != 8:
+            raise AssertionError(f"[replicated] {len(regions)} regions, expected 8")
+        log(f"[replicated] {REP_ROWS} rows through Raft in {out['load_s']:.2f} s "
+            f"({out['load_rows_per_s']:.0f} rows/s), {out['splits']} splits in "
+            f"{out['split_s']:.2f} s: {len(regions)} regions, leaders "
+            f"{[r['leader'] for r in regions]}; SHOW REGIONS lists {len(out['show_regions'])} "
+            f"column region(s)")
+
+        # the replicated path: counters at 0 just before, read after the
+        # rebuilt Database's queries
+        reset_launches(gk)
+        out["queries"] = rep_queries(gk, s, replay.refs(), "[replicated]")
+
+        # 1PC: single-row autocommit writes, beside a plain session's
+        plain = Session(device="cuda")
+        plain.execute(REP_DDL)
+        plain.load_arrow("tr", table)
+        del table
+        stmts, next_id = [], REP_ROWS
+        for i in range(REP_WRITES):
+            kind = ("update", "insert", "delete")[i % 3]
+            if kind == "insert":
+                row = {"id": next_id, "g": int(rng.integers(0, 2048)),
+                       "v": float(rng.integers(-16, 16)) / 8,
+                       "w": float(rng.integers(-1000, 1000)) / 16, "g16": int(rng.integers(0, 16))}
+                next_id += 1
+                replay.insert(row)
+                stmts.append(f"INSERT INTO tr VALUES ({row['id']}, {row['g']}, {row['v']}, "
+                             f"{row['w']}, {row['g16']})")
+                continue
+            i_d = int(rng.integers(0, REP_ROWS))
+            while not replay.live[replay.slot(i_d)]:
+                i_d = int(rng.integers(0, REP_ROWS))
+            if kind == "update":
+                v, w = float(rng.integers(-16, 16)) / 8, float(rng.integers(-1000, 1000)) / 16
+                replay.update(i_d, v, w)
+                stmts.append(f"UPDATE tr SET v = {v}, w = {w} WHERE id = {i_d}")
+            else:
+                replay.delete(i_d)
+                stmts.append(f"DELETE FROM tr WHERE id = {i_d}")
+        out["writes_1pc"] = {**percentiles(rep_writes(s, stmts)),
+                             "plain": percentiles(rep_writes(plain, stmts))}
+        del plain
+
+        # 2PC: two rows in the first and the last region a transaction
+        calls = []
+        orig_write = twopc.TwoPhaseCoordinator.write
+
+        def counted(self, *a, **kw):
+            calls.append(1)
+            return orig_write(self, *a, **kw)
+        twopc.TwoPhaseCoordinator.write = counted
+        span = REP_ROWS // 8
+        walls = []
+        try:
+            for i in range(REP_TXNS + 1):
+                a, b = int(rng.integers(0, span)), int(rng.integers(REP_ROWS - span, REP_ROWS))
+                while not (replay.live[replay.slot(a)] and replay.live[replay.slot(b)]):
+                    a, b = int(rng.integers(0, span)), int(rng.integers(REP_ROWS - span, REP_ROWS))
+                va, vb = float(rng.integers(-16, 16)) / 8, float(rng.integers(-16, 16)) / 8
+                end = "ROLLBACK" if i == REP_TXNS else "COMMIT"
+                t = time.perf_counter()
+                for sql in ("BEGIN", f"UPDATE tr SET v = {va} WHERE id = {a}",
+                            f"UPDATE tr SET v = {vb} WHERE id = {b}", end):
+                    s.execute(sql)
+                if end == "COMMIT":
+                    walls.append((time.perf_counter() - t) * 1e3)
+                    replay.update(a, va, replay.cols["w"][replay.slot(a)])
+                    replay.update(b, vb, replay.cols["w"][replay.slot(b)])
+        finally:
+            twopc.TwoPhaseCoordinator.write = orig_write
+        if len(calls) != REP_TXNS:
+            raise AssertionError(f"[replicated] {len(calls)} 2PCs for {REP_TXNS} commits")
+        out["txns_2pc"] = {**percentiles(walls), "rolled_back": 1}
+
+        # the leader kill: the store leading the most regions
+        leaders = [g.leader() for g in tier.groups]
+        victim = fleet._addr[max(set(leaders), key=leaders.count)]
+        fleet.kill_store(victim)
+        stmts = []
+        for _ in range(REP_AFTER_KILL):
+            i_d = int(rng.integers(0, REP_ROWS))
+            while not replay.live[replay.slot(i_d)]:
+                i_d = int(rng.integers(0, REP_ROWS))
+            v, w = float(rng.integers(-16, 16)) / 8, float(rng.integers(-1000, 1000)) / 16
+            replay.update(i_d, v, w)
+            stmts.append(f"UPDATE tr SET v = {v}, w = {w} WHERE id = {i_d}")
+        ms = rep_writes(s, stmts)
+        out["leader_kill"] = {"victim": victim, "regions_led": leaders.count(
+            fleet._ids[victim]), "first_write_ms": ms[0], **percentiles(ms)}
+        del s
+
+        # the rebuild: a fresh Database over the fleet, from the replicas
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        s2 = Session(Database("cuda", fleet=fleet))
+        s2.execute(REP_DDL)
+        store = s2.db.stores["default.tr"]
+        batch = store.device_table_batch()
+        torch.cuda.synchronize()
+        out["rebuild_s"] = time.perf_counter() - t
+        snap = store.snapshot()
+        order = np.argsort(snap.column("id").to_numpy(), kind="stable")
+        want = replay.table()
+        for c in REP_COLS:
+            got = snap.column(c).to_numpy()[order]
+            if not np.array_equal(got, want[c]):
+                raise AssertionError(f"[replicated] the rebuilt column {c} differs from the replay")
+        log(f"[replicated] rebuilt from the replicas in {out['rebuild_s']:.2f} s: "
+            f"{snap.num_rows} rows equal the replay of every acknowledged write")
+        del snap
+        out["rebuilt_queries"] = rep_queries(gk, s2, replay.refs(), "[replicated, rebuilt]")
+        launches = all_launches(gk)
+        col = dict(zip(batch.names, batch.columns))
+        v, w = col["v"].data, col["w"].data
+        out["kernel_checks"] = batch_kernel_checks(gk, batch, (v * 2 + 1).double() > 0.5, w > -1,
+                                                   "[replicated]", "rebuilt")
+        del batch, col, v, w
+        out["memory_allocated_gib"] = torch.cuda.memory_allocated() / 2**30
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        fleet.revive_store(victim)
+        fleet.heartbeat_all()
+        s2.execute(f"UPDATE tr SET v = 0.5 WHERE id = {int(want['id'][0])}")
+        out["revived"] = victim
+        del s2
+    finally:
+        FLAGS.set_flag("region_split_rows", str(prev_split))
+        FLAGS.set_flag("streaming_scan", str(int(prev_stream)))
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[replicated] 1PC p50 / p99 {out['writes_1pc']['p50_ms']:.2f} / "
+        f"{out['writes_1pc']['p99_ms']:.2f} ms (plain {out['writes_1pc']['plain']['p50_ms']:.2f} / "
+        f"{out['writes_1pc']['plain']['p99_ms']:.2f}), 2PC {out['txns_2pc']['p50_ms']:.2f} / "
+        f"{out['txns_2pc']['p99_ms']:.2f} ms, first write after killing {victim} "
+        f"{out['leader_kill']['first_write_ms']:.2f} ms; memory "
+        f"{out['memory_allocated_gib']:.3f} GiB, peak {out['peak_mem_gib']:.3f} GiB; "
+        f"{out['seconds']:.1f} s")
+    return launches, out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=100_000_000)
@@ -4887,7 +5413,7 @@ def main() -> int:
     check = tpch_card_vs_cpu(gk)
     phase_s["tpch_card_vs_cpu"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    tpch_stats, s, tables = tpch_on_the_card(gk, args.tpch_scale, args.seed)
+    tpch_stats, s, tables, first = tpch_on_the_card(gk, args.tpch_scale, args.seed)
     tpch_stats["streamed_at_check_scale"] = check[2]
     phase_s["tpch_timed"] = time.perf_counter() - t0
     t0 = time.perf_counter()
@@ -4905,6 +5431,10 @@ def main() -> int:
     t0 = time.perf_counter()
     part_stats["match"] = match_phase(s, tables)
     part_s += time.perf_counter() - t0
+    t0 = time.perf_counter()
+    p16 = {"presort": presort_part(s, first), "radix": radix_part(s, first)}
+    p16_s = time.perf_counter() - t0
+    del first
     mesh_launches = {k: n + mesh_tpch_launches[k] for k, n in mesh_launches.items()}
     del s, tables
     t0 = time.perf_counter()
@@ -4927,6 +5457,17 @@ def main() -> int:
     part_stats["global_index"] = global_index_phase(args.seed)
     part_stats["surface"] = surface_phase()
     phase_s["partitions"] = part_s + time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    rep_launches, p16["replicated"] = replicated_phase(gk, args.seed)
+    phase_s["replicated"] = p16_s + time.perf_counter() - t0
+    missing = [k for k, n in rep_launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the replicated path: {missing}")
+    for k in REPLACES:
+        checks = p16["replicated"]["kernel_checks"]
+        err = checks["seg_max_abs_err" if k == "segment_reduce" else "k_max_abs_err"]
+        times[k]["max_abs_err"] = max(times[k]["max_abs_err"], err)
     print(f"htap phase seconds: {phase_s['htap']:.1f}", flush=True)
     print(f"analytic phase seconds: {phase_s['analytics']:.1f}", flush=True)
     print(f"vector phase seconds: {phase_s['vectors']:.1f}", flush=True)
@@ -4935,6 +5476,7 @@ def main() -> int:
     print(f"partition phase seconds: {phase_s['partitions']:.1f}", flush=True)
     print(f"lifecycle phase seconds: {phase_s['lifecycle']:.1f}", flush=True)
     print(f"observability phase seconds: {phase_s['observability']:.1f}", flush=True)
+    print(f"replicated phase seconds: {phase_s['replicated']:.1f}", flush=True)
     print("phase seconds: " + json.dumps(phase_s), flush=True)
 
     kernels = [{"name": k, "route": "cuda",
@@ -4942,7 +5484,7 @@ def main() -> int:
                 "replaces": REPLACES[k],
                 "launches": (launches[k] + stream_launches.get(k, 0) + vector_launches[k]
                              + mesh_launches[k] + htap_launches[k] + part_launches[k]
-                             + lc_launches[k] + obs_launches[k]),
+                             + lc_launches[k] + obs_launches[k] + rep_launches[k]),
                 "launches_resident": launches[k],
                 "launches_streamed": stream_launches.get(k, 0),
                 "launches_vectors": vector_launches[k],
@@ -4951,11 +5493,14 @@ def main() -> int:
                 "launches_partitioned": part_launches[k],
                 "launches_lifecycle": lc_launches[k],
                 "launches_observability": obs_launches[k],
+                "launches_replicated": rep_launches[k],
                 **times[k],
                 # this kernel on phase 13's pruned batch and on phase 14's
                 # refreshed table
                 "pruned": part_stats["kernel_checks"]["kernels"][k],
-                "lifecycle": lc_stats["kernel_checks"]["kernels"][k]}
+                "lifecycle": lc_stats["kernel_checks"]["kernels"][k],
+                # and on phase 16 (ii)'s table rebuilt from its replicas
+                "replicated": p16["replicated"]["kernel_checks"]["kernels"][k]}
                for k in REPLACES]
     # the lane-batched entries (phase 12): timed at --rows rows over 8 lanes
     lane_times = p12["kernels"][f"n{args.rows}_G8"]
@@ -4971,7 +5516,7 @@ def main() -> int:
                       "analytics": analytic_stats, "egress": egress_stats,
                       "vectors": vector_stats, "mesh": mesh_stats, "htap": htap_stats,
                       "dispatch": p12, "partitions": part_stats, "lifecycle": lc_stats,
-                      "observability": obs_stats}),
+                      "observability": obs_stats, "phase16": p16}),
           flush=True)
     print(name_power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

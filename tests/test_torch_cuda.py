@@ -1750,3 +1750,149 @@ def test_view_answers_on_the_card_match_the_cpu(cuda):
         rescans = s.query("SELECT rescans FROM information_schema.materialized_views")
         assert rescans[0]["rescans"] == 3           # the seed, the group, the re-seed
     assert out["cuda"] == out["cpu"]
+
+
+# -- the radix join, the presort and a fleet-bound session on the card -------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("how", ["inner", "left", "semi", "anti"])
+def test_radix_join_on_the_card_matches_the_cpu_and_the_sort_join(cuda, how):
+    """ops/radix.py's bucket ids bit for bit and radix_join's rows exactly
+    (as multisets) on the card against the CPU, with NULL keys, dead rows,
+    duplicates and one skewed key."""
+    from baikaldb_tpu_torch.column.batch import ColumnBatch
+    from baikaldb_tpu_torch.ops import join as tjoin
+    from baikaldb_tpu_torch.ops import radix
+
+    rng = np.random.default_rng(16)
+    keys = rng.integers(-(1 << 62), 1 << 62, 50_000, dtype=np.int64)
+    for nb in (2, 64, 1024):
+        assert torch.equal(radix.bucket_of(torch.from_numpy(keys).to(cuda), nb).cpu(),
+                           radix.bucket_of(torch.from_numpy(keys), nb))
+    pk = rng.integers(0, 5000, 40_000).astype(np.int64)
+    bk = rng.integers(0, 6000, 30_000).astype(np.int64)
+    bk[:3000] = 77                                   # past 4x the average bucket
+    state = {"p": ({"pk": (pk, rng.random(40_000) > 0.05, "int64", None),
+                    "pv": (np.arange(40_000, dtype=np.int64), None, "int64", None)},
+                   rng.random(40_000) > 0.1),
+             "b": ({"bk": (bk, rng.random(30_000) > 0.05, "int64", None),
+                    "bv": (np.arange(30_000, dtype=np.int64) * 3, None, "int64", None)},
+                   rng.random(30_000) > 0.1)}
+    out = {}
+    for dev in (cuda, "cpu"):
+        p, b = (ColumnBatch.from_numpy(tuple(c), list(c.values()), sel=sel, device=dev)
+                for c, sel in state.values())
+        got, total, width = tjoin.radix_join(p, ["pk"], b, ["bk"], how=how, n_buckets=256)
+        sort, sort_total = tjoin.join(p, ["pk"], b, ["bk"], how=how)
+        def canon(batch):
+            return sorted((tuple(r.values()) for r in batch.to_pylist()),
+                          key=lambda r: tuple((v is None, v or 0) for v in r))
+        rows = canon(got)
+        assert rows == canon(sort)
+        out[str(dev)] = (rows, total, width)
+        assert total == sort_total
+    bvalid, bsel = state["b"][0]["bk"][1], state["b"][1]
+    assert out["cuda"] == out["cpu"]
+    assert out["cuda"][2] >= int(((bk == 77) & bvalid & bsel).sum())   # the skewed bucket
+
+
+@pytest.mark.cuda
+def test_presort_on_the_card_matches_the_stripped_run_and_the_cpu(cuda):
+    """A sorted GROUP BY and an EXISTS-with-<> over a whole table take the
+    host permutation on the card (its device copy is cached per version),
+    and give the rows of a run without it and of the CPU session."""
+    import pyarrow as pa
+
+    from baikaldb_tpu_torch.exec.session import Session
+
+    rng = np.random.default_rng(3)
+    n = 200_000
+    data = pa.table({"ok": pa.array(rng.integers(1, 2_000_000, n), pa.int32()),
+                     "sk": pa.array(rng.integers(1, 1000, n), pa.int32()),
+                     "qty": rng.integers(1, 50, n).astype(np.float64),
+                     "flag": rng.integers(0, 2, n).astype(np.int64)})
+    sqls = ["SELECT ok, sk, SUM(qty) s, COUNT(*) c FROM l1 WHERE flag = 1 "
+            "GROUP BY ok, sk ORDER BY ok, sk LIMIT 500",
+            "SELECT COUNT(*) c FROM l1 a WHERE flag = 1 AND EXISTS (SELECT 1 FROM l1 b "
+            "WHERE b.ok = a.ok AND b.sk <> a.sk)"]
+    out = {}
+    for dev in ("cuda", "cpu"):
+        s = Session(device=dev)
+        s.execute("CREATE TABLE l1 (ok INT, sk INT, qty DOUBLE, flag BIGINT)")
+        s.load_arrow("l1", data)
+        staged = []
+        orig = s._collect_batches
+
+        def spy(plan, _orig=orig):
+            b, k, full = _orig(plan)
+            staged.extend(kk for kk in b if str(kk).startswith("__presort__"))
+            return b, k, full
+        s._collect_batches = spy
+        got = [s.query(q) for q in sqls]
+        del s._collect_batches
+        assert len(staged) == 2
+        perm = s.db.stores["default.l1"].presort_order(
+            "agg", ("ok", "sk"), s.db.stores["default.l1"].version)
+        assert perm.device.type == torch.device(dev).type
+
+        def strip(plan, _orig=orig):
+            b, k, full = _orig(plan)
+            return {kk: v for kk, v in b.items() if not str(kk).startswith("__presort__")}, k, full
+        s._collect_batches = strip
+        assert [s.query(q) for q in sqls] == got
+        out[dev] = got
+    assert out["cuda"] == out["cpu"]
+
+
+@pytest.mark.cuda
+def test_fleet_bound_group_by_on_the_card_launches_the_kernels(cuda):
+    """A Database over a 3-store fleet: (a)-(c)'s GROUP BYs over a table
+    replicated in regions launch K1-K3 and the segment kernel on the card
+    and equal a CPU session's rows over the same fleet's replicas, before
+    and after a leader kill and a rebuild from the replicas."""
+    import pyarrow as pa
+
+    from baikaldb_tpu_torch.exec.session import Database, Session
+    from baikaldb_tpu_torch.meta.service import MetaService
+    from baikaldb_tpu_torch.raft.fleet import StoreFleet
+
+    rng = np.random.default_rng(16)
+    n = 100_000
+    ddl = "CREATE TABLE t (id BIGINT PRIMARY KEY, g INT, v FLOAT, w DOUBLE, g16 INT)"
+    sql = {"a": "SELECT g16, COUNT(*), SUM(v), AVG(v), MIN(v) FROM t WHERE v*2+1 > 0.5 "
+                "GROUP BY g16 ORDER BY g16",
+           "b": "SELECT g, COUNT(*), SUM(v), AVG(v), MIN(v) FROM t WHERE v*2+1 > 0.5 "
+                "GROUP BY g ORDER BY g",
+           "c": "SELECT g, SUM(w), AVG(w) FROM t WHERE w > -1 GROUP BY g ORDER BY g"}
+    want = {"a": {"segment_reduce": 8},
+            "b": {"partition_histogram": 1, "fused_group_aggregate": 1},
+            "c": {"filtered_group_sum": 1, "partition_histogram": 1}}
+    fleet = StoreFleet(MetaService(peer_count=3), ["s1:1", "s2:1", "s3:1"], seed=5)
+    s = Session(Database("cuda", fleet=fleet))
+    s.execute("SET GLOBAL streaming_scan = 0")
+    try:
+        s.execute(ddl)
+        fleet.row_tiers["default.t"].split_rows = n // 3
+        s.load_arrow("t", pa.table({"id": np.arange(n, dtype=np.int64),
+                                    "g": rng.integers(0, 2048, n, dtype=np.int32),
+                                    "v": rng.standard_normal(n, dtype=np.float32),
+                                    "w": rng.standard_normal(n),
+                                    "g16": rng.integers(0, 16, n, dtype=np.int32)}))
+        assert len(fleet.row_tiers["default.t"].groups) >= 3
+        s.execute("UPDATE t SET v = 0.75 WHERE id < 1000")
+        tier = fleet.row_tiers["default.t"]
+        leaders = [g.leader() for g in tier.groups]
+        fleet.kill_store(fleet._addr[max(set(leaders), key=leaders.count)])
+        s.execute("DELETE FROM t WHERE id >= 99000")
+        rebuilt = Session(Database("cuda", fleet=fleet))
+        rebuilt.execute(ddl)
+        cpu = Session(Database("cpu", fleet=fleet))
+        cpu.execute(ddl)
+        for q, text in sql.items():
+            for sess in (s, rebuilt):
+                before = _all_launches()
+                got = sess.query(text)
+                assert _moved(before) == want[q], q
+                _close_rollup_rows(got, cpu.query(text), 1e-4, 2e-3)
+    finally:
+        s.execute("SET GLOBAL streaming_scan = 1")

@@ -371,8 +371,13 @@ LIFECYCLE_TABLES = {
 ])
 def test_information_schema_tables_of_unported_planes_raise(table):
     """The tables of planes the port lacks raise ``NotPortedError``; those
-    of the lifecycle plane and of the observability plane (ported) equal the
-    JAX session's."""
+    of the lifecycle plane, of the observability plane and of the
+    replicated tier (ported) equal the JAX session's."""
+    if table == "regions":
+        # without a fleet both packages render it empty; the fleet's rows
+        # are held to the JAX package in tests/test_torch_replicated_sql.py
+        _info_pair().run("SELECT * FROM information_schema.regions")
+        return
     if table in OBSERVABILITY_TABLES:
         p = _info_pair()
         p.run("SELECT COUNT(*) FROM a WHERE g > 1")
@@ -481,8 +486,13 @@ def test_handle_split_matches_jax():
 ])
 def test_handle_commands_of_unported_planes_raise(cmd):
     """The commands of planes the port lacks raise ``NotPortedError``; TTL,
-    online DDL, the flight recorder and the privileges (ported) give the JAX
-    session's outcome."""
+    online DDL, the flight recorder, the privileges and the replicated
+    tier's commands (ported) give the JAX session's outcome."""
+    if cmd in ("compact", "store_heartbeat", "split_region 1"):
+        # no fleet: compact does nothing, the others need one, in both
+        # packages (with a fleet: tests/test_torch_replicated_sql.py)
+        Pair().run(f"HANDLE {cmd}")
+        return
     if cmd in ("flightrec clear", "add_privilege u d read"):
         p = Pair()
         p.script(["CREATE TABLE h (id BIGINT)", "INSERT INTO h VALUES (1)",
