@@ -1,9 +1,6 @@
 """Change streams: durable SUBSCRIBE cursors over the commit_ts binlog.
 
-The port of ``baikaldb_tpu/cdc/streams.py`` without its distributed half:
-the JAX package also registers each hold with the binlog regions' GC
-(``storage/binlog_regions``) when ``db.cluster`` is set, and the port's
-Database has no cluster, so the hold here is the local binlog's alone.
+The port of ``baikaldb_tpu/cdc/streams.py``.
 
 The reference ships a capturer SDK (src/tools/baikal_capturer.h:104-123)
 that k-way-merges per-region binlog streams by commit_ts into ONE ordered
@@ -20,14 +17,19 @@ event stream and resumes from a saved checkpoint.  Here a
   redelivers, the dedupe absorbs it (cdc/views.py is the in-tree consumer
   doing exactly this).
 - **GC discipline**: every subscription holds the binlog ring's trim
-  behind its acked ts (storage/binlog.py ``hold_gc``).  A cursor silent past ``cdc_cursor_max_lag_s``
+  behind its acked ts (storage/binlog.py ``hold_gc``) and registers the
+  same hold with the distributed-binlog GC (binlog_regions
+  ``register_gc_hold``).  A cursor silent past ``cdc_cursor_max_lag_s``
   is force-expired; its NEXT fetch raises the typed
   :class:`CursorLagging` naming the lost range — never silent loss —
   then resumes from the oldest retained event.
 - **merge**: :func:`merge_by_commit_ts` is the fan-in — feeds already
   ordered by commit_ts merge into one stream with a deterministic
   (commit_ts, feed id, arrival index) tiebreak, so equal-ts events from
-  different regions always interleave the same way.
+  different regions always interleave the same way.  Region
+  split/migration re-targets the fan-in for free: the distributed feed
+  (storage.binlog_regions.BinlogCapturer) reads through RemoteRowTier,
+  whose routing follows splits/migrations.
 """
 
 from __future__ import annotations
@@ -124,9 +126,20 @@ class Subscription:
     def _persist_ack(self):
         self.db.binlog._save_cursor(self.cursor_key, self.acked)
         self.db.binlog.hold_gc(self.cursor_key, self.acked)
+        cluster = getattr(self.db, "cluster", None)
+        if cluster is not None:
+            from ..storage import binlog_regions
+
+            binlog_regions.register_gc_hold(cluster, self.cursor_key,
+                                            self.acked)
 
     def _release(self):
         self.db.binlog.release_gc(self.cursor_key)
+        cluster = getattr(self.db, "cluster", None)
+        if cluster is not None:
+            from ..storage import binlog_regions
+
+            binlog_regions.release_gc_hold(cluster, self.cursor_key)
 
     def _match(self, ev) -> bool:
         return (self.table_key is None

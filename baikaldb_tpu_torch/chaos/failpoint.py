@@ -8,7 +8,10 @@ binlog append, ``binlog.append`` (storage/binlog.py), a subscription's fetch
 and ack, ``cdc.fetch`` and ``cdc.apply`` (cdc/streams.py), a
 materialized view's fold, ``view.fold`` (cdc/views.py), and the replicated
 tier's raft, 2PC, split, migration and balancer seams (``raft.*``,
-``2pc.*``, ``region.*``, ``migrate.*``, ``meta.balance_tick``).
+``2pc.*``, ``region.*``, ``migrate.*``, ``meta.balance_tick``), the RPC
+plane's (``rpc.send``, ``rpc.recv``, ``store.handler``: utils/net.py), the
+distributed binlog's (``binlog.dist_append``) and the pushed fragments'
+(``fragment.dispatch``, ``fragment.exec``).
 Each site follows one discipline:
 
     if failpoint.ENABLED:
@@ -119,6 +122,27 @@ CATALOG: dict[str, str] = {
     "meta.balance_tick": "MetaService.tick control loop (drop: the tick "
                          "emits no orders — a stalled balancer; the data "
                          "plane must stay correct without it)",
+    # the network plane (utils/net.py), the distributed binlog
+    # (storage/binlog_regions.py) and pushed fragments (exec/fragments.py,
+    # server/store_server.py), with the JAX package's texts
+    "rpc.send": "RpcClient.call before the request frame is sent "
+                "(drop: lose the frame, transport-failure retry path)",
+    "rpc.recv": "RpcClient.call between send and receive "
+                "(drop: the server executed, the response is lost)",
+    "store.handler": "RpcServer dispatch around the handler "
+                     "(drop: no reply; panic: crash the daemon)",
+    "binlog.dist_append": "distributed binlog prewrite/commit protocol "
+                          "(drop: skip the CDC append, data still lands)",
+    "fragment.dispatch": "pushed-fragment per-region dispatch, frontend "
+                         "side before the spec leaves (drop: this "
+                         "attempt is abandoned; the bounded retry loop "
+                         "re-dispatches, then falls back to the pulled "
+                         "image path)",
+    "fragment.exec": "store-daemon fragment execution, after the spec "
+                     "arrived but before any region rows are read "
+                     "(drop: the handler fails; the pushed attempt "
+                     "fails whole and the frontend falls back to the "
+                     "pulled image path, partials stay exactly-once)",
 }
 
 _SPEC_RE = re.compile(

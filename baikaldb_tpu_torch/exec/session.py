@@ -42,9 +42,9 @@ among it) and the watchdog's health rows; SHOW PROFILES / PROFILE [FOR
 QUERY n] read the kept traces.  ``Session(db, user=...)`` runs as that
 account: each statement is checked against its grants (CREATE / DROP
 USER, GRANT, REVOKE, SHOW GRANTS, HANDLE add_privilege / drop_privilege).
-The SHOW forms, ``information_schema`` tables and HANDLE commands that read
-a plane the port lacks (the cold tier's segments, the network plane, ...)
-raise ``NotPortedError``.
+The SHOW forms the port lacks, and ``information_schema.executables`` /
+``aot_cache`` (the JAX package's XLA executable cache, which has no
+counterpart), raise ``NotPortedError``.
 
 Tables may be partitioned (``PARTITION BY RANGE (col) (PARTITION p VALUES
 LESS THAN (v | MAXVALUE), ...)`` or ``PARTITION BY HASH (col) PARTITIONS
@@ -161,9 +161,29 @@ A join's build side or a sorted GROUP BY over a whole table (the planner's
 version, instead of a device sort (``_collect_batches``, under the JAX
 session's guards); the radix join runs under ``radix_join_buckets``.
 
-Not ported yet: pushdown, the cold tier's segments and the distributed
-binlog of a fleet (ROADMAP item 6b), the HANDLE cold_* commands, and
-``Database(cluster=...)``.
+A fleet-bound Database with ``cold_dir`` keeps a cold tier: HANDLE
+cold_flush <db.t> [upto] evicts hot rows into Parquet segments on the
+external FS with the manifest raft-committed, cold_gc merges them, and
+cold_status reports; a rebuild spans hot and cold
+(``information_schema.cold_segments``).
+
+``Database(device, cluster="host:port")`` is the multi-process variant: the
+tables' regions live in store daemons (server/store_server.py) placed by a
+meta daemon, reached over TCP (storage/remote_tier.py).  A SELECT of one
+table that the stores can evaluate row-wise runs there as a pushed fragment
+(plan/fragment.py, dispatched by exec/fragments.py) while the table is not
+attached (``pushdown_reads`` = auto), always (= always) or never (= off);
+the stores' hosts fold the rows and only partials cross the wire, and
+EXPLAIN / EXPLAIN ANALYZE (``-- fragments:``) and
+``information_schema.fragments`` show it.  Any other statement pulls the
+table's image once (``TableStore.attach_replicated_lazy``) and runs on this
+session's device, through the kernels.  A table created with BINLOG=1
+writes its change events into the cluster's distributed binlog
+(storage/binlog_regions.py), in the data's own 2PC for an autocommit write
+and per table at COMMIT, with a per-table retry queue (``_TableBinlogRetry``)
+for an append that failed.  The telemetry poller merges the daemons'
+metrics (``information_schema.cluster_metrics``, SHOW STATUS
+``cluster.*``).
 """
 
 from __future__ import annotations
@@ -179,6 +199,7 @@ import os
 import re
 import shutil
 import tempfile
+import threading
 import time
 import weakref
 from collections import OrderedDict, deque
@@ -194,6 +215,8 @@ import torch
 from ..column.batch import ColumnBatch
 from ..errors import NotPortedError
 from ..exec import dispatch, egress, executor, streaming
+from ..exec import fragments as _fragments  # noqa: F401 — registers the
+# fragment_pushdown / fragment_retry_max flags at session load
 from ..expr.ast import AggCall, Call, ColRef, Lit, Subquery, WindowCall
 from ..expr.compile import ExprError, eval_output, eval_predicate
 from ..expr.params import PARAMS_KEY, ParamError
@@ -229,7 +252,8 @@ from ..sql.stmt import (AlterTableStmt, CreateDatabaseStmt, CreateMatViewStmt,
                         UpdateStmt, UseStmt)
 from ..storage.binlog import Binlog
 from ..storage.coldfs import ExternalFS
-from ..storage.column_store import ROWID, TableStore, commit_group, schema_to_arrow
+from ..storage.column_store import (ROWID, TableStore, check_cold_readable, commit_group,
+                                    schema_to_arrow)
 from ..storage.mvcc import MvccRuntime, SnapshotRefused
 from ..storage.streamchunks import ChunkSource, chunk_set
 from ..types import Field, LType, Schema
@@ -294,10 +318,17 @@ _ENV_FNS = ("database", "schema", "user", "current_user", "session_user",
 # row images (the JAX session's cut)
 BINLOG_ROW_IMAGES_MAX = 1000
 
-# the JAX session's HANDLE commands whose planes the port lacks
-# HANDLE commands of a plane the port lacks: the cold tier's segments
-# (ROADMAP item 6b)
-_HANDLE_PLANES = ("cold_flush", "cold_gc", "cold_status")
+# information_schema tables of the JAX package's XLA executable cache,
+# which has no counterpart in the port
+_INFO_XLA = ("executables", "aot_cache")
+
+
+def _opt_on(v) -> bool:
+    """Table-option truth: parser option values arrive as strings, so
+    BINLOG=0 / BINLOG=false read as off."""
+    if v is None:
+        return False
+    return str(v).strip().lower() not in ("", "0", "false", "off", "no")
 
 
 def _env_alias(e):
@@ -411,6 +442,20 @@ class Result:
         return r[0][0] if r else None
 
 
+class _TableBinlogRetry:
+    """One table's CDC retry state: a queue of failed distributed-binlog
+    event batches and the lock that serializes this table's drain / append
+    rounds (rank 20 in the JAX package's order: taken inside the store lock,
+    10, by the autocommit CDC path, and before the replicated tier's, 30,
+    when a queued append retries; two tables' locks are never nested)."""
+
+    __slots__ = ("mu", "q")
+
+    def __init__(self):
+        self.mu = threading.Lock()
+        self.q: deque = deque()
+
+
 class Database:
     """Catalog + table stores, all on one device, and the MVCC plane (one
     TSO client and one snapshot pin registry).  ``cold_dir`` (or the
@@ -446,16 +491,27 @@ class Database:
     from non-leader replicas within ``read_max_lag`` applied entries,
     optionally only on instances tagged ``read_tag`` (an OLAP-isolated
     reader).  A fleet-bound Database takes no ``data_dir`` (the replicas are
-    its durability) and no cold tier yet (ROADMAP item 6b); ``cluster``, the
-    multi-process variant, waits for item 7."""
+    its durability); with ``cold_dir`` it keeps a cold tier of Parquet
+    segments whose manifest the region groups replicate.
+
+    ``cluster`` (a storage.remote_tier.ClusterClient, or "host:port" of the
+    meta daemon) is the multi-process variant of ``fleet``: the same
+    replication, but the regions live in store daemon processes reached over
+    TCP (server/store_server.py).  The meta daemon and its stores join the
+    telemetry scrape, which polls in the background, and the watchdog's
+    thread runs.  Binlogged tables (BINLOG=1) write the cluster's
+    distributed binlog (``dist_binlog``); an append that fails queues per
+    table and retries on later commits."""
 
     def __init__(self, device=None, cold_dir: Optional[str] = None,
                  data_dir: Optional[str] = None, fleet=None, cluster=None,
                  read_replica: str = "leader", read_tag: str = "",
                  read_max_lag: int = 0):
-        if cluster is not None:
-            raise NotPortedError("Database(cluster=...) (the store daemons, ROADMAP item 7)")
-        if data_dir and fleet is not None:
+        if isinstance(cluster, str):
+            from ..storage.remote_tier import ClusterClient
+
+            cluster = ClusterClient(cluster)
+        if data_dir and (fleet is not None or cluster is not None):
             # the replicated tier is the durability of a fleet-bound table;
             # skipping the WAL the caller asked for would be worse
             raise ValueError("data_dir cannot combine with fleet/cluster "
@@ -466,6 +522,7 @@ class Database:
         self.cold_dir = cold_dir
         self._cold_fs = None
         self.fleet = fleet
+        self.cluster = cluster
         self.read_replica = read_replica
         self.read_tag = read_tag
         self.read_max_lag = int(read_max_lag)
@@ -482,6 +539,17 @@ class Database:
         self.processlist: dict[int, dict] = {}
         self.flightrec = FlightRecorder()
         self.watchdog = QueryWatchdog(db=self)
+        # per-table queues of distributed-binlog batches whose append failed
+        # (bounded; overflow counts in metrics.binlog_events_dropped)
+        self._binlog_retry: dict[str, _TableBinlogRetry] = {}
+        self._binlog_retry_reg_mu = threading.Lock()    # the registry dict only
+        self._dist_binlog = None
+        if cluster is not None:
+            # the meta daemon and its registered stores join the scrape set
+            # (the store list refreshes per poll), polled in the background
+            self.telemetry.attach_meta(f"{cluster.meta.host}:{cluster.meta.port}")
+            self.telemetry.start()
+            self.watchdog.start()
         self.ddl = DdlManager(self)
         if data_dir:
             os.makedirs(data_dir, exist_ok=True)
@@ -501,6 +569,79 @@ class Database:
         self.mvcc.stop_gc()
         self.ddl.stop()
 
+    _BINLOG_RETRY_MAX = 1024    # queued batches a table; beyond, the oldest drop
+
+    def binlog_retry_queue(self, table_key: str) -> _TableBinlogRetry:
+        """This table's retry state (made at first use)."""
+        rq = self._binlog_retry.get(table_key)
+        if rq is None:
+            with self._binlog_retry_reg_mu:
+                rq = self._binlog_retry.setdefault(table_key, _TableBinlogRetry())
+        return rq
+
+    def binlog_retry_pending(self) -> list[str]:
+        """Tables with queued retry batches (an unlocked snapshot: callers
+        take the table's lock before acting)."""
+        return [tk for tk, rq in list(self._binlog_retry.items()) if rq.q]
+
+    def binlog_retry_depth(self, table_key: Optional[str] = None) -> int:
+        """Queued batches, of one table or of all."""
+        if table_key is not None:
+            rq = self._binlog_retry.get(table_key)
+            return len(rq.q) if rq is not None else 0
+        return sum(len(rq.q) for rq in list(self._binlog_retry.values()))
+
+    def discard_binlog_retry(self, table_key: str) -> None:
+        """Forget a dropped table's retry state: its queued batches count as
+        dropped (no table, nothing to replay them to)."""
+        with self._binlog_retry_reg_mu:
+            rq = self._binlog_retry.pop(table_key, None)
+        if rq is not None:
+            with rq.mu:
+                while rq.q:
+                    metrics.binlog_events_dropped.add(len(rq.q.popleft()))
+
+    def drain_binlog_retry(self, dist) -> None:
+        """Re-attempt the queued appends, table by table: one table's dead
+        binlog region stops only its own queue."""
+        for tk in self.binlog_retry_pending():
+            rq = self.binlog_retry_queue(tk)
+            with rq.mu:
+                self._drain_rq_locked(rq, tk, dist)
+
+    def _drain_rq_locked(self, rq: _TableBinlogRetry, table_key: str, dist) -> None:
+        """Arrival-order drain of one table's queue; the first failure stops
+        it (later batches must not jump the queue).  Caller holds rq.mu."""
+        q = rq.q
+        for _ in range(len(q)):
+            events = q.popleft()
+            try:
+                dist.append(table_key, events)
+            except Exception:   # noqa: BLE001 — the region is still down: retry later
+                q.appendleft(events)
+                break
+
+    def _queue_rq_locked(self, rq: _TableBinlogRetry, events: list) -> None:
+        """Caller holds rq.mu."""
+        rq.q.append(events)
+        metrics.binlog_retry_queued.add(len(events))
+        while len(rq.q) > self._BINLOG_RETRY_MAX:
+            metrics.binlog_events_dropped.add(len(rq.q.popleft()))
+
+    def dist_binlog(self):
+        """The cluster's distributed binlog writer (storage/binlog_regions.py),
+        or None off the daemon plane or with the binlog_regions flag off."""
+        if self.cluster is None:
+            return None
+        # the module defines the binlog_regions flag
+        from ..storage.binlog_regions import DistributedBinlog
+
+        if not FLAGS.binlog_regions:
+            return None
+        if self._dist_binlog is None:
+            self._dist_binlog = DistributedBinlog(self.cluster)
+        return self._dist_binlog
+
     def make_store(self, info) -> TableStore:
         """A table's store on this database's device, joined to its MVCC
         plane; under ``data_dir`` it loads its checkpoint and replays its
@@ -511,17 +652,41 @@ class Database:
         if self.fleet is not None:
             from ..storage.replicated import ReplicatedRowTier
 
-            if self.cold_fs() is not None:
-                raise NotPortedError("a fleet-bound Database with a cold tier "
-                                     "(the cold segments, ROADMAP item 6b)")
             key = f"{info.database}.{info.name}"
             tier = ReplicatedRowTier.get_or_create(self.fleet, info.table_id, key,
                                                    st._row_schema(), [ROWID])
+            fs = self.cold_fs()
+            check_cold_readable(tier, fs, key)
+            cold = tier.cold_rows(fs) if fs is not None else None
             hot = None
             if self.read_replica == "follower":
                 hot = tier.follower_rows(max_lag=self.read_max_lag,
                                          resource_tag=self.read_tag)
-            st.attach_replicated(tier, hot_rows=hot)
+            st.attach_replicated(tier, cold_rows=cold, hot_rows=hot)
+            return st
+        if self.cluster is not None:
+            from ..storage.remote_tier import RemoteRowTier
+
+            key = f"{info.database}.{info.name}"
+            tier = RemoteRowTier.get_or_create(self.cluster, key, st._row_schema(), [ROWID])
+            fs = self.cold_fs()
+            # checked now even for a deferred attach: a frontend that cannot
+            # read the cold tier refuses the table at CREATE, not at a query
+            check_cold_readable(tier, fs, key)
+            if not info.name.startswith("__") and \
+                    _opt_on((info.options or {}).get("binlog")):
+                # binlog is opt-in a table (BINLOG=1); hidden backing tables
+                # (global indexes, rollups) ride their main table's events
+                st.binlog_sink = self.dist_binlog()
+                st.binlog_db = self
+            if str(FLAGS.pushdown_reads) != "off":
+                # defer the full-region pull: eligible SELECTs run as pushed
+                # fragments on the store daemons; the image is pulled when a
+                # statement needs it
+                st.attach_replicated_lazy(tier, fs)
+                return st
+            cold = tier.cold_rows(fs) if fs is not None else None
+            st.attach_replicated(tier, cold_rows=cold)
             return st
         if self.data_dir:
             key = f"{info.database}.{info.name}"
@@ -602,12 +767,16 @@ class Database:
             st.checkpoint(os.path.join(self.data_dir, key))
         self.save_catalog()
 
-    def cold_fs(self):
-        """The external cold-storage FS, or None when unconfigured."""
+    def cold_fs(self, required: bool = False):
+        """The external cold-storage FS, or None when unconfigured
+        (``required``: a PlanError instead)."""
         if self._cold_fs is None:
             root = self.cold_dir or str(FLAGS.cold_fs_dir)
             if root:
                 self._cold_fs = ExternalFS(root)
+        if required and self._cold_fs is None:
+            raise PlanError("no cold storage configured (set cold_dir or "
+                            "the cold_fs_dir flag)")
         return self._cold_fs
 
 
@@ -1037,6 +1206,13 @@ class Session:
         if isinstance(s, SetStmt):
             return self._set_stmt(s)
         if isinstance(s, ExplainStmt) and s.fmt != "analyze":
+            cand = self._pushdown_candidate(s.stmt)
+            if cand is not None:
+                # a pushed fragment shows what the stores run and what this
+                # frontend finishes
+                text = self._render_pushdown(*cand)
+                return Result(columns=["plan"], plan_text=text,
+                              arrow=pa.table({"plan": text.split("\n")}))
             # a view or rollup that would answer shows as its rewrite
             stmt = self._try_matview(s.stmt, refresh=False) or \
                 self._try_rollup(s.stmt, refresh=False) or s.stmt
@@ -1554,6 +1730,11 @@ class Session:
             tier = self.db.fleet.row_tiers.pop(key, None)
             if tier is not None:
                 tier.release_regions()   # no ghost raft groups in the fleet
+        if self.db.cluster is not None:
+            tier = self.db.cluster.tiers.pop(key, None)
+            if tier is not None:
+                tier.release_regions()
+        self.db.discard_binlog_retry(key)
         if not self.db.data_dir:
             return
         if store is not None:
@@ -2078,9 +2259,9 @@ class Session:
         versions), split <db.table> <rows>, set_flag <name> <value>, ttl /
         ttl_tick (``ttl_tick``), ddl suspend | resume (the online-DDL
         worker), flightrec dump '<path>' [id] | clear, add_privilege <user>
-        <db|*> <read|write|all> and drop_privilege <user> <db|*>.  The
-        commands of planes the port lacks (the fleet, the cold tier) raise
-        ``NotPortedError``."""
+        <db|*> <read|write|all> and drop_privilege <user> <db|*>, then the
+        fleet's commands (``_handle_fleet``) and the cold tier's
+        (``_handle_cold``)."""
         if s.command == "checkpoint":
             self.db.checkpoint()
             return Result()
@@ -2133,10 +2314,33 @@ class Session:
         fleet_cmd = self._handle_fleet(s)
         if fleet_cmd is not None:
             return fleet_cmd
-        if s.command in _HANDLE_PLANES:
-            raise NotPortedError(f"HANDLE {s.command} (the cold tier's segments, "
-                                 "ROADMAP item 6b)")
+        if s.command in ("cold_flush", "cold_gc", "cold_status") and s.args:
+            return self._handle_cold(s)
         raise SqlError(f"unsupported HANDLE command {s.command!r}")
+
+    def _handle_cold(self, s: HandleStmt) -> Result:
+        """HANDLE cold_flush <db.t> [upto_rowid]: hot rows -> one immutable
+        segment a region on the external FS, manifest and eviction
+        raft-committed; cold_gc merges a region's segments (the latest
+        version a rowid, deletes dropped); cold_status reports the hot bytes
+        and the manifest's size."""
+        has_upto = s.command == "cold_flush" and len(s.args) > 1 and \
+            str(s.args[-1]).isdigit()
+        key = "".join(s.args[:-1] if has_upto else s.args)
+        st = self.db.stores.get(key)
+        if st is None or st.replicated is None:
+            raise PlanError(f"no cold-capable replicated tier for {key!r}")
+        fs = self.db.cold_fs(required=True)
+        tier = st.replicated
+        if s.command == "cold_flush":
+            upto = int(s.args[-1]) if has_upto else None
+            return Result(affected_rows=tier.flush_cold(fs, upto=upto))
+        if s.command == "cold_gc":
+            return Result(affected_rows=tier.cold_gc(fs))
+        entries = sum(len(tier.cold_manifest(i)) for i in range(len(tier.region_ids())))
+        return Result(columns=["hot_bytes", "cold_segments"],
+                      arrow=pa.table({"hot_bytes": [tier.hot_bytes()],
+                                      "cold_segments": [entries]}))
 
     def _handle_fleet(self, s: HandleStmt) -> Optional[Result]:
         """HANDLE's commands of a fleet-bound Database, as the JAX session
@@ -2264,11 +2468,61 @@ class Session:
                 self._txn_binlog.clear()
                 raise
         events, self._txn_binlog = self._txn_binlog, []
-        if events:
+        # an empty commit still flows through on a cluster: queued retry
+        # batches (failed appends of earlier commits) drain on any commit
+        if events or self.db.binlog_retry_pending():
             with trace.span("binlog.flush", events=len(events)):
-                for event_type, db_name, table, rows, statement, affected in events:
-                    self.db.binlog.append(event_type, db_name, table, rows=rows,
-                                          statement=statement, affected=affected)
+                self._flush_txn_binlog(events)
+
+    def _flush_txn_binlog(self, events: list) -> None:
+        """A committed transaction's events: the local binlog, then, for
+        binlogged tables on a cluster, one distributed-binlog append a table
+        (the autocommit path joins the data's own 2PC instead).  A failed
+        append queues in the table's retry queue: the data already
+        committed, and its events must not be lost or reordered."""
+        from ..storage.binlog_regions import DistributedBinlog
+
+        per_table: OrderedDict = OrderedDict()
+        for event_type, db_name, table, rows, statement, affected in events:
+            self.db.binlog.append(event_type, db_name, table, rows=rows,
+                                  statement=statement, affected=affected)
+            if self._table_binlogged(db_name, table):
+                per_table.setdefault(f"{db_name}.{table}", []).extend(
+                    DistributedBinlog.events_from_statement(
+                        event_type, rows, statement, affected))
+        db = self.db
+        # resolved only when a binlogged event exists: it creates the
+        # __binlog__ regions cluster-wide at first use
+        dist = db.dist_binlog() if per_table or db.binlog_retry_pending() else None
+        if dist is None:
+            return
+        # other tables' queued batches retry on any commit; each table's
+        # lock is taken alone, never nested
+        for tk in db.binlog_retry_pending():
+            if tk not in per_table:
+                rq = db.binlog_retry_queue(tk)
+                with rq.mu:
+                    db._drain_rq_locked(rq, tk, dist)
+        for table_key, evs in per_table.items():
+            rq = db.binlog_retry_queue(table_key)
+            with rq.mu:
+                db._drain_rq_locked(rq, table_key, dist)
+                if rq.q:
+                    # an older batch of this table is still queued: appending
+                    # now would reorder the table's stream
+                    db._queue_rq_locked(rq, evs)
+                    continue
+                try:
+                    dist.append(table_key, evs)
+                except Exception:   # noqa: BLE001 — committed data: queue its events
+                    db._queue_rq_locked(rq, evs)
+
+    def _table_binlogged(self, db_name: str, table: str) -> bool:
+        try:
+            info = self.db.catalog.get_table(db_name, table)
+        except ValueError:
+            return False
+        return _opt_on((info.options or {}).get("binlog"))
 
     def _tctx(self, store: TableStore):
         """The open transaction's context for ``store`` (made at its first
@@ -2569,6 +2823,11 @@ class Session:
             # a view or rollup answers: its maintenance writes one consistent
             # cut of the base, and a pin taken first would hide those writes
             return None
+        if self._pushdown_candidate(stmt) is not None:
+            # served by the daemons' fragments over their own region images;
+            # a snapshot ts does not travel with fragments (as in the JAX
+            # session), so a pin would only add round trips
+            return None
         ts = self.db.mvcc.now_ts()
         try:
             with trace.span("snapshot.pin", ts=ts, explicit=False):
@@ -2602,6 +2861,142 @@ class Session:
             trace.event("snapshot", ts=snap, table=table_key,
                         versions_scanned=0 if got is None else got[1], gc_watermark=wm)
             return None if got is None else got[0]
+
+    # -- daemon-plane pushed-down execution (reference: store-side plan
+    # fragments, region.cpp:2671 / store.interface.proto:418) --------------
+    def _pushdown_candidate(self, stmt: SelectStmt):
+        """(push, info, table_key) when this SELECT can execute as a pushed
+        fragment on the store daemons, else None.  Shared by execution and
+        EXPLAIN so the displayed plan is the plan that runs."""
+        from ..plan.fragment import build_push_query
+
+        db = self.db
+        if db.cluster is None:
+            return None
+        mode = str(FLAGS.pushdown_reads)
+        if mode == "off" or self._sql_txn is not None:
+            return None
+        if self._snap_dirty(stmt):
+            # pinned snapshot with version churn: store daemons evaluate
+            # the physically-latest region image; the versioned read needs
+            # the frontend's MVCC state, so the pin routes this query to
+            # the resident path (quiet tables keep the pushed path)
+            return None
+        t = stmt.table
+        if t is None:
+            return None
+        dbname = t.database or self.current_db
+        if dbname == "information_schema":
+            return None
+        if db.catalog.get_view(dbname, t.name) is not None:
+            return None
+        try:
+            info = db.catalog.get_table(dbname, t.name)
+        except ValueError:      # unknown table: the planner raises
+            return None
+        if (info.options or {}).get("partition"):
+            return None          # partitioned layout: image path prunes
+        if any(f.ltype is LType.DECIMAL for f in info.schema.fields):
+            # the row tier's DECIMAL encoding is scaled; row-wise eval
+            # would disagree with the image path — not pushable
+            return None
+        key = f"{dbname}.{t.name}"
+        store = db.stores.get(key)
+        if mode != "always" and store is not None \
+                and not store.attach_pending:
+            return None          # warm image: the device path is faster
+        if mode != "always":
+            if is_point_statement(stmt):
+                # repeated PK point reads: one image pull then
+                # microsecond-class local lookups beats a per-query
+                # full-region fragment scan (the OLTP path)
+                return None
+        push = build_push_query(stmt, info)
+        if push is None:
+            return None
+        return push, info, key
+
+    def _render_pushdown(self, push, info, key) -> str:
+        """EXPLAIN display of a pushed fragment: what the store daemons
+        execute vs what the frontend finishes."""
+        from ..expr.roweval import expr_from_wire
+
+        f = push.frag
+        lines = [f"PushDown({key} -> store daemons)"]
+        if f.get("filter") is not None:
+            lines.append(f"  store filter: {expr_from_wire(f['filter'])!r}")
+        if push.mode == "rows":
+            outs = ", ".join(f"{n}={expr_from_wire(w)!r}"
+                             for n, w in f["outputs"])
+            lines.append(f"  store project: {outs}")
+            if f.get("limit") is not None:
+                lines.append(f"  store limit: {f['limit']} per region")
+        else:
+            if f["keys"]:
+                keys = ", ".join(f"{n}={expr_from_wire(w)!r}"
+                                 for n, w in f["keys"])
+                lines.append(f"  store group by: {keys}")
+            aggs = ", ".join(
+                "{}={}({})".format(
+                    out, kind,
+                    repr(expr_from_wire(w)) if w is not None else "*")
+                for kind, w, out in f["aggs"])
+            lines.append(f"  store partial aggs: {aggs}")
+        finish = []
+        if push.having is not None:
+            finish.append(f"having {push.having!r}")
+        if push.order:
+            finish.append("order by " + ", ".join(
+                f"{e!r} {'asc' if asc else 'desc'}"
+                for e, asc in push.order))
+        if push.limit is not None:
+            finish.append(f"limit {push.limit}"
+                          + (f" offset {push.offset}" if push.offset
+                             else ""))
+        lines.append("  frontend merge: "
+                     + ("; ".join(finish) if finish else "concat/combine"))
+        lines.append("  items: " + ", ".join(f"{n}={e!r}"
+                                             for n, e in push.items))
+        return "\n".join(lines)
+
+    def _try_pushdown(self, stmt: SelectStmt) -> Optional[Result]:
+        """Execute an eligible SELECT store-side: only qualifying rows /
+        aggregate partials cross the wire, and a cold frontend never pulls
+        whole regions for it.  The merge is host Python: no tensor."""
+        cand = self._pushdown_candidate(stmt)
+        if cand is None:
+            return None
+        push, info, key = cand
+        from ..plan.fragment import merge_push_results
+        from ..storage.remote_tier import (PushdownUnsupported,
+                                           RemoteRowTier, ReplicationError,
+                                           StaleRoutingError)
+
+        store = self.db.stores.get(key)
+        if store is None:
+            store = self.db.stores[key] = self.db.make_store(info)
+        tier = store.replicated
+        if not isinstance(tier, RemoteRowTier):
+            return None
+        try:
+            if bool(FLAGS.fragment_pushdown):
+                # parallel dispatcher: hash-addressed specs, one thread per
+                # region owner, split/migration re-targeting
+                # (exec/fragments.py).  Same payloads in the same region
+                # order as the serial loop -> bit-identical merge
+                from .fragments import dispatch_fragments
+
+                payloads, _fstats = dispatch_fragments(tier, push.frag)
+            else:
+                payloads = tier.exec_fragment(push.frag)
+        except (PushdownUnsupported, ReplicationError,
+                StaleRoutingError):
+            metrics.fragment_fallbacks.add(1)
+            return None          # image path retries / surfaces the error
+        with trace.span("fragment.merge", table=key,
+                        regions=len(payloads)):
+            names, rows = merge_push_results(push, payloads)
+        return _host_rows_result(names, rows)
 
     def _try_point_lookup(self, stmt: SelectStmt) -> Optional[Result]:
         """WHERE fixes the whole primary key by equality and the statement
@@ -2789,6 +3184,9 @@ class Session:
     def _select_impl(self, stmt: SelectStmt, cache_key=None) -> Result:
         if stmt.into_outfile is not None:
             return self._select_into_outfile(stmt)
+        pushed = self._try_pushdown(stmt)
+        if pushed is not None:
+            return pushed
         # a pinned read of a table written past the pin takes the versioned
         # batch: egress and the point read read the live image
         dirty = self._snap_dirty(stmt)
@@ -3212,6 +3610,14 @@ class Session:
         answers here as in a SELECT (its ``view`` span is the ``-- view:``
         line)."""
         stmt = self._try_matview(stmt) or stmt
+        cand = self._pushdown_candidate(stmt)
+        if cand is not None and self._try_pushdown(stmt) is not None:
+            # a pushed fragment: the dispatcher's `fragments` event is the
+            # measurement; the image path's instrumentation would measure a
+            # plan that does not run (a fallback measures it below)
+            for line in self._render_pushdown(*cand).splitlines():
+                trace.event("op", label=line)
+            return
         plan = self._plan_select(stmt)
         batches, shape_key, full_scan = self._collect_batches(plan)
         by_node: dict = {}
@@ -3345,8 +3751,9 @@ class Session:
             sch = schema_to_arrow(Catalog.INFORMATION_SCHEMA[name])
             return pa.table({f.name: pa.array([r[i] for r in rows], f.type)
                              for i, f in enumerate(sch)}, schema=sch)
-        if name in Catalog.INFORMATION_SCHEMA:
-            raise NotPortedError(f"information_schema.{name} (its plane is not ported)")
+        if name in _INFO_XLA:
+            raise NotPortedError(f"information_schema.{name} (the JAX package's XLA "
+                                 "executable cache has no counterpart)")
         raise PlanError(f"unknown information_schema table {name!r}")
 
     # the information_schema tables, one method each: rows in the table's
@@ -3456,6 +3863,30 @@ class Session:
         # daemon='fleet')
         return [(r[0], r[1], r[2], r[3], r[4], int(r[5]), round(float(r[6]), 3))
                 for r in self.db.telemetry.cluster_rows()]
+
+    def _info_fragments(self) -> list:
+        """The last pushed-fragment dispatches (exec/fragments.RECENT)."""
+        return [(r["frag_key"], r["table"], r["mode"], r["dispatched"], r["local"],
+                 r["retargeted"], r["partial_rows"], r["scanned"], r["bytes_saved"],
+                 r["status"]) for r in _fragments.recent_dispatches()]
+
+    def _info_cold_segments(self) -> list:
+        """Every replicated table's cold manifests, region by region; a
+        leaderless or unreachable region is skipped, not an error."""
+        rows = []
+        for key, st in list(self.db.stores.items()):
+            tier = st.replicated
+            if tier is None:
+                continue
+            db, _, tname = key.partition(".")
+            for i, rid in enumerate(tier.region_ids()):
+                try:
+                    manifest = tier.cold_manifest(i)
+                except Exception:   # noqa: BLE001 — one region must not fail the listing
+                    metrics.count_swallowed("session.cold_manifest")
+                    continue
+                rows += [(db, tname, rid, seq, f, w) for seq, f, w in manifest]
+        return rows
 
     def _info_flags(self) -> list:
         return [(n, str(v), str(d), h) for n, v, d, h in FLAGS.describe()]
@@ -3931,6 +4362,11 @@ def _render_analyze(spans: list[dict]) -> list[str]:
                      f"skipped={a['skipped']} bytes_h2d={a['bytes_h2d']} "
                      f"prefetch_wait_ms={a['prefetch_wait_ms']} stage_ms={a['stage_ms']} "
                      f"restarts={a['restarts']}")
+    for s in find("fragments"):
+        a = s["attrs"]
+        lines.append(f"-- fragments: dispatched={a['dispatched']} local={a['local']} "
+                     f"retargeted={a['retargeted']} partial_rows={a['partial_rows']} "
+                     f"bytes_saved={a['bytes_saved']}")
     lines.append(f"-- trace: spans={len(spans)} (every line above renders from these "
                  "span records)")
     return lines

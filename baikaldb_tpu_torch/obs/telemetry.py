@@ -1,37 +1,58 @@
-"""The telemetry plane, its local half: fleet merging, Prometheus
-exposition, and the device and process gauges.
+"""Cluster telemetry plane: per-daemon snapshot polling, fleet merging,
+and Prometheus exposition.
 
-The port of ``baikaldb_tpu/obs/telemetry.py`` without the RPC scrape:
+The reference dumps per-process bvars to the brpc HTTP port and leaves
+cross-fleet aggregation to the scraper; our daemons instead expose one
+``rpc_metrics`` snapshot method on the existing RPC plane (utils/net.py)
+and the frontend carries this module's :class:`Telemetry` poller:
 
+- each registered daemon is polled under the RPC plane's retry policy (deadline
+  budget + jittered resends inside one ``telemetry_rpc_timeout_s``); an
+  unreachable daemon keeps its LAST snapshot, marked stale, so
+  ``information_schema.cluster_metrics`` still answers with the rest of
+  the fleet (bounded degradation, never an error),
 - merging is type-aware: **counters sum**, **histograms sum bucket-wise**
-  (exact: integer bin counts over identical fixed bounds), **gauges and
+  (exact — integer bin counts over identical fixed bounds), **gauges and
   latency rings keep per-daemon rows** (a ring of recent raw samples has
   no meaningful cross-process sum),
 - any registry snapshot renders as Prometheus text exposition
-  (``# TYPE`` / labels / cumulative ``_bucket`` lines),
-- :class:`Telemetry` holds this frontend's registry and renders
-  ``information_schema.cluster_metrics`` and SHOW STATUS's ``cluster.*``
-  rows from it.  Registering a daemon, the meta discovery and the
-  background poll wait for the replicated tier (ROADMAP §1 item 6) and
-  raise ``NotPortedError``; with no daemons the JAX package renders the
-  same local rows.
+  (``# TYPE`` / labels / cumulative ``_bucket`` lines), served over HTTP
+  by :func:`start_http_exporter` (daemon ``--metrics-port``,
+  server/store_server.py) and returned in-band by each daemon's
+  ``rpc_prometheus`` method.
 
 Merging is deterministic: daemons are folded in sorted-name order, so the
 merged row is a pure function of the snapshot SET, not of poll arrival
-order.  The device gauges read ``torch.cuda`` (the caching allocator's
-bytes in use and peak, the card's total memory), summed over the visible
-cards; without CUDA they are NaN, as the JAX package's are on the CPU.
+order.
+
+The port of ``baikaldb_tpu/obs/telemetry.py``.  The device gauges read
+``torch.cuda`` (the caching allocator's bytes in use and peak, the card's
+total memory), summed over the visible cards; without CUDA they are NaN, as
+the JAX package's are on the CPU.  The scrape lock is a plain lock (rank 6
+in the JAX package's order: below store.table_lock; RPC scrapes run
+outside it).
 """
 
 from __future__ import annotations
 
 import re
+import threading
 import time
-from typing import Optional
+from typing import Callable, Optional
 
-from ..errors import NotPortedError
 from ..utils import metrics
+from ..utils.flags import FLAGS, define
 from ..utils.metrics import histogram_stats
+
+define("telemetry_poll_s", 2.0,
+       "background fleet-telemetry poll period (started automatically in "
+       "cluster mode); 0 disables the thread (information_schema."
+       "cluster_metrics then polls inline per query); also the re-probe "
+       "holdoff for a daemon whose last scrape failed")
+define("telemetry_rpc_timeout_s", 2.0,
+       "per-daemon deadline budget for one telemetry scrape RPC (rides "
+       "the utils/net.py retry policy); an exhausted budget marks the "
+       "daemon's rows stale instead of failing the query")
 
 FLEET = "fleet"          # pseudo-daemon name of the merged rows
 
@@ -306,47 +327,182 @@ def install_process_gauges(registry) -> None:
     registry.gauge("process_gc_collections", fn=gc_collections)
 
 
-# -- the frontend's view ------------------------------------------------------
+# -- the fleet poller --------------------------------------------------------
 
 class Telemetry:
-    """One per Database: this frontend's registry and the fleet views over
-    it.  Daemons register with the replicated tier; until then the fleet
-    is this frontend alone."""
+    """One per Database: registered daemon addresses, their cached
+    snapshots with staleness state, and the merged fleet view."""
+
 
     def __init__(self, local_name: str = "frontend", registry=None,
                  device_gauges: bool = True):
         self.local_name = local_name
         self.registry = registry if registry is not None \
             else metrics.REGISTRY
+        # registration + cache dict (lock rank 6 in the JAX package's
+        # order; RPC scrapes themselves run OUTSIDE the lock — see poll)
+        self._mu = threading.Lock()
+        self._clients: dict[str, object] = {}
+        # addr -> {"snapshot", "ts", "ok", "error"}; kept across failures
+        # so a down daemon's last-known rows survive, marked stale
+        self._cache: dict[str, dict] = {}
+        self._thread: Optional[threading.Thread] = None
+        self._stop = threading.Event()
+        self._meta_addr: Optional[str] = None
         if device_gauges:
             install_device_gauges(self.registry)
             install_process_gauges(self.registry)
 
-    # -- registration (the replicated tier's) --------------------------------
+    # -- registration ------------------------------------------------------
     def attach_meta(self, meta_address: str) -> None:
-        raise NotPortedError("telemetry meta discovery (the replicated tier)")
+        """Fleet self-discovery for the three-binary deployment: the meta
+        daemon joins the scrape set, and every poll refreshes the store
+        list from its ``instances`` registry — late-joining stores appear
+        without frontend config."""
+        self._meta_addr = meta_address
+        self.register(meta_address)
+
+    def _discover(self) -> None:
+        if self._meta_addr is None:
+            return
+        with self._mu:
+            meta = self._clients.get(self._meta_addr)
+        if meta is None:
+            return
+        inst = meta.try_call("instances")
+        if isinstance(inst, dict):
+            for addr in inst:
+                self.register(addr)
 
     def register(self, address: str) -> None:
-        raise NotPortedError("telemetry daemon scrape (the replicated tier)")
+        from ..utils.net import RpcClient
+        with self._mu:
+            if address not in self._clients:
+                self._clients[address] = RpcClient(
+                    address, timeout=float(FLAGS.telemetry_rpc_timeout_s))
 
-    def poll(self) -> None:
-        raise NotPortedError("telemetry daemon scrape (the replicated tier)")
+    def unregister(self, address: str) -> None:
+        with self._mu:
+            self._clients.pop(address, None)
+            self._cache.pop(address, None)
 
-    def start(self, interval_s: Optional[float] = None) -> None:
-        raise NotPortedError("telemetry background poll (the replicated tier)")
+    def addresses(self) -> list[str]:
+        with self._mu:
+            return sorted(self._clients)
 
     def has_daemons(self) -> bool:
-        return False
+        with self._mu:
+            return bool(self._clients)
+
+    # -- polling -----------------------------------------------------------
+    def poll(self) -> None:
+        """One scrape round: every registered daemon's ``rpc_metrics``
+        under the retry policy; failures keep the previous snapshot and
+        flip the stale marker.  A daemon whose last attempt FAILED within
+        ``telemetry_poll_s`` is held off (rows stay stale) — without this,
+        every inline-polled view query pays the full RPC timeout per dead
+        daemon, serially."""
+        from ..utils.net import RpcError
+        self._discover()
+        now = time.monotonic()
+        # inline mode (telemetry_poll_s=0) still needs the holdoff — it is
+        # the mode where a dead daemon's timeout lands on a QUERY — so fall
+        # back to the per-daemon RPC budget as the re-probe period
+        holdoff = float(FLAGS.telemetry_poll_s) \
+            or float(FLAGS.telemetry_rpc_timeout_s)
+        with self._mu:
+            clients = dict(self._clients)
+            skip = {a for a, e in self._cache.items()
+                    if not e["ok"] and holdoff > 0
+                    and now - e.get("attempt_ts", 0.0) < holdoff}
+        for addr, client in sorted(clients.items()):
+            if addr in skip:
+                continue
+            try:
+                resp = client.call("metrics")
+                snap = resp.get("metrics") if isinstance(resp, dict) else None
+                if not isinstance(snap, dict):
+                    raise RpcError("malformed rpc_metrics response")
+                t = time.monotonic()
+                entry = {"snapshot": snap, "ts": t, "attempt_ts": t,
+                         "ok": True, "error": ""}
+                with self._mu:
+                    self._cache[addr] = entry
+            except (OSError, RpcError) as e:
+                with self._mu:
+                    prev = self._cache.get(addr)
+                    if prev is not None:
+                        # "ts" stays the last SUCCESS time (age_ms = how
+                        # old the surviving rows are); attempt_ts drives
+                        # the re-probe holdoff above
+                        prev["ok"] = False
+                        prev["attempt_ts"] = time.monotonic()
+                        prev["error"] = f"{type(e).__name__}: {e}"
+                    else:
+                        t = time.monotonic()
+                        self._cache[addr] = {
+                            "snapshot": None, "ts": t, "attempt_ts": t,
+                            "ok": False,
+                            "error": f"{type(e).__name__}: {e}"}
+
+    def entries(self, refresh: bool = True) -> dict[str, dict]:
+        """Cached per-daemon state; polls inline first unless a background
+        poller thread is live (then the cache is already fresh)."""
+        if refresh and not self.running():
+            self.poll()
+        with self._mu:
+            return {a: dict(e) for a, e in self._cache.items()}
+
+    # -- background poller -------------------------------------------------
+    def running(self) -> bool:
+        t = self._thread
+        return t is not None and t.is_alive()
+
+    def start(self, interval_s: Optional[float] = None) -> None:
+        if self.running():
+            return
+        period = float(FLAGS.telemetry_poll_s) \
+            if interval_s is None else float(interval_s)
+        if period <= 0:
+            return
+        self._stop.clear()
+
+        def loop():
+            while not self._stop.is_set():
+                try:
+                    self.poll()
+                except Exception:   # noqa: BLE001 — the poller must survive
+                    metrics.count_swallowed("telemetry.poll")
+                self._stop.wait(period)
+
+        self._thread = threading.Thread(target=loop, daemon=True,
+                                        name="telemetry-poller")
+        self._thread.start()
 
     def stop(self) -> None:
-        """Nothing runs: no poller without daemons."""
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=5.0)
+        self._thread = None
 
     # -- views -------------------------------------------------------------
     def fleet_snapshots(self, refresh: bool = True
                         ) -> tuple[dict[str, dict], dict[str, dict]]:
-        """(per-daemon snapshots, per-daemon status): the local registry."""
+        """(per-daemon snapshots incl. the local registry, per-daemon
+        status).  Stale daemons contribute their last-known snapshot —
+        the best available estimate for fleet sums — with status marking
+        how old it is."""
         snaps = {self.local_name: self.registry.snapshot()}
         status = {self.local_name: {"stale": 0, "age_ms": 0.0, "error": ""}}
+        entries = self.entries(refresh=refresh)
+        now = time.monotonic()           # after the poll: ages are >= 0
+        for addr, ent in entries.items():
+            status[addr] = {"stale": 0 if ent["ok"] else 1,
+                            "age_ms": (now - ent["ts"]) * 1e3,
+                            "error": ent.get("error", "")}
+            if ent.get("snapshot") is not None:
+                snaps[addr] = ent["snapshot"]
         return snaps, status
 
     def cluster_rows(self, refresh: bool = True) -> list[tuple]:
@@ -421,3 +577,40 @@ class Telemetry:
         snaps = dict(snaps)
         snaps[FLEET] = merge_snapshots(snaps)
         return render_fleet_prometheus(snaps)
+
+
+# -- HTTP exposition ---------------------------------------------------------
+
+def start_http_exporter(render: Callable[[], str], port: int,
+                        host: str = "127.0.0.1"):
+    """Serve ``GET /metrics`` (any path, really) from ``render()`` — the
+    brpc-HTTP-port analog for daemons (``--metrics-port``) and
+    tools/metrics_export.py.  Returns the ThreadingHTTPServer; call
+    ``.shutdown()`` to stop."""
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+    class _Handler(BaseHTTPRequestHandler):
+        def do_GET(self):  # noqa: N802 — http.server contract
+            try:
+                body = render().encode()
+                code = 200
+            except Exception as e:  # noqa: BLE001 — a scrape failure must
+                #   answer 500, not kill the exporter thread
+                metrics.count_swallowed("telemetry.exporter")
+                body = f"# exporter error: {type(e).__name__}: {e}\n".encode()
+                code = 500
+            self.send_response(code)
+            self.send_header("Content-Type",
+                             "text/plain; version=0.0.4; charset=utf-8")
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+        def log_message(self, *args):      # scrapes are not access-log news
+            pass
+
+    srv = ThreadingHTTPServer((host, port), _Handler)
+    threading.Thread(target=srv.serve_forever, daemon=True,
+                     name=f"metrics-http-{srv.server_address[1]}").start()
+    return srv
+

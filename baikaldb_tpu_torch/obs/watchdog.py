@@ -1,23 +1,26 @@
-"""The query watchdog: detect wedged queries, loudly.
+"""Fleet watchdogs: detect wedged queries and stuck daemons, loudly.
 
-The port of ``baikaldb_tpu/obs/watchdog.py`` without its store half.  A
-query wedged on the card (a kernel that never returns) or on a lock has one
-observable signature: SOMETHING THAT SHOULD ADVANCE STOPPED ADVANCING.  So
-the watchdog is one generic scanner with a pluggable probe:
+The port of ``baikaldb_tpu/obs/watchdog.py``.  A query wedged on the card
+(a kernel that never returns) or on a dead peer's RPC, and a raft apply
+loop that stopped draining, have one observable signature: SOMETHING THAT
+SHOULD ADVANCE STOPPED ADVANCING.  So the watchdog is one generic scanner
+with pluggable probes:
 
 - :class:`QueryWatchdog` (frontend): a live query whose last progress beat
   (obs/progress.py) is older than ``watchdog_stall_s`` is stalled.  A
   query blocked in a device call shows here too: it sits in its exec phase
   with no beat, because the one thread that would beat is blocked.
+- :class:`StoreWatchdog` (store daemon, server/store_server.py): the raft
+  tick loop going silent (elections stop, every region freezes), and a
+  region whose apply lag is nonzero while applied_index stopped moving.
 
 Detections count ONCE per continuous stall episode in
-``metrics.watchdog_stalls_detected`` and surface as ``SHOW STATUS``
-``health.*`` rows and in the stalled query's SHOW PROCESSLIST State cell
-(flagged STALLED).  Scans run on a detached thread
+``metrics.watchdog_stalls_detected`` and surface as the daemon ``health``
+RPC, ``SHOW STATUS`` ``health.*`` rows and the stalled query's SHOW
+PROCESSLIST State cell (flagged STALLED).  Scans run on a detached thread
 (``watchdog_interval_s``, started in cluster mode only, as in the JAX
 package) or synchronously via ``scan_now()``: never on a query path, never
-touching device state.  The store watchdog (raft clock, apply lag) waits
-for the replicated tier.
+touching device state.
 """
 
 from __future__ import annotations
@@ -154,3 +157,45 @@ class QueryWatchdog(Watchdog):
             elif qp.stalled:          # beating again: drop the flag so the
                 qp.stalled = False    # State cell reflects the recovery
         return out
+
+class StoreWatchdog(Watchdog):
+    """Store daemon: raft-clock liveness + apply-lag drain.  Reads the
+    region map under the store's core lock exactly like the telemetry
+    scrape does; per-scan cost is a few fields per region."""
+
+    def __init__(self, store):
+        super().__init__(name=f"store-{store.store_id}")
+        self.store = store
+        # region -> (applied_index, first seen stuck at, monotonic ts)
+        self._apply_seen: dict[int, tuple[int, float]] = {}
+
+    def probe(self) -> list[tuple[str, str]]:
+        stall_s = max(0.1, float(FLAGS.watchdog_stall_s))
+        now = time.monotonic()
+        out: list[tuple[str, str]] = []
+        last_tick = getattr(self.store, "_last_tick", None)
+        if last_tick is not None and not self.store._stop.is_set() \
+                and now - last_tick > stall_s:
+            out.append(("tick",
+                        f"raft clock silent for {now - last_tick:.1f}s"))
+        with self.store._mu:
+            snap = [(rid, r.core.commit_index, r.applied_index)
+                    for rid, r in self.store.regions.items()]
+        for rid, commit, applied in snap:
+            lag = max(0, commit - applied)
+            if lag <= 0:
+                self._apply_seen.pop(rid, None)
+                continue
+            prev = self._apply_seen.get(rid)
+            if prev is None or applied > prev[0]:
+                self._apply_seen[rid] = (applied, now)   # still draining
+                continue
+            if now - prev[1] > stall_s:
+                out.append((f"region:{rid}",
+                            f"apply lag {lag} stuck for "
+                            f"{now - prev[1]:.1f}s (applied={applied})"))
+        stale = set(self._apply_seen) - {rid for rid, _, _ in snap}
+        for rid in stale:                     # dropped/migrated region
+            self._apply_seen.pop(rid, None)
+        return out
+

@@ -63,6 +63,35 @@ def merge_partial_agg_specs(parts: list[AggSpec]) -> list[AggSpec]:
     return [AggSpec(MERGE_OP[p.op], p.out_name, p.out_name) for p in parts]
 
 
+# wire-partial kind -> merge op, the host mirror of MERGE_OP: pushed-down
+# fragment partials (plan/fragment.py) coming back from store daemons
+# combine under the identical discipline the device applies to partial
+# columns — COUNT partials are sums, SUM partials sum-of-sums, MIN/MAX
+# idempotent extremes.  AVG never appears: build_push_query decomposes it
+# into sum + count at extraction, exactly like partial_specs does on
+# device.
+WIRE_MERGE = {"count": "sum", "count_star": "sum", "sum": "sum",
+              "min": "min", "max": "max"}
+
+
+def merge_host_partial(kind: str, a, b):
+    """Combine two wire-format fragment partials (host Python values).
+    NULL partials (an all-NULL or empty region input) are merge
+    identities, matching the device's masked-lane behavior.  Raises
+    KeyError on an unknown kind (callers type it for their plane)."""
+    op = WIRE_MERGE[kind]
+    if kind in ("count", "count_star"):
+        return int(a) + int(b)
+    if a is None:
+        return b
+    if b is None:
+        return a
+    if op == "sum":
+        return a + b
+    return min(a, b) if op == "min" else max(a, b)
+
+
+
 def rewrap_partial(part: ColumnBatch) -> ColumnBatch:
     """Partial rows as a PLAIN batch: drop the group count (the next
     aggregate recomputes liveness from sel) and make the mask explicit, so

@@ -26,9 +26,10 @@ join).  The decision uses estimated row counts propagated bottom-up from
 table statistics, like the reference sizing exchanges from statistics
 (mpp_analyzer.cpp:723-728).
 
-The fragment half of the JAX module (``FragmentSpec``, ``slice_fragments``,
-``fragment_subtrees``) belongs to the storage plane's pushdown and is not
-copied: it needs ``plan/fragment.py``, which the port does not have.
+The fragment half (``FragmentSpec``, ``slice_fragments``,
+``fragment_subtrees``) slices the store-executable subtrees of a plan into
+per-region dispatch units for the pushed fragments (exec/fragments.py,
+plan/fragment.py).
 """
 
 from __future__ import annotations
@@ -856,3 +857,200 @@ class _Distributor:
             raise ValueError("plan already distributed")
 
         raise ValueError(f"distribute: unknown node {type(node).__name__}")
+
+# -- pushed-down fragment slicing (the Separate half of the reference's
+# plan split, src/physical_plan/separate.cpp:43: the store-executable
+# subtree leaves the frontend plan and ships to the region owners) --------
+
+from dataclasses import dataclass, field as _field     # noqa: E402
+
+
+@dataclass
+class FragmentSpec:
+    """One dispatch unit of a pushed-down fragment: the serialized
+    store-executable subtree keyed to the region that owns its row slice.
+    The body travels by content hash (``frag_key`` — the AOT-artifact
+    discipline); ``frag`` rides along only for the need_frag recovery
+    resend.  ``route_start``/``route_end`` is the frontend's routed range
+    at slicing time — the store intersects it with its committed range, so
+    a spec sliced just before a split can never double-serve rows."""
+
+    region_id: int
+    route_start: bytes
+    route_end: bytes
+    peers: list = _field(default_factory=list)     # [(store_id, address)]
+    frag_key: str = ""
+    frag: dict = _field(default_factory=dict)
+
+
+def slice_fragments(frag: dict, tier, frag_key: str) -> list:
+    """Slice one wire fragment into per-region FragmentSpecs keyed by
+    region ownership (tier routing order = start-key order, which the
+    dispatcher preserves so the merged result is bit-identical to the
+    serial per-region path).  Returns ``[(spec, region), ...]``."""
+    out = []
+    for r in sorted(tier.regions, key=lambda r: r.start_key):
+        out.append((FragmentSpec(region_id=r.region_id,
+                                 route_start=r.start_key,
+                                 route_end=r.end_key,
+                                 peers=[(sid, a) for sid, a in r.peers],
+                                 frag_key=frag_key, frag=frag), r))
+    return out
+
+
+class _NotSliceable(Exception):
+    pass
+
+
+def _frag_bare(e, label):
+    """Rewrite scan-output column references (``label.col`` or
+    table-qualified) to the bare names a store daemon's decoded rows
+    carry; anything referencing another scope is not sliceable."""
+    from ..expr.ast import AggCall, Call, ColRef, Lit
+
+    if isinstance(e, ColRef):
+        if e.table is not None:
+            if e.table != label:
+                raise _NotSliceable(f"foreign column {e!r}")
+            return ColRef(e.name)
+        if "." in e.name:
+            t, _, c = e.name.partition(".")
+            if t != label:
+                raise _NotSliceable(f"foreign column {e!r}")
+            return ColRef(c)
+        return e
+    if isinstance(e, Lit):
+        return e
+    if isinstance(e, (Call, AggCall)):
+        args = tuple(_frag_bare(a, label) for a in e.args)
+        return Call(e.op, args) if isinstance(e, Call) else \
+            AggCall(e.op, args, e.distinct)
+    raise _NotSliceable(f"not sliceable: {type(e).__name__}")
+
+
+def _frag_scan_chain(node):
+    """Peel a store-executable input chain down to its ScanNode: returns
+    (scan, conjunct filter exprs, project mapping or None).  Raises
+    _NotSliceable when the chain contains anything a store cannot run."""
+    filters = []
+    project = None
+    while True:
+        if isinstance(node, ScanNode):
+            if node.ann is not None:
+                raise _NotSliceable("ANN-pruned scan")
+            if node.pushed_filter is not None:
+                filters.append(node.pushed_filter)
+            return node, filters, project
+        if isinstance(node, FilterNode):
+            if node.pred is not None:
+                filters.append(node.pred)
+            node = node.child()
+            continue
+        if isinstance(node, ProjectNode) and not node.derived \
+                and project is None:
+            project = dict(zip(node.names, node.exprs))
+            node = node.child()
+            continue
+        raise _NotSliceable(f"chain node {type(node).__name__}")
+
+
+def _frag_filter_wire(filters, label):
+    from ..expr.ast import Call
+    from ..expr.roweval import expr_supported, expr_to_wire
+
+    if not filters:
+        return None
+    e = _frag_bare(filters[0], label)
+    for f in filters[1:]:
+        e = Call("and", (e, _frag_bare(f, label)))
+    if not expr_supported(e):
+        raise _NotSliceable(f"filter {e!r}")
+    return expr_to_wire(e)
+
+
+# aggregate kinds whose partials merge with sum/min/max alone — the
+# store-pushable set (avg decomposes to sum+count at the STATEMENT level,
+# plan/fragment._build_agg; a tree-level AggSpec("avg") is left on the
+# frontend rather than guessed at)
+_SLICE_AGGS = frozenset({"count", "count_star", "sum", "min", "max"})
+
+
+def fragment_subtrees(plan: PlanNode) -> list:
+    """Recognize the store-executable subtrees of a physical plan — the
+    slicing targets of pushed-down execution:
+
+    - ``agg``: an AggNode whose input chain is scan -> filter(s) ->
+      (key-projection), with every key expr, agg arg, and filter conjunct
+      row-evaluable and every aggregate in the sum/min/max-mergeable set;
+    - ``join_build``: a JoinNode's build side that is a plain
+      scan -> filter(s) chain — the store streams back only the build
+      rows that survive the filter (rows-mode fragment), which is what
+      bounds the build side's wire cost in a pushed join.
+
+    Returns ``[{"role", "table_key", "label", "frag", "node"}, ...]``;
+    subtrees that are not expressible are simply not listed (pushdown is
+    an optimization with a full-fidelity fallback, never a requirement)."""
+    from ..expr.ast import ColRef
+    from ..expr.roweval import expr_supported, expr_to_wire
+    from .fragment import GROUP_CAP
+
+    found: list = []
+
+    def try_agg(node: AggNode) -> None:
+        scan, filters, project = _frag_scan_chain(node.child())
+        keys = []
+        for kn in node.key_names:
+            src = (project or {}).get(kn, ColRef(kn))
+            ke = _frag_bare(src, scan.label)
+            if not expr_supported(ke):
+                raise _NotSliceable(f"key {ke!r}")
+            keys.append([kn, expr_to_wire(ke)])
+        aggs = []
+        for sp in node.specs:
+            if sp.op not in _SLICE_AGGS or sp.distinct:
+                raise _NotSliceable(f"agg {sp.op}")
+            arg = None
+            if sp.input is not None:
+                src = (project or {}).get(sp.input, ColRef(sp.input))
+                ae = _frag_bare(src, scan.label)
+                if not expr_supported(ae):
+                    raise _NotSliceable(f"agg arg {ae!r}")
+                arg = expr_to_wire(ae)
+            aggs.append([sp.op, arg, sp.out_name])
+        frag = {"v": 1, "mode": "agg",
+                "filter": _frag_filter_wire(filters, scan.label),
+                "keys": keys, "aggs": aggs, "group_cap": GROUP_CAP}
+        found.append({"role": "agg", "table_key": scan.table_key,
+                      "label": scan.label, "frag": frag, "node": node})
+
+    def try_join_build(node: JoinNode) -> None:
+        scan, filters, project = _frag_scan_chain(node.children[1])
+        if project is not None:
+            raise _NotSliceable("projected build side")
+        outputs = []
+        for c in scan.columns:
+            bare = c.partition(".")[2] if c.startswith(scan.label + ".") \
+                else c
+            outputs.append([c, expr_to_wire(ColRef(bare))])
+        frag = {"v": 1, "mode": "rows",
+                "filter": _frag_filter_wire(filters, scan.label),
+                "outputs": outputs, "limit": None}
+        found.append({"role": "join_build", "table_key": scan.table_key,
+                      "label": scan.label, "frag": frag, "node": node})
+
+    def walk(node: PlanNode) -> None:
+        if isinstance(node, AggNode):
+            try:
+                try_agg(node)
+            except _NotSliceable:
+                pass
+        elif isinstance(node, JoinNode) and len(node.children) > 1:
+            try:
+                try_join_build(node)
+            except _NotSliceable:
+                pass
+        for c in node.children:
+            walk(c)
+
+    walk(plan)
+    return found

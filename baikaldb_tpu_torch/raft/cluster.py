@@ -15,7 +15,8 @@ snapshot is the serialized row table (install replaces the replica's state —
 the reference's SST-streaming install_snapshot analog).
 
 The port's copy of ``baikaldb_tpu/raft/cluster.py``, unchanged but for its
-imports: the regions' row tables are the port's storage/rowstore.py."""
+imports (the regions' row tables are the port's storage/rowstore.py) and a
+cold eviction's value hashes, computed in one batch."""
 
 from __future__ import annotations
 
@@ -220,15 +221,18 @@ class ReplicatedRegion:
             self.cold_manifest.append((int(m["seq"]), m["file"],
                                        int(m["watermark"])))
             if "keys" in m:
-                from ..storage.replicated import _fnv64
+                from ..storage.replicated import _fnv64_many
 
                 snap = dict(self.table.scan_raw())
-                dead = []
+                live = []
                 for khex, vh in m["keys"]:
                     k = bytes.fromhex(khex)
                     v = snap.get(k)
-                    if v is not None and _fnv64(v) == int(vh):
-                        dead.append((1, k, b""))
+                    if v is not None:
+                        live.append((k, v, int(vh)))
+                hashes = _fnv64_many([v for _, v, _ in live])
+                dead = [(1, k, b"") for (k, _, vh), h in zip(live, hashes)
+                        if h == vh]
                 if dead:
                     self.table.write_batch(dead)
                 return

@@ -1,9 +1,8 @@
 """Columnar table storage: regions of Arrow rows, their device image, and the
 MVCC row tier behind them for durability and transactions.
 
-The port of ``baikaldb_tpu/storage/column_store.py`` without the remote
-tier, the distributed binlog and the cold tier's segments (ROADMAP.md item
-6b).  ``purge_expired`` is the TTL delete.
+The port of ``baikaldb_tpu/storage/column_store.py``.  ``purge_expired`` is
+the TTL delete.
 
 - **Regions**: the table's rows, cut by row count into regions of at most
   ``region_rows`` rows (``DEFAULT_REGION_ROWS`` = 2^20).  Each region holds
@@ -26,7 +25,15 @@ tier, the distributed binlog and the cold tier's segments (ROADMAP.md item
   ``commit_group`` one 2PC over every replicated table it touches;
   TRUNCATE and ALTER replicate too.  Rowids come from cluster-wide ranges
   the meta service hands out, and a new Database over the fleet rebuilds
-  the regions from the replicas.
+  the regions from the replicas, after the cold segments' rows
+  (``cold_rows``), so a SELECT spans hot and cold.  On the daemon plane
+  (storage/remote_tier.py) the tier is a ``RemoteRowTier`` and the attach
+  may be deferred (``attach_replicated_lazy``): the first access to
+  ``regions`` pulls the image, so a frontend whose reads all push down to
+  the stores never pays it.  ``commit_group`` spans the in-process and the
+  remote tables in one 2PC each, and an autocommit write of a binlogged
+  remote table carries its change event in the data's own 2PC
+  (``binlog_sink``, storage/binlog_regions.py).
 - **Presort permutations** (``sort_permutation``, ``agg_sort_permutation``):
   host argsorts of the device image's key columns that let a join's build
   side and a sorted GROUP BY skip their device sort, cached per version
@@ -94,6 +101,17 @@ def _fnv64(b: bytes) -> int:
     for x in b:
         h = ((h ^ x) * 0x100000001b3) & 0xFFFFFFFFFFFFFFFF
     return h
+
+
+def check_cold_readable(tier, fs, label: str) -> None:
+    """A frontend that cannot read the cold tier must refuse the table:
+    rebuilding from the (evicted) hot tier alone would silently lose rows.
+    Shared by eager attach (exec/session.make_store) and the deferred
+    materialization path."""
+    if fs is None and tier.has_cold():
+        raise ValueError(
+            f"table {label!r} has cold segments but no cold storage "
+            f"is configured (set cold_dir or the cold_fs_dir flag)")
 
 
 def schema_to_arrow(schema: Schema) -> pa.Schema:
@@ -283,39 +301,51 @@ class TxnContext:
 def commit_group(tctxs: list[TxnContext]) -> None:
     """Commit several tables' buffered writes as one transaction: one
     decide-time commit timestamp for all of them, so a snapshot sees all of
-    the transaction or none of it.  Two or more replicated tables commit
-    through one primary-first 2PC over every region group they touch:
-    either every table's writes replicate or none do, and on failure every
-    table's regions return to their pre-image."""
-    from .replicated import write_ops_atomic
+    the transaction or none of it.  Two or more replicated tables of one
+    kind (the in-process fleet's, or the daemon plane's) commit through one
+    primary-first 2PC over every region group they touch: either every
+    table's writes replicate or none do, and on failure every table's
+    regions return to their pre-image."""
+    from .remote_tier import RemoteRowTier, write_ops_atomic_remote
+    from .replicated import ReplicatedRowTier, write_ops_atomic
 
     commit_ts = None
     if FLAGS.mvcc and tctxs:
         commit_ts = tctxs[0].store._mvcc_ts()
-    fleet = [t for t in tctxs if t.store.replicated is not None]
-    others = [t for t in tctxs if len(fleet) <= 1 or t.store.replicated is None]
-    if len(fleet) > 1:
+    fleet = [t for t in tctxs if isinstance(t.store.replicated, ReplicatedRowTier)]
+    remote = [t for t in tctxs if isinstance(t.store.replicated, RemoteRowTier)]
+    others = [t for t in tctxs if t not in fleet and t not in remote]
+    groups = [(fleet, write_ops_atomic), (remote, write_ops_atomic_remote)]
+    for g_i, (group, atomic) in enumerate(groups):
+        if len(group) <= 1:
+            others.extend(group)    # nothing to span: per-table commit
+            continue
         try:
             pairs = []
-            for t in fleet:
+            for t in group:
                 pairs.append((t.store.replicated, t.row_txn.pending_ops()))
                 t.row_txn.rollback()  # the buffer only held the row locks
             try:
-                # the 2PC keeps the commit_ts in its decision record
-                write_ops_atomic(pairs, commit_ts=commit_ts or 0)
+                atomic(pairs, commit_ts=commit_ts or 0)
             except Exception:
-                for t in fleet:
+                for t in group:
                     t._restore_preimage()
                 raise
         except BaseException:
-            # the other tables must not keep their leases and uncommitted
-            # region changes: roll them back too
-            for t in fleet:
+            # the remaining tables must not keep their leases and
+            # uncommitted region changes: roll them back too
+            for t in group:
                 t.store._end_txn(t)
+            for later_group, _ in groups[g_i + 1:]:
+                if len(later_group) > 1:
+                    for t in later_group:
+                        t.rollback()
+                else:
+                    others.extend(later_group)
             for t in others:
                 t.rollback()
             raise
-        for t in fleet:
+        for t in group:
             t._stamp_commit(commit_ts)
             t.store._end_txn(t)
     for t in others:
@@ -338,13 +368,24 @@ class TableStore:
         self._mutations = 0
         self._next_region = 1
         self._next_rowid = 1
+        # deferred cluster attach (attach_replicated_lazy): the remote
+        # tier's full-region pull happens at the first access to
+        # ``regions``, so a frontend whose reads all push down never pays it
+        self._attach_pending = None
+        self._attaching = False
         self.regions: list[Region] = [Region(self._alloc_region_id(),
                                              self.arrow_schema.empty_table())]
         self.wal_path = None
         self.durable_dir: Optional[str] = None   # Parquet checkpoint home
-        # the raft-replicated row tier (storage/replicated.py) and the
-        # cluster-wide rowid range drawn from it (attach_replicated)
+        # the raft-replicated row tier (storage/replicated.py or
+        # storage/remote_tier.py) and the cluster-wide rowid range drawn
+        # from it (attach_replicated)
         self.replicated = None
+        # distributed binlog writer (storage/binlog_regions.py): autocommit
+        # DML events join the data's cross-tier 2PC when set; binlog_db is
+        # the Database whose per-table retry queue orders them
+        self.binlog_sink = None
+        self.binlog_db = None
         self._rowid_pool = 0
         self._rowid_pool_left = 0
         self._writer: Optional[TxnContext] = None
@@ -374,6 +415,52 @@ class TableStore:
         self._perm: tuple = (-1, {})
         if wal_path:
             self.attach_wal(wal_path)
+
+    # every data access inside TableStore goes through ``self.regions``
+    # (reads, writes, stats, the pk index), so the property is the one
+    # place where a deferred cluster attach materializes
+    @property
+    def regions(self) -> list:
+        if self._attach_pending is not None:
+            # double-checked under the store lock: concurrent first readers
+            # either perform the attach or wait for it (a bare read during
+            # the pull would see the empty initial region).  _attach_pending
+            # stays set until the pull succeeds; _attaching breaks the
+            # same-thread re-entrancy of the replay, which reads .regions
+            with self._lock:
+                if self._attach_pending is not None and not self._attaching:
+                    self._ensure_attached()
+        return self._regions
+
+    @regions.setter
+    def regions(self, v: list) -> None:
+        self._regions = v
+
+    @property
+    def attach_pending(self) -> bool:
+        """True while the cluster image is deferred (nothing pulled yet)."""
+        return self._attach_pending is not None
+
+    def attach_replicated_lazy(self, tier, fs) -> None:
+        """Bind to a daemon-plane tier without pulling any rows.  Eligible
+        SELECTs push fragments to the store daemons (exec/session
+        ``_try_pushdown``); the first access that needs the local image
+        (DML, other plans, point lookups) triggers the pull."""
+        self.replicated = tier
+        self._attach_pending = (tier, fs)
+
+    def _ensure_attached(self) -> None:
+        tier, fs = self._attach_pending
+        self._attaching = True
+        try:
+            # re-checked at materialization: another frontend may have
+            # flushed cold segments since make_store
+            check_cold_readable(tier, fs, self.info.name)
+            cold = tier.cold_rows(fs) if fs is not None else None
+            self.attach_replicated(tier, cold_rows=cold)
+            self._attach_pending = None      # only a complete pull clears it
+        finally:
+            self._attaching = False
 
     # -- version ----------------------------------------------------------
     @property
@@ -420,13 +507,25 @@ class TableStore:
         self._build_row_tier(path)
         self._replay_hot(self.row_table.scan_rows())
 
-    def attach_replicated(self, tier, hot_rows: Optional[list] = None):
+    def attach_replicated(self, tier, cold_rows: Optional[list] = None,
+                          hot_rows: Optional[list] = None):
         """Bind this table to its raft-replicated row tier and recover: the
         replicas' committed rows (``hot_rows``, a follower read, or the
         leaders' ``tier.scan_rows()``) replay over the regions as a WAL
-        would, from a log that survives any one store."""
+        would, from a log that survives any one store.  ``cold_rows``
+        (manifest-ordered rows of the cold segments, storage/coldfs.py)
+        replay first, the hot tier's newer versions winning per rowid, so a
+        SELECT spans hot and cold."""
         self.replicated = tier
-        self._replay_hot(hot_rows if hot_rows is not None else tier.scan_rows())
+        rows = hot_rows if hot_rows is not None else tier.scan_rows()
+        if cold_rows:
+            merged: dict[int, dict] = {}
+            for r in cold_rows:
+                merged[int(r[ROWID])] = r
+            for r in rows:
+                merged[int(r[ROWID])] = r
+            rows = [merged[k] for k in sorted(merged)]
+        self._replay_hot(rows)
 
     def _replay_hot(self, rows: list[dict]):
         if rows:
@@ -519,9 +618,40 @@ class TableStore:
             # autocommit DML on a replicated table: the batch quorum-commits
             # before the regions change (the 1PC path); no quorum fails the
             # statement
-            self.replicated.write_ops(ops)
+            if self.binlog_sink is None:
+                self.replicated.write_ops(ops)
+            else:
+                self._write_with_binlog(recs, ops)
             return
         self.row_table.write_batch(ops)
+
+    def _write_with_binlog(self, recs: list[dict], ops: list) -> None:
+        """Autocommit DML of a binlogged remote table: the change event
+        rides the data's own cross-tier 2PC (storage/binlog_regions.py), so
+        it exists iff the data committed.  This table's retry lock is held
+        across the drain-check and the append: queued events of earlier
+        (transaction-path) commits land first, or, while this table's
+        binlog region is still down, this event queues behind them."""
+        from .binlog_regions import DistributedBinlog
+
+        sink, guard = self.binlog_sink, self.binlog_db
+        table_key = f"{self.info.database}.{self.info.name}"
+        events = DistributedBinlog.events_of(recs)
+        if guard is None:
+            sink.write_with_data(self.replicated, ops, table_key, events)
+            return
+        rq = guard.binlog_retry_queue(table_key)
+        with rq.mu:
+            if rq.q:
+                guard._drain_rq_locked(rq, table_key, sink)
+            if rq.q:
+                # the region is still down: commit the data and queue the
+                # event behind the older batch (the transaction path's
+                # discipline, session._flush_txn_binlog)
+                self.replicated.write_ops(ops)
+                guard._queue_rq_locked(rq, events)
+                return
+            sink.write_with_data(self.replicated, ops, table_key, events)
 
     def _bulk_ops(self, table: pa.Table, rowids: np.ndarray) -> Optional[list]:
         """A bulk load's row-tier writes, encoded a column at a time (the
@@ -558,7 +688,12 @@ class TableStore:
 
     def _writer_check(self, tctx: Optional[TxnContext]):
         """Statement-level write admission: an open transaction holds the
-        table's writer lease, and another writer conflicts."""
+        table's writer lease, and another writer conflicts.  A deferred
+        cluster image is pulled first: pulled after the write, it would
+        already hold the written rows and the write would add them again
+        (the JAX package's ``load_arrow`` into an unattached table does)."""
+        if self._attach_pending is not None:
+            self.regions    # noqa: B018 — the property pulls the image
         if self._writer is not None and self._writer is not tctx:
             raise ConflictError(f"table {self.info.name} locked by an open transaction")
         if tctx is not None:

@@ -29,10 +29,10 @@ loses nothing committed.
 The port's copy of ``baikaldb_tpu/storage/replicated.py``.  The tier's lock
 is a plain reentrant lock where the JAX package has its lockset witness
 (``analysis/runtime.py``, which has no counterpart); its rank, 30, the
-innermost of the write path, stays in the comment at ``self._mu``.  The cold
-half (``flush_cold``, ``cold_rows``, ``cold_gc`` and
-``region_fragment_rows``) needs the cold tier's segment codec and raises
-``NotPortedError`` until ROADMAP item 6b brings it.
+innermost of the write path, stays in the comment at ``self._mu``.  A
+pushed fragment's cold fold (``region_fragment_rows``) encodes a segment's
+keys in one batch, and a cold flush's value hashes come from
+``_fnv64_many``, where the JAX package works a row at a time.
 """
 
 from __future__ import annotations
@@ -42,8 +42,9 @@ import threading
 import time
 from typing import TYPE_CHECKING, Callable, Optional
 
+import numpy as np
+
 from ..chaos import failpoint
-from ..errors import NotPortedError
 from ..meta.service import SERVING
 from ..raft.cluster import CMD_COLD, RaftGroup
 from ..raft.core import LEADER
@@ -73,7 +74,26 @@ def _fnv64(data: bytes) -> int:
     return h
 
 
-_COLD = "the cold tier's segments (ROADMAP item 6b)"
+def _fnv64_many(values: list) -> list[int]:
+    """``_fnv64`` of each bytes value, the values of one length hashed side
+    by side as a uint64 column (numpy wraps the multiply mod 2^64, as the
+    mask does): a cold flush hashes every row of a region."""
+    out = [0] * len(values)
+    by_len: dict[int, list[int]] = {}
+    for i, v in enumerate(values):
+        by_len.setdefault(len(v), []).append(i)
+    prime = np.uint64(0x100000001B3)
+    for n, idx in by_len.items():
+        h = np.full(len(idx), 0xCBF29CE484222325, np.uint64)
+        if n:
+            cols = np.frombuffer(b"".join(values[i] for i in idx),
+                                 np.uint8).reshape(len(idx), n).astype(np.uint64)
+            with np.errstate(over="ignore"):
+                for j in range(n):
+                    h = (h ^ cols[:, j]) * prime
+        for i, x in zip(idx, h.tolist()):
+            out[i] = x
+    return out
 
 
 class ReplicationError(RuntimeError):
@@ -664,13 +684,50 @@ class ReplicatedRowTier:
         entry + eviction.  The segment is written BEFORE the proposal: a
         crash in between leaves an orphan file (GC'able), never a manifest
         entry without bytes.  Returns rows flushed."""
-        raise NotPortedError(f"{_COLD}: ReplicatedRowTier.flush_cold")
+        import json as _json
+
+        from .coldfs import segment_bytes
+
+        arrow = _schema_arrow(self.row_schema)
+        rowid_col = self.key_columns[0]
+        flushed = 0
+        with self._mu:
+            for m, g in zip(self.metas, self.groups):
+                node = self._leader_node(m, g)
+                rows = [r for r in self._decode_all(node)
+                        if upto is None or r[rowid_col] <= upto]
+                if not rows:
+                    continue
+                watermark = max(r[rowid_col] for r in rows)
+                seq = self.alloc_rowids(1)
+                seg = (f"{self.table_key}.r{m.region_id}"
+                       f".s{seq}.parquet")
+                fs.put(seg, segment_bytes(rows, arrow))
+                payload = _json.dumps({"op": "add", "seq": int(seq),
+                                       "file": seg,
+                                       "watermark": int(watermark)}).encode()
+                if not g.propose_cmd(CMD_COLD, 0, payload):
+                    raise ReplicationError(
+                        f"region {g.region_id}: cold manifest propose "
+                        f"failed")
+                flushed += len(rows)
+        return flushed
 
     def _decode_all(self, node) -> list[dict]:
         """Every row-tier entry the region OWNS, del markers included —
         cold segments must carry the exact replayable state."""
         return [node.table.row_codec.decode(v)
                 for k, v in node.table.scan_raw() if node._covers(k)]
+
+    def region_ids(self) -> list[int]:
+        """The regions' ids, in key order."""
+        with self._mu:
+            return [m.region_id for m in self.metas]
+
+    def cold_manifest(self, i: int) -> list:
+        """Region ``i``'s cold manifest, read on its leader replica."""
+        with self._mu:
+            return list(self._leader_node(self.metas[i], self.groups[i]).cold_manifest)
 
     def has_cold(self) -> bool:
         """True when any region's manifest references cold segments."""
@@ -684,13 +741,78 @@ class ReplicatedRowTier:
         """All cold rows across regions in GLOBAL manifest order (entries
         carry a cluster-monotonic seq so replay order is well-defined even
         after splits/merges moved rowid ranges between regions)."""
-        raise NotPortedError(f"{_COLD}: ReplicatedRowTier.cold_rows")
+        from .coldfs import segment_rows
+
+        entries = []
+        with self._mu:
+            for m, g in zip(self.metas, self.groups):
+                node = self._leader_node(m, g)
+                entries.extend(node.cold_manifest)
+        out: list[dict] = []
+        seen = set()
+        for seq, f, _w in sorted(entries):
+            if f in seen:           # split copies may reference one file
+                continue
+            seen.add(f)
+            out.extend(segment_rows(fs.get(f)))
+        return out
 
     def cold_gc(self, fs) -> int:
         """Merge each region's segments into one (latest version per rowid,
         del-marked rows dropped) and reset the manifest; orphan files are
         deleted AFTER the reset commits.  Returns segments reclaimed."""
-        raise NotPortedError(f"{_COLD}: ReplicatedRowTier.cold_gc")
+        import json as _json
+
+        from .coldfs import segment_bytes, segment_rows
+
+        arrow = _schema_arrow(self.row_schema)
+        rowid_col = self.key_columns[0]
+        candidates: set[str] = set()
+        with self._mu:
+            for m, g in zip(self.metas, self.groups):
+                node = self._leader_node(m, g)
+                if not node.cold_manifest:
+                    continue
+                latest: dict[int, dict] = {}
+                raw_rows = 0
+                for seq, f, _w in sorted(node.cold_manifest):
+                    for r in segment_rows(fs.get(f)):
+                        raw_rows += 1
+                        latest[int(r[rowid_col])] = r
+                live = [r for _, r in sorted(latest.items())
+                        if not r.get("__del")]
+                if len(node.cold_manifest) == 1 and len(live) == raw_rows:
+                    continue    # single clean segment: nothing to reclaim
+                old_files = [f for _, f, _w in node.cold_manifest]
+                entries = []
+                if live:
+                    # keep the MAX of the merged segments' seqs: a fresh
+                    # (higher) seq would re-order this region's old row
+                    # versions ABOVE newer segments from sibling regions in
+                    # the global replay, resurrecting stale values
+                    seq = max(sq for sq, _f, _w in node.cold_manifest)
+                    seg = (f"{self.table_key}.r{m.region_id}"
+                           f".s{seq}.gc{len(old_files)}.parquet")
+                    fs.put(seg, segment_bytes(live, arrow))
+                    entries = [[int(seq), seg,
+                                max(r[rowid_col] for r in live)]]
+                payload = _json.dumps({"op": "reset",
+                                       "entries": entries}).encode()
+                if not g.propose_cmd(CMD_COLD, 0, payload):
+                    raise ReplicationError(
+                        f"region {g.region_id}: cold gc propose failed")
+                candidates.update(old_files)
+            # delete only files NO region still references: split children
+            # can share a parent segment file across their manifests
+            still_used: set[str] = set()
+            for m, g in zip(self.metas, self.groups):
+                node = self._leader_node(m, g)
+                still_used.update(f for _s, f, _w in node.cold_manifest)
+            reclaimed = 0
+            for f in candidates - still_used:
+                fs.delete(f)
+                reclaimed += 1
+        return reclaimed
 
     def hot_bytes(self) -> int:
         """Approximate live bytes held by the hot row tier (leader view) —
@@ -785,5 +907,34 @@ def region_fragment_rows(pairs, manifest, fs, row_codec, key_codec,
     through :func:`utils.prefetch.staged` so the network/disk read of
     segment N+1 overlaps the fold of segment N.
     """
-    raise NotPortedError(f"{_COLD}: region_fragment_rows")
+    from ..utils.prefetch import staged
+    from .coldfs import segment_rows
+
+    seen: set[bytes] = set()
+    for k, v in pairs:
+        if k < lo or (hi and k >= hi):
+            continue
+        stats["raw_bytes"] = stats.get("raw_bytes", 0) + len(k) + len(v)
+        seen.add(k)
+        row = row_codec.decode(v)
+        if not row.get("__del"):
+            yield row
+    if not manifest:
+        return
+    files, dedup = [], set()
+    for _seq, f, _w in sorted(manifest, reverse=True):
+        if f not in dedup:
+            dedup.add(f)
+            files.append(f)
+    stats["cold_segments"] = stats.get("cold_segments", 0) + len(files)
+    for _f, blob in staged(files, fs.get, name="fragment-cold"):
+        stats["cold_bytes"] = stats.get("cold_bytes", 0) + len(blob)
+        rows = segment_rows(blob)
+        # one key batch a segment (the bytes of encode_one a row)
+        for row, k in zip(rows, key_codec.encode_dicts(rows)):
+            if k < lo or (hi and k >= hi) or k in seen:
+                continue
+            seen.add(k)
+            if not row.get("__del"):
+                yield row
 

@@ -119,6 +119,20 @@ class KeyCodec:
         finally:
             lib.bk_batch_free(b)
 
+    def encode_dicts(self, rows: list[dict]) -> list[bytes]:
+        """``encode_one`` of each row, in one batch: the same bytes (a NULL
+        key value encodes as 0 under an invalid bit, as there)."""
+        if not rows:
+            return []
+        cols, valids = [], []
+        for k, kind in zip(self.key_columns, self.kinds):
+            vals = [r.get(k) for r in rows]
+            valids.append(np.fromiter((v is not None for v in vals), bool, len(vals)))
+            vals = [0 if v is None else v for v in vals]
+            cols.append(np.asarray(vals) if kind in ("i64", "f64")
+                        else np.asarray(vals, dtype=object))
+        return self.encode_rows(cols, valids)
+
     def encode_one(self, values: dict) -> bytes:
         cols = []
         valids = []

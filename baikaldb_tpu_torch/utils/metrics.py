@@ -6,16 +6,18 @@ window), the ``LatencyRecorder`` ring, the fixed-bucket ``Histogram`` (the
 instrument that merges across processes, bucket-wise), the sampled or
 settable ``Gauge``, the labelled ``*Family`` variants, and the ``Registry``
 that names every instrument.  The process-wide ``REGISTRY`` serves the
-engine.  Surfaces: ``SHOW STATUS``, ``information_schema.metrics`` /
+engine; daemons (server/store_server.py, server/meta_server.py) carry
+their own Registry so several in-process daemons never collide.
+Surfaces: ``SHOW STATUS``, ``information_schema.metrics`` /
 ``cluster_metrics``, ``registry.dump()`` (one ``name.field : value`` line
 per field) and ``registry.snapshot()``, the JSON-safe form that
 obs/telemetry.py renders as Prometheus text.
 
 The engine's instruments are the port's: the kernel launch counters of
 ops/group_kernels.py and ops/segments.py (``kernel_launches.*``) register
-here like every other counter, and the JAX package's XLA / AOT / RPC
-counters have no counterpart.  The region counters of the replicated tier
-count but are not registered (SHOW STATUS leaves them out until item 6b).  ``Counter.reset`` and
+here like every other counter, and the JAX package's XLA and AOT-cache
+counters have no counterpart; the RPC, region, fragment and distributed
+binlog counters are the JAX package's.  ``Counter.reset`` and
 ``LatencyRecorder.reset`` (a run that counts one phase) are the port's.
 """
 
@@ -615,20 +617,40 @@ watchdog_stalls_detected = Counter("watchdog_stalls_detected")
 # and the subset that carried a full forensic bundle (slow/killed/failed)
 flightrec_records = Counter("flightrec_records")
 flightrec_bundles = Counter("flightrec_bundles")
-# the in-process replicated tier (storage/replicated.py, raft/fleet.py):
-# leaderless regions served by the most advanced live replica instead of
-# failing the read; completed / aborted live splits, merges and
-# learner-first migrations, and the fenced-handoff window each one paid.
-# They count as in the JAX package but stay off the registry, so SHOW
-# STATUS does not list them until the cluster's status rows come with the
-# network plane (ROADMAP item 6b)
-learner_fallback_reads = Counter("learner_fallback_reads", registry=NULL_REGISTRY)
-region_splits = Counter("region.splits", registry=NULL_REGISTRY)
-region_split_aborts = Counter("region.split_aborts", registry=NULL_REGISTRY)
-region_merges = Counter("region.merges", registry=NULL_REGISTRY)
-region_migrations = Counter("region.migrations", registry=NULL_REGISTRY)
-region_migrate_aborts = Counter("region.migrate_aborts", registry=NULL_REGISTRY)
-region_handoff_ms = LatencyRecorder("region.handoff_ms", registry=NULL_REGISTRY)
+# the replicated tier (storage/replicated.py, raft/fleet.py,
+# storage/remote_tier.py): leaderless regions served by the most advanced
+# live replica instead of failing the read; completed / aborted live
+# splits, merges and learner-first migrations, and the fenced-handoff
+# window each one paid.  SHOW STATUS lists them as region.*
+learner_fallback_reads = Counter("learner_fallback_reads")
+region_splits = Counter("region.splits")
+region_split_aborts = Counter("region.split_aborts")
+region_merges = Counter("region.merges")
+region_migrations = Counter("region.migrations")
+region_migrate_aborts = Counter("region.migrate_aborts")
+region_handoff_ms = LatencyRecorder("region.handoff_ms")
+# RPC plane (utils/net.py): calls that exhausted their per-call deadline
+# budget (typed RpcTimeout), transport-failure resends under the
+# backoff+jitter policy, and daemon-side idempotency-token dedupe hits (a
+# retried write whose first copy executed with the response lost)
+rpc_timeouts = Counter("rpc_timeouts")
+rpc_retries = Counter("rpc_retries")
+rpc_dedup_hits = Counter("rpc_dedup_hits")
+# distributed-binlog appends that failed and were queued for retry /
+# dropped after the retry queue overflowed (counted in events, not batches)
+binlog_retry_queued = Counter("binlog_retry_queued")
+binlog_events_dropped = Counter("binlog_events_dropped")
+# pushed-down fragment execution (exec/fragments.py): per-region fragment
+# dispatches to store daemons, re-dispatches after a mid-flight split /
+# migration re-target, whole queries that fell back to the pulled image
+# path, raw region bytes that did not cross the wire because only partials
+# came back, and dispatches where no daemon could warm-start the fragment
+# from its artifact tier (0 on any re-dispatch of a published fragment)
+fragments_dispatched = Counter("fragments_dispatched")
+fragment_retargets = Counter("fragment_retargets")
+fragment_fallbacks = Counter("fragment_fallbacks")
+fragment_bytes_saved = Counter("fragment_bytes_saved")
+fragment_warm_compiles = Counter("fragment_warm_compiles")
 
 
 def count_swallowed(site: str) -> None:

@@ -3,7 +3,9 @@ its plain torch version, drive single-table SQL at real size resident and
 streamed, run the 22 TPC-H queries and the analytic queries on the card,
 the egress functions and catalog statements on the card against the CPU,
 the radix join, the host presort and a table on a 3-store Raft fleet
-(rebuilt from its replicas after a leader kill),
+(rebuilt from its replicas after a leader kill), the same table on a
+3-store TCP cluster of daemon processes (pushed fragments, the attached
+image through the kernels, the cold tier, the distributed binlog),
 vector search (VECTOR columns, the ANN index) at 1M x 128, the MPP mesh (8
 shards on the card: the 100M rows and TPC-H), the HTAP write path
 (snapshot reads over the 100M rows under writes, sysbench, recovery), and
@@ -37,8 +39,9 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    sum(|v|) over the group.  Then the segment kernel (``ops/segments.py``
    ``segment_reduce``) against its plain version: SUM, MIN and MAX of bool,
    int32, int64, float32 and float64 at 1, 16, 17, 64 and the card's gate
-   (``onehot_max_segments``) segments, at ``--rows``, at 65,536 rows and at
-   the mesh's shard lengths (1,048,576 and 16,777,216 rows), with
+   (``onehot_max_segments``) segments at 65,536 rows and at the mesh's
+   shard lengths (1,048,576 and 16,777,216 rows), and at 17 (query (a)'s,
+   the one count the SQL path gives it there) at ``--rows``, with
    ids outside the range, an empty segment, NaN of either sign and wrapping
    integer sums; integers, MIN and MAX exact, float sums within 1e-9 *
    sum(|x|) over the segment (float32 also one float32 ulp).  Each kernel is
@@ -185,7 +188,7 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    tile of lanes a block) against their plain versions (the
    per-lane loops; five lanes at 100M rows x 64) and every lane against the
    one-lane kernels at ``--rows`` rows with G = 8 and 64 and at 10,000,019
-   rows with G = 64: an all-dead lane, a lane of one live row, NaN in
+   rows with G = 64 (and G = 8 at 4 slots): an all-dead lane, a lane of one live row, NaN in
    MIN/MAX, a group of more than 2^24 rows in every lane; counts and
    MIN/MAX exact, sums as in phase 2, every segment-kernel lane
    bit-identical to the one-lane kernel; then the tiles' edges
@@ -199,8 +202,8 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    bytes a call allocates.  (i) (a)-(c)
    with 30 literal variants of the WHERE threshold, the plan cache on and
    with ``plan_cache_size = 0`` (warm p50 / p67, the ``plan.*`` spans of a
-   traced pass, the counter deltas), every variant against numpy (sorted
-   per-group prefix sums, ``ThresholdRefs``); after phase 10 (ii), the
+   traced pass, the counter deltas), every variant against float64
+   references (sorted per-group prefix sums, ``ThresholdRefs``); after phase 10 (ii), the
    host-bound TPC-H queries at SF1 with the cache on and off, their rows
    equal.  (ii) (b) PREPAREd with a ``?`` threshold and EXECUTEd with 20
    values, against numpy.  (iii) 64 sessions on 64 threads behind a barrier,
@@ -324,9 +327,10 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    in device ms.  (ii) At the end: BASELINE.json config #2 deployed as
    3-replica Raft groups, ``MetaService(peer_count=3)`` and a
    ``StoreFleet`` of 3 stores: ``tr (id BIGINT PRIMARY KEY, g INT, v FLOAT,
-   w DOUBLE, g16 INT)``, 2^20 rows of phase 3's generator (cut from 10M:
-   ~70 us a replicated row of host work), loaded through Raft (seconds,
-   rows/s), then split at ``region_split_rows`` = 262,144 into 8 regions
+   w DOUBLE, g16 INT)``, 2^18 rows of phase 3's generator (cut from 10M:
+   ~70 us a replicated row of host work; 2^20 split at 262,144 before
+   phase 17 came, then 2^19), loaded through Raft (seconds, rows/s), then
+   split at ``region_split_rows`` = 65,536 into 8 regions (phase 17's size)
    (seconds apart); SHOW REGIONS and ``information_schema.regions`` (8
    regions, their leaders); (a)-(c) over ``tr`` with phase 3's launches,
    against numpy; 200 single-row autocommit writes (1PC; p50 / p99 beside
@@ -341,13 +345,47 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    phase seconds``; each kernel's launches in (ii) are
    ``launches_replicated``.
 
+17. The network plane: BASELINE.json config #2 on a 3-store TCP cluster.
+   ``tools/deploy_cluster.spawn_cluster`` starts 1 meta and 3 store daemon
+   processes (free ports, ``CUDA_VISIBLE_DEVICES`` empty, one cold
+   directory shared with the frontends).  Frontend A,
+   ``Session(Database("cuda", cluster=meta))``, creates ``tr`` (phase 16
+   (ii)'s DDL) and loads 2^18 rows of phase 16's generator over TCP in
+   32,768-row writes, each region split when it reaches
+   ``region_split_rows`` = 65,536 (8 regions of 32,768; load rows/s, split
+   seconds apart).  With
+   ``pushdown_reads = always``: (a)-(c) as fragments folded on the stores'
+   hosts (the first run and 3 warm ones, ``fragments_dispatched``,
+   ``fragment_bytes_saved``, ``fragment_warm_compiles`` on re-dispatch:
+   0), rows against numpy under the row-wise (float64) predicate.  A
+   second frontend B under ``auto``: its first (a) pushed with the table
+   unattached (one run), then the attach (the full pull over TCP and the stage,
+   seconds), then its warm (a)-(c) on the card (p50 / p67, device ms, idle
+   share, launches, counts set to 0 just before: ``launches_cluster``) and
+   K1-K3 and the segment kernel against their plain versions on B's image
+   (the ``cluster`` entry of each kernel).  Through A: 100 single-row
+   writes (1PC, p50 / p99) and 20 two-region transactions (2PC, p50 /
+   p99): a commit waits for the daemons' 50 ms raft tick; HANDLE
+   cold_flush, (a) pushed again, one run, with ``fragment_fallbacks``
+   unchanged (the daemons fold their cold segments in place), cold_gc.  A BINLOG=1 table written by
+   both frontends (8 writes, then 4 after the kill) and read by one
+   ``BinlogCapturer`` as one commit-ts-ordered stream (events/s, p50 of a
+   poll); SIGKILL of the store leading the most regions, the first write
+   after it and the capturer losing no event; a fresh frontend C rebuilds
+   hot + cold (seconds; rows equal the numpy replay of every acknowledged
+   write); ``information_schema.cluster_metrics`` rows from every live
+   daemon; ``nvidia-smi --query-compute-apps=pid`` lists one process, and
+   every live daemon runs with ``CUDA_VISIBLE_DEVICES`` empty and has not
+   loaded libcuda (the daemons never import torch).  ``cluster phase seconds``.
+
 Phases 5 and 6 run with the default flags, so a query over a table of at
 least ``streaming_min_rows`` rows that the streamed path accepts streams
 there (q1, q6 and some analytic queries, over lineitem); which ones did is
 printed and recorded.
 
 Each phase's seconds are printed on a line of their own, and in the JSON line
-of measurements (redirect standard output to keep it).  The last two
+of measurements (redirect standard output to keep it), beside the script's
+seconds from its start (the kernels' builds included).  The last two
 lines of standard output are the ``kernels`` JSON line and the
 ``{"ok": true, "device": ...}`` line.
 """
@@ -396,6 +434,7 @@ LANE_KERNELS = {"filtered_group_sum_lanes": "filtered_group_sum",
                 "segment_reduce_lanes": "segment_reduce"}
 SEG_DTYPES = (torch.bool, torch.int32, torch.int64, torch.float32, torch.float64)
 NG_A = 17                        # query (a): 16 groups + the NULL slot
+ODD_SEG_ROWS = 1_000_003         # phase 11's segment cases at an odd length (100M-odd to PR 17)
 QUERIES = {
     "a": "SELECT g16, COUNT(*), SUM(v), AVG(v), MIN(v) FROM t "
          "WHERE v*2+1 > 0.5 GROUP BY g16 ORDER BY g16",
@@ -412,6 +451,12 @@ EXPECTED_LAUNCHES = {
 MESH_SHARDS = 8
 # K2's kernels by name in a profile (not K1/K3's group_agg_*kernel)
 K2_KERNEL = re.compile(r"(?<![A-Za-z_])agg_(lanes_)?kernel<|(?<![A-Za-z_])agg_merge\(")
+# the main kernel of each wrapper call (K1/K3, K2, the segment kernel; lanes too)
+OWN_KERNEL = re.compile(r"(?<![A-Za-z_])(?:group_agg|agg|seg)(?:_lanes)?_kernel<")
+# a profiled run that lost device records is profiled again, up to this many
+# times; the trace opens and closes this long apart from the run
+PROFILE_TRIES = 3
+PROFILE_PAD_S = 0.02
 # launches of each shard's partial on the mesh: (a)'s AVG shares SUM's partial
 MESH_EXPECTED_LAUNCHES = EXPECTED_LAUNCHES | {"a": {"segment_reduce": 7}}
 
@@ -788,11 +833,12 @@ def seg_check(seg, x, gid, S: int, op: str, got=None) -> float:
     return float(d.max()) if d.numel() else 0.0
 
 
-def segment_cases(seg, n: int, gen) -> tuple[float, int]:
-    """Every dtype and op at 1, 16, 17, 64 and the gate's segments on ``n``
-    random rows against the plain version; -> (max |err|, cases)."""
+def segment_cases(seg, n: int, gen, segments=None) -> tuple[float, int]:
+    """Every dtype and op at 1, 16, 17, 64 and the gate's segments (or at
+    ``segments``) on ``n`` random rows against the plain version; -> (max
+    |err|, cases)."""
     dev = torch.device("cuda")
-    segments = sorted({1, 16, NG_A, 64, seg.max_segments(dev)})
+    segments = sorted(segments or {1, 16, NG_A, 64, seg.max_segments(dev)})
     max_err, checked = 0.0, 0
     t0 = time.perf_counter()
     for S in segments:
@@ -819,10 +865,12 @@ def segment_phase(rows: int, seed: int, before=None) -> dict:
     gen.manual_seed(seed + 1)
     max_err, checked = 0.0, 0
     # 65,536 rows (a streamed chunk), a mesh shard's 1,048,576 (TPC-H
-    # lineitem) and 16,777,216 (phase 10's (a)), and the whole table; phase
-    # 11 adds the versioned batch's length (versioned_kernel_checks)
-    for n in (1 << 16, 1 << 20, 1 << 24, rows):
-        err, k = segment_cases(seg, n, gen)
+    # lineitem) and 16,777,216 (phase 10's (a)) at every slot count, and the
+    # whole table at (a)'s 17 slots, the only count the 100M-row path gives
+    # the kernel (every count there until PR 17); phase 11 adds an odd length
+    # (versioned_kernel_checks)
+    for n, segments in ((1 << 16, None), (1 << 20, None), (1 << 24, None), (rows, {NG_A})):
+        err, k = segment_cases(seg, n, gen, segments)
         max_err, checked = max(max_err, err), checked + k
     gate = seg.max_segments(dev)
     # the wrap of int64 sums, exactly
@@ -917,7 +965,8 @@ def check_rows(name, rows, ref, has_count=True, has_min=True):
             raise AssertionError(f"query ({name}) group {g}: min {vals[2]} != {mins[g]}")
 
 
-def device_breakdown(run, wall_ms: float, host_ops: bool = True) -> dict:
+def device_breakdown(run, wall_ms: float, host_ops: bool = True,
+                     tries: int = PROFILE_TRIES) -> dict:
     """One profiled run: device time summed over CUDA kernels and copies,
     the idle share of the unprofiled wall time, the top kernels, and K2's
     kernels' device time (``k2_device_ms``: ``agg_lanes_kernel``,
@@ -927,20 +976,47 @@ def device_breakdown(run, wall_ms: float, host_ops: bool = True) -> dict:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    from baikaldb_tpu_torch.ops import group_kernels as gk
+
+    def launched() -> int:
+        return sum(all_launches(gk).values()) + sum(lane_launches(gk).values())
+
     acts = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
-    with profile(activities=acts) as prof:
-        run()
+    for _ in range(tries):
         torch.cuda.synchronize()
-    dev = [(e.key, e.self_device_time_total / 1e3) for e in prof.key_averages()
-           if e.device_type == DeviceType.CUDA]
+        n0 = launched()
+        with profile(activities=acts) as prof:
+            time.sleep(PROFILE_PAD_S)
+            run()
+            torch.cuda.synchronize()
+            time.sleep(PROFILE_PAD_S)
+        launches = launched() - n0
+        events = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+        dev = [(e.key, e.self_device_time_total / 1e3) for e in events]
+        # each wrapper call launches one main kernel: a trace holding fewer
+        # lost device records, and its sums would understate the device time
+        recorded = sum(e.count for e in events if OWN_KERNEL.search(e.key))
+        if recorded >= launches and (dev or not launches):
+            break
+    else:
+        log(f"[profile] {tries} profiled run(s) recorded {recorded} of the run's "
+            f"{launches} kernel launches: device time not measured")
+        return {"device_ms": None, "idle_share": None, "top_kernels": [],
+                "k2_device_ms": None, "device_ops": None, "kernel_names": [],
+                "device_not_measured": f"the profiler recorded {recorded} of {launches} "
+                                       f"kernel launches in {tries} run(s)"}
     busy = sum(ms for _, ms in dev)
     top = sorted(dev, key=lambda kv: -kv[1])[:4]
     return {"device_ms": busy, "idle_share": max(0.0, 1.0 - busy / wall_ms),
             "top_kernels": [[k[:60], ms] for k, ms in top],
             "k2_device_ms": sum(ms for k, ms in dev if K2_KERNEL.search(k)),
-            "device_ops": sum(e.count for e in prof.key_averages()
-                              if e.device_type == DeviceType.CUDA),
+            "device_ops": sum(e.count for e in events),
             "kernel_names": sorted(k for k, _ in dev)}
+
+
+def fmt(x, spec: str) -> str:
+    """``x`` formatted, or "not measured" where a profiled run lost it."""
+    return "not measured" if x is None else format(x, spec)
 
 
 def sql_table(rows: int, seed: int):
@@ -1031,7 +1107,7 @@ def _sql_runs(gk, s, rows: int, refs, load_s: float) -> tuple[dict, dict]:
         if q == "a" and scatters:
             raise AssertionError(f"query (a) ran index_add_ on the card: {scatters}")
         log(f"[sql] ({q}) warm wall p50 {med:.2f} ms p67 {walls[WARM_REPS - 11]:.2f} ms "
-            f"over {WARM_REPS} runs, device busy {sql_stats[q]['device_ms']:.2f} ms: {sql}")
+            f"over {WARM_REPS} runs, device busy {fmt(sql_stats[q]['device_ms'], '.2f')} ms: {sql}")
     sql_stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return launches, sql_stats
 
@@ -1121,7 +1197,8 @@ def streamed_query(gk, s, q: str, refs, n_chunks: int, reps: int) -> dict:
     out.pop("kernel_names")
     out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     log(f"[stream] ({q}) {n_chunks} chunks: first run {first_ms:.1f} ms, warm p50 {med:.1f} ms "
-        f"over {reps} runs, device {out['device_ms']:.1f} ms, idle {out['idle_share']:.3f}, "
+        f"over {reps} runs, device {fmt(out['device_ms'], '.1f')} ms, idle "
+        f"{fmt(out['idle_share'], '.3f')}, "
         f"peak {out['peak_mem_gib']:.3f} GiB, launches {launched}, stream event {event}")
     return out
 
@@ -1374,7 +1451,8 @@ def time_queries(gk, s, queries: dict, tag: str) -> tuple[dict, dict]:
         log(f"[{tag}] {q}: {len(first[q])} rows, {chunks} chunks streamed, first run "
             f"{first_ms:.1f} ms, warm p50 "
             f"{med:.2f} ms p67 {per_query[q]['warm_ms_p67']:.2f} ms, device "
-            f"{per_query[q]['device_ms']:.2f} ms, idle {per_query[q]['idle_share']:.3f}, "
+            f"{fmt(per_query[q]['device_ms'], '.2f')} ms, idle "
+            f"{fmt(per_query[q]['idle_share'], '.3f')}, "
             f"peak {peak_gib:.3f} GiB, kernel launches {launched}, "
             f"top {per_query[q]['top_kernels']}, spans "
             + " ".join(f"{k} {v:.2f}" for k, v in per_query[q]["spans_ms"].items()))
@@ -1766,8 +1844,8 @@ def vector_sql(gk, seed: int) -> tuple[dict, dict, tuple]:
         log(f"[vectors] {shape}: {VEC_QUERIES} vectors match numpy; first query "
             f"{firsts[0]:.1f} ms (spans {first_spans}), other vectors p50 "
             f"{st['other_vectors_ms_p50']:.2f} ms, warm p50 {med:.2f} ms p67 "
-            f"{st['warm_ms_p67']:.2f} ms, device {st['device_ms']:.2f} ms, idle "
-            f"{st['idle_share']:.3f}, peak {peak:.3f} GiB, launches {launched}, top "
+            f"{st['warm_ms_p67']:.2f} ms, device {fmt(st['device_ms'], '.2f')} ms, idle "
+            f"{fmt(st['idle_share'], '.3f')}, peak {peak:.3f} GiB, launches {launched}, top "
             f"{st['top_kernels']}, spans {st['spans_ms']}")
     launches = all_launches(gk)
     # V-ann's training is the path's one k-means: one segment launch an
@@ -1990,8 +2068,8 @@ def mesh_sql_phase(gk, single, refs) -> tuple[dict, dict]:
         if q == "a" and scatters:
             raise AssertionError(f"mesh query (a) ran index_add_ on the card: {scatters}")
         log(f"[mesh] ({q}) warm wall p50 {med:.2f} ms p67 {stats[q]['warm_ms_p67']:.2f} ms "
-            f"over {MESH_REPS} runs, device {stats[q]['device_ms']:.2f} ms, idle "
-            f"{stats[q]['idle_share']:.3f}, device ops {stats[q]['device_ops']}, "
+            f"over {MESH_REPS} runs, device {fmt(stats[q]['device_ms'], '.2f')} ms, idle "
+            f"{fmt(stats[q]['idle_share'], '.3f')}, device ops {stats[q]['device_ops']}, "
             f"top {stats[q]['top_kernels']}")
     stats["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     return launches, stats
@@ -2066,8 +2144,8 @@ def mesh_tpch_phase(gk, single) -> tuple[dict, dict]:
                             **device_breakdown(lambda: s.query(sql), med, host_ops=False)}
         per_query[q].pop("kernel_names")
         log(f"[mesh] {q}: warm p50 {med:.2f} ms p67 {per_query[q]['warm_ms_p67']:.2f} ms, "
-            f"device {per_query[q]['device_ms']:.2f} ms, idle "
-            f"{per_query[q]['idle_share']:.3f}, rounds {rounds}, launches {launched}, "
+            f"device {fmt(per_query[q]['device_ms'], '.2f')} ms, idle "
+            f"{fmt(per_query[q]['idle_share'], '.3f')}, rounds {rounds}, launches {launched}, "
             f"top {per_query[q]['top_kernels']}")
     return launches, {"shards": MESH_SHARDS, "shard_s": shard_s, "queries": per_query,
                       "q3_shuffle_summary": summary,
@@ -2160,8 +2238,10 @@ def sysbench_phase(gk, seed: int) -> tuple[dict, dict]:
     t0 = time.perf_counter()
     drv.run(SB_TXNS - SB_PROFILED_TXNS, timer)
     wall = time.perf_counter() - t0
+    # once: a second profiled run would commit more transactions
     dev = device_breakdown(lambda: drv.run(SB_PROFILED_TXNS),
-                           wall / (SB_TXNS - SB_PROFILED_TXNS) * SB_PROFILED_TXNS * 1e3)
+                           wall / (SB_TXNS - SB_PROFILED_TXNS) * SB_PROFILED_TXNS * 1e3,
+                           tries=1)
     launches = all_launches(gk)
     ref = drv.reference
     stats = {"rows": SB_ROWS, "transactions": SB_TXNS, "region_rows": SB_REGION_ROWS,
@@ -2328,7 +2408,8 @@ def versioned_kernel_checks(gk, store, snap_ts: int, seed: int) -> dict:
     pinned versioned batch itself: its length (the live rows plus the
     history, odd here), its columns and its ``sel`` (the visibility mask)
     ANDed with each query's WHERE, at the slots (a)-(c) give them; then
-    every segment case of ``segment_cases`` at that length."""
+    every segment case of ``segment_cases`` at an odd length of ~1M rows
+    (phase 1 ran them at 100M rows and below, all even)."""
     from baikaldb_tpu_torch.ops import segments as seg
 
     got = store.versioned_batch(snap_ts)
@@ -2351,13 +2432,14 @@ def versioned_kernel_checks(gk, store, snap_ts: int, seed: int) -> dict:
     del gid, where_v, where_w
     gen = torch.Generator(device=g.device)
     gen.manual_seed(seed + 13)
-    err, cases = segment_cases(seg, n, gen)
+    err, cases = segment_cases(seg, ODD_SEG_ROWS, gen)
     out = {"rows": n, "history_versions": versions, "k_max_abs_err": k_err,
            "seg_max_abs_err": max(s_err, err), "seg_cases": cases + 6,
+           "seg_case_rows": ODD_SEG_ROWS,
            "seconds": time.perf_counter() - t0}
     log(f"[htap] K1-K3 at {NG_SQL} slots and the segment kernel at {NG_A} on the versioned "
         f"batch ({n} rows, {versions} history versions) under (a)-(c)'s masks, and "
-        f"{cases} segment cases at its length, match the plain versions")
+        f"{cases} segment cases at {ODD_SEG_ROWS} rows, match the plain versions")
     return out
 
 
@@ -2435,8 +2517,8 @@ def htap_snapshot_phase(gk, single, table, refs, seed: int) -> tuple[dict, dict]
                 log(f"[htap] {who} ({q}): first {first_ms:.1f} ms (mvcc.visibility "
                     f"{st['mvcc_visibility_ms']:.1f} ms, {st['versions_scanned']} history "
                     f"versions), warm p50 {st['warm_ms_p50']:.2f} ms p67 "
-                    f"{st['warm_ms_p67']:.2f} ms, device {st['device_ms']:.2f} ms, idle "
-                    f"{st['idle_share']:.3f}, launches {got}")
+                    f"{st['warm_ms_p67']:.2f} ms, device {fmt(st['device_ms'], '.2f')} ms, idle "
+                    f"{fmt(st['idle_share'], '.3f')}, launches {got}")
         launches = {k: sum(p.get(k, 0) for p in per_query.values()) for k in gk.LAUNCHES}
         launches["segment_reduce"] = sum(p.get("segment_reduce", 0) for p in per_query.values())
         stats["kernel_checks"] = versioned_kernel_checks(gk, store, a._snapshot[1], seed)
@@ -2554,24 +2636,31 @@ PREPARED_VALUES = 20
 
 
 class ThresholdRefs:
-    """numpy float64 references of ``key(col) > x AND lo <= group < hi``
-    per group, for any x: the rows sorted by (group, value) once (the sort
-    on the card, a permutation; everything else numpy), then a binary
-    search and prefix sums a group.  ``key`` is monotone in the value, so
-    each group's kept rows are a suffix of its sorted values."""
+    """float64 references of ``key(col) > x AND lo <= group < hi`` per
+    group, for any x: the rows sorted by (group, value) once, each group's
+    bounds and the float64 prefix sums of the sorted values and of their
+    magnitudes (on the card: torch's sort, gather, ``searchsorted`` and
+    ``cumsum``, none of the port's code; numpy gathered and summed them
+    until PR 17), then per query a numpy binary search and prefix-sum
+    differences a group.  ``key`` is monotone in the value, so each group's
+    kept rows are a suffix of its sorted values."""
 
     def __init__(self, groups: np.ndarray, vals: np.ndarray, key, ng: int):
         g = torch.from_numpy(groups).cuda()
-        o = torch.sort(torch.from_numpy(vals).cuda(), stable=True).indices
+        x = torch.from_numpy(vals).cuda()
+        o = torch.sort(x, stable=True).indices
         o = o[torch.sort(g[o], stable=True).indices]
-        order = o.cpu().numpy()
-        del g, o
-        self.v = vals[order]
-        self.bounds = np.searchsorted(groups[order], np.arange(ng + 1))
+        x, g = x[o], g[o]
+        del o
+        self.bounds = torch.searchsorted(
+            g, torch.arange(ng + 1, dtype=g.dtype, device=g.device)).cpu().numpy()
+        v64 = x.double()
+        zero = v64.new_zeros(1)
+        self.cs = torch.cat([zero, v64.cumsum(0)]).cpu().numpy()
+        self.ca = torch.cat([zero, v64.abs().cumsum(0)]).cpu().numpy()
+        self.v = x.cpu().numpy()
+        del g, x, v64
         self.key = key(self.v)
-        v64 = self.v.astype(np.float64)
-        self.cs = np.concatenate([[0.0], np.cumsum(v64)])
-        self.ca = np.concatenate([[0.0], np.cumsum(np.abs(v64))])
         self.ng = ng
 
     def groups(self, x: float, lo: int = 0, hi: int | None = None) -> dict:
@@ -2599,7 +2688,7 @@ def d_refs(table) -> dict:
 
     refs = {"D-a": ThresholdRefs(g16, v, vkey, 16), "D-b": ThresholdRefs(g, v, vkey, 2048),
             "D-c": ThresholdRefs(g, w, lambda x: x.astype(np.float64), 2048)}
-    log(f"[phase12] numpy threshold references built in {time.perf_counter() - t0:.1f} s")
+    log(f"[phase12] threshold references built in {time.perf_counter() - t0:.1f} s")
     return refs
 
 
@@ -2969,8 +3058,9 @@ def dispatch_phase(gk, single, refs, seed: int, before=None) -> dict:
             f"{ticks} ticks {out[name]['occupancy']}, inline {c1['dispatch_inline']}, "
             f"fallbacks {c1['dispatch_fallbacks']}, queue wait p50 {qw['p50_ms']} ms; "
             f"lane launches {out[name]['lane_launches']}; tick of {tick['lanes']} lanes "
-            f"{tick['wall_ms_p50']:.2f} ms wall, {tick['device_ms']:.2f} device (K2 "
-            f"{tick['k2_device_ms']:.2f}), idle {tick['idle_share']:.3f}; peak {peak:.2f} GiB")
+            f"{tick['wall_ms_p50']:.2f} ms wall, {fmt(tick['device_ms'], '.2f')} device (K2 "
+            f"{fmt(tick['k2_device_ms'], '.2f')}), idle {fmt(tick['idle_share'], '.3f')}; "
+            f"peak {peak:.2f} GiB")
         if not dispatch.enabled():
             raise AssertionError("the dispatcher is off")
     return out
@@ -3250,7 +3340,7 @@ def lane_kernel_phase(gk, rows: int, seed: int, before=None) -> dict:
     # at 100M rows x 64 lanes the plain versions (per-lane loops) take a few
     # lanes; every lane meets the one-lane kernels
     for n, ng, G, kw in ((rows, NG_SQL, 8, {}), (small, NG_SQL, 64, {"nans": True}),
-                         (rows, 4, 8, {}), (small, NG_A, 64, {}),
+                         (small, 4, 8, {}), (small, NG_A, 64, {}),
                          (rows, NG_SQL, 64, {"plain_lanes": (0, 1, 2, 3, 63)}),
                          (rows, NG_A, 64, {"plain_lanes": (0, 1, 2, 3, 63)})):
         err = max(err, lane_case(gk, seg, n, ng, G, gen, **kw))
@@ -3615,7 +3705,8 @@ def partition_phase(gk, single, table) -> tuple[dict, dict]:
             log(f"[partitions] ({q}) first {first_ms:.1f} ms (the first query stages the pruned "
                 f"batch), warm "
                 f"p50 {st['warm_ms_p50']:.3f} ms p67 {st['warm_ms_p67']:.3f} ms, device "
-                f"{st['device_ms']:.3f} ms, idle {st['idle_share']:.3f}; over t p50 "
+                f"{fmt(st['device_ms'], '.3f')} ms, idle {fmt(st['idle_share'], '.3f')}; "
+                f"over t p50 "
                 f"{st['over_t']['warm_ms_p50']:.3f} ms; launches {got}")
         launches = {k: sum(p.get(k, 0) for p in per_query.values()) for k in REPLACES}
         pruned = [b for k, (_, b) in s._access_batches.items()
@@ -3866,9 +3957,10 @@ MV_REFOLDS = {"insert": (0, 0), "delete": (0, 0), "update": (0, 0), "min": (1, 0
 # counters: r_g's refresh K3 + K2, r_g16's and the seed the segment kernel)
 LIFECYCLE_KERNELS = ("fused_group_aggregate", "partition_histogram", "segment_reduce")
 # a change-stream consumer: sysbench oltp_write_only transactions over the
-# 1M rows, read back by FETCH batches of 100 and of 1,000
-LC_CDC_TXNS = 250                 # 1,000 events: one full FETCH 1000 (~50 ms a write with row capture; 300 until PR 14)
-LC_CDC_BATCHES = (100, 1000)
+# 1M rows, read back by FETCH batches of 100 and of 500
+LC_CDC_TXNS = 125                 # 500 events: one full FETCH 500 (~50 ms a write with row capture;
+                                  # 300 until PR 14, 250 and FETCH 1000 until PR 17)
+LC_CDC_BATCHES = (100, 500)
 SB_WRITES = {"index_update": "update", "non_index_update": "update", "delete": "delete",
              "insert": "insert"}
 LC_DDL_UPDATES = 400              # the second session's point UPDATEs of k, at most
@@ -4183,7 +4275,7 @@ def cdc_stream_part(s, seed: int) -> dict:
     """(iii) at a consumer's scale: sysbench oltp_write_only transactions
     over sbtest1's 1M rows (one event a statement, its row images), read by
     one subscription in FETCH batches of 100 and by another in batches of
-    1,000, each until empty; every event against the statement that logged
+    500, each until empty; every event against the statement that logged
     it.  -> per batch size, the calls' p50 / p99 ms and events/s."""
     from baikaldb_tpu_torch.models import sysbench as sb
 
@@ -4489,9 +4581,10 @@ def tracking_overhead(s) -> dict:
         out[q] = res
         log(f"[phase15] ({q}) progress_tracking on p50 {res['on']['p50_ms']:.3f} ms "
             f"(turns {[round(x, 3) for x in turns[1]]}), off {res['off']['p50_ms']:.3f} ms "
-            f"(turns {[round(x, 3) for x in turns[0]]}); device {res['on']['device_ms']:.3f} / "
-            f"{res['off']['device_ms']:.3f} ms, idle {res['on']['idle_share']:.3f} / "
-            f"{res['off']['idle_share']:.3f}")
+            f"(turns {[round(x, 3) for x in turns[0]]}); device "
+            f"{fmt(res['on']['device_ms'], '.3f')} / {fmt(res['off']['device_ms'], '.3f')} ms, "
+            f"idle {fmt(res['on']['idle_share'], '.3f')} / "
+            f"{fmt(res['off']['idle_share'], '.3f')}")
     return out
 
 
@@ -4852,8 +4945,10 @@ PRESORT_TURNS = (4, 3, 3)        # 10 warm runs a side, in 3 alternating turns
 RADIX_BUCKETS = 256
 RADIX_QUERIES = ("q3", "q13")    # q3's joins are all dense; q13's LEFT JOIN is a sort join
 RADIX_TURNS = (4, 3, 3)
-REP_ROWS = 1 << 20               # config #2's 10M rows, cut: ~70 us a replicated row on the host
-REP_SPLIT_ROWS = 262_144         # a region splits at the threshold: 8 regions of 131,072 rows
+# config #2's 10M rows, cut: ~70 us a replicated row on the host; 2^20 split
+# at 262,144 before phase 17 came, cut to keep the script in its time limit
+REP_ROWS = 1 << 18
+REP_SPLIT_ROWS = 65_536          # a region splits at the threshold: 8 regions of 32,768 rows
 REP_STORES = ("s1:8110", "s2:8110", "s3:8110")
 REP_WRITES = 200                 # single-row autocommit writes, each a 1PC
 REP_TXNS = 20                    # transactions over two regions, each a 2PC
@@ -4986,8 +5081,10 @@ def presort_part(s, first: dict) -> dict:
         log(f"[presort] {q}: p50 {walls['presort']['warm_ms_p50']:.2f} ms with the presort "
             f"vs {walls['no_presort']['warm_ms_p50']:.2f} without (turns "
             f"{walls['presort']['turns_p50']} / {walls['no_presort']['turns_p50']}); device "
-            f"{walls['presort']['device_ms']:.2f} / {walls['no_presort']['device_ms']:.2f} ms, "
-            f"idle {walls['presort']['idle_share']:.3f} / {walls['no_presort']['idle_share']:.3f}; "
+            f"{fmt(walls['presort']['device_ms'], '.2f')} / "
+            f"{fmt(walls['no_presort']['device_ms'], '.2f')} ms, "
+            f"idle {fmt(walls['presort']['idle_share'], '.3f')} / "
+            f"{fmt(walls['no_presort']['idle_share'], '.3f')}; "
             f"first run {first_s:.3f} s, host argsort {argsort_s:.3f} s; rows equal")
     return out
 
@@ -5128,7 +5225,7 @@ def rep_queries(gk, s, refs: dict, tag: str) -> dict:
         check_query(q, rows, refs)
         out[q] = {"launches": got, **timed_query(s, sql, REP_REPS)}
     log(f"{tag} (a)-(c) equal numpy with phase 3's launches; warm p50 "
-        + ", ".join(f"({q}) {v['warm_ms_p50']:.2f} ms / {v['device_ms']:.2f} device-ms"
+        + ", ".join(f"({q}) {v['warm_ms_p50']:.2f} ms / {fmt(v['device_ms'], '.2f')} device-ms"
                     for q, v in out.items()))
     return out
 
@@ -5334,6 +5431,441 @@ def replicated_phase(gk, seed: int) -> tuple[dict, dict]:
     return launches, out
 
 
+# ----------------------------------------------------------------------
+# phase 17: the network plane, the store and meta daemons, pushed
+# fragments, the cold tier's segments and the distributed binlog
+
+# config #2's 10M rows, cut further than phase 16 (ii): a pushed query folds
+# every row in Python on the stores, and the phase must fit 100 s
+CL_ROWS = 1 << 18
+CL_SPLIT_ROWS = 65_536           # a region splits at the threshold: 8 regions of 32,768 rows
+CL_LOAD_ROWS = CL_SPLIT_ROWS // 2    # rows a write of the load (a ~2 MB frame)
+CL_PUSH_REPS = 3                 # warm runs of a pushed query (the stores fold row by row)
+# a commit waits for the daemons' raft tick (50 ms)
+CL_WRITES = 100                  # single-row autocommit writes, each a 1PC: enough for a p99
+CL_TXNS = 20                     # two-region transactions, each a 2PC (phase 16's count)
+CL_BINLOG_WRITES = 8             # BINLOG=1 writes before the store kill, alternating frontends
+CL_BINLOG_AFTER = 4              # and after it (12 and 6 until the 1PC / 2PC counts grew)
+CL_POLL_S = 30.0                 # the capturer's deadline to see every event
+
+
+def row_refs(table: dict) -> dict:
+    """(a)-(c)'s references under the row-wise predicate of a pushed
+    fragment: ``v*2+1 > 0.5`` in float64 (the daemons fold Python floats),
+    where the device evaluates it in float32."""
+    keep_v = table["v"].astype(np.float64) * 2 + 1 > 0.5
+    return {"a": reference(table["g16"], table["v"], keep_v, 16),
+            "b": reference(table["g"], table["v"], keep_v, 2048),
+            "c": reference(table["g"], table["w"], table["w"] > -1, 2048)}
+
+
+def pushed_queries(s, refs: dict, tag: str, queries=QUERIES, reps: int = CL_PUSH_REPS) -> dict:
+    """(a)-(c) (or ``queries``) over ``tr`` as pushed fragments: each
+    dispatches, launches no kernel and equals numpy; the first run
+    publishes the fragment, ``reps`` warm runs re-dispatch it by its key (no
+    compile anywhere).  -> per query: the first run's ms, the warm p50 /
+    p67 (with ``reps`` > 0) and the counters."""
+    from baikaldb_tpu_torch.ops import group_kernels as gk
+    from baikaldb_tpu_torch.utils import metrics
+
+    out = {}
+    for q, sql in queries.items():
+        sql = sql.replace(" FROM t ", " FROM tr ")
+        d0, b0 = metrics.fragments_dispatched.value, metrics.fragment_bytes_saved.value
+        f0 = metrics.fragment_fallbacks.value
+        before = all_launches(gk)
+        t = time.perf_counter()
+        rows = s.query(sql)
+        first_ms = (time.perf_counter() - t) * 1e3
+        check_query(q, rows, refs)
+        if metrics.fragments_dispatched.value == d0 or metrics.fragment_fallbacks.value != f0:
+            raise AssertionError(f"{tag} ({q}) did not run as a pushed fragment: "
+                                 f"{metrics.fragments_dispatched.value - d0} dispatched, "
+                                 f"{metrics.fragment_fallbacks.value - f0} fallbacks in "
+                                 f"{first_ms:.0f} ms")
+        if all_launches(gk) != before:
+            raise AssertionError(f"{tag} ({q}) launched kernels on the pushed path")
+        c0 = metrics.fragment_warm_compiles.value
+        d1 = metrics.fragments_dispatched.value
+        walls = [first_ms]
+        for _ in range(reps):
+            t = time.perf_counter()
+            s.query(sql)
+            walls.append((time.perf_counter() - t) * 1e3)
+        out[q] = {"first_ms": first_ms, "warm_runs": reps,
+                  **({"warm_ms_p50": statistics.median(walls[1:]),
+                      "warm_ms_p67": float(np.percentile(walls[1:], 67))} if reps else {}),
+                  "fragments_dispatched": metrics.fragments_dispatched.value - d0,
+                  "fragments_a_run": d1 - d0,
+                  "fragment_bytes_saved": metrics.fragment_bytes_saved.value - b0,
+                  "fragment_bytes_saved_a_run":
+                      (metrics.fragment_bytes_saved.value - b0) // (reps + 1),
+                  "warm_compiles_on_redispatch": metrics.fragment_warm_compiles.value - c0}
+        if out[q]["warm_compiles_on_redispatch"] or \
+                metrics.fragment_fallbacks.value != f0:
+            raise AssertionError(f"{tag} ({q}) re-dispatch compiled or fell back: {out[q]}")
+    what = f"warm p50 of {reps}" if reps else "a single first run"
+    log(f"{tag} pushed {', '.join(f'({q})' for q in out)} equal numpy, no kernel launched; "
+        f"{what}: " + ", ".join(
+            f"({q}) {v['warm_ms_p50'] if reps else v['first_ms']:.1f} ms "
+            f"({v['fragments_a_run']} fragments, {v['fragment_bytes_saved_a_run']} bytes "
+            f"saved a run)"
+            for q, v in out.items()))
+    return out
+
+
+def region_leaders(stores: list, region_ids: set) -> dict:
+    """store address -> the regions of ``region_ids`` it leads, asked of
+    each live daemon (``region_status``)."""
+    from baikaldb_tpu_torch.raft.core import LEADER
+    from baikaldb_tpu_torch.utils.net import RpcClient
+
+    out = {}
+    for addr in stores:
+        st = RpcClient(addr, timeout=5.0).try_call("region_status") or {}
+        out[addr] = sorted(int(r) for r, v in st.items()
+                           if int(r) in region_ids and v["role"] == LEADER)
+    return out
+
+
+def card_pids() -> list:
+    """The pids ``nvidia-smi`` lists as holding the card."""
+    out = subprocess.run(["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+                         capture_output=True, text=True, check=True, timeout=60).stdout
+    return sorted(int(x) for x in out.split() if x.strip().isdigit())
+
+
+def maps_libcuda(pid: int) -> bool:
+    """Has process ``pid`` loaded libcuda (the first step of a context)?"""
+    try:
+        with open(f"/proc/{pid}/maps") as f:
+            return "libcuda.so" in f.read()
+    except OSError:
+        return False
+
+
+def sees_no_card(pid: int) -> bool:
+    """Does process ``pid`` run with ``CUDA_VISIBLE_DEVICES`` empty (it can
+    load libcuda but open no context on any card)?"""
+    try:
+        with open(f"/proc/{pid}/environ", "rb") as f:
+            env = f.read().split(b"\0")
+    except OSError:
+        return False
+    return b"CUDA_VISIBLE_DEVICES=" in env
+
+
+def capture_all(cap, want: set, deadline_s: float) -> tuple[list, list]:
+    """Poll the capturer until every id of ``want`` arrived -> (entries,
+    each poll's wall ms)."""
+    got, polls = [], []
+    deadline = time.monotonic() + deadline_s
+    while time.monotonic() < deadline:
+        t = time.perf_counter()
+        batch = cap.poll()
+        polls.append((time.perf_counter() - t) * 1e3)
+        got += batch
+        seen = {ev["row"]["id"] for e in got for ev in e["events"] if "row" in ev}
+        if want <= seen:
+            return got, polls
+        if not batch:
+            time.sleep(0.05)
+    raise AssertionError(f"[cluster] the capturer saw {len(got)} entries, "
+                         f"missing ids {sorted(want - seen)[:10]}")
+
+
+def cluster_phase(gk, seed: int) -> tuple[dict, dict]:
+    """Phase 17 (module docstring) -> (launches of B's warm (a)-(c),
+    measurements)."""
+    import shutil
+    import tempfile
+
+    import pyarrow as pa
+
+    from baikaldb_tpu_torch.exec.session import Database, Session
+    from baikaldb_tpu_torch.storage import remote_tier
+    from baikaldb_tpu_torch.storage.binlog_regions import BinlogCapturer
+    from baikaldb_tpu_torch.storage.remote_tier import ClusterClient
+    from baikaldb_tpu_torch.tools.deploy_cluster import spawn_cluster, teardown
+    from baikaldb_tpu_torch.utils import metrics
+    from baikaldb_tpu_torch.utils.flags import FLAGS
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    base, _ = sql_table(CL_ROWS, seed)
+    table = pa.table({"id": np.arange(CL_ROWS, dtype=np.int64),
+                      **{c: base.column(c) for c in ("g", "v", "w", "g16")}})
+    del base
+    replay = Replay(table)
+    rng = np.random.default_rng(seed + 17)
+    root = tempfile.mkdtemp(prefix="bk_cluster_phase_")
+    cold = os.path.join(root, "cold")
+    prev = {k: FLAGS.get(k) for k in ("region_split_rows", "streaming_scan", "pushdown_reads")}
+    FLAGS.set_flag("streaming_scan", "0")        # resident, as phase 3
+    FLAGS.set_flag("region_split_rows", str(CL_SPLIT_ROWS))
+    out: dict = {"rows": CL_ROWS, "stores": 3}
+    dbs: list = []
+    procs = None
+    try:
+        t = time.perf_counter()
+        meta, procs = spawn_cluster(3, 0, aot_dir=os.path.join(root, "aot"), cold_dir=cold)
+        out["spawn_s"] = time.perf_counter() - t
+        addrs = list(procs["store_addresses"])
+
+        def frontend():
+            db = Database("cuda", cluster=meta, cold_dir=cold)
+            dbs.append(db)
+            s = Session(db)
+            s.execute(REP_DDL)
+            return s
+
+        # (1) the load through frontend A, splitting at the threshold
+        a = frontend()
+        tier = a.db.stores["default.tr"].replicated
+        tier.split_rows = 1 << 62                  # the splits apart from the writes
+        load_s = split_s = 0.0
+        steps = []
+        for lo in range(0, CL_ROWS, CL_LOAD_ROWS):
+            t = time.perf_counter()
+            a.load_arrow("tr", table.slice(lo, CL_LOAD_ROWS))
+            steps.append(time.perf_counter() - t)
+            load_s += steps[-1]
+            if lo + CL_LOAD_ROWS >= CL_SPLIT_ROWS:
+                t = time.perf_counter()
+                tier.split_rows = 0                # the flag: region_split_rows
+                tier.maybe_split()
+                tier.split_rows = 1 << 62
+                steps.append(time.perf_counter() - t)
+                split_s += steps[-1]
+            log(f"[cluster] {lo + CL_LOAD_ROWS} rows loaded, {len(tier.regions)} regions "
+                f"(steps {[round(x, 2) for x in steps[-2:]]} s)")
+        out["load_steps_s"] = steps
+        out.update(load_s=load_s, load_rows_per_s=CL_ROWS / load_s, split_s=split_s,
+                   regions=len(tier.regions))
+        if len(tier.regions) != 8:
+            raise AssertionError(f"[cluster] {len(tier.regions)} regions, expected 8 (load and "
+                                 f"split steps {steps} s)")
+        rids = {r.region_id for r in tier.regions}
+        log(f"[cluster] meta + 3 store processes up in {out['spawn_s']:.1f} s; {CL_ROWS} rows "
+            f"over TCP in {load_s:.2f} s ({out['load_rows_per_s']:.0f} rows/s), splits "
+            f"{split_s:.2f} s: 8 regions, leaders {region_leaders(addrs, rids)}")
+
+        # (2) pushed on A
+        FLAGS.set_flag("pushdown_reads", "always")
+        out["pushed"] = pushed_queries(a, row_refs(replay.table()), "[cluster]")
+
+        # (3)-(5) frontend B under auto: pushed while unattached, then the
+        # pull, then the card
+        FLAGS.set_flag("pushdown_reads", "auto")
+        b = frontend()
+        store = b.db.stores["default.tr"]
+        out["b_first_pushed"] = pushed_queries(b, row_refs(replay.table()), "[cluster, B]",
+                                               {"a": QUERIES["a"]}, reps=0)["a"]
+        if not store.attach_pending:
+            raise AssertionError("[cluster] B's pushed (a) pulled the table")
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        batch = store.device_table_batch()
+        torch.cuda.synchronize()
+        out["attach_s"] = time.perf_counter() - t
+        if store.num_rows != CL_ROWS:
+            raise AssertionError(f"[cluster] B attached {store.num_rows} rows")
+        reset_launches(gk)
+        out["queries"] = rep_queries(gk, b, replay.refs(), "[cluster, B attached]")
+        launches = all_launches(gk)
+        col = dict(zip(batch.names, batch.columns))
+        v, w = col["v"].data, col["w"].data
+        out["kernel_checks"] = batch_kernel_checks(gk, batch, (v * 2 + 1).double() > 0.5, w > -1,
+                                                   "[cluster]", "attached")
+        del batch, col, v, w
+        log(f"[cluster] B attached {CL_ROWS} rows (pull over TCP + stage) in "
+            f"{out['attach_s']:.2f} s")
+
+        # (7) writes through A: 1PC, then 2PC over the first and last region
+        stmts, next_id = [], CL_ROWS
+        for i in range(CL_WRITES):
+            kind = ("update", "insert", "delete")[i % 3]
+            if kind == "insert":
+                row = {"id": next_id, "g": int(rng.integers(0, 2048)),
+                       "v": float(rng.integers(-16, 16)) / 8,
+                       "w": float(rng.integers(-1000, 1000)) / 16, "g16": int(rng.integers(0, 16))}
+                next_id += 1
+                replay.insert(row)
+                stmts.append(f"INSERT INTO tr VALUES ({row['id']}, {row['g']}, {row['v']}, "
+                             f"{row['w']}, {row['g16']})")
+                continue
+            i_d = int(rng.integers(0, CL_ROWS))
+            while not replay.live[replay.slot(i_d)]:
+                i_d = int(rng.integers(0, CL_ROWS))
+            if kind == "update":
+                v_, w_ = float(rng.integers(-16, 16)) / 8, float(rng.integers(-1000, 1000)) / 16
+                replay.update(i_d, v_, w_)
+                stmts.append(f"UPDATE tr SET v = {v_}, w = {w_} WHERE id = {i_d}")
+            else:
+                replay.delete(i_d)
+                stmts.append(f"DELETE FROM tr WHERE id = {i_d}")
+        out["writes_1pc"] = percentiles(rep_writes(a, stmts))
+        calls = []
+        orig = remote_tier._twopc_remote
+
+        def counted(*args, **kw):
+            calls.append(1)
+            return orig(*args, **kw)
+        remote_tier._twopc_remote = counted
+        span, walls = CL_ROWS // 8, []
+        try:
+            for _ in range(CL_TXNS):
+                x, y = int(rng.integers(0, span)), int(rng.integers(CL_ROWS - span, CL_ROWS))
+                while not (replay.live[replay.slot(x)] and replay.live[replay.slot(y)]):
+                    x, y = int(rng.integers(0, span)), int(rng.integers(CL_ROWS - span, CL_ROWS))
+                vx, vy = float(rng.integers(-16, 16)) / 8, float(rng.integers(-16, 16)) / 8
+                t = time.perf_counter()
+                for sql in ("BEGIN", f"UPDATE tr SET v = {vx} WHERE id = {x}",
+                            f"UPDATE tr SET v = {vy} WHERE id = {y}", "COMMIT"):
+                    a.execute(sql)
+                walls.append((time.perf_counter() - t) * 1e3)
+                replay.update(x, vx, replay.cols["w"][replay.slot(x)])
+                replay.update(y, vy, replay.cols["w"][replay.slot(y)])
+        finally:
+            remote_tier._twopc_remote = orig
+        if len(calls) != CL_TXNS:
+            raise AssertionError(f"[cluster] {len(calls)} 2PCs for {CL_TXNS} commits")
+        out["txns_2pc"] = percentiles(walls)
+        log(f"[cluster] over TCP: 1PC p50 / p99 {out['writes_1pc']['p50_ms']:.2f} / "
+            f"{out['writes_1pc']['p99_ms']:.2f} ms of {CL_WRITES}, 2PC p50 / p99 "
+            f"{out['txns_2pc']['p50_ms']:.2f} / {out['txns_2pc']['p99_ms']:.2f} ms of {CL_TXNS}")
+
+        # (8) the cold tier: flush, (a) pushed over the daemons' cold
+        # segments (no fallback), GC
+        FLAGS.set_flag("pushdown_reads", "always")
+        t = time.perf_counter()
+        flushed = a.execute("HANDLE cold_flush default.tr").affected_rows
+        out["cold"] = {"flushed_rows": flushed, "flush_s": time.perf_counter() - t,
+                       "status": a.query("HANDLE cold_status default.tr")[0]}
+        f0 = metrics.fragment_fallbacks.value
+        out["cold"]["pushed"] = pushed_queries(a, row_refs(replay.table()), "[cluster, cold]",
+                                               {"a": QUERIES["a"]}, reps=0)["a"]
+        out["cold"]["fallbacks"] = metrics.fragment_fallbacks.value - f0
+        t = time.perf_counter()
+        out["cold"]["gc_reclaimed"] = a.execute("HANDLE cold_gc default.tr").affected_rows
+        out["cold"]["gc_s"] = time.perf_counter() - t
+        out["cold"]["segments"] = len(a.query("SELECT file FROM information_schema.cold_segments"))
+        if out["cold"]["fallbacks"] or flushed < CL_ROWS:
+            raise AssertionError(f"[cluster] cold: {out['cold']}")
+        log(f"[cluster] cold_flush {flushed} rows in {out['cold']['flush_s']:.2f} s; (a) pushed "
+            f"over the cold segments in {out['cold']['pushed']['first_ms']:.1f} ms (one run), "
+            f"no fallback; cold_gc reclaimed {out['cold']['gc_reclaimed']} file(s)")
+
+        # (9) the distributed binlog, written by both frontends
+        for s in (a, b):
+            s.execute("CREATE TABLE bt (id BIGINT NOT NULL, v DOUBLE, PRIMARY KEY (id)) BINLOG=1")
+        cap = BinlogCapturer(ClusterClient(meta))
+        cap.poll()
+        t = time.perf_counter()
+        for i in range(CL_BINLOG_WRITES):
+            (a if i % 2 == 0 else b).execute(f"INSERT INTO bt VALUES ({i}, {i * 0.5})")
+        write_s = time.perf_counter() - t
+        t = time.perf_counter()
+        got, polls = capture_all(cap, set(range(CL_BINLOG_WRITES)), CL_POLL_S)
+        n_events = sum(len(e["events"]) for e in got)
+        out["binlog"] = {"writes": CL_BINLOG_WRITES, "write_s": write_s,
+                         "events": n_events, "capture_s": time.perf_counter() - t,
+                         "events_per_s": n_events / max(1e-9, sum(polls) / 1e3),
+                         "polls": len(polls), "poll_p50_ms": statistics.median(polls)}
+        ts = [e["commit_ts"] for e in got]
+        if ts != sorted(ts) or len({e["src"] for e in got}) != 2:
+            raise AssertionError("[cluster] the binlog stream is out of order or not both "
+                                 "frontends'")
+
+        # (10) SIGKILL the store leading the most regions
+        led = region_leaders(addrs, rids)
+        victim = max(led, key=lambda k: len(led[k]))
+        k = addrs.index(victim)
+        procs["stores"][k].kill()
+        procs["stores"][k].wait(timeout=30)
+        i_d = int(rng.integers(0, CL_ROWS))
+        while not replay.live[replay.slot(i_d)]:
+            i_d = int(rng.integers(0, CL_ROWS))
+        t = time.perf_counter()
+        a.execute(f"UPDATE tr SET v = 0.25 WHERE id = {i_d}")
+        first_ms = (time.perf_counter() - t) * 1e3
+        replay.update(i_d, 0.25, replay.cols["w"][replay.slot(i_d)])
+        after = []
+        for i in range(CL_BINLOG_WRITES, CL_BINLOG_WRITES + CL_BINLOG_AFTER):
+            t = time.perf_counter()
+            (a if i % 2 == 0 else b).execute(f"INSERT INTO bt VALUES ({i}, {i * 0.5})")
+            after.append((time.perf_counter() - t) * 1e3)
+        got2, _ = capture_all(cap, set(range(CL_BINLOG_WRITES, CL_BINLOG_WRITES + CL_BINLOG_AFTER)),
+                              CL_POLL_S)
+        ids = sorted(ev["row"]["id"] for e in got + got2 for ev in e["events"] if "row" in ev)
+        if ids != list(range(CL_BINLOG_WRITES + CL_BINLOG_AFTER)):
+            raise AssertionError("[cluster] the capturer lost or repeated events across the kill")
+        out["store_kill"] = {"victim": victim, "regions_led": len(led[victim]),
+                             "first_write_ms": first_ms,
+                             "binlog_writes_after": percentiles(after),
+                             "events_lost": 0}
+        log(f"[cluster] binlog: {n_events} events of both frontends in one ordered stream, "
+            f"{out['binlog']['events_per_s']:.0f} events/s, poll p50 "
+            f"{out['binlog']['poll_p50_ms']:.2f} ms; SIGKILL {victim} (led "
+            f"{len(led[victim])} regions): first write {first_ms:.1f} ms, no event lost")
+
+        # (11) a fresh frontend rebuilds hot + cold
+        FLAGS.set_flag("pushdown_reads", "auto")
+        c = frontend()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        snap = c.db.stores["default.tr"].snapshot()
+        out["rebuild_s"] = time.perf_counter() - t
+        order = np.argsort(snap.column("id").to_numpy(), kind="stable")
+        want = replay.table()
+        for col_name in REP_COLS:
+            if not np.array_equal(snap.column(col_name).to_numpy()[order], want[col_name]):
+                raise AssertionError(f"[cluster] the rebuilt column {col_name} differs "
+                                     f"from the replay")
+        out["rebuilt_rows"] = snap.num_rows
+        del snap
+
+        # (12) cluster_metrics from every live daemon
+        c.db.telemetry.poll()
+        rows = c.query("SELECT daemon, stale FROM information_schema.cluster_metrics")
+        live = {meta, *(x for x in addrs if x != victim)}
+        fresh = {r["daemon"] for r in rows if r["stale"] == 0}
+        out["cluster_metrics"] = {d: sum(1 for r in rows if r["daemon"] == d)
+                                  for d in sorted({r["daemon"] for r in rows})}
+        if not live <= fresh:
+            raise AssertionError(f"[cluster] cluster_metrics lacks live daemons "
+                                 f"{sorted(live - fresh)}")
+
+        # (13) which processes hold the card
+        holders = card_pids()
+        live_pids = [p.pid for p in [procs["meta"], *procs["stores"]] if p.poll() is None]
+        seeing = [p for p in live_pids
+                  if p in holders or not sees_no_card(p) or maps_libcuda(p)]
+        out["card_pids"] = {"nvidia_smi": holders, "frontend": os.getpid(),
+                            "daemons": live_pids, "daemons_seeing_a_card": seeing}
+        # a container's nvidia-smi may name processes by another pid
+        # namespace's ids: one process holds the card, and no daemon can
+        # see one or has loaded libcuda
+        if seeing or len(holders) != 1:
+            raise AssertionError(f"[cluster] the card is held by {out['card_pids']}")
+        log(f"[cluster] fresh frontend rebuilt {out['rebuilt_rows']} rows (hot + cold) in "
+            f"{out['rebuild_s']:.2f} s, equal to the replay; cluster_metrics rows "
+            f"{out['cluster_metrics']}; nvidia-smi lists {holders} (frontend {os.getpid()}), "
+            f"no daemon sees a card or loads libcuda")
+        out["memory_allocated_gib"] = torch.cuda.memory_allocated() / 2**30
+    finally:
+        for db in dbs:
+            db.close()
+        if procs is not None:
+            teardown(procs)
+        for k, val in prev.items():
+            FLAGS.set_flag(k, str(int(val)) if isinstance(val, bool) else str(val))
+        shutil.rmtree(root, ignore_errors=True)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[cluster] {out['seconds']:.1f} s")
+    return launches, out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=100_000_000)
@@ -5344,6 +5876,7 @@ def main() -> int:
                     help="a checkout of another commit: time its kernels too, in turns "
                          "with this one's, on the same inputs")
     args = ap.parse_args()
+    t_main = time.perf_counter()
 
     if not torch.cuda.is_available():
         log("chip_smoke: no CUDA device (torch.cuda.is_available() is False)")
@@ -5373,7 +5906,8 @@ def main() -> int:
     mesh_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     lane_counts, p12 = phase12(gk, single, table, args.seed, before, observe)
-    dispatch_s = time.perf_counter() - t0
+    # phase 15 (iii) ran in phase 12: its seconds count as observability's
+    dispatch_s = time.perf_counter() - t0 - observe["iii"]["seconds"]
     t0 = time.perf_counter()
     part_launches, part_stats = partition_phase(gk, single, table)
     part_s = time.perf_counter() - t0
@@ -5393,7 +5927,8 @@ def main() -> int:
     t0 = time.perf_counter()
     stream_launches, stream_stats = streamed_phase(gk, table, refs, observe)
     stream_stats["resident_peak_mem_gib"] = sql_stats["peak_mem_gib"]
-    phase_s["streamed"] = time.perf_counter() - t0
+    # phase 15 (ii) ran in this session: its seconds count as observability's
+    phase_s["streamed"] = time.perf_counter() - t0 - observe["ii"]["seconds"]
     del table
     obs_launches = {k: sum(observe[f"{p}_launches"][k] for p in ("i", "ii", "iii"))
                     for k in REPLACES}
@@ -5464,10 +5999,17 @@ def main() -> int:
     missing = [k for k, n in rep_launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the replicated path: {missing}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    cl_launches, p17 = cluster_phase(gk, args.seed)
+    phase_s["cluster"] = time.perf_counter() - t0
+    missing = [k for k, n in cl_launches.items() if n == 0]
+    if missing:
+        raise AssertionError(f"kernels not launched on the cluster path: {missing}")
     for k in REPLACES:
-        checks = p16["replicated"]["kernel_checks"]
-        err = checks["seg_max_abs_err" if k == "segment_reduce" else "k_max_abs_err"]
-        times[k]["max_abs_err"] = max(times[k]["max_abs_err"], err)
+        for checks in (p16["replicated"]["kernel_checks"], p17["kernel_checks"]):
+            err = checks["seg_max_abs_err" if k == "segment_reduce" else "k_max_abs_err"]
+            times[k]["max_abs_err"] = max(times[k]["max_abs_err"], err)
     print(f"htap phase seconds: {phase_s['htap']:.1f}", flush=True)
     print(f"analytic phase seconds: {phase_s['analytics']:.1f}", flush=True)
     print(f"vector phase seconds: {phase_s['vectors']:.1f}", flush=True)
@@ -5477,14 +6019,19 @@ def main() -> int:
     print(f"lifecycle phase seconds: {phase_s['lifecycle']:.1f}", flush=True)
     print(f"observability phase seconds: {phase_s['observability']:.1f}", flush=True)
     print(f"replicated phase seconds: {phase_s['replicated']:.1f}", flush=True)
+    print(f"cluster phase seconds: {phase_s['cluster']:.1f}", flush=True)
     print("phase seconds: " + json.dumps(phase_s), flush=True)
+    script_s = time.perf_counter() - t_main
+    print(f"script seconds: {script_s:.1f} (phases {sum(phase_s.values()):.1f}, builds "
+          f"included)", flush=True)
 
     kernels = [{"name": k, "route": "cuda",
                 "source": SOURCES.get(k, "baikaldb_tpu_torch/ops/csrc/group_agg.cu"),
                 "replaces": REPLACES[k],
                 "launches": (launches[k] + stream_launches.get(k, 0) + vector_launches[k]
                              + mesh_launches[k] + htap_launches[k] + part_launches[k]
-                             + lc_launches[k] + obs_launches[k] + rep_launches[k]),
+                             + lc_launches[k] + obs_launches[k] + rep_launches[k]
+                             + cl_launches[k]),
                 "launches_resident": launches[k],
                 "launches_streamed": stream_launches.get(k, 0),
                 "launches_vectors": vector_launches[k],
@@ -5494,13 +6041,16 @@ def main() -> int:
                 "launches_lifecycle": lc_launches[k],
                 "launches_observability": obs_launches[k],
                 "launches_replicated": rep_launches[k],
+                "launches_cluster": cl_launches[k],
                 **times[k],
                 # this kernel on phase 13's pruned batch and on phase 14's
                 # refreshed table
                 "pruned": part_stats["kernel_checks"]["kernels"][k],
                 "lifecycle": lc_stats["kernel_checks"]["kernels"][k],
-                # and on phase 16 (ii)'s table rebuilt from its replicas
-                "replicated": p16["replicated"]["kernel_checks"]["kernels"][k]}
+                # and on phase 16 (ii)'s table rebuilt from its replicas, and
+                # on phase 17's image pulled from the TCP cluster
+                "replicated": p16["replicated"]["kernel_checks"]["kernels"][k],
+                "cluster": p17["kernel_checks"]["kernels"][k]}
                for k in REPLACES]
     # the lane-batched entries (phase 12): timed at --rows rows over 8 lanes
     lane_times = p12["kernels"][f"n{args.rows}_G8"]
@@ -5512,11 +6062,12 @@ def main() -> int:
                  "max_abs_err": p12["kernels"]["max_abs_err"], **lane_times[k]}
                 for k, base in LANE_KERNELS.items()]
     print(json.dumps({"card": name_power, "rows": args.rows, "phase_s": phase_s,
+                      "script_s": script_s,
                       "sql": sql_stats, "streamed": stream_stats, "tpch": tpch_stats,
                       "analytics": analytic_stats, "egress": egress_stats,
                       "vectors": vector_stats, "mesh": mesh_stats, "htap": htap_stats,
                       "dispatch": p12, "partitions": part_stats, "lifecycle": lc_stats,
-                      "observability": obs_stats, "phase16": p16}),
+                      "observability": obs_stats, "phase16": p16, "phase17": p17}),
           flush=True)
     print(name_power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1896,3 +1896,79 @@ def test_fleet_bound_group_by_on_the_card_launches_the_kernels(cuda):
                 _close_rollup_rows(got, cpu.query(text), 1e-4, 2e-3)
     finally:
         s.execute("SET GLOBAL streaming_scan = 1")
+
+
+@pytest.mark.cuda
+def test_cluster_frontend_group_by_on_the_card_launches_the_kernels(cuda, tmp_path):
+    """A frontend over 3 store daemon processes (``spawn_cluster``): the
+    table's first (a) runs as pushed fragments on the daemons and launches
+    nothing; once its image is pulled, (a)-(c)'s GROUP BYs launch K1-K3
+    and the segment kernel on the card and equal a CPU frontend's rows
+    over the same daemons, and the kernels hold against their plain
+    versions on that image."""
+    import pyarrow as pa
+
+    from baikaldb_tpu_torch.exec.session import Database, Session
+    from baikaldb_tpu_torch.ops import segments as seg
+    from baikaldb_tpu_torch.tools.deploy_cluster import spawn_cluster, teardown
+
+    rng = np.random.default_rng(17)
+    n = 60_000
+    ddl = "CREATE TABLE t (id BIGINT PRIMARY KEY, g INT, v FLOAT, w DOUBLE, g16 INT)"
+    sql = {"a": "SELECT g16, COUNT(*), SUM(v), AVG(v), MIN(v) FROM t WHERE v*2+1 > 0.5 "
+                "GROUP BY g16 ORDER BY g16",
+           "b": "SELECT g, COUNT(*), SUM(v), AVG(v), MIN(v) FROM t WHERE v*2+1 > 0.5 "
+                "GROUP BY g ORDER BY g",
+           "c": "SELECT g, SUM(w), AVG(w) FROM t WHERE w > -1 GROUP BY g ORDER BY g"}
+    want = {"a": {"segment_reduce": 8},
+            "b": {"partition_histogram": 1, "fused_group_aggregate": 1},
+            "c": {"filtered_group_sum": 1, "partition_histogram": 1}}
+    meta, procs = spawn_cluster(3, 0, cold_dir=str(tmp_path / "cold"))
+    dbs = []
+    try:
+        def frontend(device):
+            db = Database(device, cluster=meta)
+            dbs.append(db)
+            s = Session(db)
+            s.execute("SET GLOBAL streaming_scan = 0")
+            s.execute(ddl)
+            return s
+        writer = frontend("cuda")
+        writer.load_arrow("t", pa.table({"id": np.arange(n, dtype=np.int64),
+                                         "g": rng.integers(0, 2048, n, dtype=np.int32),
+                                         "v": rng.standard_normal(n, dtype=np.float32),
+                                         "w": rng.standard_normal(n),
+                                         "g16": rng.integers(0, 16, n, dtype=np.int32)}))
+        writer.execute("UPDATE t SET v = 0.75 WHERE id < 1000")
+        s, cpu = frontend("cuda"), frontend("cpu")
+        store = s.db.stores["default.t"]
+        before = _all_launches()
+        s.query(sql["a"])                          # pushed: the table stays unattached
+        assert store.attach_pending and _moved(before) == {}
+        batch = store.device_table_batch()
+        for q, text in sql.items():
+            before = _all_launches()
+            got = s.query(text)
+            assert _moved(before) == want[q], q
+            _close_rollup_rows(got, cpu.query(text), 1e-4, 2e-3)
+        col = dict(zip(batch.names, batch.columns))
+        g, g16, v, w = (col[c].data for c in ("g", "g16", "v", "w"))
+        keep, keep_w = (v * 2 + 1).double() > 0.5, w > -1
+        counts, sums, mins, maxs = gk.fused_group_aggregate(g, v, keep, 2049)
+        p_counts, p_sums, p_mins, p_maxs = gk.fused_group_aggregate_plain(g, v, keep, 2049)
+        assert torch.equal(counts, p_counts) and torch.equal(mins, p_mins)
+        assert torch.equal(maxs, p_maxs)
+        assert torch.allclose(sums, p_sums, rtol=1e-5, atol=1e-3)
+        k1, k1p = (f(g, w.float(), keep_w, 2049)
+                   for f in (gk.filtered_group_sum, gk.filtered_group_sum_plain))
+        assert torch.equal(k1[0], k1p[0]) and torch.allclose(k1[1], k1p[1], rtol=1e-5, atol=1e-3)
+        assert torch.equal(gk.partition_histogram(g, keep, 2049),
+                           gk.partition_histogram_plain(g, keep, 2049))
+        gid = torch.where(keep, g16, 17)
+        assert torch.allclose(seg.segment_reduce(v.double(), gid, 17, "sum"),
+                              seg.segment_reduce_plain(v.double(), gid, 17, "sum"),
+                              rtol=1e-9, atol=1e-6)
+    finally:
+        for db in dbs:
+            db.close()
+        teardown(procs)

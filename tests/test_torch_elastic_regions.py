@@ -312,9 +312,9 @@ def test_information_schema_regions_view():
 
 def test_region_counters_count_but_stay_out_of_show_status():
     """The JAX oracle reads region.* from SHOW STATUS.  The port counts the
-    same events on the same counters (``metrics.region_*``), and keeps them
-    off the registry until the network plane (ROADMAP item 6b) brings the
-    cluster's status rows, so SHOW STATUS lists none of them."""
+    same events on the same counters (``metrics.region_*``); since the
+    network plane (ROADMAP item 6b) they are on the registry, so SHOW
+    STATUS lists them, as the JAX session does."""
     fleet, db, s = _fleet_session()
     tier = fleet.row_tiers["el.t"]
     for i in range(10):
@@ -327,7 +327,12 @@ def test_region_counters_count_but_stay_out_of_show_status():
     for c in (metrics.region_split_aborts, metrics.region_merges,
               metrics.region_migrations, metrics.region_migrate_aborts):
         assert c.value >= 0
-    assert s.query("SHOW STATUS LIKE 'region.%'") == []
+    status = {r["Variable_name"]: r["Value"] for r in s.query("SHOW STATUS LIKE 'region.%'")}
+    assert status["region.splits.value"] == str(metrics.region_splits.value)
+    assert status["region.handoff_ms.count"] == str(metrics.region_handoff_ms.stats()["count"])
+    assert {k.rsplit(".", 1)[0] for k in status} == {
+        "region.splits", "region.split_aborts", "region.merges", "region.migrations",
+        "region.migrate_aborts", "region.handoff_ms"}
 
 
 # ---- the chaos scenarios' split and migration, on both packages -------------

@@ -84,3 +84,49 @@ def test_cuda_tensors_never_take_the_plain_version(monkeypatch):
     monkeypatch.setattr(gk, "_check", lambda *a: None)
     with pytest.raises(RuntimeError, match="no kernel library"):
         gk.filtered_group_sum(codes, codes.float(), codes.bool(), 4)
+
+
+NETWORK_PLANE = ("baikaldb_tpu_torch.server.store_server", "baikaldb_tpu_torch.server.meta_server",
+                 "baikaldb_tpu_torch.tools.deploy_cluster", "baikaldb_tpu_torch.utils.net",
+                 "baikaldb_tpu_torch.storage.remote_tier",
+                 "baikaldb_tpu_torch.storage.binlog_regions",
+                 "baikaldb_tpu_torch.plan.fragment", "baikaldb_tpu_torch.exec.fragments")
+
+
+def test_network_plane_and_daemons_import_without_jax():
+    """The daemons (server/), the cluster deploy tool (tools/) and the
+    network plane they share import neither JAX nor the JAX package, and
+    touch no card at import; the daemons' modules import no torch at all
+    (the package's ``ColumnBatch`` loads at first use)."""
+    code = ("import sys, importlib\n"
+            f"for m in {NETWORK_PLANE!r}:\n"
+            "    importlib.import_module(m)\n"
+            "assert 'jax' not in sys.modules and 'baikaldb_tpu' not in sys.modules\n"
+            "import torch\n"
+            "assert not torch.cuda.is_initialized()\n"
+            "print('ok')\n")
+    daemons = ("import sys\n"
+               "import baikaldb_tpu_torch.server.store_server\n"
+               "import baikaldb_tpu_torch.server.meta_server\n"
+               "assert 'torch' not in sys.modules, 'a daemon imports torch'\n")
+    env = dict(os.environ, PYTHONPATH=ROOT)
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.strip() == "ok"
+    r = subprocess.run([sys.executable, "-c", daemons], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+
+
+def test_spawned_daemons_see_no_card():
+    """``spawn_cluster`` starts its daemons with ``CUDA_VISIBLE_DEVICES``
+    empty, from the checkout's root, and asking it for MySQL frontends
+    raises ``NotPortedError`` (the MySQL server is ROADMAP item 7)."""
+    from baikaldb_tpu_torch.errors import NotPortedError
+    from baikaldb_tpu_torch.tools import deploy_cluster
+
+    assert deploy_cluster._ENV["CUDA_VISIBLE_DEVICES"] == ""
+    assert deploy_cluster._repo_root() == ROOT
+    with pytest.raises(NotPortedError, match="MySQL"):
+        deploy_cluster.spawn_cluster(1, 0, mysql_port=3306)

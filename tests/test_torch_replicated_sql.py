@@ -445,29 +445,41 @@ def test_handle_fleet_commands_match_jax():
         j.query("SELECT COUNT(*) n, SUM(v) s FROM t")
 
 
-def test_cold_handles_and_the_cold_half_raise_not_ported():
-    """The cold tier's segments wait for ROADMAP item 6b: HANDLE cold_*, a
-    fleet-bound Database with a cold directory, the tier's cold methods and
-    Database(cluster=...) raise NotPortedError."""
-    from baikaldb_tpu_torch.errors import NotPortedError
+def test_cold_handles_and_the_cold_half_raise_not_ported(tmp_path):
+    """The cold tier's segments, which raised NotPortedError until ROADMAP
+    item 6b came, now give the JAX session's outcome: HANDLE cold_flush /
+    cold_gc / cold_status over a fleet with a cold directory, a rebuild of
+    hot and cold, a frontend without the cold FS refused, and data_dir
+    refused beside a fleet or a cluster."""
+    from baikaldb_tpu.exec.session import Database as JDatabase, Session as JSession
+    from baikaldb_tpu.meta.service import MetaService as JMeta
+    from baikaldb_tpu.raft.fleet import StoreFleet as JFleet
 
-    s, fleet = fleet_session()
-    s.execute("CREATE TABLE t (id BIGINT, v DOUBLE, PRIMARY KEY (id))")
-    for cmd in ("cold_flush default.t", "cold_gc default.t", "cold_status default.t"):
-        with pytest.raises(NotPortedError, match="6b"):
-            s.execute(f"HANDLE {cmd}")
-    tier = fleet.row_tiers["default.t"]
-    for call in (lambda: tier.flush_cold(None), lambda: tier.cold_rows(None),
-                 lambda: tier.cold_gc(None)):
-        with pytest.raises(NotPortedError, match="6b"):
-            call()
-    with pytest.raises(NotPortedError, match="6b"):
-        Session(Database("cpu", fleet=fleet, cold_dir="/nonexistent-cold")).execute(
-            "CREATE TABLE t (id BIGINT, v DOUBLE, PRIMARY KEY (id))")
-    with pytest.raises(NotPortedError):
-        Database("cpu", cluster="127.0.0.1:1")
-    with pytest.raises(ValueError):
-        Database("cpu", fleet=fleet, data_dir="/nonexistent-data")
+    fleet = make_fleet()
+    jfleet = JFleet(JMeta(peer_count=3), STORES, seed=11)
+    t = Session(Database("cpu", fleet=fleet, cold_dir=str(tmp_path / "t")))
+    j = JSession(JDatabase(fleet=jfleet, cold_dir=str(tmp_path / "j")))
+    script = ["CREATE TABLE t (id BIGINT, v DOUBLE, PRIMARY KEY (id))",
+              "INSERT INTO t VALUES (1, 1.5), (2, 2.5), (3, 3.5)",
+              "HANDLE cold_flush default.t",
+              "DELETE FROM t WHERE id = 2",
+              "INSERT INTO t VALUES (4, 4.5)",
+              "HANDLE cold_flush default.t",
+              "HANDLE cold_gc default.t"]
+    for sql in script:
+        assert t.execute(sql).affected_rows == j.execute(sql).affected_rows, sql
+    assert t.query("HANDLE cold_status default.t") == j.query("HANDLE cold_status default.t")
+    for sess, cold, fl in ((t, tmp_path / "t", fleet), (j, tmp_path / "j", jfleet)):
+        fresh = type(sess)(type(sess.db)(*(("cpu",) if sess is t else ()), fleet=fl,
+                                         cold_dir=str(cold)))
+        fresh.execute(script[0])
+        assert fresh.query("SELECT id, v FROM t ORDER BY id") == \
+            [{"id": 1, "v": 1.5}, {"id": 3, "v": 3.5}, {"id": 4, "v": 4.5}]
+    with pytest.raises(ValueError, match="cold segments"):
+        Session(Database("cpu", fleet=fleet)).execute(script[0])
+    for kw in ({"fleet": fleet}, {"cluster": "127.0.0.1:1"}):
+        with pytest.raises(ValueError):
+            Database("cpu", data_dir="/nonexistent-data", **kw)
 
 
 def test_a_fleet_has_one_tso():
