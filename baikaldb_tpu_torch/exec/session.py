@@ -42,9 +42,10 @@ among it) and the watchdog's health rows; SHOW PROFILES / PROFILE [FOR
 QUERY n] read the kept traces.  ``Session(db, user=...)`` runs as that
 account: each statement is checked against its grants (CREATE / DROP
 USER, GRANT, REVOKE, SHOW GRANTS, HANDLE add_privilege / drop_privilege).
-The SHOW forms the port lacks, and ``information_schema.executables`` /
-``aot_cache`` (the JAX package's XLA executable cache, which has no
-counterpart), raise ``NotPortedError``.
+``information_schema.executables`` / ``aot_cache`` (the JAX package's XLA
+executable cache, which has no counterpart) raise ``NotPortedError``; a
+statement or SHOW form neither package knows raises ``SqlError``, as in
+the JAX session.
 
 Tables may be partitioned (``PARTITION BY RANGE (col) (PARTITION p VALUES
 LESS THAN (v | MAXVALUE), ...)`` or ``PARTITION BY HASH (col) PARTITIONS
@@ -198,6 +199,7 @@ import logging
 import os
 import re
 import shutil
+import socket
 import tempfile
 import threading
 import time
@@ -273,6 +275,14 @@ SERVER_VERSION = "8.0.0-baikaldb-tpu"
 
 # connection ids, one counter per process as in the JAX session
 _CONN_IDS = itertools.count(1)
+
+
+def next_conn_id() -> int:
+    """One connection-id space for embedded Sessions and wire connections:
+    KILL <id> and the processlist Id column resolve against the same
+    counter whichever door the client came through."""
+    return next(_CONN_IDS)
+
 
 # an INSERT ... SELECT of at most this many rows goes row by row through the
 # row tier (primary-key checked, WAL-durable); a larger one is a bulk append
@@ -476,7 +486,7 @@ class Database:
     The observability planes: ``telemetry`` (obs/telemetry.py: this
     frontend's registry, the device and process gauges), ``privileges``
     (meta/privileges.py: users and grants), ``processlist`` (the wire
-    server's connections, empty until the server is ported), ``flightrec``
+    server's connections, server/mysql_server.py), ``flightrec``
     (obs/flightrec.py: every finished statement, with a forensic bundle for
     slow, killed and failed ones) and ``watchdog`` (obs/watchdog.py: scans
     this database's live queries on demand; its thread runs only in
@@ -797,7 +807,7 @@ class Session:
         self.mesh = mesh
         self.current_db = database
         self.session_vars: dict = {}     # SET name = value without GLOBAL
-        self._conn_id = next(_CONN_IDS)
+        self._conn_id = next_conn_id()
         self.user = user
         # the open SQL transaction: table key -> TxnContext, or None; its
         # binlog events, appended at COMMIT and dropped at ROLLBACK
@@ -1335,15 +1345,16 @@ class Session:
         if isinstance(s, RevokeStmt):
             self.db.privileges.revoke(s.user, s.db)
             return Result()
-        raise NotPortedError(f"statement {type(s).__name__}")
+        raise SqlError(f"unsupported statement {type(s).__name__}")
 
     def _kill(self, s: KillStmt) -> Result:
         """KILL [QUERY | CONNECTION] <id>: flip the cancel token of the
         connection's live statements; the victim's own thread raises
         ``QueryKilled`` at its next progress beat, so no exception is
         injected across threads and no side effect is torn.  CONNECTION
-        also marks a wire connection for teardown (the wire server, when
-        ported, severs its socket)."""
+        also marks a wire connection for teardown and shuts its socket
+        (server/mysql_server.py registers it), so even an idle connection
+        dies now."""
         tid = int(s.target_id)
         n = PROGRESS.kill(conn_id=tid, db=self.db, reason=f"kill {s.kind} {tid}")
         known = bool(n) or tid in self.db.processlist or tid == self._conn_id
@@ -1351,6 +1362,14 @@ class Session:
             ent = self.db.processlist.get(tid)
             if ent is not None:
                 ent["kill"] = True
+                sock = ent.get("_sock")
+                if sock is not None:
+                    # wakes a connection blocked in read(); the serve loop
+                    # sees the kill marker and tears down
+                    try:
+                        sock.shutdown(socket.SHUT_RDWR)
+                    except OSError:
+                        pass
         if not known:
             raise SqlError(f"Unknown thread id: {tid}")
         return Result()
@@ -1601,7 +1620,7 @@ class Session:
                               "Region_id": pa.array([r[1] for r in rows], pa.int64()),
                               "Rows": pa.array([r[2] for r in rows], pa.int64()),
                               "Version": pa.array([r[3] for r in rows], pa.int64())}))
-        raise NotPortedError(f"SHOW {s.what.upper()} (its plane is not ported)")
+        raise SqlError(f"unsupported SHOW {s.what!r}")
 
     def _show_processlist(self, s: ShowStmt) -> Result:
         """The wire connections (``db.processlist``) merged with the live

@@ -17,8 +17,8 @@ the JAX compiler exactly:
   kept per dictionary (``Dictionary.memo``).
 
 The extended builtin library (``builtins_ext.py``, ``builtins_ext2.py``)
-registers itself into the tables below.  ``MATCH ... AGAINST`` (full-text
-search) is not ported: it raises :class:`NotPortedError`.
+registers itself into the tables below; a function neither package knows
+raises ``ExprError`` with the JAX package's text.
 """
 
 from __future__ import annotations
@@ -32,7 +32,6 @@ import torch
 
 from ..column.batch import Column, ColumnBatch, to_tensor, torch_dtype
 from ..column.dictionary import NULL_CODE, Dictionary, merge as dict_merge
-from ..errors import NotPortedError
 from ..types import LType, promote
 from ..utils import datetime_kernels as dtk
 from .ast import AggCall, Call, ColRef, Expr, Lit, Param
@@ -176,7 +175,7 @@ def _eval(e: Expr, batch: ColumnBatch):
         if h is None and e.op in _EGRESS_ONLY:
             raise ExprError(f"no type rule for {e.op!r}")
         if h is None:
-            raise NotPortedError(f"builtin function {e.op!r}")
+            raise ExprError(f"unknown function {e.op!r}")
         args = [_eval(a, batch) for a in e.args]
         args = [_devalue_hoststr(a, e.op, batch) for a in args]
         return _with_null_prop(h, args)
@@ -531,9 +530,7 @@ def _default_type_rule(op, argts):
     }
     if op in rules:
         return rules[op]
-    if op in _EGRESS_ONLY:
-        raise ExprError(f"no type rule for {op!r}")
-    raise NotPortedError(f"builtin function {op!r}")
+    raise ExprError(f"no type rule for {op!r}")
 
 
 # builtins that exec/egress.py evaluates on the host over a result: where one

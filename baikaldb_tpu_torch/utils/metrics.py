@@ -524,6 +524,8 @@ REGISTRY = Registry()
 
 # -- engine-wide instruments ------------------------------------------------
 queries_total = Counter("queries_total")
+# wire connections accepted (server/mysql_server.py)
+connections_total = Counter("connections_total")
 queries_failed = Counter("queries_failed")
 # statements over slow_query_ms, rows written by DML, and every statement's
 # wall time (the session's execute records all three)

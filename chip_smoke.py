@@ -15,7 +15,9 @@ partitioned tables, global indexes, MATCH and the session surface, and the
 lifecycle plane (rollups, a materialized view, change capture, online ADD
 INDEX, TTL), and the observability plane and users (SHOW PROCESSLIST, KILL
 between streamed chunks and in the dispatcher's queue, SHOW STATUS /
-PROFILE, the flight recorder, grants).
+PROFILE, the flight recorder, grants), and the MySQL wire (the 100M-row
+queries and prepared statements from a Pool through the server, a frontend
+process over the TCP cluster) and the ten chaos scenarios on the card.
 
     python3 chip_smoke.py [--rows N] [--seed S] [--tpch-scale S]
                           [--compare-with DIR]
@@ -197,9 +199,10 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    and 4096, over lane counts around each tile and 63-65, ragged row
    counts; K2 also with every code in one slot and at D-b's masks); timed
    at 100M rows x 8 and x 64 and at 10,000,019 x 64 against the byte bound
-   (the G masks plus one read of codes and values), the library call in
-   chunks of 8 lanes, K2 also at D-b's masks (about 2% live) and with the
-   bytes a call allocates.  (i) (a)-(c)
+   (the G masks plus one read of codes and values), the plain versions and
+   the library call in chunks of 8 lanes beside them but at 100M x 64,
+   K2 also at D-b's masks (about 2% live) and with the bytes a call
+   allocates.  (i) (a)-(c)
    with 30 literal variants of the WHERE threshold, the plan cache on and
    with ``plan_cache_size = 0`` (warm p50 / p67, the ``plan.*`` spans of a
    traced pass, the counter deltas), every variant against float64
@@ -247,8 +250,8 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    boolean-mode top 10 by relevance), equal to a CPU session's rows; first
    (the index builds) and warm p50 ms.  (viii) The session surface (the
    environment, SHOW, the ``information_schema`` tables, HANDLE, a LOAD
-   DATA round trip of 1M rows through INTO OUTFILE) on a CUDA and a CPU
-   ``Session``, equal.  ``partition phase seconds``.
+   DATA round trip of 250,000 rows through INTO OUTFILE) on a CUDA and a
+   CPU ``Session``, equal.  ``partition phase seconds``.
 14. The lifecycle plane (storage/binlog.py, cdc/, index/rollup.py,
    meta/ddl.py, TTL).  (i)-(iii) Right after phase 11 (ii), in phase 3's
    session over ``t`` as those writes left it (``streaming_scan = 0``; the
@@ -374,9 +377,38 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    after it and the capturer losing no event; a fresh frontend C rebuilds
    hot + cold (seconds; rows equal the numpy replay of every acknowledged
    write); ``information_schema.cluster_metrics`` rows from every live
-   daemon; ``nvidia-smi --query-compute-apps=pid`` lists one process, and
+   daemon; ``nvidia-smi --query-compute-apps=pid`` lists two processes (this
+   one and phase 18 (ii)'s frontend process, which has loaded libcuda), and
    every live daemon runs with ``CUDA_VISIBLE_DEVICES`` empty and has not
    loaded libcuda (the daemons never import torch).  ``cluster phase seconds``.
+18. The MySQL wire and the chaos scenarios (server/mysql_server.py,
+   client/mysql_client.py, chaos/scenarios.py).  (i) Right after phase 15
+   (i), in phase 3's session over its unchanged rows (``streaming_scan =
+   0``): an in-process ``MySQLServer`` on its Database.  (a)-(c) in the
+   session (10 warm runs each, p50 / p67), then, counters at 0, from a wire
+   ``Connection``: each query's first run launches exactly phase 3's
+   kernels, its rows equal numpy and the session's (keys and counts exact,
+   the rest to rtol 1e-4), 10 warm runs (p50 / p67); 8 ``Pool`` connections
+   each EXECUTE a prepared D-a 4 times behind a barrier (tick 20 ms): every
+   answer equal numpy, the segment kernel's lane entry launched; a wire
+   client running (b) KILLed by KILL CONNECTION from another at its
+   ``egress.arrow`` beat (its kernels ran, its result is on the card, above
+   the memory before the query): its client sees the socket closed, its
+   connection leaves the processlist, ``memory_allocated`` is back at its
+   level before the query.
+   (ii) Inside phase 17, after frontend B's queries: the frontend process
+   ``spawn_cluster(mysql_port=...)`` started with the daemons (``python -m
+   baikaldb_tpu_torch.server --meta ...`` on the card) pulls ``tr`` (the
+   CREATE under ``pushdown_reads = 'off'``, timed) and answers (a)-(c) over
+   the wire, equal to B's rows and numpy, launching (by its SHOW STATUS)
+   phase 3's kernels a run.  (iii) After phase 17: the ten scenarios of
+   ``chaos/scenarios.py`` through ``run_scenario(name, --seed,
+   device="cuda")`` at their defaults, each ``ok``, the five fleet-plane
+   ones twice with equal schedules and digests; then ``stream_chaos`` over
+   262,144 rows in 16,384-row chunks: every pass folds 16 chunks and equals
+   the resident answer.  Seconds of each scenario; the launches of (i) and
+   (iii) are ``launches_wire`` / ``launches_chaos`` in the kernels line.
+   ``wire phase seconds``.
 
 Phases 5 and 6 run with the default flags, so a query over a table of at
 least ``streaming_min_rows`` rows that the streamed path accepts streams
@@ -3372,8 +3404,10 @@ def lane_kernel_phase(gk, rows: int, seed: int, before=None) -> dict:
             mask[g] = torch.rand(n, generator=gen, device=dev) < 0.6
         gid17 = torch.remainder(codes, NG_A).to(torch.int32)
         live = lane_rows(mask)
-        # over 8e8 lane-rows the plain versions run once, unwarmed, and K2's
-        # plain version (13 s there) not at all
+        # over 8e8 lane-rows (``rows`` x 64) neither the plain versions (per-lane
+        # loops, 1-7 s a call there) nor the library calls are timed: the
+        # checks above hold every kernel to them at that size, and the
+        # kernels line reads ``rows`` x 8
         big = G * n > 8 * 10**8
         specs = {
             # name: (the call given the module, the plain version, the library
@@ -3385,8 +3419,8 @@ def lane_kernel_phase(gk, rows: int, seed: int, before=None) -> dict:
                 (codes, w64, NG_SQL, torch.float64), 8, NG_SQL * 12),
             "fused_group_aggregate_lanes": (
                 lambda m: m.fused_group_aggregate_lanes(codes, values, mask, NG_SQL),
-                None if big else lambda: gk.fused_group_aggregate_lanes_plain(
-                    codes, values, mask, NG_SQL), None, 4, NG_SQL * 20),
+                lambda: gk.fused_group_aggregate_lanes_plain(codes, values, mask, NG_SQL),
+                None, 4, NG_SQL * 20),
             "partition_histogram_lanes": (
                 lambda m: m.partition_histogram_lanes(codes, mask, NG_SQL),
                 lambda: gk.partition_histogram_lanes_plain(codes, mask, NG_SQL),
@@ -3407,10 +3441,11 @@ def lane_kernel_phase(gk, rows: int, seed: int, before=None) -> dict:
             dev_ms, turns = in_turns(lambda: fn(mod), None if bmod is None else
                                      lambda: fn(bmod),
                                      lambda f: device_ms(f, launches=5))
-            lib_ms, lib_calls = (None, 0) if lib is None else lane_library_ms(mask, *lib)
+            lib_ms, lib_calls = (None, 0) if lib is None or big else \
+                lane_library_ms(mask, *lib)
             out[key][name] = {
                 "ms": cuda_ms(lambda: fn(mod), 5), "device_ms": dev_ms,
-                "plain_ms": None if plain is None else cuda_ms(plain, 1, warm=not big),
+                "plain_ms": None if big else cuda_ms(plain, 1),
                 "library_ms": lib_ms, "library_calls": lib_calls,
                 "bound_ms": max(bytes_ms, ops_ms),
                 "bound_by": "bytes" if bytes_ms >= ops_ms else "operations",
@@ -3450,7 +3485,7 @@ def lane_kernel_phase(gk, rows: int, seed: int, before=None) -> dict:
 
 
 def phase12(gk, single, table, seed: int, before=None,
-            observe: dict | None = None) -> tuple[dict, dict]:
+            observe: dict | None = None, refs: dict | None = None) -> tuple[dict, dict]:
     """Phase 12 over phase 3's session and its unchanged 100M rows
     (``streaming_scan = 0``): (iv) the lane-batched kernels, (i) the plan
     cache, (ii) PREPARE / EXECUTE, (iii) the dispatcher, (v) EXPLAIN
@@ -3458,11 +3493,12 @@ def phase12(gk, single, table, seed: int, before=None,
     kernels are timed in turns with these, in (iv) and in (iii)'s profiled
     ticks.  -> (lane launches of (iii), measurements).  With ``observe``,
     phase 15 (iii) follows (iii) and leaves its launches and measurements
-    there."""
+    there.  ``refs``: d_refs(table), when phase 18 (i) built them first."""
     t0 = time.perf_counter()
     out = {"kernels": lane_kernel_phase(gk, table.num_rows, seed, before)}
     torch.cuda.empty_cache()
-    refs = d_refs(table)
+    if refs is None:
+        refs = d_refs(table)
     with flag(single, "streaming_scan", 0):
         out["cache"] = cache_phase(gk, single, refs)
         out["prepared"] = prepared_phase(single, refs)
@@ -3532,7 +3568,7 @@ MATCH_QUERIES = {
              "MODE) AS s FROM orders ORDER BY s DESC, o_orderkey LIMIT 10",
 }
 MATCH_REPS = 10
-SURFACE_ROWS = 1_000_000
+SURFACE_ROWS = 250_000           # the round trip's rows: cut from 1,000,000 to keep the run in its limit
 # the session surface: each statement's rows on the card equal the CPU's
 SURFACE_STATEMENTS = (
     "SELECT @@version, @@session.autocommit, @@global.max_allowed_packet, @@version_comment",
@@ -3853,7 +3889,8 @@ def surface_phase() -> dict:
     """Phase 13 (viii): the session surface through a CUDA and a CPU
     ``Session``, every statement's rows equal: the connection environment,
     the SHOW forms, the ``information_schema`` tables, HANDLE set_flag, and
-    a LOAD DATA round trip of 1M rows through SELECT ... INTO OUTFILE."""
+    a LOAD DATA round trip of SURFACE_ROWS rows through SELECT ... INTO
+    OUTFILE."""
     import tempfile
 
     import pyarrow as pa
@@ -5586,7 +5623,7 @@ def cluster_phase(gk, seed: int) -> tuple[dict, dict]:
     from baikaldb_tpu_torch.storage import remote_tier
     from baikaldb_tpu_torch.storage.binlog_regions import BinlogCapturer
     from baikaldb_tpu_torch.storage.remote_tier import ClusterClient
-    from baikaldb_tpu_torch.tools.deploy_cluster import spawn_cluster, teardown
+    from baikaldb_tpu_torch.tools.deploy_cluster import spawn_cluster, teardown, wait_frontends
     from baikaldb_tpu_torch.utils import metrics
     from baikaldb_tpu_torch.utils.flags import FLAGS
 
@@ -5608,7 +5645,10 @@ def cluster_phase(gk, seed: int) -> tuple[dict, dict]:
     procs = None
     try:
         t = time.perf_counter()
-        meta, procs = spawn_cluster(3, 0, aot_dir=os.path.join(root, "aot"), cold_dir=cold)
+        # phase 18 (ii)'s frontend process starts with the daemons, on the
+        # card, and imports the engine while the load runs
+        meta, procs = spawn_cluster(3, 0, aot_dir=os.path.join(root, "aot"), cold_dir=cold,
+                                    mysql_port=free_port())
         out["spawn_s"] = time.perf_counter() - t
         addrs = list(procs["store_addresses"])
 
@@ -5680,6 +5720,10 @@ def cluster_phase(gk, seed: int) -> tuple[dict, dict]:
         del batch, col, v, w
         log(f"[cluster] B attached {CL_ROWS} rows (pull over TCP + stage) in "
             f"{out['attach_s']:.2f} s")
+
+        # phase 18 (ii): the frontend process answers (a)-(c) as B does
+        b_rows = {q: b.query(sql.replace(" FROM t ", " FROM tr ")) for q, sql in QUERIES.items()}
+        out["frontend"] = frontend_part(wait_frontends(procs)[0], b_rows, replay.refs())
 
         # (7) writes through A: 1PC, then 2PC over the first and last region
         stmts, next_id = [], CL_ROWS
@@ -5836,22 +5880,30 @@ def cluster_phase(gk, seed: int) -> tuple[dict, dict]:
             raise AssertionError(f"[cluster] cluster_metrics lacks live daemons "
                                  f"{sorted(live - fresh)}")
 
-        # (13) which processes hold the card
+        # (13) which processes hold the card: this one and the frontend
+        # process (phase 18 (ii))
         holders = card_pids()
+        front = procs["mysql"]
         live_pids = [p.pid for p in [procs["meta"], *procs["stores"]] if p.poll() is None]
         seeing = [p for p in live_pids
                   if p in holders or not sees_no_card(p) or maps_libcuda(p)]
-        out["card_pids"] = {"nvidia_smi": holders, "frontend": os.getpid(),
+        ours = {os.getpid(), front.pid}
+        out["card_pids"] = {"nvidia_smi": holders, "smoke": os.getpid(),
+                            "frontend_process": front.pid,
+                            "frontend_maps_libcuda": maps_libcuda(front.pid),
                             "daemons": live_pids, "daemons_seeing_a_card": seeing}
         # a container's nvidia-smi may name processes by another pid
-        # namespace's ids: one process holds the card, and no daemon can
-        # see one or has loaded libcuda
-        if seeing or len(holders) != 1:
+        # namespace's ids: two processes hold the card (where the ids are
+        # ours, exactly these two), the frontend process has loaded libcuda,
+        # and no daemon can see a card or has loaded libcuda
+        if seeing or len(holders) != 2 or (set(holders) <= ours and set(holders) != ours) \
+                or front.poll() is not None or not maps_libcuda(front.pid):
             raise AssertionError(f"[cluster] the card is held by {out['card_pids']}")
         log(f"[cluster] fresh frontend rebuilt {out['rebuilt_rows']} rows (hot + cold) in "
             f"{out['rebuild_s']:.2f} s, equal to the replay; cluster_metrics rows "
-            f"{out['cluster_metrics']}; nvidia-smi lists {holders} (frontend {os.getpid()}), "
-            f"no daemon sees a card or loads libcuda")
+            f"{out['cluster_metrics']}; nvidia-smi lists {holders} (this process "
+            f"{os.getpid()}, the frontend process {front.pid}), no daemon sees a card or "
+            f"loads libcuda")
         out["memory_allocated_gib"] = torch.cuda.memory_allocated() / 2**30
     finally:
         for db in dbs:
@@ -5864,6 +5916,346 @@ def cluster_phase(gk, seed: int) -> tuple[dict, dict]:
     out["seconds"] = time.perf_counter() - t_phase
     log(f"[cluster] {out['seconds']:.1f} s")
     return launches, out
+
+
+
+# ----------------------------------------------------------------------
+# phase 18: the MySQL wire over the 100M rows, a frontend process over the
+# TCP cluster, the chaos scenarios on the card
+
+WIRE_REPS = 10                   # warm runs of (a)-(c), over the wire and in process
+WIRE_POOL = 8                    # Pool connections sending prepared D-a
+WIRE_PREPARED = 4                # D-a executes a connection, behind one barrier each
+WIRE_KILL_PHASE = "egress.arrow"  # the victim's beat at which KILL CONNECTION is sent:
+#                                   its kernels ran, its result is on the card
+FRONT_REPS = 3                   # warm runs of (a)-(c) through the frontend process
+CHAOS_STREAM_ROWS = 262_144
+CHAOS_STREAM_CHUNK = 16_384
+FLEET_PLANE = ("kill_leader", "partition", "split_chaos", "migrate_chaos", "snapshot_chaos")
+
+
+def wire_values(res) -> list:
+    """A wire result (every value text) -> dicts by column name: a GROUP BY
+    key and COUNT(*) as int, the rest as float, NULL as None."""
+    out = []
+    for row in res.rows:
+        d = {}
+        for name, v in zip(res.columns, row):
+            if v is None:
+                d[name] = None
+            elif name == res.columns[0] or name.upper().startswith("COUNT"):
+                d[name] = int(v)
+            else:
+                d[name] = float(v)
+        out.append(d)
+    return out
+
+
+def same_rows_rtol(tag: str, got: list, want: list, rtol: float = 1e-4) -> None:
+    """Group keys and counts exact, every other value within ``rtol``."""
+    if len(got) != len(want):
+        raise AssertionError(f"{tag}: {len(got)} rows, expected {len(want)}")
+    for a, b in zip(got, want):
+        av, bv = list(a.values()), list(b.values())
+        if av[0] != bv[0] or (len(av) == 5 and av[1] != bv[1]):
+            raise AssertionError(f"{tag}: row {a} differs from {b}")
+        for x, y in zip(av, bv):
+            if not (x == y or abs(x - y) <= rtol * max(abs(x), abs(y))):
+                raise AssertionError(f"{tag}: row {a} differs from {b} beyond rtol {rtol}")
+
+
+def wire_walls(fn, reps: int) -> dict:
+    walls = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t) * 1e3)
+    return {"p50_ms": statistics.median(walls), "p67_ms": float(np.percentile(walls, 67))}
+
+
+def wire_part(gk, single, refs, drefs, seed: int) -> tuple[dict, dict, dict]:
+    """Phase 18 (i), right after phase 15 (i) in phase 3's session over its
+    unchanged 100M rows: an in-process ``MySQLServer`` on its Database.
+    -> (launches through the wire, lane launches, measurements)."""
+    from baikaldb_tpu_torch.client.mysql_client import Connection, Pool, PreparedStatement
+    from baikaldb_tpu_torch.obs import progress
+    from baikaldb_tpu_torch.server.mysql_server import MySQLServer
+    from baikaldb_tpu_torch.utils import metrics
+
+    t_phase = time.perf_counter()
+    s = single
+    out: dict = {"queries": {}}
+    srv = MySQLServer(s.db, port=0).start()
+    conns = []
+    try:
+        with flag(s, "streaming_scan", 0):
+            # the in-process answers and walls first, outside the wire's count
+            mine = {}
+            for q, sql in QUERIES.items():
+                mine[q] = s.query(sql)
+                out["queries"][q] = {"inproc": wire_walls(lambda sql=sql: s.query(sql),
+                                                          WIRE_REPS)}
+            # the wire path: counters at 0 just before, read just after
+            reset_launches(gk)
+            c = Connection(port=srv.port)
+            conns.append(c)
+            for q, sql in QUERIES.items():
+                before = all_launches(gk)
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                res = c.query(sql)
+                torch.cuda.synchronize()
+                first_ms = (time.perf_counter() - t) * 1e3
+                got = {k: v - before[k] for k, v in all_launches(gk).items() if v != before[k]}
+                if got != EXPECTED_LAUNCHES[q]:
+                    raise AssertionError(f"[wire] ({q}) launched {got}, expected "
+                                         f"{EXPECTED_LAUNCHES[q]}")
+                rows = wire_values(res)
+                check_query(q, rows, refs)
+                same_rows_rtol(f"[wire] ({q}) against the session", rows, mine[q])
+                out["queries"][q].update(first_ms=first_ms, launches=got,
+                                         wire=wire_walls(lambda sql=sql: c.query(sql),
+                                                         WIRE_REPS))
+                w, i = out["queries"][q]["wire"], out["queries"][q]["inproc"]
+                log(f"[wire] ({q}) equal numpy and the session's rows; wire p50 / p67 "
+                    f"{w['p50_ms']:.2f} / {w['p67_ms']:.2f} ms, in process "
+                    f"{i['p50_ms']:.2f} / {i['p67_ms']:.2f} ms")
+
+            # 8 Pool connections, 4 prepared D-a each, through the dispatcher
+            pool = Pool("127.0.0.1", srv.port, size=WIRE_POOL)
+            mine_conns = [pool.acquire() for _ in range(WIRE_POOL)]
+            conns += mine_conns
+            form = D_SHAPES["D-a"].replace("{x}", "?")
+            stmts = [PreparedStatement(pc, form) for pc in mine_conns]
+            rng = np.random.default_rng(seed + 18)
+            xs = [[round(float(rng.normal()) * 0.5, 3) for _ in range(WIRE_PREPARED)]
+                  for _ in range(WIRE_POOL)]
+            barrier = threading.Barrier(WIRE_POOL)
+            got_d, lat, errs = {}, [], []
+
+            def client(i):
+                try:
+                    for k in range(WIRE_PREPARED):
+                        barrier.wait(120)
+                        t = time.perf_counter()
+                        got_d[(i, k)] = stmts[i].execute((xs[i][k],))
+                        lat.append((time.perf_counter() - t) * 1e3)
+                except BaseException as e:      # noqa: BLE001 — re-raised below
+                    errs.append(e)
+                    barrier.abort()
+
+            g0, f0 = metrics.batched_groups.value, metrics.dispatch_fallbacks.value
+            lanes0 = lane_launches(gk)
+            with flag(s, "batch_dispatch_tick_ms", D_TICK_MS):
+                ths = [threading.Thread(target=client, args=(i,)) for i in range(WIRE_POOL)]
+                t = time.perf_counter()
+                for th in ths:
+                    th.start()
+                for th in ths:
+                    th.join()
+                pool_s = time.perf_counter() - t
+            if errs:
+                raise errs[0]
+            for (i, k), res in got_d.items():
+                check_d("D-a", {"x": xs[i][k]}, wire_values(res), drefs)
+            lanes = {k: v - lanes0[k] for k, v in lane_launches(gk).items()}
+            out["prepared"] = {"connections": WIRE_POOL, "executes": len(got_d),
+                               "wall_s": pool_s, "p50_ms": statistics.median(lat),
+                               "p99_ms": float(np.percentile(lat, 99)),
+                               "ticks": metrics.batched_groups.value - g0,
+                               "fallbacks": metrics.dispatch_fallbacks.value - f0,
+                               "lane_launches": lanes}
+            if not lanes["segment_reduce_lanes"]:
+                raise AssertionError(f"[wire] the prepared D-a statements launched no lane "
+                                     f"kernel: {out['prepared']}")
+            log(f"[wire] {len(got_d)} prepared D-a executes from {WIRE_POOL} Pool connections "
+                f"equal numpy: {out['prepared']['ticks']} ticks, lanes {lanes}, p50 "
+                f"{out['prepared']['p50_ms']:.2f} ms")
+            for st in stmts:
+                st.close()
+
+            # KILL CONNECTION of a wire client mid-query, its result on the card
+            victim = Connection(port=srv.port)
+            killer = Connection(port=srv.port)
+            conns += [victim, killer]
+            vid = int(victim.query("SELECT CONNECTION_ID()").rows[0][0])
+            victim.query(QUERIES["b"])                       # warm, outside the baseline
+            torch.cuda.synchronize()
+            gc.collect()
+            mem0 = torch.cuda.memory_allocated()
+            QP = progress.QueryProgress
+            real = QP.beat
+            fired: dict = {}
+
+            def beat(self, phase=None, operator=None, **counts):
+                real(self, phase, operator, **counts)
+                if not fired and self.conn_id == vid and self.phase == WIRE_KILL_PHASE:
+                    fired["memory_at_kill"] = torch.cuda.memory_allocated()
+                    fired["t"] = time.perf_counter()
+                    th = threading.Thread(
+                        target=lambda: fired.setdefault(
+                            "ok", killer.query(f"KILL CONNECTION {vid}").affected_rows == 0))
+                    th.start()
+                    th.join(60.0)
+            QP.beat = beat
+            try:
+                try:
+                    victim.query(QUERIES["b"])
+                    outcome = "ran"
+                except (ConnectionError, OSError):
+                    outcome = "severed"
+                t_end = time.perf_counter()
+            finally:
+                QP.beat = real
+            deadline = time.monotonic() + 30
+            while vid in s.db.processlist and time.monotonic() < deadline:
+                time.sleep(0.01)
+            torch.cuda.synchronize()
+            gc.collect()
+            mem1 = torch.cuda.memory_allocated()
+            if outcome != "severed" or not fired.get("ok") or vid in s.db.processlist \
+                    or mem1 != mem0 or fired["memory_at_kill"] <= mem0:
+                raise AssertionError(f"[wire] KILL CONNECTION: {outcome}, {fired}, memory "
+                                     f"{mem1} vs {mem0}, processlist {sorted(s.db.processlist)}")
+            rows = wire_values(killer.query(QUERIES["b"]))      # the server still answers
+            check_query("b", rows, refs)
+            # from the KILL's send to the victim's client seeing its socket closed
+            out["kill"] = {"at_phase": WIRE_KILL_PHASE, "severed_ms": (t_end - fired["t"]) * 1e3,
+                           "memory_before": mem0, "memory_at_kill": fired["memory_at_kill"],
+                           "memory_after": mem1}
+            log(f"[wire] KILL CONNECTION at the victim's {WIRE_KILL_PHASE} beat: its client "
+                f"saw the socket closed {out['kill']['severed_ms']:.2f} ms after the KILL was "
+                f"sent; memory "
+                f"{mem1} == {mem0} ({fired['memory_at_kill']} at the kill)")
+            launches = all_launches(gk)
+            lane_n = lane_launches(gk)
+    finally:
+        for cn in conns:
+            cn.close()
+        srv.stop(close_db=False)
+    missing = [k for k, n in launches.items() if n == 0]
+    if missing or not lane_n["segment_reduce_lanes"]:
+        raise AssertionError(f"[wire] kernels not launched through the wire: {missing}, "
+                             f"lanes {lane_n}")
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[wire] {out['seconds']:.1f} s; launches {launches}, lanes {lane_n}")
+    return launches, lane_n, out
+
+
+def free_port() -> int:
+    """A port bound and released (the frontend process binds it)."""
+    import socket
+
+    sk = socket.socket()
+    sk.bind(("127.0.0.1", 0))
+    port = sk.getsockname()[1]
+    sk.close()
+    return port
+
+
+def frontend_status(c) -> dict:
+    """The frontend process's kernel launch counters (SHOW STATUS)."""
+    out = {}
+    for name, value in c.query("SHOW STATUS LIKE 'kernel_launches.%'").rows:
+        if name.endswith(".value"):
+            out[name[len("kernel_launches."):-len(".value")]] = int(float(value))
+    return out
+
+
+def frontend_part(port: int, b_rows: dict, refs: dict) -> dict:
+    """Phase 18 (ii), inside phase 17 after frontend B's queries: the
+    frontend process spawned with the cluster (``python -m
+    baikaldb_tpu_torch.server --meta ...`` on the card) pulls ``tr`` and
+    answers (a)-(c) over the wire: rows equal B's (keys and counts exact,
+    float sums to rtol 1e-4) and numpy; its own counters show the kernels."""
+    from baikaldb_tpu_torch.client.mysql_client import Connection
+
+    t_phase = time.perf_counter()
+    c = Connection(port=port)
+    try:
+        c.query("SET GLOBAL pushdown_reads = 'off'")     # pull the image, as B did
+        c.query("SET GLOBAL streaming_scan = 0")
+        t = time.perf_counter()
+        c.query(REP_DDL)                                   # the pull over TCP
+        out = {"pull_s": time.perf_counter() - t, "queries": {}}
+        k0 = frontend_status(c)
+        for q, sql in QUERIES.items():
+            sql = sql.replace(" FROM t ", " FROM tr ")
+            t = time.perf_counter()
+            res = c.query(sql)
+            first_ms = (time.perf_counter() - t) * 1e3
+            rows = wire_values(res)
+            check_query(q, rows, refs)
+            same_rows_rtol(f"[frontend] ({q}) against frontend B", rows, b_rows[q])
+            walls = []
+            for _ in range(FRONT_REPS):
+                t = time.perf_counter()
+                c.query(sql)
+                walls.append((time.perf_counter() - t) * 1e3)
+            out["queries"][q] = {"first_ms": first_ms, "warm_ms_p50": statistics.median(walls)}
+        k1 = frontend_status(c)
+        launched = {k: v - k0.get(k, 0) for k, v in k1.items() if v != k0.get(k, 0)}
+        want = {}
+        for q in QUERIES:
+            for k, n in EXPECTED_LAUNCHES[q].items():
+                want[k] = want.get(k, 0) + n * (1 + FRONT_REPS)
+        if launched != want:
+            raise AssertionError(f"[frontend] the process launched {launched}, expected {want}")
+        out["launches"] = launched
+    finally:
+        c.close()
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[frontend] the frontend process pulled tr in {out['pull_s']:.2f} s and answered "
+        f"(a)-(c) over the wire equal to frontend B and numpy, launching {launched}; "
+        + ", ".join(f"({q}) first {v['first_ms']:.1f} ms, warm p50 {v['warm_ms_p50']:.1f} ms"
+                    for q, v in out["queries"].items()))
+    return out
+
+
+def chaos_part(gk, seed: int) -> tuple[dict, dict, dict]:
+    """Phase 18 (iii): the ten chaos scenarios on the card at their
+    defaults, the fleet-plane ones twice (equal digests), then stream_chaos
+    over CHAOS_STREAM_ROWS rows in CHAOS_STREAM_CHUNK-row chunks.  ->
+    (launches, lane launches, measurements)."""
+    from baikaldb_tpu_torch.chaos.scenarios import SCENARIOS, run_scenario, stream_chaos
+
+    t_phase = time.perf_counter()
+    out: dict = {"seed": seed, "scenarios": {}}
+    reset_launches(gk)
+    for name in SCENARIOS:
+        t = time.perf_counter()
+        r = run_scenario(name, seed, device="cuda")
+        dt = time.perf_counter() - t
+        if not r["ok"]:
+            raise AssertionError(f"[chaos] {name} on the card: {r.get('problems')} "
+                                 f"{r.get('error')}")
+        out["scenarios"][name] = {"seconds": dt, "faults": r.get("faults"),
+                                  "state_digest": r["state_digest"]}
+        if name in FLEET_PLANE:
+            again = run_scenario(name, seed, device="cuda")
+            if (again["state_digest"], again["fault_schedule"]) != \
+                    (r["state_digest"], r["fault_schedule"]):
+                raise AssertionError(f"[chaos] {name} did not replay from seed {seed}")
+            out["scenarios"][name]["replayed"] = True
+        log(f"[chaos] {name} ok in {dt:.2f} s, digest {r['state_digest']}")
+    t = time.perf_counter()
+    r = stream_chaos(rows=CHAOS_STREAM_ROWS, chunk_rows=CHAOS_STREAM_CHUNK, device="cuda")
+    n_chunks = CHAOS_STREAM_ROWS // CHAOS_STREAM_CHUNK
+    if r["problems"] or r["chunks"] != n_chunks or \
+            any(e[2] != n_chunks for e in r["fault_schedule"]):
+        raise AssertionError(f"[chaos] stream_chaos at {CHAOS_STREAM_ROWS} rows: {r}")
+    out["stream_chaos_big"] = {"rows": CHAOS_STREAM_ROWS, "chunks": r["chunks"],
+                               "passes": r["fault_schedule"],
+                               "seconds": time.perf_counter() - t}
+    launches, lanes = all_launches(gk), lane_launches(gk)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"[chaos] stream_chaos over {CHAOS_STREAM_ROWS} rows: {n_chunks} chunks a pass, "
+        f"every faulted pass equal to the resident answer ({r['fault_schedule']}) in "
+        f"{out['stream_chaos_big']['seconds']:.1f} s; launches {launches}, lanes {lanes}; "
+        f"{out['seconds']:.1f} s")
+    return launches, lanes, out
 
 
 def main() -> int:
@@ -5901,13 +6293,22 @@ def main() -> int:
     observe: dict = {}
     observe["i_launches"], observe["i"] = observability_part(gk, single, refs)
     obs_s = time.perf_counter() - t0
+    # phase 18 (i) in phase 3's session; the D references are phase 12's
+    t0 = time.perf_counter()
+    drefs = d_refs(table)
+    drefs_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    wire_launches, wire_lanes, wire_stats = wire_part(gk, single, refs, drefs, args.seed)
+    phase18 = {"wire": wire_stats}
+    wire_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     mesh_launches, mesh_stats = mesh_sql_phase(gk, single, refs)
     mesh_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    lane_counts, p12 = phase12(gk, single, table, args.seed, before, observe)
+    lane_counts, p12 = phase12(gk, single, table, args.seed, before, observe, drefs)
+    del drefs
     # phase 15 (iii) ran in phase 12: its seconds count as observability's
-    dispatch_s = time.perf_counter() - t0 - observe["iii"]["seconds"]
+    dispatch_s = time.perf_counter() - t0 - observe["iii"]["seconds"] + drefs_s
     t0 = time.perf_counter()
     part_launches, part_stats = partition_phase(gk, single, table)
     part_s = time.perf_counter() - t0
@@ -6002,10 +6403,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
     cl_launches, p17 = cluster_phase(gk, args.seed)
-    phase_s["cluster"] = time.perf_counter() - t0
+    # phase 18 (ii) ran in phase 17: its seconds count as phase 18's
+    phase18["frontend"] = p17.pop("frontend")
+    phase_s["cluster"] = time.perf_counter() - t0 - phase18["frontend"]["seconds"]
     missing = [k for k, n in cl_launches.items() if n == 0]
     if missing:
         raise AssertionError(f"kernels not launched on the cluster path: {missing}")
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    chaos_launches, chaos_lanes, phase18["chaos"] = chaos_part(gk, args.seed)
+    phase_s["wire"] = wire_s + phase18["frontend"]["seconds"] + time.perf_counter() - t0
     for k in REPLACES:
         for checks in (p16["replicated"]["kernel_checks"], p17["kernel_checks"]):
             err = checks["seg_max_abs_err" if k == "segment_reduce" else "k_max_abs_err"]
@@ -6020,6 +6427,7 @@ def main() -> int:
     print(f"observability phase seconds: {phase_s['observability']:.1f}", flush=True)
     print(f"replicated phase seconds: {phase_s['replicated']:.1f}", flush=True)
     print(f"cluster phase seconds: {phase_s['cluster']:.1f}", flush=True)
+    print(f"wire phase seconds: {phase_s['wire']:.1f}", flush=True)
     print("phase seconds: " + json.dumps(phase_s), flush=True)
     script_s = time.perf_counter() - t_main
     print(f"script seconds: {script_s:.1f} (phases {sum(phase_s.values()):.1f}, builds "
@@ -6031,7 +6439,7 @@ def main() -> int:
                 "launches": (launches[k] + stream_launches.get(k, 0) + vector_launches[k]
                              + mesh_launches[k] + htap_launches[k] + part_launches[k]
                              + lc_launches[k] + obs_launches[k] + rep_launches[k]
-                             + cl_launches[k]),
+                             + cl_launches[k] + wire_launches[k] + chaos_launches[k]),
                 "launches_resident": launches[k],
                 "launches_streamed": stream_launches.get(k, 0),
                 "launches_vectors": vector_launches[k],
@@ -6042,6 +6450,8 @@ def main() -> int:
                 "launches_observability": obs_launches[k],
                 "launches_replicated": rep_launches[k],
                 "launches_cluster": cl_launches[k],
+                "launches_wire": wire_launches[k],
+                "launches_chaos": chaos_launches[k],
                 **times[k],
                 # this kernel on phase 13's pruned batch and on phase 14's
                 # refreshed table
@@ -6059,6 +6469,8 @@ def main() -> int:
                  "replaces": REPLACES[base], "launches": lane_counts[k],
                  "launches_lifecycle": lc_stats["lane_launches"][k],
                  "launches_observability": obs_lanes[k],
+                 "launches_wire": wire_lanes[k],
+                 "launches_chaos": chaos_lanes[k],
                  "max_abs_err": p12["kernels"]["max_abs_err"], **lane_times[k]}
                 for k, base in LANE_KERNELS.items()]
     print(json.dumps({"card": name_power, "rows": args.rows, "phase_s": phase_s,
@@ -6067,7 +6479,8 @@ def main() -> int:
                       "analytics": analytic_stats, "egress": egress_stats,
                       "vectors": vector_stats, "mesh": mesh_stats, "htap": htap_stats,
                       "dispatch": p12, "partitions": part_stats, "lifecycle": lc_stats,
-                      "observability": obs_stats, "phase16": p16, "phase17": p17}),
+                      "observability": obs_stats, "phase16": p16, "phase17": p17,
+                      "phase18": phase18}),
           flush=True)
     print(name_power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

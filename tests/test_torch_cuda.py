@@ -1972,3 +1972,56 @@ def test_cluster_frontend_group_by_on_the_card_launches_the_kernels(cuda, tmp_pa
         for db in dbs:
             db.close()
         teardown(procs)
+
+
+@pytest.mark.cuda
+def test_wire_round_trip_on_the_card_launches_the_kernels(cuda):
+    """The port's MySQL server on the card: (a)-(c) sent by the port's
+    client launch K1-K3 and the segment kernel in the server's connection
+    thread, and the wire rows are the text of the session's own rows (keys
+    and counts exact, float sums to rtol 1e-5: the kernels accumulate in
+    no fixed order); a KILL CONNECTION of an idle client severs it."""
+    import pyarrow as pa
+
+    from baikaldb_tpu_torch.client.mysql_client import Connection
+    from baikaldb_tpu_torch.exec.session import Database, Session
+    from baikaldb_tpu_torch.server.mysql_server import MySQLServer
+
+    rng = np.random.default_rng(18)
+    n = 200_000
+    sql = {"a": "SELECT g16, COUNT(*), SUM(v), AVG(v), MIN(v) FROM t WHERE v*2+1 > 0.5 "
+                "GROUP BY g16 ORDER BY g16",
+           "b": "SELECT g, COUNT(*), SUM(v), AVG(v), MIN(v) FROM t WHERE v*2+1 > 0.5 "
+                "GROUP BY g ORDER BY g",
+           "c": "SELECT g, SUM(w), AVG(w) FROM t WHERE w > -1 GROUP BY g ORDER BY g"}
+    want = {"a": {"segment_reduce": 8},
+            "b": {"partition_histogram": 1, "fused_group_aggregate": 1},
+            "c": {"filtered_group_sum": 1, "partition_histogram": 1}}
+    db = Database("cuda")
+    s = Session(db)                 # 200,000 rows: under streaming_min_rows, resident
+    s.execute("CREATE TABLE t (g INT, v FLOAT, w DOUBLE, g16 INT)")
+    s.load_arrow("t", pa.table({"g": rng.integers(0, 2048, n, dtype=np.int32),
+                                "v": rng.standard_normal(n, dtype=np.float32),
+                                "w": rng.standard_normal(n),
+                                "g16": rng.integers(0, 16, n, dtype=np.int32)}))
+    srv = MySQLServer(db, port=0).start()
+    try:
+        c = Connection(port=srv.port)
+        for q, text in sql.items():
+            before = _all_launches()
+            got = c.query(text).rows
+            assert _moved(before) == want[q], q
+            mine = s.execute(text).rows
+            assert len(got) == len(mine)
+            for wr, sr in zip(got, mine):
+                assert wr[0] == str(sr[0]) and (q == "c" or wr[1] == str(sr[1]))
+                for a, b in zip(wr, sr):
+                    assert float(a) == pytest.approx(float(b), rel=1e-5, abs=1e-6)
+        victim = Connection(port=srv.port)
+        vid = int(victim.query("SELECT CONNECTION_ID()").rows[0][0])
+        c.query(f"KILL CONNECTION {vid}")
+        with pytest.raises(Exception):
+            victim.query("SELECT 1")
+        c.close()
+    finally:
+        srv.stop()

@@ -208,6 +208,12 @@ def test_kill_of_the_own_connection_is_known_as_jax():
 
 # ---- SQL surfaces ----------------------------------------------------------
 
+# a connection id no session of the test process reaches: each package's
+# ids count every Session the process made, and a record under a session's
+# own id would render as that session's row
+FOREIGN_ID = 1_000_077
+
+
 def test_show_processlist_merges_live_queries_as_jax():
     long_sql = "SELECT waits FROM elsewhere WHERE pad = '" + "x" * 100 + "'"
 
@@ -218,37 +224,38 @@ def test_show_processlist_merges_live_queries_as_jax():
         def rows(sql):
             return [{**_stable(r), "Id": "own" if r["Id"] == own else r["Id"]}
                     for r in s.query(sql)]
-        with p.progress.track(long_sql, conn_id=77, user="bob", db=s.db, dbname="default"):
+        with p.progress.track(long_sql, conn_id=FOREIGN_ID, user="bob", db=s.db,
+                              dbname="default"):
             during = rows("SHOW PROCESSLIST"), rows("SHOW FULL PROCESSLIST")
-        return during, [r for r in rows("SHOW PROCESSLIST") if r["Id"] == 77]
+        return during, [r for r in rows("SHOW PROCESSLIST") if r["Id"] == FOREIGN_ID]
     j, t = _both(run)
     assert t == j
     (short, full), after = t
-    mine = [r for r in short if r["Id"] == 77][0]
+    mine = [r for r in short if r["Id"] == FOREIGN_ID][0]
     assert mine["User"] == "bob" and mine["Command"] == "Query" and mine["db"] == "default"
     # the SHOW inside the open record shares it (a nested open degrades to
     # the outer record, as a wire query does): one row, in the SHOW's phase
     assert mine["State"] == "parse" and len(mine["Info"]) == 100
-    assert [r for r in full if r["Id"] == 77][0]["Info"] == long_sql
-    assert [r["Id"] for r in short] == [77] and after == []
+    assert [r for r in full if r["Id"] == FOREIGN_ID][0]["Info"] == long_sql
+    assert [r["Id"] for r in short] == [FOREIGN_ID] and after == []
 
 
 def test_information_schema_processlist_as_jax():
     def run(p):
         s = _sess(p)
         own = s.connection_id()
-        with p.progress.track("SELECT 1", conn_id=88, user="carol", db=s.db,
-                              dbname="default") as qp:
+        with p.progress.track("SELECT 1", conn_id=FOREIGN_ID + 11, user="carol",
+                              db=s.db, dbname="default") as qp:
             qp.beat(phase="exec.run", operator="scan default.t", rows_done=3)
             rows = s.query("SELECT * FROM information_schema.processlist")
             ids = [(r["id"], r["query_id"] == qp.query_id) for r in rows]
-        return ([_stable(r) for r in rows if r["id"] == 88],
+        return ([_stable(r) for r in rows if r["id"] == FOREIGN_ID + 11],
                 [("own" if i == own else i, mine) for i, mine in ids],
                 all(r["elapsed_ms"] >= 0.0 for r in rows))
     j, t = _both(run)
     assert t == j
     # the SELECT inside the open record shares it: one row
-    assert t[1] == [(88, True)] and t[2]
+    assert t[1] == [(FOREIGN_ID + 11, True)] and t[2]
     assert t[0][0]["state"] == "exec.batches scan default.t batch 0/1"
     assert t[0][0]["user"] == "carol"
 

@@ -121,12 +121,27 @@ def test_network_plane_and_daemons_import_without_jax():
 
 def test_spawned_daemons_see_no_card():
     """``spawn_cluster`` starts its daemons with ``CUDA_VISIBLE_DEVICES``
-    empty, from the checkout's root, and asking it for MySQL frontends
-    raises ``NotPortedError`` (the MySQL server is ROADMAP item 7)."""
-    from baikaldb_tpu_torch.errors import NotPortedError
+    empty, from the checkout's root; its MySQL frontends keep the caller's
+    view of the card and run on it unless given a device: with no card
+    here, a frontend without ``device`` refuses to start (no fall-back to
+    the CPU)."""
+    import socket
+
     from baikaldb_tpu_torch.tools import deploy_cluster
 
     assert deploy_cluster._ENV["CUDA_VISIBLE_DEVICES"] == ""
+    assert deploy_cluster._FRONTEND_ENV.get("CUDA_VISIBLE_DEVICES") == \
+        os.environ.get("CUDA_VISIBLE_DEVICES")
     assert deploy_cluster._repo_root() == ROOT
-    with pytest.raises(NotPortedError, match="MySQL"):
-        deploy_cluster.spawn_cluster(1, 0, mysql_port=3306)
+    if torch.cuda.is_available():
+        return
+    sock = socket.socket()
+    sock.bind(("127.0.0.1", 0))
+    port = sock.getsockname()[1]
+    sock.close()
+    _, procs = deploy_cluster.spawn_cluster(1, 0, mysql_port=port)
+    try:
+        with pytest.raises(TimeoutError, match="CUDA"):
+            deploy_cluster.wait_frontends(procs, timeout=120.0)
+    finally:
+        deploy_cluster.teardown(procs)

@@ -3,8 +3,9 @@ through a capturer, resume from a timestamp, TTL purges (``ttl_tick`` and
 HANDLE ttl, a misconfigured table skipped), the BINLOG table option, ALTER
 TABLE ADD / DROP COLUMN, and transactions in the binlog.
 
-The cases of tests/test_lifecycle.py, without its backup round trip (whose
-tools/backup.py is not ported), run in a JAX ``Session`` (CPU, x64) and a
+The cases of tests/test_lifecycle.py, without its backup round trip (held
+across the packages in tests/test_torch_importer.py), run in a JAX
+``Session`` (CPU, x64) and a
 port ``Session(device="cpu")`` on the same statements.  Rows, affected
 counts, error types and events (kind, table, row images, statement image,
 affected count; never ``commit_ts``) are compared exactly.

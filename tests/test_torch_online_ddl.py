@@ -111,6 +111,14 @@ def test_concurrent_dml_during_backfill_stays_correct():
     p = _make(3000)
     p.run("HANDLE split default.t 500")
     p.run("ALTER TABLE t ADD INDEX idx_grp (grp)")
+    # each worker snapshots the table's regions before its first walk step
+    # (``regions_total`` set); the INSERTs below may split the last region,
+    # so they wait for both snapshots to hold the whole work record equal
+    deadline = time.monotonic() + WAIT_S
+    for s in (p.j, p.t):
+        while not s.db.ddl.works[1].regions_total and time.monotonic() < deadline:
+            time.sleep(0.001)
+        assert s.db.ddl.works[1].regions_total, "the backfill never took its snapshot"
     for i in range(3000, 3050):
         p.run(f"INSERT INTO t VALUES ({i}, 7, 0.0)")
     p.run("DELETE FROM t WHERE id < 10")

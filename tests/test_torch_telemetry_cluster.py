@@ -6,7 +6,8 @@ store daemons scraped over RPC into ``information_schema.cluster_metrics``
 (per-daemon raft gauges, histograms merged bucket-wise under
 daemon='fleet', the frontend's own rows), a crashed daemon's last rows kept
 and marked stale, SHOW STATUS ``cluster.*`` rows, the in-band Prometheus
-text (scraped by the repo's exporter, a JAX-package client), and the
+text (scraped by the port's exporter, tools/metrics_export.py, and by the
+repo's, a JAX-package client, to the same families and up rows), and the
 background poller.  The port's daemons expose the JAX daemons' metric names
 but the XLA artifact gauge; the meta daemon is scraped through discovery
 (``attach_meta``) as a cluster-mode Database does; and the JAX package's
@@ -134,14 +135,23 @@ def test_daemon_prometheus_rpc_and_export_tool(fleet):
     c.close()
     assert f'daemon="{stores[0].address}"' in text
     assert "# TYPE baikal_rpc_handler_ms histogram" in text
-    # the repo's exporter (a JAX-package client) scrapes the port's daemons
-    from tools.metrics_export import scrape
+    # the port's exporter scrapes the port's daemons
+    from baikaldb_tpu_torch.tools.metrics_export import scrape
     out = scrape([s.address for s in stores])
     assert 'daemon="fleet"' in out
     assert 'baikal_up{daemon="%s"} 1' % stores[0].address in out
     # fleet exposition: one TYPE declaration per metric name
     types = [ln for ln in out.splitlines() if ln.startswith("# TYPE")]
     assert len(types) == len(set(types))
+    # the repo's exporter (a JAX-package client) beside it: the same metric
+    # families and the same up rows
+    from tools.metrics_export import scrape as jax_scrape
+    jout = jax_scrape([s.address for s in stores])
+
+    def ups(text):
+        return sorted(ln for ln in text.splitlines() if ln.startswith("baikal_up{"))
+    assert set(types) == {ln for ln in jout.splitlines() if ln.startswith("# TYPE")}
+    assert ups(out) == ups(jout) and len(ups(out)) == len(stores)
 
 
 def test_telemetry_background_poller(fleet):
