@@ -58,6 +58,7 @@ from collections import OrderedDict
 
 import numpy as np
 
+from ..analysis.runtime import LOCK_RANKS, GuardedLock, register_witness
 from ..obs import progress, trace
 from ..utils import metrics
 from ..utils.flags import FLAGS, define
@@ -153,14 +154,23 @@ class BatchDispatcher:
     """One per Database, so queries of different sessions coalesce.  The
     lock guards only the maps, never device work."""
 
+    # ranked below store.table_lock (10): the combiner only holds its lock
+    # for map bookkeeping — never across device work or store calls
+    RANK = 4
+    # the tick lock is taken before the map lock (a leader holding a tick
+    # pops its group under _mu), never under it
+    TICK_RANK = 2
+
     def __init__(self):
-        self._mu = threading.Lock()
+        # the lockset witness (debug_guards) asserts the dispatcher maps
+        # are only touched under this lock
+        self._mu = GuardedLock("dispatch.combine_mu", rank=self.RANK)
         # one tick runs at a time: a tick's [G, n] temporaries scale with its
         # lanes and the card runs ticks one after another anyway, so
         # overlapping ticks would only hold several sets at once (about 8 GB
         # a tick of 64 lanes over 100M rows); a leader waiting here keeps its
         # group open to arrivals.  Never held with ``_mu`` across device work
-        self._tick_mu = threading.Lock()
+        self._tick_mu = GuardedLock("dispatch.tick_mu", rank=self.TICK_RANK)
         self._groups: dict = {}          # group key -> _Group (queued only)
         self._inflight: dict = {}        # group key -> runs in flight
         self._programs: OrderedDict = OrderedDict()   # id(plan) -> lane program
@@ -372,3 +382,14 @@ class BatchDispatcher:
                     fb = CombineFallback("scatter budget overflow")
                 m.err = fb
         return outs
+
+
+# lockset witness enrollment: debug_guards=log|disallow installs
+# per-attribute assertions from the static ownership map (the dispatcher
+# is the canonical witnessed class — its maps are mutated by every
+# session thread plus the tick's leader)
+register_witness(BatchDispatcher,
+                 "baikaldb_tpu_torch/exec/dispatch.py:BatchDispatcher")
+# ranks visible at import, without constructing a dispatcher
+LOCK_RANKS.setdefault("dispatch.combine_mu", BatchDispatcher.RANK)
+LOCK_RANKS.setdefault("dispatch.tick_mu", BatchDispatcher.TICK_RANK)

@@ -65,6 +65,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..analysis.runtime import host_read
 from ..column.batch import Column, ColumnBatch, concat_batches
 from ..column.dictionary import Dictionary
 from ..expr.compile import cast_column, eval_output, eval_predicate
@@ -148,8 +149,8 @@ def compile_plan(plan: PlanNode, device, mesh: Optional[Mesh] = None,
             raise ExecError("a distributed plan must end replicated")
         if count_rows:
             ids = list(ctx.counts)
-            vals = torch.stack([ctx.counts[i].reshape(()).to(torch.int64)
-                                for i in ids]).tolist() if ids else []
+            vals = host_read(torch.stack([ctx.counts[i].reshape(()).to(torch.int64)
+                                          for i in ids])).tolist() if ids else []
             run.counts = dict(zip(ids, vals))
         return out
 
@@ -347,7 +348,7 @@ def _apply(node: PlanNode, kids: list, ctx: Ctx) -> ColumnBatch:
     if isinstance(node, ScalarSourceNode):
         child = kids[0]
         sub = compact(kids[1])
-        live = int(sub.live_count())
+        live = int(host_read(sub.live_count()))
         if live > 1:
             # MySQL ER_SUBQUERY_NO_1_ROW (1242)
             raise PlanError("Subquery returns more than 1 row")

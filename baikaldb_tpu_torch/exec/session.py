@@ -214,6 +214,8 @@ import pyarrow as pa
 import pyarrow.compute as pc
 import torch
 
+from ..analysis.runtime import (LOCK_RANKS, GuardedLock, guard_stats, host_read,
+                                hot_path_guard)
 from ..column.batch import ColumnBatch
 from ..errors import NotPortedError
 from ..exec import dispatch, egress, executor, streaming
@@ -455,15 +457,23 @@ class Result:
 class _TableBinlogRetry:
     """One table's CDC retry state: a queue of failed distributed-binlog
     event batches and the lock that serializes this table's drain / append
-    rounds (rank 20 in the JAX package's order: taken inside the store lock,
-    10, by the autocommit CDC path, and before the replicated tier's, 30,
-    when a queued append retries; two tables' locks are never nested)."""
+    rounds (rank 20: taken inside the store lock, 10, by the autocommit CDC
+    path, and before the replicated tier's, 30, when a queued append
+    retries).  Every instance shares the runtime name
+    ``db.binlog_retry_mu`` — one rank covers the per-table family, and two
+    tables' locks (same rank) are never nested."""
 
     __slots__ = ("mu", "q")
+    RANK = 20
 
     def __init__(self):
-        self.mu = threading.Lock()
+        self.mu = GuardedLock("db.binlog_retry_mu", rank=self.RANK)
         self.q: deque = deque()
+
+
+# instances are lazy (first binlogged table), but the declared rank must be
+# visible to the static<->runtime consistency check from import time
+LOCK_RANKS.setdefault("db.binlog_retry_mu", _TableBinlogRetry.RANK)
 
 
 class Database:
@@ -552,7 +562,9 @@ class Database:
         # per-table queues of distributed-binlog batches whose append failed
         # (bounded; overflow counts in metrics.binlog_events_dropped)
         self._binlog_retry: dict[str, _TableBinlogRetry] = {}
-        self._binlog_retry_reg_mu = threading.Lock()    # the registry dict only
+        # the registry dict only: a plain leaf lock, as in the JAX package —
+        # one dict operation under it, nothing else taken and no device work
+        self._binlog_retry_reg_mu = threading.Lock()
         self._dist_binlog = None
         if cluster is not None:
             # the meta daemon and its registered stores join the scrape set
@@ -3421,7 +3433,11 @@ class Session:
             # the seam before the device work: a KILL lands here
             qp.checkpoint()
             run = executor.compile_plan(plan, self.device, self.mesh)
-            out = run(batches)
+            # debug_guards: no implicit device->host read may hide in the
+            # plan's own evaluation (a read there by design is host_read);
+            # the egress compact and the result's reads come after the scope
+            with hot_path_guard(self.device):
+                out = run(batches)
             if self.mesh is not None:
                 # every round is behind the run once it returns
                 qp.beat(round_no=int(summary["rounds"]))
@@ -3650,9 +3666,11 @@ class Session:
             # the first run builds whatever kernels it launches; the counts'
             # host read ends each span after the device work
             with trace.span("exec.first"):
-                run(batches)
+                with hot_path_guard(self.device):
+                    run(batches)
             with trace.span("exec.steady"):
-                run(batches)
+                with hot_path_guard(self.device):
+                    run(batches)
             by_node = run.counts
 
         def render(node: PlanNode, indent: int):
@@ -3665,8 +3683,7 @@ class Session:
         render(plan, 0)
         scans = [(p[0], batches[p[0]]) for p in shape_key
                  if isinstance(batches.get(p[0]), ColumnBatch)]
-        lives = torch.stack([b.live_count().to(torch.int64).cpu() for _, b in scans]).tolist() \
-            if scans else []
+        lives = [host_read(b.live_count()) for _, b in scans]
         for (tk, b), live in zip(scans, lives):
             # only a full scan reads the table's whole image; an access-path
             # batch holds the rows its path gathered
@@ -3681,6 +3698,9 @@ class Session:
         trace.event("params", hoisted=nz.hoisted if nz is not None else 0,
                     pinned=nz.pinned if nz is not None else paramize._count_lits(stmt),
                     param_hits_total=metrics.plan_cache_param_hits.value)
+        gs = guard_stats()
+        trace.event("guards", mode=gs["mode"], transfer_trips=gs["transfer_trips"],
+                    lock_trips=gs["lock_trips"], owner_trips=gs["owner_trips"])
         # whether the dispatcher serves this shape under concurrency, and its
         # engine-wide tick telemetry (EXPLAIN ANALYZE itself runs inline)
         trace.event("dispatch", enabled=dispatch.enabled(),
@@ -4332,8 +4352,7 @@ def _scan_tables(plan: PlanNode) -> set:
 def _render_analyze(spans: list[dict]) -> list[str]:
     """EXPLAIN ANALYZE display, rendered only from the span records: the
     JAX session's lines, without its XLA-specific ones (``-- xla``, ``--
-    aot``, ``-- device``, ``-- guards``) and that of the plane the port
-    lacks (``-- fragments``)."""
+    aot``, ``-- device``)."""
     def find(name):
         return [s for s in spans if s["name"] == name]
 
@@ -4364,6 +4383,12 @@ def _render_analyze(spans: list[dict]) -> list[str]:
         a = s["attrs"]
         lines.append(f"-- params: hoisted={a['hoisted']} pinned={a['pinned']} "
                      f"param_hits_total={a['param_hits_total']}")
+    for s in find("guards"):
+        a = s["attrs"]
+        lines.append(f"-- guards: mode={a['mode']} "
+                     f"transfer_trips={a['transfer_trips']} "
+                     f"lock_trips={a['lock_trips']} "
+                     f"owner_trips={a.get('owner_trips', 0)}")
     for s in find("dispatch"):
         a = s["attrs"]
         lines.append(f"-- dispatch: enabled={int(a['enabled'])} "

@@ -28,9 +28,9 @@ order.
 The port of ``baikaldb_tpu/obs/telemetry.py``.  The device gauges read
 ``torch.cuda`` (the caching allocator's bytes in use and peak, the card's
 total memory), summed over the visible cards; without CUDA they are NaN, as
-the JAX package's are on the CPU.  The scrape lock is a plain lock (rank 6
-in the JAX package's order: below store.table_lock; RPC scrapes run
-outside it).
+the JAX package's are on the CPU.  The scrape lock is a ranked
+``GuardedLock`` (rank 6: below store.table_lock; RPC scrapes run outside
+it), and the lockset witness watches the maps it owns.
 """
 
 from __future__ import annotations
@@ -40,6 +40,7 @@ import threading
 import time
 from typing import Callable, Optional
 
+from ..analysis.runtime import LOCK_RANKS, GuardedLock, register_witness
 from ..utils import metrics
 from ..utils.flags import FLAGS, define
 from ..utils.metrics import histogram_stats
@@ -333,15 +334,18 @@ class Telemetry:
     """One per Database: registered daemon addresses, their cached
     snapshots with staleness state, and the merged fleet view."""
 
+    # ranked below store.table_lock (10): nothing else is taken under it
+    RANK = 6
 
     def __init__(self, local_name: str = "frontend", registry=None,
                  device_gauges: bool = True):
         self.local_name = local_name
         self.registry = registry if registry is not None \
             else metrics.REGISTRY
-        # registration + cache dict (lock rank 6 in the JAX package's
-        # order; RPC scrapes themselves run OUTSIDE the lock — see poll)
-        self._mu = threading.Lock()
+        # registration + cache dict; ranked GuardedLock so the lockset
+        # witness can assert _clients/_cache stay under it (RPC scrapes
+        # themselves run OUTSIDE the lock — see poll)
+        self._mu = GuardedLock("telemetry.scrape_mu", rank=self.RANK)
         self._clients: dict[str, object] = {}
         # addr -> {"snapshot", "ts", "ok", "error"}; kept across failures
         # so a down daemon's last-known rows survive, marked stale
@@ -614,3 +618,8 @@ def start_http_exporter(render: Callable[[], str], port: int,
                      name=f"metrics-http-{srv.server_address[1]}").start()
     return srv
 
+
+# lockset witness enrollment (see analysis/runtime.py): the poller thread
+# and inline-scrape query threads share the client/cache maps
+register_witness(Telemetry, "baikaldb_tpu_torch/obs/telemetry.py:Telemetry")
+LOCK_RANKS.setdefault("telemetry.scrape_mu", Telemetry.RANK)

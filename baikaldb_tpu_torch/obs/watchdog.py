@@ -29,6 +29,7 @@ import threading
 import time
 from typing import Optional
 
+from ..analysis.runtime import LOCK_RANKS, GuardedLock, register_witness
 from ..utils import metrics
 from ..utils.flags import FLAGS, define
 from .progress import PROGRESS
@@ -47,11 +48,13 @@ class Watchdog:
     the base class handles episode dedup, counters, the background
     thread, and the health/status renderings."""
 
+    # ranked below store.table_lock (10): StoreWatchdog.probe reads the
+    # region map while holding the scan lock, never the other way around
+    RANK = 8
+
     def __init__(self, name: str = "frontend"):
         self.name = name
-        # lock rank 8 in the JAX package's order: below store.table_lock
-        # (10); nothing is taken while holding it
-        self._mu = threading.Lock()
+        self._mu = GuardedLock("watchdog.scan_mu", rank=self.RANK)
         self._live: dict[str, dict] = {}      # subject -> stall record
         self._detected_total = 0
         self._last_scan = 0.0
@@ -199,3 +202,8 @@ class StoreWatchdog(Watchdog):
             self._apply_seen.pop(rid, None)
         return out
 
+
+# lockset witness enrollment (see analysis/runtime.py): stall records are
+# mutated by the scan thread and health RPCs concurrently
+register_witness(Watchdog, "baikaldb_tpu_torch/obs/watchdog.py:Watchdog")
+LOCK_RANKS.setdefault("watchdog.scan_mu", Watchdog.RANK)

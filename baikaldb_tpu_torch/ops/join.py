@@ -35,6 +35,7 @@ from dataclasses import replace
 
 import torch
 
+from ..analysis.runtime import host_read
 from ..column.batch import Column, ColumnBatch, dtype_max
 from ..column.dictionary import NULL_CODE, merge as dict_merge
 from ..types import LType
@@ -342,7 +343,7 @@ def _expand_matches(probe: ColumnBatch, build: ColumnBatch, how: str,
 
     dev = probe.device
     out_counts = out_counts.to(torch.int64)
-    total = int(out_counts.sum()) if len(probe) else 0   # the one host read
+    total = int(host_read(out_counts.sum())) if len(probe) else 0   # the one host read
     starts = torch.cumsum(out_counts, 0) - out_counts
     pi = torch.repeat_interleave(torch.arange(len(probe), device=dev), out_counts,
                                  output_size=total)
@@ -440,7 +441,7 @@ def multiway_join(probe: ColumnBatch, probe_keys: list[str],
     out_counts = torch.ones(len(probe), dtype=torch.int64, device=dev)
     for oc, _, _, _ in per_side:
         out_counts = out_counts * oc.to(torch.int64)
-    total = int(out_counts.sum()) if len(probe) else 0   # the one host read
+    total = int(host_read(out_counts.sum())) if len(probe) else 0   # the one host read
     starts = torch.cumsum(out_counts, 0) - out_counts
     pi = torch.repeat_interleave(torch.arange(len(probe), device=dev), out_counts,
                                  output_size=total)
@@ -560,8 +561,8 @@ def cross_join(probe: ColumnBatch, build: ColumnBatch, suffix: str = "_r"):
     """Cartesian product of the live rows of both sides (reference: a
     JoinNode without equality conditions).  Returns (out_batch, rows)."""
     dev = probe.device
-    pl = torch.nonzero(probe.sel_mask()).reshape(-1)
-    bl = torch.nonzero(build.sel_mask()).reshape(-1)
+    pl = host_read(probe.sel_mask(), torch.nonzero).reshape(-1)
+    bl = host_read(build.sel_mask(), torch.nonzero).reshape(-1)
     nb = bl.shape[0]
     total = pl.shape[0] * nb
     j = torch.arange(total, device=dev)

@@ -26,6 +26,7 @@ import math
 
 import torch
 
+from ..analysis.runtime import host_read
 from ..column.batch import dtype_max
 
 _MULT = 0x9E3779B97F4A7C15
@@ -68,7 +69,7 @@ def radix_build(keys: torch.Tensor, dead: torch.Tensor, n_buckets: int):
     dev = keys.device
     bucket = torch.where(dead, nb, bucket_of(keys, nb).to(torch.int64))
     _, offsets, counts = stable_bucket_order(bucket, nb + 1)
-    width = max(1, int(counts[:nb].max())) if n else 1
+    width = max(1, int(host_read(counts[:nb].max()))) if n else 1
     # bucket-major with keys ascending inside a bucket: a stable sort by key
     # and then a stable sort by bucket
     by_key = torch.sort(keys, stable=True).indices

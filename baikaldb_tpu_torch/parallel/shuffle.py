@@ -28,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from ..analysis.runtime import host_read
 from ..column.batch import ColumnBatch
 from ..ops.group_kernels import partition_histogram
 from ..types import LType
@@ -79,7 +80,7 @@ def dist_hash_repartition(sb: ShardedBatch, key_names: list[str], mesh: Mesh):
     exchange."""
     n = mesh.size
     sent = [_local_repartition(b, key_names, n) for b in sb.shards]
-    counts = torch.stack([c.to(mesh.home) for _, c in sent]).tolist()
+    counts = host_read(torch.stack([c.to(mesh.home) for _, c in sent])).tolist()
     sends = []
     for b, (order, _), row in zip(sb.shards, sent, counts):
         rows = b.gather(order[:sum(row)])

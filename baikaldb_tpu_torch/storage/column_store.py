@@ -81,6 +81,7 @@ import pyarrow.compute as pc
 import pyarrow.parquet as pq
 import torch
 
+from ..analysis.runtime import LOCK_RANKS, GuardedLock
 from ..column.batch import ColumnBatch, concat_batches
 from ..column.dictionary import NULL_CODE, Dictionary
 from ..index.stats import collect
@@ -364,7 +365,10 @@ class TableStore:
         self.device = device
         self.region_rows = region_rows
         self.arrow_schema = schema_to_arrow(info.schema)
-        self._lock = threading.RLock()
+        # rank 10 — acquired FIRST on the write path; the statically-derived
+        # order (tools/lint.py --lock-order), asserted when debug_guards is on
+        self._lock = GuardedLock("store.table_lock", rank=self.RANK,
+                                 reentrant=True)
         self._mutations = 0
         self._next_region = 1
         self._next_rowid = 1
@@ -469,7 +473,8 @@ class TableStore:
         and chunk sets key on it.  Not derived from region versions: a
         rollback rebuilds regions, and a derived version could revisit an
         old value."""
-        return self._mutations
+        with self._lock:
+            return self._mutations
 
     def _bump(self) -> None:
         """A mutation (caller holds the lock): the version moves on and the
@@ -1872,3 +1877,7 @@ def _histogram_stats(col, f) -> dict | None:
     if kind:
         st["kind"] = kind
     return st
+
+
+# the declared rank is visible to the static<->runtime check from import
+LOCK_RANKS.setdefault("store.table_lock", TableStore.RANK)

@@ -44,6 +44,7 @@ import numpy as np
 import pyarrow as pa
 import torch
 
+from ..analysis.runtime import LOCK_RANKS, GuardedLock
 from ..chaos import failpoint
 from ..utils import metrics
 from ..utils.flags import FLAGS, define
@@ -106,7 +107,7 @@ class TsoClient:
             from ..meta.tso import Tso
             gen = Tso().gen
         self._gen = gen
-        self._mu = threading.Lock()
+        self._mu = GuardedLock("mvcc.tso_mu", rank=self.RANK)
         self._next = 0      # next ts to hand out
         self._limit = 0     # one past the granted range
         self._last = 0      # newest ts handed out
@@ -257,7 +258,7 @@ class SnapshotRegistry:
     RANK = 12   # between the table lock (10) and the TSO client (15)
 
     def __init__(self):
-        self._mu = threading.Lock()
+        self._mu = GuardedLock("mvcc.registry_mu", rank=self.RANK)
         self._pins: dict[int, dict] = {}
         self._seq = 0
         _REGISTRIES.add(self)
@@ -372,3 +373,6 @@ def _oldest_pin() -> int:
 
 metrics.Gauge("mvcc.live_versions", fn=_live_versions)
 metrics.Gauge("mvcc.oldest_pin", fn=_oldest_pin)
+
+LOCK_RANKS.setdefault("mvcc.tso_mu", TsoClient.RANK)
+LOCK_RANKS.setdefault("mvcc.registry_mu", SnapshotRegistry.RANK)

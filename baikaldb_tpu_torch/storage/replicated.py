@@ -27,9 +27,8 @@ recovery path, include/store/region.h:644), so killing a leader mid-workload
 loses nothing committed.
 
 The port's copy of ``baikaldb_tpu/storage/replicated.py``.  The tier's lock
-is a plain reentrant lock where the JAX package has its lockset witness
-(``analysis/runtime.py``, which has no counterpart); its rank, 30, the
-innermost of the write path, stays in the comment at ``self._mu``.  A
+is a reentrant ``GuardedLock`` of rank 30, the innermost of the write path
+(``analysis/runtime.py``).  A
 pushed fragment's cold fold (``region_fragment_rows``) encodes a segment's
 keys in one batch, and a cold flush's value hashes come from
 ``_fnv64_many``, where the JAX package works a row at a time.
@@ -44,6 +43,7 @@ from typing import TYPE_CHECKING, Callable, Optional
 
 import numpy as np
 
+from ..analysis.runtime import LOCK_RANKS, GuardedLock
 from ..chaos import failpoint
 from ..meta.service import SERVING
 from ..raft.cluster import CMD_COLD, RaftGroup
@@ -194,7 +194,8 @@ class ReplicatedRowTier:
         # INNERMOST lock of the write path — TableStore._lock (10) and the
         # binlog retry lock (20) are both held when write_ops lands here,
         # and code under this lock never takes either of them back
-        self._mu = threading.RLock()
+        self._mu = GuardedLock("replicated.tier_mu", rank=self.RANK,
+                               reentrant=True)
 
     @classmethod
     def get_or_create(cls, fleet: "StoreFleet", table_id: int, table_key: str,
@@ -938,3 +939,5 @@ def region_fragment_rows(pairs, manifest, fs, row_codec, key_codec,
             if not row.get("__del"):
                 yield row
 
+
+LOCK_RANKS.setdefault("replicated.tier_mu", ReplicatedRowTier.RANK)

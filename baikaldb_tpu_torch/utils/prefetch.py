@@ -44,7 +44,7 @@ def staged(items: Iterable, stage: Callable,
             put(_DONE)
         # not swallowed: the exception object IS the queue item the
         # consumer re-raises (panic failpoints derive from BaseException)
-        except BaseException as e:
+        except BaseException as e:  # tpulint: disable=BAREEXC
             put(e)
 
     t = threading.Thread(target=run, name=name, daemon=True)

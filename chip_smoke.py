@@ -76,7 +76,8 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    ``swallowed.session.stream_stage`` must stay 0 (no silent fall-back to
    the resident path).  Per query: the first run (the chunk-set build
    included for (b)), the warm wall time (median of 2 runs), device time
-   and idle share of one profiled run, the ``stream`` trace event
+   and idle share of one profiled run (at 1M-row chunks only: a 65536-row
+   run's trace loses kernel records), the ``stream`` trace event
    (``stage_ms``, ``prefetch_wait_ms``, ``bytes_h2d``) and the peak device
    memory; then (b) again at ``streaming_chunk_rows = 1048576``.  Phase 3
    sets ``streaming_scan = 0`` so its numbers stay those of the resident
@@ -409,6 +410,19 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    the resident answer.  Seconds of each scenario; the launches of (i) and
    (iii) are ``launches_wire`` / ``launches_chaos`` in the kernels line.
    ``wire phase seconds``.
+19. The analysis plane's runtime guards (analysis/runtime.py).  (i) Right
+   after phase 18 (i), in phase 3's session over its unchanged rows
+   (``streaming_scan = 0``): (a)-(c) under ``debug_guards = disallow``, 5
+   runs each in turns with 5 at ``off``: 0 transfer, lock and owner trips,
+   the rows equal numpy, each run phase 3's launches; the ``host_read``
+   calls a query (counted by wrapping it) and p50 on and off.  (iii) Then 8
+   threads x 4 prepared D-a through the dispatcher under ``disallow`` with
+   the telemetry poller and the watchdog running: 0 owner and 0 rank trips,
+   answers equal numpy, the segment kernel's lane entry launched.  (ii)
+   After phase 16, in the timed TPC-H session: the 22 queries once each
+   under ``log``, the sync warnings a query (caught on this thread, by the
+   port's file:line) and its host reads.  The launches of (i) and (iii) are
+   ``launches_guards`` in the kernels line.  ``guards phase seconds``.
 
 Phases 5 and 6 run with the default flags, so a query over a table of at
 least ``streaming_min_rows`` rows that the streamed path accepts streams
@@ -1191,11 +1205,13 @@ def stream_counts(gk) -> dict:
                 "swallowed.session.stream_stage").value}
 
 
-def streamed_query(gk, s, q: str, refs, n_chunks: int, reps: int) -> dict:
+def streamed_query(gk, s, q: str, refs, n_chunks: int, reps: int,
+                   profile: bool = True) -> dict:
     """Query ``q`` streamed: the first run traced (its ``stream`` event),
     the numpy check, the launches and chunks of that run against what one
     pass over ``n_chunks`` chunks must give, ``reps`` warm runs, one
-    profiled run of the device, the peak device memory over them."""
+    profiled run of the device (with ``profile``), the peak device memory
+    over them."""
     sql = QUERIES[q]
     torch.cuda.reset_peak_memory_stats()
     before = stream_counts(gk)
@@ -1222,10 +1238,17 @@ def streamed_query(gk, s, q: str, refs, n_chunks: int, reps: int) -> dict:
         torch.cuda.synchronize()
         walls.append((time.perf_counter() - t) * 1e3)
     med = statistics.median(walls)
+    # one profiled run: a streamed run's trace loses a few of its thousands
+    # of kernel records, and profiling it again (up to 3 tries before) ended
+    # "not measured" all the same; at 65,536-row chunks (3,052 kernel
+    # records) every profiled run lost 2-3, so those are not profiled
+    prof = device_breakdown(lambda: s.query(sql), med, host_ops=False, tries=1) if profile \
+        else {"device_ms": None, "idle_share": None, "top_kernels": [], "k2_device_ms": None,
+              "device_ops": None, "kernel_names": [],
+              "device_not_measured": "not profiled: its trace loses kernel records"}
     out = {"chunks": n_chunks, "first_ms": first_ms, "warm_ms": walls, "warm_ms_p50": med,
            "rows_per_s": s.db.stores["default.t"].num_rows / (med / 1e3),
-           "kernel_launches": launched, "stream_event": event, "spans_ms": spans,
-           **device_breakdown(lambda: s.query(sql), med, host_ops=False)}
+           "kernel_launches": launched, "stream_event": event, "spans_ms": spans, **prof}
     out.pop("kernel_names")
     out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     log(f"[stream] ({q}) {n_chunks} chunks: first run {first_ms:.1f} ms, warm p50 {med:.1f} ms "
@@ -1258,7 +1281,8 @@ def streamed_phase(gk, table, refs, observe: dict | None = None) -> tuple[dict, 
         c.reset()
     out = {"chunk_rows": chunk}
     for q in ("b", "c"):
-        out[q] = streamed_query(gk, s, q, refs, -(-rows // chunk), STREAM_REPS)
+        out[q] = streamed_query(gk, s, q, refs, -(-rows // chunk), STREAM_REPS,
+                                profile=False)
     with flag(s, "streaming_chunk_rows", BIG_CHUNK_ROWS):
         out["b_1m"] = streamed_query(gk, s, "b", refs, -(-rows // BIG_CHUNK_ROWS),
                                      STREAM_REPS)
@@ -6258,6 +6282,208 @@ def chaos_part(gk, seed: int) -> tuple[dict, dict, dict]:
     return launches, lanes, out
 
 
+# ----------------------------------------------------------------------
+# phase 19: the analysis plane — the runtime guards on the card
+# (analysis/runtime.py: the sync guard, the ranked locks, the lockset witness)
+
+GUARD_REPS = 5                   # runs of (a)-(c) a side, guards on and off in turns
+GUARD_THREADS = 8                # (iii): threads, each with its own session
+GUARD_PREPARED = 4               # (iii): prepared D-a executes a thread, a barrier each
+
+
+@contextlib.contextmanager
+def counted_host_reads():
+    """Count ``host_read`` calls: every module of the port that imported it
+    gets a counting wrapper for the block -> the live counts ({"n": calls,
+    "sites": {"file:line": calls}}, by the port's calling line)."""
+    from baikaldb_tpu_torch.analysis import runtime as rt
+
+    real, n = rt.host_read, {"n": 0, "sites": {}}
+
+    def counted(*a, **kw):
+        f = sys._getframe(1)
+        where = f.f_code.co_filename.split("baikaldb_tpu_torch/")[-1] + f":{f.f_lineno}"
+        n["n"] += 1
+        n["sites"][where] = n["sites"].get(where, 0) + 1
+        return real(*a, **kw)
+
+    mods = [m for name, m in list(sys.modules.items())
+            if name.startswith("baikaldb_tpu_torch") and m is not None
+            and getattr(m, "host_read", None) is real]
+    for m in mods:
+        m.host_read = counted
+    try:
+        yield n
+    finally:
+        for m in mods:
+            m.host_read = real
+
+
+def guard_trips() -> dict:
+    from baikaldb_tpu_torch.analysis import runtime as rt
+
+    return {"transfer": rt.guard_transfer_trips.value, "lock": rt.guard_lock_trips.value,
+            "owner": rt.guard_owner_trips.value}
+
+
+def guard_part_i(gk, s, refs) -> tuple[dict, dict]:
+    """(i) (a)-(c) over phase 3's 100M rows under ``debug_guards =
+    disallow``, GUARD_REPS runs a side in turns with ``off``: 0 trips, rows
+    equal numpy, phase 3's launches a run, host reads a query."""
+    from baikaldb_tpu_torch.utils.flags import set_flag
+
+    out = {}
+    launches = dict.fromkeys(REPLACES, 0)
+    t0 = time.perf_counter()
+    set_flag("debug_guards", "disallow")     # arms the witness (the static parse)
+    set_flag("debug_guards", "off")
+    out["arm_s"] = time.perf_counter() - t0
+    for q, sql in QUERIES.items():
+        walls = {"off": [], "disallow": []}
+        trips0 = guard_trips()
+        reads, first = [], None
+        for _ in range(GUARD_REPS):
+            for mode in ("off", "disallow"):
+                set_flag("debug_guards", mode)
+                before = all_launches(gk)
+                with counted_host_reads() as n:
+                    torch.cuda.synchronize()
+                    t = time.perf_counter()
+                    rows = s.query(sql)
+                    torch.cuda.synchronize()
+                    walls[mode].append((time.perf_counter() - t) * 1e3)
+                set_flag("debug_guards", "off")
+                got = {k: v - before[k] for k, v in all_launches(gk).items() if v != before[k]}
+                if got != EXPECTED_LAUNCHES[q]:
+                    raise AssertionError(f"[guards] ({q}) under {mode} launched {got}, "
+                                         f"expected {EXPECTED_LAUNCHES[q]}")
+                if mode == "disallow":
+                    reads.append(n["n"])
+                    for k, v in got.items():
+                        launches[k] += v
+                    if first is None:
+                        first = rows
+                        check_query(q, rows, refs)
+        trips = {k: v - trips0[k] for k, v in guard_trips().items()}
+        if any(trips.values()):
+            raise AssertionError(f"[guards] ({q}) tripped the guards under disallow: {trips}")
+        out[q] = {"p50_off_ms": statistics.median(walls["off"]),
+                  "p50_disallow_ms": statistics.median(walls["disallow"]),
+                  "walls_ms": walls, "host_reads": reads, "trips": trips,
+                  "launches": EXPECTED_LAUNCHES[q]}
+        log(f"[guards] ({q}) under disallow: rows equal numpy, 0 trips, launches "
+            f"{EXPECTED_LAUNCHES[q]}, host reads a query {reads}; p50 on / off "
+            f"{out[q]['p50_disallow_ms']:.3f} / {out[q]['p50_off_ms']:.3f} ms")
+    return launches, out
+
+
+def guard_part_ii(s, queries: dict) -> dict:
+    """(ii) each TPC-H query once under ``log`` in the timed TPC-H session:
+    the sync warnings caught on this thread (by file:line of the port's
+    caller) and the host reads, a query."""
+    import warnings
+
+    from baikaldb_tpu_torch.analysis import runtime as rt
+    from baikaldb_tpu_torch.utils.flags import set_flag
+
+    out = {}
+    set_flag("debug_guards", "log")
+    try:
+        for name, sql in queries.items():
+            trips0 = rt.guard_transfer_trips.value
+            with warnings.catch_warnings(record=True) as caught, counted_host_reads() as n:
+                warnings.simplefilter("always")
+                rows = s.query(sql)
+                torch.cuda.synchronize()
+            sites: dict = {}
+            for w in caught:
+                if rt.SYNC_TEXT in str(w.message):
+                    where = w.filename.split("baikaldb_tpu_torch/")[-1] + f":{w.lineno}"
+                    sites[where] = sites.get(where, 0) + 1
+            out[name] = {"rows": len(rows), "host_reads": n["n"], "read_sites": n["sites"],
+                         "sync_warnings": sum(sites.values()), "sites": sites,
+                         "transfer_trips": rt.guard_transfer_trips.value - trips0}
+    finally:
+        set_flag("debug_guards", "off")
+    total, reads = {}, {}
+    for name, v in out.items():
+        for k, c in v["sites"].items():
+            total[k] = total.get(k, 0) + c
+        for k, c in v["read_sites"].items():
+            reads.setdefault(k, {})[name] = c
+    log(f"[guards] TPC-H under log: host reads {sum(v['host_reads'] for v in out.values())} "
+        f"at {reads}, sync warnings {sum(v['sync_warnings'] for v in out.values())} at {total}")
+    return out
+
+
+def guard_part_iii(gk, s, drefs, seed: int) -> tuple[dict, dict]:
+    """(iii) GUARD_THREADS threads x GUARD_PREPARED prepared D-a through the
+    dispatcher under ``disallow``, the telemetry poller and the watchdog
+    running: 0 owner and 0 rank trips, every answer equal numpy, the
+    segment kernel's lane entry launched."""
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.utils.flags import set_flag
+
+    db = s.db
+    form = D_SHAPES["D-a"].replace("{x}", "?")
+    sessions = [Session(db) for _ in range(GUARD_THREADS)]
+    for ss in sessions:
+        ss.execute(f"PREPARE da FROM '{form}'")
+    rng = np.random.default_rng(seed + 19)
+    xs = [[round(float(rng.normal()) * 0.5, 3) for _ in range(GUARD_PREPARED)]
+          for _ in range(GUARD_THREADS)]
+    barrier = threading.Barrier(GUARD_THREADS)
+    got, lat, errs = {}, [], []
+
+    def client(i):
+        try:
+            for k in range(GUARD_PREPARED):
+                barrier.wait(120)
+                t = time.perf_counter()
+                sessions[i].execute(f"SET @x = {xs[i][k]}")
+                got[(i, k)] = sessions[i].execute("EXECUTE da USING @x").to_pylist()
+                lat.append((time.perf_counter() - t) * 1e3)
+        except BaseException as e:      # noqa: BLE001 — re-raised below
+            errs.append(e)
+            barrier.abort()
+
+    trips0 = guard_trips()
+    lanes0, one0 = lane_launches(gk), all_launches(gk)
+    set_flag("debug_guards", "disallow")
+    db.telemetry.start(interval_s=0.02)
+    db.watchdog.start(interval_s=0.02)
+    try:
+        with flag(s, "batch_dispatch_tick_ms", D_TICK_MS):
+            ths = [threading.Thread(target=client, args=(i,)) for i in range(GUARD_THREADS)]
+            t = time.perf_counter()
+            for th in ths:
+                th.start()
+            for th in ths:
+                th.join()
+            wall = time.perf_counter() - t
+    finally:
+        db.telemetry.stop()
+        db.watchdog.stop()
+        set_flag("debug_guards", "off")
+    if errs:
+        raise errs[0]
+    for (i, k), rows in got.items():
+        check_d("D-a", {"x": xs[i][k]}, rows, drefs)
+    trips = {k: v - trips0[k] for k, v in guard_trips().items()}
+    lanes = {k: v - lanes0[k] for k, v in lane_launches(gk).items()}
+    one = {k: v - one0[k] for k, v in all_launches(gk).items()}
+    if trips["owner"] or trips["lock"]:
+        raise AssertionError(f"[guards] the burst tripped the witness or the ranks: {trips}")
+    if not lanes["segment_reduce_lanes"]:
+        raise AssertionError(f"[guards] the burst launched no lane kernel: {lanes}")
+    out = {"threads": GUARD_THREADS, "executes": len(got), "wall_s": wall,
+           "p50_ms": statistics.median(lat), "trips": trips, "lane_launches": lanes,
+           "launches": one}
+    log(f"[guards] burst of {len(got)} prepared D-a under disallow with the poller and the "
+        f"watchdog: trips {trips}, lanes {lanes}, one-lane {one}, p50 {out['p50_ms']:.2f} ms")
+    return {**one, **lanes}, out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--rows", type=int, default=100_000_000)
@@ -6301,6 +6527,13 @@ def main() -> int:
     wire_launches, wire_lanes, wire_stats = wire_part(gk, single, refs, drefs, args.seed)
     phase18 = {"wire": wire_stats}
     wire_s = time.perf_counter() - t0
+    # phase 19 (i) and (iii) in phase 3's session, resident as phase 3 ran
+    t0 = time.perf_counter()
+    p19, guard_launches = {}, {}
+    with flag(single, "streaming_scan", 0):
+        guard_launches["i"], p19["i"] = guard_part_i(gk, single, refs)
+        guard_launches["iii"], p19["iii"] = guard_part_iii(gk, single, drefs, args.seed)
+    guard_s = time.perf_counter() - t0
     t0 = time.perf_counter()
     mesh_launches, mesh_stats = mesh_sql_phase(gk, single, refs)
     mesh_s = time.perf_counter() - t0
@@ -6340,7 +6573,8 @@ def main() -> int:
                          ("observability", obs_launches),
                          ("mesh", mesh_launches), ("versioned", htap_launches),
                          ("lane-batched", lane_counts), ("partitioned", part_launches),
-                         ("lifecycle", {k: lc_launches[k] for k in LIFECYCLE_KERNELS})):
+                         ("lifecycle", {k: lc_launches[k] for k in LIFECYCLE_KERNELS}),
+                         ("guarded", guard_launches["i"])):
         missing = [k for k, n in counts.items() if n == 0]
         if missing:
             raise AssertionError(f"kernels not launched on the {path} path: {missing}")
@@ -6370,6 +6604,10 @@ def main() -> int:
     t0 = time.perf_counter()
     p16 = {"presort": presort_part(s, first), "radix": radix_part(s, first)}
     p16_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    from baikaldb_tpu_torch.models import tpch
+    p19["ii"] = guard_part_ii(s, tpch.QUERIES)
+    phase_s["guards"] = guard_s + time.perf_counter() - t0
     del first
     mesh_launches = {k: n + mesh_tpch_launches[k] for k, n in mesh_launches.items()}
     del s, tables
@@ -6428,6 +6666,7 @@ def main() -> int:
     print(f"replicated phase seconds: {phase_s['replicated']:.1f}", flush=True)
     print(f"cluster phase seconds: {phase_s['cluster']:.1f}", flush=True)
     print(f"wire phase seconds: {phase_s['wire']:.1f}", flush=True)
+    print(f"guards phase seconds: {phase_s['guards']:.1f}", flush=True)
     print("phase seconds: " + json.dumps(phase_s), flush=True)
     script_s = time.perf_counter() - t_main
     print(f"script seconds: {script_s:.1f} (phases {sum(phase_s.values()):.1f}, builds "
@@ -6439,7 +6678,8 @@ def main() -> int:
                 "launches": (launches[k] + stream_launches.get(k, 0) + vector_launches[k]
                              + mesh_launches[k] + htap_launches[k] + part_launches[k]
                              + lc_launches[k] + obs_launches[k] + rep_launches[k]
-                             + cl_launches[k] + wire_launches[k] + chaos_launches[k]),
+                             + cl_launches[k] + wire_launches[k] + chaos_launches[k]
+                             + guard_launches["i"][k] + guard_launches["iii"].get(k, 0)),
                 "launches_resident": launches[k],
                 "launches_streamed": stream_launches.get(k, 0),
                 "launches_vectors": vector_launches[k],
@@ -6452,6 +6692,7 @@ def main() -> int:
                 "launches_cluster": cl_launches[k],
                 "launches_wire": wire_launches[k],
                 "launches_chaos": chaos_launches[k],
+                "launches_guards": guard_launches["i"][k] + guard_launches["iii"].get(k, 0),
                 **times[k],
                 # this kernel on phase 13's pruned batch and on phase 14's
                 # refreshed table
@@ -6471,6 +6712,7 @@ def main() -> int:
                  "launches_observability": obs_lanes[k],
                  "launches_wire": wire_lanes[k],
                  "launches_chaos": chaos_lanes[k],
+                 "launches_guards": guard_launches["iii"].get(k, 0),
                  "max_abs_err": p12["kernels"]["max_abs_err"], **lane_times[k]}
                 for k, base in LANE_KERNELS.items()]
     print(json.dumps({"card": name_power, "rows": args.rows, "phase_s": phase_s,
@@ -6480,7 +6722,7 @@ def main() -> int:
                       "vectors": vector_stats, "mesh": mesh_stats, "htap": htap_stats,
                       "dispatch": p12, "partitions": part_stats, "lifecycle": lc_stats,
                       "observability": obs_stats, "phase16": p16, "phase17": p17,
-                      "phase18": phase18}),
+                      "phase18": phase18, "phase19": p19}),
           flush=True)
     print(name_power, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

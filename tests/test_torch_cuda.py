@@ -2025,3 +2025,154 @@ def test_wire_round_trip_on_the_card_launches_the_kernels(cuda):
         c.close()
     finally:
         srv.stop()
+
+
+# ---- the sync guard on the card (analysis/runtime.py) ----------------------
+
+@pytest.fixture
+def guards():
+    from baikaldb_tpu_torch.analysis import runtime as rt
+    from baikaldb_tpu_torch.utils.flags import set_flag
+
+    yield rt, set_flag
+    set_flag("debug_guards", "off")
+
+
+@pytest.mark.cuda
+def test_guard_item_inside_scope_raises_and_counts_one_trip(cuda, guards):
+    """Under disallow a stray .item() of a CUDA tensor fails inside the
+    torch op itself with one transfer trip; host_read of the same value
+    (and a data-dependent shape through it) passes without one, and so do
+    host->device uploads (a literal, a host column, a host index), which
+    torch's sync debug mode flags too; a swallowed trip still fails the
+    scope at its exit; under log the read passes and counts."""
+    rt, set_flag = guards
+    x = torch.arange(1000, device=cuda)
+    set_flag("debug_guards", "disallow")
+    t0 = rt.guard_transfer_trips.value
+    with pytest.raises(RuntimeError, match="device->host transfer"):
+        with rt.hot_path_guard(cuda):
+            x.sum().item()
+    assert rt.guard_transfer_trips.value == t0 + 1
+    with rt.hot_path_guard(cuda):
+        assert rt.host_read(x.sum()) == 499500
+        tail = rt.host_read(x > 997, torch.nonzero).reshape(-1)
+        assert rt.host_read(x[:3]).tolist() == [0, 1, 2]
+        lit = torch.tensor(0.5, dtype=torch.float64, device=cuda)
+        col = torch.from_numpy(np.arange(7)).to(cuda)
+        picked = x[[1, 2]] + x[torch.tensor([4, 5])]
+        x2 = x.clone()
+        x2[torch.tensor([0, 1])] = 7
+    assert rt.guard_transfer_trips.value == t0 + 1
+    assert tail.tolist() == [998, 999]
+    assert float(lit) == 0.5 and col.tolist() == list(range(7))
+    assert picked.tolist() == [5, 7] and x2[:2].tolist() == [7, 7]
+    with pytest.raises(RuntimeError, match="device->host transfer"):
+        with rt.hot_path_guard(cuda):
+            try:
+                int(x.max())
+            except RuntimeError:
+                pass                    # swallowed: the scope's exit raises
+    assert rt.guard_transfer_trips.value == t0 + 2
+    set_flag("debug_guards", "log")
+    import warnings
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with rt.hot_path_guard(cuda):
+            assert bool(x.any())
+    assert rt.guard_transfer_trips.value == t0 + 3
+    syncs = [w for w in caught if rt.SYNC_TEXT in str(w.message)]
+    assert len(syncs) == 1 and syncs[0].filename == __file__
+    assert torch.cuda.get_sync_debug_mode() == 0      # restored after the scopes
+
+
+@pytest.mark.cuda
+def test_guard_ignores_syncs_of_other_threads(cuda, guards):
+    """The mode is process-wide while a scope is open, but a read made by a
+    thread outside any scope (another session's egress, a poller) neither
+    trips nor fails."""
+    import threading
+
+    rt, set_flag = guards
+    set_flag("debug_guards", "disallow")
+    t0 = rt.guard_transfer_trips.value
+    y = torch.ones(100, device=cuda)
+    inside, done, got = threading.Event(), threading.Event(), []
+
+    def other():
+        inside.wait(30)
+        got.append(y.sum().item())
+        done.set()
+
+    th = threading.Thread(target=other)
+    th.start()
+    with rt.hot_path_guard(cuda):
+        inside.set()
+        assert done.wait(30)
+    th.join()
+    assert got == [100.0] and rt.guard_transfer_trips.value == t0
+
+
+@pytest.mark.cuda
+def test_kernels_and_phase3_queries_inside_the_guard(cuda, guards):
+    """K1-K3 and the segment kernel launch inside an armed scope with no
+    trip, and (a)-(c) run under disallow with their launches and 0 trips."""
+    import pyarrow as pa
+
+    from baikaldb_tpu_torch.exec.session import Session
+    from baikaldb_tpu_torch.ops import segments as seg
+
+    rt, set_flag = guards
+    codes, values, mask = _inputs(1 << 20, 2049, 0.6, 19, cuda)
+    set_flag("debug_guards", "disallow")
+    t0 = rt.guard_transfer_trips.value
+    before = _all_launches()
+    with rt.hot_path_guard(cuda):
+        k1 = gk.filtered_group_sum(codes, values, mask, 2049)
+        k2 = gk.fused_group_aggregate(codes, values, mask, 2049)
+        k3 = gk.partition_histogram(codes, mask, 2049)
+        sg = seg.segment_reduce(values.double(), codes.clamp(0, 16), 17, "sum")
+    assert _moved(before) == {"filtered_group_sum": 1, "fused_group_aggregate": 1,
+                              "partition_histogram": 1, "segment_reduce": 1}
+    assert rt.guard_transfer_trips.value == t0
+    assert torch.equal(k3, gk.partition_histogram_plain(codes, mask, 2049))
+    p1 = gk.filtered_group_sum_plain(codes, values, mask, 2049)
+    p2 = gk.fused_group_aggregate_plain(codes, values, mask, 2049)
+    assert torch.equal(k1[0], p1[0]) and torch.equal(k2[0], p2[0])
+    torch.testing.assert_close(k1[1], p1[1], rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(k2[1], p2[1], rtol=1e-5, atol=1e-5)
+    gid = codes.clamp(0, 16)
+    torch.testing.assert_close(sg, seg.segment_reduce_plain(values.double(), gid, 17, "sum"),
+                               rtol=1e-9, atol=1e-9)
+
+    rng = np.random.default_rng(19)
+    n = 200_000
+    s = Session(device="cuda")
+    s.execute("SET GLOBAL streaming_scan = 0")
+    try:
+        s.execute("CREATE TABLE t (g INT, v FLOAT, w DOUBLE, g16 INT)")
+        s.load_arrow("t", pa.table({"g": rng.integers(0, 2048, n, dtype=np.int32),
+                                    "v": rng.standard_normal(n, dtype=np.float32),
+                                    "w": rng.standard_normal(n),
+                                    "g16": rng.integers(0, 16, n, dtype=np.int32)}))
+        sql = {"a": "SELECT g16, COUNT(*), SUM(v), AVG(v), MIN(v) FROM t "
+                    "WHERE v*2+1 > 0.5 GROUP BY g16 ORDER BY g16",
+               "b": "SELECT g, COUNT(*), SUM(v), AVG(v), MIN(v) FROM t "
+                    "WHERE v*2+1 > 0.5 GROUP BY g ORDER BY g",
+               "c": "SELECT g, SUM(w), AVG(w) FROM t WHERE w > -1 GROUP BY g ORDER BY g"}
+        want = {"a": {"segment_reduce": 8},
+                "b": {"partition_histogram": 1, "fused_group_aggregate": 1},
+                "c": {"filtered_group_sum": 1, "partition_histogram": 1}}
+        set_flag("debug_guards", "off")
+        off = {q: s.query(text) for q, text in sql.items()}
+        set_flag("debug_guards", "disallow")
+        for q, text in sql.items():
+            before = _all_launches()
+            got = s.query(text)
+            assert _moved(before) == want[q], q
+            assert len(got) == len(off[q])
+        assert rt.guard_transfer_trips.value == t0
+        assert any(ln.startswith("-- guards: mode=disallow transfer_trips=")
+                   for ln in s.execute("EXPLAIN ANALYZE " + sql["b"]).plan_text.splitlines())
+    finally:
+        s.execute("SET GLOBAL streaming_scan = 1")

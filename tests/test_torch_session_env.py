@@ -156,15 +156,14 @@ def test_connect_burst_set_forms_match_jax():
 
 
 # SHOW STATUS names by design in one package only: the JAX package's XLA,
-# AOT-cache, transaction-counter and lockset-witness instruments have no
-# counterpart in the port; the port's kernel launch counters none in the
-# JAX package (the wire's connections_total is in both since the port's
-# MySQL server)
+# AOT-cache and transaction-counter instruments have no counterpart in the
+# port; the port's kernel launch counters none in the JAX package (the
+# wire's connections_total is in both since the port's MySQL server, the
+# guards' three trip counters since the port's analysis plane)
 STATUS_JAX_ONLY = {
     "aot_cache_deser_ms", "aot_cache_evictions", "aot_cache_fallbacks", "aot_cache_hits",
     "aot_cache_misses", "aot_cache_peer_fetches", "aot_cache_publishes",
-    "compile_ms", "guard_lock_trips", "guard_owner_trips",
-    "guard_transfer_trips", "shuffle_overflow_retries",
+    "compile_ms", "shuffle_overflow_retries",
     "txn_commits", "txn_rollbacks", "wal_appends", "xla_retraces",
 }
 STATUS_PORT_ONLY = {f"kernel_launches.{k}{lanes}" for lanes in ("", "_lanes") for k in (
