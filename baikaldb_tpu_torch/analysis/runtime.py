@@ -59,12 +59,14 @@ and meta daemons take their locks from here and never load torch.
 
 from __future__ import annotations
 
+import os
 import sys
 import threading
 import warnings
 import contextlib
 from contextlib import contextmanager
 
+from ..obs import trace
 from ..utils import metrics
 from ..utils.flags import FLAGS, define
 
@@ -393,10 +395,33 @@ def host_read(x, op=None):
     on the data (``torch.nonzero``, a boolean-mask gather): the size read
     is the read, and the result stays on the device.  Inside an armed
     ``hot_path_guard`` it lifts the guard for exactly this one read;
-    outside, it is the read itself."""
+    outside, it is the read itself.  Every tensor read counts in
+    ``metrics.host_reads``; with a trace live it is a ``host.read`` span
+    whose ``site`` names the calling line."""
     import torch
     if not isinstance(x, torch.Tensor):
         return x if op is None else op(x)
+    metrics.host_reads.add(1)
+    if not trace.active():
+        return _guarded_read(x, op)
+    with trace.span("host.read", site=_caller_site()):
+        return _guarded_read(x, op)
+
+
+_PKG_DIR = os.path.dirname(os.path.dirname(os.path.abspath(__file__))) + os.sep
+
+
+def _caller_site() -> str:
+    """``path:line`` of ``host_read``'s caller, the path inside the package."""
+    f = sys._getframe(2)
+    path = f.f_code.co_filename
+    if path.startswith(_PKG_DIR):
+        path = path[len(_PKG_DIR):]
+    return f"{path}:{f.f_lineno}"
+
+
+def _guarded_read(x, op):
+    """The read, with an armed guard lifted around it."""
     if getattr(_tls, "depth", 0) <= 0:
         return _read(x, op)
     global _lifted

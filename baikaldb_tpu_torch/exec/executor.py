@@ -53,6 +53,14 @@ A join's build side, an EXISTS-with-<> build and a sorted GROUP BY take the
 host presort permutation the session staged for them (``presort_input``, a
 ``__presort__`` key of the batches) in place of a device sort, as the JAX
 executor does (``_presort_order``).
+
+With a trace live (obs/trace.py), each executed node is one ``op.*`` span
+under the caller's span (``exec.run``): its children are evaluated before
+it opens, so the spans are flat and exclusive.  Its attributes are what the
+host already knows (the strategy, the input rows), and on a CUDA device the
+span also records its device interval.  ``ShrinkNode``, a memoised copy of
+a derived table and a streamed scan's folded result are pass-throughs and
+record none.  With no trace live no span is built.
 """
 
 from __future__ import annotations
@@ -70,7 +78,7 @@ from ..column.batch import Column, ColumnBatch, concat_batches
 from ..column.dictionary import Dictionary
 from ..expr.compile import cast_column, eval_output, eval_predicate
 from ..expr.params import PARAMS_KEY, bind_params
-from ..obs import progress
+from ..obs import progress, trace
 from ..ops import join as join_ops
 from ..ops.compact import compact, head
 from ..ops.hashagg import (group_aggregate_dense, group_aggregate_sorted,
@@ -108,9 +116,11 @@ class ExecError(RuntimeError):
 class Ctx:
     """One run's state: its device (and mesh), the derived-table batches
     evaluated so far (``derived_key`` -> batch), the executed exchanges
-    ((ExchangeNode | JoinNode | MultiJoinNode | site name, rows) pairs) and,
+    ((ExchangeNode | JoinNode | MultiJoinNode | site name, rows) pairs),
     when EXPLAIN ANALYZE counts, each node's live output rows (``id(node)``
-    -> 0-d tensor, summed over the shards of a sharded value)."""
+    -> 0-d tensor, summed over the shards of a sharded value), whether a
+    trace was live when the run started (one ``op.*`` span a node), and on
+    a CUDA device the stream on which the spans record their intervals."""
 
     device: torch.device
     mesh: Optional[Mesh] = None
@@ -118,6 +128,8 @@ class Ctx:
     memo: dict = field(default_factory=dict)
     exchanges: list = field(default_factory=list)
     counts: Optional[dict] = None
+    traced: bool = False
+    stream: object = None
 
 
 def device_params(values, device) -> tuple:
@@ -140,7 +152,10 @@ def compile_plan(plan: PlanNode, device, mesh: Optional[Mesh] = None,
     device = torch.device(device)
 
     def run(batches: dict) -> ColumnBatch:
-        ctx = Ctx(device, mesh, batches, counts={} if count_rows else None)
+        traced = trace.active()
+        ctx = Ctx(device, mesh, batches, counts={} if count_rows else None, traced=traced,
+                  stream=torch.cuda.current_stream(device)
+                  if traced and device.type == "cuda" else None)
         run.exchanges = ctx.exchanges
         params = batches.get(PARAMS_KEY)
         with bind_params(device_params(params, device) if params is not None else ()):
@@ -224,16 +239,24 @@ def _eval(node: PlanNode, batches: dict, ctx: Ctx):
 
 
 def _eval_node(node: PlanNode, batches: dict, ctx: Ctx):
-    if isinstance(node, ScanNode):
-        return _each(batches[node.table_key], lambda b: _scan(node, b))
     if isinstance(node, StreamResultNode):
         # the chunk-folded aggregate's finalized batch (exec/streaming.py)
         return batches[node.key]
-    if isinstance(node, ValuesNode):
-        empty = ColumnBatch((), [], None, None, device=ctx.device)
-        cols = [_broadcast(eval_output(e, empty), 1) for e in node.exprs[0]]
-        return ColumnBatch(tuple(node.names), cols, device=ctx.device)
-    kids = [_eval(c, batches, ctx) for c in node.children]
+    # a scan's one input is its table's batch
+    kids = [batches[node.table_key]] if isinstance(node, ScanNode) else \
+        [_eval(c, batches, ctx) for c in node.children]
+    if not ctx.traced or isinstance(node, ShrinkNode):
+        return _run_node(node, kids, ctx)
+    name, attrs = _op_span(node, kids, ctx)
+    with trace.span(name, ctx.stream, **attrs):
+        return _run_node(node, kids, ctx)
+
+
+def _run_node(node: PlanNode, kids: list, ctx: Ctx):
+    """``node`` over its evaluated children: its collective on a mesh, or
+    its single-device code on every shard, or on the one device."""
+    if isinstance(node, ScanNode):
+        return _each(kids[0], lambda b: _scan(node, b))
     mesh = ctx.mesh
     if mesh is not None and any(isinstance(k, ShardedBatch) for k in kids):
         out = _mesh_node(node, kids, ctx)
@@ -242,6 +265,43 @@ def _eval_node(node: PlanNode, batches: dict, ctx: Ctx):
         return ShardedBatch([_apply(node, [shard_of(k, i, mesh) for k in kids], ctx)
                              for i in range(mesh.size)])
     return _apply(node, kids, ctx)
+
+
+_OP_NAMES = {ScanNode: "op.scan", FilterNode: "op.filter", ProjectNode: "op.project",
+             JoinNode: "op.join", MultiJoinNode: "op.join", MembershipNode: "op.membership",
+             ScalarSourceNode: "op.scalar", AggNode: "op.agg", DistinctNode: "op.distinct",
+             SortNode: "op.sort", LimitNode: "op.limit", WindowNode: "op.window",
+             UnionNode: "op.union", ValuesNode: "op.values", ExchangeNode: "op.exchange"}
+
+
+def _rows(value) -> int:
+    """Rows of a batch or of every shard of a sharded value (its shapes,
+    no device read)."""
+    if isinstance(value, ShardedBatch):
+        return sum(len(b) for b in value.shards)
+    return len(value)
+
+
+def _op_span(node: PlanNode, kids: list, ctx: Ctx) -> tuple:
+    """The ``op.*`` span name of ``node`` and its attributes: the strategy
+    where the node has several, and the input rows, all known on the host."""
+    name = _OP_NAMES[type(node)]
+    attrs = {"rows": _rows(kids[0])} if kids else {}
+    if isinstance(node, ScanNode):
+        attrs["table"] = node.table_key
+    elif isinstance(node, JoinNode):
+        attrs.update(strategy=_join_route(node, kids[1], ctx), how=node.how,
+                     build=_rows(kids[1]))
+    elif isinstance(node, MultiJoinNode):
+        attrs.update(strategy="multiway", builds=len(kids) - 1)
+    elif isinstance(node, AggNode):
+        attrs["strategy"] = "scalar" if not node.key_names else \
+            "dense" if node.strategy == "dense" else "sorted"
+    elif isinstance(node, ExchangeNode):
+        attrs["kind"] = node.kind
+    elif isinstance(node, UnionNode):
+        attrs["arms"] = len(kids)
+    return name, attrs
 
 
 def _scan(node: ScanNode, b: ColumnBatch) -> ColumnBatch:
@@ -265,8 +325,36 @@ def _presort_order(node, ctx: Ctx, expected_len: int):
     return order
 
 
+def _join_route(node: JoinNode, right, ctx: Ctx) -> str:
+    """How a binary join runs: ``cross``, ``neq`` (EXISTS with one <>),
+    ``dense`` (PK-FK over the key domain), ``radix`` or ``sort``.  The radix
+    join takes the JAX executor's gate: a presorted or planner-sorted build
+    side, or float keys, keep the sort join."""
+    if node.how == "cross":
+        return "cross"
+    if node.neq is not None and node.how in ("semi", "anti"):
+        return "neq"
+    if node.strategy == "dense":
+        return "dense"
+    if isinstance(right, ShardedBatch):     # the span's attribute: shard 0 decides
+        right = right.shards[0]
+    nb = int(FLAGS.radix_join_buckets)
+    if nb >= 2 and nb & (nb - 1) == 0 and not getattr(node, "build_sorted", False) \
+            and len(right) >= int(FLAGS.radix_join_min_build) \
+            and _presort_order(node, ctx, len(right)) is None \
+            and not any(right.column(k).ltype.is_float
+                        for k in node.right_keys if k in right.names):
+        return "radix"
+    return "sort"
+
+
 def _apply(node: PlanNode, kids: list, ctx: Ctx) -> ColumnBatch:
     """``node`` over its evaluated children, on one device (one shard)."""
+    if isinstance(node, ValuesNode):
+        empty = ColumnBatch((), [], None, None, device=ctx.device)
+        cols = [_broadcast(eval_output(e, empty), 1) for e in node.exprs[0]]
+        return ColumnBatch(tuple(node.names), cols, device=ctx.device)
+
     if isinstance(node, FilterNode):
         return kids[0].and_sel(eval_predicate(node.pred, kids[0]))
 
@@ -282,38 +370,32 @@ def _apply(node: PlanNode, kids: list, ctx: Ctx) -> ColumnBatch:
 
     if isinstance(node, JoinNode):
         left, right = kids
-        if node.how == "cross":
+        route = _join_route(node, right, ctx)
+        if route == "cross":
             out, rows = join_ops.cross_join(left, right)
-        elif node.neq is not None and node.how in ("semi", "anti"):
+        elif route == "neq":
             # EXISTS + one <> residual: range counts, no expansion
             out, rows = join_ops.semi_join_neq(left, node.left_keys, right,
                                                node.right_keys, node.neq[0],
                                                node.neq[1], how=node.how,
                                                order=_presort_order(node, ctx, len(right)))
-        elif node.strategy == "dense":
+        elif route == "dense":
             # unique-build PK-FK join: scatter/gather over the dense key
             # domain(s); the output keeps the probe's rows
             out, rows = join_ops.dense_join(left, node.left_keys, right,
                                             node.right_keys, list(node.dense_lo),
                                             list(node.dense_span), how=node.how)
+        elif route == "radix":
+            out, rows, _ = join_ops.radix_join(
+                left, node.left_keys, right, node.right_keys, how=node.how,
+                wide_keys_ok=getattr(node, "pack32_verified", False),
+                n_buckets=int(FLAGS.radix_join_buckets))
         else:
-            nb = int(FLAGS.radix_join_buckets)
-            presort = _presort_order(node, ctx, len(right))
-            float_keys = any(right.column(k).ltype.is_float
-                             for k in node.right_keys if k in right.names)
-            # the JAX executor's gate: a presorted or planner-sorted build
-            # side, or float keys, keep the sort join
-            if nb >= 2 and nb & (nb - 1) == 0 and presort is None and not float_keys \
-                    and not getattr(node, "build_sorted", False) \
-                    and len(right) >= int(FLAGS.radix_join_min_build):
-                out, rows, _ = join_ops.radix_join(
-                    left, node.left_keys, right, node.right_keys, how=node.how,
-                    wide_keys_ok=getattr(node, "pack32_verified", False), n_buckets=nb)
-            else:
-                out, rows = join_ops.join(
-                    left, node.left_keys, right, node.right_keys, how=node.how,
-                    wide_keys_ok=getattr(node, "pack32_verified", False),
-                    build_sorted=getattr(node, "build_sorted", False), order=presort)
+            out, rows = join_ops.join(
+                left, node.left_keys, right, node.right_keys, how=node.how,
+                wide_keys_ok=getattr(node, "pack32_verified", False),
+                build_sorted=getattr(node, "build_sorted", False),
+                order=_presort_order(node, ctx, len(right)))
         if ctx.mesh is not None and any(isinstance(c, ExchangeNode)
                                         and c.kind == "repartition"
                                         for c in node.children):

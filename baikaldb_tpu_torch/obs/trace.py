@@ -18,6 +18,14 @@ This module is that attribution:
   always-keep override for queries slower than ``slow_query_ms`` — spans
   record while a trace is live and the keep/drop decision lands at root
   close, so a slow query is never lost to the sampler.
+- A span given a CUDA stream (``span(name, stream)``; the executor's
+  ``op.*`` spans) also records a pair of CUDA events on that stream.  At
+  the root's close, once the result is on the host, one anchor event is
+  recorded and waited for, and each pair of a kept trace becomes the
+  attributes ``dev_ts_us`` (the interval's start on the wall clock, the
+  clock of ``ts_us`` and of the profiler's device trace) and ``dev_ms``
+  (its length on the device).  A trace that is not kept drops its pairs
+  unread.  Span starts and ends all read ``time.time_ns()``.
 - Kept traces land in a bounded in-memory store (``TRACER``), surfaced by
   SHOW PROFILES / SHOW PROFILE [FOR QUERY n], the
   ``information_schema.trace_spans`` virtual table, and
@@ -60,7 +68,8 @@ define("trace_sample_n", 1,
        "slow queries (> slow_query_ms) are always kept regardless")
 define("trace_store_max", 128,
        "bounded in-memory trace store: kept traces beyond this evict "
-       "oldest-first (their spans count in metrics.trace_spans_dropped)")
+       "oldest-first (they count in metrics.traces_dropped, their spans in "
+       "metrics.trace_spans_dropped)")
 define("trace_max_spans", 512,
        "per-trace span cap; spans beyond it drop (counted in "
        "metrics.trace_spans_dropped) so a pathological statement cannot "
@@ -77,10 +86,6 @@ def _refresh(value=None) -> None:
 
 _refresh()
 FLAGS.on_change("tracing", _refresh)
-
-
-def on() -> bool:
-    return _ON
 
 
 # span ids only need uniqueness within one trace; the pid tag keeps ids
@@ -101,7 +106,7 @@ class _Ctx:
     RPC handler thread that adopted it)."""
 
     __slots__ = ("trace_id", "span_id", "buf", "n", "dropped", "sampled",
-                 "force", "keep", "max_spans", "node")
+                 "force", "keep", "max_spans", "node", "dev")
 
     def __init__(self, trace_id: str, parent: str = "", sampled: bool = True,
                  force: bool = False, node: str = ""):
@@ -115,19 +120,67 @@ class _Ctx:
         self.keep = True
         self.max_spans = max(16, int(FLAGS.trace_max_spans))
         self.node = node
+        # (attrs, stream, start event, end event) of each recorded span
+        # with a device interval, resolved at the root's close
+        self.dev: list = []
 
 
 _CUR: contextvars.ContextVar[Optional[_Ctx]] = \
     contextvars.ContextVar("baikal_trace", default=None)
 
 
-def _record(ctx: _Ctx, rec: dict) -> None:
+def _record(ctx: _Ctx, rec: dict) -> bool:
     if ctx.n >= ctx.max_spans:
         ctx.dropped += 1
         metrics.trace_spans_dropped.add(1)
-        return
+        return False
     ctx.n += 1
     ctx.buf.append(rec)
+    return True
+
+
+# free timing events by device index: making and freeing one is a driver
+# call each, so a traced statement's events go back here once read
+_EVENTS: dict = {}
+_EVENTS_MAX = 4096
+
+
+def _device_event(stream):
+    """A timing CUDA event recorded now on ``stream``."""
+    import torch
+
+    try:
+        ev = _EVENTS[stream.device_index].pop()
+    except (KeyError, IndexError):
+        ev = torch.cuda.Event(enable_timing=True)
+    ev.record(stream)
+    return ev
+
+
+def _release(stream, events) -> None:
+    free = _EVENTS.setdefault(stream.device_index, [])
+    if len(free) < _EVENTS_MAX:
+        free.extend(events)
+
+
+def _resolve(pairs: list) -> None:
+    """Put each recorded device interval on the wall clock: one anchor event
+    a stream, recorded behind all the trace's work and waited for (the
+    result is on the host by now, so the wait is short), read against
+    ``time.time_ns`` when it is reached."""
+    anchors = {}
+    for _, stream, _, _ in pairs:
+        if stream not in anchors:
+            ev = _device_event(stream)
+            ev.synchronize()
+            anchors[stream] = (ev, time.time_ns() / 1e3)
+    for attrs, stream, start, end in pairs:
+        anchor, t_us = anchors[stream]
+        attrs["dev_ts_us"] = t_us - start.elapsed_time(anchor) * 1e3
+        attrs["dev_ms"] = round(start.elapsed_time(end), 4)
+        _release(stream, (start, end))
+    for stream, (anchor, _) in anchors.items():
+        _release(stream, (anchor,))
 
 
 class _Noop:
@@ -149,20 +202,22 @@ _NOOP = _Noop()
 
 
 class _Span:
-    __slots__ = ("ctx", "name", "attrs", "sid", "parent", "t0", "ts")
+    __slots__ = ("ctx", "name", "attrs", "sid", "parent", "t0", "stream", "ev")
 
-    def __init__(self, ctx: _Ctx, name: str, attrs: dict):
+    def __init__(self, ctx: _Ctx, name: str, attrs: dict, stream=None):
         self.ctx = ctx
         self.name = name
         self.attrs = attrs
+        self.stream = stream
 
     def __enter__(self):
         ctx = self.ctx
         self.parent = ctx.span_id
         self.sid = _new_sid()
         ctx.span_id = self.sid
-        self.ts = time.time() * 1e6
-        self.t0 = time.perf_counter()
+        self.t0 = time.time_ns()
+        if self.stream is not None:
+            self.ev = _device_event(self.stream)
         return self
 
     def set(self, **attrs):
@@ -172,24 +227,28 @@ class _Span:
     def __exit__(self, et, ev, tb):
         ctx = self.ctx
         ctx.span_id = self.parent
+        end = _device_event(self.stream) if self.stream is not None else None
+        t1 = time.time_ns()
         if et is not None:
             self.attrs.setdefault("error", et.__name__)
-        _record(ctx, {"span_id": self.sid, "parent_id": self.parent,
-                      "name": self.name, "ts_us": self.ts,
-                      "dur_ms": round((time.perf_counter() - self.t0) * 1e3,
-                                      4),
-                      "node": ctx.node, "attrs": self.attrs})
+        if _record(ctx, {"span_id": self.sid, "parent_id": self.parent,
+                         "name": self.name, "ts_us": self.t0 / 1e3,
+                         "dur_ms": round((t1 - self.t0) / 1e6, 4),
+                         "node": ctx.node, "attrs": self.attrs}) and end is not None:
+            ctx.dev.append((self.attrs, self.stream, self.ev, end))
         return False
 
 
-def span(name: str, /, **attrs):
+def span(name: str, stream=None, /, **attrs):
     """A child span of the active trace; the no-op singleton when no trace
     is live (one contextvar read — safe on any host path, any frequency).
-    ``name`` is positional-only so attrs may freely use any keyword."""
+    A CUDA ``stream`` also records the span's interval on it (``dev_ts_us``
+    / ``dev_ms``, resolved at the root's close).  ``name`` and ``stream``
+    are positional-only so attrs may freely use any keyword."""
     ctx = _CUR.get()
     if ctx is None:
         return _NOOP
-    return _Span(ctx, name, attrs)
+    return _Span(ctx, name, attrs, stream)
 
 
 def active() -> bool:
@@ -205,7 +264,7 @@ def event(name: str, /, **attrs) -> None:
     if ctx is None:
         return
     _record(ctx, {"span_id": _new_sid(), "parent_id": ctx.span_id,
-                  "name": name, "ts_us": time.time() * 1e6, "dur_ms": 0.0,
+                  "name": name, "ts_us": time.time_ns() / 1e3, "dur_ms": 0.0,
                   "node": ctx.node, "attrs": attrs})
 
 
@@ -223,7 +282,7 @@ class _Root:
     session both call root(); whichever runs first owns the trace)."""
 
     __slots__ = ("kind", "text", "force", "ctx", "token", "inner",
-                 "trace_id", "query_id", "t0", "ts")
+                 "trace_id", "query_id", "t0")
 
     def __init__(self, kind: str, text: str, force: bool):
         self.kind = kind
@@ -258,8 +317,7 @@ class _Root:
         self.ctx = _Ctx(self.trace_id, sampled=sampled, force=self.force)
         self.ctx.span_id = _new_sid()      # children reference the root span
         self.token = _CUR.set(self.ctx)
-        self.ts = time.time() * 1e6
-        self.t0 = time.perf_counter()
+        self.t0 = time.time_ns()
         return self
 
     def set(self, **attrs):
@@ -271,18 +329,26 @@ class _Root:
         if self.inner is not None:
             return self.inner.__exit__(et, ev, tb)
         ctx = self.ctx
-        dur_ms = (time.perf_counter() - self.t0) * 1e3
+        dur_ms = (time.time_ns() - self.t0) / 1e6
         attrs = {"text": self.text} if self.text else {}
         if et is not None:
             attrs["error"] = et.__name__
         _record(ctx, {"span_id": ctx.span_id, "parent_id": "",
-                      "name": self.kind, "ts_us": self.ts,
+                      "name": self.kind, "ts_us": self.t0 / 1e3,
                       "dur_ms": round(dur_ms, 4), "node": ctx.node,
                       "attrs": attrs})
         _CUR.reset(self.token)
         slow = dur_ms > float(FLAGS.slow_query_ms)
         if ctx.keep and (ctx.sampled or ctx.force or slow):
+            if ctx.dev:
+                _resolve(ctx.dev)
             self.query_id = TRACER.store(self.kind, self.text, ctx, dur_ms)
+        else:
+            if ctx.keep:
+                metrics.traces_dropped.add(1)   # sampled out
+            for _, stream, start, end in ctx.dev:
+                _release(stream, (start, end))
+        ctx.dev = []
         return False
 
 
@@ -374,6 +440,7 @@ class Tracer:
             cap = max(1, int(FLAGS.trace_store_max))
             while len(self._traces) > cap:
                 _, old = self._traces.popitem(last=False)
+                metrics.traces_dropped.add(1)
                 metrics.trace_spans_dropped.add(len(old["spans"]))
         metrics.traces_sampled.add(1)
         return qid
@@ -387,13 +454,6 @@ class Tracer:
             if not self._traces:
                 return None
             return next(reversed(self._traces.values()))
-
-    def by_trace(self, trace_id: str) -> Optional[dict]:
-        with self._mu:
-            for rec in reversed(self._traces.values()):
-                if rec["trace_id"] == trace_id:
-                    return rec
-        return None
 
     def list(self) -> list[dict]:
         with self._mu:

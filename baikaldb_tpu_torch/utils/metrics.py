@@ -536,6 +536,11 @@ query_latency = LatencyRecorder("query_latency")
 swallowed_exceptions = Counter("swallowed_exceptions")
 traces_sampled = Counter("traces_sampled")
 trace_spans_dropped = Counter("trace_spans_dropped")
+# traces the store does not keep: sampled out at the root's close, or
+# evicted past trace_store_max (obs/trace.py)
+traces_dropped = Counter("traces_dropped")
+# sanctioned device->host reads (analysis/runtime.py host_read), traced or not
+host_reads = Counter("host_reads")
 multiway_joins_fused = Counter("multiway_joins_fused")
 eqclass_consts_pushed = Counter("eqclass_consts_pushed")
 agg_strategy_local = Counter("agg_strategy_local")

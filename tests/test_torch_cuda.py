@@ -384,6 +384,39 @@ def test_analytic_query_on_the_card_matches_the_cpu(tpch_pair, name):
     assert diff is None, diff
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["q3", "q18", "q21"])
+def test_op_spans_carry_device_intervals_inside_the_root(tpch_pair, name):
+    """With tracing on, every ``op.*`` span of a query on the card carries
+    its device interval (``dev_ts_us``, ``dev_ms``); the intervals follow
+    one another without overlap and lie inside the root span's wall-clock
+    interval."""
+    from baikaldb_tpu_torch.models import tpch
+    from baikaldb_tpu_torch.obs import trace
+
+    gpu, _ = tpch_pair
+    sql = tpch.QUERIES[name]
+    gpu.query(sql)
+    trace.TRACER.clear()
+    gpu.execute("SET GLOBAL tracing = 1")
+    try:
+        gpu.query(sql)
+    finally:
+        gpu.execute("SET GLOBAL tracing = 0")
+    rec = [t for t in trace.TRACER.list() if t["text"] == sql][-1]
+    trace.TRACER.clear()
+    root = next(s for s in rec["spans"] if not s["parent_id"])
+    ops = [s["attrs"] for s in rec["spans"] if s["name"].startswith("op.")]
+    assert ops and all(a["dev_ms"] >= 0 for a in ops)
+    ivs = sorted((a["dev_ts_us"], a["dev_ts_us"] + a["dev_ms"] * 1e3) for a in ops)
+    slack = 1.0         # us: the events' resolution and the float microseconds
+    assert all(e0 <= s1 + slack for (_, e0), (s1, _) in zip(ivs, ivs[1:]))
+    assert root["ts_us"] <= ivs[0][0]
+    assert ivs[-1][1] <= root["ts_us"] + root["dur_ms"] * 1e3
+    reads = [s for s in rec["spans"] if s["name"] == "host.read"]
+    assert all(s["attrs"]["site"].endswith(tuple("0123456789")) for s in reads)
+
+
 # -- windows, sketches and builtins on the card against the CPU ---------------
 # Window SUM/AVG: |card - CPU| <= 1e-9 * sum(|x|) over the input column (one
 # prefix sum over the whole column); percentiles and floating builtins to

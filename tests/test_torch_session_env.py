@@ -157,9 +157,10 @@ def test_connect_burst_set_forms_match_jax():
 
 # SHOW STATUS names by design in one package only: the JAX package's XLA,
 # AOT-cache and transaction-counter instruments have no counterpart in the
-# port; the port's kernel launch counters none in the JAX package (the
-# wire's connections_total is in both since the port's MySQL server, the
-# guards' three trip counters since the port's analysis plane)
+# port; the port's kernel launch counters, its count of host reads and of
+# the traces its store drops none in the JAX package (the wire's
+# connections_total is in both since the port's MySQL server, the guards'
+# three trip counters since the port's analysis plane)
 STATUS_JAX_ONLY = {
     "aot_cache_deser_ms", "aot_cache_evictions", "aot_cache_fallbacks", "aot_cache_hits",
     "aot_cache_misses", "aot_cache_peer_fetches", "aot_cache_publishes",
@@ -167,7 +168,8 @@ STATUS_JAX_ONLY = {
     "txn_commits", "txn_rollbacks", "wal_appends", "xla_retraces",
 }
 STATUS_PORT_ONLY = {f"kernel_launches.{k}{lanes}" for lanes in ("", "_lanes") for k in (
-    "filtered_group_sum", "fused_group_aggregate", "partition_histogram", "segment_reduce")}
+    "filtered_group_sum", "fused_group_aggregate", "partition_histogram", "segment_reduce")} \
+    | {"host_reads", "traces_dropped"}
 # made on first touch by whatever ran before in the process
 _LAZY = ("swallowed.", "failpoint.", "test_")
 # counters both packages move over the same statements
