@@ -204,8 +204,7 @@ def _shift_keys(b: ColumnBatch, shift: dict, sign: int) -> ColumnBatch:
     for kn, mn in shift.items():
         i = b.names.index(kn)
         c = cols[i]
-        cols[i] = dreplace(c, data=c.data + torch.tensor(sign * mn, dtype=c.data.dtype,
-                                                         device=c.data.device))
+        cols[i] = dreplace(c, data=c.data + sign * mn)
     return dreplace(b, columns=cols)
 
 
@@ -295,6 +294,8 @@ def _op_span(node: PlanNode, kids: list, ctx: Ctx) -> tuple:
     elif isinstance(node, MultiJoinNode):
         attrs.update(strategy="multiway", builds=len(kids) - 1)
     elif isinstance(node, AggNode):
+        # a dense GROUP BY's ``route`` is set by the code that takes it
+        # (ops/hashagg.py group_aggregate_dense, through trace.annotate)
         attrs["strategy"] = "scalar" if not node.key_names else \
             "dense" if node.strategy == "dense" else "sorted"
     elif isinstance(node, ExchangeNode):

@@ -106,7 +106,7 @@ class _Ctx:
     RPC handler thread that adopted it)."""
 
     __slots__ = ("trace_id", "span_id", "buf", "n", "dropped", "sampled",
-                 "force", "keep", "max_spans", "node", "dev")
+                 "force", "keep", "max_spans", "node", "dev", "open")
 
     def __init__(self, trace_id: str, parent: str = "", sampled: bool = True,
                  force: bool = False, node: str = ""):
@@ -123,6 +123,7 @@ class _Ctx:
         # (attrs, stream, start event, end event) of each recorded span
         # with a device interval, resolved at the root's close
         self.dev: list = []
+        self.open: Optional[_Span] = None    # the innermost open span
 
 
 _CUR: contextvars.ContextVar[Optional[_Ctx]] = \
@@ -202,7 +203,7 @@ _NOOP = _Noop()
 
 
 class _Span:
-    __slots__ = ("ctx", "name", "attrs", "sid", "parent", "t0", "stream", "ev")
+    __slots__ = ("ctx", "name", "attrs", "sid", "parent", "outer", "t0", "stream", "ev")
 
     def __init__(self, ctx: _Ctx, name: str, attrs: dict, stream=None):
         self.ctx = ctx
@@ -213,8 +214,10 @@ class _Span:
     def __enter__(self):
         ctx = self.ctx
         self.parent = ctx.span_id
+        self.outer = ctx.open
         self.sid = _new_sid()
         ctx.span_id = self.sid
+        ctx.open = self
         self.t0 = time.time_ns()
         if self.stream is not None:
             self.ev = _device_event(self.stream)
@@ -227,6 +230,7 @@ class _Span:
     def __exit__(self, et, ev, tb):
         ctx = self.ctx
         ctx.span_id = self.parent
+        ctx.open = self.outer
         end = _device_event(self.stream) if self.stream is not None else None
         t1 = time.time_ns()
         if et is not None:
@@ -255,6 +259,15 @@ def active() -> bool:
     """True when a trace is live (one contextvar read) — lets callers skip
     building span batches whose every member would be the no-op."""
     return _CUR.get() is not None
+
+
+def annotate(**attrs) -> None:
+    """Set ``attrs`` on the innermost open span of the active trace (none
+    live or no span open: nothing) — for what only the code under a span
+    knows, such as the route a dense GROUP BY took under its ``op.agg``."""
+    ctx = _CUR.get()
+    if ctx is not None and ctx.open is not None:
+        ctx.open.attrs.update(attrs)
 
 
 def event(name: str, /, **attrs) -> None:

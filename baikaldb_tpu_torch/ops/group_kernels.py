@@ -63,7 +63,7 @@ AGG_LANE_MAX = 4                  # lanes one block of K2's lane kernel carries
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 SOURCES = {name: os.path.join(_HERE, "csrc", f"{name}.cu")
-           for name in ("group_agg", "segments")}
+           for name in ("group_agg", "segments", "dense_agg")}
 SOURCE = SOURCES["group_agg"]
 BUILD_DIR = os.path.join(os.path.dirname(_HERE), "_build")
 # nvcc options of one source beyond the common ones: segments.cu's many

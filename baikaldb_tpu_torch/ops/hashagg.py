@@ -12,7 +12,10 @@ of ops/group_kernels.py instead; on a CPU batch those run their plain
 versions, so the same assembly code (float32 sums, int64 counts, ``nonempty``
 validity, casts) runs on either device.  The ``present`` mask of a dense
 group-by comes, on the card, from the segment kernel under the gate and
-from K3 above it (``_present_histogram``).
+from K3 above it (``_present_histogram``).  On the card, a wider group-by
+that K1-K3 decline takes every COUNT/SUM/AVG/MIN/MAX in one launch of the
+wide kernel (``dense_group_agg``, ops/dense_agg.py), ``present`` included;
+``dense_route`` names the route from the input alone.
 
 Keys without a dense domain take the sort-based group-by.  COUNT/SUM/AVG
 (DISTINCT ...) sort and count boundaries, scalar and per group.
@@ -40,15 +43,17 @@ from typing import Optional
 import torch
 
 from ..column.batch import Column, ColumnBatch, dtype_max, dtype_min
+from ..obs import trace
 from ..types import LType
 from ..utils.flags import FLAGS
 from ..utils.hashing import GOLDEN, hash_columns, mix32
+from . import dense_agg
 from .compact import stable_partition
 from .group_kernels import (MAX_GROUPS, filtered_group_sum, filtered_group_sum_lanes,
                             fused_group_aggregate, fused_group_aggregate_lanes,
                             partition_histogram, partition_histogram_lanes)
-from .segments import (max_segments, seg_max, seg_max_lanes, seg_min, seg_min_lanes,
-                       seg_sum, seg_sum_lanes)
+from .segments import (MAX_SEGMENTS, max_segments, seg_max, seg_max_lanes, seg_min,
+                       seg_min_lanes, seg_sum, seg_sum_lanes)
 
 
 def agg_result_type(op: str, input_type: LType) -> LType:
@@ -63,6 +68,9 @@ def agg_result_type(op: str, input_type: LType) -> LType:
         return input_type
     raise ValueError(f"unknown aggregate {op}")
 
+
+# the aggregates of the group-by kernels (K1-K3, the lanes, the wide route)
+LANE_AGGS = frozenset({"count_star", "count", "sum", "avg", "min", "max"})
 
 # aggregates whose state cannot merge as a single partial lane
 ROW_AGGS = {"approx_count_distinct", "percentile"}
@@ -268,31 +276,147 @@ def dense_num_groups(domains: list[int]) -> int:
 
 def group_aggregate_dense(batch: ColumnBatch, key_names: list[str],
                           domains: list[int], specs: list[AggSpec]) -> ColumnBatch:
-    """GROUP BY over dense-coded keys: one segment reduction per aggregate
-    (or one kernel per value column, see ``dense_kernel_cols``).
+    """GROUP BY over dense-coded keys by the route of ``dense_route``: one
+    segment reduction per aggregate, one kernel per value column (see
+    ``dense_kernel_cols``), or one kernel for every aggregate
+    (``dense_group_agg``).
 
     Output capacity = prod(domain+1); absent groups are masked via sel."""
     dev = batch.device
     key_cols = [batch.column(k) for k in key_names]
     ng = dense_num_groups(domains)
     gid = combined_dense_id(key_cols, domains)
-    sel = batch.sel_mask()
-    gid_live = torch.where(sel, gid, ng)  # dead rows -> dropped slot
-    hist = _present_histogram(gid, sel, ng)
-    if hist is not None:
-        present = hist > 0
-    else:
-        present = seg_sum(torch.ones_like(gid_live), gid_live, ng) > 0
     out_names, out_cols = _dense_key_columns(key_names, key_cols, domains, ng, dev)
-    kernel_cols = dense_kernel_cols(batch, specs, gid, ng, sel, hist)
-    if kernel_cols is not None:
-        out_names.extend(s.out_name for s in specs)
-        out_cols.extend(kernel_cols)
+    out_names.extend(s.out_name for s in specs)
+    route = dense_route(batch, specs, ng)
+    trace.annotate(route=route)
+    if route == "wide":
+        present, cols = dense_group_agg(gid, batch.sel, _inputs(batch, specs), specs, ng)
     else:
-        for s in specs:
-            out_names.append(s.out_name)
-            out_cols.append(_segment_one(batch, s, gid_live, ng, sel))
-    return ColumnBatch(tuple(out_names), out_cols, present, None, device=dev)
+        sel = batch.sel_mask()
+        hist = _present_histogram(gid, sel, ng)
+        k123 = route == "k123"
+        # under K1-K3 the plain composition gives ``present`` alone
+        present, cols = dense_group_agg_plain(gid, sel, _inputs(batch, specs),
+                                              [] if k123 else specs, ng, hist)
+        if k123:
+            cols = dense_kernel_cols(batch, specs, gid, ng, sel, hist)
+    return ColumnBatch(tuple(out_names), out_cols + cols, present, None, device=dev)
+
+
+def _input(batch: ColumnBatch, s: AggSpec) -> Optional[Column]:
+    return None if s.op == "count_star" else batch.column(s.input)
+
+
+def _inputs(batch: ColumnBatch, specs: list[AggSpec]) -> dict:
+    """The columns ``specs`` read, by name."""
+    return {s.input: batch.column(s.input) for s in specs if s.op != "count_star"}
+
+
+# the inputs of the wide route: the logical types whose data is one of the
+# kernel's four dtypes
+_WIDE_TYPES = {LType.INT32: torch.int32, LType.INT64: torch.int64, LType.DATE: torch.int32,
+               LType.STRING: torch.int32, LType.FLOAT32: torch.float32,
+               LType.FLOAT64: torch.float64}
+
+
+def dense_route(batch: ColumnBatch, specs: list[AggSpec], ng: int, device=None) -> str:
+    """How a dense GROUP BY of ``ng`` slots runs on ``device`` (by default
+    the batch's), from the input alone:
+
+    - ``k123``: K1-K3 (``dense_kernel_cols``' gate; their plain versions on
+      the CPU);
+    - ``segment``: on CUDA, at most ``max_segments`` slots: the segment
+      kernel;
+    - ``wide``: on CUDA above that, every aggregate COUNT(*)/COUNT/SUM/AVG/
+      MIN/MAX without DISTINCT over an INT32, INT64, DATE, dictionary-code,
+      FLOAT32 or FLOAT64 column: ``dense_group_agg``, one kernel;
+    - ``scatter``: the rest, one library scatter per aggregate."""
+    dev = torch.device(device if device is not None else batch.device)
+    if _k123_gate(batch, specs, ng, dev):
+        return "k123"
+    if dev.type != "cuda":
+        return "scatter"
+    if ng <= min(max_segments(dev), MAX_SEGMENTS):
+        return "segment"
+    n = len(batch)
+    for s in specs:
+        if s.distinct or s.op not in LANE_AGGS:
+            return "scatter"
+        if s.op == "count_star":
+            continue
+        c = batch.column(s.input)
+        if _WIDE_TYPES.get(c.ltype) is not c.data.dtype or c.data.shape != (n,):
+            return "scatter"
+    if len(dense_agg.wide_plan(specs, _inputs(batch, specs))) > dense_agg.MAX_ACCS:
+        return "scatter"
+    return "wide"
+
+
+def dense_group_agg(gid, sel, cols: dict, specs: list[AggSpec], ng: int):
+    """Every aggregate of a dense GROUP BY in one pass: ``gid`` int32 [N]
+    slot ids, ``sel`` bool [N] or None (every row live), ``cols`` the input
+    columns by name -> (``present`` bool [ng], one Column per spec), as
+    ``dense_group_agg_plain``.  On a CUDA tensor one launch of
+    ``csrc/dense_agg.cu`` (``ops/dense_agg.py``), which raises on failure;
+    on a CPU tensor the plain version."""
+    if gid.device.type == "cpu":
+        return dense_group_agg_plain(gid, sel, cols, specs, ng)
+    accs = dense_agg.wide_plan(specs, cols)
+    return wide_columns(specs, cols, accs, *dense_agg.launch(gid, sel, cols, accs, ng))
+
+
+def wide_columns(specs: list[AggSpec], cols: dict, accs: list, cnt, outs):
+    """The wide kernel's live counts ``cnt`` and accumulators ``outs`` (one
+    per ``accs``, ``dense_agg.wide_plan``'s) -> (``present``, one Column per
+    spec) in ``_segment_one``'s dtypes and validity."""
+    out = dict(zip(accs, outs))
+    present = cnt > 0
+
+    def pick(kind, s):
+        return out[dense_agg.Acc(kind, s.input)]
+
+    def count(s, c):
+        return cnt if c.validity is None else pick(dense_agg.COUNT, s)
+
+    def nonempty(s, c):
+        if c.validity is None:
+            return present
+        a = dense_agg.Acc(dense_agg.COUNT, s.input)
+        return out[a] > 0 if a in out else pick(dense_agg.FLAG, s).view(torch.bool)
+
+    result = []
+    for s in specs:
+        if s.op == "count_star":
+            result.append(Column(cnt.to(torch.int64), None, LType.INT64))
+            continue
+        c = cols[s.input]
+        if s.op == "count":
+            result.append(Column(count(s, c).to(torch.int64), None, LType.INT64))
+        elif s.op == "avg":
+            ct = count(s, c)
+            sm = pick(dense_agg.SUM_F64, s)
+            result.append(Column(sm / ct.clamp(min=1), ct > 0, LType.FLOAT64))
+        elif s.op == "sum":
+            kind = dense_agg.SUM_I64 if c.ltype.is_integer else dense_agg.SUM_F64
+            result.append(Column(pick(kind, s), nonempty(s, c), agg_result_type("sum", c.ltype)))
+        else:
+            v = pick(dense_agg.MIN if s.op == "min" else dense_agg.MAX, s)
+            result.append(Column(v, nonempty(s, c), c.ltype, c.dictionary))
+    return present, result
+
+
+def dense_group_agg_plain(gid, sel, cols: dict, specs: list[AggSpec], ng: int, hist=None):
+    """``dense_group_agg`` as the scatter and segment routes compute it:
+    every dead row to the drop slot ``ng``, then one segment reduction per
+    aggregate (``_segment_one``) and, unless ``hist`` gives the live rows
+    per slot (``_present_histogram``), one for ``present``."""
+    sel = torch.ones_like(gid, dtype=torch.bool) if sel is None else sel
+    gid_live = torch.where(sel, gid, ng)  # dead rows -> dropped slot
+    if hist is None:
+        hist = seg_sum(torch.ones_like(gid_live), gid_live, ng)
+    present = hist > 0
+    return present, [_segment_one(cols.get(s.input), s, gid_live, ng, sel) for s in specs]
 
 
 def _dense_key_columns(key_names, key_cols, domains, ng: int, dev):
@@ -345,19 +469,8 @@ def dense_kernel_cols(batch, specs, gid, ng: int, sel, hist=None, lanes: bool = 
     [G, n] and each kernel is its lane-batched entry, one launch over all
     lanes; the columns are then [G, ng].  Returns the aggregate Columns
     (spec order), or None to use segment reductions."""
-    if not (bool(FLAGS.pallas_group_kernels)
-            and max_segments(gid.device) < ng + 1 <= MAX_GROUPS):
+    if not _k123_gate(batch, specs, ng, gid.device):
         return None
-    for s in specs:
-        if s.distinct or s.op not in ("count_star", "count", "sum", "avg",
-                                      "min", "max"):
-            return None
-        if s.op != "count_star":
-            lt = batch.column(s.input).ltype
-            if lt not in (LType.FLOAT32, LType.FLOAT64):
-                return None
-            if s.op in ("min", "max") and lt is not LType.FLOAT32:
-                return None
     k1, k2, k3 = ((filtered_group_sum_lanes, fused_group_aggregate_lanes,
                    partition_histogram_lanes) if lanes else
                   (filtered_group_sum, fused_group_aggregate, partition_histogram))
@@ -399,17 +512,33 @@ def dense_kernel_cols(batch, specs, gid, ng: int, sel, hist=None, lanes: bool = 
     return cols
 
 
+def _k123_gate(batch, specs, ng: int, dev) -> bool:
+    """Whether K1-K3 take the dense group-by (``dense_kernel_cols``)."""
+    if not (bool(FLAGS.pallas_group_kernels) and max_segments(dev) < ng + 1 <= MAX_GROUPS):
+        return False
+    for s in specs:
+        if s.distinct or s.op not in LANE_AGGS:
+            return False
+        if s.op != "count_star":
+            lt = batch.column(s.input).ltype
+            if lt not in (LType.FLOAT32, LType.FLOAT64):
+                return False
+            if s.op in ("min", "max") and lt is not LType.FLOAT32:
+                return False
+    return True
+
+
 def _live(c: Column, sel):
     """The rows of ``c`` an aggregate reads: live and not NULL."""
     return sel if c.validity is None else (c.validity & sel).contiguous()
 
 
-def _segment_one(batch: ColumnBatch, s: AggSpec, gid, ng: int, sel) -> Column:
-    """One aggregate via segment reduction; gid==ng is the dead-row slot."""
+def _segment_one(c: Optional[Column], s: AggSpec, gid, ng: int, sel) -> Column:
+    """One aggregate of the column ``c`` (None for COUNT(*)) via segment
+    reduction; gid==ng is the dead-row slot."""
     if s.op == "count_star":
         return Column(seg_sum(torch.ones_like(gid, dtype=torch.int64), gid, ng),
                       None, LType.INT64)
-    c = batch.column(s.input)
     live = c.valid_mask() & sel
     gid_v = torch.where(live, gid, ng)
     if s.distinct:
@@ -433,8 +562,7 @@ def _segment_one(batch: ColumnBatch, s: AggSpec, gid, ng: int, sel) -> Column:
         ct = live_count()
         return Column(sm / ct.clamp(min=1), ct > 0, LType.FLOAT64)
     if s.op in ("min", "max"):
-        ident = torch.tensor(_minmax_identity(c, s.op == "min"), dtype=c.data.dtype,
-                             device=gid.device)
+        ident = _minmax_identity(c, s.op == "min")
         f = seg_min if s.op == "min" else seg_max
         v = f(torch.where(live, c.data, ident), gid_v, ng)
         return Column(v, live_count() > 0, c.ltype, c.dictionary)
@@ -480,8 +608,6 @@ def _segment_distinct(c: Column, gid, ng: int, s: AggSpec) -> Column:
 # ----------------------------------------------------------------------
 # lanes: the dense group-by and its kernels over a [G, n] selection (the
 # batched dispatcher's tick, exec/lanes.py)
-
-LANE_AGGS = frozenset({"count_star", "count", "sum", "avg", "min", "max"})
 
 
 def group_aggregate_dense_lanes(batch: ColumnBatch, key_names: list[str],
@@ -608,7 +734,7 @@ def group_aggregate_sorted(batch: ColumnBatch, key_names: list[str],
     sorted_batch.sel = sel_s
     for s in specs:
         out_names.append(s.out_name)
-        out_cols.append(_segment_one(sorted_batch, s, gid, max_groups, sel_s))
+        out_cols.append(_segment_one(_input(sorted_batch, s), s, gid, max_groups, sel_s))
     present = torch.arange(max_groups, device=dev) < ngroups
     out = ColumnBatch(tuple(out_names), out_cols, present, ngroups, device=dev)
     if with_overflow:

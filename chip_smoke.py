@@ -25,8 +25,9 @@ process over the TCP cluster) and the ten chaos scenarios on the card.
 Phases (any failure ends the run with a non-zero exit; nothing is caught):
 
 1. the card: ``nvidia-smi`` name and power limit; CUDA is required.
-2. kernels: build ``baikaldb_tpu_torch/ops/csrc/group_agg.cu`` and
-   ``segments.cu`` with nvcc for sm_90a (one nvcc each, started together),
+2. kernels: build ``baikaldb_tpu_torch/ops/csrc/group_agg.cu``,
+   ``segments.cu`` and ``dense_agg.cu`` with nvcc for sm_90a (one nvcc
+   each, started together),
    then hold K1 ``filtered_group_sum``, K2 ``fused_group_aggregate``
    and K3 ``partition_histogram`` against their plain versions on the card:
    at the SQL path's shape (``--rows`` rows, 2049 groups), at the streamed
@@ -50,7 +51,16 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
    timed at the SQL path's shape two ways: ``ms``, the median over single
    CUDA-event-timed calls (host work of the wrapper included), and
    ``device_ms``, events around 20 back-to-back calls over 20; and both at
-   one 65,536-row chunk (``chunk`` in the JSON line).  With
+   one 65,536-row chunk (``chunk`` in the JSON line).  Then the wide dense
+   GROUP BY kernel (``ops/csrc/dense_agg.cu`` through ``ops/hashagg.py``
+   ``dense_group_agg``) against ``dense_group_agg_plain`` on the card at
+   the shapes of ``baikaldb_tpu_torch/bench/dense_wide.py``: TPC-H SF1's
+   q10 (6M rows, 2% live, 150,001 slots, SUM + 6 MIN) and q18's inner
+   GROUP BY (6M rows all live, 6,000,001 slots, runs of ~4, SUM):
+   ``present``, counts, integers and MIN/MAX exact, float64 sums within
+   1e-12 relative, one launch a call; each timed as ``ms`` and
+   ``device_ms`` beside the plain version, the library passes it replaces
+   and ``bound_ms`` (its bytes over 3.35 TB/s).  With
    ``--compare-with DIR`` (a checkout of another commit, e.g. from
    ``git archive``), that commit's kernels are timed too, in turns with
    this one's (theirs, ours, ours, theirs): K1-K3 and the segment kernel
@@ -85,15 +95,18 @@ Phases (any failure ends the run with a non-zero exit; nothing is caught):
 5. TPC-H (``baikaldb_tpu_torch/models/tpch.py``): (i) the tables at SF 0.05
    (seed 0) go into ``Session(device="cuda")`` and ``Session(device="cpu")``;
    all 22 queries and ``VARIANTS`` (q20's shape with rows) run on both and
-   must agree by the parity contract of ``models/parity.py``.  (ii) At ``--tpch-scale`` (default 1.0, the smallest
+   must agree by the parity contract of ``models/parity.py``; the wide
+   dense GROUP BY kernel must launch there (its float64 answers held to
+   the CPU's at rtol 1e-9).  (ii) At ``--tpch-scale`` (default 1.0, the smallest
    official scale: 6M lineitem rows; seed ``--seed``) on the card: generation
    time, load + stage time and peak device memory; per query the warm wall
    time (median and 67th percentile of 6 runs after one warm-up run, 2
    when the query streamed), the
    device time, idle share and top 4 kernels of one torch.profiler run, the
    session's spans of one traced run (host milliseconds of parse, plan,
-   execution and egress), and the launches of K1-K3 and of the segment
-   kernel per query (reported, not required).
+   execution and egress), and the launches of K1-K3, of the segment
+   kernel and of the wide kernel per query (reported; the wide kernel's
+   sum over the 22, ``wide_launches``, must be above 0).
    q1 and q6 are checked against numpy in float64 (rtol 1e-9), and every
    query must return finite values.
 6. Analytics (``baikaldb_tpu_torch/models/analytics.py``: window functions,
@@ -505,6 +518,9 @@ PROFILE_TRIES = 3
 PROFILE_PAD_S = 0.02
 # launches of each shard's partial on the mesh: (a)'s AVG shares SUM's partial
 MESH_EXPECTED_LAUNCHES = EXPECTED_LAUNCHES | {"a": {"segment_reduce": 7}}
+# the wide dense GROUP BY kernel: counted by ``all_launches``, required only
+# where a phase says so (the 100M-row queries' slots are under its gate)
+WIDE = "dense_group_agg"
 
 
 def log(msg: str) -> None:
@@ -512,11 +528,14 @@ def log(msg: str) -> None:
 
 
 def all_launches(gk) -> dict:
-    """Launch counts of K1-K3 and of the segment kernel."""
+    """Launch counts of K1-K3, of the segment kernel and of the wide
+    kernel."""
+    from baikaldb_tpu_torch.ops import dense_agg
     from baikaldb_tpu_torch.ops import segments as seg
 
     return {**{k: c.value for k, c in gk.LAUNCHES.items()},
-            **{k: c.value for k, c in seg.LAUNCHES.items()}}
+            **{k: c.value for k, c in seg.LAUNCHES.items()},
+            **{k: c.value for k, c in dense_agg.LAUNCHES.items()}}
 
 
 def lane_launches(gk) -> dict:
@@ -527,9 +546,11 @@ def lane_launches(gk) -> dict:
 
 
 def reset_launches(gk) -> None:
+    from baikaldb_tpu_torch.ops import dense_agg
     from baikaldb_tpu_torch.ops import segments as seg
 
-    for reg in (gk.LAUNCHES, seg.LAUNCHES, gk.LANE_LAUNCHES, seg.LANE_LAUNCHES):
+    for reg in (gk.LAUNCHES, seg.LAUNCHES, gk.LANE_LAUNCHES, seg.LANE_LAUNCHES,
+                dense_agg.LAUNCHES):
         for c in reg.values():
             c.reset()
 
@@ -971,6 +992,50 @@ def segment_phase(rows: int, seed: int, before=None) -> dict:
     return out
 
 
+def wide_phase(seed: int) -> dict:
+    """The wide dense GROUP BY kernel (``hashagg.dense_group_agg``) against
+    ``dense_group_agg_plain`` on the card at ``bench/dense_wide.py``'s q10
+    and q18-inner shapes: ``present``, counts, integers and MIN/MAX exact,
+    float64 sums to 1e-12 relative, one launch a call; then each timed
+    beside the plain version, the library passes it replaces and its
+    bound."""
+    from baikaldb_tpu_torch.bench import dense_wide as dw
+    from baikaldb_tpu_torch.ops import dense_agg, hashagg
+
+    out = {}
+    for name in ("q10", "q18_inner"):
+        gid, sel, cols, specs, ng = dw.shape(name, "cuda", seed)
+
+        def kernel():
+            return hashagg.dense_group_agg(gid, sel, cols, specs, ng)
+
+        def plain():
+            return hashagg.dense_group_agg_plain(gid, sel, cols, specs, ng)
+
+        before = dense_agg.LAUNCHES[WIDE].value
+        got = kernel()
+        if dense_agg.LAUNCHES[WIDE].value - before != 1:
+            raise AssertionError(f"[wide] {name}: "
+                                 f"{dense_agg.LAUNCHES[WIDE].value - before} launches a call")
+        rel = dw.compare(got, plain(), specs)
+        del got
+        out[name] = {"rows": gid.shape[0], "slots": ng,
+                     "live": gid.shape[0] if sel is None else int(sel.sum()),
+                     "aggregates": [f"{s.op}({s.input})" for s in specs],
+                     "sum_rel_err": rel,
+                     "ms": cuda_ms(kernel, 20), "device_ms": device_ms(kernel),
+                     "plain_ms": cuda_ms(plain, 3),
+                     "library_ms": cuda_ms(dw.library_chain(gid, sel, cols, specs, ng), 3),
+                     "bound_ms": dw.bound_ms(gid, sel, cols, specs, ng)}
+        log(f"[wide] {name}: matches the plain version (sums within {rel:.2e}); "
+            f"{out[name]['ms']:.4f} ms a call, {out[name]['device_ms']:.4f} ms on the device "
+            f"(plain {out[name]['plain_ms']:.3f} ms, library {out[name]['library_ms']:.3f} ms, "
+            f"bound {out[name]['bound_ms']:.4f} ms)")
+        del gid, sel, cols
+        torch.cuda.empty_cache()
+    return out
+
+
 # ----------------------------------------------------------------------
 # phase 3: SQL at real size
 
@@ -1314,8 +1379,9 @@ def launch_counts(gk) -> dict:
 
 def tpch_card_vs_cpu(gk) -> tuple:
     """(i): all 22 queries on the card and on the CPU, equal by the parity
-    contract (rtol 1e-4 where a group-by kernel ran on the card); -> the two
-    sessions, for the analytic phase."""
+    contract (rtol 1e-4 where a float32 group-by kernel ran on the card); ->
+    (the two sessions, for the analytic phase; the queries that streamed;
+    the wide kernel's launches, which must be above 0)."""
     from baikaldb_tpu_torch.exec.session import Session
     from baikaldb_tpu_torch.models import tpch
     from baikaldb_tpu_torch.models.parity import mismatch
@@ -1325,23 +1391,28 @@ def tpch_card_vs_cpu(gk) -> tuple:
     tables = tpch.generate(scale=TPCH_CHECK_SCALE, seed=0)
     gpu = load_tpch(Session(device="cuda"), tables)
     cpu = load_tpch(Session(device="cpu"), tables)
-    streamed = []
+    streamed, wide = [], 0
     for q, sql in {**tpch.QUERIES, **tpch.VARIANTS}.items():
+        wide -= all_launches(gk)[WIDE]
         before = launch_counts(gk)
         c0 = metrics.stream_chunks.value
         got = gpu.query(sql)
         if metrics.stream_chunks.value != c0:
             streamed.append(q)
         ran = launch_counts(gk) != before
+        wide += all_launches(gk)[WIDE]
         diff = mismatch(got, cpu.query(sql), sql, 1e-4 if ran else 1e-9)
         if diff is not None:
             raise AssertionError(f"TPC-H {q} at SF {TPCH_CHECK_SCALE}: the card differs "
                                  f"from the CPU: {diff}")
         if q in tpch.VARIANTS and not got:
             raise AssertionError(f"TPC-H {q} at SF {TPCH_CHECK_SCALE}: no rows")
+    if not wide:
+        raise AssertionError(f"TPC-H at SF {TPCH_CHECK_SCALE}: the wide kernel never launched")
     log(f"[tpch] SF {TPCH_CHECK_SCALE}: all {len(tpch.QUERIES)} queries and "
-        f"{len(tpch.VARIANTS)} variant equal on the card and the CPU; streamed: {streamed}")
-    return gpu, cpu, streamed
+        f"{len(tpch.VARIANTS)} variant equal on the card and the CPU; streamed: {streamed}; "
+        f"wide kernel launches {wide}")
+    return gpu, cpu, streamed, wide
 
 
 def _arrow_np(table, col):
@@ -1458,10 +1529,14 @@ def tpch_on_the_card(gk, scale: float, seed: int) -> tuple:
     reset_launches(gk)
     per_query, first = time_queries(gk, s, tpch.QUERIES, "tpch")
     check_q1_q6(first["q1"], first["q6"], tables["lineitem"])
-    log(f"[tpch] SF {scale}: q1 and q6 match numpy")
+    wide = {q: v["kernel_launches"][WIDE] for q, v in per_query.items()
+            if v["kernel_launches"][WIDE]}
+    if not wide:
+        raise AssertionError(f"TPC-H at SF {scale}: the wide kernel never launched")
+    log(f"[tpch] SF {scale}: q1 and q6 match numpy; wide kernel launches {wide}")
     return {"scale": scale, "seed": seed, "gen_s": gen_s, "load_s": load_s,
             "peak_mem_gib": max([load_peak] + [v["peak_mem_gib"] for v in per_query.values()]),
-            "queries": per_query}, s, tables, first
+            "wide_launches": sum(wide.values()), "queries": per_query}, s, tables, first
 
 
 def time_queries(gk, s, queries: dict, tag: str) -> tuple[dict, dict]:
@@ -1562,7 +1637,7 @@ def analytic_phase(gk, check: tuple, s, tables: dict, scale: float) -> dict:
     from baikaldb_tpu_torch.models import analytics
     from baikaldb_tpu_torch.models.parity import mismatch
 
-    gpu, cpu, _ = check
+    gpu, cpu = check[:2]
     for q, sql in analytics.QUERIES.items():
         got = gpu.query(sql)
         diff = mismatch(got, cpu.query(sql), sql)
@@ -1620,7 +1695,7 @@ def egress_phase(check: tuple) -> dict:
 
     from baikaldb_tpu_torch.models.parity import mismatch
 
-    gpu, cpu, _ = check
+    gpu, cpu = check[:2]
     rows = 0
     for sql in EGRESS_QUERIES:
         got = gpu.query(sql)
@@ -6159,7 +6234,7 @@ def wire_part(gk, single, refs, drefs, seed: int) -> tuple[dict, dict, dict]:
         for cn in conns:
             cn.close()
         srv.stop(close_db=False)
-    missing = [k for k, n in launches.items() if n == 0]
+    missing = [k for k, n in launches.items() if n == 0 and k != WIDE]
     if missing or not lane_n["segment_reduce_lanes"]:
         raise AssertionError(f"[wire] kernels not launched through the wire: {missing}, "
                              f"lanes {lane_n}")
@@ -6509,6 +6584,7 @@ def main() -> int:
     t0 = time.perf_counter()
     times = kernel_phase(gk, args.rows, args.seed, before)
     times["segment_reduce"] = segment_phase(args.rows, args.seed, before)
+    wide_times = wide_phase(args.seed)
     phase_s["kernels"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     table, refs = sql_table(args.rows, args.seed)
@@ -6575,7 +6651,7 @@ def main() -> int:
                          ("lane-batched", lane_counts), ("partitioned", part_launches),
                          ("lifecycle", {k: lc_launches[k] for k in LIFECYCLE_KERNELS}),
                          ("guarded", guard_launches["i"])):
-        missing = [k for k, n in counts.items() if n == 0]
+        missing = [k for k, n in counts.items() if n == 0 and k != WIDE]
         if missing:
             raise AssertionError(f"kernels not launched on the {path} path: {missing}")
     torch.cuda.empty_cache()
@@ -6585,6 +6661,7 @@ def main() -> int:
     t0 = time.perf_counter()
     tpch_stats, s, tables, first = tpch_on_the_card(gk, args.tpch_scale, args.seed)
     tpch_stats["streamed_at_check_scale"] = check[2]
+    tpch_stats["wide_launches_at_check_scale"] = check[3]
     phase_s["tpch_timed"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     analytic_stats = analytic_phase(gk, check, s, tables, args.tpch_scale)
@@ -6635,7 +6712,7 @@ def main() -> int:
     t0 = time.perf_counter()
     rep_launches, p16["replicated"] = replicated_phase(gk, args.seed)
     phase_s["replicated"] = p16_s + time.perf_counter() - t0
-    missing = [k for k, n in rep_launches.items() if n == 0]
+    missing = [k for k, n in rep_launches.items() if n == 0 and k != WIDE]
     if missing:
         raise AssertionError(f"kernels not launched on the replicated path: {missing}")
     torch.cuda.empty_cache()
@@ -6644,7 +6721,7 @@ def main() -> int:
     # phase 18 (ii) ran in phase 17: its seconds count as phase 18's
     phase18["frontend"] = p17.pop("frontend")
     phase_s["cluster"] = time.perf_counter() - t0 - phase18["frontend"]["seconds"]
-    missing = [k for k, n in cl_launches.items() if n == 0]
+    missing = [k for k, n in cl_launches.items() if n == 0 and k != WIDE]
     if missing:
         raise AssertionError(f"kernels not launched on the cluster path: {missing}")
     torch.cuda.empty_cache()
@@ -6715,6 +6792,23 @@ def main() -> int:
                  "launches_guards": guard_launches["iii"].get(k, 0),
                  "max_abs_err": p12["kernels"]["max_abs_err"], **lane_times[k]}
                 for k, base in LANE_KERNELS.items()]
+    # the wide dense GROUP BY kernel: timed in phase 2 (q10's shape at the
+    # top level, both in ``shapes``); launches by path, TPC-H's at the check
+    # scale and over the timed run's first runs
+    wide_paths = {p: n.get(WIDE, 0) for p, n in (
+        ("resident", launches), ("streamed", stream_launches), ("vectors", vector_launches),
+        ("mesh", mesh_launches), ("htap", htap_launches), ("partitioned", part_launches),
+        ("lifecycle", lc_launches), ("replicated", rep_launches), ("cluster", cl_launches),
+        ("wire", wire_launches), ("chaos", chaos_launches), ("guards", guard_launches["i"]))}
+    wide_paths["guards"] += guard_launches["iii"].get(WIDE, 0)
+    wide_paths["tpch_check"] = tpch_stats["wide_launches_at_check_scale"]
+    wide_paths["tpch"] = tpch_stats["wide_launches"]
+    kernels.append({"name": WIDE, "route": "cuda",
+                    "source": "baikaldb_tpu_torch/ops/csrc/dense_agg.cu",
+                    "replaces": "baikaldb_tpu/ops/hashagg.py:358 (_segment_one's scatters)",
+                    "launches": sum(wide_paths.values()),
+                    **{f"launches_{p}": n for p, n in wide_paths.items()},
+                    **wide_times["q10"], "shapes": wide_times})
     print(json.dumps({"card": name_power, "rows": args.rows, "phase_s": phase_s,
                       "script_s": script_s,
                       "sql": sql_stats, "streamed": stream_stats, "tpch": tpch_stats,

@@ -262,6 +262,106 @@ def test_segment_reductions_take_the_kernel_under_the_gate(cuda):
     assert c.value == before + 3
 
 
+# the wide dense GROUP BY (ops/hashagg.py dense_group_agg, csrc/dense_agg.cu)
+# against its plain version (the scatter route) on the card: counts,
+# integers and MIN/MAX exactly (NaN equal to NaN), float64 SUM/AVG to 1e-12
+# relative (the kernel's atomics add in another order)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["q10", "q18_inner"])
+def test_dense_wide_kernel_matches_plain_at_tpch_shapes(cuda, name):
+    from baikaldb_tpu_torch.bench import dense_wide
+    from baikaldb_tpu_torch.ops import dense_agg, hashagg
+
+    gid, sel, cols, specs, ng = dense_wide.shape(name, cuda, seed=3)
+    c = dense_agg.LAUNCHES["dense_group_agg"]
+    before = c.value
+    got = hashagg.dense_group_agg(gid, sel, cols, specs, ng)
+    torch.cuda.synchronize()
+    assert c.value == before + 1
+    dense_wide.compare(got, hashagg.dense_group_agg_plain(gid, sel, cols, specs, ng), specs)
+
+
+def _wide_inputs(n, ng, seed, dev):
+    """Sorted slot ids (runs of equal slots, some outside [0, ng)), a 50%
+    selection, and a column of each input type of the wide route, with
+    NULLs, NaN of both signs and int64 values whose sums wrap."""
+    from baikaldb_tpu_torch.column.batch import Column
+    from baikaldb_tpu_torch.types import LType
+
+    rng = np.random.default_rng(seed)
+    gid = np.sort(rng.integers(-3, ng + 3, n)).astype(np.int32)
+    sel = rng.random(n) < 0.5
+    f64 = rng.uniform(1.0, 1e4, n)
+    f64[rng.random(n) < 0.01] = np.nan
+    f32 = rng.uniform(1.0, 1e4, n).astype(np.float32)
+    f32[rng.random(n) < 0.01] = -np.nan
+    data = {"f64": (f64, LType.FLOAT64, True), "f32": (f32, LType.FLOAT32, False),
+            "i64": (rng.integers(2 ** 61, 2 ** 62, n) * rng.choice([-1, 1], n), LType.INT64,
+                    True),
+            "i32": (rng.integers(-2 ** 31, 2 ** 31 - 1, n).astype(np.int32), LType.INT32, False),
+            "d": (rng.integers(8000, 11000, n).astype(np.int32), LType.DATE, True),
+            "s": (rng.integers(0, 5000, n).astype(np.int32), LType.STRING, False)}
+    cols = {k: Column(torch.from_numpy(v).to(dev),
+                      torch.from_numpy(rng.random(n) > 0.2).to(dev) if nulls else None, lt)
+            for k, (v, lt, nulls) in data.items()}
+    return (torch.from_numpy(gid).to(dev), torch.from_numpy(sel).to(dev), cols)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,ng,with_sel", [(1_000_003, 100_003, True), (1_000_003, 4097, False),
+                                           (2049, 2049, True), (0, 5000, True)])
+def test_dense_wide_kernel_matches_plain_on_every_type(cuda, n, ng, with_sel):
+    from baikaldb_tpu_torch.bench import dense_wide
+    from baikaldb_tpu_torch.ops import hashagg
+    from baikaldb_tpu_torch.ops.hashagg import AggSpec
+
+    gid, sel, cols = _wide_inputs(n, ng, n + ng, cuda)
+    sel = sel if with_sel else None
+    # no AVG of the int64 column: its float64 sum of +-2**62 terms cancels,
+    # and cancellation is where another order of the additions shows
+    specs = [AggSpec("count_star", None, "n")] + [
+        AggSpec(op, k, f"{op}_{k}") for k in cols for op in ("count", "sum", "avg", "min", "max")
+        if (op, k) != ("avg", "i64")]
+    got = hashagg.dense_group_agg(gid, sel, cols, specs, ng)
+    dense_wide.compare(got, hashagg.dense_group_agg_plain(gid, sel, cols, specs, ng), specs)
+    # all dead: every slot empty, every MIN/MAX at its identity
+    dead = torch.zeros_like(gid, dtype=torch.bool)
+    got = hashagg.dense_group_agg(gid, dead, cols, specs, ng)
+    assert not bool(got[0].any())
+    dense_wide.compare(got, hashagg.dense_group_agg_plain(gid, dead, cols, specs, ng), specs)
+
+
+@pytest.mark.cuda
+def test_dense_wide_route_runs_without_a_stream_sync(cuda):
+    from baikaldb_tpu_torch.bench import dense_wide
+    from baikaldb_tpu_torch.column.batch import Column, ColumnBatch
+    from baikaldb_tpu_torch.exec import executor
+    from baikaldb_tpu_torch.ops import dense_agg, hashagg
+    from baikaldb_tpu_torch.types import LType
+
+    gid, sel, cols, specs, ng = dense_wide.shape("q10", cuda, seed=5)
+    key = Column(gid + 7, None, LType.INT32)            # the planner shifts it back by 7
+    batch = ColumnBatch(("k", *cols), [key, *cols.values()], sel)
+    assert hashagg.dense_route(batch, specs, ng) == "wide"
+    want = hashagg.group_aggregate_dense(                # builds and binds the library
+        executor._shift_keys(batch, {"k": 7}, -1), ["k"], [ng - 1], specs)
+    torch.cuda.synchronize()
+    c = dense_agg.LAUNCHES["dense_group_agg"]
+    before = c.value
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        out = executor._shift_keys(hashagg.group_aggregate_dense(
+            executor._shift_keys(batch, {"k": 7}, -1), ["k"], [ng - 1], specs), {"k": 7}, 1)
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    assert c.value == before + 1
+    assert torch.equal(out.sel, want.sel)
+    assert torch.equal(out.column("k").data, want.column("k").data + 7)
+    dense_wide.compare((out.sel, out.columns[1:]), (want.sel, want.columns[1:]), specs)
+
+
 @pytest.mark.cuda
 def test_session_runs_on_the_card(cuda):
     from baikaldb_tpu_torch.exec.session import Session

@@ -126,6 +126,9 @@ def test_every_executed_node_is_one_op_span(sess, traced, monkeypatch, name):
         assert all(isinstance(v, (int, str)) for v in s["attrs"].values()), s
         if s["name"] == "op.agg":
             assert s["attrs"]["strategy"] in ("dense", "sorted", "scalar")
+            # the CPU takes K1-K3's plain versions or the scatter, never a card route
+            assert ("route" in s["attrs"]) == (s["attrs"]["strategy"] == "dense")
+            assert s["attrs"].get("route", "scatter") in ("k123", "scatter")
         if s["name"] == "op.join":
             assert s["attrs"]["strategy"] in ("cross", "neq", "dense", "radix", "sort",
                                               "multiway")
@@ -280,3 +283,39 @@ def test_device_intervals_of_a_sampled_out_trace_stay_unread(traced, stand_in_ev
     assert len(_Event.made) == 2                # the pair, and no anchor
     assert metrics.traces_dropped.value - d0 == 1
     assert len(trace._EVENTS[0]) == 2           # back to the free events, unread
+
+
+def test_annotate_sets_the_innermost_open_span(traced):
+    trace.annotate(route="none")                # no trace live: nothing happens
+    with trace.root("query", "q"):
+        trace.annotate(route="root")            # no span open: nothing happens
+        with trace.span("op.agg", strategy="dense"):
+            with trace.span("host.read"):
+                trace.annotate(route="inner")
+            trace.annotate(route="wide")
+        with trace.span("op.sort"):
+            pass
+    spans = {s["name"]: s["attrs"] for s in trace.TRACER.last()["spans"]}
+    assert spans["op.agg"] == {"strategy": "dense", "route": "wide"}
+    assert spans["host.read"] == {"route": "inner"}
+    assert spans["op.sort"] == {} and "route" not in spans["query"]
+
+
+@pytest.mark.parametrize("q", ["q1", "q10", "q18"])
+def test_dense_agg_route_is_the_route_taken(sess, traced, monkeypatch, q):
+    """The ``route`` of an ``op.agg[dense]`` span is what ops/hashagg.py's
+    ``group_aggregate_dense`` took, call for call."""
+    from baikaldb_tpu_torch.ops import hashagg
+
+    taken = []
+    real = hashagg.dense_route
+
+    def spy(*args, **kw):
+        taken.append(real(*args, **kw))
+        return taken[-1]
+
+    monkeypatch.setattr(hashagg, "dense_route", spy)
+    sess.query(tpch.QUERIES[q])
+    spans = [s for s in trace.TRACER.last()["spans"]
+             if s["name"] == "op.agg" and s["attrs"]["strategy"] == "dense"]
+    assert taken and [s["attrs"]["route"] for s in spans] == taken

@@ -169,7 +169,7 @@ STATUS_JAX_ONLY = {
 }
 STATUS_PORT_ONLY = {f"kernel_launches.{k}{lanes}" for lanes in ("", "_lanes") for k in (
     "filtered_group_sum", "fused_group_aggregate", "partition_histogram", "segment_reduce")} \
-    | {"host_reads", "traces_dropped"}
+    | {"host_reads", "traces_dropped", "kernel_launches.dense_group_agg"}
 # made on first touch by whatever ran before in the process
 _LAZY = ("swallowed.", "failpoint.", "test_")
 # counters both packages move over the same statements
