@@ -187,6 +187,8 @@ class ColumnBatch:
     def from_arrow(table, device) -> "ColumnBatch":
         """Build from a pyarrow Table/RecordBatch on ``device`` (string
         columns dictionary-encoded, see column/dictionary.py)."""
+        import pyarrow as pa
+
         names, cols = [], []
         for fld in table.schema:
             arr = table.column(fld.name)
@@ -197,6 +199,9 @@ class ColumnBatch:
             # a string column needs one dictionary across its chunks
             if hasattr(arr, "combine_chunks"):
                 arr = arr.combine_chunks()
+            if pa.types.is_dictionary(arr.type):
+                cols.append(_encoded_column(arr, device))
+                continue
             data, validity, ltype, d = _arrow_to_numpy(arr, fld.type)
             cols.append(Column.from_numpy(data, ltype, validity, d, device))
         return ColumnBatch(tuple(names), cols, device=device)
@@ -278,6 +283,12 @@ def _arrow_to_numpy(arr, typ):
     import pyarrow as pa
     import pyarrow.compute as pc
 
+    if pa.types.is_dictionary(arr.type):
+        values, codes = _dictionary_parts(arr)
+        d, remap = _renumbering(values,
+                                np.bincount(codes, minlength=len(values) + 1)[:len(values)] > 0)
+        data = remap[codes]
+        return data, data != NULL_CODE if arr.null_count else None, LType.STRING, d
     if _is_string(typ):
         d, codes = Dictionary.from_arrow(arr)
         validity = codes != NULL_CODE if arr.null_count else None
@@ -309,6 +320,44 @@ def _arrow_to_numpy(arr, typ):
         return np_data.astype(ltype.np_dtype, copy=False), validity, ltype, None
     np_data = work.to_numpy(zero_copy_only=False)
     return np_data.astype(ltype.np_dtype, copy=False), None, ltype, None
+
+
+def _dictionary_parts(arr) -> tuple[np.ndarray, np.ndarray]:
+    """An Arrow dictionary array's values (str) and its rows' int32 codes,
+    a NULL row's code one past the last value."""
+    values = arr.dictionary.to_numpy(zero_copy_only=False).astype(str)
+    idx = arr.indices.fill_null(0) if arr.null_count else arr.indices
+    codes = idx.to_numpy(zero_copy_only=False).astype(np.int32, copy=False)
+    if arr.null_count:
+        codes = np.where(np.asarray(arr.is_null()), np.int32(len(values)), codes)
+    return values, codes
+
+
+def _renumbering(values: np.ndarray, used: np.ndarray) -> tuple[Dictionary, np.ndarray]:
+    """The dictionary of the ``used`` entries of ``values``, distinct and
+    sorted (an Arrow dictionary may hold a value twice, or unused), and each
+    entry's code in it, ``NULL_CODE`` appended for the NULL rows: what
+    ``Dictionary.from_arrow`` gives the same strings decoded."""
+    uniq, inv = np.unique(values, return_inverse=True)
+    inv = inv.reshape(-1)
+    keep = np.zeros(len(uniq), bool)
+    keep[inv[used]] = True
+    remap = np.append((np.cumsum(keep) - 1)[inv], NULL_CODE).astype(np.int32)
+    return Dictionary(uniq[keep]), remap
+
+
+def _encoded_column(arr, device) -> Column:
+    """A dictionary-encoded Arrow string array -> a STRING column on
+    ``device``: the rows' codes are counted and renumbered there, and the
+    host touches the dictionary alone, never a string a row."""
+    from ..analysis.runtime import host_read
+
+    values, host_codes = _dictionary_parts(arr)
+    codes = to_tensor(host_codes, device)
+    used = host_read(torch.bincount(codes, minlength=len(values) + 1)[:len(values)] > 0)
+    d, remap = _renumbering(values, used.numpy())
+    out = torch.index_select(to_tensor(remap, device), 0, codes)
+    return Column(out, out != NULL_CODE if arr.null_count else None, LType.STRING, d)
 
 
 def _is_string(typ) -> bool:

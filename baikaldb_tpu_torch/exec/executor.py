@@ -294,8 +294,9 @@ def _op_span(node: PlanNode, kids: list, ctx: Ctx) -> tuple:
     elif isinstance(node, MultiJoinNode):
         attrs.update(strategy="multiway", builds=len(kids) - 1)
     elif isinstance(node, AggNode):
-        # a dense GROUP BY's ``route`` is set by the code that takes it
-        # (ops/hashagg.py group_aggregate_dense, through trace.annotate)
+        # a dense GROUP BY's ``route`` and ``slots`` are set by the code
+        # that takes it (ops/hashagg.py group_aggregate_dense, through
+        # trace.annotate)
         attrs["strategy"] = "scalar" if not node.key_names else \
             "dense" if node.strategy == "dense" else "sorted"
     elif isinstance(node, ExchangeNode):

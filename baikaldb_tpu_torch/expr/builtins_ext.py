@@ -388,7 +388,14 @@ def _monthname(e, batch):
     return _code_string(dtk.month_of_days(_as_days(a)) - 1, _MONTHNAMES, a.validity)
 
 
-_reg("week", lambda a: Column(dtk.week_mode0(_as_days(a)), None, LType.INT32), LType.INT32)
+def _week(a: Column, mode: Column | None = None) -> Column:
+    """WEEK(d) (mode 0, MySQL's default_week_format) and WEEK(d, mode)."""
+    if mode is None:
+        return Column(dtk.week_mode0(_as_days(a)), None, LType.INT32)
+    return Column(dtk.week(_as_days(a), _num(mode, LType.INT32)), None, LType.INT32)
+
+
+_reg("week", _week, LType.INT32)
 _reg("yearweek", lambda a: Column(
     dtk.year_of_days(_as_days(a)) * 100 + dtk.week_mode0(_as_days(a)), None, LType.INT32),
     LType.INT32)

@@ -289,7 +289,7 @@ def group_aggregate_dense(batch: ColumnBatch, key_names: list[str],
     out_names, out_cols = _dense_key_columns(key_names, key_cols, domains, ng, dev)
     out_names.extend(s.out_name for s in specs)
     route = dense_route(batch, specs, ng)
-    trace.annotate(route=route)
+    trace.annotate(route=route, slots=ng)
     if route == "wide":
         present, cols = dense_group_agg(gid, batch.sel, _inputs(batch, specs), specs, ng)
     else:

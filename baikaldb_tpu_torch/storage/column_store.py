@@ -130,15 +130,40 @@ def schema_to_arrow(schema: Schema) -> pa.Schema:
 
 
 def _coerce(table: pa.Table, schema: pa.Schema) -> pa.Table:
+    """``table`` in the types of ``schema``.  A dictionary-encoded column of
+    the field's type stays encoded, so that a bulk load of codes never
+    becomes a string a row; ``_concat`` decodes where such a region meets
+    one of plain strings."""
     if table.schema == schema:
         return table
-    cols = []
+    cols, fields = [], []
     for f in schema:
         if f.name not in table.column_names:
-            cols.append(pa.nulls(table.num_rows, f.type))
+            c = pa.nulls(table.num_rows, f.type)
         else:
-            cols.append(table.column(f.name).cast(f.type))
-    return pa.table(cols, schema=schema)
+            c = table.column(f.name)
+            if not (pa.types.is_dictionary(c.type) and c.type.value_type == f.type):
+                c = c.cast(f.type)
+        cols.append(c)
+        fields.append(pa.field(f.name, c.type, nullable=f.nullable))
+    return pa.table(cols, schema=pa.schema(fields))
+
+
+def _plain(table: pa.Table) -> pa.Table:
+    """``table`` with every dictionary-encoded column decoded."""
+    if not any(pa.types.is_dictionary(t) for t in table.schema.types):
+        return table
+    return table.cast(pa.schema([
+        pa.field(f.name, f.type.value_type if pa.types.is_dictionary(f.type) else f.type,
+                 nullable=f.nullable) for f in table.schema]))
+
+
+def _concat(tables: list) -> pa.Table:
+    """``pa.concat_tables`` of region tables, some of whose string columns
+    may be dictionary-encoded (``_coerce``): decoded where they differ."""
+    if all(t.schema == tables[0].schema for t in tables[1:]):
+        return pa.concat_tables(tables)
+    return pa.concat_tables([_plain(t) for t in tables])
 
 
 def _zone_scalar(x, ltype):
@@ -495,7 +520,7 @@ class TableStore:
     def snapshot(self) -> pa.Table:
         with self._lock:
             tabs = [r.data for r in self.regions if r.num_rows]
-            return pa.concat_tables(tabs) if tabs else self.arrow_schema.empty_table()
+            return _concat(tabs) if tabs else self.arrow_schema.empty_table()
 
     # -- row tier ---------------------------------------------------------
     def _row_schema(self) -> Schema:
@@ -574,7 +599,7 @@ class TableStore:
                                     schema=self.arrow_schema)
                     idx = np.arange(reg.num_rows, dtype=np.int64)
                     idx[np.asarray(patch_at)] = reg.num_rows + np.arange(len(patch))
-                    data = pa.concat_tables([data, repl]).take(pa.array(idx))
+                    data = _concat([data, repl]).take(pa.array(idx))
                 reg.data = data.filter(pa.array(keep)).combine_chunks()
                 reg.rowids = reg.rowids[keep]
                 reg.cts = reg.cts[keep]
@@ -894,8 +919,17 @@ class TableStore:
         (``_distinct_move``), so a write costs its own rows, not the table."""
         tr = self._distinct.get(column)
         if tr is None:
-            vc = pc.value_counts(self.snapshot().column(column))
-            tr = dict(zip(vc.field("values").to_pylist(), vc.field("counts").to_pylist()))
+            col = self.snapshot().column(column)
+            if pa.types.is_dictionary(col.type):
+                # one dictionary across regions, which may hold one value
+                # under two codes: the counts add up by value
+                vc = pc.value_counts(col.combine_chunks())
+                tr = {}
+                for v, k in zip(vc.field("values").to_pylist(), vc.field("counts").to_pylist()):
+                    tr[v] = tr.get(v, 0) + k
+            else:
+                vc = pc.value_counts(col)
+                tr = dict(zip(vc.field("values").to_pylist(), vc.field("counts").to_pylist()))
             tr.pop(None, None)
             self._distinct[column] = tr
         return len(tr)
@@ -1016,7 +1050,7 @@ class TableStore:
     def regions_table(self, keep: list[int]) -> pa.Table:
         with self._lock:
             tabs = [self.regions[i].data for i in keep]
-            return pa.concat_tables(tabs) if tabs else self.arrow_schema.empty_table()
+            return _concat(tabs) if tabs else self.arrow_schema.empty_table()
 
     # -- presort permutations (the session's walk over plan.presort) -------
     def sort_permutation(self, cols: tuple) -> np.ndarray:
@@ -1293,7 +1327,7 @@ class TableStore:
             r.version += 1
         if moved_tabs:
             self._pk_stale = True
-            self._append_table(pa.concat_tables(moved_tabs).combine_chunks(),
+            self._append_table(_concat(moved_tabs).combine_chunks(),
                                np.concatenate(moved_ids), np.concatenate(moved_cts),
                                track=False)
 
@@ -1319,7 +1353,7 @@ class TableStore:
             parts = [p for p in parts if p.num_rows]
             if not parts:
                 return self.snapshot().slice(0, 0)
-            return pa.concat_tables(parts).combine_chunks()
+            return _concat(parts).combine_chunks()
 
     def pk_rowids(self, pk_table: pa.Table) -> np.ndarray:
         """The rowids of the rows holding the given primary-key values (a
@@ -1412,7 +1446,7 @@ class TableStore:
     def _append_to(self, last: Region, table: pa.Table, rowids: np.ndarray,
                    cts: np.ndarray, split: bool) -> None:
         if last.num_rows:
-            last.data = pa.concat_tables([last.data, table]).combine_chunks()
+            last.data = _concat([last.data, table]).combine_chunks()
             last.rowids = np.concatenate([last.rowids, rowids])
             last.cts = np.concatenate([last.cts, cts])
         else:
@@ -1550,7 +1584,7 @@ class TableStore:
             if not fresh:
                 self._pk_stale = True
             if collect_cols is not None:
-                return n, pa.concat_tables(gone).combine_chunks()
+                return n, _concat(gone).combine_chunks()
             return n
 
     def update_where(self, host_mask_fn, assign_fn, tctx: Optional[TxnContext] = None,
@@ -1586,9 +1620,9 @@ class TableStore:
             out = n
             if collect_cols is not None:
                 if staged:
-                    old = pa.concat_tables([r.data.filter(pa.array(m)).select(collect_cols)
+                    old = _concat([r.data.filter(pa.array(m)).select(collect_cols)
                                             for r, m, _ in staged]).combine_chunks()
-                    new = pa.concat_tables([d.filter(pa.array(m)).select(collect_cols)
+                    new = _concat([d.filter(pa.array(m)).select(collect_cols)
                                             for _, m, d in staged]).combine_chunks()
                 else:
                     old = new = self.arrow_schema.empty_table().select(collect_cols)

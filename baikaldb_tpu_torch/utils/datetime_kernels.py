@@ -110,6 +110,51 @@ def week_mode0(days):
     return _fdiv(doy + 7 - first_sunday, 7).to(torch.int32)
 
 
+def week(days, mode):
+    """MySQL WEEK(d, mode) for modes 0-7 (``mode & 7``; an int or a tensor
+    of them), MySQL's ``calc_week`` over whole tensors.  The mode's bits:
+    1 weeks start on Monday, 2 the range is 1-53 (a week 0 is the previous
+    year's last), 4 week 1 is the first with a start-of-week day in the year
+    (else the first with 4 or more days); mode 0 is ``week_mode0``, mode 3
+    ISO 8601 (``iso_week``)."""
+    days = days.to(torch.int32)
+    mode = torch.as_tensor(mode, dtype=torch.int32, device=days.device) & 7
+    monday_first = (mode & 1) != 0
+    # MySQL's week_mode: a Sunday-first mode reads its "4 or more days"
+    # bit inverted
+    first_weekday = ((mode & 4) != 0) ^ ~monday_first
+    week_year = (mode & 2) != 0
+    doy = day_of_year(days)
+    first = days - (doy - 1)                            # Jan 1 of the year
+    y = year_of_days(days)
+    one = torch.ones_like(y)
+
+    def start_day(jan1):
+        """Day of the week of ``jan1``, 0 = the first day of a week."""
+        wd = weekday(jan1)                              # 0 = Monday
+        return torch.where(monday_first, wd, torch.remainder(wd + 1, 7))
+
+    wd = start_day(first)
+    late_start = torch.where(first_weekday, wd != 0, wd >= 4)
+    in_first = doy <= 7 - wd
+    zero = in_first & ~week_year & late_start
+    # the first days of a year that belong to the previous year's last week
+    prev = in_first & ~zero
+    prev_first = days_from_civil(y - 1, one, one)
+    first = torch.where(prev, prev_first, first)
+    wd = torch.where(prev, start_day(prev_first), wd)
+    y = torch.where(prev, y - 1, y)
+    late_start = torch.where(first_weekday, wd != 0, wd >= 4)
+    n = days - torch.where(late_start, first + 7 - wd, first - wd)
+    # the last days of a year that belong to the next year's week 1
+    year_len = days_from_civil(y + 1, one, one) - first
+    wd_next = torch.remainder(wd + year_len, 7)
+    next_one = (week_year | prev) & (n >= 52 * 7) & \
+        torch.where(first_weekday, wd_next == 0, wd_next < 4)
+    out = torch.where(next_one, one, _fdiv(n, 7) + 1)
+    return torch.where(zero, torch.zeros_like(out), out).to(torch.int32)
+
+
 def iso_week(days):
     """ISO-8601 week number (MySQL WEEKOFYEAR, which is WEEK(d, 3))."""
     days = days.to(torch.int32)

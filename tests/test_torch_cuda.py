@@ -2309,3 +2309,41 @@ def test_kernels_and_phase3_queries_inside_the_guard(cuda, guards):
                    for ln in s.execute("EXPLAIN ANALYZE " + sql["b"]).plan_text.splitlines())
     finally:
         s.execute("SET GLOBAL streaming_scan = 1")
+
+
+@pytest.mark.cuda
+def test_ssb_flat_statements_and_week_on_the_card(cuda):
+    """WEEK(d, 3) / WEEK(d, 0) over the year boundaries, and the SSB flat
+    table's 13 statements on the card against the benchmark's plain
+    reference, with each dense GROUP BY's ``route`` and ``slots`` on its
+    ``op.agg`` span (the table and helpers of tests/test_torch_ssb_flat.py)."""
+    import test_torch_ssb_flat as ssbt
+    from baikaldb_tpu_torch.obs import trace
+    from baikaldb_tpu_torch.ops.hashagg import dense_num_groups
+    from baikaldb_tpu_torch.utils.flags import FLAGS, set_flag
+    from gpubench.refs import ssb_flat
+
+    got, want = ssbt.week_rows("cuda")
+    assert got == want
+    saved = {k: getattr(FLAGS, k) for k in ("streaming_scan", "tracing", "trace_sample_n")}
+    try:
+        t = ssbt.full_domain_table()
+        s = ssbt.session(t, "cuda")
+        ref = ssb_flat.Reference(ssbt.config(), {"lineorder_flat": t}, "cuda")
+        set_flag("tracing", True)
+        set_flag("trace_sample_n", 1)
+        for name, sql in ssbt.config()["statements"].items():
+            trace.TRACER.clear()
+            ssbt.check_statement(s, ref, name)
+            dense = [sp["attrs"] for rec in trace.TRACER.list() for sp in rec["spans"]
+                     if sp["name"] == "op.agg" and sp["attrs"].get("strategy") == "dense"]
+            if name in ssbt.ROUTES:
+                domains, route = ssbt.ROUTES[name]
+                assert [(a["route"], a["slots"]) for a in dense] == \
+                    [(route, dense_num_groups(domains))], name
+            else:
+                assert not dense, name
+    finally:
+        for k, v in saved.items():
+            set_flag(k, v)
+        trace.TRACER.clear()
